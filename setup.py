@@ -16,7 +16,11 @@ setup(
         "adcraft_tpu.parallel",
         "adcraft_tpu.experiments",
         "adcraft_tpu.oracle",
+        "adcraft_tpu_torch",
     ],
+    # the port's CUDA sources ship as data: they are built with nvcc on
+    # first use on the GPU machine, not by setup.py
+    package_data={"adcraft_tpu_torch": ["csrc/*.cu"]},
     ext_modules=[
         Extension(
             "adcraft_tpu._native",
