@@ -1,8 +1,10 @@
 """adcraft_tpu_torch: the PyTorch / CUDA port of adcraft_tpu.
 
 The batched environment runs its day on a hand-written CUDA kernel for
-Hopper (``adcraft_tpu_torch.day_kernel``) on a CUDA device and on the
-kernel's plain PyTorch version on the CPU. The JAX package ``adcraft_tpu``
+Hopper (``adcraft_tpu_torch.day_kernel``) and draws its keys' threefry
+words with another (``adcraft_tpu_torch.prng_kernel``) on a CUDA device,
+and runs the kernels' plain PyTorch versions on the CPU. Entry points run
+on the card unless given ``device="cpu"``. The JAX package ``adcraft_tpu``
 is the reference; this package imports torch and never jax.
 """
 

@@ -25,6 +25,11 @@ import enum
 import torch
 
 
+def resolve_device(device=None) -> torch.device:
+    """Where an entry point runs: the card unless the caller names a device."""
+    return torch.device("cuda" if device is None else device)
+
+
 class KeywordKind(enum.Enum):
     """Which auction mechanism the env's keywords use (explicit
     parametric impressions vs a literal auction against sampled

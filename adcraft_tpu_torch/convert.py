@@ -3,7 +3,8 @@
 ``keyword_state_from_numpy`` / ``env_state_from_numpy`` take any object
 with the JAX ``KeywordState`` / ``EnvState`` field names whose fields are
 array-likes (keys as uint32 ``(..., 2)``) and build the port's tensors on
-a device. The ``*_to_numpy`` functions go back, keys as uint32.
+a device: the card unless ``device`` names another. The ``*_to_numpy``
+functions go back, keys as uint32.
 """
 
 from __future__ import annotations
@@ -11,11 +12,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from adcraft_tpu_torch.config import resolve_device
 from adcraft_tpu_torch.env import EnvState
 from adcraft_tpu_torch.keywords import KeywordState
 
 
-def keyword_state_from_numpy(kw, device="cpu") -> KeywordState:
+def keyword_state_from_numpy(kw, device=None) -> KeywordState:
+    device = resolve_device(device)
+
     def field(name):
         dtype = torch.bool if name == "updater_mask" else torch.float32
         return torch.as_tensor(np.array(getattr(kw, name)), dtype=dtype, device=device)
@@ -23,7 +27,9 @@ def keyword_state_from_numpy(kw, device="cpu") -> KeywordState:
     return KeywordState(*(field(name) for name in KeywordState._fields))
 
 
-def env_state_from_numpy(state, device="cpu") -> EnvState:
+def env_state_from_numpy(state, device=None) -> EnvState:
+    device = resolve_device(device)
+
     def tensor(x, dtype):
         return torch.as_tensor(np.array(x), dtype=dtype, device=device)
 

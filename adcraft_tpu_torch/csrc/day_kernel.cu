@@ -49,6 +49,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "threefry.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -62,46 +64,12 @@ constexpr float kUHi = 0.9999998807907104f;      // f32(1 - 1e-7)
 constexpr float kTwoPi = 6.2831854820251465f;    // f32(2 * pi)
 constexpr int kNotClicked = -1;                  // running sums of clicks are >= 0
 
-__device__ __forceinline__ uint32_t rotl(uint32_t x, int d) {
-  return __funnelshift_l(x, x, d);
-}
-
-#define TF_ROUND(r) \
-  x0 += x1;         \
-  x1 = rotl(x1, r) ^ x0;
-
-// threefry2x32, 20 rounds, as jax.random and adcraft_tpu_torch/prng.py
-__device__ __forceinline__ uint32_t threefry_word(uint32_t k0, uint32_t k1, uint32_t x0,
-                                                  uint32_t x1) {
-  const uint32_t k2 = k0 ^ k1 ^ 0x1BD11BDAu;
-  x0 += k0;
-  x1 += k1;
-  TF_ROUND(13) TF_ROUND(15) TF_ROUND(26) TF_ROUND(6)
-  x0 += k1;
-  x1 += k2 + 1u;
-  TF_ROUND(17) TF_ROUND(29) TF_ROUND(16) TF_ROUND(24)
-  x0 += k2;
-  x1 += k0 + 2u;
-  TF_ROUND(13) TF_ROUND(15) TF_ROUND(26) TF_ROUND(6)
-  x0 += k0;
-  x1 += k1 + 3u;
-  TF_ROUND(17) TF_ROUND(29) TF_ROUND(16) TF_ROUND(24)
-  x0 += k1;
-  x1 += k2 + 4u;
-  TF_ROUND(13) TF_ROUND(15) TF_ROUND(26) TF_ROUND(6)
-  x0 += k2;
-  x1 += k0 + 5u;
-  return x0 ^ x1;
-}
-
-#undef TF_ROUND
-
 struct Rng {
   uint32_t k0, k1;  // (seed, env)
   int m;
   __device__ __forceinline__ float uniform(int t, int draw, int k, int lane) const {
-    const uint32_t bits = threefry_word(k0, k1, static_cast<uint32_t>(t * kNumDraws + draw),
-                                        static_cast<uint32_t>(k * m + lane));
+    const uint32_t bits = threefry::word(k0, k1, static_cast<uint32_t>(t * kNumDraws + draw),
+                                         static_cast<uint32_t>(k * m + lane));
     const float u = static_cast<float>(bits & 0x00FFFFFFu) * kInv24;
     return fminf(fmaxf(u, kULo), kUHi);
   }

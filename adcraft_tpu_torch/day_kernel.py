@@ -19,7 +19,7 @@ n_auc):
 Two implementations of one function:
 
 * ``csrc/day_kernel.cu``, CUDA C++ for sm_90a, built with nvcc on first
-  use into ``_build/`` and bound with ctypes. One block per env runs the
+  use (``cuda_build``) and bound with ctypes. One block per env runs the
   T loop on chip; the budget gate is a sequential walk over keywords by
   one warp, the exact forward substitution the TPU kernel's Jacobi
   sweeps converge to.
@@ -43,21 +43,15 @@ feed it the same numbers as the JAX kernel.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import time
-from pathlib import Path
 from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
 
-from adcraft_tpu_torch import prng
 from adcraft_tpu_torch.config import CompetitorModel, EnvConfig, KeywordKind
+from adcraft_tpu_torch.cuda_build import CudaLibrary
 from adcraft_tpu_torch.keywords import KeywordState
+from adcraft_tpu_torch.prng_kernel import MASK32, threefry2x32
 from adcraft_tpu_torch.step import DayOutcomes, split_volume
 
 # Draw indices: the counter's second word is t * NUM_DRAWS + draw.
@@ -74,17 +68,6 @@ _U_HI = float(np.float32(1.0 - 1e-7))
 # (draw, t) -> (m, E, K) float32 uniforms
 UniformSource = Callable[[int, int], torch.Tensor]
 
-_CSRC = Path(__file__).resolve().parent / "csrc" / "day_kernel.cu"
-_BUILD_DIR = Path(__file__).resolve().parent / "_build"
-# No -fmad=false: the source spells each product and sum with __fmul_rn /
-# __fadd_rn, so the math library keeps the default flags PyTorch's own
-# kernels were built with (csrc/day_kernel.cu, "Numerics").
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
-)
-
-
 def bits_to_uniform(bits: torch.Tensor) -> torch.Tensor:
     """The TPU kernel's transform: low 24 bits, scaled, clipped."""
     u = (bits & 0xFFFFFF).to(torch.float32) * _INV24
@@ -98,7 +81,7 @@ def counter_uniform(seed: torch.Tensor, E: int, K: int, m: int) -> UniformSource
     NUM_DRAWS + draw, k * m + lane))``, as ``csrc/day_kernel.cu`` draws.
     """
     device = seed.device
-    k0 = seed.reshape(()).to(torch.int64) & prng.MASK32
+    k0 = seed.reshape(()).to(torch.int64) & MASK32
     env = torch.arange(E, dtype=torch.int64, device=device).view(1, E, 1)
     cell = (
         torch.arange(K, dtype=torch.int64, device=device).view(1, 1, K) * m
@@ -106,7 +89,7 @@ def counter_uniform(seed: torch.Tensor, E: int, K: int, m: int) -> UniformSource
     )
 
     def source(draw: int, t: int) -> torch.Tensor:
-        y0, y1 = prng.threefry2x32(k0, env, t * NUM_DRAWS + draw, cell)
+        y0, y1 = threefry2x32(k0, env, t * NUM_DRAWS + draw, cell)
         return bits_to_uniform(y0 ^ y1)
 
     return source
@@ -123,6 +106,7 @@ def simulate_day_reference(
     seed: torch.Tensor,
     m: int,
     uniform: Optional[UniformSource] = None,
+    draw_counts: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, ...]:
     """Plain-tensor day: the function the CUDA kernel computes.
 
@@ -134,6 +118,12 @@ def simulate_day_reference(
     Returns the (E, K) int32 day sums (impressions, clicks, cost cents,
     conversions, revenue cents, eligible volume) and the (E,) int32
     ``gate_converged`` flag. Memory is a few (m, E, K) tensors at a time.
+
+    ``draw_counts``, an int64 (NUM_DRAWS,) tensor, if given, is increased
+    by the words the CUDA kernel draws for each draw index: the competitor
+    bid for every active lane and the click for every won lane of an env
+    not yet broken at the start of t, the conversion for every accepted
+    click, both revenue words for every conversion.
     """
     T, E, K = n_auc.shape
     device = params.device
@@ -188,6 +178,11 @@ def simulate_day_reference(
 
         acc = clicked & (prefix <= start) & sim
         conv = acc & (uniform(DRAW_CONV, t) <= sctr)
+        if draw_counts is not None:
+            live = ~broken[:, None]
+            for draw, lanes in ((DRAW_COMP, active & live), (DRAW_CLICK, won & live),
+                                (DRAW_CONV, acc), (DRAW_REV1, conv), (DRAW_REV2, conv)):
+                draw_counts[draw] += lanes.sum()
         u1 = uniform(DRAW_REV1, t)
         u2 = uniform(DRAW_REV2, t)
         normal = torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(_TWO_PI * u2)
@@ -207,65 +202,10 @@ def simulate_day_reference(
     return imp, clicks, cost_c, convs, rev_c, elig, converged
 
 
-class _Library:
-    """The built CUDA library, compiled from ``csrc/`` on first use."""
-
-    def __init__(self):
-        self._lib = None
-        self.build_seconds = None
-        self.build_log = ""
-
-    def get(self) -> ctypes.CDLL:
-        if self._lib is None:
-            t0 = time.perf_counter()
-            path = self._build()
-            lib = ctypes.CDLL(str(path))
-            p, i = ctypes.c_void_p, ctypes.c_int
-            lib.day_kernel_launch.argtypes = [p] * 11 + [i] * 5 + [p]
-            lib.day_kernel_launch.restype = i
-            lib.day_kernel_error_string.argtypes = [i]
-            lib.day_kernel_error_string.restype = ctypes.c_char_p
-            self._lib = lib
-            self.build_seconds = time.perf_counter() - t0
-        return self._lib
-
-    def _build(self) -> Path:
-        source = _CSRC.read_bytes()
-        digest = hashlib.sha256(source + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        out = _BUILD_DIR / f"libday_kernel_{digest}.so"
-        if out.exists():
-            return out
-        nvcc = _find_nvcc()
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        # build beside the target and rename, so that concurrent first uses
-        # never load a half-written library
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-        os.close(fd)
-        try:
-            proc = subprocess.run(
-                [nvcc, *NVCC_FLAGS, "-o", tmp, str(_CSRC)],
-                capture_output=True, text=True, check=False,
-            )
-            self.build_log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{self.build_log}")
-            os.replace(tmp, out)
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
-        return out
-
-
-def _find_nvcc() -> str:
-    candidates = [shutil.which("nvcc")]
-    for env in ("CUDA_HOME", "CUDA_PATH"):
-        if os.environ.get(env):
-            candidates.append(os.path.join(os.environ[env], "bin", "nvcc"))
-    candidates.append("/usr/local/cuda/bin/nvcc")
-    for c in candidates:
-        if c and os.path.exists(c):
-            return c
-    raise RuntimeError("nvcc not found: the day kernel builds on a machine with the CUDA toolkit")
+def _bind(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.day_kernel_launch.argtypes = [p] * 11 + [i] * 5 + [p]
+    lib.day_kernel_launch.restype = i
 
 
 class DayKernel:
@@ -273,7 +213,7 @@ class DayKernel:
 
     def __init__(self):
         self.launches = 0
-        self.library = _Library()
+        self.library = CudaLibrary("day_kernel", _bind)
 
     def __call__(
         self,
@@ -320,9 +260,7 @@ class DayKernel:
             *(o.data_ptr() for o in outs), flag.data_ptr(),
             E, K, T, m, device.index, stream,
         )
-        if err != 0:
-            msg = lib.day_kernel_error_string(err).decode()
-            raise RuntimeError(f"day kernel launch failed: {msg} ({err})")
+        self.library.check(err, "day kernel")
         self.launches += 1
         return (*outs, flag)
 

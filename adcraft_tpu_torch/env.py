@@ -16,7 +16,7 @@ import torch
 
 from adcraft_tpu_torch import distributions as dist
 from adcraft_tpu_torch import prng
-from adcraft_tpu_torch.config import EnvConfig, KeywordKind
+from adcraft_tpu_torch.config import EnvConfig, KeywordKind, resolve_device
 from adcraft_tpu_torch.day_kernel import UniformSource, pallas_simulate_day
 from adcraft_tpu_torch.keywords import KeywordState, sample_implicit_keywords
 from adcraft_tpu_torch.quantiles import QuantileTable
@@ -187,7 +187,9 @@ class VectorBiddingEnv:
     """E independent envs stepped in lockstep on one device.
 
     Only the day-kernel path (``cfg.day_kernel == "pallas"``) is ported;
-    on a CUDA device every step launches the CUDA day kernel.
+    on a CUDA device every step launches the CUDA day kernel and draws its
+    keys and words through the threefry kernel. ``device`` defaults to the
+    card (``"cuda"``); the CPU runs only when asked for (``device="cpu"``).
     """
 
     def __init__(
@@ -197,7 +199,7 @@ class VectorBiddingEnv:
         table: Optional[QuantileTable] = None,
         no_vol_prob: float = 0.0,
         updater_mask=None,
-        device="cpu",
+        device=None,
     ):
         if cfg.day_kernel != "pallas":
             raise NotImplementedError(
@@ -206,7 +208,7 @@ class VectorBiddingEnv:
             )
         self.cfg = cfg
         self.num_envs = num_envs
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self._table = table
         self._no_vol_prob = no_vol_prob
         self._updater_mask = updater_mask

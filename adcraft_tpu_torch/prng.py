@@ -15,8 +15,11 @@ to plain tensor ops, and differs from JAX's in the last ulps for about 5%
 of draws (``log1p`` ulps and XLA's FMA contraction; at most 2.4e-7
 relative, tests/test_torch_prng.py).
 
-uint32 words live in int64 tensors and are masked back to 32 bits after
-every add and shift, since torch has no full uint32 arithmetic.
+uint32 words live in int64 tensors, since torch has no full uint32
+arithmetic. ``split``, ``fold_in`` and ``random_bits`` take their words
+from ``prng_kernel.threefry_words``: the CUDA kernel for CUDA keys, the
+plain ``prng_kernel.threefry2x32`` for CPU keys; the float and integer transforms on
+top of the words are tensor ops.
 """
 
 from __future__ import annotations
@@ -27,37 +30,14 @@ from typing import Sequence, Tuple, Union
 import numpy as np
 import torch
 
-MASK32 = 0xFFFFFFFF
-_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
-_KS_PARITY = 0x1BD11BDA
+from adcraft_tpu_torch import prng_kernel
+from adcraft_tpu_torch.prng_kernel import MASK32
 
 Shape = Union[int, Sequence[int]]
 
 
 def _shape(shape: Shape) -> Tuple[int, ...]:
     return (shape,) if isinstance(shape, int) else tuple(shape)
-
-
-def _rotl(x: torch.Tensor, d: int) -> torch.Tensor:
-    return ((x << d) | (x >> (32 - d))) & MASK32
-
-
-def threefry2x32(k0, k1, x0, x1) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The Threefry-2x32 block function (20 rounds) on broadcast tensors.
-
-    All four inputs are int64 tensors (or ints) of uint32 values; the two
-    output words broadcast over all of them.
-    """
-    ks = (k0, k1, k0 ^ k1 ^ _KS_PARITY)
-    x0 = (x0 + ks[0]) & MASK32
-    x1 = (x1 + ks[1]) & MASK32
-    for i in range(5):
-        for r in _ROTATIONS[i % 2]:
-            x0 = (x0 + x1) & MASK32
-            x1 = _rotl(x1, r) ^ x0
-        x0 = (x0 + ks[(i + 1) % 3]) & MASK32
-        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & MASK32
-    return x0, x1
 
 
 def PRNGKey(seed: int, device=None) -> torch.Tensor:
@@ -72,41 +52,42 @@ def PRNGKey(seed: int, device=None) -> torch.Tensor:
     return torch.tensor([0, seed & MASK32], dtype=torch.int64, device=device)
 
 
-def _words(key: torch.Tensor, ndim: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The key's two words, with ``ndim`` trailing unit axes to broadcast."""
+def _key_rows(key: torch.Tensor) -> torch.Tensor:
+    """The key batch as ``(N, 2)`` rows, a view wherever the strides allow."""
     if key.dtype != torch.int64 or key.shape[-1:] != (2,):
         raise ValueError(
             f"key must be an int64 (..., 2) tensor, got {key.dtype} {tuple(key.shape)}"
         )
-    pad = (1,) * ndim
-    k0 = key[..., 0].reshape(key.shape[:-1] + pad)
-    k1 = key[..., 1].reshape(key.shape[:-1] + pad)
-    return k0, k1
+    return key.reshape(-1, 2)
 
 
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     """``jax.random.split``: ``(..., 2)`` -> ``(..., num, 2)``."""
-    k0, k1 = _words(key, 1)
-    count = torch.arange(num, dtype=torch.int64, device=key.device)
-    y0, y1 = threefry2x32(k0, k1, 0, count)
-    return torch.stack([y0, y1], dim=-1)
+    words = prng_kernel.threefry_words(_key_rows(key), num, prng_kernel.PAIR)
+    return words.reshape(key.shape[:-1] + (num, 2))
 
 
 def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
     """``jax.random.fold_in`` with a scalar uint32 ``data``."""
-    k0, k1 = _words(key, 0)
-    y0, y1 = threefry2x32(k0, k1, 0, int(data) & MASK32)
-    return torch.stack([y0, y1], dim=-1)
+    words = prng_kernel.threefry_words(
+        _key_rows(key), 1, prng_kernel.PAIR, base=int(data) & MASK32
+    )
+    return words.reshape(key.shape)
 
 
-def random_bits(key: torch.Tensor, shape: Shape) -> torch.Tensor:
-    """``jax.random.bits`` (32-bit): uint32 words as int64, ``(..., *shape)``."""
+def random_bits(key: torch.Tensor, shape: Shape, bit_width: int = 32) -> torch.Tensor:
+    """``jax.random.bits``: uint words as int64, ``(..., *shape)``.
+
+    ``bit_width`` 32 or 16. A 16-bit draw is the low half of the 32-bit
+    word at the same counter, which is what JAX 0.9 computes under
+    partitionable threefry (``lax.convert_element_type`` of ``bits1 ^
+    bits2``): it does not pack two 16-bit draws into one word.
+    """
     shape = _shape(shape)
-    k0, k1 = _words(key, len(shape))
-    n = math.prod(shape)
-    count = torch.arange(n, dtype=torch.int64, device=key.device).reshape(shape)
-    y0, y1 = threefry2x32(k0, k1, count >> 32, count & MASK32)
-    return y0 ^ y1
+    words = prng_kernel.threefry_words(
+        _key_rows(key), math.prod(shape), prng_kernel.XOR, bit_width=bit_width
+    )
+    return words.reshape(key.shape[:-1] + shape)
 
 
 def uniform(

@@ -1,11 +1,12 @@
-"""CUDA day kernel tests: they need the card and skip without one.
+"""CUDA kernel tests (day kernel, threefry kernels): they need the card and
+skip without one.
 
 This file imports torch and the port only, so that it runs on a machine
 without JAX (tests/conftest.py imports jax, hence ``--noconftest``):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-Tolerance: the kernel equals its plain PyTorch version exactly.
+Tolerance: each kernel equals its plain PyTorch version exactly.
 """
 
 import pytest
@@ -14,6 +15,8 @@ import torch
 from adcraft_tpu_torch import EnvConfig, KeywordKind, VectorBiddingEnv, simple_experiment_table
 from adcraft_tpu_torch import day_kernel as dk
 from adcraft_tpu_torch import prng
+from adcraft_tpu_torch import prng_kernel as pk
+from adcraft_tpu_torch import probe_prng
 from adcraft_tpu_torch.step import split_volume
 
 
@@ -74,3 +77,72 @@ def test_env_step_launches_the_kernel(cuda):
                       torch.ones(4, dtype=torch.int32, device=cuda),
                       torch.ones(1, dtype=torch.int32, device=cuda), 4,
                       uniform=lambda draw, t: None)
+
+
+# (mode, keys, n, base, bit_width): every mode, odd sizes, strided rows
+WORD_CASES = [
+    (pk.PAIR, 37, 4, 0, 32),
+    (pk.PAIR, 300, 1, 0xFFFFFFFF, 32),
+    (pk.PAIR, 1, 2, 7, 32),
+    (pk.XOR, 1, 1, 0, 32),
+    (pk.XOR, 257, 300, 0, 32),
+    (pk.XOR, 3, 70000, 0, 16),
+    (pk.XOR, 64, 129, 0, 16),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode, N, n, base, bit_width", WORD_CASES)
+@pytest.mark.parametrize("stride", [2, 6])
+def test_threefry_words_matches_reference(cuda, mode, N, n, base, bit_width, stride):
+    gen = torch.Generator().manual_seed(N * n + stride)
+    rows = torch.randint(0, 2**32, (N, stride), generator=gen, dtype=torch.int64).to(cuda)
+    keys = rows[:, :2]
+    before = pk.threefry_words.launches
+    got = pk.threefry_words(keys, n, mode, base, bit_width)
+    torch.cuda.synchronize()
+    assert pk.threefry_words.launches == before + 1
+    want = pk.threefry_words_reference(keys, n, mode, base, bit_width)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert got.is_cuda and got.dtype == torch.int64
+
+
+@pytest.mark.cuda
+def test_prng_on_the_card_equals_the_cpu(cuda):
+    key = prng.split(prng.PRNGKey(42), 5)
+    for fn in (lambda k: prng.split(k, 3), lambda k: prng.fold_in(k, 99),
+               lambda k: prng.random_bits(k, (4, 7)), lambda k: prng.random_bits(k, 9, 16),
+               lambda k: prng.uniform(k, (2, 3)), lambda k: prng.randint(k, (6,), -3, 70000)):
+        torch.testing.assert_close(fn(key.to(cuda)).cpu(), fn(key), rtol=0, atol=0)
+    with pytest.raises(ValueError, match="adjacent"):
+        pk.threefry_words(torch.zeros((2, 4), dtype=torch.int64, device=cuda).t(), 1, pk.XOR)
+
+
+@pytest.mark.cuda
+def test_threefry_rate_matches_reference(cuda):
+    seed = torch.tensor([-5], dtype=torch.int32, device=cuda)
+    before = pk.threefry_rate.launches
+    got = pk.threefry_rate(seed, 3, 2)
+    torch.cuda.synchronize()
+    assert pk.threefry_rate.launches == before + 1
+    torch.testing.assert_close(got, pk.threefry_rate_reference(seed, range(3), 2), rtol=0, atol=0)
+    torch.testing.assert_close(probe_prng.draw3(9, cuda), probe_prng.draw3_plain(9, cuda),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(probe_prng.draw(9, cuda), probe_prng.draw_plain(9, cuda),
+                               rtol=0, atol=0)
+    assert not probe_prng.health_failures(probe_prng.draw(9, cuda))
+
+
+@pytest.mark.cuda
+def test_env_step_launches_threefry_six_times(cuda):
+    cfg = EnvConfig(num_keywords=8, kind=KeywordKind.IMPLICIT, max_volume=96,
+                    timesteps_per_day=6, day_kernel="pallas")
+    env = VectorBiddingEnv(cfg, 32, simple_experiment_table(64, 0.5))
+    assert env.device.type == "cuda"
+    state, _ = env.reset(prng.PRNGKey(0))
+    bids = torch.full((32, 8), 1.0, device=cuda)
+    before = pk.threefry_words.launches
+    for _ in range(3):
+        state, _ = env.step(state, bids)
+    torch.cuda.synchronize()
+    assert pk.threefry_words.launches == before + 18

@@ -26,9 +26,9 @@ from adcraft_tpu.config import EnvConfig as JEnvConfig
 from adcraft_tpu.config import KeywordKind as JKeywordKind
 from adcraft_tpu.keywords import make_keyword_state as j_make_keyword_state
 from adcraft_tpu_torch import day_kernel as dk
-from adcraft_tpu_torch import prng
 from adcraft_tpu_torch.config import CompetitorModel, EnvConfig, KeywordKind
 from adcraft_tpu_torch.convert import keyword_state_from_numpy
+from adcraft_tpu_torch.prng_kernel import threefry2x32
 from adcraft_tpu_torch.step import split_volume
 
 INTERP = pltpu.InterpretParams()
@@ -163,7 +163,7 @@ def run_both(hash_uniforms, budget, bid_scale):
     )
     tday, tflag = dk.pallas_simulate_day(
         CFG, torch.tensor(7, dtype=torch.int32),
-        keyword_state_from_numpy(jax.tree.map(np.asarray, kw)),
+        keyword_state_from_numpy(jax.tree.map(np.asarray, kw), device="cpu"),
         torch.from_numpy(BIDS), torch.full((E,), budget), torch.from_numpy(vol),
         uniform=hash_uniforms(E, K, CFG.max_clicks_per_cell),
     )
@@ -219,6 +219,35 @@ def test_reference_results_do_not_depend_on_the_batch():
     assert full[0].sum() > 0 and full[1].sum() > 0
 
 
+@pytest.mark.parametrize("budget", [10**8, 300])
+def test_reference_counts_the_kernels_draws(budget):
+    """Without a break every lane's draws follow from the day sums. Under a
+    binding budget the cells after the break still draw competitor bids and
+    clicks in their sub-timestep, but nothing later."""
+    cfg = EnvConfig(num_keywords=5, kind=KeywordKind.IMPLICIT, max_volume=48, timesteps_per_day=4)
+    m = cfg.max_clicks_per_cell
+    gen = torch.Generator().manual_seed(3)
+    n_auc = split_volume(cfg, torch.randint(0, 49, (6, 5), generator=gen, dtype=torch.int32))
+    params = torch.stack([
+        torch.full((6, 5), 80.0), torch.full((6, 5), 0.4), torch.full((6, 5), 0.15),
+        torch.full((6, 5), 0.5), torch.full((6, 5), 0.5), torch.full((6, 5), 1.0),
+        torch.full((6, 5), 0.2), torch.zeros(6, 5),
+    ])
+    b = torch.full((6,), budget, dtype=torch.int32)
+    seed = torch.tensor([5], dtype=torch.int32)
+    counts = torch.zeros(dk.NUM_DRAWS, dtype=torch.int64)
+    imp, clicks, _, convs, *_ = dk.simulate_day_reference(params, n_auc, b, seed, m,
+                                                          draw_counts=counts)
+    lanes = n_auc.clamp(0, m).sum()
+    full = torch.stack([lanes, imp.sum(), clicks.sum(), convs.sum(), convs.sum()])
+    assert (counts > 0).all()
+    if budget == 10**8:
+        assert counts.tolist() == full.tolist()
+    else:
+        assert counts[0] <= lanes and counts[1] >= imp.sum()
+        assert counts[2:].tolist() == full[2:].tolist()
+
+
 def test_counter_uniform_is_the_documented_threefry_word():
     seed = torch.tensor([123456], dtype=torch.int32)
     E_, K_, m = 3, 4, 5
@@ -227,7 +256,7 @@ def test_counter_uniform_is_the_documented_threefry_word():
     u = src(draw, t)
     assert u.shape == (m, E_, K_) and u.dtype == torch.float32
     for lane, e, k in [(0, 0, 0), (4, 2, 3), (1, 1, 2)]:
-        y0, y1 = prng.threefry2x32(
+        y0, y1 = threefry2x32(
             torch.tensor(123456), torch.tensor(e), torch.tensor(t * 5 + draw),
             torch.tensor(k * m + lane),
         )

@@ -32,7 +32,11 @@ from adcraft_tpu.config import KeywordKind as JKeywordKind
 from adcraft_tpu.quantiles import simple_experiment_table as j_table
 from adcraft_tpu_torch import EnvConfig, KeywordKind, VectorBiddingEnv, prng
 from adcraft_tpu_torch import simple_experiment_table as t_table
-from adcraft_tpu_torch.convert import env_state_from_numpy, env_state_to_numpy
+from adcraft_tpu_torch.convert import (
+    env_state_from_numpy,
+    env_state_to_numpy,
+    keyword_state_from_numpy,
+)
 from adcraft_tpu_torch.env import vector_env_step_pallas
 
 E, K = 8, 4
@@ -81,9 +85,9 @@ def test_slice_matches_jax(hash_uniforms, seed, mean_volume, drift):  # noqa: F8
     mask = np.ones(K, bool) if drift else None
     jax_env = jenv.VectorBiddingEnv(JCFG, E, table=j_table(mean_volume, 0.5), updater_mask=mask)
     jstate, jobs = jax_env.reset(jax.random.PRNGKey(seed))
-    env = VectorBiddingEnv(CFG, E, t_table(mean_volume, 0.5), updater_mask=mask)
+    env = VectorBiddingEnv(CFG, E, t_table(mean_volume, 0.5), updater_mask=mask, device="cpu")
     own, obs = env.reset(prng.PRNGKey(seed))
-    carried = env_state_from_numpy(jax.tree.map(np.asarray, jstate))
+    carried = env_state_from_numpy(jax.tree.map(np.asarray, jstate), device="cpu")
     assert_state(jstate, own, kw_rtol=1e-6)
     assert_state(jstate, carried, kw_rtol=0.0)
     for f in jobs:
@@ -112,7 +116,7 @@ def test_slice_matches_jax(hash_uniforms, seed, mean_volume, drift):  # noqa: F8
 
 def test_step_on_the_counter_rng():
     """The env's own path on the CPU: the kernel's counter uniforms."""
-    env = VectorBiddingEnv(CFG.replace(budget=5.0), E, t_table(64, 0.5))
+    env = VectorBiddingEnv(CFG.replace(budget=5.0), E, t_table(64, 0.5), device="cpu")
     state, _ = env.reset(prng.PRNGKey(2))
     for _ in range(3):
         state, ts = env.step(state, torch.full((E, K), 0.9))
@@ -126,13 +130,15 @@ def test_step_on_the_counter_rng():
 
 def test_unported_paths_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        VectorBiddingEnv(CFG.replace(day_kernel="xla"), E, t_table(64, 0.5))
-    env = VectorBiddingEnv(CFG, E, t_table(64, 0.5))
+        VectorBiddingEnv(CFG.replace(day_kernel="xla"), E, t_table(64, 0.5), device="cpu")
+    env = VectorBiddingEnv(CFG, E, t_table(64, 0.5), device="cpu")
     state, _ = env.reset(prng.PRNGKey(0))
     with pytest.raises(NotImplementedError):
         env.rollout(state, torch.ones(E, K), 3)
     with pytest.raises(NotImplementedError):
-        VectorBiddingEnv(CFG.replace(kind=KeywordKind.EXPLICIT), E).reset(prng.PRNGKey(0))
+        VectorBiddingEnv(CFG.replace(kind=KeywordKind.EXPLICIT), E, device="cpu").reset(
+            prng.PRNGKey(0)
+        )
 
 
 def test_port_runs_with_jax_blocked():
@@ -145,7 +151,7 @@ def test_port_runs_with_jax_blocked():
         "from adcraft_tpu_torch.prng import PRNGKey\n"
         "cfg = EnvConfig(num_keywords=3, kind=KeywordKind.IMPLICIT, max_volume=48, "
         "timesteps_per_day=4, day_kernel='pallas')\n"
-        "env = VectorBiddingEnv(cfg, 2, simple_experiment_table(32, 0.5))\n"
+        "env = VectorBiddingEnv(cfg, 2, simple_experiment_table(32, 0.5), device='cpu')\n"
         "state, obs = env.reset(PRNGKey(0))\n"
         "state, ts = env.step(state, torch.ones(2, 3))\n"
         "assert int(state.day.sum()) == 2 and torch.isfinite(ts.reward).all()\n"
@@ -160,3 +166,23 @@ def test_port_runs_with_jax_blocked():
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
+
+
+def test_entry_points_default_to_the_card():
+    """No device named means the card: construction allocates nothing, and
+    without a card the first allocation fails as torch fails, never
+    falling back to the CPU."""
+    env = VectorBiddingEnv(CFG, 2, t_table(64, 0.5))
+    assert env.device.type == "cuda"
+    jstate, _ = jenv.VectorBiddingEnv(JCFG, 2, table=j_table(64, 0.5)).reset(
+        jax.random.PRNGKey(0)
+    )
+    state = jax.tree.map(np.asarray, jstate)
+    if torch.cuda.is_available():
+        assert env.reset(prng.PRNGKey(0))[0].key.is_cuda
+        assert env_state_from_numpy(state).key.is_cuda
+    else:
+        for make in (lambda: env.reset(prng.PRNGKey(0)), lambda: env_state_from_numpy(state),
+                     lambda: keyword_state_from_numpy(state.kw)):
+            with pytest.raises((AssertionError, RuntimeError)):
+                make()

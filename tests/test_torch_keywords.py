@@ -105,7 +105,7 @@ def test_update_keywords(seed):
     def drift(k, s):
         return jstep.update_keywords(jcfg, k, s)
 
-    got = tstep.update_keywords(cfg, as_torch(upd), keyword_state_from_numpy(kw))
+    got = tstep.update_keywords(cfg, as_torch(upd), keyword_state_from_numpy(kw, device="cpu"))
     compare(jax.vmap(drift)(upd, kw), got, exact_floats=True)
     compare(jax.jit(jax.vmap(drift))(upd, kw), got, exact_floats=False)
     assert not np.array_equal(keyword_state_to_numpy(got).bctr, np.asarray(kw.bctr))
