@@ -19,10 +19,13 @@ n_auc):
 Two implementations of one function:
 
 * ``csrc/day_kernel.cu``, CUDA C++ for sm_90a, built with nvcc on first
-  use (``cuda_build``) and bound with ctypes. One block per env runs the
-  T loop on chip; the budget gate is a sequential walk over keywords by
-  one warp, the exact forward substitution the TPU kernel's Jacobi
-  sweeps converge to.
+  use (``cuda_build``) and bound with ctypes. One block per env keeps the
+  keyword params and day sums on chip and runs the sub-timesteps in
+  chunks: all threads draw the chunk's budget-free competitor and click
+  words over dense lanes, one warp walks the budget gate 32 cells at a
+  time (the exact forward substitution the TPU kernel's Jacobi sweeps
+  converge to), and all threads draw conversions over the dense accepted
+  clicks.
 * ``simulate_day_reference``: plain tensor ops, one t at a time, whose
   gate is the TPU kernel's Jacobi fixed point -- an independent check of
   the CUDA walk.
@@ -57,6 +60,8 @@ from adcraft_tpu_torch.step import DayOutcomes, split_volume
 # Draw indices: the counter's second word is t * NUM_DRAWS + draw.
 DRAW_COMP, DRAW_CLICK, DRAW_CONV, DRAW_REV1, DRAW_REV2 = range(5)
 NUM_DRAWS = 5
+# the CUDA kernel packs a cell's won and clicked counts into 16-bit halves
+MAX_LANES = 1 << 15
 
 _INV24 = 1.0 / (1 << 24)
 # the f32 values of 2*pi and the TPU kernel's clip bounds; the CUDA source
@@ -120,10 +125,12 @@ def simulate_day_reference(
     ``gate_converged`` flag. Memory is a few (m, E, K) tensors at a time.
 
     ``draw_counts``, an int64 (NUM_DRAWS,) tensor, if given, is increased
-    by the words the CUDA kernel draws for each draw index: the competitor
-    bid for every active lane and the click for every won lane of an env
-    not yet broken at the start of t, the conversion for every accepted
-    click, both revenue words for every conversion.
+    by the words the day needs for each draw index: the competitor bid for
+    every active lane and the click for every won lane of an env not yet
+    broken at the start of t, the conversion for every accepted click,
+    both revenue words for every conversion. The CUDA kernel draws these,
+    and in the chunk where a day breaks also the competitor and click
+    words of the chunk's later sub-timesteps.
     """
     T, E, K = n_auc.shape
     device = params.device
@@ -204,8 +211,18 @@ def simulate_day_reference(
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.day_kernel_launch.argtypes = [p] * 11 + [i] * 5 + [p]
+    lib.day_kernel_launch.argtypes = [p] * 11 + [i] * 6 + [p]
     lib.day_kernel_launch.restype = i
+    lib.day_kernel_occupancy.argtypes = [i] * 4 + [ctypes.POINTER(i)]
+    lib.day_kernel_occupancy.restype = i
+    lib.day_kernel_default_chunk_t.argtypes = [i] * 4 + [ctypes.POINTER(i)]
+    lib.day_kernel_default_chunk_t.restype = i
+    lib.day_kernel_smem_bytes.argtypes = [i] * 3
+    lib.day_kernel_smem_bytes.restype = ctypes.c_longlong
+
+
+def _index(device: torch.device) -> int:
+    return torch.cuda.current_device() if device.index is None else device.index
 
 
 class DayKernel:
@@ -214,6 +231,31 @@ class DayKernel:
     def __init__(self):
         self.launches = 0
         self.library = CudaLibrary("day_kernel", _bind)
+        self._chunk_t = {}
+
+    def occupancy(self, chunk_t: int, K: int, m: int, device: torch.device) -> int:
+        """Resident blocks per SM at (chunk_t, K, m); 0 if a block does not fit."""
+        blocks = ctypes.c_int(0)
+        err = self.library.get().day_kernel_occupancy(chunk_t, K, m, _index(device),
+                                                      ctypes.byref(blocks))
+        self.library.check(err, "day kernel occupancy")
+        return blocks.value
+
+    def smem_bytes(self, chunk_t: int, K: int, m: int) -> int:
+        """Dynamic shared memory of one block at (chunk_t, K, m)."""
+        return self.library.get().day_kernel_smem_bytes(chunk_t, K, m)
+
+    def default_chunk_t(self, K: int, T: int, m: int, device: torch.device) -> int:
+        """The largest chunk of sub-timesteps that keeps the kernel's target
+        of resident blocks per SM (or as many as a chunk of one keeps)."""
+        key = (_index(device), K, T, m)
+        if key not in self._chunk_t:
+            chunk_t = ctypes.c_int(0)
+            err = self.library.get().day_kernel_default_chunk_t(K, T, m, key[0],
+                                                                ctypes.byref(chunk_t))
+            self.library.check(err, "day kernel default chunk")
+            self._chunk_t[key] = chunk_t.value
+        return self._chunk_t[key]
 
     def __call__(
         self,
@@ -223,11 +265,15 @@ class DayKernel:
         seed: torch.Tensor,
         m: int,
         uniform: Optional[UniformSource] = None,
+        *,
+        chunk_t: Optional[int] = None,
     ) -> Tuple[torch.Tensor, ...]:
         """Shapes and outputs as ``simulate_day_reference``.
 
         CPU tensors run the reference; CUDA tensors launch the kernel,
         which draws its own counter uniforms (``uniform`` must be None).
+        ``chunk_t``, the kernel's sub-timesteps per chunk, defaults to
+        ``default_chunk_t``; outputs do not depend on it.
         """
         T, E, K = n_auc.shape
         device = params.device
@@ -243,14 +289,18 @@ class DayKernel:
                 raise ValueError(f"{name} on {x.device}, params on {device}")
             if not x.is_contiguous():
                 raise ValueError(f"{name} must be contiguous")
-        if m < 1:
-            raise ValueError("m must be >= 1")
+        if not 1 <= m < MAX_LANES:
+            raise ValueError(f"m must be in [1, {MAX_LANES})")
+        if chunk_t is not None and chunk_t < 1:
+            raise ValueError("chunk_t must be >= 1")
         if device.type == "cpu":
             return simulate_day_reference(params, n_auc, budget_c, seed, m, uniform)
         if device.type != "cuda":
             raise ValueError(f"day kernel: no implementation for {device.type} tensors")
         if uniform is not None:
             raise ValueError("the CUDA day kernel draws its own counter uniforms")
+        if chunk_t is None:
+            chunk_t = self.default_chunk_t(K, T, m, device)
         lib = self.library.get()
         outs = [torch.empty((E, K), dtype=torch.int32, device=device) for _ in range(6)]
         flag = torch.empty((E,), dtype=torch.int32, device=device)
@@ -258,7 +308,7 @@ class DayKernel:
         err = lib.day_kernel_launch(
             params.data_ptr(), n_auc.data_ptr(), budget_c.data_ptr(), seed.data_ptr(),
             *(o.data_ptr() for o in outs), flag.data_ptr(),
-            E, K, T, m, device.index, stream,
+            E, K, T, m, min(chunk_t, T), device.index, stream,
         )
         self.library.check(err, "day kernel")
         self.launches += 1

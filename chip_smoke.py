@@ -14,7 +14,10 @@ Phases, each fatal on failure:
 3. day kernel vs its plain PyTorch version on the card at the slice's full
    width (4096 envs x 100 keywords x 24 sub-timesteps x 47 lanes), same
    inputs and seed, budgets unbound / binding / zero: every output
-   exactly equal;
+   exactly equal, and equal again with one sub-timestep per chunk; the
+   kernel timed at the unbound and the binding budget, beside its bound,
+   its occupancy (blocks per SM) and ptxas' registers, shared memory and
+   spills;
 4. the day kernel's random numbers: impressions, clicks given impressions
    and conversions given clicks against their analytic expectations,
    within 6 binomial standard errors;
@@ -287,11 +290,13 @@ def main() -> int:
     t0 = time.perf_counter()
     cuda_build.build_all(libraries)
     print(f"build: {time.perf_counter() - t0:.1f} s for {len(libraries)} libraries")
+    ptxas = {}
     for lib in libraries:
         print(f"  {lib.source.name}: {lib.build_seconds:.1f} s")
-        for line in lib.build_log.splitlines():
-            if "registers" in line or "smem" in line or "spill" in line:
-                print(f"    ptxas: {line.strip()}")
+        ptxas[lib.name] = [line.strip() for line in lib.build_log.splitlines()
+                           if "registers" in line or "smem" in line or "spill" in line]
+        for line in ptxas[lib.name]:
+            print(f"    ptxas: {line}")
     # a word's integer instructions split over two 64-lane pipes (IMAD on the
     # FMA pipe, the rest on the ALU pipe) under a 128-wide issue limit; the
     # busiest of the three, in INT32-lane clocks, bounds the time per word
@@ -325,7 +330,13 @@ def main() -> int:
     names = ("impressions", "clicks", "cost_cents", "conversions", "revenue_cents",
              "eligible_volume", "gate_converged")
     max_err = 0
-    ms = plain_ms = day_bound = None
+    chunk_t = dk.day_kernel.default_chunk_t(K, T, m, dev)
+    blocks_per_sm = dk.day_kernel.occupancy(chunk_t, K, m, dev)
+    smem = dk.day_kernel.smem_bytes(chunk_t, K, m)
+    print(f"day kernel: {chunk_t} sub-timesteps per chunk, {smem} B of shared memory per "
+          f"block, {blocks_per_sm} blocks per SM ({-(-E // (blocks_per_sm * sms))} waves at "
+          f"{E} envs)")
+    timed = {}  # label -> (ms, plain_ms, (bound_ms, bound_by))
     for label, budget in (("unbound", 1e6), ("binding", 1000.0), ("zero", 0.0)):
         params, n_auc, budget_c = dk.day_kernel_inputs(
             cfg, state0.kw, bids, torch.full((E,), budget, device=dev), volumes
@@ -349,23 +360,44 @@ def main() -> int:
               f"cost ${cost_c / 100:.2f}; per-env spend max ${spent.max().item() / 100:.2f}")
         if (spent > budget_c).any():
             fail(f"{label}: an env spent more than its budget")
+        one = dk.day_kernel(params, n_auc, budget_c, seed, m, chunk_t=1)
+        for name, g, w in zip(names, one, got):
+            if not torch.equal(g, w):
+                fail(f"{label}: {name} differs between chunks of 1 and {chunk_t} sub-timesteps")
         if label == "unbound":
             check_moments(params, n_auc, m, got)
-        if label == "binding":
+        if label in ("unbound", "binding"):
             ms = cuda_ms(lambda: dk.day_kernel(params, n_auc, budget_c, seed, m), reps=20)
             plain_ms = cuda_ms(
                 lambda: dk.simulate_day_reference(params, n_auc, budget_c, seed, m), reps=2
             )
             # each input read once, each output written once; one threefry
-            # word per draw the kernel makes
+            # word per draw the day needs
             day_bytes = 4 * (params.numel() + n_auc.numel() + budget_c.numel() + 1
                              + 6 * E * K + E)
             day_words = draws.sum().item()
             day_bound = bound(day_bytes, day_words * ops_per_word, int_ops_per_s)
+            timed[label] = (ms, plain_ms, day_bound)
+            # the chunk's trade (barriers and gate walks against the draws
+            # wasted after a break and the blocks per SM): every chunk size
+            # that fits, outputs equal
+            sweep = []
+            for c in range(1, T + 1):
+                occupancy = dk.day_kernel.occupancy(c, K, m, dev)
+                if occupancy == 0:
+                    break
+                out = dk.day_kernel(params, n_auc, budget_c, seed, m, chunk_t=c)
+                if not all(torch.equal(g, w) for g, w in zip(out, got)):
+                    fail(f"{label}: outputs differ at chunk_t {c}")
+                c_ms = cuda_ms(lambda c=c: dk.day_kernel(params, n_auc, budget_c, seed, m,
+                                                         chunk_t=c), reps=10)
+                sweep.append(f"{c}: {c_ms:.4f} ms ({occupancy}/SM)")
+            print(f"  by chunk_t ({label}): " + ", ".join(sweep))
             print(f"day at {E}x{K}x{T}x{m}, ${budget:g} budget: kernel {ms:.3f} ms, "
                   f"plain {plain_ms:.1f} ms; {day_words} threefry words "
                   f"{draws.tolist()}, {day_bytes / 1e6:.1f} MB; bound {day_bound[0]:.4f} ms "
-                  f"({day_bound[1]}) ({card})")
+                  f"({day_bound[1]}), {100 * day_bound[0] / ms:.1f}% of it reached ({card})")
+    ms, plain_ms, day_bound = timed["binding"]
 
     # 5. the slice through the kernel, counts zeroed just before; the env
     # drops the kernel's gate_converged flag, so keep it on the way out
@@ -592,6 +624,11 @@ def main() -> int:
 
     if "jax" in sys.modules:
         fail("jax was imported")
+    print(f"day kernel summary: chunk_t {chunk_t}, {blocks_per_sm} blocks per SM, {smem} B "
+          f"shared memory per block; ptxas {'; '.join(ptxas[dk.day_kernel.library.name])}; "
+          + "; ".join(f"{label} {t[0]:.4f} ms, bound {t[2][0]:.4f} ms ({t[2][1]}), "
+                      f"{100 * t[2][0] / t[0]:.1f}% of bound" for label, t in timed.items())
+          + f" ({card})")
     print(json.dumps({"kernels": [
         {
             "name": "day_kernel",

@@ -38,18 +38,38 @@ def random_inputs(cfg, E, K, seed, dev):
     return params.contiguous().to(dev), split_volume(cfg, vol).contiguous().to(dev)
 
 
-# (K, max_volume): the slice's lane count, and a shared-memory footprint
-# above the 48 KB default (K * m ints)
+def exact_budget(params, n_auc, seed, m):
+    """Per env, the full clicked cost of sub-timestep 0 up to a keyword
+    near K/2 with clicks: a whole cell meets the budget to the cent, counts
+    and breaks the day."""
+    E, K = n_auc.shape[1:]
+    big = torch.full((E,), 10**8, dtype=torch.int32, device=n_auc.device)
+    cell_cost = dk.simulate_day_reference(params, n_auc[:1].contiguous(), big, seed, m)[2].cpu()
+    budget = []
+    for e in range(E):
+        ks = [k for k in range(K) if cell_cost[e, k] > 0 and k <= max(K // 2, 1)] or [K - 1]
+        budget.append(int(cell_cost[e, : ks[-1] + 1].sum()))
+    return torch.tensor(budget, dtype=torch.int32, device=n_auc.device)
+
+
+# (K, max_volume): K = 7, 16, 100, 300 (none a multiple of 32 but 16); m =
+# 24 (max_volume 30), 47 (576) and 89 (1600: three click-mask words); E =
+# 97 is not a multiple of any block grouping
 @pytest.mark.cuda
-@pytest.mark.parametrize("K, max_volume", [(16, 576), (300, 576), (7, 30)])
+@pytest.mark.parametrize("K, max_volume", [
+    (16, 576), (300, 576), (7, 30), (16, 30), (100, 30), (100, 576), (300, 30),
+    (16, 1600), (100, 1600), (300, 1600),
+])
 def test_cuda_kernel_matches_reference(cuda, K, max_volume):
     cfg = EnvConfig(num_keywords=K, kind=KeywordKind.IMPLICIT, max_volume=max_volume)
     m = cfg.max_clicks_per_cell
-    E = 96
+    E = 97
     params, n_auc = random_inputs(cfg, E, K, K, cuda)
     seed = torch.tensor([99], dtype=torch.int32, device=cuda)
-    for budget in (10**8, 200 * K, 0):
-        b = torch.full((E,), budget, dtype=torch.int32, device=cuda)
+    exact = exact_budget(params, n_auc, seed, m)
+    for budget in (10**8, 200 * K, 0, exact):
+        b = torch.full((E,), budget, dtype=torch.int32, device=cuda) if isinstance(budget, int) \
+            else budget
         before = dk.day_kernel.launches
         got = dk.day_kernel(params, n_auc, b, seed, m)
         torch.cuda.synchronize()
@@ -58,6 +78,59 @@ def test_cuda_kernel_matches_reference(cuda, K, max_volume):
         for g, w in zip(got, want):
             torch.testing.assert_close(g, w, rtol=0, atol=0)
         assert got[0].sum() > 0
+        assert (got[2].sum(1) <= b).all()
+    assert (got[2].sum(1) == exact).all()  # the exact budget is spent to the cent
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("budget", [10**8, 3000, 0])
+def test_cuda_kernel_chunk_size_does_not_change_outputs(cuda, budget):
+    cfg = EnvConfig(num_keywords=100, kind=KeywordKind.IMPLICIT, max_volume=576)
+    m, T = cfg.max_clicks_per_cell, cfg.timesteps_per_day
+    E = 61
+    params, n_auc = random_inputs(cfg, E, 100, 5, cuda)
+    seed = torch.tensor([-17], dtype=torch.int32, device=cuda)
+    b = torch.full((E,), budget, dtype=torch.int32, device=cuda)
+    default = dk.day_kernel.default_chunk_t(100, T, m, cuda)
+    assert 1 <= default <= T
+    assert dk.day_kernel.occupancy(default, 100, m, cuda) >= 1
+    want = dk.simulate_day_reference(params, n_auc, b, seed, m)
+    for chunk_t in sorted({1, 5, default, T}):
+        got = dk.day_kernel(params, n_auc, b, seed, m, chunk_t=chunk_t)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_breaks_in_the_first_subtimestep(cuda):
+    """tests/test_torch_day_kernel.py's t0_break regime: competitor bids are
+    almost always exactly bid_loc, so two 40-cent clicks on keyword 0 spend
+    a $0.80 budget to the cent and break the day in sub-timestep 0."""
+    cfg = EnvConfig(num_keywords=4, kind=KeywordKind.IMPLICIT, max_volume=96, timesteps_per_day=6)
+    m, T = cfg.max_clicks_per_cell, cfg.timesteps_per_day
+    E = 37
+    gen = torch.Generator().manual_seed(0)
+    vol = torch.randint(0, 97, (E, 4), generator=gen, dtype=torch.int32)
+
+    def row(values):
+        return torch.tensor(values, dtype=torch.float32).expand(E, 4)
+
+    params = torch.stack([
+        row([80.0, 50.0, 100.0, 30.0]), row([0.4, 0.3, 0.6, 0.2]), row([1e-3] * 4),
+        row([0.5] * 4), row([0.5] * 4), row([1.0] * 4), row([0.2] * 4), row([0.0] * 4),
+    ]).contiguous().to(cuda)
+    n_auc = split_volume(cfg, vol).contiguous().to(cuda)
+    b = torch.full((E,), 80, dtype=torch.int32, device=cuda)
+    seed = torch.tensor([7], dtype=torch.int32, device=cuda)
+    want = dk.simulate_day_reference(params, n_auc, b, seed, m)
+    for chunk_t in (1, 3, T):
+        got = dk.day_kernel(params, n_auc, b, seed, m, chunk_t=chunk_t)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=0, atol=0)
+    cost = want[2].sum(1).cpu()
+    first_t = (vol - (T - 1) * (vol // T)).sum(1)
+    assert (cost == 80).sum() >= E // 2
+    assert (want[5].sum(1).cpu() <= first_t).sum() >= E // 2  # over in sub-timestep 0
 
 
 @pytest.mark.cuda
