@@ -1,0 +1,398 @@
+"""The XLA day step's three phases as CUDA kernels, each beside its plain version.
+
+The JAX package's default day step (``day_kernel="xla"``,
+``cost_sampling="agg"``, ``conv_sampling="counts"``,
+``rev_sampling="sum"``, inversion binomials; ``adcraft_tpu/step.py``
+``simulate_day``, :991) is plain jnp that XLA compiles. The port runs it
+as three kernels of ``csrc/agg_day.cu``, built with nvcc on first use
+(``cuda_build``) and bound with ctypes:
+
+* ``agg_cells`` (plain: ``agg_cells_reference``), the sampling phase
+  (``_cell_tables``' agg implicit-single branch, step.py:858-926, with the
+  day-hoisted ladder of :1263-1282): per (env, sub-timestep, keyword) the
+  impressions (the inversion walk at t = 0, the day's CDF ladder after),
+  the clicks (the walk), the aggregate spend ``s_full`` and the first L
+  "lite" lane costs.
+* ``agg_gate`` (plain: ``agg_gate_reference``), the budget gate: the
+  sequential rule of ``_gate_keywords_scan_agg`` (:740) with
+  ``_resolve_cell`` (:1087), to which the JAX package's lazy, chunked and
+  compacted gates are bit-identical. Cells are walked in (t, k) order; a
+  cell is full if ``s_full <= B``, else its lanes (the lite ones, then
+  ``m - L`` deep ones from ``fold_in(k_rest, k)``) are accepted up to the
+  first prefix over B; after each cell the day breaks if ``B <= 0``.
+* ``agg_outcomes`` (plain: ``agg_outcomes_reference``), the post-gate
+  phase (:1392-1500): conversion counts by the walk, revenue sums, the
+  ``cell_out`` masks and the (E, K) day sums in integer cents.
+
+Every draw is keyed by the JAX key tree (``prng``, threefry2x32): per
+sub-timestep ``kt = fold_in(k_cells, t)``, ``k_auc, k_click, k_conv, k_rev
+= split(kt, 4)``, ``k_imp, k_cost = split(k_auc)``, ``k_sfull, k_lanes =
+split(k_cost)``, ``k_lite, k_rest = split(k_lanes)``. A draw of shape
+``(K,)`` takes keyword k's word at counter k, the lite table ``(L, K)``
+lane l's at ``l * K + k``, a deep column lane i's at ``i``.
+
+The day's constants (the win probability and its t >= 1 CDF ladder, the
+cost moments, the revenue moments) are computed once per (env, keyword)
+inside ``agg_cells`` and ``agg_outcomes`` from the raw bids and keyword
+parameters (``pack_params``), by the same float operations as the plain
+``cell_constants`` and ``distributions.rev_sum_moments``, which the plain
+versions call. Each wrapper runs the plain version for CPU tensors and
+launches its kernel for CUDA tensors: on a CUDA tensor it launches or
+raises. ``launches`` counts the launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple, Tuple
+
+import torch
+
+from adcraft_tpu_torch import distributions as dist
+from adcraft_tpu_torch import prng
+from adcraft_tpu_torch.auction import implicit_single_win_prob
+from adcraft_tpu_torch.cuda_build import CudaLibrary
+
+# rows of the (NUM_PARAMS, E, K) float32 parameter tensor the kernels read
+BID, BCTR, SCTR, LOC, SCALE, REV_MEAN, REV_STD = range(7)
+NUM_PARAMS = 7
+
+
+class Lanes(NamedTuple):
+    """Static lane bounds: sub-timesteps, lanes at t = 0 (``m0``) and after
+    (``m1``), lite lanes, and the lane uniforms' bits."""
+
+    T: int
+    m0: int
+    m1: int
+    L: int
+    bits: int
+
+    def m(self, t: int) -> int:
+        return self.m0 if t == 0 else self.m1
+
+
+def pack_params(kw, bids: torch.Tensor) -> torch.Tensor:
+    """The kernels' (NUM_PARAMS, E, K) float32 rows: bids and keyword params."""
+    rows = [bids, kw.bctr, kw.sctr, kw.bid_loc, kw.bid_scale, kw.rev_mean, kw.rev_std]
+    shape = bids.shape
+    return torch.stack([r.to(torch.float32).expand(shape) for r in rows]).contiguous()
+
+
+def y0_of(params: torch.Tensor) -> torch.Tensor:
+    """The win threshold ``bid - 0.005`` (``single_abs_cents_win_threshold``)."""
+    return params[BID] - 0.005
+
+
+def cell_constants(params: torch.Tensor, n1: torch.Tensor, m1: int):
+    """Plain sampling-phase constants: (p_win, ladder (E, m1, K), cost mu,
+    sigma, cmax), what ``agg_cells`` computes per (env, keyword)."""
+    bid, loc, scale = params[BID], params[LOC], params[SCALE]
+    p_win = implicit_single_win_prob(bid, loc, scale)
+    ladder = dist.binomial_cdf(n1, p_win, m1)[0][:m1].permute(1, 0, 2).contiguous()
+    return (p_win, ladder, *dist.single_cost_cent_moments_closed(bid, loc, scale))
+
+
+class _TKeys(NamedTuple):
+    k_imp: torch.Tensor
+    k_click: torch.Tensor
+    k_conv: torch.Tensor
+    k_rev: torch.Tensor
+    k_sfull: torch.Tensor
+    k_lite: torch.Tensor
+    k_rest: torch.Tensor
+
+
+def t_keys(k_cells: torch.Tensor, t: int) -> _TKeys:
+    """Sub-timestep t's keys (each (E, 2)) from the day's cell keys."""
+    kt = prng.fold_in(k_cells, t)
+    k_auc, k_click, k_conv, k_rev = prng.split(kt, 4).unbind(-2)
+    k_imp, k_cost = prng.split(k_auc).unbind(-2)
+    k_sfull, k_lanes = prng.split(k_cost).unbind(-2)
+    k_lite, k_rest = prng.split(k_lanes).unbind(-2)
+    return _TKeys(k_imp, k_click, k_conv, k_rev, k_sfull, k_lite, k_rest)
+
+
+def _cost_cents(x: torch.Tensor) -> torch.Tensor:
+    return torch.round(torch.abs(x) * 100.0).to(torch.int32)
+
+
+def agg_cells_reference(params, n_auc01, k_cells, lanes: Lanes, keep_constants: bool = False):
+    """Plain sampling phase: (imp, n_clicks, s_full) (E, T, K) and lite
+    costs (E, T, L, K), all int32 (cents for the costs); with
+    ``keep_constants``, also the ``cell_constants`` the day used."""
+    p = params
+    K = p.shape[2]
+    bits = lanes.bits
+    consts = cell_constants(params, n_auc01[1], lanes.m1)
+    p_win, ladder, mu, sigma, cmax = consts
+    imp_t, ncl_t, sfull_t, lite_t = [], [], [], []
+    for t in range(lanes.T):
+        keys = t_keys(k_cells, t)
+        m = lanes.m(t)
+        if t == 0:
+            imp = dist.binomial_inv(keys.k_imp, n_auc01[0], p_win, m, bits)
+        else:
+            u = dist.lane_uniform(keys.k_imp, (K,), bits)
+            imp = dist.binomial_inv_from_cdf_u(u, ladder.permute(1, 0, 2), p_win > 0.5,
+                                               n_auc01[1])
+        ncl = dist.binomial_inv(keys.k_click, imp, p[BCTR], m, bits)
+        s_full = dist.agg_cost_cents(keys.k_sfull, ncl, mu, sigma, cmax)
+        y0 = y0_of(p)[:, None]
+        lite = dist.truncated_laplace(keys.k_lite, p[LOC][:, None], p[SCALE][:, None], -y0, y0,
+                                      (lanes.L, K), bits)
+        imp_t.append(imp)
+        ncl_t.append(ncl)
+        sfull_t.append(s_full)
+        lite_t.append(_cost_cents(lite))
+    outs = (torch.stack(imp_t, 1), torch.stack(ncl_t, 1), torch.stack(sfull_t, 1),
+            torch.stack(lite_t, 1))
+    return (*outs, tuple(consts)) if keep_constants else outs
+
+
+def resolve_cells(params, k_rest, lite_col, k: int, B, n, m: int, lanes: Lanes):
+    """Lane resolution of partial cells, one row each: the lite costs
+    ``lite_col`` (rows, L) then ``m - L`` deep costs from ``fold_in(k_rest,
+    k)``, accepted up to the first prefix over ``B``. Returns (accepted
+    clicks int32, spend int64)."""
+    costs = lite_col[:, :m].to(torch.int64)
+    if m > lanes.L:
+        k_col = prng.fold_in(k_rest, k)
+        loc, scale, y0 = (x[:, k][:, None] for x in (params[LOC], params[SCALE], y0_of(params)))
+        deep = dist.truncated_laplace(k_col, loc, scale, -y0, y0, (m - lanes.L,), lanes.bits)
+        costs = torch.cat([costs, _cost_cents(deep).to(torch.int64)], 1)
+    lane = torch.arange(m, device=costs.device)
+    ok = (torch.cumsum(costs, 1) <= B[:, None]) & (lane < n[:, None])
+    ok = torch.cumprod(ok.to(torch.int64), 1)
+    return ok.sum(1).to(torch.int32), (costs * ok).sum(1)
+
+
+def agg_gate_reference(params, k_cells, s_full, n_clicks, lite, budget_c, lanes: Lanes):
+    """Plain gate, one cell at a time over all envs: accepted clicks and
+    spend cents (E, T, K) int32, and each env's simulated cell count
+    ``n_sim`` (E,) int32 (cells ``t * K + k < n_sim`` were simulated)."""
+    E, T, K = s_full.shape
+    device = s_full.device
+    B = budget_c.to(torch.int64)
+    broken = torch.zeros(E, dtype=torch.bool, device=device)
+    n_sim = torch.zeros(E, dtype=torch.int32, device=device)
+    acc = torch.zeros((E, T, K), dtype=torch.int32, device=device)
+    spend = torch.zeros((E, T, K), dtype=torch.int32, device=device)
+    zero = torch.zeros((), dtype=torch.int64, device=device)
+    for t in range(T):
+        m = lanes.m(t)
+        k_rest = None
+        for k in range(K):
+            s = s_full[:, t, k].to(torch.int64)
+            n = n_clicks[:, t, k]
+            full = s <= B
+            p = torch.where(full, n, 0)
+            sp = torch.where(full, s, zero)
+            rows = (~full & ~broken).nonzero().squeeze(1)
+            if rows.numel():
+                if k_rest is None:
+                    k_rest = t_keys(k_cells, t).k_rest
+                pj, sj = resolve_cells(params[:, rows], k_rest[rows], lite[rows, t, :, k], k,
+                                       B[rows], n[rows], m, lanes)
+                p[rows] = pj
+                sp[rows] = sj
+            live = ~broken
+            acc[:, t, k] = torch.where(live, p, 0)
+            sp = torch.where(live, sp, zero)
+            spend[:, t, k] = sp.to(torch.int32)
+            n_sim += live.to(torch.int32)
+            B = B - sp
+            broken = broken | (B <= 0)
+    return acc, spend, n_sim
+
+
+def agg_outcomes_reference(params, k_cells, imp, acc, spend, n_sim, n_auc01, lanes: Lanes):
+    """Plain post-gate phase: the (E, K) int32 day sums (impressions,
+    clicks, cost cents, conversions, revenue cents, eligible volume)."""
+    E, T, K = imp.shape
+    p = params
+    mean_c, std_c = dist.rev_sum_moments(p[REV_MEAN], p[REV_STD])
+    cell = torch.arange(T * K, device=imp.device, dtype=torch.int32).view(T, K)
+    sim = cell[None] < n_sim[:, None, None]
+    sums = [torch.zeros((E, K), dtype=torch.int32, device=imp.device) for _ in range(6)]
+    for t in range(T):
+        keys = t_keys(k_cells, t)
+        s = sim[:, t]
+        a = acc[:, t]
+        nconv = dist.binomial_inv(keys.k_conv, a, p[SCTR], lanes.m(t), lanes.bits)
+        z = prng.normal(keys.k_rev, (K,))
+        rev = dist.rev_sum_cents_z(z, nconv, mean_c, std_c, p[REV_STD])
+        imp_m = torch.where(s, imp[:, t], 0)
+        n_t = n_auc01[0] if t == 0 else n_auc01[1]
+        cell_out = (imp_m, torch.where(s, a, 0), torch.where(s, spend[:, t], 0),
+                    torch.where(s, nconv, 0), torch.where(s, rev, 0),
+                    torch.where(s & (imp_m >= 1), n_t, 0))
+        for total, x in zip(sums, cell_out):
+            total += x
+    return tuple(sums)
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.agg_cells_launch.argtypes = [p, p, p, ll, p, p, p, p, p] + [i] * 8 + [p]
+    lib.agg_cells_launch.restype = i
+    lib.agg_gate_launch.argtypes = [p, p, ll, p, p, p, p, p, p, p] + [i] * 8 + [p]
+    lib.agg_gate_launch.restype = i
+    lib.agg_outcomes_launch.argtypes = [p, p, ll, p, p, p, p, p, p] + [i] * 7 + [p]
+    lib.agg_outcomes_launch.restype = i
+
+
+library = CudaLibrary("agg_day", _bind)
+
+
+def _check(device, *specs) -> None:
+    for name, x, dtype, shape in specs:
+        if x.dtype != dtype or tuple(x.shape) != tuple(shape):
+            raise ValueError(f"{name}: want {dtype} {tuple(shape)}, got {x.dtype} {tuple(x.shape)}")
+        if x.device != device:
+            raise ValueError(f"{name} on {x.device}, want {device}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _check_keys(k_cells, E, device) -> None:
+    if k_cells.dtype != torch.int64 or tuple(k_cells.shape) != (E, 2):
+        raise ValueError(f"k_cells: want int64 ({E}, 2), got {k_cells.dtype} "
+                         f"{tuple(k_cells.shape)}")
+    if k_cells.device != device or k_cells.stride(1) != 1:
+        raise ValueError("k_cells: on the params' device, the two words of a key adjacent")
+
+
+def _check_lanes(lanes: Lanes) -> None:
+    if not (lanes.T >= 1 and 1 <= lanes.L <= lanes.m1 and lanes.m0 >= 1
+            and lanes.bits in (16, 32)):
+        raise ValueError(f"unsupported lanes {lanes}")
+
+
+def _launch_args(device):
+    return device.index, torch.cuda.current_stream(device).cuda_stream
+
+
+class _Kernel:
+    def __init__(self, name: str):
+        self.name = name
+        self.launches = 0
+        self.library = library
+
+    def _cuda(self, device) -> ctypes.CDLL:
+        if device.type != "cuda":
+            raise ValueError(f"{self.name}: no implementation for {device.type} tensors")
+        return self.library.get()
+
+
+class AggCells(_Kernel):
+    """The ``agg_cells`` kernel's wrapper."""
+
+    def __call__(self, params, n_auc01, k_cells, lanes: Lanes, keep_constants: bool = False):
+        """Outputs as ``agg_cells_reference``. ``params`` (NUM_PARAMS, E, K)
+        f32, ``n_auc01`` (2, E, K) int32 (the auction counts at t = 0 and t
+        >= 1), ``k_cells`` (E, 2) int64. ``keep_constants`` appends the
+        constants the day used, (p_win, ladder (E, m1, K), cost mu, sigma,
+        cmax)."""
+        _, E, K = params.shape
+        device = params.device
+        _check_lanes(lanes)
+        _check(device, ("params", params, torch.float32, (NUM_PARAMS, E, K)),
+               ("n_auc01", n_auc01, torch.int32, (2, E, K)))
+        _check_keys(k_cells, E, device)
+        if device.type == "cpu":
+            return agg_cells_reference(params, n_auc01, k_cells, lanes, keep_constants)
+        lib = self._cuda(device)
+        T, L, m1 = lanes.T, lanes.L, lanes.m1
+        outs = [torch.empty((E, T, K), dtype=torch.int32, device=device) for _ in range(3)]
+        lite = torch.empty((E, T, L, K), dtype=torch.int32, device=device)
+        kept = (torch.empty((4 + m1, E, K), dtype=torch.float32, device=device)
+                if keep_constants else None)
+        err = lib.agg_cells_launch(
+            params.data_ptr(), n_auc01.data_ptr(), k_cells.data_ptr(), k_cells.stride(0),
+            *(o.data_ptr() for o in outs), lite.data_ptr(),
+            None if kept is None else kept.data_ptr(),
+            E, K, T, lanes.m0, m1, L, lanes.bits, *_launch_args(device),
+        )
+        self.library.check(err, self.name)
+        self.launches += 1
+        if not keep_constants:
+            return (*outs, lite)
+        return (*outs, lite, (kept[0], kept[4:].permute(1, 0, 2), kept[1], kept[2], kept[3]))
+
+
+class AggGate(_Kernel):
+    """The ``agg_gate`` kernel's wrapper."""
+
+    def __call__(self, params, k_cells, s_full, n_clicks, lite, budget_c, lanes: Lanes):
+        """Outputs as ``agg_gate_reference``; ``budget_c`` (E,) int32 cents."""
+        E, T, K = s_full.shape
+        device = params.device
+        _check_lanes(lanes)
+        if T != lanes.T:
+            raise ValueError(f"s_full has {T} sub-timesteps, lanes {lanes.T}")
+        _check(device, ("params", params, torch.float32, (NUM_PARAMS, E, K)),
+               ("s_full", s_full, torch.int32, (E, T, K)),
+               ("n_clicks", n_clicks, torch.int32, (E, T, K)),
+               ("lite", lite, torch.int32, (E, T, lanes.L, K)),
+               ("budget_c", budget_c, torch.int32, (E,)))
+        _check_keys(k_cells, E, device)
+        if device.type == "cpu":
+            return agg_gate_reference(params, k_cells, s_full, n_clicks, lite, budget_c, lanes)
+        lib = self._cuda(device)
+        acc = torch.empty((E, T, K), dtype=torch.int32, device=device)
+        spend = torch.empty((E, T, K), dtype=torch.int32, device=device)
+        n_sim = torch.empty((E,), dtype=torch.int32, device=device)
+        err = lib.agg_gate_launch(
+            params.data_ptr(), k_cells.data_ptr(), k_cells.stride(0), s_full.data_ptr(),
+            n_clicks.data_ptr(), lite.data_ptr(), budget_c.data_ptr(), acc.data_ptr(),
+            spend.data_ptr(), n_sim.data_ptr(), E, K, T, lanes.m0, lanes.m1, lanes.L,
+            lanes.bits, *_launch_args(device),
+        )
+        self.library.check(err, self.name)
+        self.launches += 1
+        return acc, spend, n_sim
+
+
+class AggOutcomes(_Kernel):
+    """The ``agg_outcomes`` kernel's wrapper."""
+
+    def __call__(self, params, k_cells, imp, acc, spend, n_sim, n_auc01, lanes: Lanes):
+        """Outputs as ``agg_outcomes_reference``."""
+        E, T, K = imp.shape
+        device = params.device
+        _check_lanes(lanes)
+        _check(device, ("params", params, torch.float32, (NUM_PARAMS, E, K)),
+               ("imp", imp, torch.int32, (E, lanes.T, K)),
+               ("acc", acc, torch.int32, (E, T, K)),
+               ("spend", spend, torch.int32, (E, T, K)),
+               ("n_sim", n_sim, torch.int32, (E,)),
+               ("n_auc01", n_auc01, torch.int32, (2, E, K)))
+        _check_keys(k_cells, E, device)
+        if device.type == "cpu":
+            return agg_outcomes_reference(params, k_cells, imp, acc, spend, n_sim, n_auc01,
+                                          lanes)
+        lib = self._cuda(device)
+        out = torch.empty((6, E, K), dtype=torch.int32, device=device)
+        err = lib.agg_outcomes_launch(
+            params.data_ptr(), k_cells.data_ptr(), k_cells.stride(0), imp.data_ptr(),
+            acc.data_ptr(), spend.data_ptr(), n_sim.data_ptr(), n_auc01.data_ptr(),
+            out.data_ptr(), E, K, T, lanes.m0, lanes.m1, lanes.bits, *_launch_args(device),
+        )
+        self.library.check(err, self.name)
+        self.launches += 1
+        return tuple(out.unbind(0))
+
+
+agg_cells = AggCells("agg_cells")
+agg_gate = AggGate("agg_gate")
+agg_outcomes = AggOutcomes("agg_outcomes")
+
+
+def simulate_day_agg(lanes: Lanes, k_cells, kw, bids, budget_c,
+                     n_auc01) -> Tuple[torch.Tensor, ...]:
+    """The three phases for one day: the six (E, K) int32 day sums."""
+    params = pack_params(kw, bids)
+    imp, ncl, s_full, lite = agg_cells(params, n_auc01, k_cells, lanes)
+    acc, spend, n_sim = agg_gate(params, k_cells, s_full, ncl, lite, budget_c, lanes)
+    return agg_outcomes(params, k_cells, imp, acc, spend, n_sim, n_auc01, lanes)

@@ -5,16 +5,19 @@ derived shapes and ``__post_init__`` errors are the same, so one set of
 keyword arguments builds either config. This module imports neither
 ``adcraft_tpu`` (whose ``__init__`` pulls in jax) nor jax.
 
-The port runs the batched day step through its day kernel
-(``day_kernel="pallas"``, adcraft_tpu_torch.day_kernel). The knobs that
-select among the JAX package's XLA day-step variants are accepted and
-validated but not used yet: ``gate_mode``, ``gate_scope``,
-``gate_chunk_t``, ``gate_compact*``, ``gate_scan_unroll``,
-``conv_sampling``, ``rev_sampling``, ``cost_sampling``,
-``agg_cost_grid``, ``agg_lite_lanes``, ``max_bidders_bound``,
-``agg_draw_bits``, ``lane_bits``, ``binomial_sampler``, ``cost_model``
-and ``prng_impl`` (the port's keys are always threefry2x32). ROADMAP.md
-lists the XLA day step's port.
+The batched day step runs either the JAX package's default XLA day step
+(``day_kernel="xla"``: ``step.simulate_day`` on the kernels of
+``adcraft_tpu_torch.agg_day``) or the day kernel (``day_kernel="pallas"``,
+``adcraft_tpu_torch.day_kernel``). The XLA step runs bench.py's
+configuration: ``cost_sampling="agg"``, ``conv_sampling="counts"``,
+``rev_sampling="sum"``, ``binomial_sampler="inversion"``,
+``agg_draw_bits=32``, either ``lane_bits`` and any ``agg_lite_lanes``;
+``step.check_xla_config`` refuses the rest, naming its ROADMAP.md item.
+The gate knobs ``gate_mode``, ``gate_scope``, ``gate_chunk_t``,
+``gate_compact*`` and ``gate_scan_unroll`` select TPU schedules of one
+sequential gate and change nothing; ``agg_cost_grid``,
+``max_bidders_bound`` and ``cost_model`` are validated for the unported
+models; ``prng_impl`` must be threefry2x32.
 """
 
 from __future__ import annotations
@@ -94,7 +97,7 @@ class EnvConfig:
     # float64 money arithmetic (money_dtype)
     use_x64: bool = False
 
-    # XLA day-step knobs: validated, not used by the port yet (docstring)
+    # XLA day-step knobs (the docstring says which the port runs)
     gate_mode: str = "auto"
     gate_scope: str = "per_t"
     gate_chunk_t: int = 4
@@ -112,9 +115,9 @@ class EnvConfig:
     lane_bits: int = 32
     binomial_sampler: str = "exact"
 
-    # day simulation of the batched step: "pallas" is the day kernel
-    # (adcraft_tpu_torch.day_kernel); "xla", the JAX package's default,
-    # is not ported yet and VectorBiddingEnv refuses it
+    # day simulation of the batched step: "xla", the JAX package's default,
+    # is step.simulate_day (adcraft_tpu_torch.agg_day); "pallas" is the day
+    # kernel (adcraft_tpu_torch.day_kernel)
     day_kernel: str = "xla"
 
     prng_impl: str = "threefry2x32"
@@ -192,3 +195,12 @@ class EnvConfig:
 
     def replace(self, **kw) -> "EnvConfig":
         return dataclasses.replace(self, **kw)
+
+
+# bench.py:47-76's XLA day-step knobs, the JAX package's headline
+# configuration; its gate_scope and gate_chunk_t choose TPU gate schedules,
+# which change nothing in the port, so they are left at their defaults
+BENCH_XLA_KNOBS = dict(
+    day_kernel="xla", conv_sampling="counts", rev_sampling="sum", cost_sampling="agg",
+    lane_bits=16, binomial_sampler="inversion", agg_lite_lanes=1, agg_draw_bits=32,
+)

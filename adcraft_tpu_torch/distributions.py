@@ -1,15 +1,313 @@
 """Stateless, key-driven distribution helpers (the day step's subset).
 
 Counterparts of ``adcraft_tpu/distributions.py``: ``probify`` (:27),
-``nonnegify`` (:32), ``round_cents`` (:53) and ``nonneg_int_normal``
-(:67). ``torch.round`` rounds half to even, as ``jnp.round`` does.
+``nonnegify`` (:32), ``round_cents`` (:53), ``nonneg_int_normal`` (:67),
+and the XLA day step's samplers and moments: ``binomial_inv`` (:102),
+``binomial_cdf`` (:192), ``binomial_inv_from_cdf`` (:230), ``uniform16``
+(:358), ``censored_normal_moments`` (:387), ``rev_sum_cents`` (:519),
+``single_cost_cent_moments_closed`` (:589), ``agg_cost_cents`` (:704,
+32-bit draws), ``laplace_cdf`` (:874), ``laplace_icdf`` (:880) and
+``truncated_laplace`` (:888). ``torch.round`` rounds half to even, as
+``jnp.round`` does.
+
+Float arithmetic follows what jitted XLA computes on the CPU, where that
+is not what the source spells: XLA divides by a constant as a product
+with its float32 reciprocal (``_recip``), and contracts ``c + a * b``
+into a fused multiply-add in ``laplace_icdf``, ``truncated_laplace``,
+``agg_cost_cents`` and ``rev_sum_cents`` (``fma32``). Transcendentals
+(``exp``, ``log``, ``pow``) are torch's, within an ulp or two of XLA's.
+Every per-cell function here is also what the CUDA kernels of
+``agg_day`` compute, operation for operation, so the kernels and these
+functions agree exactly on the card.
 """
 
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
 
 from adcraft_tpu_torch import prng
+
+_INV_65536 = 1.0 / 65536.0
+_INV_SQRT2 = float(np.float32(1.0 / math.sqrt(2.0)))
+_LOG_SQRT_2PI = float(np.float32(0.5 * math.log(2.0 * math.pi)))
+
+
+def recip(x: float) -> float:
+    """The float32 reciprocal of a constant, as XLA folds ``a / c``."""
+    return float(np.float32(1.0) / np.float32(x))
+
+
+def fma32(a: torch.Tensor, b, c) -> torch.Tensor:
+    """float32 ``a * b + c`` rounded once (a fused multiply-add).
+
+    The product of two float32 values is exact in float64, so only the sum
+    rounds twice, which changes the float32 result for about one input in
+    2**29. The CUDA kernels compute the same float64 operations. Python
+    numbers stay scalars (no host-to-device copy).
+    """
+
+    def f64(x):
+        return x.double() if isinstance(x, torch.Tensor) else float(x)
+
+    return (f64(a) * f64(b) + f64(c)).float()
+
+
+def bits_to_uniform(bits: torch.Tensor, bit_width: int) -> torch.Tensor:
+    """Threefry words to float32 uniforms: ``jax.random.uniform``'s
+    mantissa transform for 32-bit words, ``uniform16``'s midpoint mapping
+    ``(b + 0.5) / 65536`` for 16-bit ones."""
+    if bit_width == 16:
+        return (bits.to(torch.float32) + 0.5) * _INV_65536
+    return ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+
+
+def uniform16(key: torch.Tensor, shape) -> torch.Tensor:
+    """Uniforms in (0, 1) from 16-bit draws, ``(bits + 0.5) / 65536``.
+
+    The draw is the low half of the 32-bit word at the same counter
+    (``prng.random_bits``), not two draws per word.
+    """
+    return bits_to_uniform(prng.random_bits(key, shape, 16), 16)
+
+
+def lane_uniform(key: torch.Tensor, shape, bits: int) -> torch.Tensor:
+    """``uniform16`` at ``bits=16``, else ``jax.random.uniform``."""
+    return uniform16(key, shape) if bits == 16 else prng.uniform(key, shape)
+
+
+def laplace_cdf(x, loc, scale) -> torch.Tensor:
+    """CDF of Laplace(loc, scale)."""
+    z = (x - loc) / scale
+    return torch.where(z < 0, 0.5 * torch.exp(z), 1.0 - 0.5 * torch.exp(-z))
+
+
+def laplace_icdf(u: torch.Tensor, loc, scale) -> torch.Tensor:
+    """Inverse CDF of Laplace(loc, scale); logs clamped away from 0."""
+    lo = torch.log(torch.clamp(2.0 * u, min=1e-38))
+    hi = -torch.log(torch.clamp(2.0 * (1.0 - u), min=1e-38))
+    return fma32(scale, torch.where(u < 0.5, lo, hi), loc)
+
+
+def truncated_laplace(key, loc, scale, low, high, shape, bits: int = 32) -> torch.Tensor:
+    """Inverse-CDF draws of Laplace(loc, scale) truncated to [low, high]."""
+    f_lo = laplace_cdf(low, loc, scale)
+    f_hi = laplace_cdf(high, loc, scale)
+    u = lane_uniform(key, shape, bits)
+    return laplace_icdf(fma32(u, f_hi - f_lo, f_lo), loc, scale)
+
+
+def binomial_inv_u(u: torch.Tensor, n, p, nmax: int) -> torch.Tensor:
+    """Binomial(n, p) by the inverse-CDF walk at the uniform ``u``.
+
+    ``count = #{j < nmax : P(X <= j) < u}``, clipped to [0, n], on q =
+    min(p, 1 - p) with the count flipped when p > 1/2; the pmf by the
+    ratio recurrence, one level at a time, as ``binomial_inv`` walks it.
+    """
+    n = torch.as_tensor(n, device=u.device).to(torch.float32)
+    p = torch.clamp(torch.as_tensor(p, device=u.device).to(torch.float32), 0.0, 1.0)
+    flip = p > 0.5
+    q = torch.where(flip, 1.0 - p, p)
+    r = q / (1.0 - q)
+    pmf = torch.pow(1.0 - q, n)
+    cdf = pmf
+    cnt = (cdf < u).to(torch.int32)
+    for j in range(1, nmax):
+        pmf = torch.clamp(pmf * ((n - float(j - 1)) * (r * recip(j))), min=0.0)
+        cdf = cdf + pmf
+        cnt = cnt + (cdf < u).to(torch.int32)
+    ni = torch.round(n).to(torch.int32)
+    cnt = torch.minimum(torch.clamp(cnt, min=0), ni)
+    return torch.where(flip, ni - cnt, cnt)
+
+
+def binomial_inv(key, n, p, nmax: int, bits: int = 32, shape=None) -> torch.Tensor:
+    """Binomial(n, p) draws by the inverse-CDF walk, one uniform each."""
+    if shape is None:
+        shape = torch.broadcast_shapes(torch.as_tensor(n).shape, torch.as_tensor(p).shape)
+        shape = shape[key.dim() - 1:]
+    return binomial_inv_u(lane_uniform(key, shape, bits), n, p, nmax)
+
+
+def binomial_cdf(n, p, nmax: int):
+    """``binomial_inv``'s CDF ladder for fixed (n, p): ``(cdf, flip, ni)``,
+    ``cdf`` of shape ``(nmax + 1, *shape)``, by a cumulative product and
+    a cumulative sum (not the walk's order of rounding)."""
+    n = torch.as_tensor(n).to(torch.float32)
+    p = torch.clamp(torch.as_tensor(p, device=n.device).to(torch.float32), 0.0, 1.0)
+    n, p = torch.broadcast_tensors(n, p)
+    flip = p > 0.5
+    q = torch.where(flip, 1.0 - p, p)
+    r = q / (1.0 - q)
+    j = torch.arange(1, nmax + 1, dtype=torch.float32, device=n.device)
+    j = j.reshape((nmax,) + (1,) * n.dim())
+    recip_j = (1.0 / j.double()).float()  # XLA's folded reciprocal of a constant
+    f = torch.clamp((n[None] - (j - 1.0)) * recip_j * r[None], min=0.0)
+    pmf0 = torch.pow(1.0 - q, n)
+    pmf = torch.cat([pmf0[None], pmf0[None] * torch.cumprod(f, dim=0)])
+    cdf = torch.cumsum(pmf, dim=0)
+    return cdf, flip, torch.round(n).to(torch.int32)
+
+
+def binomial_inv_from_cdf_u(u: torch.Tensor, cdf: torch.Tensor, flip, ni) -> torch.Tensor:
+    """One inverse-CDF draw at ``u`` against a ladder ``cdf`` whose first
+    axis holds at least the ``nmax`` levels compared."""
+    cnt = (cdf < u[None]).sum(0, dtype=torch.int32)
+    cnt = torch.minimum(torch.clamp(cnt, min=0), ni)
+    return torch.where(flip, ni - cnt, cnt)
+
+
+def binomial_inv_from_cdf(key, ladder, bits: int = 32) -> torch.Tensor:
+    """One draw against a ``binomial_cdf`` ladder, the walk's uniform."""
+    cdf, flip, ni = ladder
+    nmax = cdf.shape[0] - 1
+    u = lane_uniform(key, tuple(cdf.shape[1 + key.dim() - 1:]), bits)
+    return binomial_inv_from_cdf_u(u, cdf[:nmax], flip, ni)
+
+
+def _ndtr(x: torch.Tensor) -> torch.Tensor:
+    """The standard normal CDF, ``jax.scipy.special.ndtr``'s branches."""
+    w = x * _INV_SQRT2
+    z = torch.abs(w)
+    y = torch.where(z < _INV_SQRT2, 1.0 + torch.erf(w),
+                    torch.where(w > 0, 2.0 - torch.erfc(z), torch.erfc(z)))
+    return 0.5 * y
+
+
+def censored_normal_moments(mean, std, low: float):
+    """Mean and std of ``max(N(mean, std), low)``; std 0 gives (max(mean,
+    low), 0)."""
+    mean = torch.as_tensor(mean).to(torch.float32)
+    std = torch.as_tensor(std).to(torch.float32)
+    safe = torch.clamp(std, min=1e-20)
+    a = (low - mean) / safe
+    big_f = _ndtr(a)
+    small_f = torch.exp(-0.5 * (a * a) - _LOG_SQRT_2PI)
+    m1 = low * big_f + mean * (1.0 - big_f) + safe * small_f
+    m2 = (low * low * big_f + (mean * mean + safe * safe) * (1.0 - big_f)
+          + safe * (mean + low) * small_f)
+    var = torch.clamp(m2 - m1 * m1, min=0.0)
+    deg = std <= 0.0
+    m1 = torch.where(deg, torch.clamp(mean, min=low), m1)
+    var = torch.where(deg, torch.zeros_like(var), var)
+    return m1, torch.sqrt(var)
+
+
+def rev_sum_moments(rev_mean, rev_std):
+    """Per-conversion revenue moments in cents for ``rev_sum_cents``:
+    ``(100 m1, sqrt((100 s1)**2 + 1/12))`` of the censored normal at $0.01."""
+    m1, s1 = censored_normal_moments(rev_mean, rev_std, 0.01)
+    h = 100.0 * s1
+    return 100.0 * m1, torch.sqrt(fma32(h, h, float(np.float32(1.0 / 12.0))))
+
+
+def rev_sum_cents_z(z, nconv, mean_c, std_c, rev_std) -> torch.Tensor:
+    """``rev_sum_cents`` at the standard normal ``z``, int32 cents."""
+    n = nconv.to(torch.float32)
+    clt = torch.round(fma32(n, mean_c, torch.sqrt(n) * std_c * z))
+    exact = n * torch.round(mean_c)
+    cents = torch.maximum(torch.where(rev_std <= 0.0, exact, clt), n)
+    return torch.where(nconv > 0, cents, torch.zeros_like(cents)).to(torch.int32)
+
+
+def rev_sum_cents(key, nconv, rev_mean, rev_std) -> torch.Tensor:
+    """Aggregate revenue of ``nconv`` conversions in int32 cents: one
+    normal with the censored per-conversion moments, rounded, floored at
+    one cent per conversion, exact when ``rev_std`` is 0."""
+    mean_c, std_c = rev_sum_moments(rev_mean, rev_std)
+    z = prng.normal(key, tuple(nconv.shape[key.dim() - 1:]))
+    return rev_sum_cents_z(z, nconv, mean_c, std_c, rev_std)
+
+
+def single_cost_cent_moments_closed(bid, loc, scale):
+    """Per-click cost moments in cents of the single-competitor auction,
+    in closed form: (mean, std, cmax), ``cmax = bid_cents - 1``.
+
+    The per-click cost is ``100 * round(|L|, 2)`` for ``L ~ Laplace(loc,
+    scale)`` conditioned on ``|L| < bid - 0.005``; the JAX docstring
+    derives the geometric sums term by term, and this follows it line for
+    line.
+    """
+    bid = torch.as_tensor(bid).to(torch.float32)
+    a = torch.abs(torch.as_tensor(loc).to(torch.float32))
+    s = torch.clamp(torch.as_tensor(scale).to(torch.float32), min=1e-12)
+    bid, a, s = torch.broadcast_tensors(bid, a, s)
+
+    y0 = torch.clamp(bid - 0.005, min=0.0)
+    c = 1.0 / (100.0 * s)
+    bc = torch.round(bid * 100.0)
+    big_i = torch.clamp(bc - 1.0, min=0.0)
+    m = torch.minimum(torch.clamp(torch.ceil(100.0 * a - 0.5), min=0.0), big_i)
+    em1 = -torch.expm1(-c)
+
+    def geo0(n):
+        return -torch.expm1(-n * c) / em1
+
+    def geo1(n):
+        e_c = torch.exp(-c)
+        return (e_c * (1.0 - n * torch.exp(-(n - 1.0) * c) + (n - 1.0) * torch.exp(-n * c))
+                / (em1 * em1))
+
+    def safe_exp(x):
+        return torch.exp(torch.clamp(x, max=0.0))
+
+    e_ay = safe_exp(-(a - y0) / s)
+    b_fac = safe_exp(-(a + 0.005) / s)
+    b_cut = safe_exp(-(a + y0) / s)
+    sum_b = 0.5 * (b_fac * geo0(big_i) - big_i * b_cut)
+    sum_ib = 0.5 * (b_fac * geo1(big_i) - 0.5 * big_i * (big_i - 1.0) * b_cut)
+
+    def r2(n):
+        t2 = safe_exp(-(100.0 * a - n + 0.5) * c)
+        return t2 * geo0(n), t2 * ((n - 1.0) * geo0(n) - geo1(n))
+
+    r2_i, r2w_i = r2(big_i)
+    sum_a_low = 0.5 * (big_i * e_ay - r2_i)
+    sum_ia_low = 0.5 * (0.5 * big_i * (big_i - 1.0) * e_ay - r2w_i)
+
+    e_ya = safe_exp(-(y0 - a) / s)
+    r2_m, r2w_m = r2(m)
+    sum_a_pre = m * (1.0 - 0.5 * e_ya) - 0.5 * r2_m
+    sum_ia_pre = 0.5 * m * (m - 1.0) * (1.0 - 0.5 * e_ya) - 0.5 * r2w_m
+    n_top = big_i - m
+    t3 = torch.exp(torch.clamp(-(m + 0.5 - 100.0 * a) * c, max=30.0))
+    s3 = t3 * geo0(n_top)
+    s3w = t3 * geo1(n_top) + m * s3
+    sum_a_top = 0.5 * (s3 - n_top * e_ya)
+    sum_i_top = 0.5 * (big_i - 1.0 + m) * n_top
+    sum_ia_top = 0.5 * s3w - 0.5 * sum_i_top * e_ya
+
+    low = y0 <= a
+    sum_a = torch.where(low, sum_a_low, sum_a_pre + sum_a_top)
+    sum_ia = torch.where(low, sum_ia_low, sum_ia_pre + sum_ia_top)
+
+    z = laplace_cdf(y0, a, s) - laplace_cdf(-y0, a, s)
+    zsafe = torch.clamp(z, min=1e-12)
+    tail0 = torch.clamp(sum_a + sum_b, min=0.0)
+    tail1 = torch.clamp(sum_ia + sum_ib, min=0.0)
+    mu = tail0 / zsafe
+    m2 = (2.0 * tail1 + tail0) / zsafe
+    var = torch.clamp(m2 - mu * mu, min=0.0)
+    return mu, torch.sqrt(var), torch.clamp(bc - 1.0, min=0.0)
+
+
+def agg_cost_cents_z(z, n_clicks, mu, sigma, cmax) -> torch.Tensor:
+    """``agg_cost_cents`` at the standard normal ``z``, int32 cents."""
+    n = n_clicks.to(torch.float32)
+    s = torch.round(fma32(n, mu, torch.sqrt(n) * sigma * z))
+    return torch.minimum(torch.clamp(s, min=0.0), n * cmax).to(torch.int32)
+
+
+def agg_cost_cents(key, n_clicks, mu, sigma, cmax, bits: int = 32) -> torch.Tensor:
+    """One aggregate spend draw per cell in int32 cents: ``N(n mu, n
+    sigma**2)`` rounded and clipped to [0, n cmax]. 16-bit normals
+    (``agg_draw_bits=16``) are not ported (ROADMAP.md item 9)."""
+    if bits != 32:
+        raise NotImplementedError("agg_cost_cents: 16-bit normals are not ported (ROADMAP.md)")
+    z = prng.normal(key, tuple(n_clicks.shape[key.dim() - 1:]))
+    return agg_cost_cents_z(z, n_clicks, mu, sigma, cmax)
 
 
 def probify(x: torch.Tensor) -> torch.Tensor:

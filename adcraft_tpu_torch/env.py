@@ -1,11 +1,13 @@
-"""The batched environment on the day kernel.
+"""The batched environment on the XLA day step and on the day kernel.
 
-Counterpart of ``adcraft_tpu/env.py``'s batched kernel path:
-``EnvState`` (:36), ``TimeStep`` (:50), ``zero_observation`` (:66),
-``batch_keys`` (:84), ``env_reset`` (:96, implicit keywords),
+Counterpart of ``adcraft_tpu/env.py``: ``EnvState`` (:36), ``TimeStep``
+(:50), ``zero_observation`` (:66), ``batch_keys`` (:84), ``env_reset``
+(:96, implicit keywords), ``env_step`` (:134) vmapped over envs as
+``vector_env_step_xla``, ``env_rollout`` (:196) as ``vector_env_rollout``,
 ``vector_env_step_pallas`` (:287) and ``VectorBiddingEnv`` (:369) with
-``day_kernel="pallas"``. State carries an explicit leading (E,) axis, and
-every tensor lives on the env's ``device``.
+``day_kernel="xla"`` (the default) or ``"pallas"``. State carries an
+explicit leading (E,) axis, and every tensor lives on the env's
+``device``.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ from adcraft_tpu_torch.config import EnvConfig, KeywordKind, resolve_device
 from adcraft_tpu_torch.day_kernel import UniformSource, pallas_simulate_day
 from adcraft_tpu_torch.keywords import KeywordState, sample_implicit_keywords
 from adcraft_tpu_torch.quantiles import QuantileTable
-from adcraft_tpu_torch.step import DayOutcomes, update_keywords
+from adcraft_tpu_torch.step import DayOutcomes, check_xla_config, simulate_day, update_keywords
 
 _INT32_MAX = 2**31 - 1
 
@@ -114,6 +116,106 @@ def env_reset(
     return state, zero_observation(cfg, dtype, batch, device)
 
 
+def _action(cfg: EnvConfig, state: EnvState, bids, budget):
+    """Bids floored at $0.01 and rounded to cents, (E, K); the budget
+    override (or the state's budget) rounded to cents, (E,)."""
+    dtype = cfg.money_dtype
+    E = state.day.shape[0]
+    device = state.day.device
+    new_budget = state.budget if budget is None else torch.as_tensor(budget, dtype=dtype,
+                                                                      device=device)
+    new_budget = dist.round_cents(new_budget).reshape((E,))
+    bids = torch.as_tensor(bids, dtype=dtype, device=device)
+    bids = dist.round_cents(torch.clamp(bids, min=0.01)).reshape((E, cfg.num_keywords))
+    return bids, new_budget
+
+
+def _transition(state, kw_next, key_next, new_budget, day: DayOutcomes):
+    """Reward, truncation, termination and the next state after a day."""
+    profits = day.profit.sum(1)
+    cumulative = state.cumulative_profit + profits
+    truncated = cumulative < -state.loss_threshold
+    new_day = state.day + 1
+    terminated = new_day >= state.max_days
+    obs = {
+        "impressions": day.impressions,
+        "buyside_clicks": day.buyside_clicks,
+        "cost": day.cost,
+        "sellside_conversions": day.sellside_conversions,
+        "revenue": day.revenue,
+        "cumulative_profit": cumulative[:, None],
+        "days_passed": new_day[:, None].to(torch.int32),
+    }
+    new_state = EnvState(
+        kw=kw_next,
+        day=new_day,
+        cumulative_profit=cumulative,
+        budget=new_budget,
+        loss_threshold=state.loss_threshold,
+        max_days=state.max_days,
+        key=key_next,
+    )
+    ts = TimeStep(
+        obs=obs, reward=profits, terminated=terminated, truncated=truncated, outcomes=day
+    )
+    return new_state, ts
+
+
+def vector_env_step_xla(
+    cfg: EnvConfig,
+    state: EnvState,
+    bids,
+    budget=None,
+):
+    """Batched day step of the XLA day step; returns (state, TimeStep).
+
+    The JAX ``env_step`` vmapped over envs: per-env keys split 3 ways
+    (next key, day key, drift key), bids floored at $0.01 and rounded to
+    cents, the optional budget override rounded to cents, the day
+    (``step.simulate_day``), reward = total profit, truncation on
+    cumulative loss, termination on max days, then the keyword drift.
+    """
+    key_next, k_day, k_upd = prng.split(state.key, 3).unbind(1)
+    bids, new_budget = _action(cfg, state, bids, budget)
+    day = simulate_day(cfg, k_day, state.kw, bids, new_budget)
+    return _transition(state, update_keywords(cfg, k_upd, state.kw), key_next, new_budget, day)
+
+
+def vector_env_rollout(
+    cfg: EnvConfig,
+    state: EnvState,
+    bids,
+    num_days: int,
+    budget=None,
+):
+    """``num_days`` XLA-path steps; returns (state, TimeStep stacked over a
+    leading (num_days,) axis, so leaves are (num_days, E, ...)).
+
+    ``bids`` is (E, K) for every day or a (num_days, E, K) schedule;
+    ``budget`` None, (E,) or (num_days, E). Equal to ``num_days`` calls of
+    ``vector_env_step_xla``, which is what it runs.
+    """
+    bids = torch.as_tensor(bids)
+    per_day_bids = bids.dim() == 3
+    budget = None if budget is None else torch.as_tensor(budget)
+    per_day_budget = budget is not None and budget.dim() == 2
+    steps = []
+    for d in range(num_days):
+        state, ts = vector_env_step_xla(
+            cfg, state, bids[d] if per_day_bids else bids,
+            budget[d] if per_day_budget else budget,
+        )
+        steps.append(ts)
+    stacked = TimeStep(
+        obs={f: torch.stack([ts.obs[f] for ts in steps]) for f in steps[0].obs},
+        reward=torch.stack([ts.reward for ts in steps]),
+        terminated=torch.stack([ts.terminated for ts in steps]),
+        truncated=torch.stack([ts.truncated for ts in steps]),
+        outcomes=DayOutcomes(*(torch.stack(x) for x in zip(*(ts.outcomes for ts in steps)))),
+    )
+    return state, stacked
+
+
 def vector_env_step_pallas(
     cfg: EnvConfig,
     state: EnvState,
@@ -131,20 +233,8 @@ def vector_env_step_pallas(
     cumulative loss, termination on max days, then the keyword drift.
     ``uniform`` replaces the kernel's random numbers (CPU only; tests).
     """
-    dtype = cfg.money_dtype
-    E = state.day.shape[0]
-    K = cfg.num_keywords
-    device = state.day.device
     key_next, k_day, k_upd, k_seed = prng.split(state.key, 4).unbind(1)
-
-    if budget is None:
-        new_budget = state.budget
-    else:
-        new_budget = torch.as_tensor(budget, dtype=dtype, device=device)
-    new_budget = dist.round_cents(new_budget).reshape((E,))
-    bids = torch.as_tensor(bids, dtype=dtype, device=device)
-    bids = dist.round_cents(torch.clamp(bids, min=0.01)).reshape((E, K))
-
+    bids, new_budget = _action(cfg, state, bids, budget)
     kw = state.kw
     volumes = torch.clamp(
         dist.nonneg_int_normal(k_day, kw.vol_mean, kw.vol_std), max=cfg.max_volume
@@ -153,43 +243,19 @@ def vector_env_step_pallas(
     day, _gate_converged = pallas_simulate_day(
         cfg, seed, kw, bids, new_budget, volumes, uniform=uniform
     )
-
-    profits = day.profit.sum(1)
-    cumulative = state.cumulative_profit + profits
-    truncated = cumulative < -state.loss_threshold
-    new_day = state.day + 1
-    terminated = new_day >= state.max_days
-    obs = {
-        "impressions": day.impressions,
-        "buyside_clicks": day.buyside_clicks,
-        "cost": day.cost,
-        "sellside_conversions": day.sellside_conversions,
-        "revenue": day.revenue,
-        "cumulative_profit": cumulative[:, None],
-        "days_passed": new_day[:, None].to(torch.int32),
-    }
-    new_state = EnvState(
-        kw=update_keywords(cfg, k_upd, kw),
-        day=new_day,
-        cumulative_profit=cumulative,
-        budget=new_budget,
-        loss_threshold=state.loss_threshold,
-        max_days=state.max_days,
-        key=key_next,
-    )
-    ts = TimeStep(
-        obs=obs, reward=profits, terminated=terminated, truncated=truncated, outcomes=day
-    )
-    return new_state, ts
+    return _transition(state, update_keywords(cfg, k_upd, kw), key_next, new_budget, day)
 
 
 class VectorBiddingEnv:
     """E independent envs stepped in lockstep on one device.
 
-    Only the day-kernel path (``cfg.day_kernel == "pallas"``) is ported;
-    on a CUDA device every step launches the CUDA day kernel and draws its
-    keys and words through the threefry kernel. ``device`` defaults to the
-    card (``"cuda"``); the CPU runs only when asked for (``device="cpu"``).
+    ``cfg.day_kernel="xla"`` (the default) runs the JAX package's default
+    day step on the three kernels of ``agg_day`` (``vector_env_step_xla``;
+    the configurations ``step.check_xla_config`` accepts);
+    ``day_kernel="pallas"`` runs the CUDA day kernel. On a CUDA device the
+    env's keys and words are drawn through the threefry kernel. ``device``
+    defaults to the card (``"cuda"``); the CPU runs the kernels' plain
+    versions, and only when asked for (``device="cpu"``).
     """
 
     def __init__(
@@ -202,10 +268,7 @@ class VectorBiddingEnv:
         device=None,
     ):
         if cfg.day_kernel != "pallas":
-            raise NotImplementedError(
-                f"day_kernel={cfg.day_kernel!r}: the port runs the day kernel only "
-                "(day_kernel='pallas'); the XLA day step's port is queued in ROADMAP.md"
-            )
+            check_xla_config(cfg)
         self.cfg = cfg
         self.num_envs = num_envs
         self.device = resolve_device(device)
@@ -226,7 +289,16 @@ class VectorBiddingEnv:
 
     def step(self, state: EnvState, bids, budget=None):
         """bids: (E, K); budget: optional (E,). Returns (state, TimeStep)."""
-        return vector_env_step_pallas(self.cfg, state, bids, budget)
+        if self.cfg.day_kernel == "pallas":
+            return vector_env_step_pallas(self.cfg, state, bids, budget)
+        return vector_env_step_xla(self.cfg, state, bids, budget)
 
     def rollout(self, state: EnvState, bids, num_days: int, budget=None):
-        raise NotImplementedError("rollout() drives the XLA day step; step() the day kernel")
+        """``num_days`` steps (``vector_env_rollout``): bids (E, K) or
+        (num_days, E, K), budget (E,) or (num_days, E). Returns (state,
+        TimeStep with leaves stacked as (num_days, E, ...)); equal to
+        ``num_days`` ``step`` calls. The day kernel has no rollout, as in the
+        JAX package."""
+        if self.cfg.day_kernel == "pallas":
+            raise NotImplementedError("rollout() drives the XLA day step; step() the day kernel")
+        return vector_env_rollout(self.cfg, state, bids, num_days, budget)

@@ -1,10 +1,14 @@
-"""Day outcomes, the volume split and the keyword drift.
+"""Day outcomes, the volume split, the XLA day step and the keyword drift.
 
-Counterpart of the parts of ``adcraft_tpu/step.py`` that the batched
-kernel day step runs: ``DayOutcomes`` (:69), ``split_volume`` (:100) and
-``update_keywords`` (:1580). The day itself runs in
-adcraft_tpu_torch.day_kernel; the JAX package's XLA day step
-(``simulate_day``, :991) is not ported yet (ROADMAP.md).
+Counterpart of ``adcraft_tpu/step.py``: ``DayOutcomes`` (:69),
+``split_volume`` (:100), ``simulate_day`` (:991) for the JAX package's
+default day step and ``update_keywords`` (:1580). ``simulate_day`` runs
+the configuration that ``bench.py:47-76`` times (``day_kernel="xla"``,
+aggregate costs, conversion counts, revenue sums, inversion binomials,
+implicit single-competitor keywords) on the three kernels of
+``adcraft_tpu_torch.agg_day``; every other XLA-path configuration raises
+``NotImplementedError`` (``check_xla_config``). The day-kernel path
+(``day_kernel="pallas"``) runs in ``adcraft_tpu_torch.day_kernel``.
 """
 
 from __future__ import annotations
@@ -13,10 +17,13 @@ from typing import NamedTuple
 
 import torch
 
+from adcraft_tpu_torch import agg_day
 from adcraft_tpu_torch import distributions as dist
 from adcraft_tpu_torch import prng
-from adcraft_tpu_torch.config import EnvConfig
+from adcraft_tpu_torch.config import CompetitorModel, EnvConfig, KeywordKind
 from adcraft_tpu_torch.keywords import KeywordState
+
+_INT32_MAX = 2**31 - 1
 
 
 class DayOutcomes(NamedTuple):
@@ -49,6 +56,86 @@ def split_volume(cfg: EnvConfig, volume: torch.Tensor) -> torch.Tensor:
     first = volume - (t - 1) * per
     rest = per.unsqueeze(0).expand((t - 1,) + tuple(volume.shape))
     return torch.cat([first.unsqueeze(0), rest], dim=0)
+
+
+def check_xla_config(cfg: EnvConfig) -> None:
+    """Raise ``NotImplementedError`` for an XLA-path configuration the port
+    does not run, naming its ROADMAP.md item.
+
+    The gate knobs (``gate_mode``, ``gate_scope``, ``gate_chunk_t``,
+    ``gate_compact*``, ``gate_scan_unroll``) select TPU schedules that are
+    bit-identical to one sequential gate, which is the port's, so they
+    are accepted and change nothing.
+    """
+    unported = [
+        (cfg.kind is not KeywordKind.IMPLICIT, "explicit keywords (ROADMAP.md item 10)"),
+        (cfg.competitor_model is not CompetitorModel.SINGLE_ABS_CENTS,
+         "the binomial pool (ROADMAP.md item 11)"),
+        (cfg.cost_sampling != "agg", "cost_sampling='lanes' (ROADMAP.md item 9)"),
+        (cfg.conv_sampling != "counts", "conv_sampling='lanes' (ROADMAP.md item 9)"),
+        (cfg.rev_sampling != "sum", f"rev_sampling={cfg.rev_sampling!r} (ROADMAP.md item 9)"),
+        (cfg.binomial_sampler != "inversion", "binomial_sampler='exact' (ROADMAP.md item 9)"),
+        (cfg.agg_draw_bits != 32, "agg_draw_bits=16 (ROADMAP.md item 9)"),
+        (cfg.use_x64, "use_x64 money and int64 cents (ROADMAP.md item 9)"),
+    ]
+    for bad, what in unported:
+        if bad:
+            raise NotImplementedError(f"day_kernel='xla': {what} is not ported")
+
+
+def xla_lanes(cfg: EnvConfig) -> agg_day.Lanes:
+    m1 = cfg.max_clicks_rest
+    return agg_day.Lanes(
+        T=cfg.timesteps_per_day, m0=cfg.max_clicks_per_cell, m1=m1,
+        L=min(cfg.agg_lite_lanes, m1), bits=cfg.lane_bits,
+    )
+
+
+def budget_cents(budget: torch.Tensor) -> torch.Tensor:
+    """``min(round(budget * 100), INT32_MAX)`` as int32 cents."""
+    b = torch.round(budget.to(torch.float32) * 100.0)
+    return torch.where(b >= 2.0**31, _INT32_MAX, b.to(torch.int64)).to(torch.int32)
+
+
+def simulate_day(
+    cfg: EnvConfig,
+    key: torch.Tensor,
+    kw: KeywordState,
+    bids: torch.Tensor,
+    budget: torch.Tensor,
+) -> DayOutcomes:
+    """One day for a batch of E envs: ``key`` (E, 2), ``kw`` and ``bids``
+    (E, K), ``budget`` (E,). The JAX function vmapped over envs.
+
+    ``split(key)`` gives the volume key and the cell key; volumes are
+    ``min(round(max(N(mean, std), 0)), max_volume)``; the three phases run
+    in ``agg_day``.
+    """
+    check_xla_config(cfg)
+    lanes = xla_lanes(cfg)
+    k_vol, k_cells = prng.split(key).unbind(-2)
+    volume = torch.clamp(dist.nonneg_int_normal(k_vol, kw.vol_mean, kw.vol_std),
+                         max=cfg.max_volume)
+    n_auc = split_volume(cfg, volume)
+    n_auc01 = torch.stack([n_auc[0], n_auc[1] if lanes.T > 1 else torch.zeros_like(n_auc[0])])
+    imp, clicks, cost_c, convs, rev_c, elig = agg_day.simulate_day_agg(
+        lanes, k_cells, kw, bids, budget_cents(budget), n_auc01
+    )
+    # jitted XLA divides by the constant as a product with its reciprocal,
+    # and fuses the revenue's product into the profit's subtraction
+    cents = dist.recip(100.0)
+    cost = cost_c.to(torch.float32) * cents
+    revenue = rev_c.to(torch.float32) * cents
+    return DayOutcomes(
+        impressions=imp,
+        buyside_clicks=clicks,
+        cost=cost,
+        sellside_conversions=convs,
+        revenue=revenue,
+        profit=dist.fma32(rev_c.to(torch.float32), cents, -cost),
+        volume=volume,
+        eligible_volume=elig,
+    )
 
 
 def update_keywords(cfg: EnvConfig, key: torch.Tensor, kw: KeywordState) -> KeywordState:

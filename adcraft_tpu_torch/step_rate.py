@@ -1,23 +1,22 @@
 """env-steps/s of ``VectorBiddingEnv.step`` on the card, and its device share.
 
 The slice's configuration: 100 implicit single-competitor keywords from
-``simple_experiment_table(128, 0.8)``, ``max_volume=576``, the day kernel,
-budget $1000, bids $1.00. For each env count:
+``simple_experiment_table(128, 0.8)``, ``max_volume=576``, budget $1000,
+bids $1.00. For each env count:
 
 * rate: reset, 3 warm-up steps, then 5 runs of 10 steps, each timed on
   the host clock and ended by ``torch.cuda.synchronize()``; median and
   range of the 5 env-steps/s;
-* launches: ``threefry_words`` launches per step (the wrapper's count);
+* launches: each kernel's launches per step (the wrappers' counts);
 * trace: one window of 10 steps under ``torch.profiler``: CUDA device
   events (kernels, copies) per step, device busy time per step (union of
   their intervals), and the idle share ``1 - busy / step time``, with the
   step time of the unprofiled runs.
 
-Two RNG routes, run in turns in one process (plain, kernel, kernel,
-plain): ``kernel`` draws the key tree's words with the
-``threefry_words`` kernel, the port's path; ``plain`` swaps
-``prng_kernel.threefry_words`` for its plain version, which is the RNG
-path the step took before the kernel existed.
+Two day-step routes, run in turns in one process (pallas, xla, xla,
+pallas): ``pallas`` is ``day_kernel="pallas"`` (the CUDA day kernel),
+``xla`` is ``day_kernel="xla"`` with bench.py's knobs (the three agg_day
+kernels).
 
     python3 -m adcraft_tpu_torch.step_rate [--envs 1024 4096 8192] [--json PATH]
 
@@ -27,7 +26,6 @@ It runs on the card only.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
 import statistics
 import subprocess
@@ -38,25 +36,23 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from adcraft_tpu_torch import EnvConfig, KeywordKind, VectorBiddingEnv, prng
+from adcraft_tpu_torch import EnvConfig, KeywordKind, VectorBiddingEnv, agg_day, prng
+from adcraft_tpu_torch import day_kernel as dk
 from adcraft_tpu_torch import prng_kernel as pk
+from adcraft_tpu_torch.config import BENCH_XLA_KNOBS
 from adcraft_tpu_torch.quantiles import simple_experiment_table
 
 K, MAX_VOLUME, BID = 100, 576, 1.00
 WARMUP, RUNS, STEPS = 3, 5, 10
-ROUTES = ("plain", "kernel", "kernel", "plain")
+ROUTES = ("pallas", "xla", "xla", "pallas")
+KERNELS = {"day_kernel": dk.day_kernel, "threefry_words": pk.threefry_words,
+           "agg_cells": agg_day.agg_cells, "agg_gate": agg_day.agg_gate,
+           "agg_outcomes": agg_day.agg_outcomes}
 
 
-@contextlib.contextmanager
-def rng_route(route: str):
-    """``kernel``: prng as it is; ``plain``: the words from the plain version."""
-    kernel = pk.threefry_words
-    if route == "plain":
-        pk.threefry_words = pk.threefry_words_reference
-    try:
-        yield
-    finally:
-        pk.threefry_words = kernel
+def route_config(route: str) -> EnvConfig:
+    knobs = BENCH_XLA_KNOBS if route == "xla" else {"day_kernel": "pallas"}
+    return EnvConfig(num_keywords=K, kind=KeywordKind.IMPLICIT, max_volume=MAX_VOLUME, **knobs)
 
 
 def busy_ms(events) -> float:
@@ -71,29 +67,27 @@ def busy_ms(events) -> float:
 
 
 def measure(num_envs: int, route: str, device: torch.device) -> dict:
-    cfg = EnvConfig(num_keywords=K, kind=KeywordKind.IMPLICIT, max_volume=MAX_VOLUME,
-                    day_kernel="pallas")
-    env = VectorBiddingEnv(cfg, num_envs, simple_experiment_table(128, 0.8), device=device)
+    env = VectorBiddingEnv(route_config(route), num_envs, simple_experiment_table(128, 0.8),
+                           device=device)
     bids = torch.full((num_envs, K), BID, device=device)
-    wrapper = pk.threefry_words  # the kernel's wrapper, whichever route runs
-    with rng_route(route):
-        state, _ = env.reset(prng.PRNGKey(0))
-        for _ in range(WARMUP):
+    state, _ = env.reset(prng.PRNGKey(0))
+    for _ in range(WARMUP):
+        state, _ = env.step(state, bids)
+    torch.cuda.synchronize(device)
+    for kernel in KERNELS.values():
+        kernel.launches = 0
+    rates = []
+    for _ in range(RUNS):
+        t0 = time.perf_counter()
+        for _ in range(STEPS):
             state, _ = env.step(state, bids)
         torch.cuda.synchronize(device)
-        wrapper.launches = 0
-        rates = []
-        for _ in range(RUNS):
-            t0 = time.perf_counter()
-            for _ in range(STEPS):
-                state, _ = env.step(state, bids)
-            torch.cuda.synchronize(device)
-            rates.append(STEPS * num_envs / (time.perf_counter() - t0))
-        launches = wrapper.launches / (RUNS * STEPS)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(STEPS):
-                state, _ = env.step(state, bids)
-            torch.cuda.synchronize(device)
+        rates.append(STEPS * num_envs / (time.perf_counter() - t0))
+    launches = {name: k.launches / (RUNS * STEPS) for name, k in KERNELS.items() if k.launches}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(STEPS):
+            state, _ = env.step(state, bids)
+        torch.cuda.synchronize(device)
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     median = statistics.median(rates)
     step_ms = num_envs / median * 1e3
@@ -101,7 +95,7 @@ def measure(num_envs: int, route: str, device: torch.device) -> dict:
     return {
         "route": route, "envs": num_envs, "env_steps_per_s": median,
         "min": min(rates), "max": max(rates), "rates": rates, "step_ms": step_ms,
-        "threefry_words_launches_per_step": launches,
+        "launches_per_step": launches,
         "cuda_events_per_step": len(events) / STEPS, "device_busy_ms_per_step": busy,
         "device_idle_share": 1.0 - busy / step_ms,
     }
@@ -125,9 +119,9 @@ def main(argv=None) -> int:
         for route in ROUTES:
             r = measure(num_envs, route, device)
             results.append(r)
-            print(f"{num_envs} envs, {route} RNG: {r['env_steps_per_s']:.1f} env-steps/s "
+            print(f"{num_envs} envs, {route}: {r['env_steps_per_s']:.1f} env-steps/s "
                   f"[{r['min']:.1f}, {r['max']:.1f}], step {r['step_ms']:.3f} ms; "
-                  f"threefry_words {r['threefry_words_launches_per_step']:g}/step; "
+                  f"launches/step {r['launches_per_step']}; "
                   f"{r['cuda_events_per_step']:.1f} CUDA events/step, device busy "
                   f"{r['device_busy_ms_per_step']:.3f} ms/step, idle "
                   f"{100 * r['device_idle_share']:.1f}% ({card})", flush=True)

@@ -36,7 +36,17 @@ Phases, each fatal on failure:
 8. the slice with the RNG on the kernel: 5 steps, then the same 5 steps
    with prng's kernel swapped for the plain function; every TimeStep
    field and the state key equal; exactly 6 threefry_words launches per
-   step; CUDA device events per step for both routes (torch.profiler).
+   step; CUDA device events per step for both routes (torch.profiler);
+   threefry_words timed at one word per launch (the launch floor);
+9. the XLA day step (day_kernel="xla", bench.py's knobs): agg_cells,
+   agg_gate and agg_outcomes each equal their plain version at 4096 envs x
+   100 keywords x 24 sub-timesteps, budgets unbound / $1000 / zero, each
+   timed beside its bound and its plain version; then the slice,
+   VectorBiddingEnv(day_kernel="xla") reset, 5 steps and rollout(5) from
+   the same state at bids $1.00 and the $1000 budget, counts zeroed just
+   before: one launch of each kernel per day, 4 threefry_words launches
+   per step, invariants, and every output equal to the same days through
+   the plain versions; CUDA device events per step.
 
 The line before the last is a JSON object with each kernel's launches on
 its path, error, times and bound; the last line is {"ok": true, "device":
@@ -70,6 +80,7 @@ PROBE_SE = 5.0
 # FMA-heavy pipe (which also runs IMAD), 128 thread-instructions issued (4
 # schedulers x 32); HBM3 at 3.35 TB/s (NVIDIA H100 SXM data sheet, 700 W)
 INT32_LANES_PER_SM = 64
+FP32_LANES_PER_SM = 128
 DISPATCH_PER_SM = 128
 HBM_BYTES_PER_S = 3.35e12
 # a threefry2x32 word as written in csrc/threefry.cuh: 20 x (add, rotate,
@@ -251,6 +262,334 @@ def cuda_events_per_step(run, steps: int) -> float:
     return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA) / steps
 
 
+XLA_BUDGET = 1000.0
+WALK_OPS = 7  # float instructions per level of the inverse-CDF walk
+THREEFRY_WORDS_PER_STEP_XLA = 4  # split 3, split 2, the volume normal, the drift uniform
+
+
+@contextlib.contextmanager
+def agg_plain(ad):
+    """Route the XLA day step through the plain versions of its kernels."""
+    kernels = (ad.agg_cells, ad.agg_gate, ad.agg_outcomes)
+    ad.agg_cells, ad.agg_gate, ad.agg_outcomes = (
+        ad.agg_cells_reference, ad.agg_gate_reference, ad.agg_outcomes_reference)
+    try:
+        yield
+    finally:
+        ad.agg_cells, ad.agg_gate, ad.agg_outcomes = kernels
+
+
+def walk_levels(x, n):
+    """Levels an inverse-CDF walk needs at least for the draws ``x`` of
+    Binomial(``n``, p): the count it stops at, on the smaller tail; none
+    where ``n`` is 0, whose count needs no draw."""
+    return ((x.minimum(n - x) + 1) * (n > 0)).double().sum()
+
+
+def agg_conversions(ad, dist, params, k_cells, acc, lanes):
+    """Per-cell conversion counts (E, T, K), drawn as the plain post-gate
+    phase draws them (only to count the work they need)."""
+    import torch
+
+    return torch.stack([
+        dist.binomial_inv(ad.t_keys(k_cells, t).k_conv, acc[:, t], params[ad.SCTR],
+                          lanes.m(t), lanes.bits)
+        for t in range(lanes.T)], 1)
+
+
+def xla_phase(torch, dev, card, table, ops_per_word, int_ops_per_s, fp_ops_per_s):
+    """Phase 9: the XLA day step's kernels against their plain versions at
+    full width, then the slice through them. Returns their JSON entries."""
+    from adcraft_tpu_torch import EnvConfig, KeywordKind, VectorBiddingEnv
+    from adcraft_tpu_torch import agg_day as ad
+    from adcraft_tpu_torch import distributions as dist
+    from adcraft_tpu_torch import prng
+    from adcraft_tpu_torch import prng_kernel as pk
+    from adcraft_tpu_torch.config import BENCH_XLA_KNOBS
+    from adcraft_tpu_torch.step import budget_cents, split_volume, xla_lanes
+
+    cfg = EnvConfig(num_keywords=K, kind=KeywordKind.IMPLICIT, max_volume=MAX_VOLUME,
+                    budget=XLA_BUDGET, **BENCH_XLA_KNOBS)
+    lanes = xla_lanes(cfg)
+    L, m0, m1 = lanes.L, lanes.m0, lanes.m1
+    env = VectorBiddingEnv(cfg, E, table, device=dev)
+    state0, _ = env.reset(prng.PRNGKey(4))
+    kw = state0.kw
+    bids = torch.full((E, K), BID, device=dev)
+    k_vol, k_cells = prng.split(prng.split(prng.PRNGKey(5, dev), E)).unbind(-2)
+    volume = torch.clamp(dist.nonneg_int_normal(k_vol, kw.vol_mean, kw.vol_std), max=MAX_VOLUME)
+    n_auc = split_volume(cfg, volume)
+    n_auc01 = torch.stack([n_auc[0], n_auc[1]]).contiguous()
+    params = ad.pack_params(kw, bids)
+    cells_n = E * T * K
+    max_err = {"agg_cells": 0, "agg_gate": 0, "agg_outcomes": 0}
+
+    def compare(name, got, want, label):
+        """Integer outputs exactly (their error goes to max_err), float
+        outputs bit for bit; returns the float outputs' max error."""
+        float_err = 0.0
+        for i, (g, w) in enumerate(zip(got, want)):
+            if g.shape != w.shape or g.dtype != w.dtype:
+                fail(f"{name} vs plain ({label}): output {i} is {g.dtype} {tuple(g.shape)}, "
+                     f"plain {w.dtype} {tuple(w.shape)}")
+            if g.is_floating_point():
+                err = (g.double() - w.double()).abs().max().item()
+                float_err = max(float_err, err)
+                if not torch.equal(g.view(torch.int32), w.view(torch.int32)):
+                    fail(f"{name} vs plain ({label}): float output {i} differs in its bits, "
+                         f"max error {err:.3g}")
+            else:
+                err = (g.long() - w.long()).abs().max().item()
+                max_err[name] = max(max_err[name], err)
+                if err:
+                    fail(f"{name} vs plain ({label}): output {i} differs, max error {err}")
+        return float_err
+
+    def cells_call():
+        return ad.agg_cells(params, n_auc01, k_cells, lanes)
+
+    def cells_plain():
+        return ad.agg_cells_reference(params, n_auc01, k_cells, lanes)
+
+    *cells, consts = ad.agg_cells(params, n_auc01, k_cells, lanes, keep_constants=True)
+    torch.cuda.synchronize()
+    consts_err = compare("agg_cells", consts, ad.cell_constants(params, n_auc01[1], m1),
+                         "constants")
+    with words_replaced(pk, pk.threefry_words_reference):
+        compare("agg_cells", cells, cells_plain(), "full width")
+        cells_plain_ms = cuda_ms(cells_plain, reps=1)
+    cells_ms = cuda_ms(cells_call, reps=20)
+    imp, ncl, s_full, lite = cells
+    # words: an impression word for each cell with auctions, a click word
+    # for each with impressions, a spend normal for each with clicks, and
+    # the L lite lanes of every cell (they are outputs); eight key blocks per
+    # (env, t); float: the levels the walks need (at least the smaller tail
+    # of each count), the t >= 1 ladder's compare by bisection over its
+    # min(n1, m1) + 1 levels; bytes: the four parameter rows it reads, the
+    # counts and keys in, the tables out
+    n0, n1 = n_auc01[0], n_auc01[1]
+    cells_words = ((n0 > 0).sum() + (T - 1) * (n1 > 0).sum() + (imp > 0).sum()
+                   + (ncl > 0).sum()).item() + cells_n * L + E * T * 8
+    ladder_steps = torch.log2(n1.clamp(max=m1).double() + 1).ceil() * (n1 > 0)
+    cells_fp = (WALK_OPS * (walk_levels(imp[:, 0], n0) + walk_levels(ncl, imp))
+                + (T - 1) * ladder_steps.sum()).item()
+    cells_bytes = 4 * (4 * E * K + 2 * E * K) + 16 * E + 4 * cells_n * (3 + L)
+    cells_bound = max(bound(cells_bytes, cells_words * ops_per_word, int_ops_per_s),
+                      bound(cells_bytes, cells_fp, fp_ops_per_s))
+    print(f"agg_cells == plain at {E}x{K}x{T} (m0 {m0}, m1 {m1}, L {L}): imps "
+          f"{imp.sum().item()} clicks {ncl.sum().item()} s_full {s_full.sum().item()} cents; "
+          f"constants bit-equal (max float error {consts_err:.3g}); "
+          f"kernel {cells_ms:.4f} ms, plain {cells_plain_ms:.1f} ms; {cells_words} threefry "
+          f"words, {cells_fp:.4g} float ops, {cells_bytes / 1e6:.1f} MB; bound "
+          f"{cells_bound[0]:.4f} ms ({cells_bound[1]}), "
+          f"{100 * cells_bound[0] / cells_ms:.1f}% of it reached ({card})")
+
+    timed = {}
+    for label, budget in (("unbound", 1e6), ("binding", XLA_BUDGET), ("zero", 0.0)):
+        budget_c = budget_cents(torch.full((E,), budget, device=dev))
+
+        def gate_call():
+            return ad.agg_gate(params, k_cells, s_full, ncl, lite, budget_c, lanes)
+
+        def gate_plain():
+            return ad.agg_gate_reference(params, k_cells, s_full, ncl, lite, budget_c, lanes)
+
+        gate = gate_call()
+        torch.cuda.synchronize()
+        with words_replaced(pk, pk.threefry_words_reference):
+            compare("agg_gate", gate, gate_plain(), label)
+        acc, spend, n_sim = gate
+
+        def out_call():
+            return ad.agg_outcomes(params, k_cells, imp, acc, spend, n_sim, n_auc01, lanes)
+
+        def out_plain():
+            return ad.agg_outcomes_reference(params, k_cells, imp, acc, spend, n_sim, n_auc01,
+                                             lanes)
+
+        out = out_call()
+        torch.cuda.synchronize()
+        with words_replaced(pk, pk.threefry_words_reference):
+            compare("agg_outcomes", out, out_plain(), label)
+        spent = out[2].sum(1)
+        if (spent > budget_c.clamp(min=0)).any():
+            fail(f"agg day ({label}): an env spent more than its budget")
+        if not ((out[1] <= out[0]).all() and (out[3] <= out[1]).all()):
+            fail(f"agg day ({label}): clicks <= imps, convs <= clicks violated")
+        sim = (torch.arange(T * K, device=dev).view(1, T, K) < n_sim.view(E, 1, 1))
+        print(f"agg_gate, agg_outcomes == plain ({label}, ${budget:g}): simulated cells "
+              f"{sim.sum().item()} of {cells_n}, imps {out[0].sum().item()} clicks "
+              f"{out[1].sum().item()} cost ${out[2].sum().item() / 100:.2f} convs "
+              f"{out[3].sum().item()} revenue ${out[4].sum().item() / 100:.2f}")
+        if label == "zero":
+            continue
+        gate_ms = cuda_ms(gate_call, reps=20)
+        out_ms = cuda_ms(out_call, reps=20)
+        with words_replaced(pk, pk.threefry_words_reference):
+            gate_plain_ms = cuda_ms(gate_plain, reps=1)
+            out_plain_ms = cuda_ms(out_plain, reps=1)
+        # the gate needs each simulated cell's spend and clicks; of each
+        # partial cell (simulated, not full) the lanes up to the first one
+        # over the budget or its last click: the lite lanes from the table,
+        # the deep lanes drawn, and for a cell that reaches a deep lane its
+        # column key fold_in(k_rest, k) and its bid, loc and scale; the five
+        # blocks of k_rest once per (env, t) with such a cell, the env's key
+        # once per env with any; it writes every cell and n_sim
+        flat = spend.view(E, T * K).long()
+        b_before = budget_c.view(E, 1).long() - (torch.cumsum(flat, 1) - flat)
+        simf = sim.view(E, T * K)
+        partial = simf & (s_full.view(E, T * K).long() > b_before)
+        accf, nclf = acc.view(E, T * K), ncl.view(E, T * K)
+        looked = torch.minimum(accf + 1, nclf) * partial
+        deep_cells = (looked - L).clamp(min=0)
+        has_deep = deep_cells > 0
+        deep = deep_cells.sum().item()
+        n_partial = partial.sum().item()
+        n_deep_cells = has_deep.sum().item()
+        t_rest = has_deep.view(E, T, K).any(2)
+        gate_words = deep + n_deep_cells + 5 * t_rest.sum().item()
+        gate_bytes = (8 * simf.sum().item() + 4 * looked.clamp(max=L).sum().item()
+                      + 12 * n_deep_cells + 16 * t_rest.any(1).sum().item() + 8 * E
+                      + 8 * cells_n)
+        gate_bound = bound(gate_bytes, gate_words * ops_per_word, int_ops_per_s)
+        # outcomes: a conversion word for each simulated cell with accepted
+        # clicks, a revenue normal for each with conversions; the key blocks
+        # kt and k_conv per (env, t) with such a cell, k_rev per (env, t) with
+        # a conversion; float: the levels the conversion walks need; bytes:
+        # imp, acc and spend of the simulated cells, the three parameter
+        # rows, the counts, n_sim and keys in, the six day sums out
+        live = simf & (accf > 0)
+        with words_replaced(pk, pk.threefry_words_reference):
+            nconv = agg_conversions(ad, dist, params, k_cells, acc, lanes).view(E, T * K)
+        nconv = nconv * live
+        converted = nconv > 0
+        t_live = live.view(E, T, K).any(2)
+        t_conv = converted.view(E, T, K).any(2)
+        out_words = (live.sum() + converted.sum() + 2 * t_live.sum() + t_conv.sum()).item()
+        out_fp = WALK_OPS * walk_levels(nconv, accf * live).item()
+        out_bytes = (12 * simf.sum().item() + 4 * (3 * E * K + 2 * E * K + E) + 16 * E
+                     + 24 * E * K)
+        out_bound = max(bound(out_bytes, out_words * ops_per_word, int_ops_per_s),
+                        bound(out_bytes, out_fp, fp_ops_per_s))
+        timed[label] = {"agg_gate": (gate_ms, gate_plain_ms, gate_bound),
+                        "agg_outcomes": (out_ms, out_plain_ms, out_bound)}
+        print(f"  agg_gate ({label}): {n_partial} partial cells, {n_deep_cells} reach "
+              f"{deep} deep lanes; kernel "
+              f"{gate_ms:.4f} ms, plain {gate_plain_ms:.1f} ms; {gate_bytes / 1e6:.1f} MB, "
+              f"{gate_words} words; bound {gate_bound[0]:.4f} ms ({gate_bound[1]}), "
+              f"{100 * gate_bound[0] / gate_ms:.1f}% of it reached ({card})")
+        print(f"  agg_outcomes ({label}): kernel {out_ms:.4f} ms, plain {out_plain_ms:.1f} ms; "
+              f"{out_bytes / 1e6:.1f} MB, {out_words} words, {out_fp:.4g} float ops; bound "
+              f"{out_bound[0]:.4f} ms ({out_bound[1]}), "
+              f"{100 * out_bound[0] / out_ms:.1f}% of it reached ({card})")
+
+    # the slice: reset, 5 steps and rollout(5) from the same state, counts
+    # zeroed just before
+    kernels = {"agg_cells": ad.agg_cells, "agg_gate": ad.agg_gate,
+               "agg_outcomes": ad.agg_outcomes}
+    state_a, _ = env.reset(prng.PRNGKey(6))
+    torch.cuda.synchronize()
+    for kernel in kernels.values():
+        kernel.launches = 0
+    pk.threefry_words.launches = 0
+    t0 = time.perf_counter()
+    state = state_a
+    steps = []
+    for _ in range(STEPS):
+        state, ts = env.step(state, bids)
+        steps.append(ts)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    end_step = state
+    end_roll, roll = env.rollout(state_a, bids, STEPS)
+    torch.cuda.synchronize()
+    launches = {name: kernel.launches for name, kernel in kernels.items()}
+    words_launches = pk.threefry_words.launches
+    if any(n != 2 * STEPS for n in launches.values()):
+        fail(f"XLA slice launches {launches}, want {2 * STEPS} of each "
+             f"({STEPS} steps and rollout({STEPS}))")
+    if words_launches != 2 * STEPS * THREEFRY_WORDS_PER_STEP_XLA:
+        fail(f"XLA slice: {words_launches} threefry_words launches in {2 * STEPS} days, want "
+             f"{THREEFRY_WORDS_PER_STEP_XLA} per day")
+    for i, ts in enumerate(steps):
+        o = ts.outcomes
+        if not ((o.buyside_clicks <= o.impressions).all() and (o.impressions <= o.volume).all()
+                and (o.sellside_conversions <= o.buyside_clicks).all()):
+            fail(f"XLA step {i}: clicks <= imps <= volume, convs <= clicks violated")
+        if (o.cost.sum(1) > XLA_BUDGET + 1e-3).any():
+            fail(f"XLA step {i}: an env spent more than the ${XLA_BUDGET:g} budget")
+        if not torch.isfinite(ts.reward).all():
+            fail(f"XLA step {i}: non-finite reward")
+        for f in o._fields:
+            if not torch.equal(getattr(o, f), getattr(roll.outcomes, f)[i]):
+                fail(f"XLA rollout day {i}: {f} differs from step {i}")
+        if not torch.equal(ts.reward, roll.reward[i]):
+            fail(f"XLA rollout day {i}: reward differs from step {i}")
+    if not (torch.equal(end_step.key, end_roll.key) and (end_step.day == STEPS).all()):
+        fail("XLA rollout: the final state differs from the steps'")
+    if steps[-1].outcomes.impressions.sum().item() <= 0:
+        fail("XLA slice: no impressions")
+
+    t0 = time.perf_counter()
+    with agg_plain(ad), words_replaced(pk, pk.threefry_words_reference):
+        state = state_a
+        for i in range(STEPS):
+            state, ts = env.step(state, bids)
+            want = steps[i]
+            pairs = [("reward", ts.reward, want.reward)]
+            pairs += [("obs." + f, ts.obs[f], want.obs[f]) for f in want.obs]
+            pairs += [("outcomes." + f, getattr(ts.outcomes, f), getattr(want.outcomes, f))
+                      for f in want.outcomes._fields]
+            for name, x, y in pairs:
+                if not torch.equal(x, y):
+                    fail(f"XLA slice step {i}: {name} differs between kernels and plain")
+        torch.cuda.synchronize()
+        if not torch.equal(state.key, end_step.key):
+            fail("XLA slice: the state key differs between kernels and plain")
+    plain_s = time.perf_counter() - t0
+
+    def run_steps():
+        st = state_a
+        for _ in range(STEPS):
+            st, _ts = env.step(st, bids)
+
+    events = cuda_events_per_step(run_steps, STEPS)
+    imps = sum(ts.outcomes.impressions.sum().item() for ts in steps)
+    cost = sum(ts.outcomes.cost.sum().item() for ts in steps)
+    print(f"XLA slice: {STEPS} steps and rollout({STEPS}) x {E} envs x {K} keywords, bids "
+          f"${BID:.2f}, budget ${XLA_BUDGET:g}: {imps} impressions, ${cost:.2f} spent; launches "
+          f"{launches}, threefry_words {words_launches / (2 * STEPS):g} per step; kernels "
+          f"{STEPS * E / step_s:.1f} env-steps/s ({step_s:.3f} s), plain "
+          f"{STEPS * E / plain_s:.1f} env-steps/s; CUDA device events per step {events:.1f} "
+          f"({card})")
+
+    ms = {name: timed["binding"][name] for name in ("agg_gate", "agg_outcomes")}
+    ms["agg_cells"] = (cells_ms, cells_plain_ms, cells_bound)
+    replaces = {
+        "agg_cells": "adcraft_tpu/step.py:858 (_cell_tables, agg implicit-single branch; "
+                     "the XLA step has no TPU kernel)",
+        "agg_gate": "adcraft_tpu/step.py:740 (_gate_keywords_scan_agg, _resolve_cell :1087; "
+                    "no TPU kernel)",
+        "agg_outcomes": "adcraft_tpu/step.py:1392 (post-gate phase to :1500; no TPU kernel)",
+    }
+    return [
+        {
+            "name": name,
+            "route": "cuda",
+            "source": "adcraft_tpu_torch/csrc/agg_day.cu",
+            "replaces": replaces[name],
+            "launches": launches[name],
+            "max_abs_err": max_err[name],
+            "ms": ms[name][0],
+            "plain_ms": ms[name][1],
+            "bound_ms": ms[name][2][0],
+            "bound_by": ms[name][2][1],
+            "library_ms": None,
+        }
+        for name in ("agg_cells", "agg_gate", "agg_outcomes")
+    ]
+
+
 def main() -> int:
     try:
         import torch
@@ -262,6 +601,7 @@ def main() -> int:
         return 1
     try:
         from adcraft_tpu_torch import EnvConfig, KeywordKind, VectorBiddingEnv
+        from adcraft_tpu_torch import agg_day as ad
         from adcraft_tpu_torch import cuda_build
         from adcraft_tpu_torch import day_kernel as dk
         from adcraft_tpu_torch import distributions as dist
@@ -282,11 +622,13 @@ def main() -> int:
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     clock_mhz = float(smi("clocks.max.sm", "nounits"))
     int_ops_per_s = sms * INT32_LANES_PER_SM * clock_mhz * 1e6
+    fp_ops_per_s = sms * FP32_LANES_PER_SM * clock_mhz * 1e6
     print(f"INT32 peak: {sms} SMs x {INT32_LANES_PER_SM} lanes x {clock_mhz:g} MHz = "
-          f"{int_ops_per_s / 1e12:.3f} T ops/s; HBM {HBM_BYTES_PER_S / 1e12:g} TB/s")
+          f"{int_ops_per_s / 1e12:.3f} T ops/s; FP32 {sms} x {FP32_LANES_PER_SM} lanes = "
+          f"{fp_ops_per_s / 1e12:.3f} T instructions/s; HBM {HBM_BYTES_PER_S / 1e12:g} TB/s")
 
     # 2. build, one nvcc per source, all started together
-    libraries = (dk.day_kernel.library, pk.library)
+    libraries = (dk.day_kernel.library, pk.library, ad.library)
     t0 = time.perf_counter()
     cuda_build.build_all(libraries)
     print(f"build: {time.perf_counter() - t0:.1f} s for {len(libraries)} libraries")
@@ -621,6 +963,17 @@ def main() -> int:
           f"{[(N, n, mode) for N, _s, n, mode, _b, _w in step_calls]}: kernel {words_ms:.4f} ms, "
           f"plain {words_plain_ms:.3f} ms, bound {words_bound[0]:.5f} ms ({words_bound[1]}) "
           f"({card})")
+    # the device's floor for one launch: one word
+    one_key = call_keys(1, 2)
+    floor_ms = cuda_ms(lambda: pk.threefry_words(one_key, 1, pk.XOR), reps=200)
+    floored = words_bound[0] + len(step_calls) * floor_ms
+    print(f"threefry_words launch floor: {floor_ms:.5f} ms for one word; bound with "
+          f"{len(step_calls)} floors {floored:.5f} ms; the kernel's {words_ms:.4f} ms is "
+          f"{100 * floored / words_ms:.1f}% of it "
+          f"({'at least' if 2 * floored >= words_ms else 'under'} half) ({card})")
+
+    # 9. the XLA day step
+    xla_kernels = xla_phase(torch, dev, card, table, ops_per_word, int_ops_per_s, fp_ops_per_s)
 
     if "jax" in sys.modules:
         fail("jax was imported")
@@ -669,7 +1022,7 @@ def main() -> int:
             "bound_by": rate_bound[1],
             "library_ms": None,
         },
-    ]}))
+    ] + xla_kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

@@ -1,0 +1,201 @@
+"""The XLA day step's distributions and auction helpers against the JAX
+package's, on the same keys and inputs (numpy seeds).
+
+Tolerances, each with its reason:
+
+* bitwise: ``uniform16``, the inverse-CDF walk and the ladder draw given
+  the same uniform and ladder, ``agg_cost_cents`` and ``rev_sum_cents``
+  given the same moments (their normals differ from ``jax.random.normal``
+  by an ulp on about 5% of draws, ``prng.normal``, which moves no rounded
+  cent on these inputs);
+* the t >= 1 ladder itself (``binomial_cdf``) within rtol 1e-6: XLA's
+  cumulative sum rounds in another order than torch's;
+* the cost moments' mean within rtol 1e-6 and the variances within 4e-6
+  of the squared mean: torch's exp/expm1 differ from XLA's by an ulp on
+  10-20% of inputs and XLA contracts some products into FMAs, and the
+  variance is a difference of two near-equal sums (``m2 - mu**2``);
+* truncated-Laplace draws within rtol 1e-6 and atol 1e-6 (near 0 the
+  inverse CDF takes the log of a number near 1); their cents agree except
+  where the JAX value lies within 1e-3 cent of a rounding boundary;
+* ``rev_sum_cents`` computing its own moments: at most one cell in 1000
+  off, by one cent (the moments' ulps, above).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from adcraft_tpu import auction as ja
+from adcraft_tpu import distributions as jd
+from adcraft_tpu_torch import auction as ta
+from adcraft_tpu_torch import distributions as td
+
+E, K = 64, 50
+
+
+def keys(seed):
+    k = np.asarray(jax.random.split(jax.random.PRNGKey(seed), E))
+    return jnp.asarray(k), torch.from_numpy(k.astype(np.int64))
+
+
+def inputs(seed):
+    rng = np.random.default_rng(seed)
+
+    def u(lo, hi):
+        return rng.uniform(lo, hi, (E, K)).astype(np.float32)
+
+    return rng, {
+        "bid": np.round(u(0.2, 2.0), 2).astype(np.float32),
+        "loc": u(0.0, 1.5),
+        "scale": u(0.01, 0.5),
+        "n": rng.integers(0, 48, (E, K)).astype(np.float32),
+        "p": u(0.0, 1.0),
+    }
+
+
+def t(x):
+    return torch.from_numpy(np.array(x))
+
+
+def test_uniform16_and_uniform_are_bitwise():
+    jk, tk = keys(0)
+    np.testing.assert_array_equal(
+        td.uniform16(tk, (K,)).numpy(), np.asarray(jax.vmap(lambda k: jd.uniform16(k, (K,)))(jk))
+    )
+    np.testing.assert_array_equal(
+        td.lane_uniform(tk, (3, K), 32).numpy(),
+        np.asarray(jax.vmap(lambda k: jax.random.uniform(k, (3, K)))(jk)),
+    )
+
+
+@pytest.mark.parametrize("bits", [16, 32])
+def test_binomial_walk_is_bitwise(bits):
+    jk, tk = keys(1 + bits)
+    _, x = inputs(bits)
+    for nmax in (16, 47):
+        n = np.minimum(x["n"], nmax)
+        want = jax.jit(jax.vmap(lambda k, n, p: jd.binomial_inv(k, n, p, nmax, bits)))(
+            jk, n, x["p"]
+        )
+        got = td.binomial_inv(tk, t(n), t(x["p"]), nmax, bits)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        assert got.dtype == torch.int32 and (got <= t(n).int()).all()
+
+
+@pytest.mark.parametrize("bits", [16, 32])
+def test_ladder_draw_is_bitwise_given_the_ladder(bits):
+    jk, tk = keys(7)
+    _, x = inputs(8)
+    n = np.minimum(x["n"], 24)
+    cdf, flip, ni = jax.jit(lambda n, p: jd.binomial_cdf(n, p, 24))(n, x["p"])
+    want = jax.jit(jax.vmap(lambda k, c, f, i: jd.binomial_inv_from_cdf(k, (c, f, i), bits),
+                            in_axes=(0, 1, 0, 0)))(jk, cdf, flip, ni)
+    got = td.binomial_inv_from_cdf(tk, (t(cdf), t(flip), t(ni)), bits)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    own = td.binomial_cdf(t(n), t(x["p"]), 24)
+    np.testing.assert_allclose(own[0].numpy(), np.asarray(cdf), rtol=1e-6, atol=1e-7)
+    np.testing.assert_array_equal(own[1].numpy(), np.asarray(flip))
+    np.testing.assert_array_equal(own[2].numpy(), np.asarray(ni))
+
+
+def test_win_prob_and_cost_moments():
+    _, x = inputs(3)
+    bid, loc, scale = x["bid"], x["loc"], x["scale"]
+    p_j = np.asarray(jax.jit(ja.implicit_single_win_prob)(bid, loc, scale))
+    p_t = ta.implicit_single_win_prob(t(bid), t(loc), t(scale)).numpy()
+    np.testing.assert_allclose(p_t, p_j, rtol=1e-6, atol=1e-7)
+    mu_j, sig_j, cmax_j = (np.asarray(v) for v in
+                           jax.jit(jd.single_cost_cent_moments_closed)(bid, loc, scale))
+    mu_t, sig_t, cmax_t = (v.numpy() for v in
+                           td.single_cost_cent_moments_closed(t(bid), t(loc), t(scale)))
+    np.testing.assert_array_equal(cmax_t, cmax_j)
+    live = p_j > 1e-3  # cells a bid can win; below, both divide noise by z ~ 0
+    assert live.mean() > 0.8
+    np.testing.assert_allclose(mu_t[live], mu_j[live], rtol=1e-6)
+    np.testing.assert_allclose(sig_t[live] ** 2, sig_j[live] ** 2, rtol=0,
+                               atol=4e-6 * float(np.max(mu_j[live] ** 2)))
+
+
+def test_censored_and_revenue_moments():
+    rng = np.random.default_rng(4)
+    mean = rng.uniform(0.2, 3.0, (E, K)).astype(np.float32)
+    std = (mean * rng.uniform(0.0, 1.0, (E, K))).astype(np.float32)
+    std[:, 0] = 0.0
+    m1_j, s1_j = (np.asarray(v) for v in
+                  jax.jit(lambda m, s: jd.censored_normal_moments(m, s, 0.01))(mean, std))
+    m1_t, s1_t = (v.numpy() for v in td.censored_normal_moments(t(mean), t(std), 0.01))
+    np.testing.assert_allclose(m1_t, m1_j, rtol=1e-6)
+    np.testing.assert_allclose(s1_t ** 2, s1_j ** 2, rtol=0, atol=4e-6 * float(np.max(m1_j ** 2)))
+    np.testing.assert_array_equal(s1_t[:, 0], 0.0)
+
+
+@pytest.mark.parametrize("bits", [16, 32])
+def test_truncated_laplace_and_lane_cents(bits):
+    jk, tk = keys(5)
+    _, x = inputs(6)
+    loc, scale, y0 = x["loc"], x["scale"], x["bid"] - np.float32(0.005)
+    want = np.asarray(jax.jit(jax.vmap(
+        lambda k, l, s, y: jd.truncated_laplace(k, l, s, -y, y, (3, K), bits)
+    ))(jk, loc[:, None], scale[:, None], y0[:, None]))
+    got = td.truncated_laplace(tk, t(loc)[:, None], t(scale)[:, None], -t(y0)[:, None],
+                               t(y0)[:, None], (3, K), bits).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+    cents_j, cents_t = np.round(np.abs(want) * 100), np.round(np.abs(got) * 100)
+    off = cents_j != cents_t
+    frac = np.abs(want[off]) * 100 % 1.0
+    assert off.mean() < 1e-3 and np.all(np.abs(frac - 0.5) < 1e-3), frac
+
+
+def test_agg_cost_and_revenue_sums_are_bitwise():
+    jk, tk = keys(9)
+    rng, x = inputs(10)
+    bid, loc, scale = x["bid"], x["loc"], x["scale"]
+    mu, sig, cmax = (np.asarray(v) for v in
+                     jax.jit(jd.single_cost_cent_moments_closed)(bid, loc, scale))
+    n = rng.integers(0, 48, (E, K)).astype(np.int32)
+    want = jax.jit(jax.vmap(lambda k, n, a, b, c: jd.agg_cost_cents(k, n, a, b, c, jnp.int32)))(
+        jk, n, mu, sig, cmax
+    )
+    got = td.agg_cost_cents(tk, t(n), t(mu), t(sig), t(cmax))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert (got <= t(n) * t(cmax)).all() and (got >= 0).all()
+
+    rev_mean = rng.uniform(0.2, 3.0, (E, K)).astype(np.float32)
+    rev_std = (rev_mean * rng.uniform(0.0, 1.0, (E, K))).astype(np.float32)
+    rev_std[:, :3] = 0.0  # the exact branch
+    want = jax.jit(jax.vmap(lambda k, n, a, b: jd.rev_sum_cents(k, n, a, b, jnp.int32)))(
+        jk, n, rev_mean, rev_std
+    )
+    own = td.rev_sum_cents(tk, t(n), t(rev_mean), t(rev_std))
+    off = (own.numpy() != np.asarray(want))
+    assert off.mean() <= 1e-3 and np.abs(own.numpy() - np.asarray(want)).max() <= 1
+    # given the JAX package's moments, bitwise
+    mean_c, std_c = (t(v) for v in jax.jit(jax_rev_moments)(rev_mean, rev_std))
+    z = td.prng.normal(tk, (K,))
+    got = td.rev_sum_cents_z(z, t(n), mean_c, std_c, t(rev_std))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert (got >= t(n)).all()
+
+
+def jax_rev_moments(rev_mean, rev_std):
+    """``rev_sum_cents``' per-conversion moments in cents, as it computes them."""
+    m1, s1 = jd.censored_normal_moments(rev_mean, rev_std, 0.01)
+    return 100.0 * m1, jnp.sqrt((100.0 * s1) ** 2 + (1.0 / 12.0))
+
+
+def test_unported_samplers_raise():
+    from adcraft_tpu_torch import EnvConfig, KeywordKind
+
+    cfg = EnvConfig(kind=KeywordKind.IMPLICIT, binomial_sampler="exact")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        ta.cell_binomial_fn(cfg, 8)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        td.agg_cost_cents(keys(0)[1], torch.ones(E, K, dtype=torch.int32), torch.ones(E, K),
+                          torch.ones(E, K), torch.ones(E, K), bits=16)
+    bfn = ta.cell_binomial_fn(cfg.replace(binomial_sampler="inversion", lane_bits=16), 8)
+    jk, tk = keys(11)
+    want = jax.vmap(lambda k: jd.binomial_inv(k, jnp.full(K, 5.0), jnp.full(K, 0.3), 8, 16))(jk)
+    np.testing.assert_array_equal(bfn(tk, torch.full((E, K), 5.0), torch.full((E, K), 0.3)).numpy(),
+                                  np.asarray(want))

@@ -219,3 +219,101 @@ def test_env_step_launches_threefry_six_times(cuda):
         state, _ = env.step(state, bids)
     torch.cuda.synchronize()
     assert pk.threefry_words.launches == before + 18
+
+
+# ---- the XLA day step's kernels (csrc/agg_day.cu) ----
+
+def xla_config(K, bits, max_volume=576, lite=1):
+    return EnvConfig(num_keywords=K, kind=KeywordKind.IMPLICIT, max_volume=max_volume,
+                     cost_sampling="agg", conv_sampling="counts", rev_sampling="sum",
+                     binomial_sampler="inversion", lane_bits=bits, agg_lite_lanes=lite)
+
+
+def xla_inputs(cfg, E, seed, dev):
+    """Random keywords, bids, auction counts and cell keys for agg_day."""
+    from adcraft_tpu_torch import agg_day
+    from adcraft_tpu_torch.keywords import make_keyword_state
+    from adcraft_tpu_torch.step import xla_lanes
+
+    K = cfg.num_keywords
+    gen = torch.Generator().manual_seed(seed)
+
+    def u(lo, hi):
+        return (lo + (hi - lo) * torch.rand((E, K), generator=gen)).to(dev)
+
+    kw = make_keyword_state(K, vol_mean=u(20, 90), vol_std=u(1, 15), bctr=u(0.05, 0.9),
+                            sctr=u(0.05, 0.9), rev_mean=u(0.3, 3), rev_std=u(0, 0.8),
+                            bid_loc=u(0.2, 1.2), bid_scale=u(0.03, 0.5), batch_shape=(E,),
+                            device=dev)
+    bids = torch.round(u(0.3, 1.5) * 100) / 100
+    vol = torch.randint(0, cfg.max_volume + 1, (E, K), generator=gen, dtype=torch.int32)
+    n_auc = split_volume(cfg, vol)
+    n_auc01 = torch.stack([n_auc[0], n_auc[1]]).contiguous().to(dev)
+    params = agg_day.pack_params(kw, bids)
+    keys = prng.split(prng.PRNGKey(seed, dev), E)
+    return xla_lanes(cfg), params, n_auc01, keys
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K, bits, lite", [(7, 16, 1), (7, 32, 3), (300, 16, 1), (300, 32, 2)])
+def test_agg_kernels_match_reference(cuda, K, bits, lite):
+    """agg_cells (and the day constants it computes), agg_gate and
+    agg_outcomes each equal their plain version on the same inputs,
+    budgets unbound, binding, small and zero."""
+    from adcraft_tpu_torch import agg_day
+    from adcraft_tpu_torch.step import budget_cents
+
+    E = 97
+    cfg = xla_config(K, bits, lite=lite)
+    lanes, params, n_auc01, keys = xla_inputs(cfg, E, K + bits, cuda)
+    before = (agg_day.agg_cells.launches, agg_day.agg_gate.launches,
+              agg_day.agg_outcomes.launches)
+    *cells, consts = agg_day.agg_cells(params, n_auc01, keys, lanes, keep_constants=True)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("p_win", "ladder", "cost mu", "cost sigma", "cost cmax"), consts,
+                          agg_day.cell_constants(params, n_auc01[1], lanes.m1)):
+        torch.testing.assert_close(g, w, rtol=0, atol=0, msg=name)
+    want = agg_day.agg_cells_reference(params, n_auc01, keys, lanes)
+    for g, w in zip(cells, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    imp, ncl, s_full, lite_c = cells
+    regimes = set()
+    for budget in (1e6, 20.0 * K / 7, 0.5, 0.0):
+        budget_c = budget_cents(torch.full((E,), budget, device=cuda))
+        gate = agg_day.agg_gate(params, keys, s_full, ncl, lite_c, budget_c, lanes)
+        torch.cuda.synchronize()
+        want_gate = agg_day.agg_gate_reference(params, keys, s_full, ncl, lite_c, budget_c, lanes)
+        for g, w in zip(gate, want_gate):
+            torch.testing.assert_close(g, w, rtol=0, atol=0)
+        out = agg_day.agg_outcomes(params, keys, imp, *gate, n_auc01, lanes)
+        torch.cuda.synchronize()
+        want_out = agg_day.agg_outcomes_reference(params, keys, imp, *gate, n_auc01, lanes)
+        for g, w in zip(out, want_out):
+            torch.testing.assert_close(g, w, rtol=0, atol=0)
+        assert (out[2].sum(1) <= budget_c.clamp(min=0)).all()
+        n_sim = gate[2]
+        regimes |= {"unbroken" if n == lanes.T * K else "t0" if n <= K else "mid-day"
+                    for n in n_sim.tolist()}
+    assert regimes == {"unbroken", "t0", "mid-day"}, regimes
+    after = (agg_day.agg_cells.launches, agg_day.agg_gate.launches,
+             agg_day.agg_outcomes.launches)
+    assert after == (before[0] + 1, before[1] + 4, before[2] + 4)
+
+
+@pytest.mark.cuda
+def test_xla_env_step_launches_each_agg_kernel_once(cuda):
+    from adcraft_tpu_torch import agg_day
+
+    cfg = xla_config(8, 16, max_volume=96).replace(timesteps_per_day=6)
+    env = VectorBiddingEnv(cfg, 32, simple_experiment_table(64, 0.5))
+    state, _ = env.reset(prng.PRNGKey(0))
+    bids = torch.full((32, 8), 1.0, device=cuda)
+    kernels = (agg_day.agg_cells, agg_day.agg_gate, agg_day.agg_outcomes)
+    before = [k.launches for k in kernels]
+    state, ts = env.step(state, bids, torch.full((32,), 3.0, device=cuda))
+    end, roll = env.rollout(state, bids, 2)
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(kernels, before)] == [3, 3, 3]
+    assert ts.outcomes.impressions.is_cuda and (end.day == 3).all()
+    assert roll.outcomes.impressions.shape == (2, 32, 8)
+    assert (ts.outcomes.cost.sum(1) <= 3.0 + 1e-4).all()
