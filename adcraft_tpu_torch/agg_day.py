@@ -1,28 +1,36 @@
-"""The XLA day step's three phases as CUDA kernels, each beside its plain version.
+"""The XLA day step's three phases as two CUDA kernels, each beside its plain version.
 
 The JAX package's default day step (``day_kernel="xla"``,
 ``cost_sampling="agg"``, ``conv_sampling="counts"``,
 ``rev_sampling="sum"``, inversion binomials; ``adcraft_tpu/step.py``
 ``simulate_day``, :991) is plain jnp that XLA compiles. The port runs it
-as three kernels of ``csrc/agg_day.cu``, built with nvcc on first use
+as two kernels of ``csrc/agg_day.cu``, built with nvcc on first use
 (``cuda_build``) and bound with ctypes:
 
-* ``agg_cells`` (plain: ``agg_cells_reference``), the sampling phase
-  (``_cell_tables``' agg implicit-single branch, step.py:858-926, with the
-  day-hoisted ladder of :1263-1282): per (env, sub-timestep, keyword) the
-  impressions (the inversion walk at t = 0, the day's CDF ladder after),
-  the clicks (the walk), the aggregate spend ``s_full`` and the first L
-  "lite" lane costs.
-* ``agg_gate`` (plain: ``agg_gate_reference``), the budget gate: the
-  sequential rule of ``_gate_keywords_scan_agg`` (:740) with
-  ``_resolve_cell`` (:1087), to which the JAX package's lazy, chunked and
-  compacted gates are bit-identical. Cells are walked in (t, k) order; a
-  cell is full if ``s_full <= B``, else its lanes (the lite ones, then
-  ``m - L`` deep ones from ``fold_in(k_rest, k)``) are accepted up to the
-  first prefix over B; after each cell the day breaks if ``B <= 0``.
+* ``agg_cells_gate`` (plain: ``agg_cells_gate_reference``, which is
+  ``agg_cells_reference`` then ``agg_gate_reference``), the sampling phase
+  and the budget gate in one launch:
+
+  - the sampling phase (``_cell_tables``' agg implicit-single branch,
+    step.py:858-926, with the day-hoisted ladder of :1263-1282): per (env,
+    sub-timestep, keyword) the impressions (the inversion walk at t = 0,
+    the day's CDF ladder after), the clicks (the walk), the aggregate spend
+    ``s_full`` and the first L "lite" lane costs;
+  - the budget gate: the sequential rule of ``_gate_keywords_scan_agg``
+    (:740) with ``_resolve_cell`` (:1087), to which the JAX package's lazy,
+    chunked and compacted gates are bit-identical. Cells are walked in (t,
+    k) order; a cell is full if ``s_full <= B``, else its lanes (the lite
+    ones, then ``m - L`` deep ones from ``fold_in(k_rest, k)``) are
+    accepted up to the first prefix over B; after each cell the day breaks
+    if ``B <= 0``.
+
+  The kernel keeps the cell tables on chip and stops sampling at the
+  chunk of sub-timesteps in which the day breaks, so it writes only the
+  simulated cells (``t * K + k < n_sim``); the plain version writes all.
 * ``agg_outcomes`` (plain: ``agg_outcomes_reference``), the post-gate
   phase (:1392-1500): conversion counts by the walk, revenue sums, the
-  ``cell_out`` masks and the (E, K) day sums in integer cents.
+  ``cell_out`` masks and the (E, K) day sums in integer cents. It reads
+  only the simulated cells.
 
 Every draw is keyed by the JAX key tree (``prng``, threefry2x32): per
 sub-timestep ``kt = fold_in(k_cells, t)``, ``k_auc, k_click, k_conv, k_rev
@@ -33,11 +41,11 @@ lane l's at ``l * K + k``, a deep column lane i's at ``i``.
 
 The day's constants (the win probability and its t >= 1 CDF ladder, the
 cost moments, the revenue moments) are computed once per (env, keyword)
-inside ``agg_cells`` and ``agg_outcomes`` from the raw bids and keyword
-parameters (``pack_params``), by the same float operations as the plain
-``cell_constants`` and ``distributions.rev_sum_moments``, which the plain
-versions call. Each wrapper runs the plain version for CPU tensors and
-launches its kernel for CUDA tensors: on a CUDA tensor it launches or
+inside ``agg_cells_gate`` and ``agg_outcomes`` from the raw bids and
+keyword parameters (``pack_params``), by the same float operations as the
+plain ``cell_constants`` and ``distributions.rev_sum_moments``, which the
+plain versions call. Each wrapper runs the plain version for CPU tensors
+and launches its kernel for CUDA tensors: on a CUDA tensor it launches or
 raises. ``launches`` counts the launches.
 """
 
@@ -86,7 +94,7 @@ def y0_of(params: torch.Tensor) -> torch.Tensor:
 
 def cell_constants(params: torch.Tensor, n1: torch.Tensor, m1: int):
     """Plain sampling-phase constants: (p_win, ladder (E, m1, K), cost mu,
-    sigma, cmax), what ``agg_cells`` computes per (env, keyword)."""
+    sigma, cmax), what ``agg_cells_gate`` computes per (env, keyword)."""
     bid, loc, scale = params[BID], params[LOC], params[SCALE]
     p_win = implicit_single_win_prob(bid, loc, scale)
     ladder = dist.binomial_cdf(n1, p_win, m1)[0][:m1].permute(1, 0, 2).contiguous()
@@ -206,6 +214,18 @@ def agg_gate_reference(params, k_cells, s_full, n_clicks, lite, budget_c, lanes:
     return acc, spend, n_sim
 
 
+def agg_cells_gate_reference(params, n_auc01, k_cells, budget_c, lanes: Lanes,
+                             keep_constants: bool = False):
+    """Plain sampling phase and gate: ``agg_cells_reference``, then
+    ``agg_gate_reference`` on its tables. Returns (imp, acc, spend) (E, T,
+    K) int32 and ``n_sim`` (E,) int32; with ``keep_constants``, also the
+    ``cell_constants`` the day used."""
+    cells = agg_cells_reference(params, n_auc01, k_cells, lanes, keep_constants)
+    imp, ncl, s_full, lite = cells[:4]
+    out = (imp, *agg_gate_reference(params, k_cells, s_full, ncl, lite, budget_c, lanes))
+    return (*out, cells[4]) if keep_constants else out
+
+
 def agg_outcomes_reference(params, k_cells, imp, acc, spend, n_sim, n_auc01, lanes: Lanes):
     """Plain post-gate phase: the (E, K) int32 day sums (impressions,
     clicks, cost cents, conversions, revenue cents, eligible volume)."""
@@ -232,17 +252,25 @@ def agg_outcomes_reference(params, k_cells, imp, acc, spend, n_sim, n_auc01, lan
     return tuple(sums)
 
 
-def _bind(lib: ctypes.CDLL) -> None:
+def bind(lib: ctypes.CDLL) -> None:
+    """The ctypes signatures of ``csrc/agg_day.cu``'s C interface."""
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.agg_cells_launch.argtypes = [p, p, p, ll, p, p, p, p, p] + [i] * 8 + [p]
-    lib.agg_cells_launch.restype = i
-    lib.agg_gate_launch.argtypes = [p, p, ll, p, p, p, p, p, p, p] + [i] * 8 + [p]
-    lib.agg_gate_launch.restype = i
+    pi = ctypes.POINTER(i)
+    lib.agg_cells_gate_launch.argtypes = [p, p, p, ll] + [p] * 6 + [i] * 9 + [p]
+    lib.agg_cells_gate_launch.restype = i
+    lib.agg_cells_gate_occupancy.argtypes = [i] * 6 + [pi]
+    lib.agg_cells_gate_occupancy.restype = i
+    lib.agg_cells_gate_default_chunk_t.argtypes = [i] * 6 + [pi]
+    lib.agg_cells_gate_default_chunk_t.restype = i
+    lib.agg_cells_gate_smem_bytes.argtypes = [i] * 5
+    lib.agg_cells_gate_smem_bytes.restype = ll
+    lib.agg_cells_gate_smem_limit.argtypes = [i, pi]
+    lib.agg_cells_gate_smem_limit.restype = i
     lib.agg_outcomes_launch.argtypes = [p, p, ll, p, p, p, p, p, p] + [i] * 7 + [p]
     lib.agg_outcomes_launch.restype = i
 
 
-library = CudaLibrary("agg_day", _bind)
+library = CudaLibrary("agg_day", bind)
 
 
 def _check(device, *specs) -> None:
@@ -269,15 +297,19 @@ def _check_lanes(lanes: Lanes) -> None:
         raise ValueError(f"unsupported lanes {lanes}")
 
 
+def _index(device) -> int:
+    return torch.cuda.current_device() if device.index is None else device.index
+
+
 def _launch_args(device):
-    return device.index, torch.cuda.current_stream(device).cuda_stream
+    return _index(device), torch.cuda.current_stream(device).cuda_stream
 
 
 class _Kernel:
-    def __init__(self, name: str):
+    def __init__(self, name: str, cuda_library: CudaLibrary = library):
         self.name = name
         self.launches = 0
-        self.library = library
+        self.library = cuda_library
 
     def _cuda(self, device) -> ctypes.CDLL:
         if device.type != "cuda":
@@ -285,73 +317,100 @@ class _Kernel:
         return self.library.get()
 
 
-class AggCells(_Kernel):
-    """The ``agg_cells`` kernel's wrapper."""
+class AggCellsGate(_Kernel):
+    """The ``agg_cells_gate`` kernel's wrapper."""
 
-    def __call__(self, params, n_auc01, k_cells, lanes: Lanes, keep_constants: bool = False):
-        """Outputs as ``agg_cells_reference``. ``params`` (NUM_PARAMS, E, K)
-        f32, ``n_auc01`` (2, E, K) int32 (the auction counts at t = 0 and t
-        >= 1), ``k_cells`` (E, 2) int64. ``keep_constants`` appends the
+    def __init__(self, name: str, cuda_library: CudaLibrary = library):
+        super().__init__(name, cuda_library)
+        self._chunk_t = {}
+        self._fitting = set()
+
+    def _int_out(self, fn, *args) -> int:
+        out = ctypes.c_int(0)
+        self.library.check(fn(*args, ctypes.byref(out)), self.name)
+        return out.value
+
+    def smem_bytes(self, chunk_t: int, K: int, lanes: Lanes) -> int:
+        """Dynamic shared memory of one block at ``chunk_t``."""
+        return self.library.get().agg_cells_gate_smem_bytes(chunk_t, K, lanes.m0, lanes.m1,
+                                                            lanes.L)
+
+    def smem_limit(self, device) -> int:
+        """The dynamic shared memory a block may take on the card, in bytes."""
+        return self._int_out(self.library.get().agg_cells_gate_smem_limit, _index(device))
+
+    def occupancy(self, chunk_t: int, K: int, lanes: Lanes, device) -> int:
+        """Resident blocks per SM at ``chunk_t``; 0 if a block does not fit."""
+        return self._int_out(self.library.get().agg_cells_gate_occupancy, chunk_t, K, lanes.m0,
+                             lanes.m1, lanes.L, _index(device))
+
+    def _fits(self, chunk_t: int, K: int, lanes: Lanes, device) -> None:
+        key = (_index(device), K, lanes, chunk_t)
+        if key in self._fitting:
+            return
+        need, limit = self.smem_bytes(chunk_t, K, lanes), self.smem_limit(device)
+        if need > limit:
+            raise ValueError(f"{self.name}: K = {K}, chunk_t = {chunk_t} needs {need} B of "
+                             f"shared memory per block, above the card's limit of {limit} B")
+        self._fitting.add(key)
+
+    def default_chunk_t(self, K: int, lanes: Lanes, device) -> int:
+        """The largest chunk of sub-timesteps that keeps the kernel's target
+        of resident blocks per SM (or as many as a chunk of one keeps);
+        raises ``ValueError`` if not even one sub-timestep fits."""
+        key = (_index(device), K, lanes)
+        if key not in self._chunk_t:
+            self._fits(1, K, lanes, device)
+            self._chunk_t[key] = self._int_out(self.library.get().agg_cells_gate_default_chunk_t,
+                                               K, lanes.T, lanes.m0, lanes.m1, lanes.L,
+                                               key[0])
+        return self._chunk_t[key]
+
+    def __call__(self, params, n_auc01, k_cells, budget_c, lanes: Lanes,
+                 keep_constants: bool = False, *, chunk_t=None):
+        """Outputs as ``agg_cells_gate_reference``, but on the card the cells
+        at or past each env's break (``t * K + k >= n_sim``) are not
+        written. ``params`` (NUM_PARAMS, E, K) f32, ``n_auc01`` (2, E, K)
+        int32 (the auction counts at t = 0 and t >= 1), ``k_cells`` (E, 2)
+        int64, ``budget_c`` (E,) int32 cents. ``keep_constants`` appends the
         constants the day used, (p_win, ladder (E, m1, K), cost mu, sigma,
-        cmax)."""
+        cmax). ``chunk_t``, the kernel's sub-timesteps per chunk, defaults
+        to ``default_chunk_t``; outputs do not depend on it."""
         _, E, K = params.shape
         device = params.device
         _check_lanes(lanes)
         _check(device, ("params", params, torch.float32, (NUM_PARAMS, E, K)),
-               ("n_auc01", n_auc01, torch.int32, (2, E, K)))
+               ("n_auc01", n_auc01, torch.int32, (2, E, K)),
+               ("budget_c", budget_c, torch.int32, (E,)))
         _check_keys(k_cells, E, device)
+        if chunk_t is not None and chunk_t < 1:
+            raise ValueError("chunk_t must be >= 1")
         if device.type == "cpu":
-            return agg_cells_reference(params, n_auc01, k_cells, lanes, keep_constants)
+            return agg_cells_gate_reference(params, n_auc01, k_cells, budget_c, lanes,
+                                            keep_constants)
         lib = self._cuda(device)
-        T, L, m1 = lanes.T, lanes.L, lanes.m1
-        outs = [torch.empty((E, T, K), dtype=torch.int32, device=device) for _ in range(3)]
-        lite = torch.empty((E, T, L, K), dtype=torch.int32, device=device)
+        if chunk_t is None:
+            chunk_t = self.default_chunk_t(K, lanes, device)
+        chunk_t = min(chunk_t, lanes.T)
+        self._fits(chunk_t, K, lanes, device)
+        T, m1 = lanes.T, lanes.m1
+        imp, acc, spend = (torch.empty((E, T, K), dtype=torch.int32, device=device)
+                           for _ in range(3))
+        n_sim = torch.empty((E,), dtype=torch.int32, device=device)
         kept = (torch.empty((4 + m1, E, K), dtype=torch.float32, device=device)
                 if keep_constants else None)
-        err = lib.agg_cells_launch(
+        err = lib.agg_cells_gate_launch(
             params.data_ptr(), n_auc01.data_ptr(), k_cells.data_ptr(), k_cells.stride(0),
-            *(o.data_ptr() for o in outs), lite.data_ptr(),
-            None if kept is None else kept.data_ptr(),
-            E, K, T, lanes.m0, m1, L, lanes.bits, *_launch_args(device),
+            budget_c.data_ptr(), imp.data_ptr(), acc.data_ptr(), spend.data_ptr(),
+            n_sim.data_ptr(), None if kept is None else kept.data_ptr(), E, K, T, lanes.m0, m1,
+            lanes.L, lanes.bits, chunk_t, *_launch_args(device),
         )
         self.library.check(err, self.name)
         self.launches += 1
         if not keep_constants:
-            return (*outs, lite)
-        return (*outs, lite, (kept[0], kept[4:].permute(1, 0, 2), kept[1], kept[2], kept[3]))
-
-
-class AggGate(_Kernel):
-    """The ``agg_gate`` kernel's wrapper."""
-
-    def __call__(self, params, k_cells, s_full, n_clicks, lite, budget_c, lanes: Lanes):
-        """Outputs as ``agg_gate_reference``; ``budget_c`` (E,) int32 cents."""
-        E, T, K = s_full.shape
-        device = params.device
-        _check_lanes(lanes)
-        if T != lanes.T:
-            raise ValueError(f"s_full has {T} sub-timesteps, lanes {lanes.T}")
-        _check(device, ("params", params, torch.float32, (NUM_PARAMS, E, K)),
-               ("s_full", s_full, torch.int32, (E, T, K)),
-               ("n_clicks", n_clicks, torch.int32, (E, T, K)),
-               ("lite", lite, torch.int32, (E, T, lanes.L, K)),
-               ("budget_c", budget_c, torch.int32, (E,)))
-        _check_keys(k_cells, E, device)
-        if device.type == "cpu":
-            return agg_gate_reference(params, k_cells, s_full, n_clicks, lite, budget_c, lanes)
-        lib = self._cuda(device)
-        acc = torch.empty((E, T, K), dtype=torch.int32, device=device)
-        spend = torch.empty((E, T, K), dtype=torch.int32, device=device)
-        n_sim = torch.empty((E,), dtype=torch.int32, device=device)
-        err = lib.agg_gate_launch(
-            params.data_ptr(), k_cells.data_ptr(), k_cells.stride(0), s_full.data_ptr(),
-            n_clicks.data_ptr(), lite.data_ptr(), budget_c.data_ptr(), acc.data_ptr(),
-            spend.data_ptr(), n_sim.data_ptr(), E, K, T, lanes.m0, lanes.m1, lanes.L,
-            lanes.bits, *_launch_args(device),
-        )
-        self.library.check(err, self.name)
-        self.launches += 1
-        return acc, spend, n_sim
+            return imp, acc, spend, n_sim
+        return (imp, acc, spend, n_sim,
+                (kept[0], kept[4:].permute(1, 0, 2), kept[1], kept[2], kept[3]))
 
 
 class AggOutcomes(_Kernel):
@@ -384,15 +443,14 @@ class AggOutcomes(_Kernel):
         return tuple(out.unbind(0))
 
 
-agg_cells = AggCells("agg_cells")
-agg_gate = AggGate("agg_gate")
+agg_cells_gate = AggCellsGate("agg_cells_gate")
 agg_outcomes = AggOutcomes("agg_outcomes")
 
 
 def simulate_day_agg(lanes: Lanes, k_cells, kw, bids, budget_c,
                      n_auc01) -> Tuple[torch.Tensor, ...]:
-    """The three phases for one day: the six (E, K) int32 day sums."""
+    """The three phases for one day, in two launches: the six (E, K) int32
+    day sums."""
     params = pack_params(kw, bids)
-    imp, ncl, s_full, lite = agg_cells(params, n_auc01, k_cells, lanes)
-    acc, spend, n_sim = agg_gate(params, k_cells, s_full, ncl, lite, budget_c, lanes)
+    imp, acc, spend, n_sim = agg_cells_gate(params, n_auc01, k_cells, budget_c, lanes)
     return agg_outcomes(params, k_cells, imp, acc, spend, n_sim, n_auc01, lanes)

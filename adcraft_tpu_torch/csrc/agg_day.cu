@@ -1,26 +1,27 @@
-// The XLA day step on Hopper (sm_90a): three kernels for the three phases
+// The XLA day step on Hopper (sm_90a): two kernels for the three phases
 // of adcraft_tpu/step.py:simulate_day (:991) in the configuration that
 // bench.py:47-76 times (aggregate costs, conversion counts, revenue sums,
 // inversion binomials, implicit single-competitor keywords). The JAX
 // package left these phases to XLA, so no Pallas kernel constrains them:
 //
-// * agg_cells replaces the sampling phase, _cell_tables' agg
+// * agg_cells_gate replaces the sampling phase, _cell_tables' agg
 //   implicit-single branch (step.py:858-926) vmapped over sub-timesteps,
-//   with the day-hoisted impression ladder (:1263-1282);
-// * agg_gate replaces the budget gate (:1295-1391): the sequential rule of
-//   _gate_keywords_scan_agg (:740) with _resolve_cell (:1087), to which the
-//   lazy, chunked and compacted TPU gates are bit-identical;
+//   with the day-hoisted impression ladder (:1263-1282), and the budget
+//   gate (:1295-1391): the sequential rule of _gate_keywords_scan_agg
+//   (:740) with _resolve_cell (:1087), to which the lazy, chunked and
+//   compacted TPU gates are bit-identical;
 // * agg_outcomes replaces the post-gate phase (:1392-1500): conversion
 //   counts, revenue sums, cell_out's masks and the day sums.
 //
 // The plain PyTorch versions are adcraft_tpu_torch/agg_day.py:
-// agg_cells_reference, agg_gate_reference, agg_outcomes_reference. Every
-// float operation here is the one that version's tensor ops perform on the
-// card, spelled so that nvcc cannot contract or reorder it: __fmul_rn,
-// __fadd_rn, __fdiv_rn, IEEE sqrtf, rintf, the same expf, logf, log1pf and
-// powf that PyTorch's CUDA kernels call, and fused multiply-adds (XLA's
-// contractions, which the plain version writes in float64) as a float64
-// product and sum rounded to float32. So the kernels equal it exactly.
+// agg_cells_gate_reference (agg_cells_reference, then agg_gate_reference)
+// and agg_outcomes_reference. Every float operation here is the one that
+// version's tensor ops perform on the card, spelled so that nvcc cannot
+// contract or reorder it: __fmul_rn, __fadd_rn, __fdiv_rn, IEEE sqrtf,
+// rintf, the same expf, logf, log1pf and powf that PyTorch's CUDA kernels
+// call, and fused multiply-adds (XLA's contractions, which the plain
+// version writes in float64) as a float64 product and sum rounded to
+// float32. So the kernels equal it exactly.
 //
 // Keys follow jax.random's tree (threefry.cuh): per env and sub-timestep
 // kt = fold_in(k_cells, t); k_auc, k_click, k_conv, k_rev = split(kt, 4);
@@ -29,34 +30,89 @@
 // A (K,) draw takes the word at counter k, the (L, K) lite table lane l's
 // at l * K + k, a deep column lane i's at i.
 //
-// What bounds them: threefry words (integer ALU) and, far behind, the
-// per-cell tables written and read once (about 16 bytes a cell between
-// agg_cells and agg_gate, 12 between agg_gate and agg_outcomes). The
-// design is the simplest that keeps the sequential part on one warp:
-// agg_cells and agg_outcomes run one block per env and a thread per
-// keyword over the sub-timesteps, with each sub-timestep's keys derived
-// once per block into shared memory; agg_gate runs one warp per env and
-// decides cells 32 at a time: a warp scan of the aggregate spends finds the
-// run of full cells that break nothing (those before the first whose
-// prefix reaches the budget), a ballot the run of cells that accept nothing
-// (not full, and a first lite lane above the budget: the budget-decay tail
-// of a day), and only a cell that accepts part of its clicks is
-// lane-resolved, by the warp's lanes in parallel with a ballot for the
-// first over-budget prefix.
+// What bounds them: threefry words (integer ALU) and the walks' float
+// work. Bytes are far behind: agg_cells_gate keeps the cell tables on chip
+// and writes 12 bytes per simulated cell, which agg_outcomes reads back.
+//
+// agg_cells_gate runs one block per env. Its prologue computes each
+// keyword's constants once into shared memory: the win probability, the
+// truncation bounds, the cost moments and the t >= 1 CDF ladder's m1
+// levels. The sub-timesteps then run in chunks of chunk_t, each in three
+// stages over the chunk's cells c = (t - t0) * K + k, in the gate's (t, k)
+// order:
+//
+// * Stage A (all threads, one cell per index, so no thread idles on K mod
+//   the block size): the impressions (the walk at t = 0; at t >= 1 a
+//   bisection of the shared ladder, which never falls), the clicks (the
+//   walk, with 1/j from a shared table), the aggregate spend and the L lite
+//   lane costs, into shared memory. A draw is made only where it can
+//   matter: an impression word where there are auctions, a click word
+//   where there are impressions, the spend normal and the lite lanes where
+//   there are clicks (a walk over zero trials counts zero, zero clicks
+//   spend zero, and the gate reads no lane of a cell without clicks).
+// * Stage B (warp 0): the gate over the chunk's cells from shared memory,
+//   through a window of the next 32: a saturating warp scan of the
+//   aggregate spends and a ballot find the run of full cells that leave
+//   budget, a second ballot the run of cells that leave a positive budget
+//   as it is (full at no cost, or accepting nothing: not full, and no click
+//   or a first lite lane above the budget, the budget-decay tail of a day);
+//   the longer run is taken, and the cell after it is decided on its own:
+//   full, or lane-resolved, by a running sum if all its lanes are lite,
+//   else by the warp's lanes in parallel with a ballot for the first
+//   over-budget prefix. A walk is a chain of dependent warp operations that
+//   the SM's other warps slow down, so the design keeps its steps few. The
+//   budget carries across chunks in warp 0's registers.
+// * Stage C (all threads): imp, acc and spend of the chunk's simulated
+//   cells to device memory. After the chunk in which the day breaks the
+//   block stops: no later sub-timestep is sampled, and no cell at or past
+//   the break is written.
+//
+// chunk_t trades barriers and gate walks (3 barriers and one walk per
+// chunk) against waste and occupancy: a break leaves the rest of its chunk
+// sampled for nothing, and shared memory grows by (3 + L) * 4 bytes per
+// cell and 40 bytes of keys per sub-timestep, which bounds the blocks per
+// SM. The wrapper takes the largest chunk_t that keeps kMinBlocks resident
+// blocks per SM (agg_cells_gate_default_chunk_t). Outputs do not depend on
+// it. Stage B is a chain of dependent warp operations that runs while the
+// block's other warps wait at the barrier; sampling the next chunk during
+// stage B, with two buffers and so half the chunk, was tried and measured
+// slower. Built with -DAGG_STAGE_CLOCKS (chip_smoke.py builds it so beside
+// the plain build), thread 0 also counts its SM clocks in each stage, read
+// with agg_cells_gate_stage_clocks.
+//
+// agg_outcomes runs one block per env and a thread per keyword over the
+// sub-timesteps, with each sub-timestep's keys derived once per block into
+// shared memory.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <mutex>
 
 #include "threefry.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
+constexpr int kMinBlocks = 8;  // resident blocks per SM agg_cells_gate's registers are capped for
 constexpr unsigned kFull = 0xFFFFFFFFu;
-constexpr int kGateWarps = kThreads / 32;
+constexpr int kIntMax = 0x7FFFFFFF;
+// agg_cells_gate's keys per sub-timestep: k_imp, k_click, k_sfull, k_lite, k_rest
+constexpr int kChunkKeys = 5;
+constexpr int kMaxDevices = 64;  // devices whose agg_cells_gate configuration is remembered
+
+#ifdef AGG_STAGE_CLOCKS
+// per stage (the prologue and keys, stage A, stage B, stage C) the sum over
+// blocks of thread 0's SM clocks between the block's barriers, then the
+// number of blocks
+constexpr int kStages = 4;
+__device__ unsigned long long g_stage_clocks[kStages + 1];
+#endif
 
 // rows of the (kNumParams, E, K) parameter tensor (agg_day.py)
 enum { BID, BCTR, SCTR, LOC, SCALE, REV_MEAN, REV_STD, kNumParams };
+// agg_cells_gate's per-keyword float rows in shared memory
+enum { kPWin, kFLo, kFHi, kMu, kSigma, kCmax, kLoc, kScale, kBctr, kKwRows };
 
 struct Key {
   uint32_t k0, k1;
@@ -124,10 +180,12 @@ __device__ __forceinline__ float laplace_cdf(float x, float loc, float scale) {
   return z < 0.0f ? __fmul_rn(0.5f, expf(z)) : __fsub_rn(1.0f, __fmul_rn(0.5f, expf(-z)));
 }
 
+// the plain version computes both branches' logs and selects one; the
+// kernel computes only the selected one
 __device__ __forceinline__ float laplace_icdf(float u, float loc, float scale) {
-  const float lo = logf(fmaxf(__fmul_rn(2.0f, u), 1e-38f));
-  const float hi = -logf(fmaxf(__fmul_rn(2.0f, __fsub_rn(1.0f, u)), 1e-38f));
-  return fma32(scale, u < 0.5f ? lo : hi, loc);
+  const bool low = u < 0.5f;
+  const float l = logf(fmaxf(__fmul_rn(2.0f, low ? u : __fsub_rn(1.0f, u)), 1e-38f));
+  return fma32(scale, low ? l : -l, loc);
 }
 
 // one lane cost in cents: round(|Laplace truncated to [-y0, y0]| * 100)
@@ -136,8 +194,10 @@ __device__ __forceinline__ int lane_cost(float u, float loc, float scale, float 
   return static_cast<int>(rintf(__fmul_rn(fabsf(x), 100.0f)));
 }
 
-// distributions.binomial_inv_u: the inverse-CDF walk over nmax levels
-__device__ int binomial_walk(float u, int n, float p, int nmax) {
+// distributions.binomial_inv_u: the inverse-CDF walk over nmax levels;
+// recip(j) is the float32 1/j
+template <class Recip>
+__device__ int binomial_walk(float u, int n, float p, int nmax, Recip recip) {
   const float nf = static_cast<float>(n);
   p = fminf(fmaxf(p, 0.0f), 1.0f);
   const bool flip = p > 0.5f;
@@ -150,8 +210,7 @@ __device__ int binomial_walk(float u, int n, float p, int nmax) {
   for (int j = 1; j <= nmax && cdf < u; ++j) {
     ++cnt;
     if (j == nmax) break;
-    const float f = __fmul_rn(__fsub_rn(nf, static_cast<float>(j - 1)),
-                              __fmul_rn(r, __fdiv_rn(1.0f, static_cast<float>(j))));
+    const float f = __fmul_rn(__fsub_rn(nf, static_cast<float>(j - 1)), __fmul_rn(r, recip(j)));
     pmf = fmaxf(__fmul_rn(pmf, f), 0.0f);
     cdf = __fadd_rn(cdf, pmf);
   }
@@ -257,33 +316,38 @@ __device__ CostMoments cost_moments(float bid, float loc, float scale) {
   return CostMoments{mu, sqrtf(var), fmaxf(__fsub_rn(bc, 1.0f), 0.0f)};
 }
 
-// the t >= 1 impression ladder of distributions.binomial_cdf: level j's
-// factor, and the count of levels below u (the ladder never falls)
+// the t >= 1 impression ladder of distributions.binomial_cdf: level 0 is
+// pmf0, level j adds pmf0 times the product of the factors up to j, in
+// order (recip_j is the float64 1/j rounded to float32)
 struct Ladder {
   float nf, r, pmf0;
-  int nmax;
-  __device__ float factor(int j) const {
-    const float recip = __double2float_rn(__ddiv_rn(1.0, static_cast<double>(j)));
-    return fmaxf(__fmul_rn(__fmul_rn(__fsub_rn(nf, static_cast<float>(j - 1)), recip), r), 0.0f);
-  }
-  __device__ int count(float u) const {
-    float cp = 1.0f, cdf = pmf0;
-    int cnt = 0;
-    for (int j = 1; j <= nmax && cdf < u; ++j) {
-      ++cnt;
-      if (j == nmax) break;
-      cp = __fmul_rn(cp, factor(j));
-      cdf = __fadd_rn(cdf, __fmul_rn(pmf0, cp));
-    }
-    return cnt;
+  __device__ float factor(int j, float recip_j) const {
+    return fmaxf(__fmul_rn(__fmul_rn(__fsub_rn(nf, static_cast<float>(j - 1)), recip_j), r),
+                 0.0f);
   }
 };
 
-__device__ Ladder make_ladder(int n, float p, int nmax) {
+__device__ Ladder make_ladder(int n, float p) {
   p = fminf(fmaxf(p, 0.0f), 1.0f);
   const float q = p > 0.5f ? __fsub_rn(1.0f, p) : p;
   const float nf = static_cast<float>(n);
-  return Ladder{nf, __fdiv_rn(q, __fsub_rn(1.0f, q)), powf(__fsub_rn(1.0f, q), nf), nmax};
+  return Ladder{nf, __fdiv_rn(q, __fsub_rn(1.0f, q)), powf(__fsub_rn(1.0f, q), nf)};
+}
+
+// The ladder's levels below u, by bisection over its m1 levels (level j
+// at ladder[j * stride]): each level adds a non-negative float, so the
+// ladder never falls and this is the count binomial_inv_from_cdf_u takes.
+__device__ __forceinline__ int ladder_count(const float* ladder, int stride, int m1, float u) {
+  int lo = 0, hi = m1;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (ladder[mid * stride] < u) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  return lo;
 }
 
 // jax.scipy.special.ndtr's branches (distributions._ndtr)
@@ -322,80 +386,6 @@ __device__ float2 rev_moments(float mean, float std) {
                      sqrtf(fma32(h, h, static_cast<float>(1.0 / 12.0))));
 }
 
-// ---- agg_cells: one block per env, a thread per keyword, t in a loop ----
-// shared: per sub-timestep the keys k_imp, k_click, k_sfull, k_lite
-__global__ void __launch_bounds__(kThreads)
-    agg_cells_kernel(const float* __restrict__ params, const int* __restrict__ n_auc01,
-                     const long long* __restrict__ keys, long long key_stride,
-                     int* __restrict__ imp_out, int* __restrict__ ncl_out,
-                     int* __restrict__ sfull_out, int* __restrict__ lite_out,
-                     float* __restrict__ consts_out, int E, int K, int T, int m0, int m1, int L,
-                     int bits) {
-  extern __shared__ Key tkeys[];  // [T][4]
-  const int e = blockIdx.x;
-  const Key kc = load_key(keys, key_stride, e);
-  for (int t = threadIdx.x; t < T; t += blockDim.x) {
-    const Key kt = child(kc, t);
-    const Key k_auc = child(kt, 0);
-    const Key k_cost = child(k_auc, 1);
-    tkeys[4 * t + 0] = child(k_auc, 0);             // k_imp
-    tkeys[4 * t + 1] = child(kt, 1);                // k_click
-    tkeys[4 * t + 2] = child(k_cost, 0);            // k_sfull
-    tkeys[4 * t + 3] = child(child(k_cost, 1), 0);  // k_lite
-  }
-  __syncthreads();
-  const long long EK = static_cast<long long>(E) * K;
-  for (int k = threadIdx.x; k < K; k += blockDim.x) {
-    const long long ek = static_cast<long long>(e) * K + k;
-    const float bid = params[BID * EK + ek], bctr = params[BCTR * EK + ek];
-    const float loc = params[LOC * EK + ek], scale = params[SCALE * EK + ek];
-    const int n0 = n_auc01[ek], n1 = n_auc01[EK + ek];
-    // the day's constants of this (env, keyword)
-    const float y0 = __fsub_rn(bid, 0.005f);
-    const float f_lo = laplace_cdf(-y0, loc, scale), f_hi = laplace_cdf(y0, loc, scale);
-    const float p_win = fminf(fmaxf(__fsub_rn(f_hi, f_lo), 0.0f), 1.0f);
-    const CostMoments cm = cost_moments(bid, loc, scale);
-    const Ladder ladder = make_ladder(n1, p_win, m1);
-    const bool flip1 = p_win > 0.5f;
-    if (consts_out != nullptr) {
-      consts_out[ek] = p_win;
-      consts_out[EK + ek] = cm.mu;
-      consts_out[2 * EK + ek] = cm.sigma;
-      consts_out[3 * EK + ek] = cm.cmax;
-      float cp = 1.0f, cdf = ladder.pmf0;
-      for (int j = 0; j < m1; ++j) {
-        if (j > 0) {
-          cp = __fmul_rn(cp, ladder.factor(j));
-          cdf = __fadd_rn(cdf, __fmul_rn(ladder.pmf0, cp));
-        }
-        consts_out[(4 + j) * EK + ek] = cdf;
-      }
-    }
-    for (int t = 0; t < T; ++t) {
-      const int m = t == 0 ? m0 : m1;
-      const float u_imp = lane_uniform(tkeys[4 * t], k, bits);
-      int imp;
-      if (t == 0) {
-        imp = binomial_walk(u_imp, n0, p_win, m0);
-      } else {
-        const int cnt = min(ladder.count(u_imp), n1);
-        imp = flip1 ? n1 - cnt : cnt;
-      }
-      const int ncl = binomial_walk(lane_uniform(tkeys[4 * t + 1], k, bits), imp, bctr, m);
-      const int s = agg_cost(ncl, cm.mu, cm.sigma, cm.cmax, normal(tkeys[4 * t + 2], k));
-      const long long cell = (static_cast<long long>(e) * T + t) * K + k;
-      imp_out[cell] = imp;
-      ncl_out[cell] = ncl;
-      sfull_out[cell] = s;
-      for (int l = 0; l < L; ++l) {
-        const float u = lane_uniform(tkeys[4 * t + 3], static_cast<uint32_t>(l * K + k), bits);
-        lite_out[((static_cast<long long>(e) * T + t) * L + l) * K + k] =
-            lane_cost(u, loc, scale, f_lo, f_hi);
-      }
-    }
-  }
-}
-
 __device__ __forceinline__ long long warp_inclusive_sum(long long v, int lane) {
 #pragma unroll
   for (int d = 1; d < 32; d <<= 1) {
@@ -405,35 +395,57 @@ __device__ __forceinline__ long long warp_inclusive_sum(long long v, int lane) {
   return v;
 }
 
-// _resolve_cell on one warp: lanes < L from the lite table, the rest drawn
-// from fold_in(k_rest, k), whose key and truncation bounds are derived only
-// if a deep lane is reached; the first prefix over B (or lane n) stops it.
-// Returns the accepted clicks, and their spend in *spend (warp-uniform).
-__device__ int resolve_cell(const float* __restrict__ params, const int* __restrict__ lite,
-                            Key k_rest, int e, int t, int k, int n, long long B, int m, int E,
-                            int K, int T, int L, int bits, int lane, long long* spend) {
-  const long long EK = static_cast<long long>(E) * K;
-  const long long ek = static_cast<long long>(e) * K + k;
+// Inclusive warp scan of non-negative ints, saturating at kIntMax.
+__device__ __forceinline__ int warp_saturating_sum(int v, int lane) {
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int o = __shfl_up_sync(kFull, v, d);
+    if (lane >= d) v = v > kIntMax - o ? kIntMax : v + o;
+  }
+  return v;
+}
+
+// _resolve_cell on one warp: lanes < L from the cell's lite costs (lane l
+// at lite_c[l * lite_stride]), the rest drawn from fold_in(k_rest, k),
+// whose key and truncation bounds are derived only if a deep lane is
+// reached; the first prefix over B (or lane min(n, m)) stops it. Returns
+// the accepted clicks, and their spend in *spend (warp-uniform).
+__device__ int resolve_cell(const int* lite_c, int lite_stride, const float* kw, int K, Key k_rest,
+                            int k, int n, long long B, int m, int L, int bits, int lane,
+                            long long* spend) {
+  const int lanes = min(n, m);
+  if (lanes <= L) {
+    // only lite lanes (the common partial cell, with one or a few clicks):
+    // their running sum, the same on every lane, without warp traffic
+    long long carry = 0;
+    int l = 0;
+    for (; l < lanes; ++l) {
+      const long long next = carry + lite_c[l * lite_stride];
+      if (next > B) break;
+      carry = next;
+    }
+    *spend = carry;
+    return l;
+  }
   bool have_deep = false;
   Key k_col{0u, 0u};
   float loc = 0.0f, scale = 1.0f, f_lo = 0.0f, f_hi = 0.0f;
   long long carry = 0;
   int accepted = 0;
-  for (int base = 0; base < m; base += 32) {
-    if (!have_deep && n > L && base + 31 >= L) {
-      loc = params[LOC * EK + ek];
-      scale = params[SCALE * EK + ek];
-      const float y0 = __fsub_rn(params[BID * EK + ek], 0.005f);
-      f_lo = laplace_cdf(-y0, loc, scale);
-      f_hi = laplace_cdf(y0, loc, scale);
+  for (int base = 0; base < lanes; base += 32) {
+    if (!have_deep && lanes > L && base + 31 >= L) {
+      loc = kw[kLoc * K + k];
+      scale = kw[kScale * K + k];
+      f_lo = kw[kFLo * K + k];
+      f_hi = kw[kFHi * K + k];
       k_col = child(k_rest, static_cast<uint32_t>(k));
       have_deep = true;
     }
     const int idx = base + lane;
-    const bool in = idx < n;
+    const bool in = idx < lanes;
     long long c = 0;
     if (in) {
-      c = idx < L ? lite[((static_cast<long long>(e) * T + t) * L + idx) * K + k]
+      c = idx < L ? lite_c[idx * lite_stride]
                   : lane_cost(lane_uniform(k_col, static_cast<uint32_t>(idx - L), bits), loc,
                               scale, f_lo, f_hi);
     }
@@ -454,101 +466,272 @@ __device__ int resolve_cell(const float* __restrict__ params, const int* __restr
   return accepted;
 }
 
-// ---- agg_gate: one warp per env walks its T*K cells in (t, k) order ----
-__global__ void __launch_bounds__(kThreads)
-    agg_gate_kernel(const float* __restrict__ params, const long long* __restrict__ keys,
-                    long long key_stride, const int* __restrict__ s_full,
-                    const int* __restrict__ n_clicks, const int* __restrict__ lite,
-                    const int* __restrict__ budget_c, int* __restrict__ acc_out,
-                    int* __restrict__ spend_out, int* __restrict__ n_sim, int E, int K, int T,
-                    int m0, int m1, int L, int bits) {
-  const int e = blockIdx.x * kGateWarps + threadIdx.x / 32;
-  if (e >= E) return;
-  const int lane = threadIdx.x & 31;
-  long long B = budget_c[e];
-  bool broken = false;
-  int nsim = T * K;
-  for (int t = 0; t < T; ++t) {
-    const int m = t == 0 ? m0 : m1;
-    const long long row = (static_cast<long long>(e) * T + t) * K;
-    bool have_rest = false;
-    Key k_rest{0u, 0u};
-    for (int kb = 0; kb < K; kb += 32) {
-      const int k = kb + lane;
-      const bool valid = k < K;
-      int my_acc = 0, my_spend = 0;
-      if (!broken) {
-        const long long s = valid ? s_full[row + k] : 0;
-        const int n = valid ? n_clicks[row + k] : 0;
-        const int c0 = valid ? lite[(static_cast<long long>(e) * T + t) * L * K + k] : 0;
-        int start = 0;
-        while (start < 32) {
-          // a run of full cells: those before the first whose aggregate
-          // spend, summed from `start`, reaches the budget
-          const long long incl = warp_inclusive_sum(lane >= start ? s : 0, lane);
-          const unsigned stop = __ballot_sync(kFull, valid && lane >= start && incl >= B);
-          const int j = stop ? __ffs(stop) - 1 : 32;
-          if (valid && lane >= start && lane < j) {
-            my_acc = n;
-            my_spend = static_cast<int>(s);
-          }
-          if (j == 32) {
-            B -= __shfl_sync(kFull, incl, 31);
-            break;
-          }
-          const long long s_j = __shfl_sync(kFull, s, j);
-          B -= __shfl_sync(kFull, incl, j) - s_j;
-          if (s_j <= B) {  // full, and it leaves the budget at exactly 0
-            if (lane == j) {
-              my_acc = n;
-              my_spend = static_cast<int>(s);
-            }
-            B -= s_j;
-          } else {
-            // a run of cells that accept nothing at B > 0: not full, and no
-            // click or a first lite lane above B; the budget stays, and so
-            // does the day (at B <= 0, only the first cell of a day, that
-            // cell breaks it)
-            const unsigned from_j = ~((1u << j) - 1u);
-            const unsigned zero = __ballot_sync(
-                kFull, !valid || (B > 0 && s > B && (n == 0 || c0 > B)));
-            const unsigned rest = ~zero & from_j;
-            if (rest == 0) break;
-            const int z = __ffs(rest) - 1;
-            if (z > j) {
-              start = z;
-              continue;
-            }
-            if (!have_rest) {
-              const Key kt = child(load_key(keys, key_stride, e), t);
-              k_rest = child(child(child(child(kt, 0), 1), 1), 1);
-              have_rest = true;
-            }
-            long long sp_j;
-            const int p_j = resolve_cell(params, lite, k_rest, e, t, kb + j,
-                                         __shfl_sync(kFull, n, j), B, m, E, K, T, L, bits, lane,
-                                         &sp_j);
-            if (lane == j) {
-              my_acc = p_j;
-              my_spend = static_cast<int>(sp_j);
-            }
-            B -= sp_j;
-          }
-          start = j + 1;
-          if (B <= 0) {
-            broken = true;
-            nsim = t * K + kb + j + 1;
-            break;
-          }
-        }
-      }
-      if (valid) {
-        acc_out[row + k] = my_acc;
-        spend_out[row + k] = my_spend;
-      }
+// Shared memory of one agg_cells_gate block, in bytes: the chunk's keys
+// (8-byte aligned, first), then per keyword kKwRows floats and the two
+// auction counts, the ladder (m1 x K), the walk's and the ladder's tables
+// of 1/j (max(m0, m1) and m1), then per cell of a chunk the aggregate
+// spend, the clicks, the impressions and the L lite costs.
+__host__ __device__ inline size_t cells_gate_smem(int chunk_t, int K, int m0, int m1, int L) {
+  const size_t cells = static_cast<size_t>(chunk_t) * K;
+  const size_t nmax = static_cast<size_t>(m0 > m1 ? m0 : m1);
+  return static_cast<size_t>(chunk_t) * kChunkKeys * sizeof(Key) +
+         sizeof(int) * ((kKwRows + 2 + static_cast<size_t>(m1)) * K + nmax + m1 +
+                        (3 + static_cast<size_t>(L)) * cells);
+}
+
+// Stage B of agg_cells_gate on warp 0: the gate over a chunk's `cells`
+// cells in (t, k) order from the shared tables, through a window of the
+// next 32 cells. Each cell's accepted clicks and spend replace its clicks
+// and aggregate spend; B, the budget left, carries across chunks. Returns
+// the cells simulated: all of them, or those up to and including the one
+// that breaks the day.
+__device__ int gate_chunk(int* sfull, int* ncl, const int* lite, int lite_stride, const float* kw,
+                          const Key* tkeys, int cells, int t0, int K, int m0, int m1, int L,
+                          int bits, int lane, long long& B, bool& broken) {
+  for (int p = 0; p < cells;) {
+    const int c = p + lane;
+    const bool in = c < cells;
+    const int s = in ? sfull[c] : 0;
+    const int n = in ? ncl[c] : 0;
+    const int c0 = n != 0 ? lite[c] : 0;  // a cell without clicks has no lanes
+    // whole: this and every earlier cell of the window are full and leave
+    // budget (the scan saturates only at or above it); passive: leaves a
+    // positive budget as it is, being full at no cost or accepting nothing
+    // (not full, and no click or a first lite lane above the budget: the
+    // budget-decay tail of a day)
+    const int S = warp_saturating_sum(s, lane);
+    const unsigned whole = __ballot_sync(kFull, in && S < B);
+    const unsigned passive =
+        __ballot_sync(kFull, in && B > 0 && (s == 0 || (s > B && (n == 0 || c0 > B))));
+    const int n_whole = whole == kFull ? 32 : __ffs(~whole) - 1;
+    const int n_passive = passive == kFull ? 32 : __ffs(~passive) - 1;
+    const int run = max(n_whole, n_passive);
+    if (lane < run && n_whole < n_passive && s != 0) {  // a taken cell keeps its values
+      ncl[c] = 0;
+      sfull[c] = 0;
+    }
+    if (n_whole >= n_passive && n_whole > 0) B -= __shfl_sync(kFull, S, n_whole - 1);
+    p += run;
+    if (run == 32 || p >= cells) continue;
+
+    // the cell at p, decided on its own: full, accepting nothing (at the
+    // budget a whole run left), or lane-resolved
+    const int s_p = __shfl_sync(kFull, s, run);
+    const int n_p = __shfl_sync(kFull, n, run);
+    const int c0_p = __shfl_sync(kFull, c0, run);
+    long long spend = s_p;
+    int accepted = n_p;
+    if (s_p > B && (n_p == 0 || c0_p > B)) {
+      spend = 0;
+      accepted = 0;
+    } else if (s_p > B) {
+      const int tt = p / K;
+      const int k = p - tt * K;
+      accepted = resolve_cell(lite + p, lite_stride, kw, K, tkeys[kChunkKeys * tt + 4], k, n_p, B,
+                              t0 + tt == 0 ? m0 : m1, L, bits, lane, &spend);
+    }
+    if (lane == 0) {
+      ncl[p] = accepted;
+      sfull[p] = static_cast<int>(spend);
+    }
+    B -= spend;
+    ++p;
+    if (B <= 0) {
+      broken = true;
+      return p;
     }
   }
-  if (lane == 0) n_sim[e] = nsim;
+  return cells;
+}
+
+// ---- agg_cells_gate: one block per env, the sub-timesteps in chunks ----
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    agg_cells_gate_kernel(const float* __restrict__ params, const int* __restrict__ n_auc01,
+                          const long long* __restrict__ keys, long long key_stride,
+                          const int* __restrict__ budget_c, int* __restrict__ imp_out,
+                          int* __restrict__ acc_out, int* __restrict__ spend_out,
+                          int* __restrict__ n_sim, float* __restrict__ consts_out, int E, int K,
+                          int T, int m0, int m1, int L, int bits, int chunk_t) {
+  extern __shared__ unsigned long long smem[];
+  const int max_cells = chunk_t * K;
+  const int nmax = max(m0, m1);
+  Key* tkeys = reinterpret_cast<Key*>(smem);  // [chunk_t][kChunkKeys]
+  float* kw = reinterpret_cast<float*>(tkeys + kChunkKeys * chunk_t);  // [kKwRows][K]
+  int* n01 = reinterpret_cast<int*>(kw + kKwRows * K);                 // [2][K]
+  float* ladder = reinterpret_cast<float*>(n01 + 2 * K);                // [m1][K]
+  float* walk_recip = ladder + m1 * K;      // [j]: __fdiv_rn(1, j)
+  float* ladder_recip = walk_recip + nmax;  // [j]: 1 / j in float64, rounded
+  int* sfull = reinterpret_cast<int*>(ladder_recip + m1);  // spend after the gate
+  int* ncl = sfull + max_cells;                            // accepted clicks after the gate
+  int* imp = ncl + max_cells;
+  int* lite = imp + max_cells;  // [L][max_cells]
+  __shared__ int s_end, s_broken;
+
+  const int e = blockIdx.x;
+  const int tid = threadIdx.x;
+  const long long EK = static_cast<long long>(E) * K;
+  const long long eK = static_cast<long long>(e) * K;
+  const auto table = [walk_recip](int j) { return walk_recip[j]; };
+  const int step_t = kThreads / K, step_k = kThreads % K;  // a stride of cells as (t, k)
+#ifdef AGG_STAGE_CLOCKS
+  unsigned long long mark = clock64(), spent[kStages] = {};
+  const auto lap = [&](int stage) {
+    if (tid == 0) {
+      const unsigned long long now = clock64();
+      spent[stage] += now - mark;
+      mark = now;
+    }
+  };
+#else
+  const auto lap = [](int) {};
+#endif
+
+  for (int j = tid; j < nmax; j += kThreads) {
+    walk_recip[j] = __fdiv_rn(1.0f, static_cast<float>(j));
+  }
+  for (int j = tid; j < m1; j += kThreads) {
+    ladder_recip[j] = __double2float_rn(__ddiv_rn(1.0, static_cast<double>(j)));
+  }
+  __syncthreads();
+
+  // the prologue: each keyword's constants for the day
+  for (int k = tid; k < K; k += kThreads) {
+    const long long ek = eK + k;
+    const float bid = params[BID * EK + ek];
+    const float loc = params[LOC * EK + ek], scale = params[SCALE * EK + ek];
+    const int n1 = n_auc01[EK + ek];
+    const float y0 = __fsub_rn(bid, 0.005f);
+    const float f_lo = laplace_cdf(-y0, loc, scale), f_hi = laplace_cdf(y0, loc, scale);
+    const float p_win = fminf(fmaxf(__fsub_rn(f_hi, f_lo), 0.0f), 1.0f);
+    const CostMoments cm = cost_moments(bid, loc, scale);
+    kw[kPWin * K + k] = p_win;
+    kw[kFLo * K + k] = f_lo;
+    kw[kFHi * K + k] = f_hi;
+    kw[kMu * K + k] = cm.mu;
+    kw[kSigma * K + k] = cm.sigma;
+    kw[kCmax * K + k] = cm.cmax;
+    kw[kLoc * K + k] = loc;
+    kw[kScale * K + k] = scale;
+    kw[kBctr * K + k] = params[BCTR * EK + ek];
+    n01[k] = n_auc01[ek];
+    n01[K + k] = n1;
+    const Ladder lad = make_ladder(n1, p_win);
+    float cp = 1.0f, cdf = lad.pmf0;
+    for (int j = 0; j < m1; ++j) {
+      if (j > 0) {
+        cp = __fmul_rn(cp, lad.factor(j, ladder_recip[j]));
+        cdf = __fadd_rn(cdf, __fmul_rn(lad.pmf0, cp));
+      }
+      ladder[j * K + k] = cdf;
+      if (consts_out != nullptr) consts_out[(4 + j) * EK + ek] = cdf;
+    }
+    if (consts_out != nullptr) {
+      consts_out[ek] = p_win;
+      consts_out[EK + ek] = cm.mu;
+      consts_out[2 * EK + ek] = cm.sigma;
+      consts_out[3 * EK + ek] = cm.cmax;
+    }
+  }
+
+  const Key kc = load_key(keys, key_stride, e);
+  long long B = budget_c[e];  // warp 0's
+  bool broken = false;
+  int nsim = T * K;
+  for (int t0 = 0; t0 < T; t0 += chunk_t) {
+    const int nt = min(chunk_t, T - t0);
+    const int cells = nt * K;
+    for (int tt = tid; tt < nt; tt += kThreads) {
+      const Key kt = child(kc, static_cast<uint32_t>(t0 + tt));
+      const Key k_auc = child(kt, 0);
+      const Key k_cost = child(k_auc, 1);
+      const Key k_lanes = child(k_cost, 1);
+      Key* tk = tkeys + kChunkKeys * tt;
+      tk[0] = child(k_auc, 0);    // k_imp
+      tk[1] = child(kt, 1);       // k_click
+      tk[2] = child(k_cost, 0);   // k_sfull
+      tk[3] = child(k_lanes, 0);  // k_lite
+      tk[4] = child(k_lanes, 1);  // k_rest
+    }
+    __syncthreads();
+    lap(0);
+
+    // Stage A: the chunk's cell tables; cell c is (tt, k) = divmod(c, K)
+    for (int c = tid, tt = tid / K, k = tid % K; c < cells;
+         c += kThreads, tt += step_t, k += step_k) {
+      if (k >= K) {
+        k -= K;
+        ++tt;
+      }
+      const bool first_t = t0 + tt == 0;
+      const Key* tk = tkeys + kChunkKeys * tt;
+      const float p_win = kw[kPWin * K + k];
+      int im = 0;
+      if (first_t) {
+        const int n0 = n01[k];
+        if (n0 != 0) im = binomial_walk(lane_uniform(tk[0], k, bits), n0, p_win, m0, table);
+      } else {
+        const int n1 = n01[K + k];
+        if (n1 != 0) {
+          const int cnt = min(ladder_count(ladder + k, K, m1, lane_uniform(tk[0], k, bits)), n1);
+          im = p_win > 0.5f ? n1 - cnt : cnt;
+        }
+      }
+      int nc = 0, s = 0;
+      if (im != 0) {
+        nc = binomial_walk(lane_uniform(tk[1], k, bits), im, kw[kBctr * K + k],
+                           first_t ? m0 : m1, table);
+      }
+      if (nc != 0) {
+        s = agg_cost(nc, kw[kMu * K + k], kw[kSigma * K + k], kw[kCmax * K + k],
+                     normal(tk[2], k));
+        const float loc = kw[kLoc * K + k], scale = kw[kScale * K + k];
+        const float f_lo = kw[kFLo * K + k], f_hi = kw[kFHi * K + k];
+        for (int l = 0; l < L; ++l) {
+          const float u = lane_uniform(tk[3], static_cast<uint32_t>(l * K + k), bits);
+          lite[l * max_cells + c] = lane_cost(u, loc, scale, f_lo, f_hi);
+        }
+      }
+      imp[c] = im;
+      ncl[c] = nc;
+      sfull[c] = s;
+    }
+    __syncthreads();
+    lap(1);
+
+    // Stage B: the gate
+    if (tid < 32) {
+      const int end = gate_chunk(sfull, ncl, lite, max_cells, kw, tkeys, cells, t0, K, m0, m1, L,
+                                 bits, tid, B, broken);
+      if (tid == 0) {
+        s_end = end;
+        s_broken = broken;
+      }
+    }
+    __syncthreads();
+    lap(2);
+
+    // Stage C: the simulated cells out; the next chunk's keys overwrite
+    // nothing read here, and its tables wait for the barrier after them
+    const int end = s_end;
+    const long long row = (static_cast<long long>(e) * T + t0) * K;
+    for (int c = tid; c < end; c += kThreads) {
+      imp_out[row + c] = imp[c];
+      acc_out[row + c] = ncl[c];
+      spend_out[row + c] = sfull[c];
+    }
+    lap(3);
+    if (s_broken) {
+      nsim = t0 * K + end;
+      break;
+    }
+  }
+  if (tid == 0) {
+    n_sim[e] = nsim;
+#ifdef AGG_STAGE_CLOCKS
+    for (int i = 0; i < kStages; ++i) atomicAdd(&g_stage_clocks[i], spent[i]);
+    atomicAdd(&g_stage_clocks[kStages], 1ull);
+#endif
+  }
 }
 
 // ---- agg_outcomes: one block per env, a thread per keyword, t in a loop ----
@@ -570,6 +753,7 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
   const long long EK = static_cast<long long>(E) * K;
   const int nsim = n_sim[e];
+  const auto divide = [](int j) { return __fdiv_rn(1.0f, static_cast<float>(j)); };
   for (int k = threadIdx.x; k < K; k += blockDim.x) {
     const long long ek = static_cast<long long>(e) * K + k;
     const float sctr = params[SCTR * EK + ek], rev_std = params[REV_STD * EK + ek];
@@ -581,9 +765,9 @@ __global__ void __launch_bounds__(kThreads)
       const long long cell = (static_cast<long long>(e) * T + t) * K + k;
       const int a = acc[cell];
       // a walk over zero trials counts zero, and no conversion earns nothing
-      const int nconv =
-          a > 0 ? binomial_walk(lane_uniform(tkeys[2 * t], k, bits), a, sctr, t == 0 ? m0 : m1)
-                : 0;
+      const int nconv = a > 0 ? binomial_walk(lane_uniform(tkeys[2 * t], k, bits), a, sctr,
+                                              t == 0 ? m0 : m1, divide)
+                              : 0;
       const int rev = nconv > 0 ? rev_sum(nconv, mean_c, std_c, rev_std, normal(tkeys[2 * t + 1], k))
                                 : 0;
       const int im = imp[cell];
@@ -603,6 +787,54 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// The dynamic shared memory an agg_cells_gate block may take on `device`:
+// the device's opt-in shared memory per block less the kernel's static.
+cudaError_t smem_limit(int device, int* bytes) {
+  cudaError_t err = cudaDeviceGetAttribute(bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, agg_cells_gate_kernel);
+  if (err == cudaSuccess) *bytes -= static_cast<int>(attr.sharedSizeBytes);
+  return err;
+}
+
+// Lets agg_cells_gate blocks on the current device, `device`, take up to
+// smem_limit, with shared memory preferred over L1 (the kernel reads device
+// memory only to stage); done once per device.
+cudaError_t cells_gate_configure(int device) {
+  static std::mutex mu;
+  static bool done[kMaxDevices] = {};
+  const bool known = device >= 0 && device < kMaxDevices;
+  std::lock_guard<std::mutex> lock(mu);
+  if (known && done[device]) return cudaSuccess;
+  int limit = 0;
+  cudaError_t err = smem_limit(device, &limit);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(agg_cells_gate_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             limit);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(agg_cells_gate_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess && known) done[device] = true;
+  return err;
+}
+
+// Resident agg_cells_gate blocks per SM; 0 when a block needs more shared
+// memory than the device gives one.
+cudaError_t cells_gate_occupancy(int chunk_t, int K, int m0, int m1, int L, int device,
+                                 int* blocks_per_sm) {
+  int limit = 0;
+  cudaError_t err = smem_limit(device, &limit);
+  if (err != cudaSuccess) return err;
+  const size_t smem = cells_gate_smem(chunk_t, K, m0, m1, L);
+  *blocks_per_sm = 0;
+  if (smem > static_cast<size_t>(limit)) return cudaSuccess;
+  err = cells_gate_configure(device);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, agg_cells_gate_kernel,
+                                                       kThreads, smem);
+}
+
 }  // namespace
 
 extern "C" {
@@ -610,35 +842,79 @@ extern "C" {
 // Each launcher runs on `stream` of `device` and returns cudaGetLastError()
 // right after the launch (the library's runtime has its own current device).
 
+// agg_cells_gate: imp, acc, spend (E, T, K) of the simulated cells (those
+// with t * K + k < n_sim[e]; the others are not written) and n_sim (E,).
 // consts_out, if not null, receives the (4 + m1, E, K) constants the day
-// used: p_win, cost mu, sigma, cmax, then the ladder's m1 levels
-int agg_cells_launch(const float* params, const int* n_auc01, const long long* keys,
-                     long long key_stride, int* imp, int* ncl, int* s_full, int* lite,
-                     float* consts_out, int E, int K, int T, int m0, int m1, int L, int bits,
-                     int device, void* stream) {
-  if (E <= 0 || K <= 0) return static_cast<int>(cudaSuccess);
+// used: p_win, cost mu, sigma, cmax, then the ladder's m1 levels.
+int agg_cells_gate_launch(const float* params, const int* n_auc01, const long long* keys,
+                          long long key_stride, const int* budget_c, int* imp, int* acc,
+                          int* spend, int* n_sim, float* consts_out, int E, int K, int T, int m0,
+                          int m1, int L, int bits, int chunk_t, int device, void* stream) {
+  if (E <= 0) return static_cast<int>(cudaSuccess);
+  if (K < 1 || T < 1 || m0 < 1 || m1 < 1 || L < 1 || L > m1 || chunk_t < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = static_cast<size_t>(T) * 4 * sizeof(Key);
-  agg_cells_kernel<<<E, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      params, n_auc01, keys, key_stride, imp, ncl, s_full, lite, consts_out, E, K, T, m0, m1,
-      L, bits);
+  chunk_t = chunk_t < T ? chunk_t : T;
+  const size_t smem = cells_gate_smem(chunk_t, K, m0, m1, L);
+  err = cells_gate_configure(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  agg_cells_gate_kernel<<<E, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      params, n_auc01, keys, key_stride, budget_c, imp, acc, spend, n_sim, consts_out, E, K, T,
+      m0, m1, L, bits, chunk_t);
   return static_cast<int>(cudaGetLastError());
 }
 
-int agg_gate_launch(const float* params, const long long* keys, long long key_stride,
-                    const int* s_full, const int* n_clicks, const int* lite, const int* budget_c,
-                    int* acc, int* spend, int* n_sim, int E, int K, int T, int m0, int m1, int L,
-                    int bits, int device, void* stream) {
-  if (E <= 0) return static_cast<int>(cudaSuccess);
+// Resident agg_cells_gate blocks per SM at chunk_t into *blocks_per_sm; 0
+// when a block needs more shared memory than the device gives one.
+int agg_cells_gate_occupancy(int chunk_t, int K, int m0, int m1, int L, int device,
+                             int* blocks_per_sm) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (E + kGateWarps - 1) / kGateWarps;
-  agg_gate_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      params, keys, key_stride, s_full, n_clicks, lite, budget_c, acc, spend, n_sim, E, K, T, m0,
-      m1, L, bits);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(cells_gate_occupancy(chunk_t, K, m0, m1, L, device, blocks_per_sm));
 }
+
+// The largest chunk_t <= T that keeps kMinBlocks blocks resident per SM (or
+// as many as chunk_t = 1 keeps) into *chunk_t; 0 if not even chunk_t = 1
+// fits the device's shared memory per block.
+int agg_cells_gate_default_chunk_t(int K, int T, int m0, int m1, int L, int device, int* chunk_t) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int target = 0, blocks = 0;
+  err = cells_gate_occupancy(1, K, m0, m1, L, device, &target);
+  *chunk_t = 0;
+  if (err != cudaSuccess || target == 0) return static_cast<int>(err);
+  if (target > kMinBlocks) target = kMinBlocks;
+  for (*chunk_t = 1; err == cudaSuccess && *chunk_t < T; ++*chunk_t) {
+    err = cells_gate_occupancy(*chunk_t + 1, K, m0, m1, L, device, &blocks);
+    if (blocks < target) break;
+  }
+  return static_cast<int>(err);
+}
+
+// Bytes of dynamic shared memory an agg_cells_gate block takes at chunk_t.
+long long agg_cells_gate_smem_bytes(int chunk_t, int K, int m0, int m1, int L) {
+  return static_cast<long long>(cells_gate_smem(chunk_t, K, m0, m1, L));
+}
+
+// The dynamic shared memory an agg_cells_gate block may take into *bytes.
+int agg_cells_gate_smem_limit(int device, int* bytes) {
+  return static_cast<int>(smem_limit(device, bytes));
+}
+
+#ifdef AGG_STAGE_CLOCKS
+// The stage clocks summed since the last call into out (per stage, then the
+// number of blocks), synchronizing with the device first; zeroes them.
+int agg_cells_gate_stage_clocks(int device, unsigned long long* out) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err == cudaSuccess) err = cudaDeviceSynchronize();
+  if (err == cudaSuccess) err = cudaMemcpyFromSymbol(out, g_stage_clocks, sizeof(g_stage_clocks));
+  const unsigned long long zero[kStages + 1] = {};
+  if (err == cudaSuccess) err = cudaMemcpyToSymbol(g_stage_clocks, zero, sizeof(zero));
+  return static_cast<int>(err);
+}
+#endif
 
 int agg_outcomes_launch(const float* params, const long long* keys, long long key_stride,
                         const int* imp, const int* acc, const int* spend, const int* n_sim,

@@ -20,7 +20,7 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Callable, Iterable, List
+from typing import Callable, Iterable, List, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -62,14 +62,18 @@ def find_nvcc() -> str:
 class CudaLibrary:
     """One ``csrc/<name>.cu``, built and loaded on first ``get()``.
 
-    ``bind`` declares the ctypes signatures of the library's launchers.
-    The source also exports ``<name>_error_string(int)``, which ``check``
-    uses to turn a launcher's nonzero CUDA error into an exception.
+    ``bind`` declares the ctypes signatures of the library's launchers;
+    ``flags`` are more nvcc flags (a second build of the same source, such
+    as one with a diagnostic compiled in). The source also exports
+    ``<name>_error_string(int)``, which ``check`` uses to turn a launcher's
+    nonzero CUDA error into an exception.
     """
 
-    def __init__(self, name: str, bind: Callable[[ctypes.CDLL], None]):
+    def __init__(self, name: str, bind: Callable[[ctypes.CDLL], None],
+                 flags: Tuple[str, ...] = ()):
         self.source = CSRC / f"{name}.cu"
         self.name = name
+        self.flags = tuple(flags)
         self._bind = bind
         self._lib = None
         self.path = None
@@ -95,7 +99,7 @@ class CudaLibrary:
             raise RuntimeError(f"{what} launch failed: {msg} ({err})")
 
     def _build(self) -> Path:
-        digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        digest = hashlib.sha256(" ".join(NVCC_FLAGS + self.flags).encode())
         for path in source_files(self.source):
             digest.update(path.name.encode() + b"\0" + path.read_bytes())
         out = BUILD_DIR / f"lib{self.name}_{digest.hexdigest()[:16]}.so"
@@ -109,7 +113,7 @@ class CudaLibrary:
         os.close(fd)
         try:
             proc = subprocess.run(
-                [nvcc, *NVCC_FLAGS, "-o", tmp, str(self.source)],
+                [nvcc, *NVCC_FLAGS, *self.flags, "-o", tmp, str(self.source)],
                 capture_output=True, text=True, check=False,
             )
             self.build_log = proc.stdout + proc.stderr

@@ -250,7 +250,7 @@ class VectorBiddingEnv:
     """E independent envs stepped in lockstep on one device.
 
     ``cfg.day_kernel="xla"`` (the default) runs the JAX package's default
-    day step on the three kernels of ``agg_day`` (``vector_env_step_xla``;
+    day step on the two kernels of ``agg_day`` (``vector_env_step_xla``;
     the configurations ``step.check_xla_config`` accepts);
     ``day_kernel="pallas"`` runs the CUDA day kernel. On a CUDA device the
     env's keys and words are drawn through the threefry kernel. ``device``

@@ -5,7 +5,7 @@ Counterpart of ``adcraft_tpu/step.py``: ``DayOutcomes`` (:69),
 default day step and ``update_keywords`` (:1580). ``simulate_day`` runs
 the configuration that ``bench.py:47-76`` times (``day_kernel="xla"``,
 aggregate costs, conversion counts, revenue sums, inversion binomials,
-implicit single-competitor keywords) on the three kernels of
+implicit single-competitor keywords) on the two kernels of
 ``adcraft_tpu_torch.agg_day``; every other XLA-path configuration raises
 ``NotImplementedError`` (``check_xla_config``). The day-kernel path
 (``day_kernel="pallas"``) runs in ``adcraft_tpu_torch.day_kernel``.

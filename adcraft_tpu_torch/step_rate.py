@@ -15,7 +15,7 @@ bids $1.00. For each env count:
 
 Two day-step routes, run in turns in one process (pallas, xla, xla,
 pallas): ``pallas`` is ``day_kernel="pallas"`` (the CUDA day kernel),
-``xla`` is ``day_kernel="xla"`` with bench.py's knobs (the three agg_day
+``xla`` is ``day_kernel="xla"`` with bench.py's knobs (the two agg_day
 kernels).
 
     python3 -m adcraft_tpu_torch.step_rate [--envs 1024 4096 8192] [--json PATH]
@@ -46,8 +46,7 @@ K, MAX_VOLUME, BID = 100, 576, 1.00
 WARMUP, RUNS, STEPS = 3, 5, 10
 ROUTES = ("pallas", "xla", "xla", "pallas")
 KERNELS = {"day_kernel": dk.day_kernel, "threefry_words": pk.threefry_words,
-           "agg_cells": agg_day.agg_cells, "agg_gate": agg_day.agg_gate,
-           "agg_outcomes": agg_day.agg_outcomes}
+           "agg_cells_gate": agg_day.agg_cells_gate, "agg_outcomes": agg_day.agg_outcomes}
 
 
 def route_config(route: str) -> EnvConfig:

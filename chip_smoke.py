@@ -10,7 +10,8 @@ Phases, each fatal on failure:
 
 1. the card: name, and power limit as nvidia-smi reports it;
 2. build the CUDA libraries from adcraft_tpu_torch/csrc, one nvcc per
-   source, all at once (the day kernel; the threefry kernels);
+   build, all at once (the day kernel; the threefry kernels; the XLA day
+   step's kernels, and those again with -DAGG_STAGE_CLOCKS);
 3. day kernel vs its plain PyTorch version on the card at the slice's full
    width (4096 envs x 100 keywords x 24 sub-timesteps x 47 lanes), same
    inputs and seed, budgets unbound / binding / zero: every output
@@ -38,10 +39,16 @@ Phases, each fatal on failure:
    field and the state key equal; exactly 6 threefry_words launches per
    step; CUDA device events per step for both routes (torch.profiler);
    threefry_words timed at one word per launch (the launch floor);
-9. the XLA day step (day_kernel="xla", bench.py's knobs): agg_cells,
-   agg_gate and agg_outcomes each equal their plain version at 4096 envs x
-   100 keywords x 24 sub-timesteps, budgets unbound / $1000 / zero, each
-   timed beside its bound and its plain version; then the slice,
+9. the XLA day step (day_kernel="xla", bench.py's knobs) on its two
+   kernels at 4096 envs x 100 keywords x 24 sub-timesteps, budgets unbound
+   / $1000 / zero: agg_cells_gate equal to its plain version on every
+   simulated cell, on n_sim and (bit for bit) on the day's constants, with
+   its chunk of sub-timesteps chosen by the wrapper and forced to 1 (and,
+   at $1000, every chunk size that fits, each timed); agg_outcomes equal
+   to its plain version; both timed at unbound and $1000 beside their
+   bounds and their plain versions; agg_cells_gate's chunk, shared memory,
+   blocks per SM and ptxas registers and spills, and each stage's SM
+   clocks per block from its -DAGG_STAGE_CLOCKS build; then the slice,
    VectorBiddingEnv(day_kernel="xla") reset, 5 steps and rollout(5) from
    the same state at bids $1.00 and the $1000 budget, counts zeroed just
    before: one launch of each kernel per day, 4 threefry_words launches
@@ -58,6 +65,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import ctypes
 import json
 import math
 import re
@@ -265,18 +273,59 @@ def cuda_events_per_step(run, steps: int) -> float:
 XLA_BUDGET = 1000.0
 WALK_OPS = 7  # float instructions per level of the inverse-CDF walk
 THREEFRY_WORDS_PER_STEP_XLA = 4  # split 3, split 2, the volume normal, the drift uniform
+# key blocks agg_cells_gate needs per (env, simulated sub-timestep): kt,
+# k_auc, k_imp, k_click, k_cost, k_sfull
+CELL_KEY_BLOCKS = 6
+# ... and per (env, sub-timestep) with a partial cell: k_lanes, k_lite
+PARTIAL_KEY_BLOCKS = 2
+# agg_cells_gate's stages, as its build with -DAGG_STAGE_CLOCKS counts them
+AGG_STAGES = ("prologue and keys", "stage A", "stage B", "stage C")
+
+
+def stage_clocked(ad, cuda_build):
+    """A wrapper of agg_cells_gate built with -DAGG_STAGE_CLOCKS: the same
+    kernel, whose thread 0 also adds up its SM clocks in each stage."""
+
+    def bind(lib):
+        ad.bind(lib)
+        lib.agg_cells_gate_stage_clocks.argtypes = [ctypes.c_int, ctypes.c_void_p]
+        lib.agg_cells_gate_stage_clocks.restype = ctypes.c_int
+
+    library = cuda_build.CudaLibrary("agg_day", bind, flags=("-DAGG_STAGE_CLOCKS",))
+    return ad.AggCellsGate("agg_cells_gate (stage clocks)", library)
+
+
+def read_stage_clocks(clocked, device_index: int):
+    """The stage clocks summed since the last read, then the block count."""
+    out = (ctypes.c_ulonglong * (len(AGG_STAGES) + 1))()
+    lib = clocked.library
+    lib.check(lib.get().agg_cells_gate_stage_clocks(device_index, out), "stage clocks")
+    return list(out)
 
 
 @contextlib.contextmanager
 def agg_plain(ad):
     """Route the XLA day step through the plain versions of its kernels."""
-    kernels = (ad.agg_cells, ad.agg_gate, ad.agg_outcomes)
-    ad.agg_cells, ad.agg_gate, ad.agg_outcomes = (
-        ad.agg_cells_reference, ad.agg_gate_reference, ad.agg_outcomes_reference)
+    kernels = (ad.agg_cells_gate, ad.agg_outcomes)
+    ad.agg_cells_gate, ad.agg_outcomes = ad.agg_cells_gate_reference, ad.agg_outcomes_reference
     try:
         yield
     finally:
-        ad.agg_cells, ad.agg_gate, ad.agg_outcomes = kernels
+        ad.agg_cells_gate, ad.agg_outcomes = kernels
+
+
+def once_ms(fn):
+    """(fn(), its milliseconds on the card): one call between CUDA events."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def walk_levels(x, n):
@@ -297,7 +346,8 @@ def agg_conversions(ad, dist, params, k_cells, acc, lanes):
         for t in range(lanes.T)], 1)
 
 
-def xla_phase(torch, dev, card, table, ops_per_word, int_ops_per_s, fp_ops_per_s):
+def xla_phase(torch, dev, card, table, ops_per_word, int_ops_per_s, fp_ops_per_s, sms, ptxas,
+              clocked):
     """Phase 9: the XLA day step's kernels against their plain versions at
     full width, then the slice through them. Returns their JSON entries."""
     from adcraft_tpu_torch import EnvConfig, KeywordKind, VectorBiddingEnv
@@ -322,136 +372,143 @@ def xla_phase(torch, dev, card, table, ops_per_word, int_ops_per_s, fp_ops_per_s
     n_auc01 = torch.stack([n_auc[0], n_auc[1]]).contiguous()
     params = ad.pack_params(kw, bids)
     cells_n = E * T * K
-    max_err = {"agg_cells": 0, "agg_gate": 0, "agg_outcomes": 0}
-
-    def compare(name, got, want, label):
-        """Integer outputs exactly (their error goes to max_err), float
-        outputs bit for bit; returns the float outputs' max error."""
-        float_err = 0.0
-        for i, (g, w) in enumerate(zip(got, want)):
-            if g.shape != w.shape or g.dtype != w.dtype:
-                fail(f"{name} vs plain ({label}): output {i} is {g.dtype} {tuple(g.shape)}, "
-                     f"plain {w.dtype} {tuple(w.shape)}")
-            if g.is_floating_point():
-                err = (g.double() - w.double()).abs().max().item()
-                float_err = max(float_err, err)
-                if not torch.equal(g.view(torch.int32), w.view(torch.int32)):
-                    fail(f"{name} vs plain ({label}): float output {i} differs in its bits, "
-                         f"max error {err:.3g}")
-            else:
-                err = (g.long() - w.long()).abs().max().item()
-                max_err[name] = max(max_err[name], err)
-                if err:
-                    fail(f"{name} vs plain ({label}): output {i} differs, max error {err}")
-        return float_err
-
-    def cells_call():
-        return ad.agg_cells(params, n_auc01, k_cells, lanes)
-
-    def cells_plain():
-        return ad.agg_cells_reference(params, n_auc01, k_cells, lanes)
-
-    *cells, consts = ad.agg_cells(params, n_auc01, k_cells, lanes, keep_constants=True)
-    torch.cuda.synchronize()
-    consts_err = compare("agg_cells", consts, ad.cell_constants(params, n_auc01[1], m1),
-                         "constants")
-    with words_replaced(pk, pk.threefry_words_reference):
-        compare("agg_cells", cells, cells_plain(), "full width")
-        cells_plain_ms = cuda_ms(cells_plain, reps=1)
-    cells_ms = cuda_ms(cells_call, reps=20)
-    imp, ncl, s_full, lite = cells
-    # words: an impression word for each cell with auctions, a click word
-    # for each with impressions, a spend normal for each with clicks, and
-    # the L lite lanes of every cell (they are outputs); eight key blocks per
-    # (env, t); float: the levels the walks need (at least the smaller tail
-    # of each count), the t >= 1 ladder's compare by bisection over its
-    # min(n1, m1) + 1 levels; bytes: the four parameter rows it reads, the
-    # counts and keys in, the tables out
+    cell = torch.arange(T * K, device=dev).view(1, T, K)
     n0, n1 = n_auc01[0], n_auc01[1]
-    cells_words = ((n0 > 0).sum() + (T - 1) * (n1 > 0).sum() + (imp > 0).sum()
-                   + (ncl > 0).sum()).item() + cells_n * L + E * T * 8
-    ladder_steps = torch.log2(n1.clamp(max=m1).double() + 1).ceil() * (n1 > 0)
-    cells_fp = (WALK_OPS * (walk_levels(imp[:, 0], n0) + walk_levels(ncl, imp))
-                + (T - 1) * ladder_steps.sum()).item()
-    cells_bytes = 4 * (4 * E * K + 2 * E * K) + 16 * E + 4 * cells_n * (3 + L)
-    cells_bound = max(bound(cells_bytes, cells_words * ops_per_word, int_ops_per_s),
-                      bound(cells_bytes, cells_fp, fp_ops_per_s))
-    print(f"agg_cells == plain at {E}x{K}x{T} (m0 {m0}, m1 {m1}, L {L}): imps "
-          f"{imp.sum().item()} clicks {ncl.sum().item()} s_full {s_full.sum().item()} cents; "
-          f"constants bit-equal (max float error {consts_err:.3g}); "
-          f"kernel {cells_ms:.4f} ms, plain {cells_plain_ms:.1f} ms; {cells_words} threefry "
-          f"words, {cells_fp:.4g} float ops, {cells_bytes / 1e6:.1f} MB; bound "
-          f"{cells_bound[0]:.4f} ms ({cells_bound[1]}), "
-          f"{100 * cells_bound[0] / cells_ms:.1f}% of it reached ({card})")
+    n_t = torch.stack([n0] + [n1] * (T - 1), 1)  # (E, T, K) auctions per cell
+    max_err = {"agg_cells_gate": 0, "agg_outcomes": 0}
+    fused = ad.agg_cells_gate
 
-    timed = {}
+    chunk_t = fused.default_chunk_t(K, lanes, dev)
+    blocks_per_sm = fused.occupancy(chunk_t, K, lanes, dev)
+    smem = fused.smem_bytes(chunk_t, K, lanes)
+    print(f"agg_cells_gate: {chunk_t} sub-timesteps per chunk, {smem} B of shared memory per "
+          f"block, {blocks_per_sm} blocks per SM ({-(-E // (blocks_per_sm * sms))} waves at {E} "
+          f"envs); ptxas {'; '.join(ptxas)}")
+
+    def compare(name, pairs, label):
+        """Integer outputs exactly; their error goes to max_err."""
+        for what, g, w in pairs:
+            if g.shape != w.shape or g.dtype != w.dtype:
+                fail(f"{name} vs plain ({label}): {what} is {g.dtype} {tuple(g.shape)}, plain "
+                     f"{w.dtype} {tuple(w.shape)}")
+            err = (g.long() - w.long()).abs().max().item() if g.numel() else 0
+            max_err[name] = max(max_err[name], err)
+            if err:
+                fail(f"{name} vs plain ({label}): {what} differs, max error {err}")
+
+    def compare_cells(out, want, sim, label):
+        compare("agg_cells_gate", [("n_sim", out[3], want[3])] + [
+            (what, out[i][sim], want[i][sim]) for i, what in enumerate(("imp", "acc", "spend"))],
+            label)
+
+    # the plain sampling phase's tables, to count the work of the bounds
+    with words_replaced(pk, pk.threefry_words_reference):
+        imp_p, ncl_p, sfull_p, _ = ad.agg_cells_reference(params, n_auc01, k_cells, lanes)
+    ladder_steps = torch.log2(n1.clamp(max=m1).double() + 1).ceil() * (n1 > 0)
+
+    timed, sweep = {}, []
     for label, budget in (("unbound", 1e6), ("binding", XLA_BUDGET), ("zero", 0.0)):
         budget_c = budget_cents(torch.full((E,), budget, device=dev))
 
-        def gate_call():
-            return ad.agg_gate(params, k_cells, s_full, ncl, lite, budget_c, lanes)
+        def gate_call(chunk=None):
+            return fused(params, n_auc01, k_cells, budget_c, lanes, chunk_t=chunk)
 
-        def gate_plain():
-            return ad.agg_gate_reference(params, k_cells, s_full, ncl, lite, budget_c, lanes)
-
-        gate = gate_call()
+        got = fused(params, n_auc01, k_cells, budget_c, lanes, keep_constants=True)
+        one = gate_call(1)
         torch.cuda.synchronize()
         with words_replaced(pk, pk.threefry_words_reference):
-            compare("agg_gate", gate, gate_plain(), label)
-        acc, spend, n_sim = gate
+            want, gate_plain_ms = once_ms(lambda: ad.agg_cells_gate_reference(
+                params, n_auc01, k_cells, budget_c, lanes, keep_constants=True))
+        n_sim = want[3]
+        sim = cell < n_sim.view(E, 1, 1)
+        compare_cells(got, want, sim, f"{label}, chunk_t {chunk_t}")
+        compare_cells(one, want, sim, f"{label}, chunk_t 1")
+        consts_err = 0.0
+        for i, (g, w) in enumerate(zip(got[4], want[4])):
+            consts_err = max(consts_err, (g.double() - w.double()).abs().max().item())
+            if not torch.equal(g.view(torch.int32), w.view(torch.int32)):
+                fail(f"agg_cells_gate vs plain ({label}): constant {i} differs in its bits, "
+                     f"max error {consts_err:.3g}")
+        imp, acc, spend = got[:3]
 
         def out_call():
             return ad.agg_outcomes(params, k_cells, imp, acc, spend, n_sim, n_auc01, lanes)
 
-        def out_plain():
-            return ad.agg_outcomes_reference(params, k_cells, imp, acc, spend, n_sim, n_auc01,
-                                             lanes)
-
         out = out_call()
         torch.cuda.synchronize()
         with words_replaced(pk, pk.threefry_words_reference):
-            compare("agg_outcomes", out, out_plain(), label)
+            out_want, out_plain_ms = once_ms(lambda: ad.agg_outcomes_reference(
+                params, k_cells, *want[:4], n_auc01, lanes))
+        compare("agg_outcomes", [(f"day sum {i}", g, w) for i, (g, w) in
+                                 enumerate(zip(out, out_want))], label)
         spent = out[2].sum(1)
         if (spent > budget_c.clamp(min=0)).any():
             fail(f"agg day ({label}): an env spent more than its budget")
         if not ((out[1] <= out[0]).all() and (out[3] <= out[1]).all()):
             fail(f"agg day ({label}): clicks <= imps, convs <= clicks violated")
-        sim = (torch.arange(T * K, device=dev).view(1, T, K) < n_sim.view(E, 1, 1))
-        print(f"agg_gate, agg_outcomes == plain ({label}, ${budget:g}): simulated cells "
-              f"{sim.sum().item()} of {cells_n}, imps {out[0].sum().item()} clicks "
-              f"{out[1].sum().item()} cost ${out[2].sum().item() / 100:.2f} convs "
-              f"{out[3].sum().item()} revenue ${out[4].sum().item() / 100:.2f}")
+        print(f"agg_cells_gate, agg_outcomes == plain ({label}, ${budget:g}), chunk_t {chunk_t} "
+              f"and 1: simulated cells {sim.sum().item()} of {cells_n}, imps "
+              f"{out[0].sum().item()} clicks {out[1].sum().item()} cost "
+              f"${out[2].sum().item() / 100:.2f} convs {out[3].sum().item()} revenue "
+              f"${out[4].sum().item() / 100:.2f}; constants bit-equal (max float error "
+              f"{consts_err:.3g})")
         if label == "zero":
             continue
         gate_ms = cuda_ms(gate_call, reps=20)
         out_ms = cuda_ms(out_call, reps=20)
-        with words_replaced(pk, pk.threefry_words_reference):
-            gate_plain_ms = cuda_ms(gate_plain, reps=1)
-            out_plain_ms = cuda_ms(out_plain, reps=1)
-        # the gate needs each simulated cell's spend and clicks; of each
-        # partial cell (simulated, not full) the lanes up to the first one
-        # over the budget or its last click: the lite lanes from the table,
-        # the deep lanes drawn, and for a cell that reaches a deep lane its
-        # column key fold_in(k_rest, k) and its bid, loc and scale; the five
-        # blocks of k_rest once per (env, t) with such a cell, the env's key
-        # once per env with any; it writes every cell and n_sim
-        flat = spend.view(E, T * K).long()
+        # where a block's time goes: thread 0's SM clocks between barriers,
+        # from the stage-clocked build at the same chunk
+        def clocked_call():
+            return clocked(params, n_auc01, k_cells, budget_c, lanes, chunk_t=chunk_t)
+
+        read_stage_clocks(clocked, dev.index)
+        compare_cells(clocked_call(), want, sim, f"{label}, stage clocks")
+        counts = read_stage_clocks(clocked, dev.index)
+        per_block = [c / counts[-1] for c in counts[:-1]]
+        clocked_ms = cuda_ms(clocked_call, reps=20)
+        print(f"  agg_cells_gate stage clocks per block ({label}, -DAGG_STAGE_CLOCKS): "
+              + ", ".join(f"{name} {c:.0f} ({100 * c / sum(per_block):.1f}%)"
+                          for name, c in zip(AGG_STAGES, per_block))
+              + f"; {clocked_ms:.4f} ms in that build ({card})")
+        # agg_cells_gate, per simulated cell: an impression word where it
+        # has auctions, a click word where it has impressions, a spend
+        # normal where it has clicks; the key blocks of each (env, t) with a
+        # simulated cell. The gate's words: of each partial cell (simulated,
+        # not full) the lanes up to the first one over the budget or its
+        # last click (the first of them also says whether it accepts
+        # nothing), the first L from k_lite, the rest from its column key
+        # fold_in(k_rest, k); k_lanes and k_lite once per (env, t) with a
+        # partial cell, k_rest once per (env, t) with a cell that reaches a
+        # deep lane. A full cell reads no lane. Float: the levels the walks
+        # need (at least the smaller tail of each count) and the t >= 1
+        # ladder's bisection over its min(n1, m1) + 1 levels. Bytes: the
+        # four parameter rows, the counts, keys and budgets in; imp, acc and
+        # spend of the simulated cells and n_sim out.
+        flat = want[2].view(E, T * K).long()  # 0 past the break
         b_before = budget_c.view(E, 1).long() - (torch.cumsum(flat, 1) - flat)
         simf = sim.view(E, T * K)
-        partial = simf & (s_full.view(E, T * K).long() > b_before)
-        accf, nclf = acc.view(E, T * K), ncl.view(E, T * K)
-        looked = torch.minimum(accf + 1, nclf) * partial
+        partial = simf & (sfull_p.view(E, T * K).long() > b_before)
+        accf, nclf = want[1].view(E, T * K), ncl_p.view(E, T * K)
+        m_cell = torch.where(cell.view(1, T * K) < K, m0, m1)
+        looked = torch.minimum(torch.minimum(accf + 1, nclf), m_cell) * partial
+        lite_words = looked.clamp(max=L).sum().item()
         deep_cells = (looked - L).clamp(min=0)
         has_deep = deep_cells > 0
         deep = deep_cells.sum().item()
-        n_partial = partial.sum().item()
         n_deep_cells = has_deep.sum().item()
-        t_rest = has_deep.view(E, T, K).any(2)
-        gate_words = deep + n_deep_cells + 5 * t_rest.sum().item()
-        gate_bytes = (8 * simf.sum().item() + 4 * looked.clamp(max=L).sum().item()
-                      + 12 * n_deep_cells + 16 * t_rest.any(1).sum().item() + 8 * E
-                      + 8 * cells_n)
-        gate_bound = bound(gate_bytes, gate_words * ops_per_word, int_ops_per_s)
+        t_partial = partial.view(E, T, K).any(2).sum().item()
+        t_rest = has_deep.view(E, T, K).any(2).sum().item()
+        gate_words = lite_words + deep + n_deep_cells + PARTIAL_KEY_BLOCKS * t_partial + t_rest
+        key_blocks = CELL_KEY_BLOCKS * sim.any(2).sum().item()
+        cell_words = (((n_t > 0) & sim).sum() + ((imp_p > 0) & sim).sum()
+                      + ((ncl_p > 0) & sim).sum())
+        words = cell_words.item() + key_blocks + gate_words
+        gate_fp = (WALK_OPS * (walk_levels(imp_p[:, 0] * sim[:, 0], n0 * sim[:, 0])
+                               + walk_levels(ncl_p * sim, imp_p * sim))
+                   + (ladder_steps * sim[:, 1:].sum(1)).sum()).item()
+        gate_bytes = 4 * (4 * E * K + 2 * E * K + E) + 16 * E + 12 * simf.sum().item() + 4 * E
+        gate_bound = max(bound(gate_bytes, words * ops_per_word, int_ops_per_s),
+                         bound(gate_bytes, gate_fp, fp_ops_per_s))
         # outcomes: a conversion word for each simulated cell with accepted
         # clicks, a revenue normal for each with conversions; the key blocks
         # kt and k_conv per (env, t) with such a cell, k_rev per (env, t) with
@@ -460,7 +517,7 @@ def xla_phase(torch, dev, card, table, ops_per_word, int_ops_per_s, fp_ops_per_s
         # rows, the counts, n_sim and keys in, the six day sums out
         live = simf & (accf > 0)
         with words_replaced(pk, pk.threefry_words_reference):
-            nconv = agg_conversions(ad, dist, params, k_cells, acc, lanes).view(E, T * K)
+            nconv = agg_conversions(ad, dist, params, k_cells, want[1], lanes).view(E, T * K)
         nconv = nconv * live
         converted = nconv > 0
         t_live = live.view(E, T, K).any(2)
@@ -471,22 +528,33 @@ def xla_phase(torch, dev, card, table, ops_per_word, int_ops_per_s, fp_ops_per_s
                      + 24 * E * K)
         out_bound = max(bound(out_bytes, out_words * ops_per_word, int_ops_per_s),
                         bound(out_bytes, out_fp, fp_ops_per_s))
-        timed[label] = {"agg_gate": (gate_ms, gate_plain_ms, gate_bound),
+        timed[label] = {"agg_cells_gate": (gate_ms, gate_plain_ms, gate_bound),
                         "agg_outcomes": (out_ms, out_plain_ms, out_bound)}
-        print(f"  agg_gate ({label}): {n_partial} partial cells, {n_deep_cells} reach "
-              f"{deep} deep lanes; kernel "
-              f"{gate_ms:.4f} ms, plain {gate_plain_ms:.1f} ms; {gate_bytes / 1e6:.1f} MB, "
-              f"{gate_words} words; bound {gate_bound[0]:.4f} ms ({gate_bound[1]}), "
+        print(f"  agg_cells_gate ({label}): {partial.sum().item()} partial cells, "
+              f"{n_deep_cells} reach {deep} deep lanes; kernel {gate_ms:.4f} ms, plain "
+              f"{gate_plain_ms:.1f} ms; {words} threefry words ({key_blocks} key blocks, "
+              f"{gate_words} for partial cells' lanes, {lite_words} of them lite), "
+              f"{gate_fp:.4g} float ops, {gate_bytes / 1e6:.1f} MB; "
+              f"bound {gate_bound[0]:.4f} ms ({gate_bound[1]}), "
               f"{100 * gate_bound[0] / gate_ms:.1f}% of it reached ({card})")
         print(f"  agg_outcomes ({label}): kernel {out_ms:.4f} ms, plain {out_plain_ms:.1f} ms; "
               f"{out_bytes / 1e6:.1f} MB, {out_words} words, {out_fp:.4g} float ops; bound "
               f"{out_bound[0]:.4f} ms ({out_bound[1]}), "
               f"{100 * out_bound[0] / out_ms:.1f}% of it reached ({card})")
+        if label == "binding":
+            # the chunk's trade: every chunk size that fits, outputs equal
+            for c in range(1, T + 1):
+                occupancy = fused.occupancy(c, K, lanes, dev)
+                if occupancy == 0:
+                    break
+                compare_cells(gate_call(c), want, sim, f"{label}, chunk_t {c}")
+                c_ms = cuda_ms(lambda c=c: gate_call(c), reps=10)
+                sweep.append(f"{c}: {c_ms:.4f} ms ({occupancy}/SM)")
+            print(f"  agg_cells_gate by chunk_t ({label}): " + ", ".join(sweep) + f" ({card})")
 
     # the slice: reset, 5 steps and rollout(5) from the same state, counts
     # zeroed just before
-    kernels = {"agg_cells": ad.agg_cells, "agg_gate": ad.agg_gate,
-               "agg_outcomes": ad.agg_outcomes}
+    kernels = {"agg_cells_gate": ad.agg_cells_gate, "agg_outcomes": ad.agg_outcomes}
     state_a, _ = env.reset(prng.PRNGKey(6))
     torch.cuda.synchronize()
     for kernel in kernels.values():
@@ -562,14 +630,18 @@ def xla_phase(torch, dev, card, table, ops_per_word, int_ops_per_s, fp_ops_per_s
           f"{STEPS * E / step_s:.1f} env-steps/s ({step_s:.3f} s), plain "
           f"{STEPS * E / plain_s:.1f} env-steps/s; CUDA device events per step {events:.1f} "
           f"({card})")
+    print(f"agg_cells_gate summary: chunk_t {chunk_t}, {blocks_per_sm} blocks per SM, {smem} B "
+          f"shared memory per block; "
+          + "; ".join(f"{label} {t['agg_cells_gate'][0]:.4f} ms, bound "
+                      f"{t['agg_cells_gate'][2][0]:.4f} ms ({t['agg_cells_gate'][2][1]}), "
+                      f"{100 * t['agg_cells_gate'][2][0] / t['agg_cells_gate'][0]:.1f}% of bound"
+                      for label, t in timed.items()) + f" ({card})")
 
-    ms = {name: timed["binding"][name] for name in ("agg_gate", "agg_outcomes")}
-    ms["agg_cells"] = (cells_ms, cells_plain_ms, cells_bound)
+    ms = timed["binding"]
     replaces = {
-        "agg_cells": "adcraft_tpu/step.py:858 (_cell_tables, agg implicit-single branch; "
-                     "the XLA step has no TPU kernel)",
-        "agg_gate": "adcraft_tpu/step.py:740 (_gate_keywords_scan_agg, _resolve_cell :1087; "
-                    "no TPU kernel)",
+        "agg_cells_gate": "adcraft_tpu/step.py:858-926 (_cell_tables, agg implicit-single "
+                          "branch), :740 (_gate_keywords_scan_agg) and :1087 (_resolve_cell); "
+                          "the XLA step has no TPU kernel",
         "agg_outcomes": "adcraft_tpu/step.py:1392 (post-gate phase to :1500; no TPU kernel)",
     }
     return [
@@ -586,7 +658,7 @@ def xla_phase(torch, dev, card, table, ops_per_word, int_ops_per_s, fp_ops_per_s
             "bound_by": ms[name][2][1],
             "library_ms": None,
         }
-        for name in ("agg_cells", "agg_gate", "agg_outcomes")
+        for name in ("agg_cells_gate", "agg_outcomes")
     ]
 
 
@@ -628,16 +700,17 @@ def main() -> int:
           f"{fp_ops_per_s / 1e12:.3f} T instructions/s; HBM {HBM_BYTES_PER_S / 1e12:g} TB/s")
 
     # 2. build, one nvcc per source, all started together
-    libraries = (dk.day_kernel.library, pk.library, ad.library)
+    clocked = stage_clocked(ad, cuda_build)
+    libraries = (dk.day_kernel.library, pk.library, ad.library, clocked.library)
     t0 = time.perf_counter()
     cuda_build.build_all(libraries)
     print(f"build: {time.perf_counter() - t0:.1f} s for {len(libraries)} libraries")
     ptxas = {}
     for lib in libraries:
-        print(f"  {lib.source.name}: {lib.build_seconds:.1f} s")
-        ptxas[lib.name] = [line.strip() for line in lib.build_log.splitlines()
-                           if "registers" in line or "smem" in line or "spill" in line]
-        for line in ptxas[lib.name]:
+        print(f"  {' '.join((lib.source.name,) + lib.flags)}: {lib.build_seconds:.1f} s")
+        ptxas[lib] = [line.strip() for line in lib.build_log.splitlines()
+                      if "registers" in line or "smem" in line or "spill" in line]
+        for line in ptxas[lib]:
             print(f"    ptxas: {line}")
     # a word's integer instructions split over two 64-lane pipes (IMAD on the
     # FMA pipe, the rest on the ALU pipe) under a 128-wide issue limit; the
@@ -973,12 +1046,13 @@ def main() -> int:
           f"({'at least' if 2 * floored >= words_ms else 'under'} half) ({card})")
 
     # 9. the XLA day step
-    xla_kernels = xla_phase(torch, dev, card, table, ops_per_word, int_ops_per_s, fp_ops_per_s)
+    xla_kernels = xla_phase(torch, dev, card, table, ops_per_word, int_ops_per_s, fp_ops_per_s,
+                            sms, ptxas[ad.library], clocked)
 
     if "jax" in sys.modules:
         fail("jax was imported")
     print(f"day kernel summary: chunk_t {chunk_t}, {blocks_per_sm} blocks per SM, {smem} B "
-          f"shared memory per block; ptxas {'; '.join(ptxas[dk.day_kernel.library.name])}; "
+          f"shared memory per block; ptxas {'; '.join(ptxas[dk.day_kernel.library])}; "
           + "; ".join(f"{label} {t[0]:.4f} ms, bound {t[2][0]:.4f} ms ({t[2][1]}), "
                       f"{100 * t[2][0] / t[0]:.1f}% of bound" for label, t in timed.items())
           + f" ({card})")

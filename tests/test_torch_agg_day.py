@@ -128,16 +128,17 @@ def jax_day(jcfg):
 
 
 class GateRecorder:
-    """Wraps ``agg_day.agg_gate`` to keep each day's simulated-cell counts."""
+    """Wraps ``agg_day.agg_cells_gate`` to keep each day's simulated-cell
+    counts."""
 
     def __init__(self, monkeypatch):
         self.n_sim = []
-        self.gate = agg_day.agg_gate
-        monkeypatch.setattr(agg_day, "agg_gate", self)
+        self.cells_gate = agg_day.agg_cells_gate
+        monkeypatch.setattr(agg_day, "agg_cells_gate", self)
 
     def __call__(self, *args):
-        out = self.gate(*args)
-        self.n_sim.append(out[2])
+        out = self.cells_gate(*args)
+        self.n_sim.append(out[3])
         return out
 
 
@@ -172,8 +173,8 @@ def test_cell_tables_match_jax(bits, monkeypatch):
     lanes = lanes_of(tcfg)
     inject_jax_constants(monkeypatch)
     kw, bids, jk, tk, n_auc, n_auc01, params = cell_inputs(3 + bits, tcfg)
-    *got, (p_win, lad, mu, sigma, cmax) = agg_day.agg_cells(params, n_auc01, tk, lanes,
-                                                            keep_constants=True)
+    *got, (p_win, lad, mu, sigma, cmax) = agg_day.agg_cells_reference(params, n_auc01, tk, lanes,
+                                                                      keep_constants=True)
     ladder = jnp.asarray(np.concatenate(
         [lad.permute(1, 0, 2).numpy(), np.zeros((1, E, K), np.float32)]))
     cm = tuple(jnp.asarray(x.numpy()) for x in (mu, sigma, cmax))
@@ -230,7 +231,7 @@ def test_gate_matches_scan_agg(bits, monkeypatch):
     lanes = lanes_of(tcfg)
     inject_jax_constants(monkeypatch)
     kw, bids, jk, tk, n_auc, n_auc01, params = cell_inputs(11 + bits, tcfg)
-    imp, ncl, s_full, lite = agg_day.agg_cells(params, n_auc01, tk, lanes)
+    imp, ncl, s_full, lite = agg_day.agg_cells_reference(params, n_auc01, tk, lanes)
     p = params.numpy()
 
     def env_gate(b0, kc, sf, nc, lt, loc, scale, y0):
@@ -247,7 +248,7 @@ def test_gate_matches_scan_agg(bits, monkeypatch):
     regimes = set()
     for budget in BUDGETS + (2.0, 9.0):
         budget_c = tstep.budget_cents(torch.full((E,), budget))
-        acc, spend, n_sim = agg_day.agg_gate(params, tk, s_full, ncl, lite, budget_c, lanes)
+        _, acc, spend, n_sim = agg_day.agg_cells_gate(params, n_auc01, tk, budget_c, lanes)
         (b, broken), (p_j, spend_j, sim_j) = gate(
             jnp.asarray(budget_c.numpy()), jk, *(jnp.asarray(x.numpy()) for x in
                                                 (s_full, ncl, lite)),
@@ -275,9 +276,8 @@ def test_conversions_and_revenue_match_jax(bits, monkeypatch):
     lanes = lanes_of(tcfg)
     inject_jax_constants(monkeypatch)
     kw, bids, jk, tk, n_auc, n_auc01, params = cell_inputs(21 + bits, tcfg)
-    imp, ncl, s_full, lite = agg_day.agg_cells(params, n_auc01, tk, lanes)
     budget_c = tstep.budget_cents(torch.full((E,), 2.0))
-    acc, spend, n_sim = agg_day.agg_gate(params, tk, s_full, ncl, lite, budget_c, lanes)
+    imp, acc, spend, n_sim = agg_day.agg_cells_gate(params, n_auc01, tk, budget_c, lanes)
     got = agg_day.agg_outcomes(params, tk, imp, acc, spend, n_sim, n_auc01, lanes)
     mean_c, std_c = tdist.rev_sum_moments(params[agg_day.REV_MEAN], params[agg_day.REV_STD])
     p = params.numpy()

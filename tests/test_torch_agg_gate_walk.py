@@ -1,15 +1,24 @@
-"""The agg_gate kernel's walk, modelled lane for lane in numpy, against the
-plain gate (``agg_day.agg_gate_reference``) on the CPU.
+"""The gate walk of the agg_cells_gate kernel (its stage B), modelled lane
+for lane in numpy, against the plain gate (``agg_day.agg_gate_reference``)
+on the CPU.
 
 ``csrc/agg_day.cu`` cannot run here, so this file runs the same decisions
-over 32-cell chunks that one warp of the kernel takes: a scan for the run
-of full cells that break nothing, a ballot for the run of cells that
-accept nothing and so leave a positive budget as it is (not full, no
-click or a first lite lane above the budget), and a lane resolution (the plain ``resolve_cells``) only for a
-cell that accepts part of its clicks. Tolerance: exact. It also counts
-that no cell that accepts nothing at a positive budget is ever resolved
-alone.
+that one warp of the kernel takes over each chunk of ``chunk_t``
+sub-timesteps, through a window of the next 32 cells in (t, k) order
+across the chunk's sub-timesteps: a saturating scan and a ballot for the
+run of full cells that leave budget, a ballot for the run of cells that
+leave a positive budget as it is (full at no cost, or accepting nothing:
+not full, and no click or a first lite lane above the budget), the longer
+run taken, then the next cell decided alone: full, accepting nothing, or
+lane-resolved by a running sum over its lite costs if all its lanes are
+lite, else by the plain ``resolve_cells``. The budget carries across chunks, and no chunk
+after the one in which the day breaks is walked. Lite lanes of cells
+without clicks, which the kernel never draws, are poisoned. Tolerance:
+exact. It also counts that no cell that accepts nothing at a positive
+budget is ever resolved alone.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -20,77 +29,104 @@ from adcraft_tpu_torch.keywords import make_keyword_state
 from adcraft_tpu_torch.step import budget_cents, split_volume, xla_lanes
 
 W = 32  # lanes of a warp
+INT_MAX = 2**31 - 1
+POISON = -7  # a lite cost no cell without clicks may read
+T_FULL = 24  # the default day's sub-timesteps: one chunk for the whole day
 
 
-def first(mask):
-    hits = np.flatnonzero(mask)
-    return int(hits[0]) if hits.size else W
+def leading(mask):
+    """The number of leading set lanes."""
+    off = np.flatnonzero(~mask)
+    return int(off[0]) if off.size else W
 
 
-def walk_model(params, keys, s_full, n_clicks, lite, budget_c, lanes):
+def walk_model(params, keys, s_full, n_clicks, lite, budget_c, lanes, chunk_t):
     """The kernel's gate walk for every env; returns (acc, spend, n_sim,
-    number of cells lane-resolved, number of those that accepted nothing)."""
+    number of cells lane-resolved, number of those that accepted nothing,
+    number of those whose lanes were all lite). Cells at or past an env's
+    break stay 0."""
     E, T, K = s_full.shape
     sf, nc, lt = s_full.numpy().astype(np.int64), n_clicks.numpy(), lite.numpy()
     acc = np.zeros((E, T, K), np.int32)
     spend = np.zeros((E, T, K), np.int32)
     n_sim = np.full(E, T * K, np.int32)
-    resolved = resolved_zero = 0
+    resolved = resolved_zero = resolved_lite = 0
     lane = np.arange(W)
     for e in range(E):
         B = int(budget_c[e])
-        broken = False
-        for t in range(T):
-            k_rest = None
-            for kb in range(0, K, W):
-                k = kb + lane
-                valid = k < K
-                kk = np.minimum(k, K - 1)
-                s = np.where(valid, sf[e, t, kk], 0)
-                n = np.where(valid, nc[e, t, kk], 0)
-                c0 = np.where(valid, lt[e, t, 0, kk], 0)
-                my_acc = np.zeros(W, np.int64)
-                my_sp = np.zeros(W, np.int64)
-                start = 0
-                while not broken and start < W:
-                    incl = np.cumsum(np.where(lane >= start, s, 0))
-                    j = first(valid & (lane >= start) & (incl >= B))
-                    run = valid & (lane >= start) & (lane < j)
-                    my_acc[run], my_sp[run] = n[run], s[run]
-                    if j == W:
-                        B -= int(incl[-1])
-                        break
-                    B -= int(incl[j] - s[j])
-                    if s[j] <= B:
-                        my_acc[j], my_sp[j] = n[j], s[j]
-                        B -= int(s[j])
+        for t0 in range(0, T, chunk_t):
+            nt = min(chunk_t, T - t0)
+            cells = nt * K
+            # the chunk's tables, flat in (t, k) order as in shared memory
+            s_c = sf[e, t0:t0 + nt].reshape(-1)
+            n_c = nc[e, t0:t0 + nt].reshape(-1)
+            c0_c = lt[e, t0:t0 + nt, 0].reshape(-1)
+            acc_c = np.zeros(cells, np.int64)
+            sp_c = np.zeros(cells, np.int64)
+            end, broken = cells, False
+            p = 0
+            while p < cells:
+                c = p + lane
+                valid = c < cells
+                cc = np.minimum(c, cells - 1)
+                s = np.where(valid, s_c[cc], 0)
+                n = np.where(valid, n_c[cc], 0)
+                c0 = np.where(n != 0, c0_c[cc], 0)
+                S = np.minimum(np.cumsum(s), INT_MAX)  # the saturating scan
+                n_whole = leading(valid & (S < B))
+                n_passive = leading(valid & (B > 0) & ((s == 0) | ((s > B) & ((n == 0)
+                                                                             | (c0 > B)))))
+                run = max(n_whole, n_passive)
+                take = (n_whole >= n_passive) | (s == 0)
+                acc_c[c[:run]] = np.where(take, n, 0)[:run]
+                sp_c[c[:run]] = np.where(take, s, 0)[:run]
+                if n_whole >= n_passive and n_whole > 0:
+                    B -= int(S[n_whole - 1])
+                p += run
+                if run == W or p >= cells:
+                    continue
+                # the cell at p, decided on its own
+                sp, ap = int(s[run]), int(n[run])
+                if sp > B and (ap == 0 or c0[run] > B):
+                    sp = ap = 0
+                elif sp > B:
+                    t, k = divmod(p, K)
+                    t += t0
+                    n_lanes = min(ap, lanes.m(t))
+                    if n_lanes <= lanes.L:  # all lite: a running sum
+                        prefix = np.cumsum(lt[e, t, :n_lanes, k].astype(np.int64))
+                        over = np.flatnonzero(prefix > B)
+                        ap = int(over[0]) if over.size else n_lanes
+                        sp = int(prefix[ap - 1]) if ap else 0
+                        resolved_lite += 1
                     else:
-                        zero = ~valid | ((B > 0) & (s > B) & ((n == 0) | (c0 > B)))
-                        z = first(~zero & (lane >= j))
-                        if z == W:
-                            break
-                        if z > j:
-                            start = z
-                            continue
-                        if k_rest is None:
-                            k_rest = agg_day.t_keys(keys[e:e + 1], t).k_rest
-                        p, sp = agg_day.resolve_cells(
-                            params[:, e:e + 1], k_rest, lite[e:e + 1, t, :, kb + j], kb + j,
-                            torch.tensor([B]), torch.tensor([int(n[j])]), lanes.m(t), lanes)
-                        my_acc[j], my_sp[j] = int(p), int(sp)
-                        resolved += 1
-                        resolved_zero += int(p) == 0 and B > 0
-                        B -= int(sp)
-                    start = j + 1
-                    if B <= 0:
-                        broken = True
-                        n_sim[e] = t * K + kb + j + 1
-                acc[e, t, k[valid]] = my_acc[valid]
-                spend[e, t, k[valid]] = my_sp[valid]
-    return acc, spend, n_sim, resolved, resolved_zero
+                        k_rest = agg_day.t_keys(keys[e:e + 1], t).k_rest
+                        pj, spj = agg_day.resolve_cells(
+                            params[:, e:e + 1], k_rest, lite[e:e + 1, t, :, k], k,
+                            torch.tensor([B]), torch.tensor([ap]), lanes.m(t), lanes)
+                        ap, sp = int(pj), int(spj)
+                    resolved += 1
+                    resolved_zero += ap == 0 and B > 0
+                acc_c[p], sp_c[p] = ap, sp
+                B -= sp
+                p += 1
+                if B <= 0:
+                    end, broken = p, True
+                    break
+            acc_c[end:] = 0
+            sp_c[end:] = 0
+            acc[e, t0:t0 + nt] = acc_c.reshape(nt, K)
+            spend[e, t0:t0 + nt] = sp_c.reshape(nt, K)
+            if broken:
+                n_sim[e] = t0 * K + end
+                break
+    return acc, spend, n_sim, resolved, resolved_zero, resolved_lite
 
 
+@functools.lru_cache(maxsize=None)
 def day_tables(K, bits, lite, E, seed):
+    """The plain sampling phase's tables at bench.py's knobs, with the lite
+    lanes of cells without clicks poisoned."""
     cfg = EnvConfig(num_keywords=K, kind=KeywordKind.IMPLICIT, max_volume=576,
                     cost_sampling="agg", conv_sampling="counts", rev_sampling="sum",
                     binomial_sampler="inversion", lane_bits=bits, agg_lite_lanes=lite)
@@ -107,46 +143,78 @@ def day_tables(K, bits, lite, E, seed):
     n_auc = split_volume(cfg, vol)
     n_auc01 = torch.stack([n_auc[0], n_auc[1]]).contiguous()
     lanes = xla_lanes(cfg)
+    assert lanes.T == T_FULL
     params = agg_day.pack_params(kw, bids)
     keys = prng.split(prng.PRNGKey(seed), E)
-    _, ncl, s_full, lite_c = agg_day.agg_cells(params, n_auc01, keys, lanes)
+    _, ncl, s_full, lite_c = agg_day.agg_cells_reference(params, n_auc01, keys, lanes)
+    lite_c = torch.where((ncl == 0)[:, :, None], POISON, lite_c)
     return lanes, params, keys, s_full, ncl, lite_c
 
 
-def check(lanes, params, keys, s_full, ncl, lite, budget_c):
-    want = agg_day.agg_gate_reference(params, keys, s_full, ncl, lite, budget_c, lanes)
-    acc, spend, n_sim, resolved, resolved_zero = walk_model(params, keys, s_full, ncl, lite,
-                                                            budget_c, lanes)
+@functools.lru_cache(maxsize=None)
+def plain_gate(tables, budget):
+    lanes, params, keys, s_full, ncl, lite = day_tables(*tables)
+    E = s_full.shape[0]
+    budget_c = budget_cents(torch.full((E,), budget))
+    return budget_c, agg_day.agg_gate_reference(params, keys, s_full, ncl, lite, budget_c, lanes)
+
+
+def check(lanes, params, keys, s_full, ncl, lite, budget_c, chunk_t, want=None):
+    if want is None:
+        want = agg_day.agg_gate_reference(params, keys, s_full, ncl, lite, budget_c, lanes)
+    acc, spend, n_sim, resolved, resolved_zero, resolved_lite = walk_model(
+        params, keys, s_full, ncl, lite, budget_c, lanes, chunk_t)
     np.testing.assert_array_equal(acc, want[0].numpy())
     np.testing.assert_array_equal(spend, want[1].numpy())
     np.testing.assert_array_equal(n_sim, want[2].numpy())
     assert resolved_zero == 0
-    return n_sim, resolved
+    return n_sim, (resolved - resolved_lite, resolved_lite)
 
 
+@pytest.mark.parametrize("chunk_t", [1, 3, T_FULL])
 @pytest.mark.parametrize("K, bits, lite", [(7, 16, 1), (100, 16, 1), (45, 32, 3)])
-def test_walk_matches_plain_gate(K, bits, lite):
+def test_walk_matches_plain_gate(K, bits, lite, chunk_t):
+    """Unbound, binding, mid-day and t = 0 breaks and a zero budget; some
+    day breaks inside a chunk, before its last cell."""
     E = 12
-    lanes, params, keys, s_full, ncl, lite_c = day_tables(K, bits, lite, E, K + bits)
-    regimes = set()
+    tables = (K, bits, lite, E, K + bits)
+    lanes, params, keys, s_full, ncl, lite_c = day_tables(*tables)
+    T = lanes.T
+    regimes, inside, paths = set(), False, np.zeros(2, np.int64)
     for budget in (1e6, 20.0 * K / 7, 0.5, 0.03, 0.0):
-        n_sim, _ = check(lanes, params, keys, s_full, ncl, lite_c,
-                         budget_cents(torch.full((E,), budget)))
-        regimes |= {"unbroken" if n == lanes.T * K else "t0" if n <= K else "mid-day"
+        budget_c, want = plain_gate(tables, budget)
+        n_sim, resolved = check(lanes, params, keys, s_full, ncl, lite_c, budget_c, chunk_t, want)
+        paths += resolved
+        regimes |= {"unbroken" if n == T * K else "t0" if n <= K else "mid-day"
                     for n in n_sim.tolist()}
+        inside |= bool(((n_sim < T * K) & (n_sim % (chunk_t * K) != 0)).any())
+        if budget == 0.0:
+            assert (n_sim == 1).all()  # the first cell spends nothing and breaks the day
     assert regimes == {"unbroken", "t0", "mid-day"}
+    assert inside
+    assert (paths > 0).all(), paths  # cells resolved on the warp and by a running sum
 
 
+@pytest.mark.parametrize("chunk_t", [1, 3, T_FULL])
 @pytest.mark.parametrize("seed", [0, 1, 2])
-def test_walk_on_adversarial_tables(seed):
-    """Zero spends and lanes, empty cells, equal budgets, negative budgets."""
+def test_walk_on_adversarial_tables(seed, chunk_t):
+    """Zero spends and lanes, empty cells, equal budgets, negative budgets,
+    and spends whose sums pass INT32_MAX within a warp's scan."""
     E, K = 10, 40
     lanes, params, keys, _, _, _ = day_tables(K, 16, 2, E, 100 + seed)
     rng = np.random.default_rng(seed)
     T = lanes.T
     n = rng.integers(0, 4, (E, T, K)) * (rng.random((E, T, K)) < 0.7)
     lite = rng.integers(0, 3, (E, T, lanes.L, K)) * (rng.random((E, T, lanes.L, K)) < 0.6)
-    s = (n * rng.integers(0, 3, (E, T, K))).astype(np.int32)
-    budget = rng.integers(-2, 30, E).astype(np.int32)
-    check(lanes, params, keys, torch.from_numpy(s), torch.from_numpy(n.astype(np.int32)),
-          torch.from_numpy(lite.astype(np.int32)), torch.from_numpy(budget))
+    lite = np.where((n == 0)[:, :, None], POISON, lite)
+    s = n * rng.integers(0, 3, (E, T, K))
+    budget = rng.integers(-2, 30, E)
+    # cells of at most L clicks whose spends and lanes cost up to 2**30, lanes
+    # at least 2**28
+    n_big = np.minimum(n, lanes.L)
+    big_s = n_big * rng.integers(0, 2**29, (E, T, K))
+    big_lite = np.where((n_big == 0)[:, :, None], POISON, (lite % 3 + 1) * 2**28)
+    big_budget = rng.integers(2**30, INT_MAX, E, endpoint=True)
+    for s_, n_, lite_, b_ in ((s, n, lite, budget), (big_s, n_big, big_lite, big_budget)):
+        check(lanes, params, keys, *(torch.from_numpy(x.astype(np.int32))
+                                     for x in (s_, n_, lite_, b_)), chunk_t)

@@ -1,5 +1,5 @@
-"""CUDA kernel tests (day kernel, threefry kernels): they need the card and
-skip without one.
+"""CUDA kernel tests (day kernel, threefry kernels, the XLA day step's
+kernels): they need the card and skip without one.
 
 This file imports torch and the port only, so that it runs on a machine
 without JAX (tests/conftest.py imports jax, hence ``--noconftest``):
@@ -257,47 +257,66 @@ def xla_inputs(cfg, E, seed, dev):
 @pytest.mark.cuda
 @pytest.mark.parametrize("K, bits, lite", [(7, 16, 1), (7, 32, 3), (300, 16, 1), (300, 32, 2)])
 def test_agg_kernels_match_reference(cuda, K, bits, lite):
-    """agg_cells (and the day constants it computes), agg_gate and
-    agg_outcomes each equal their plain version on the same inputs,
-    budgets unbound, binding, small and zero."""
+    """agg_cells_gate (and the day constants it computes) and agg_outcomes
+    each equal their plain version on the same inputs, budgets unbound,
+    binding, small and zero: every simulated cell, n_sim and the constants
+    exactly, with the chunk of sub-timesteps left to the wrapper and forced
+    to 1."""
     from adcraft_tpu_torch import agg_day
     from adcraft_tpu_torch.step import budget_cents
 
     E = 97
     cfg = xla_config(K, bits, lite=lite)
     lanes, params, n_auc01, keys = xla_inputs(cfg, E, K + bits, cuda)
-    before = (agg_day.agg_cells.launches, agg_day.agg_gate.launches,
-              agg_day.agg_outcomes.launches)
-    *cells, consts = agg_day.agg_cells(params, n_auc01, keys, lanes, keep_constants=True)
-    torch.cuda.synchronize()
-    for name, g, w in zip(("p_win", "ladder", "cost mu", "cost sigma", "cost cmax"), consts,
-                          agg_day.cell_constants(params, n_auc01[1], lanes.m1)):
-        torch.testing.assert_close(g, w, rtol=0, atol=0, msg=name)
-    want = agg_day.agg_cells_reference(params, n_auc01, keys, lanes)
-    for g, w in zip(cells, want):
-        torch.testing.assert_close(g, w, rtol=0, atol=0)
-    imp, ncl, s_full, lite_c = cells
+    T = lanes.T
+    cell = torch.arange(T * K, device=cuda).view(1, T, K)
+    default = agg_day.agg_cells_gate.default_chunk_t(K, lanes, cuda)
+    assert 1 <= default <= T and agg_day.agg_cells_gate.occupancy(default, K, lanes, cuda) >= 1
+    before = (agg_day.agg_cells_gate.launches, agg_day.agg_outcomes.launches)
     regimes = set()
     for budget in (1e6, 20.0 * K / 7, 0.5, 0.0):
         budget_c = budget_cents(torch.full((E,), budget, device=cuda))
-        gate = agg_day.agg_gate(params, keys, s_full, ncl, lite_c, budget_c, lanes)
+        got = agg_day.agg_cells_gate(params, n_auc01, keys, budget_c, lanes, keep_constants=True)
+        one = agg_day.agg_cells_gate(params, n_auc01, keys, budget_c, lanes, chunk_t=1)
         torch.cuda.synchronize()
-        want_gate = agg_day.agg_gate_reference(params, keys, s_full, ncl, lite_c, budget_c, lanes)
-        for g, w in zip(gate, want_gate):
-            torch.testing.assert_close(g, w, rtol=0, atol=0)
-        out = agg_day.agg_outcomes(params, keys, imp, *gate, n_auc01, lanes)
+        want = agg_day.agg_cells_gate_reference(params, n_auc01, keys, budget_c, lanes,
+                                                keep_constants=True)
+        n_sim = want[3]
+        sim = cell < n_sim.view(E, 1, 1)
+        for out in (got, one):
+            torch.testing.assert_close(out[3], n_sim, rtol=0, atol=0)
+            for g, w in zip(out[:3], want[:3]):
+                torch.testing.assert_close(g[sim], w[sim], rtol=0, atol=0)
+        for name, g, w in zip(("p_win", "ladder", "cost mu", "cost sigma", "cost cmax"), got[4],
+                              want[4]):
+            assert torch.equal(g.view(torch.int32), w.view(torch.int32)), name
+        imp, acc, spend = got[:3]
+        out = agg_day.agg_outcomes(params, keys, imp, acc, spend, n_sim, n_auc01, lanes)
         torch.cuda.synchronize()
-        want_out = agg_day.agg_outcomes_reference(params, keys, imp, *gate, n_auc01, lanes)
+        want_out = agg_day.agg_outcomes_reference(params, keys, *want[:4], n_auc01, lanes)
         for g, w in zip(out, want_out):
             torch.testing.assert_close(g, w, rtol=0, atol=0)
         assert (out[2].sum(1) <= budget_c.clamp(min=0)).all()
-        n_sim = gate[2]
-        regimes |= {"unbroken" if n == lanes.T * K else "t0" if n <= K else "mid-day"
+        regimes |= {"unbroken" if n == T * K else "t0" if n <= K else "mid-day"
                     for n in n_sim.tolist()}
     assert regimes == {"unbroken", "t0", "mid-day"}, regimes
-    after = (agg_day.agg_cells.launches, agg_day.agg_gate.launches,
-             agg_day.agg_outcomes.launches)
-    assert after == (before[0] + 1, before[1] + 4, before[2] + 4)
+    after = (agg_day.agg_cells_gate.launches, agg_day.agg_outcomes.launches)
+    assert after == (before[0] + 8, before[1] + 4)
+
+
+@pytest.mark.cuda
+def test_agg_cells_gate_rejects_a_block_too_large(cuda):
+    """A keyword count whose single sub-timestep overflows a block's shared
+    memory raises, naming the limit; there is no fallback."""
+    from adcraft_tpu_torch import agg_day
+
+    cfg = xla_config(3000, 16)
+    lanes, params, n_auc01, keys = xla_inputs(cfg, 2, 1, cuda)
+    budget_c = torch.full((2,), 100, dtype=torch.int32, device=cuda)
+    limit = agg_day.agg_cells_gate.smem_limit(cuda)
+    assert agg_day.agg_cells_gate.smem_bytes(1, 3000, lanes) > limit
+    with pytest.raises(ValueError, match=f"limit of {limit} B"):
+        agg_day.agg_cells_gate(params, n_auc01, keys, budget_c, lanes)
 
 
 @pytest.mark.cuda
@@ -308,12 +327,12 @@ def test_xla_env_step_launches_each_agg_kernel_once(cuda):
     env = VectorBiddingEnv(cfg, 32, simple_experiment_table(64, 0.5))
     state, _ = env.reset(prng.PRNGKey(0))
     bids = torch.full((32, 8), 1.0, device=cuda)
-    kernels = (agg_day.agg_cells, agg_day.agg_gate, agg_day.agg_outcomes)
+    kernels = (agg_day.agg_cells_gate, agg_day.agg_outcomes)
     before = [k.launches for k in kernels]
     state, ts = env.step(state, bids, torch.full((32,), 3.0, device=cuda))
     end, roll = env.rollout(state, bids, 2)
     torch.cuda.synchronize()
-    assert [k.launches - b for k, b in zip(kernels, before)] == [3, 3, 3]
+    assert [k.launches - b for k, b in zip(kernels, before)] == [3, 3]
     assert ts.outcomes.impressions.is_cuda and (end.day == 3).all()
     assert roll.outcomes.impressions.shape == (2, 32, 8)
     assert (ts.outcomes.cost.sum(1) <= 3.0 + 1e-4).all()
