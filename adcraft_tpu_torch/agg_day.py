@@ -28,9 +28,14 @@ as two kernels of ``csrc/agg_day.cu``, built with nvcc on first use
   chunk of sub-timesteps in which the day breaks, so it writes only the
   simulated cells (``t * K + k < n_sim``); the plain version writes all.
 * ``agg_outcomes`` (plain: ``agg_outcomes_reference``), the post-gate
-  phase (:1392-1500): conversion counts by the walk, revenue sums, the
+  phase (:1392-1500): conversion counts by the walk, revenue, the
   ``cell_out`` masks and the (E, K) day sums in integer cents. It reads
-  only the simulated cells.
+  only the simulated cells. Revenue follows ``rev_sampling``: ``"sum"``
+  draws one ``rev_sum_cents`` per cell with conversions (``k_rev`` of its
+  sub-timestep, counter k); ``"day"`` (:1407-1411, :1476-1488) leaves the
+  cells' revenue zero and draws one per keyword from the day's masked
+  conversions, keyed by ``split(fold_in(k_cells, T), 4)[3]`` at counter k,
+  in the same launch.
 
 Every draw is keyed by the JAX key tree (``prng``, threefry2x32): per
 sub-timestep ``kt = fold_in(k_cells, t)``, ``k_auc, k_click, k_conv, k_rev
@@ -226,9 +231,22 @@ def agg_cells_gate_reference(params, n_auc01, k_cells, budget_c, lanes: Lanes,
     return (*out, cells[4]) if keep_constants else out
 
 
-def agg_outcomes_reference(params, k_cells, imp, acc, spend, n_sim, n_auc01, lanes: Lanes):
+REV_SAMPLING = ("sum", "day")
+
+
+def day_rev_key(k_cells: torch.Tensor, T: int) -> torch.Tensor:
+    """The ``"day"`` revenue key: ``split(fold_in(k_cells, T), 4)[3]``, the
+    k_rev site of the sub-timestep T that is never sampled."""
+    return prng.split(prng.fold_in(k_cells, T), 4)[..., 3, :]
+
+
+def agg_outcomes_reference(params, k_cells, imp, acc, spend, n_sim, n_auc01, lanes: Lanes,
+                           rev_sampling: str = "sum"):
     """Plain post-gate phase: the (E, K) int32 day sums (impressions,
-    clicks, cost cents, conversions, revenue cents, eligible volume)."""
+    clicks, cost cents, conversions, revenue cents, eligible volume), with
+    revenue per cell (``rev_sampling="sum"``) or per keyword and day
+    (``"day"``)."""
+    rev_day = _rev_day(rev_sampling)
     E, T, K = imp.shape
     p = params
     mean_c, std_c = dist.rev_sum_moments(p[REV_MEAN], p[REV_STD])
@@ -240,8 +258,11 @@ def agg_outcomes_reference(params, k_cells, imp, acc, spend, n_sim, n_auc01, lan
         s = sim[:, t]
         a = acc[:, t]
         nconv = dist.binomial_inv(keys.k_conv, a, p[SCTR], lanes.m(t), lanes.bits)
-        z = prng.normal(keys.k_rev, (K,))
-        rev = dist.rev_sum_cents_z(z, nconv, mean_c, std_c, p[REV_STD])
+        if rev_day:
+            rev = torch.zeros_like(nconv)
+        else:
+            z = prng.normal(keys.k_rev, (K,))
+            rev = dist.rev_sum_cents_z(z, nconv, mean_c, std_c, p[REV_STD])
         imp_m = torch.where(s, imp[:, t], 0)
         n_t = n_auc01[0] if t == 0 else n_auc01[1]
         cell_out = (imp_m, torch.where(s, a, 0), torch.where(s, spend[:, t], 0),
@@ -249,7 +270,16 @@ def agg_outcomes_reference(params, k_cells, imp, acc, spend, n_sim, n_auc01, lan
                     torch.where(s & (imp_m >= 1), n_t, 0))
         for total, x in zip(sums, cell_out):
             total += x
+    if rev_day:
+        z = prng.normal(day_rev_key(k_cells, T), (K,))
+        sums[4] = dist.rev_sum_cents_z(z, sums[3], mean_c, std_c, p[REV_STD])
     return tuple(sums)
+
+
+def _rev_day(rev_sampling: str) -> bool:
+    if rev_sampling not in REV_SAMPLING:
+        raise ValueError(f"rev_sampling must be one of {REV_SAMPLING}, got {rev_sampling!r}")
+    return rev_sampling == "day"
 
 
 def bind(lib: ctypes.CDLL) -> None:
@@ -266,8 +296,10 @@ def bind(lib: ctypes.CDLL) -> None:
     lib.agg_cells_gate_smem_bytes.restype = ll
     lib.agg_cells_gate_smem_limit.argtypes = [i, pi]
     lib.agg_cells_gate_smem_limit.restype = i
-    lib.agg_outcomes_launch.argtypes = [p, p, ll, p, p, p, p, p, p] + [i] * 7 + [p]
+    lib.agg_outcomes_launch.argtypes = [p, p, ll, p, p, p, p, p, p] + [i] * 8 + [p]
     lib.agg_outcomes_launch.restype = i
+    lib.agg_outcomes_occupancy.argtypes = [i] * 5 + [pi, ctypes.POINTER(ll)]
+    lib.agg_outcomes_occupancy.restype = i
 
 
 library = CudaLibrary("agg_day", bind)
@@ -416,10 +448,21 @@ class AggCellsGate(_Kernel):
 class AggOutcomes(_Kernel):
     """The ``agg_outcomes`` kernel's wrapper."""
 
-    def __call__(self, params, k_cells, imp, acc, spend, n_sim, n_auc01, lanes: Lanes):
+    def occupancy(self, K: int, lanes: Lanes, device):
+        """(resident blocks per SM, dynamic shared memory per block in bytes)."""
+        blocks, smem = ctypes.c_int(0), ctypes.c_longlong(0)
+        err = self.library.get().agg_outcomes_occupancy(K, lanes.T, lanes.m0, lanes.m1,
+                                                        _index(device), ctypes.byref(blocks),
+                                                        ctypes.byref(smem))
+        self.library.check(err, self.name)
+        return blocks.value, smem.value
+
+    def __call__(self, params, k_cells, imp, acc, spend, n_sim, n_auc01, lanes: Lanes,
+                 rev_sampling: str = "sum"):
         """Outputs as ``agg_outcomes_reference``."""
         E, T, K = imp.shape
         device = params.device
+        rev_day = _rev_day(rev_sampling)
         _check_lanes(lanes)
         _check(device, ("params", params, torch.float32, (NUM_PARAMS, E, K)),
                ("imp", imp, torch.int32, (E, lanes.T, K)),
@@ -430,13 +473,14 @@ class AggOutcomes(_Kernel):
         _check_keys(k_cells, E, device)
         if device.type == "cpu":
             return agg_outcomes_reference(params, k_cells, imp, acc, spend, n_sim, n_auc01,
-                                          lanes)
+                                          lanes, rev_sampling)
         lib = self._cuda(device)
         out = torch.empty((6, E, K), dtype=torch.int32, device=device)
         err = lib.agg_outcomes_launch(
             params.data_ptr(), k_cells.data_ptr(), k_cells.stride(0), imp.data_ptr(),
             acc.data_ptr(), spend.data_ptr(), n_sim.data_ptr(), n_auc01.data_ptr(),
-            out.data_ptr(), E, K, T, lanes.m0, lanes.m1, lanes.bits, *_launch_args(device),
+            out.data_ptr(), E, K, T, lanes.m0, lanes.m1, lanes.bits, int(rev_day),
+            *_launch_args(device),
         )
         self.library.check(err, self.name)
         self.launches += 1
@@ -447,10 +491,10 @@ agg_cells_gate = AggCellsGate("agg_cells_gate")
 agg_outcomes = AggOutcomes("agg_outcomes")
 
 
-def simulate_day_agg(lanes: Lanes, k_cells, kw, bids, budget_c,
-                     n_auc01) -> Tuple[torch.Tensor, ...]:
+def simulate_day_agg(lanes: Lanes, k_cells, kw, bids, budget_c, n_auc01,
+                     rev_sampling: str = "sum") -> Tuple[torch.Tensor, ...]:
     """The three phases for one day, in two launches: the six (E, K) int32
-    day sums."""
+    day sums, revenue by ``rev_sampling`` ("sum" or "day")."""
     params = pack_params(kw, bids)
     imp, acc, spend, n_sim = agg_cells_gate(params, n_auc01, k_cells, budget_c, lanes)
-    return agg_outcomes(params, k_cells, imp, acc, spend, n_sim, n_auc01, lanes)
+    return agg_outcomes(params, k_cells, imp, acc, spend, n_sim, n_auc01, lanes, rev_sampling)

@@ -4,7 +4,7 @@ Counterparts of ``adcraft_tpu/auction.py``: ``cell_binomial_fn`` (:57,
 the inversion sampler), ``_single_abs_cents_win_threshold`` (:101) and
 ``implicit_single_win_prob`` (:113). The lanes-mode auctions
 (``implicit_single_auction``, ``run_cell_auctions``) and the binomial
-pool are not ported yet (ROADMAP.md items 9 and 11).
+pool are not ported yet (ROADMAP.md items 2 and 4).
 """
 
 from __future__ import annotations
@@ -35,7 +35,7 @@ def cell_binomial_fn(cfg: EnvConfig, max_clicks: int):
     if cfg.binomial_sampler != "inversion":
         raise NotImplementedError(
             "binomial_sampler='exact' (jax.random.binomial's rejection sampler) is not "
-            "ported (ROADMAP.md item 9)"
+            "ported (ROADMAP.md item 2)"
         )
 
     def bfn(key, n, p, shape=None):

@@ -10,7 +10,8 @@ The batched day step runs either the JAX package's default XLA day step
 ``adcraft_tpu_torch.agg_day``) or the day kernel (``day_kernel="pallas"``,
 ``adcraft_tpu_torch.day_kernel``). The XLA step runs bench.py's
 configuration: ``cost_sampling="agg"``, ``conv_sampling="counts"``,
-``rev_sampling="sum"``, ``binomial_sampler="inversion"``,
+``rev_sampling="sum"`` or ``"day"`` (the fast mode of
+``experiments/train_rl.py``), ``binomial_sampler="inversion"``,
 ``agg_draw_bits=32``, either ``lane_bits`` and any ``agg_lite_lanes``;
 ``step.check_xla_config`` refuses the rest, naming its ROADMAP.md item.
 The gate knobs ``gate_mode``, ``gate_scope``, ``gate_chunk_t``,
@@ -203,4 +204,12 @@ class EnvConfig:
 BENCH_XLA_KNOBS = dict(
     day_kernel="xla", conv_sampling="counts", rev_sampling="sum", cost_sampling="agg",
     lane_bits=16, binomial_sampler="inversion", agg_lite_lanes=1, agg_draw_bits=32,
+)
+
+# adcraft_tpu/experiments/train_rl.py:129-140's fast knobs (its default,
+# without --exact-env): BENCH_XLA_KNOBS' sampling with one revenue draw per
+# keyword and day (rev_sampling="day")
+FAST_XLA_KNOBS = dict(
+    day_kernel="xla", cost_sampling="agg", conv_sampling="counts", rev_sampling="day",
+    lane_bits=16, binomial_sampler="inversion", gate_scope="chunk",
 )

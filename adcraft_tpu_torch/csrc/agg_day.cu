@@ -11,7 +11,10 @@
 //   (:740) with _resolve_cell (:1087), to which the lazy, chunked and
 //   compacted TPU gates are bit-identical;
 // * agg_outcomes replaces the post-gate phase (:1392-1500): conversion
-//   counts, revenue sums, cell_out's masks and the day sums.
+//   counts, revenue (rev_sampling="sum": a draw per cell with conversions;
+//   "day", :1407-1411 and :1476-1488: one draw per keyword from the day's
+//   conversions, keyed by split(fold_in(k_cells, T), 4)[3]), cell_out's
+//   masks and the day sums.
 //
 // The plain PyTorch versions are adcraft_tpu_torch/agg_day.py:
 // agg_cells_gate_reference (agg_cells_reference, then agg_gate_reference)
@@ -31,8 +34,9 @@
 // at l * K + k, a deep column lane i's at i.
 //
 // What bounds them: threefry words (integer ALU) and the walks' float
-// work. Bytes are far behind: agg_cells_gate keeps the cell tables on chip
-// and writes 12 bytes per simulated cell, which agg_outcomes reads back.
+// work for agg_cells_gate, which keeps the cell tables on chip and writes
+// 12 bytes per simulated cell; those bytes, which agg_outcomes reads back,
+// for agg_outcomes on a day whose budget binds (its words are then few).
 //
 // agg_cells_gate runs one block per env. Its prologue computes each
 // keyword's constants once into shared memory: the win probability, the
@@ -80,9 +84,32 @@
 // the plain build), thread 0 also counts its SM clocks in each stage, read
 // with agg_cells_gate_stage_clocks.
 //
-// agg_outcomes runs one block per env and a thread per keyword over the
-// sub-timesteps, with each sub-timestep's keys derived once per block into
-// shared memory.
+// agg_outcomes runs one block per env over its simulated cells, never
+// past n_sim. Its prologue, by all threads, derives the keys (k_conv per
+// sub-timestep with a simulated cell, and k_rev or the day key, two blocks
+// each) and each keyword's constants into shared memory: the walk's 1 - q,
+// r = q / (1 - q) and flip, the revenue moments and the auction counts,
+// beside a table of 1/j, so no per-cell or per-level division remains
+// (the walk's pmf0 = (1 - q)^a is one powf per cell with clicks, since it
+// depends on the cell's a: a table over a = 0..m0 would take (m0 + 1) K
+// powf per block, 4800 at the main path's m0 = 47 and K = 100, against at
+// most T K = 2400 cells with clicks). Then each warp reads tiles of 32
+// consecutive cells (coalesced, each tile's loads issued while the tile
+// before is summed and drawn; no lane idles on K mod 32, no thread loops
+// over t), adds the cheap sums (impressions, clicks, cost, eligible
+// volume) to shared memory with integer atomics, and puts the cells with
+// accepted clicks in a queue of its own by ballot; each time 32 wait,
+// every lane draws one cell's conversion word and walks. In "sum" mode the
+// cells that convert go to a second queue, whose revenue normals are drawn
+// 32 at a time the same way; in "day" mode, after the block's barrier, one
+// thread per keyword with conversions draws the day's normal. Integer sums
+// are exact in any order, so neither the queues' order nor the atomics
+// change the outputs. Measured on the card, the draws' arithmetic beyond
+// threefry (powf, log1pf and the erfinv polynomial, sqrtf, the float64
+// products of the exact fused multiply-adds) bounds it when most cells
+// have clicks; splitting an env's keywords over several blocks, two cells
+// per lane, packing the sums into 64-bit atomics, and capping registers
+// for more blocks per SM were each measured slower.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -107,6 +134,11 @@ constexpr int kMaxDevices = 64;  // devices whose agg_cells_gate configuration i
 // number of blocks
 constexpr int kStages = 4;
 __device__ unsigned long long g_stage_clocks[kStages + 1];
+// agg_outcomes' stages, counted the same way: the prologue; the cell tiles
+// (loads, sums, queueing); the draws of full queues; the rest (the partial
+// queues' draws, the barrier, the day draws and the writes)
+constexpr int kOutStages = 4;
+__device__ unsigned long long g_outcomes_clocks[kOutStages + 1];
 #endif
 
 // rows of the (kNumParams, E, K) parameter tensor (agg_day.py)
@@ -194,28 +226,46 @@ __device__ __forceinline__ int lane_cost(float u, float loc, float scale, float 
   return static_cast<int>(rintf(__fmul_rn(fabsf(x), 100.0f)));
 }
 
-// distributions.binomial_inv_u: the inverse-CDF walk over nmax levels;
-// recip(j) is the float32 1/j
-template <class Recip>
-__device__ int binomial_walk(float u, int n, float p, int nmax, Recip recip) {
-  const float nf = static_cast<float>(n);
+// The walk's constants for a success probability p: 1 - q and r = q / (1 -
+// q) for q = min(p, 1 - p) (p clamped to [0, 1]), and whether the count
+// flips (p > 1/2). They depend only on p, so agg_outcomes keeps them per
+// keyword in shared memory.
+struct WalkConsts {
+  float omq, r;
+  bool flip;
+};
+
+__device__ __forceinline__ WalkConsts walk_consts(float p) {
   p = fminf(fmaxf(p, 0.0f), 1.0f);
   const bool flip = p > 0.5f;
   const float q = flip ? __fsub_rn(1.0f, p) : p;
-  const float r = __fdiv_rn(q, __fsub_rn(1.0f, q));
-  float pmf = powf(__fsub_rn(1.0f, q), nf);
+  const float omq = __fsub_rn(1.0f, q);
+  return WalkConsts{omq, __fdiv_rn(q, omq), flip};
+}
+
+// distributions.binomial_inv_u: the inverse-CDF walk over nmax levels from
+// the constants w; recip(j) is the float32 1/j
+template <class Recip>
+__device__ int walk_count(float u, int n, const WalkConsts& w, int nmax, Recip recip) {
+  const float nf = static_cast<float>(n);
+  float pmf = powf(w.omq, nf);
   float cdf = pmf;
   int cnt = 0;
   // the CDF never falls, so the count stops at its first level >= u
   for (int j = 1; j <= nmax && cdf < u; ++j) {
     ++cnt;
     if (j == nmax) break;
-    const float f = __fmul_rn(__fsub_rn(nf, static_cast<float>(j - 1)), __fmul_rn(r, recip(j)));
+    const float f = __fmul_rn(__fsub_rn(nf, static_cast<float>(j - 1)), __fmul_rn(w.r, recip(j)));
     pmf = fmaxf(__fmul_rn(pmf, f), 0.0f);
     cdf = __fadd_rn(cdf, pmf);
   }
   cnt = min(max(cnt, 0), n);
-  return flip ? n - cnt : cnt;
+  return w.flip ? n - cnt : cnt;
+}
+
+template <class Recip>
+__device__ __forceinline__ int binomial_walk(float u, int n, float p, int nmax, Recip recip) {
+  return walk_count(u, n, walk_consts(p), nmax, recip);
 }
 
 // distributions.agg_cost_cents_z and rev_sum_cents_z
@@ -734,57 +784,243 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   }
 }
 
-// ---- agg_outcomes: one block per env, a thread per keyword, t in a loop ----
-// shared: per sub-timestep the keys k_conv, k_rev
+// ---- agg_outcomes: one block per env, its simulated cells in warp tiles ----
+
+// Per warp a queue of cells waiting for a draw: up to 31 waiting and 32
+// new ones. Each entry is ((t << 16) | k, count).
+constexpr int kQueue = 64;
+constexpr int kOutWarps = kThreads / 32;
+// agg_outcomes' per-keyword rows in shared memory: floats, then ints, then
+// the day sums
+enum { kOneMinusQ, kRatio, kMeanC, kStdC, kRevStd, kOutFloatRows };
+enum { kN0, kN1, kFlip, kOutIntRows };
+enum { kSumImp, kSumClicks, kSumCost, kSumConv, kSumRev, kSumElig, kSums };
+
+// Shared memory of one agg_outcomes block, in bytes: the keys (k_conv per
+// sub-timestep, then k_rev per sub-timestep or the day key), the warps'
+// two queues, the per-keyword rows and sums, and the table of 1/j.
+__host__ __device__ inline size_t outcomes_smem(int K, int T, int m0, int m1) {
+  const size_t nmax = static_cast<size_t>(m0 > m1 ? m0 : m1);
+  return sizeof(Key) * (2 * static_cast<size_t>(T) + 1) + sizeof(int2) * 2 * kQueue * kOutWarps +
+         sizeof(int) * ((kOutFloatRows + kOutIntRows + kSums) * static_cast<size_t>(K) + nmax);
+}
+
+// Appends this lane's entry (if `take`) to a warp's queue of length n
+// (warp-uniform), at the slot the ballot's prefix gives it.
+__device__ __forceinline__ void enqueue(int2* queue, int& n, bool take, int2 entry, int lane) {
+  const unsigned mask = __ballot_sync(kFull, take);
+  if (take) queue[n + __popc(mask & ((1u << lane) - 1u))] = entry;
+  n += __popc(mask);
+}
+
+// One agg_outcomes block's shared state and its per-cell steps.
+struct Outcomes {
+  const Key* conv_keys;  // [T]
+  const Key* rev_keys;   // [T] ("sum"), or [0] the day key ("day")
+  const float* kwf;      // [kOutFloatRows][K]
+  const int* kwi;        // [kOutIntRows][K]
+  int* sums;             // [kSums][K]
+  const float* recip;    // [j]: __fdiv_rn(1, j)
+  int K, m0, m1, bits;
+
+  // the conversion count of a cell with `a` accepted clicks
+  __device__ int conversions(int tk, int a) const {
+    const int t = tk >> 16, k = tk & 0xFFFF;
+    const WalkConsts w{kwf[kOneMinusQ * K + k], kwf[kRatio * K + k], kwi[kFlip * K + k] != 0};
+    const float* table = recip;
+    const int nconv = walk_count(lane_uniform(conv_keys[t], k, bits), a, w, t == 0 ? m0 : m1,
+                                 [table](int j) { return table[j]; });
+    if (nconv != 0) atomicAdd(&sums[kSumConv * K + k], nconv);
+    return nconv;
+  }
+
+  // the revenue cents of n > 0 conversions at the normal of `key` at k
+  __device__ int revenue(Key key, int k, int n) const {
+    return rev_sum(n, kwf[kMeanC * K + k], kwf[kStdC * K + k], kwf[kRevStd * K + k],
+                   normal(key, static_cast<uint32_t>(k)));
+  }
+};
+
+// The revenue queue's last `count` entries (the lanes below it), one per lane.
+__device__ __forceinline__ void drain_revenue(const Outcomes& o, int2* qr, int first, int count,
+                                              int lane) {
+  const int2 entry = lane < count ? qr[first + lane] : make_int2(0, 0);
+  __syncwarp();
+  if (lane < count) {
+    const int t = entry.x >> 16, k = entry.x & 0xFFFF;
+    atomicAdd(&o.sums[kSumRev * o.K + k], o.revenue(o.rev_keys[t], k, entry.y));
+  }
+}
+
+// The conversion queue's last `count` entries, one per lane; in "sum" mode
+// the cells that convert join the revenue queue, which is drained 32 at a
+// time.
+__device__ __forceinline__ void drain_conversions(const Outcomes& o, int2* qc, int first,
+                                                  int count, int2* qr, int& nr, bool rev_day,
+                                                  int lane) {
+  const int2 entry = lane < count ? qc[first + lane] : make_int2(0, 0);
+  __syncwarp();
+  const int nconv = lane < count ? o.conversions(entry.x, entry.y) : 0;
+  if (rev_day) return;
+  enqueue(qr, nr, nconv > 0, make_int2(entry.x, nconv), lane);
+  if (nr >= 32) {
+    __syncwarp();
+    nr -= 32;
+    drain_revenue(o, qr, nr, 32, lane);
+  }
+}
+
+// agg_outcomes: the post-gate phase of one env per block. Its simulated
+// cells c = t * K + k < n_sim are read in warp tiles of 32 consecutive
+// cells (coalesced, no lane idle on K mod 32); the cheap sums
+// go to shared memory by integer atomics, and the cells with accepted
+// clicks join the warp's queue, whose conversion draws run 32 at a time,
+// one per lane; in "sum" mode the cells that convert join a second queue
+// for their revenue normals. In "day" mode (rev_day) one revenue normal
+// per keyword with conversions follows the sums. Integer sums are exact in
+// any order, so the outputs are the plain version's.
 __global__ void __launch_bounds__(kThreads)
     agg_outcomes_kernel(const float* __restrict__ params, const long long* __restrict__ keys,
                         long long key_stride, const int* __restrict__ imp,
                         const int* __restrict__ acc, const int* __restrict__ spend,
                         const int* __restrict__ n_sim, const int* __restrict__ n_auc01,
-                        int* __restrict__ out, int E, int K, int T, int m0, int m1, int bits) {
-  extern __shared__ Key tkeys[];  // [T][2]
+                        int* __restrict__ out, int E, int K, int T, int m0, int m1, int bits,
+                        int rev_day) {
+  extern __shared__ unsigned long long smem[];
+  Key* conv_keys = reinterpret_cast<Key*>(smem);
+  Key* rev_keys = conv_keys + T;
+  int2* queues = reinterpret_cast<int2*>(rev_keys + T + 1);  // [warp][2][kQueue]
+  float* kwf = reinterpret_cast<float*>(queues + 2 * kQueue * kOutWarps);
+  int* kwi = reinterpret_cast<int*>(kwf + kOutFloatRows * K);
+  int* sums = kwi + kOutIntRows * K;
+  float* recip = reinterpret_cast<float*>(sums + kSums * K);
+
   const int e = blockIdx.x;
-  const Key kc = load_key(keys, key_stride, e);
-  for (int t = threadIdx.x; t < T; t += blockDim.x) {
-    const Key kt = child(kc, t);
-    tkeys[2 * t] = child(kt, 2);      // k_conv
-    tkeys[2 * t + 1] = child(kt, 3);  // k_rev
-  }
-  __syncthreads();
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const long long EK = static_cast<long long>(E) * K;
+  const long long eK = static_cast<long long>(e) * K;
   const int nsim = n_sim[e];
-  const auto divide = [](int j) { return __fdiv_rn(1.0f, static_cast<float>(j)); };
-  for (int k = threadIdx.x; k < K; k += blockDim.x) {
-    const long long ek = static_cast<long long>(e) * K + k;
-    const float sctr = params[SCTR * EK + ek], rev_std = params[REV_STD * EK + ek];
-    const float2 moments = rev_moments(params[REV_MEAN * EK + ek], rev_std);
-    const float mean_c = moments.x, std_c = moments.y;
-    const int n0 = n_auc01[ek], n1 = n_auc01[EK + ek];
-    int s_imp = 0, s_clicks = 0, s_cost = 0, s_conv = 0, s_rev = 0, s_elig = 0;
-    for (int t = 0; t < T && t * K + k < nsim; ++t) {
-      const long long cell = (static_cast<long long>(e) * T + t) * K + k;
-      const int a = acc[cell];
-      // a walk over zero trials counts zero, and no conversion earns nothing
-      const int nconv = a > 0 ? binomial_walk(lane_uniform(tkeys[2 * t], k, bits), a, sctr,
-                                              t == 0 ? m0 : m1, divide)
-                              : 0;
-      const int rev = nconv > 0 ? rev_sum(nconv, mean_c, std_c, rev_std, normal(tkeys[2 * t + 1], k))
-                                : 0;
-      const int im = imp[cell];
-      s_imp += im;
-      s_clicks += a;
-      s_cost += spend[cell];
-      s_conv += nconv;
-      s_rev += rev;
-      s_elig += im >= 1 ? (t == 0 ? n0 : n1) : 0;
+  const int nmax = max(m0, m1);
+
+  // the prologue, all threads: the keys of the sub-timesteps with a
+  // simulated cell (k_conv, and k_rev or the day key), two blocks each;
+  // each keyword's walk constants, revenue moments and auction counts; the
+  // sums zeroed; the table of 1/j
+  const Key kc = load_key(keys, key_stride, e);
+  const int t_end = min(T, (nsim + K - 1) / K);
+  for (int j = tid; j < (rev_day ? t_end + 1 : 2 * t_end); j += kThreads) {
+    if (j < t_end) {
+      conv_keys[j] = child(child(kc, static_cast<uint32_t>(j)), 2);
+    } else if (rev_day) {
+      rev_keys[0] = child(child(kc, static_cast<uint32_t>(T)), 3);
+    } else {
+      rev_keys[j - t_end] = child(child(kc, static_cast<uint32_t>(j - t_end)), 3);
     }
-    out[ek] = s_imp;
-    out[EK + ek] = s_clicks;
-    out[2 * EK + ek] = s_cost;
-    out[3 * EK + ek] = s_conv;
-    out[4 * EK + ek] = s_rev;
-    out[5 * EK + ek] = s_elig;
   }
+  for (int k = tid; k < K; k += kThreads) {
+    const long long ek = eK + k;
+    const WalkConsts w = walk_consts(params[SCTR * EK + ek]);
+    const float rev_std = params[REV_STD * EK + ek];
+    const float2 moments = rev_moments(params[REV_MEAN * EK + ek], rev_std);
+    kwf[kOneMinusQ * K + k] = w.omq;
+    kwf[kRatio * K + k] = w.r;
+    kwf[kMeanC * K + k] = moments.x;
+    kwf[kStdC * K + k] = moments.y;
+    kwf[kRevStd * K + k] = rev_std;
+    kwi[kN0 * K + k] = n_auc01[ek];
+    kwi[kN1 * K + k] = n_auc01[EK + ek];
+    kwi[kFlip * K + k] = w.flip;
+#pragma unroll
+    for (int i = 0; i < kSums; ++i) sums[i * K + k] = 0;
+  }
+  for (int j = tid; j < nmax; j += kThreads) recip[j] = __fdiv_rn(1.0f, static_cast<float>(j));
+#ifdef AGG_STAGE_CLOCKS
+  unsigned long long mark = clock64(), spent[kOutStages] = {};
+  const auto lap = [&](int stage) {
+    if (tid == 0) {
+      const unsigned long long now = clock64();
+      spent[stage] += now - mark;
+      mark = now;
+    }
+  };
+#else
+  const auto lap = [](int) {};
+#endif
+  __syncthreads();
+  lap(0);
+
+  const Outcomes o{conv_keys, rev_keys, kwf, kwi, sums, recip, K, m0, m1, bits};
+  int2* qc = queues + warp * 2 * kQueue;
+  int2* qr = qc + kQueue;
+  int nc = 0, nr = 0;  // the queues' lengths, warp-uniform
+  const long long row = static_cast<long long>(e) * T * K;
+  const int step_t = kThreads / K, step_k = kThreads % K;
+  int t = (warp * 32 + lane) / K;
+  int k = warp * 32 + lane - t * K;
+  // each tile's loads are issued one tile ahead, so they are in flight
+  // while the warp adds up and draws the tile before
+  int a_next = 0, im_next = 0, sp_next = 0;
+  if (warp * 32 + lane < nsim) {
+    a_next = acc[row + warp * 32 + lane];
+    im_next = imp[row + warp * 32 + lane];
+    sp_next = spend[row + warp * 32 + lane];
+  }
+  for (int base = warp * 32; base < nsim; base += kThreads) {
+    const int a = a_next, im = im_next, sp = sp_next;
+    const int c = base + kThreads + lane;
+    const bool in = c < nsim;
+    a_next = in ? acc[row + c] : 0;
+    im_next = in ? imp[row + c] : 0;
+    sp_next = in ? spend[row + c] : 0;
+    if (im != 0) {
+      atomicAdd(&sums[kSumImp * K + k], im);
+      atomicAdd(&sums[kSumElig * K + k], kwi[(t == 0 ? kN0 : kN1) * K + k]);
+    }
+    if (a != 0) atomicAdd(&sums[kSumClicks * K + k], a);
+    if (sp != 0) atomicAdd(&sums[kSumCost * K + k], sp);
+    // a walk over zero trials counts zero: only cells with clicks draw
+    enqueue(qc, nc, a > 0, make_int2((t << 16) | k, a), lane);
+    if (nc >= 32) {
+      lap(1);
+      __syncwarp();
+      nc -= 32;
+      drain_conversions(o, qc, nc, 32, qr, nr, rev_day, lane);
+      lap(2);
+    }
+    t += step_t;
+    k += step_k;
+    if (k >= K) {
+      k -= K;
+      ++t;
+    }
+  }
+  lap(1);
+  // what is left in the queues, fewer than 32 each
+  __syncwarp();
+  if (nc > 0) drain_conversions(o, qc, 0, nc, qr, nr, rev_day, lane);
+  __syncwarp();
+  if (nr > 0) drain_revenue(o, qr, 0, nr, lane);
+  __syncthreads();
+
+  for (int j = tid; j < K; j += kThreads) {
+    const long long ek = eK + j;
+    const int conv = sums[kSumConv * K + j];
+    // "day": one draw per keyword from the day's conversions
+    const int rev = !rev_day ? sums[kSumRev * K + j] : conv > 0 ? o.revenue(rev_keys[0], j, conv) : 0;
+    out[ek] = sums[kSumImp * K + j];
+    out[EK + ek] = sums[kSumClicks * K + j];
+    out[2 * EK + ek] = sums[kSumCost * K + j];
+    out[3 * EK + ek] = conv;
+    out[4 * EK + ek] = rev;
+    out[5 * EK + ek] = sums[kSumElig * K + j];
+  }
+  lap(3);
+#ifdef AGG_STAGE_CLOCKS
+  if (tid == 0) {
+    for (int i = 0; i < kOutStages; ++i) atomicAdd(&g_outcomes_clocks[i], spent[i]);
+    atomicAdd(&g_outcomes_clocks[kOutStages], 1ull);
+  }
+#endif
 }
 
 // The dynamic shared memory an agg_cells_gate block may take on `device`:
@@ -833,6 +1069,14 @@ cudaError_t cells_gate_occupancy(int chunk_t, int K, int m0, int m1, int L, int 
   if (err != cudaSuccess) return err;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, agg_cells_gate_kernel,
                                                        kThreads, smem);
+}
+
+// Lets agg_outcomes blocks take `smem` bytes of dynamic shared memory: past
+// the default 48 KB only after opting in (K above about 700).
+cudaError_t outcomes_allow(size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(agg_outcomes_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
 }
 
 }  // namespace
@@ -904,29 +1148,60 @@ int agg_cells_gate_smem_limit(int device, int* bytes) {
 }
 
 #ifdef AGG_STAGE_CLOCKS
-// The stage clocks summed since the last call into out (per stage, then the
-// number of blocks), synchronizing with the device first; zeroes them.
-int agg_cells_gate_stage_clocks(int device, unsigned long long* out) {
+// A kernel's stage clocks summed since the last call into out (per stage,
+// then the number of blocks), synchronizing with the device first; zeroes
+// them.
+static int take_clocks(int device, const void* symbol, size_t bytes, unsigned long long* out) {
   cudaError_t err = cudaSetDevice(device);
   if (err == cudaSuccess) err = cudaDeviceSynchronize();
-  if (err == cudaSuccess) err = cudaMemcpyFromSymbol(out, g_stage_clocks, sizeof(g_stage_clocks));
-  const unsigned long long zero[kStages + 1] = {};
-  if (err == cudaSuccess) err = cudaMemcpyToSymbol(g_stage_clocks, zero, sizeof(zero));
+  if (err == cudaSuccess) err = cudaMemcpyFromSymbol(out, symbol, bytes);
+  unsigned long long zero[(kStages > kOutStages ? kStages : kOutStages) + 1] = {};
+  if (err == cudaSuccess) err = cudaMemcpyToSymbol(symbol, zero, bytes);
   return static_cast<int>(err);
+}
+
+int agg_cells_gate_stage_clocks(int device, unsigned long long* out) {
+  return take_clocks(device, g_stage_clocks, sizeof(g_stage_clocks), out);
+}
+
+int agg_outcomes_stage_clocks(int device, unsigned long long* out) {
+  return take_clocks(device, g_outcomes_clocks, sizeof(g_outcomes_clocks), out);
 }
 #endif
 
+// agg_outcomes: the six (E, K) day sums into out (6, E, K) from the
+// simulated cells; revenue per cell (rev_day 0) or per keyword and day (1).
 int agg_outcomes_launch(const float* params, const long long* keys, long long key_stride,
                         const int* imp, const int* acc, const int* spend, const int* n_sim,
                         const int* n_auc01, int* out, int E, int K, int T, int m0, int m1,
-                        int bits, int device, void* stream) {
+                        int bits, int rev_day, int device, void* stream) {
   if (E <= 0 || K <= 0) return static_cast<int>(cudaSuccess);
+  if (K > 0xFFFF || T < 1 || T > 0x7FFF || m0 < 1 || m1 < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = static_cast<size_t>(T) * 2 * sizeof(Key);
+  const size_t smem = outcomes_smem(K, T, m0, m1);
+  err = outcomes_allow(smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   agg_outcomes_kernel<<<E, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      params, keys, key_stride, imp, acc, spend, n_sim, n_auc01, out, E, K, T, m0, m1, bits);
+      params, keys, key_stride, imp, acc, spend, n_sim, n_auc01, out, E, K, T, m0, m1, bits,
+      rev_day);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Resident agg_outcomes blocks per SM into *blocks_per_sm, and its shared
+// memory per block into *smem_bytes.
+int agg_outcomes_occupancy(int K, int T, int m0, int m1, int device, int* blocks_per_sm,
+                           long long* smem_bytes) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t smem = outcomes_smem(K, T, m0, m1);
+  *smem_bytes = static_cast<long long>(smem);
+  err = outcomes_allow(smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, agg_outcomes_kernel, kThreads, smem));
 }
 
 const char* agg_day_error_string(int err) {

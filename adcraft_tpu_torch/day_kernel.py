@@ -51,6 +51,7 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from adcraft_tpu_torch import distributions as dist
 from adcraft_tpu_torch.config import CompetitorModel, EnvConfig, KeywordKind
 from adcraft_tpu_torch.cuda_build import CudaLibrary
 from adcraft_tpu_torch.keywords import KeywordState
@@ -323,15 +324,16 @@ def day_kernel_inputs(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The kernel's (params, n_auc, budget_c) for (E, K) ``volumes``.
 
-    Bid and budget cents are ``round(x * 100)`` in float32, then int32,
-    in the JAX launcher's order.
+    Bid and budget cents are ``round(x * 100)`` in float32, in the JAX
+    launcher's order; budget cents are then cast to int32 as XLA casts,
+    saturating (``distributions.cents_int32``).
     """
     E, K = volumes.shape
     device = volumes.device
     f32 = torch.float32
     n_auc = split_volume(cfg, volumes.to(torch.int32)).contiguous()  # (T, E, K)
-    budget_c = torch.round(torch.as_tensor(budget, dtype=f32, device=device) * 100.0)
-    budget_c = budget_c.to(torch.int32).reshape(-1).expand(E).contiguous()
+    budget_c = dist.cents_int32(torch.as_tensor(budget, dtype=f32, device=device))
+    budget_c = budget_c.reshape(-1).expand(E).contiguous()
 
     def as_ek(x):
         return torch.as_tensor(x, dtype=f32, device=device).expand(E, K)

@@ -1,7 +1,8 @@
 """Stateless, key-driven distribution helpers (the day step's subset).
 
 Counterparts of ``adcraft_tpu/distributions.py``: ``probify`` (:27),
-``nonnegify`` (:32), ``round_cents`` (:53), ``nonneg_int_normal`` (:67),
+``nonnegify`` (:32), ``round_cents`` (:53), the budget's cents as both
+day routes cast them (``cents_int32``), ``nonneg_int_normal`` (:67),
 and the XLA day step's samplers and moments: ``binomial_inv`` (:102),
 ``binomial_cdf`` (:192), ``binomial_inv_from_cdf`` (:230), ``uniform16``
 (:358), ``censored_normal_moments`` (:387), ``rev_sum_cents`` (:519),
@@ -303,7 +304,7 @@ def agg_cost_cents_z(z, n_clicks, mu, sigma, cmax) -> torch.Tensor:
 def agg_cost_cents(key, n_clicks, mu, sigma, cmax, bits: int = 32) -> torch.Tensor:
     """One aggregate spend draw per cell in int32 cents: ``N(n mu, n
     sigma**2)`` rounded and clipped to [0, n cmax]. 16-bit normals
-    (``agg_draw_bits=16``) are not ported (ROADMAP.md item 9)."""
+    (``agg_draw_bits=16``) are not ported (ROADMAP.md item 2)."""
     if bits != 32:
         raise NotImplementedError("agg_cost_cents: 16-bit normals are not ported (ROADMAP.md)")
     z = prng.normal(key, tuple(n_clicks.shape[key.dim() - 1:]))
@@ -323,6 +324,16 @@ def nonnegify(x: torch.Tensor) -> torch.Tensor:
 def round_cents(x: torch.Tensor) -> torch.Tensor:
     """Round to 2 decimals, half to even (``np.around(x, 2)``)."""
     return torch.round(x * 100.0) / 100.0
+
+
+def cents_int32(money) -> torch.Tensor:
+    """``round(money * 100)`` in float32, converted to int32 as XLA converts
+    float32: saturating at both ends (``inf`` to INT32_MAX, ``-inf`` to
+    INT32_MIN) and NaN to 0. The budget's cents on both day routes
+    (``adcraft_tpu/step.py:1211-1218``, ``pallas_kernels.py:272-274``)."""
+    c = torch.round(torch.as_tensor(money).to(torch.float32) * 100.0)
+    c = torch.nan_to_num(c, nan=0.0).clamp(-(2.0**31), 2.0**31)
+    return c.to(torch.int64).clamp(-(2**31), 2**31 - 1).to(torch.int32)
 
 
 def nonneg_int_normal(key: torch.Tensor, mean, std, shape=None) -> torch.Tensor:

@@ -193,7 +193,8 @@ def vector_env_rollout(
 
     ``bids`` is (E, K) for every day or a (num_days, E, K) schedule;
     ``budget`` None, (E,) or (num_days, E). Equal to ``num_days`` calls of
-    ``vector_env_step_xla``, which is what it runs.
+    ``vector_env_step_xla``, which is what it runs; ``num_days=0`` returns
+    the state unchanged and leaves of length 0.
     """
     bids = torch.as_tensor(bids)
     per_day_bids = bids.dim() == 3
@@ -206,14 +207,46 @@ def vector_env_rollout(
             budget[d] if per_day_budget else budget,
         )
         steps.append(ts)
-    stacked = TimeStep(
-        obs={f: torch.stack([ts.obs[f] for ts in steps]) for f in steps[0].obs},
-        reward=torch.stack([ts.reward for ts in steps]),
-        terminated=torch.stack([ts.terminated for ts in steps]),
-        truncated=torch.stack([ts.truncated for ts in steps]),
-        outcomes=DayOutcomes(*(torch.stack(x) for x in zip(*(ts.outcomes for ts in steps)))),
+    if not steps:
+        # JAX's scan of length 0: leaves of one day's shapes and dtypes,
+        # with a leading axis of length 0
+        return state, _stack_days([_zero_timestep(cfg, state)], days=0)
+    return state, _stack_days(steps)
+
+
+def _zero_timestep(cfg: EnvConfig, state: EnvState) -> TimeStep:
+    """A TimeStep of zeros with one day's shapes and dtypes."""
+    E, K = state.day.shape[0], cfg.num_keywords
+    device = state.day.device
+    dtype = cfg.money_dtype
+
+    def z(shape, dt):
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    i32 = torch.int32
+    outcomes = DayOutcomes(
+        impressions=z((E, K), i32), buyside_clicks=z((E, K), i32), cost=z((E, K), dtype),
+        sellside_conversions=z((E, K), i32), revenue=z((E, K), dtype),
+        profit=z((E, K), dtype), volume=z((E, K), i32), eligible_volume=z((E, K), i32),
     )
-    return state, stacked
+    return TimeStep(obs=zero_observation(cfg, dtype, (E,), device), reward=z((E,), dtype),
+                    terminated=z((E,), torch.bool), truncated=z((E,), torch.bool),
+                    outcomes=outcomes)
+
+
+def _stack_days(steps, days=None) -> TimeStep:
+    """TimeSteps stacked on a new leading axis, cut to ``days`` if given."""
+
+    def stack(xs):
+        return torch.stack(list(xs))[:days]
+
+    return TimeStep(
+        obs={f: stack(ts.obs[f] for ts in steps) for f in steps[0].obs},
+        reward=stack(ts.reward for ts in steps),
+        terminated=stack(ts.terminated for ts in steps),
+        truncated=stack(ts.truncated for ts in steps),
+        outcomes=DayOutcomes(*(stack(x) for x in zip(*(ts.outcomes for ts in steps)))),
+    )
 
 
 def vector_env_step_pallas(

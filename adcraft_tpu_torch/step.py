@@ -5,8 +5,9 @@ Counterpart of ``adcraft_tpu/step.py``: ``DayOutcomes`` (:69),
 default day step and ``update_keywords`` (:1580). ``simulate_day`` runs
 the configuration that ``bench.py:47-76`` times (``day_kernel="xla"``,
 aggregate costs, conversion counts, revenue sums, inversion binomials,
-implicit single-competitor keywords) on the two kernels of
-``adcraft_tpu_torch.agg_day``; every other XLA-path configuration raises
+implicit single-competitor keywords), and the same with one revenue draw
+per keyword and day (``rev_sampling="day"``, ``train_rl.py``'s fast
+mode), on the two kernels of ``adcraft_tpu_torch.agg_day``; every other XLA-path configuration raises
 ``NotImplementedError`` (``check_xla_config``). The day-kernel path
 (``day_kernel="pallas"``) runs in ``adcraft_tpu_torch.day_kernel``.
 """
@@ -22,9 +23,6 @@ from adcraft_tpu_torch import distributions as dist
 from adcraft_tpu_torch import prng
 from adcraft_tpu_torch.config import CompetitorModel, EnvConfig, KeywordKind
 from adcraft_tpu_torch.keywords import KeywordState
-
-_INT32_MAX = 2**31 - 1
-
 
 class DayOutcomes(NamedTuple):
     """Per-keyword aggregates for one simulated day, ``(..., K)``."""
@@ -68,15 +66,15 @@ def check_xla_config(cfg: EnvConfig) -> None:
     are accepted and change nothing.
     """
     unported = [
-        (cfg.kind is not KeywordKind.IMPLICIT, "explicit keywords (ROADMAP.md item 10)"),
+        (cfg.kind is not KeywordKind.IMPLICIT, "explicit keywords (ROADMAP.md item 3)"),
         (cfg.competitor_model is not CompetitorModel.SINGLE_ABS_CENTS,
-         "the binomial pool (ROADMAP.md item 11)"),
-        (cfg.cost_sampling != "agg", "cost_sampling='lanes' (ROADMAP.md item 9)"),
-        (cfg.conv_sampling != "counts", "conv_sampling='lanes' (ROADMAP.md item 9)"),
-        (cfg.rev_sampling != "sum", f"rev_sampling={cfg.rev_sampling!r} (ROADMAP.md item 9)"),
-        (cfg.binomial_sampler != "inversion", "binomial_sampler='exact' (ROADMAP.md item 9)"),
-        (cfg.agg_draw_bits != 32, "agg_draw_bits=16 (ROADMAP.md item 9)"),
-        (cfg.use_x64, "use_x64 money and int64 cents (ROADMAP.md item 9)"),
+         "the binomial pool (ROADMAP.md item 4)"),
+        (cfg.cost_sampling != "agg", "cost_sampling='lanes' (ROADMAP.md item 2)"),
+        (cfg.conv_sampling != "counts", "conv_sampling='lanes' (ROADMAP.md item 2)"),
+        (cfg.rev_sampling == "lanes", "rev_sampling='lanes' (ROADMAP.md item 2)"),
+        (cfg.binomial_sampler != "inversion", "binomial_sampler='exact' (ROADMAP.md item 2)"),
+        (cfg.agg_draw_bits != 32, "agg_draw_bits=16 (ROADMAP.md item 2)"),
+        (cfg.use_x64, "use_x64 money and int64 cents (ROADMAP.md item 2)"),
     ]
     for bad, what in unported:
         if bad:
@@ -92,9 +90,10 @@ def xla_lanes(cfg: EnvConfig) -> agg_day.Lanes:
 
 
 def budget_cents(budget: torch.Tensor) -> torch.Tensor:
-    """``min(round(budget * 100), INT32_MAX)`` as int32 cents."""
-    b = torch.round(budget.to(torch.float32) * 100.0)
-    return torch.where(b >= 2.0**31, _INT32_MAX, b.to(torch.int64)).to(torch.int32)
+    """``min(round(budget * 100), INT32_MAX)`` as int32 cents, cast as XLA
+    casts (``distributions.cents_int32``): saturating at both ends, NaN to
+    0."""
+    return dist.cents_int32(budget)
 
 
 def simulate_day(
@@ -109,7 +108,8 @@ def simulate_day(
 
     ``split(key)`` gives the volume key and the cell key; volumes are
     ``min(round(max(N(mean, std), 0)), max_volume)``; the three phases run
-    in ``agg_day``.
+    in ``agg_day``, with revenue per cell (``rev_sampling="sum"``) or per
+    keyword and day (``"day"``).
     """
     check_xla_config(cfg)
     lanes = xla_lanes(cfg)
@@ -119,20 +119,26 @@ def simulate_day(
     n_auc = split_volume(cfg, volume)
     n_auc01 = torch.stack([n_auc[0], n_auc[1] if lanes.T > 1 else torch.zeros_like(n_auc[0])])
     imp, clicks, cost_c, convs, rev_c, elig = agg_day.simulate_day_agg(
-        lanes, k_cells, kw, bids, budget_cents(budget), n_auc01
+        lanes, k_cells, kw, bids, budget_cents(budget), n_auc01, cfg.rev_sampling
     )
     # jitted XLA divides by the constant as a product with its reciprocal,
-    # and fuses the revenue's product into the profit's subtraction
+    # and fuses one of the two products into the profit's subtraction: the
+    # revenue's where it is a sum over cells, the cost's where the revenue
+    # is the day's one draw
     cents = dist.recip(100.0)
     cost = cost_c.to(torch.float32) * cents
     revenue = rev_c.to(torch.float32) * cents
+    if cfg.rev_sampling == "day":
+        profit = dist.fma32(cost_c.to(torch.float32), -cents, revenue)
+    else:
+        profit = dist.fma32(rev_c.to(torch.float32), cents, -cost)
     return DayOutcomes(
         impressions=imp,
         buyside_clicks=clicks,
         cost=cost,
         sellside_conversions=convs,
         revenue=revenue,
-        profit=dist.fma32(rev_c.to(torch.float32), cents, -cost),
+        profit=profit,
         volume=volume,
         eligible_volume=elig,
     )

@@ -45,15 +45,22 @@ Phases, each fatal on failure:
    simulated cell, on n_sim and (bit for bit) on the day's constants, with
    its chunk of sub-timesteps chosen by the wrapper and forced to 1 (and,
    at $1000, every chunk size that fits, each timed); agg_outcomes equal
-   to its plain version; both timed at unbound and $1000 beside their
-   bounds and their plain versions; agg_cells_gate's chunk, shared memory,
-   blocks per SM and ptxas registers and spills, and each stage's SM
-   clocks per block from its -DAGG_STAGE_CLOCKS build; then the slice,
-   VectorBiddingEnv(day_kernel="xla") reset, 5 steps and rollout(5) from
-   the same state at bids $1.00 and the $1000 budget, counts zeroed just
-   before: one launch of each kernel per day, 4 threefry_words launches
-   per step, invariants, and every output equal to the same days through
-   the plain versions; CUDA device events per step.
+   to its plain version in both revenue modes (rev_sampling "sum" and
+   "day"); both kernels timed at unbound and $1000 beside their bounds
+   and their plain versions, agg_outcomes in both modes in turns;
+   agg_cells_gate's chunk, shared memory, blocks per SM and ptxas
+   registers and spills, and each stage's SM clocks per block from its
+   -DAGG_STAGE_CLOCKS build; agg_outcomes' shared memory and blocks per
+   SM and, from the same build, its SM clocks per stage in both modes;
+   then the slice, VectorBiddingEnv(day_kernel="xla") reset, 5 steps
+   and rollout(5) from the same state at bids $1.00 and the $1000 budget,
+   counts zeroed just before: one launch of each kernel per day, 4
+   threefry_words launches per step, invariants, and every output equal
+   to the same days through the plain versions; CUDA device events per
+   step; the same slice again under experiments/train_rl.py's fast knobs
+   (rev_sampling="day"), with its own counts; and the budget's cast on
+   both routes: one day at $inf and $1e8 equal to the day at $1e6, one at
+   -$3e7 with no click accepted, each equal to its plain day.
 
 The line before the last is a JSON object with each kernel's launches on
 its path, error, times and bound; the last line is {"ok": true, "device":
@@ -278,8 +285,10 @@ THREEFRY_WORDS_PER_STEP_XLA = 4  # split 3, split 2, the volume normal, the drif
 CELL_KEY_BLOCKS = 6
 # ... and per (env, sub-timestep) with a partial cell: k_lanes, k_lite
 PARTIAL_KEY_BLOCKS = 2
-# agg_cells_gate's stages, as its build with -DAGG_STAGE_CLOCKS counts them
+# agg_cells_gate's and agg_outcomes' stages, as their build with
+# -DAGG_STAGE_CLOCKS counts them
 AGG_STAGES = ("prologue and keys", "stage A", "stage B", "stage C")
+OUT_STAGES = ("prologue and keys", "cell tiles", "full-queue draws", "tail and writes")
 
 
 def stage_clocked(ad, cuda_build):
@@ -288,18 +297,21 @@ def stage_clocked(ad, cuda_build):
 
     def bind(lib):
         ad.bind(lib)
-        lib.agg_cells_gate_stage_clocks.argtypes = [ctypes.c_int, ctypes.c_void_p]
-        lib.agg_cells_gate_stage_clocks.restype = ctypes.c_int
+        for fn in (lib.agg_cells_gate_stage_clocks, lib.agg_outcomes_stage_clocks):
+            fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
 
     library = cuda_build.CudaLibrary("agg_day", bind, flags=("-DAGG_STAGE_CLOCKS",))
     return ad.AggCellsGate("agg_cells_gate (stage clocks)", library)
 
 
-def read_stage_clocks(clocked, device_index: int):
-    """The stage clocks summed since the last read, then the block count."""
-    out = (ctypes.c_ulonglong * (len(AGG_STAGES) + 1))()
+def read_stage_clocks(clocked, device_index: int, stages=AGG_STAGES):
+    """The stage clocks of ``clocked``'s kernel summed since the last read,
+    then the block count."""
+    out = (ctypes.c_ulonglong * (len(stages) + 1))()
     lib = clocked.library
-    lib.check(lib.get().agg_cells_gate_stage_clocks(device_index, out), "stage clocks")
+    reader = getattr(lib.get(), clocked.name.split()[0] + "_stage_clocks")
+    lib.check(reader(device_index, out), "stage clocks")
     return list(out)
 
 
@@ -312,6 +324,18 @@ def agg_plain(ad):
         yield
     finally:
         ad.agg_cells_gate, ad.agg_outcomes = kernels
+
+
+def kernel_ptxas(build_log: str, kernel: str) -> str:
+    """ptxas' registers, stack and spills for one kernel of a build log."""
+    lines, current = [], None
+    for line in build_log.splitlines():
+        if "Compiling entry function" in line:
+            current = line
+        elif current is not None and kernel in current and (
+                "registers" in line or "spill" in line):
+            lines.append(line.replace("ptxas info    :", "").strip())
+    return "; ".join(lines)
 
 
 def once_ms(fn):
@@ -355,7 +379,7 @@ def xla_phase(torch, dev, card, table, ops_per_word, int_ops_per_s, fp_ops_per_s
     from adcraft_tpu_torch import distributions as dist
     from adcraft_tpu_torch import prng
     from adcraft_tpu_torch import prng_kernel as pk
-    from adcraft_tpu_torch.config import BENCH_XLA_KNOBS
+    from adcraft_tpu_torch.config import BENCH_XLA_KNOBS, FAST_XLA_KNOBS
     from adcraft_tpu_torch.step import budget_cents, split_volume, xla_lanes
 
     cfg = EnvConfig(num_keywords=K, kind=KeywordKind.IMPLICIT, max_volume=MAX_VOLUME,
@@ -384,6 +408,10 @@ def xla_phase(torch, dev, card, table, ops_per_word, int_ops_per_s, fp_ops_per_s
     print(f"agg_cells_gate: {chunk_t} sub-timesteps per chunk, {smem} B of shared memory per "
           f"block, {blocks_per_sm} blocks per SM ({-(-E // (blocks_per_sm * sms))} waves at {E} "
           f"envs); ptxas {'; '.join(ptxas)}")
+    out_blocks, out_smem = ad.agg_outcomes.occupancy(K, lanes, dev)
+    out_ptxas = kernel_ptxas(ad.library.build_log, "agg_outcomes_kernel")
+    print(f"agg_outcomes: {out_smem} B of shared memory per block, {out_blocks} blocks per SM "
+          f"({-(-E // (out_blocks * sms))} waves at {E} envs); ptxas {out_ptxas}")
 
     def compare(name, pairs, label):
         """Integer outputs exactly; their error goes to max_err."""
@@ -431,16 +459,24 @@ def xla_phase(torch, dev, card, table, ops_per_word, int_ops_per_s, fp_ops_per_s
                      f"max error {consts_err:.3g}")
         imp, acc, spend = got[:3]
 
-        def out_call():
-            return ad.agg_outcomes(params, k_cells, imp, acc, spend, n_sim, n_auc01, lanes)
+        def out_call(mode="sum"):
+            return ad.agg_outcomes(params, k_cells, imp, acc, spend, n_sim, n_auc01, lanes, mode)
 
-        out = out_call()
-        torch.cuda.synchronize()
-        with words_replaced(pk, pk.threefry_words_reference):
-            out_want, out_plain_ms = once_ms(lambda: ad.agg_outcomes_reference(
-                params, k_cells, *want[:4], n_auc01, lanes))
-        compare("agg_outcomes", [(f"day sum {i}", g, w) for i, (g, w) in
-                                 enumerate(zip(out, out_want))], label)
+        # both revenue modes against their plain versions; "day" shares
+        # every sum but the revenue with "sum"
+        out_plain_ms = {}
+        for mode in ad.REV_SAMPLING:
+            got_out = out_call(mode)
+            torch.cuda.synchronize()
+            with words_replaced(pk, pk.threefry_words_reference):
+                out_want, out_plain_ms[mode] = once_ms(lambda: ad.agg_outcomes_reference(
+                    params, k_cells, *want[:4], n_auc01, lanes, mode))
+            compare("agg_outcomes", [(f"day sum {i}", g, w) for i, (g, w) in
+                                     enumerate(zip(got_out, out_want))], f"{label}, {mode}")
+            if mode == "sum":
+                out = got_out
+            elif not all(torch.equal(got_out[i], out[i]) for i in (0, 1, 2, 3, 5)):
+                fail(f"agg_outcomes ({label}): the day mode changed a sum other than revenue")
         spent = out[2].sum(1)
         if (spent > budget_c.clamp(min=0)).any():
             fail(f"agg day ({label}): an env spent more than its budget")
@@ -450,12 +486,15 @@ def xla_phase(torch, dev, card, table, ops_per_word, int_ops_per_s, fp_ops_per_s
               f"and 1: simulated cells {sim.sum().item()} of {cells_n}, imps "
               f"{out[0].sum().item()} clicks {out[1].sum().item()} cost "
               f"${out[2].sum().item() / 100:.2f} convs {out[3].sum().item()} revenue "
-              f"${out[4].sum().item() / 100:.2f}; constants bit-equal (max float error "
-              f"{consts_err:.3g})")
+              f"${out[4].sum().item() / 100:.2f} (day mode ${got_out[4].sum().item() / 100:.2f})"
+              f"; constants bit-equal (max float error {consts_err:.3g})")
         if label == "zero":
             continue
         gate_ms = cuda_ms(gate_call, reps=20)
-        out_ms = cuda_ms(out_call, reps=20)
+        # the two modes in turns: sum, day, day, sum
+        turns = [(mode, cuda_ms(lambda mode=mode: out_call(mode), reps=20))
+                 for mode in ("sum", "day", "day", "sum")]
+        out_ms = {mode: sum(ms for m, ms in turns if m == mode) / 2 for mode in ad.REV_SAMPLING}
         # where a block's time goes: thread 0's SM clocks between barriers,
         # from the stage-clocked build at the same chunk
         def clocked_call():
@@ -470,6 +509,21 @@ def xla_phase(torch, dev, card, table, ops_per_word, int_ops_per_s, fp_ops_per_s
               + ", ".join(f"{name} {c:.0f} ({100 * c / sum(per_block):.1f}%)"
                           for name, c in zip(AGG_STAGES, per_block))
               + f"; {clocked_ms:.4f} ms in that build ({card})")
+        clocked_out = ad.AggOutcomes("agg_outcomes (stage clocks)", clocked.library)
+        for mode in ad.REV_SAMPLING:
+            def clocked_out_call(mode=mode):
+                return clocked_out(params, k_cells, imp, acc, spend, n_sim, n_auc01, lanes, mode)
+
+            read_stage_clocks(clocked_out, dev.index, OUT_STAGES)
+            compare("agg_outcomes", [(f"day sum {i}", g, w) for i, (g, w) in
+                                     enumerate(zip(clocked_out_call(), out_call(mode)))],
+                    f"{label}, {mode}, stage clocks")
+            counts = read_stage_clocks(clocked_out, dev.index, OUT_STAGES)
+            per_block = [c / counts[-1] for c in counts[:-1]]
+            print(f"  agg_outcomes stage clocks per block ({label}, {mode}, -DAGG_STAGE_CLOCKS): "
+                  + ", ".join(f"{name} {c:.0f} ({100 * c / sum(per_block):.1f}%)"
+                              for name, c in zip(OUT_STAGES, per_block))
+                  + f"; {cuda_ms(clocked_out_call, reps=20):.4f} ms in that build ({card})")
         # agg_cells_gate, per simulated cell: an impression word where it
         # has auctions, a click word where it has impressions, a spend
         # normal where it has clicks; the key blocks of each (env, t) with a
@@ -510,11 +564,14 @@ def xla_phase(torch, dev, card, table, ops_per_word, int_ops_per_s, fp_ops_per_s
         gate_bound = max(bound(gate_bytes, words * ops_per_word, int_ops_per_s),
                          bound(gate_bytes, gate_fp, fp_ops_per_s))
         # outcomes: a conversion word for each simulated cell with accepted
-        # clicks, a revenue normal for each with conversions; the key blocks
-        # kt and k_conv per (env, t) with such a cell, k_rev per (env, t) with
-        # a conversion; float: the levels the conversion walks need; bytes:
-        # imp, acc and spend of the simulated cells, the three parameter
-        # rows, the counts, n_sim and keys in, the six day sums out
+        # clicks; the key blocks kt and k_conv per (env, t) with such a cell;
+        # "sum": a revenue normal for each cell with conversions and k_rev per
+        # (env, t) with one; "day": a revenue normal for each (env, k) with
+        # conversions and the day key's two blocks per env. Float: the
+        # levels the conversion walks need. Bytes: imp, acc and spend of the
+        # simulated cells, the three parameter rows, the counts, n_sim and
+        # keys in, the six day sums out. The kernel's shared tables (1/j,
+        # the walk's constants) are not work saved from the function.
         live = simf & (accf > 0)
         with words_replaced(pk, pk.threefry_words_reference):
             nconv = agg_conversions(ad, dist, params, k_cells, want[1], lanes).view(E, T * K)
@@ -522,14 +579,21 @@ def xla_phase(torch, dev, card, table, ops_per_word, int_ops_per_s, fp_ops_per_s
         converted = nconv > 0
         t_live = live.view(E, T, K).any(2)
         t_conv = converted.view(E, T, K).any(2)
-        out_words = (live.sum() + converted.sum() + 2 * t_live.sum() + t_conv.sum()).item()
+        conv_words = (live.sum() + 2 * t_live.sum()).item()
+        rev_words = {"sum": (converted.sum() + t_conv.sum()).item(),
+                     "day": ((out[3] > 0).sum() + 2 * E).item()}
         out_fp = WALK_OPS * walk_levels(nconv, accf * live).item()
         out_bytes = (12 * simf.sum().item() + 4 * (3 * E * K + 2 * E * K + E) + 16 * E
                      + 24 * E * K)
-        out_bound = max(bound(out_bytes, out_words * ops_per_word, int_ops_per_s),
-                        bound(out_bytes, out_fp, fp_ops_per_s))
-        timed[label] = {"agg_cells_gate": (gate_ms, gate_plain_ms, gate_bound),
-                        "agg_outcomes": (out_ms, out_plain_ms, out_bound)}
+        out_bound = {mode: max(bound(out_bytes, (conv_words + rev_words[mode]) * ops_per_word,
+                                     int_ops_per_s),
+                               bound(out_bytes, out_fp, fp_ops_per_s))
+                     for mode in ad.REV_SAMPLING}
+        out_words = {mode: conv_words + rev_words[mode] for mode in ad.REV_SAMPLING}
+        timed[label] = {"agg_cells_gate": (gate_ms, gate_plain_ms, gate_bound)}
+        for mode in ad.REV_SAMPLING:
+            timed[label]["agg_outcomes" if mode == "sum" else "agg_outcomes (day)"] = (
+                out_ms[mode], out_plain_ms[mode], out_bound[mode])
         print(f"  agg_cells_gate ({label}): {partial.sum().item()} partial cells, "
               f"{n_deep_cells} reach {deep} deep lanes; kernel {gate_ms:.4f} ms, plain "
               f"{gate_plain_ms:.1f} ms; {words} threefry words ({key_blocks} key blocks, "
@@ -537,10 +601,13 @@ def xla_phase(torch, dev, card, table, ops_per_word, int_ops_per_s, fp_ops_per_s
               f"{gate_fp:.4g} float ops, {gate_bytes / 1e6:.1f} MB; "
               f"bound {gate_bound[0]:.4f} ms ({gate_bound[1]}), "
               f"{100 * gate_bound[0] / gate_ms:.1f}% of it reached ({card})")
-        print(f"  agg_outcomes ({label}): kernel {out_ms:.4f} ms, plain {out_plain_ms:.1f} ms; "
-              f"{out_bytes / 1e6:.1f} MB, {out_words} words, {out_fp:.4g} float ops; bound "
-              f"{out_bound[0]:.4f} ms ({out_bound[1]}), "
-              f"{100 * out_bound[0] / out_ms:.1f}% of it reached ({card})")
+        for mode in ad.REV_SAMPLING:
+            print(f"  agg_outcomes ({label}, rev_sampling {mode!r}): kernel {out_ms[mode]:.4f} "
+                  f"ms ({', '.join(f'{ms:.4f}' for m, ms in turns if m == mode)}), plain "
+                  f"{out_plain_ms[mode]:.1f} ms; {out_bytes / 1e6:.1f} MB, "
+                  f"{int(live.sum())} cells with clicks, {out_words[mode]} words, {out_fp:.4g} "
+                  f"float ops; bound {out_bound[mode][0]:.4f} ms ({out_bound[mode][1]}), "
+                  f"{100 * out_bound[mode][0] / out_ms[mode]:.1f}% of it reached ({card})")
         if label == "binding":
             # the chunk's trade: every chunk size that fits, outputs equal
             for c in range(1, T + 1):
@@ -552,90 +619,111 @@ def xla_phase(torch, dev, card, table, ops_per_word, int_ops_per_s, fp_ops_per_s
                 sweep.append(f"{c}: {c_ms:.4f} ms ({occupancy}/SM)")
             print(f"  agg_cells_gate by chunk_t ({label}): " + ", ".join(sweep) + f" ({card})")
 
-    # the slice: reset, 5 steps and rollout(5) from the same state, counts
-    # zeroed just before
-    kernels = {"agg_cells_gate": ad.agg_cells_gate, "agg_outcomes": ad.agg_outcomes}
-    state_a, _ = env.reset(prng.PRNGKey(6))
-    torch.cuda.synchronize()
-    for kernel in kernels.values():
-        kernel.launches = 0
-    pk.threefry_words.launches = 0
-    t0 = time.perf_counter()
-    state = state_a
-    steps = []
-    for _ in range(STEPS):
-        state, ts = env.step(state, bids)
-        steps.append(ts)
-    torch.cuda.synchronize()
-    step_s = time.perf_counter() - t0
-    end_step = state
-    end_roll, roll = env.rollout(state_a, bids, STEPS)
-    torch.cuda.synchronize()
-    launches = {name: kernel.launches for name, kernel in kernels.items()}
-    words_launches = pk.threefry_words.launches
-    if any(n != 2 * STEPS for n in launches.values()):
-        fail(f"XLA slice launches {launches}, want {2 * STEPS} of each "
-             f"({STEPS} steps and rollout({STEPS}))")
-    if words_launches != 2 * STEPS * THREEFRY_WORDS_PER_STEP_XLA:
-        fail(f"XLA slice: {words_launches} threefry_words launches in {2 * STEPS} days, want "
-             f"{THREEFRY_WORDS_PER_STEP_XLA} per day")
-    for i, ts in enumerate(steps):
-        o = ts.outcomes
-        if not ((o.buyside_clicks <= o.impressions).all() and (o.impressions <= o.volume).all()
-                and (o.sellside_conversions <= o.buyside_clicks).all()):
-            fail(f"XLA step {i}: clicks <= imps <= volume, convs <= clicks violated")
-        if (o.cost.sum(1) > XLA_BUDGET + 1e-3).any():
-            fail(f"XLA step {i}: an env spent more than the ${XLA_BUDGET:g} budget")
-        if not torch.isfinite(ts.reward).all():
-            fail(f"XLA step {i}: non-finite reward")
-        for f in o._fields:
-            if not torch.equal(getattr(o, f), getattr(roll.outcomes, f)[i]):
-                fail(f"XLA rollout day {i}: {f} differs from step {i}")
-        if not torch.equal(ts.reward, roll.reward[i]):
-            fail(f"XLA rollout day {i}: reward differs from step {i}")
-    if not (torch.equal(end_step.key, end_roll.key) and (end_step.day == STEPS).all()):
-        fail("XLA rollout: the final state differs from the steps'")
-    if steps[-1].outcomes.impressions.sum().item() <= 0:
-        fail("XLA slice: no impressions")
-
-    t0 = time.perf_counter()
-    with agg_plain(ad), words_replaced(pk, pk.threefry_words_reference):
-        state = state_a
-        for i in range(STEPS):
-            state, ts = env.step(state, bids)
-            want = steps[i]
-            pairs = [("reward", ts.reward, want.reward)]
-            pairs += [("obs." + f, ts.obs[f], want.obs[f]) for f in want.obs]
-            pairs += [("outcomes." + f, getattr(ts.outcomes, f), getattr(want.outcomes, f))
-                      for f in want.outcomes._fields]
-            for name, x, y in pairs:
-                if not torch.equal(x, y):
-                    fail(f"XLA slice step {i}: {name} differs between kernels and plain")
+    def run_slice(slice_env, label):
+        """Reset, 5 steps and rollout(5) from the same state, counts zeroed
+        just before and read just after; then the same days through the
+        plain versions. Returns the agg kernels' launches."""
+        kernels = {"agg_cells_gate": ad.agg_cells_gate, "agg_outcomes": ad.agg_outcomes}
+        state_a, _ = slice_env.reset(prng.PRNGKey(6))
         torch.cuda.synchronize()
-        if not torch.equal(state.key, end_step.key):
-            fail("XLA slice: the state key differs between kernels and plain")
-    plain_s = time.perf_counter() - t0
-
-    def run_steps():
-        st = state_a
+        for kernel in kernels.values():
+            kernel.launches = 0
+        pk.threefry_words.launches = 0
+        t0 = time.perf_counter()
+        state = state_a
+        steps = []
         for _ in range(STEPS):
-            st, _ts = env.step(st, bids)
+            state, ts = slice_env.step(state, bids)
+            steps.append(ts)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        end_step = state
+        end_roll, roll = slice_env.rollout(state_a, bids, STEPS)
+        torch.cuda.synchronize()
+        launches = {name: kernel.launches for name, kernel in kernels.items()}
+        words_launches = pk.threefry_words.launches
+        if any(n != 2 * STEPS for n in launches.values()):
+            fail(f"{label} slice launches {launches}, want {2 * STEPS} of each "
+                 f"({STEPS} steps and rollout({STEPS}))")
+        if words_launches != 2 * STEPS * THREEFRY_WORDS_PER_STEP_XLA:
+            fail(f"{label} slice: {words_launches} threefry_words launches in {2 * STEPS} days, "
+                 f"want {THREEFRY_WORDS_PER_STEP_XLA} per day")
+        for i, ts in enumerate(steps):
+            o = ts.outcomes
+            if not ((o.buyside_clicks <= o.impressions).all()
+                    and (o.impressions <= o.volume).all()
+                    and (o.sellside_conversions <= o.buyside_clicks).all()
+                    and (o.revenue >= 0.01 * o.sellside_conversions - 1e-3).all()):
+                fail(f"{label} step {i}: clicks <= imps <= volume, convs <= clicks, revenue >= "
+                     f"$0.01 per conversion violated")
+            if (o.cost.sum(1) > XLA_BUDGET + 1e-3).any():
+                fail(f"{label} step {i}: an env spent more than the ${XLA_BUDGET:g} budget")
+            if not torch.isfinite(ts.reward).all():
+                fail(f"{label} step {i}: non-finite reward")
+            for f in o._fields:
+                if not torch.equal(getattr(o, f), getattr(roll.outcomes, f)[i]):
+                    fail(f"{label} rollout day {i}: {f} differs from step {i}")
+            if not torch.equal(ts.reward, roll.reward[i]):
+                fail(f"{label} rollout day {i}: reward differs from step {i}")
+        if not (torch.equal(end_step.key, end_roll.key) and (end_step.day == STEPS).all()):
+            fail(f"{label} rollout: the final state differs from the steps'")
+        if steps[-1].outcomes.sellside_conversions.sum().item() <= 0:
+            fail(f"{label} slice: no conversions")
 
-    events = cuda_events_per_step(run_steps, STEPS)
-    imps = sum(ts.outcomes.impressions.sum().item() for ts in steps)
-    cost = sum(ts.outcomes.cost.sum().item() for ts in steps)
-    print(f"XLA slice: {STEPS} steps and rollout({STEPS}) x {E} envs x {K} keywords, bids "
-          f"${BID:.2f}, budget ${XLA_BUDGET:g}: {imps} impressions, ${cost:.2f} spent; launches "
-          f"{launches}, threefry_words {words_launches / (2 * STEPS):g} per step; kernels "
-          f"{STEPS * E / step_s:.1f} env-steps/s ({step_s:.3f} s), plain "
-          f"{STEPS * E / plain_s:.1f} env-steps/s; CUDA device events per step {events:.1f} "
-          f"({card})")
+        t0 = time.perf_counter()
+        with agg_plain(ad), words_replaced(pk, pk.threefry_words_reference):
+            state = state_a
+            for i in range(STEPS):
+                state, ts = slice_env.step(state, bids)
+                want = steps[i]
+                pairs = [("reward", ts.reward, want.reward)]
+                pairs += [("obs." + f, ts.obs[f], want.obs[f]) for f in want.obs]
+                pairs += [("outcomes." + f, getattr(ts.outcomes, f), getattr(want.outcomes, f))
+                          for f in want.outcomes._fields]
+                for name, x, y in pairs:
+                    if not torch.equal(x, y):
+                        fail(f"{label} slice step {i}: {name} differs between kernels and plain")
+            torch.cuda.synchronize()
+            if not torch.equal(state.key, end_step.key):
+                fail(f"{label} slice: the state key differs between kernels and plain")
+        plain_s = time.perf_counter() - t0
+
+        def run_steps():
+            st = state_a
+            for _ in range(STEPS):
+                st, _ts = slice_env.step(st, bids)
+
+        events = cuda_events_per_step(run_steps, STEPS)
+        imps = sum(ts.outcomes.impressions.sum().item() for ts in steps)
+        cost = sum(ts.outcomes.cost.sum().item() for ts in steps)
+        revenue = sum(ts.outcomes.revenue.sum().item() for ts in steps)
+        print(f"{label} slice: {STEPS} steps and rollout({STEPS}) x {E} envs x {K} keywords, "
+              f"bids ${BID:.2f}, budget ${XLA_BUDGET:g}: {imps} impressions, ${cost:.2f} spent, "
+              f"${revenue:.2f} revenue; launches {launches}, threefry_words "
+              f"{words_launches / (2 * STEPS):g} per step; kernels {STEPS * E / step_s:.1f} "
+              f"env-steps/s ({step_s:.3f} s), plain {STEPS * E / plain_s:.1f} env-steps/s; CUDA "
+              f"device events per step {events:.1f} ({card})")
+        return launches
+
+    # the slices: bench.py's knobs (the main path), then train_rl.py's fast
+    # knobs (rev_sampling="day"), each with its own counts
+    launches = run_slice(env, "XLA")
+    fast_cfg = EnvConfig(num_keywords=K, kind=KeywordKind.IMPLICIT, max_volume=MAX_VOLUME,
+                         budget=XLA_BUDGET, **FAST_XLA_KNOBS)
+    run_slice(VectorBiddingEnv(fast_cfg, E, table, device=dev), "XLA day-revenue")
     print(f"agg_cells_gate summary: chunk_t {chunk_t}, {blocks_per_sm} blocks per SM, {smem} B "
           f"shared memory per block; "
           + "; ".join(f"{label} {t['agg_cells_gate'][0]:.4f} ms, bound "
                       f"{t['agg_cells_gate'][2][0]:.4f} ms ({t['agg_cells_gate'][2][1]}), "
                       f"{100 * t['agg_cells_gate'][2][0] / t['agg_cells_gate'][0]:.1f}% of bound"
                       for label, t in timed.items()) + f" ({card})")
+    print(f"agg_outcomes summary: {out_blocks} blocks per SM, {out_smem} B shared memory per "
+          f"block, ptxas {out_ptxas}; " + "; ".join(
+              f"{label} {mode} {t[name][0]:.4f} ms, plain {t[name][1]:.1f} ms, bound "
+              f"{t[name][2][0]:.4f} ms ({t[name][2][1]}), {100 * t[name][2][0] / t[name][0]:.1f}% "
+              f"of bound" for label, t in timed.items()
+              for mode, name in (("sum", "agg_outcomes"), ("day", "agg_outcomes (day)")))
+          + f" ({card})")
 
     ms = timed["binding"]
     replaces = {
@@ -660,6 +748,50 @@ def xla_phase(torch, dev, card, table, ops_per_word, int_ops_per_s, fp_ops_per_s
         }
         for name in ("agg_cells_gate", "agg_outcomes")
     ]
+
+
+CAST_BUDGETS = (1e6, math.inf, 1e8, -3e7)  # unbound, two "unlimited" ones, INT32_MIN cents
+
+
+def budget_cast_phase(torch, dev, card, table, pallas_env):
+    """The budget's cents cast as XLA casts, on the card: one day on each
+    route at $1e6 (which cannot bind at bids of $1.00), ``inf`` and $1e8
+    (which must equal it) and -$3e7 (which accepts no click), each equal to
+    the same day through the plain versions."""
+    from adcraft_tpu_torch import EnvConfig, KeywordKind, VectorBiddingEnv
+    from adcraft_tpu_torch import agg_day as ad
+    from adcraft_tpu_torch import day_kernel as dk
+    from adcraft_tpu_torch import prng
+    from adcraft_tpu_torch.config import BENCH_XLA_KNOBS
+
+    xla_cfg = EnvConfig(num_keywords=K, kind=KeywordKind.IMPLICIT, max_volume=MAX_VOLUME,
+                        **BENCH_XLA_KNOBS)
+    routes = (("pallas", pallas_env, lambda: day_kernel_replaced(dk, dk.simulate_day_reference)),
+              ("xla", VectorBiddingEnv(xla_cfg, E, table, device=dev), lambda: agg_plain(ad)))
+    bids = torch.full((E, K), BID, device=dev)
+    for route, env, plain in routes:
+        state, _ = env.reset(prng.PRNGKey(7))
+        days = {}
+        for budget in CAST_BUDGETS:
+            budget_e = torch.full((E,), budget, device=dev)
+            days[budget] = env.step(state, bids, budget_e)[1].outcomes
+            with plain():
+                want = env.step(state, bids, budget_e)[1].outcomes
+            for f in want._fields:
+                if not torch.equal(getattr(days[budget], f), getattr(want, f)):
+                    fail(f"budget cast ({route}, ${budget:g}): {f} differs between kernel and "
+                         f"plain")
+        for budget in (math.inf, 1e8):
+            for f in days[1e6]._fields:
+                if not torch.equal(getattr(days[budget], f), getattr(days[1e6], f)):
+                    fail(f"budget cast ({route}): the day at ${budget:g} differs from $1e6 in {f}")
+        broke = days[-3e7]
+        if broke.buyside_clicks.sum().item() != 0 or broke.cost.sum().item() != 0:
+            fail(f"budget cast ({route}): the day at -$3e7 accepted clicks")
+        print(f"budget cast ({route}): days at $inf and $1e8 == $1e6 "
+              f"({days[1e6].buyside_clicks.sum().item()} clicks, "
+              f"${days[1e6].cost.sum().item():.2f}); -$3e7 accepts 0 clicks; each == plain "
+              f"({card})")
 
 
 def main() -> int:
@@ -1048,6 +1180,7 @@ def main() -> int:
     # 9. the XLA day step
     xla_kernels = xla_phase(torch, dev, card, table, ops_per_word, int_ops_per_s, fp_ops_per_s,
                             sms, ptxas[ad.library], clocked)
+    budget_cast_phase(torch, dev, card, table, env)
 
     if "jax" in sys.modules:
         fail("jax was imported")

@@ -108,7 +108,6 @@ def test_rollout_equals_steps_and_jax():
     {"cost_sampling": "lanes", "gate_scope": "per_t"},
     {"conv_sampling": "lanes"},
     {"rev_sampling": "lanes"},
-    {"rev_sampling": "day"},
     {"binomial_sampler": "exact"},
     {"agg_draw_bits": 16},
     {"kind": KeywordKind.EXPLICIT},

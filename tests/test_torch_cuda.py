@@ -258,10 +258,10 @@ def xla_inputs(cfg, E, seed, dev):
 @pytest.mark.parametrize("K, bits, lite", [(7, 16, 1), (7, 32, 3), (300, 16, 1), (300, 32, 2)])
 def test_agg_kernels_match_reference(cuda, K, bits, lite):
     """agg_cells_gate (and the day constants it computes) and agg_outcomes
-    each equal their plain version on the same inputs, budgets unbound,
-    binding, small and zero: every simulated cell, n_sim and the constants
-    exactly, with the chunk of sub-timesteps left to the wrapper and forced
-    to 1."""
+    (revenue per cell and per day) each equal their plain version on the
+    same inputs, budgets unbound, binding, small and zero: every simulated
+    cell, n_sim and the constants exactly, with the chunk of sub-timesteps
+    left to the wrapper and forced to 1."""
     from adcraft_tpu_torch import agg_day
     from adcraft_tpu_torch.step import budget_cents
 
@@ -291,17 +291,19 @@ def test_agg_kernels_match_reference(cuda, K, bits, lite):
                               want[4]):
             assert torch.equal(g.view(torch.int32), w.view(torch.int32)), name
         imp, acc, spend = got[:3]
-        out = agg_day.agg_outcomes(params, keys, imp, acc, spend, n_sim, n_auc01, lanes)
-        torch.cuda.synchronize()
-        want_out = agg_day.agg_outcomes_reference(params, keys, *want[:4], n_auc01, lanes)
-        for g, w in zip(out, want_out):
-            torch.testing.assert_close(g, w, rtol=0, atol=0)
+        for mode in ("sum", "day"):
+            out = agg_day.agg_outcomes(params, keys, imp, acc, spend, n_sim, n_auc01, lanes, mode)
+            torch.cuda.synchronize()
+            want_out = agg_day.agg_outcomes_reference(params, keys, *want[:4], n_auc01, lanes,
+                                                      mode)
+            for g, w in zip(out, want_out):
+                torch.testing.assert_close(g, w, rtol=0, atol=0)
         assert (out[2].sum(1) <= budget_c.clamp(min=0)).all()
         regimes |= {"unbroken" if n == T * K else "t0" if n <= K else "mid-day"
                     for n in n_sim.tolist()}
     assert regimes == {"unbroken", "t0", "mid-day"}, regimes
     after = (agg_day.agg_cells_gate.launches, agg_day.agg_outcomes.launches)
-    assert after == (before[0] + 8, before[1] + 4)
+    assert after == (before[0] + 8, before[1] + 8)
 
 
 @pytest.mark.cuda
