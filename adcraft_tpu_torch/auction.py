@@ -1,18 +1,32 @@
 """Closed-form auction helpers of the XLA day step.
 
-Counterparts of ``adcraft_tpu/auction.py``: ``cell_binomial_fn`` (:57,
-the inversion sampler), ``_single_abs_cents_win_threshold`` (:101) and
-``implicit_single_win_prob`` (:113). The lanes-mode auctions
-(``implicit_single_auction``, ``run_cell_auctions``) and the binomial
-pool are not ported yet (ROADMAP.md items 2 and 4).
+Counterparts of ``adcraft_tpu/auction.py``: ``CellAuction`` (:43),
+``cell_binomial_fn`` (:57, both samplers),
+``_single_abs_cents_win_threshold`` (:101), ``implicit_single_win_prob``
+(:113), ``implicit_single_auction`` (:126) and ``run_cell_auctions``
+(:355) for implicit single-competitor keywords. Explicit keywords and the
+binomial pool raise (ROADMAP.md items 3 and 4).
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from adcraft_tpu_torch import distributions as dist
-from adcraft_tpu_torch.config import EnvConfig
+from adcraft_tpu_torch import prng
+from adcraft_tpu_torch.config import CompetitorModel, EnvConfig, KeywordKind
+
+
+class CellAuction(NamedTuple):
+    """A batch of cells' auction statistics: impressions and click
+    candidates ``(..., K)`` int32, and ``(..., M, K)`` cost draws in money
+    (lane-major per env, as the JAX package's ``(M, K)``)."""
+
+    impressions: torch.Tensor
+    n_candidates: torch.Tensor
+    cost_draws: torch.Tensor
 
 
 def single_abs_cents_win_threshold(bid):
@@ -30,15 +44,42 @@ def implicit_single_win_prob(bid, bid_loc, bid_scale) -> torch.Tensor:
 
 
 def cell_binomial_fn(cfg: EnvConfig, max_clicks: int):
-    """The buffer-bounded binomial sampler of a cell: the inverse-CDF walk
-    (``binomial_sampler="inversion"``) on ``cfg.lane_bits`` uniforms."""
-    if cfg.binomial_sampler != "inversion":
-        raise NotImplementedError(
-            "binomial_sampler='exact' (jax.random.binomial's rejection sampler) is not "
-            "ported (ROADMAP.md item 2)"
-        )
+    """The buffer-bounded binomial sampler of a cell: ``jax.random.binomial``
+    (``binomial_sampler="exact"``, ``distributions.binomial``) or the
+    inverse-CDF walk (``"inversion"``) on ``cfg.lane_bits`` uniforms."""
+    if cfg.binomial_sampler == "exact":
+        return dist.binomial
 
     def bfn(key, n, p, shape=None):
         return dist.binomial_inv(key, n, p, nmax=max_clicks, bits=cfg.lane_bits, shape=shape)
 
     return bfn
+
+
+def implicit_single_auction(key, bid, n_auctions, bid_loc, bid_scale, max_clicks: int,
+                            lane_bits: int = 32, binomial_fn=dist.binomial) -> CellAuction:
+    """The single-competitor auction of a batch of cells: ``key`` (..., 2),
+    the rest (..., K). ``k_imp, k_cost = split(key)``; impressions are
+    Binomial(n, p_win); the cost of a won auction is the competitor's
+    ``round(|L|, 2)``, L ~ Laplace(loc, scale) truncated to (-y0, y0),
+    ``max_clicks`` lanes of them."""
+    k_imp, k_cost = prng.split(key).unbind(-2)
+    y0 = single_abs_cents_win_threshold(bid)
+    impressions = binomial_fn(k_imp, n_auctions, implicit_single_win_prob(bid, bid_loc, bid_scale))
+    trunc = dist.truncated_laplace(k_cost, bid_loc[..., None, :], bid_scale[..., None, :],
+                                   -y0[..., None, :], y0[..., None, :],
+                                   (max_clicks, bid.shape[-1]), bits=lane_bits)
+    return CellAuction(impressions, impressions, dist.round_cents(torch.abs(trunc)))
+
+
+def run_cell_auctions(cfg: EnvConfig, key, bids, n_auctions, kw, max_clicks=None) -> CellAuction:
+    """The cell auction of the env's keyword kind and competitor model;
+    only implicit single-competitor keywords are ported."""
+    if cfg.kind is not KeywordKind.IMPLICIT:
+        raise NotImplementedError("explicit keywords are not ported (ROADMAP.md item 3)")
+    if cfg.competitor_model is not CompetitorModel.SINGLE_ABS_CENTS:
+        raise NotImplementedError("the binomial pool is not ported (ROADMAP.md item 4)")
+    m = cfg.max_clicks_per_cell if max_clicks is None else max_clicks
+    return implicit_single_auction(key, bids, n_auctions, kw.bid_loc, kw.bid_scale, m,
+                                   lane_bits=cfg.lane_bits,
+                                   binomial_fn=cell_binomial_fn(cfg, m))

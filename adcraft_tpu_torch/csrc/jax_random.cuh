@@ -1,0 +1,146 @@
+// jax.random's key tree and draws on Hopper, for the kernels of
+// agg_day.cu and lanes_day.cu: keys and their children, the uniform
+// transforms, the exact fused multiply-add of the plain versions' fma32,
+// prng.erfinv's normal, the (truncated) Laplace draws in cents and the
+// inverse-CDF binomial walk. Every float operation is the one the plain
+// PyTorch version performs on the card, spelled so that nvcc cannot
+// contract or reorder it (__fmul_rn, __fadd_rn, __fdiv_rn, IEEE sqrtf,
+// rintf, and the expf, logf, log1pf and powf that PyTorch's CUDA kernels
+// call). The build hashes this header into each library's cache name
+// (adcraft_tpu_torch/cuda_build.py).
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "threefry.cuh"
+
+namespace {
+
+// rows of the (kNumParams, E, K) parameter tensor (agg_day.py)
+enum { BID, BCTR, SCTR, LOC, SCALE, REV_MEAN, REV_STD, kNumParams };
+
+struct Key {
+  uint32_t k0, k1;
+};
+
+// split(key, n)[i] and fold_in(key, i) are both the pair at counter (0, i)
+__device__ __forceinline__ Key child(Key k, uint32_t i) {
+  const uint2 y = threefry::block(k.k0, k.k1, 0u, i);
+  return Key{y.x, y.y};
+}
+
+__device__ __forceinline__ Key load_key(const long long* keys, long long stride, int e) {
+  return Key{static_cast<uint32_t>(keys[e * stride]), static_cast<uint32_t>(keys[e * stride + 1])};
+}
+
+__device__ __forceinline__ uint32_t bits32(Key k, uint32_t counter) {
+  return threefry::word(k.k0, k.k1, 0u, counter);
+}
+
+// jax.random.uniform's mantissa transform of a 32-bit word
+__device__ __forceinline__ float uniform32(uint32_t w) {
+  return __fsub_rn(__uint_as_float((w >> 9) | 0x3F800000u), 1.0f);
+}
+
+// uniform16: (b + 0.5) / 65536 of the low 16 bits; else uniform32
+__device__ __forceinline__ float lane_uniform(Key k, uint32_t counter, int bits) {
+  const uint32_t w = bits32(k, counter);
+  if (bits == 16) return __fmul_rn(__fadd_rn(static_cast<float>(w & 0xFFFFu), 0.5f), 1.0f / 65536.0f);
+  return uniform32(w);
+}
+
+// a * b + c rounded once, as the plain version's float64 (a * b + c)
+__device__ __forceinline__ float fma32(float a, float b, float c) {
+  return __double2float_rn(__dadd_rn(__dmul_rn(static_cast<double>(a), static_cast<double>(b)),
+                                     static_cast<double>(c)));
+}
+
+// prng.erfinv: XLA's float32 polynomial without contraction
+__device__ float erfinv(float x) {
+  const float lt5[9] = {2.81022636e-08f, 3.43273939e-07f, -3.5233877e-06f, -4.39150654e-06f,
+                        0.00021858087f, -0.00125372503f, -0.00417768164f, 0.246640727f,
+                        1.50140941f};
+  const float ge5[9] = {-0.000200214257f, 0.000100950558f, 0.00134934322f, -0.00367342844f,
+                        0.00573950773f, -0.0076224613f, 0.00943887047f, 1.00167406f,
+                        2.83297682f};
+  float w = -log1pf(__fmul_rn(-x, x));
+  const bool lt = w < 5.0f;
+  w = lt ? __fsub_rn(w, 2.5f) : __fsub_rn(sqrtf(w), 3.0f);
+  float p = lt ? lt5[0] : ge5[0];
+#pragma unroll
+  for (int i = 1; i < 9; ++i) p = __fadd_rn(lt ? lt5[i] : ge5[i], __fmul_rn(p, w));
+  return fabsf(x) == 1.0f ? __fmul_rn(x, __int_as_float(0x7F800000)) : __fmul_rn(p, x);
+}
+
+// prng.normal: sqrt(2) erfinv(u), u uniform on [nextafter(-1, 0), 1)
+__device__ __forceinline__ float normal(Key k, uint32_t counter) {
+  const float lo = __int_as_float(0xBF7FFFFF);
+  const float span = __fsub_rn(1.0f, lo);
+  const float u = fmaxf(__fadd_rn(__fmul_rn(uniform32(bits32(k, counter)), span), lo), lo);
+  return __fmul_rn(1.41421354f, erfinv(u));
+}
+
+__device__ __forceinline__ float laplace_cdf(float x, float loc, float scale) {
+  const float z = __fdiv_rn(__fsub_rn(x, loc), scale);
+  return z < 0.0f ? __fmul_rn(0.5f, expf(z)) : __fsub_rn(1.0f, __fmul_rn(0.5f, expf(-z)));
+}
+
+// the plain version computes both branches' logs and selects one; the
+// kernel computes only the selected one
+__device__ __forceinline__ float laplace_icdf(float u, float loc, float scale) {
+  const bool low = u < 0.5f;
+  const float l = logf(fmaxf(__fmul_rn(2.0f, low ? u : __fsub_rn(1.0f, u)), 1e-38f));
+  return fma32(scale, low ? l : -l, loc);
+}
+
+// one lane cost in cents: round(|Laplace truncated to [-y0, y0]| * 100)
+__device__ __forceinline__ int lane_cost(float u, float loc, float scale, float f_lo, float f_hi) {
+  const float x = laplace_icdf(fma32(u, __fsub_rn(f_hi, f_lo), f_lo), loc, scale);
+  return static_cast<int>(rintf(__fmul_rn(fabsf(x), 100.0f)));
+}
+
+// The walk's constants for a success probability p: 1 - q and r = q / (1 -
+// q) for q = min(p, 1 - p) (p clamped to [0, 1]), and whether the count
+// flips (p > 1/2). They depend only on p, so agg_outcomes keeps them per
+// keyword in shared memory.
+struct WalkConsts {
+  float omq, r;
+  bool flip;
+};
+
+__device__ __forceinline__ WalkConsts walk_consts(float p) {
+  p = fminf(fmaxf(p, 0.0f), 1.0f);
+  const bool flip = p > 0.5f;
+  const float q = flip ? __fsub_rn(1.0f, p) : p;
+  const float omq = __fsub_rn(1.0f, q);
+  return WalkConsts{omq, __fdiv_rn(q, omq), flip};
+}
+
+// distributions.binomial_inv_u: the inverse-CDF walk over nmax levels from
+// the constants w; recip(j) is the float32 1/j
+template <class Recip>
+__device__ int walk_count(float u, int n, const WalkConsts& w, int nmax, Recip recip) {
+  const float nf = static_cast<float>(n);
+  float pmf = powf(w.omq, nf);
+  float cdf = pmf;
+  int cnt = 0;
+  // the CDF never falls, so the count stops at its first level >= u
+  for (int j = 1; j <= nmax && cdf < u; ++j) {
+    ++cnt;
+    if (j == nmax) break;
+    const float f = __fmul_rn(__fsub_rn(nf, static_cast<float>(j - 1)), __fmul_rn(w.r, recip(j)));
+    pmf = fmaxf(__fmul_rn(pmf, f), 0.0f);
+    cdf = __fadd_rn(cdf, pmf);
+  }
+  cnt = min(max(cnt, 0), n);
+  return w.flip ? n - cnt : cnt;
+}
+
+template <class Recip>
+__device__ __forceinline__ int binomial_walk(float u, int n, float p, int nmax, Recip recip) {
+  return walk_count(u, n, walk_consts(p), nmax, recip);
+}
+
+}  // namespace

@@ -3,7 +3,9 @@
 Counterparts of ``adcraft_tpu/distributions.py``: ``probify`` (:27),
 ``nonnegify`` (:32), ``round_cents`` (:53), the budget's cents as both
 day routes cast them (``cents_int32``), ``nonneg_int_normal`` (:67),
-and the XLA day step's samplers and moments: ``binomial_inv`` (:102),
+``binomial`` (:84, ``jax.random.binomial``'s two loops in lockstep over
+each call), ``rev_normal_cents`` (:246), and the XLA day step's samplers
+and moments: ``binomial_inv`` (:102),
 ``binomial_cdf`` (:192), ``binomial_inv_from_cdf`` (:230), ``uniform16``
 (:358), ``censored_normal_moments`` (:387), ``rev_sum_cents`` (:519),
 ``single_cost_cent_moments_closed`` (:589), ``agg_cost_cents`` (:704,
@@ -29,7 +31,8 @@ import math
 import numpy as np
 import torch
 
-from adcraft_tpu_torch import prng
+from adcraft_tpu_torch import prng, xla_math
+from adcraft_tpu_torch.xla_math import fma32
 
 _INV_65536 = 1.0 / 65536.0
 _INV_SQRT2 = float(np.float32(1.0 / math.sqrt(2.0)))
@@ -39,21 +42,6 @@ _LOG_SQRT_2PI = float(np.float32(0.5 * math.log(2.0 * math.pi)))
 def recip(x: float) -> float:
     """The float32 reciprocal of a constant, as XLA folds ``a / c``."""
     return float(np.float32(1.0) / np.float32(x))
-
-
-def fma32(a: torch.Tensor, b, c) -> torch.Tensor:
-    """float32 ``a * b + c`` rounded once (a fused multiply-add).
-
-    The product of two float32 values is exact in float64, so only the sum
-    rounds twice, which changes the float32 result for about one input in
-    2**29. The CUDA kernels compute the same float64 operations. Python
-    numbers stay scalars (no host-to-device copy).
-    """
-
-    def f64(x):
-        return x.double() if isinstance(x, torch.Tensor) else float(x)
-
-    return (f64(a) * f64(b) + f64(c)).float()
 
 
 def bits_to_uniform(bits: torch.Tensor, bit_width: int) -> torch.Tensor:
@@ -98,6 +86,160 @@ def truncated_laplace(key, loc, scale, low, high, shape, bits: int = 32) -> torc
     f_hi = laplace_cdf(high, loc, scale)
     u = lane_uniform(key, shape, bits)
     return laplace_icdf(fma32(u, f_hi - f_lo, f_lo), loc, scale)
+
+
+_F32 = np.float32
+# jax.random's Stirling-tail table (jax/_src/random.py:_stirling_approx_tail)
+_STIRLING_TAIL = (
+    0.0810614667953272, 0.0413406959554092, 0.0276779256849983, 0.02079067210376509,
+    0.0166446911898211, 0.0138761288230707, 0.0118967099458917, 0.0104112652619720,
+    0.00925546218271273, 0.00833056343336287,
+)
+
+
+def _c(x: float) -> float:
+    """A Python constant as the float32 value jnp rounds it to."""
+    return float(_F32(x))
+
+
+def _stirling_approx_tail(k: torch.Tensor) -> torch.Tensor:
+    """``jax.random``'s Stirling remainder: the table for k <= 9, else the
+    series ``(1/12 - (1/360 - 1/1260/(k+1)^2)/(k+1)^2)/(k+1)``."""
+    use_table = k <= 9
+    k = torch.clamp(k, 0.0, 9.0)
+    kp1sq = (k + 1.0) * (k + 1.0)
+    approx = (_c(1.0 / 12) - (_c(1.0 / 360) - _c(1.0 / 1260) / kp1sq) / kp1sq) / (k + 1.0)
+    table = torch.tensor(_STIRLING_TAIL, dtype=torch.float32, device=k.device)
+    return torch.where(use_table, table[torch.floor(k).to(torch.int64)], approx)
+
+
+def _rows_where(live: torch.Tensor) -> torch.Tensor:
+    return live.nonzero().squeeze(1)
+
+
+def _binomial_inversion(keys: torch.Tensor, count: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """``jax.random``'s geometric-sum inversion for a batch of calls: keys
+    (C, 2), count and q (C, K). A call's loop runs while any of its K
+    elements has ``geom_sum <= count``; a finished call's carry is frozen
+    (``vmap``'s batched ``while_loop``). Each pass: ``subkey, key =
+    split(key)``, one uniform per element."""
+    K = count.shape[1]
+    log1mq = xla_math.log1p(-q)
+    num_geom = torch.zeros_like(q)
+    geom_sum = torch.zeros_like(q)
+    key = keys.clone()
+    while True:
+        rows = _rows_where((geom_sum <= count).any(1))
+        if rows.numel() == 0:
+            return num_geom - 1.0
+        subkey, key[rows] = prng.split(key[rows]).unbind(-2)
+        g = geom_sum[rows]
+        num_geom[rows] = torch.where(g <= count[rows], num_geom[rows] + 1.0, num_geom[rows])
+        u = prng.uniform(subkey, (K,))
+        geom_sum[rows] = g + torch.ceil(xla_math.log(u) / log1mq[rows])
+
+
+def _btrs(keys: torch.Tensor, count: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """``jax.random``'s transformed-rejection sampler (BTRS) for a batch of
+    calls, as ``_binomial_inversion``: a call loops while any element has
+    not accepted, and every pass overwrites the draw of each element that
+    accepts in it (the last accepted pass wins). Each pass: ``key, s0, s1
+    = split(key, 3)``. XLA contracts ``1.15 + 2.53 s``, both products of
+    ``a``, ``count q + 0.5``, ``k``'s ``(...) u + c`` and the bound's
+    second and third log terms into fused multiply-adds (``fma32``), and
+    computes the bound's first term once, before the loop."""
+    K = count.shape[1]
+    stddev = xla_math.sqrt(count * q * (1.0 - q))
+    b = fma32(stddev, _c(2.53), _c(1.15))
+    a = fma32(q, _c(0.01), fma32(b, _c(0.0248), _c(-0.0873)))
+    c = fma32(count, q, 0.5)
+    v_r = _c(0.92) - _c(4.2) / b
+    r = q / (1.0 - q)
+    alpha = (_c(2.83) + _c(5.1) / b) * stddev
+    m = torch.floor((count + 1.0) * q)
+    # the bound's first term is loop-invariant: XLA hoists it, rounded
+    t1 = (m + 0.5) * xla_math.log((m + 1.0) / (r * (count - m + 1.0)))
+    k_out = torch.full_like(q, -1.0)
+    accepted = torch.zeros_like(q, dtype=torch.bool)
+    key = keys.clone()
+    while True:
+        rows = _rows_where((~accepted).any(1))
+        if rows.numel() == 0:
+            return k_out
+        key[rows], s0, s1 = prng.split(key[rows], 3).unbind(-2)
+        a_, b_, c_, n_, m_, r_ = (x[rows] for x in (a, b, c, count, m, r))
+        u = prng.uniform(s0, (K,)) - 0.5
+        v = prng.uniform(s1, (K,))
+        us = 0.5 - torch.abs(u)
+        accept1 = (us >= _c(0.07)) & (v <= v_r[rows])
+        k = torch.floor(fma32(2.0 * a_ / us + b_, u, c_))
+        reject = (k < 0) | (k > n_)
+        v = xla_math.log(v * alpha[rows] / (a_ / (us * us) + b_))
+        ub = fma32(k + 0.5, xla_math.log(r_ * (n_ - k + 1.0) / (k + 1.0)),
+                   fma32(n_ + 1.0, xla_math.log((n_ - m_ + 1.0) / (n_ - k + 1.0)), t1[rows]))
+        ub = (ub + _stirling_approx_tail(m_) + _stirling_approx_tail(n_ - m_)
+              - _stirling_approx_tail(k) - _stirling_approx_tail(n_ - k))
+        accept = accept1 | (~reject & (v <= ub))
+        k_out[rows] = torch.where(accept, k, k_out[rows])
+        accepted[rows] = accepted[rows] | accept
+
+
+def binomial_calls(keys: torch.Tensor, n: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """``binomial`` for C calls of K elements: keys (C, 2), n and p (C, K)
+    float32 (p already clipped). Returns float32 draws before the
+    wrapper's NaN and clip, ``jax.random``'s ``_binomial``: elements with
+    ``n q <= 10`` (q = min(p, 1 - p)) take the inversion loop, the rest
+    BTRS; both loops run over every element (inversion with count 0 for
+    BTRS elements, BTRS with count 1e4 and q 1/2 for inversion elements),
+    so an element's draw depends on the other elements of its call."""
+    p_lt_half = p < 0.5
+    q = torch.where(p_lt_half, p, 1.0 - p)
+    bad_count = torch.isnan(n) | (n < 0)
+    q_nan = torch.isnan(q)
+    q_neg = q < 0
+    q = torch.where(q_nan | q_neg, _c(0.01), q)
+    use_inversion = bad_count | (n * q <= 10.0)
+    count = torch.floor(n)
+    inv = _binomial_inversion(keys, torch.where(use_inversion, count, 0.0), q)
+    btrs = _btrs(keys, torch.where(use_inversion, 1e4, count),
+                 torch.where(use_inversion, 0.5, q))
+    samples = torch.where(use_inversion, inv, btrs)
+    samples = torch.where(q_neg | q_nan | bad_count, float("nan"), samples)
+    return torch.where(p_lt_half | bad_count | q_nan, samples, count - samples)
+
+
+def binomial(key: torch.Tensor, n, p, shape=None) -> torch.Tensor:
+    """Binomial(n, p) as int32, ``jax.random.binomial`` draw for draw.
+
+    ``key`` (..., 2) is a batch of calls, as ``jax.vmap`` over keys; each
+    call draws ``shape`` (default: the trailing broadcast shape of n and p
+    without the batch axes) in lockstep (``binomial_calls``). p is clipped
+    to [0, 1], a NaN draw becomes 0, and the draw is clipped to [0, n].
+    """
+    batch = tuple(key.shape[:-1])
+    n = torch.as_tensor(n, device=key.device).to(torch.float32)
+    p = torch.clamp(torch.as_tensor(p, device=key.device).to(torch.float32), 0.0, 1.0)
+    if shape is None:
+        shape = torch.broadcast_shapes(n.shape, p.shape)[len(batch):]
+    full = batch + tuple(shape)
+    n, p = n.expand(full), p.expand(full)
+    calls = max(1, math.prod(batch))
+    draw = binomial_calls(key.reshape(-1, 2), n.reshape(calls, -1), p.reshape(calls, -1))
+    draw = draw.reshape(full)
+    draw = torch.where(torch.isnan(draw), 0.0, draw)
+    return torch.minimum(torch.clamp(draw, min=0.0), n).to(torch.int32)
+
+
+def rev_normal_cents(key: torch.Tensor, mean, std, shape) -> torch.Tensor:
+    """Per-conversion revenue draws in int32 cents: ``round(max(N(mean,
+    std), 0.01), 2)`` in cents, as the lanes day takes them
+    (``adcraft_tpu/step.py:981``): ``round(max(mean + std z, 0.01) * 100)``.
+    XLA folds the normal's ``sqrt(2)`` into ``std`` (one rounded product),
+    contracts the sum into a fused multiply-add, and drops the division and
+    second rounding of ``round_cents``, which change no cent."""
+    erf = xla_math.erfinv(xla_math.uniform_open(key, shape))
+    draw = torch.clamp(fma32(std * xla_math.SQRT2, erf, mean), min=_c(0.01))
+    return torch.round(draw * 100.0).to(torch.int32)
 
 
 def binomial_inv_u(u: torch.Tensor, n, p, nmax: int) -> torch.Tensor:

@@ -4,7 +4,8 @@ Counterpart of ``adcraft_tpu/env.py``: ``EnvState`` (:36), ``TimeStep``
 (:50), ``zero_observation`` (:66), ``batch_keys`` (:84), ``env_reset``
 (:96, implicit keywords), ``env_step`` (:134) vmapped over envs as
 ``vector_env_step_xla``, ``env_rollout`` (:196) as ``vector_env_rollout``,
-``vector_env_step_pallas`` (:287) and ``VectorBiddingEnv`` (:369) with
+``env_autoreset_step`` (:247) vmapped over envs as
+``vector_env_autoreset_step``, ``vector_env_step_pallas`` (:287) and ``VectorBiddingEnv`` (:369) with
 ``day_kernel="xla"`` (the default) or ``"pallas"``. State carries an
 explicit leading (E,) axis, and every tensor lives on the env's
 ``device``.
@@ -249,6 +250,42 @@ def _stack_days(steps, days=None) -> TimeStep:
     )
 
 
+def vector_env_autoreset_step(
+    cfg: EnvConfig,
+    state: EnvState,
+    bids,
+    budget=None,
+    reset_kw: bool = False,
+    table: Optional[QuantileTable] = None,
+    no_vol_prob: float = 0.0,
+):
+    """An XLA-path step that resets the envs whose episode ends: the JAX
+    ``env_autoreset_step`` vmapped over envs. Returns (state, TimeStep);
+    the TimeStep reports the transition before the reset.
+
+    After the step, each env's key splits into the next key and a reset
+    key. An env that terminated or truncated takes ``env_reset`` from the
+    reset key (fresh keywords from ``table`` with ``no_vol_prob`` when
+    ``reset_kw``, else the stepped keywords) with the next key; the others
+    keep the stepped state with the next key.
+    """
+    new_state, ts = vector_env_step_xla(cfg, state, bids, budget)
+    done = ts.terminated | ts.truncated
+    k_next, k_reset = prng.split(new_state.key).unbind(-2)
+    if reset_kw:
+        reset_state, _ = env_reset(cfg, k_reset, table=table, no_vol_prob=no_vol_prob)
+    else:
+        reset_state, _ = env_reset(cfg, k_reset, kw=new_state.kw)
+
+    def pick(fresh, kept):
+        return torch.where(done.view((-1,) + (1,) * (kept.dim() - 1)), fresh, kept)
+
+    kw = KeywordState(*(pick(a, b) for a, b in zip(reset_state.kw, new_state.kw)))
+    picked = EnvState(kw, *(pick(a, b) for a, b in zip(reset_state[1:-1], new_state[1:-1])),
+                      key=k_next)
+    return picked, ts
+
+
 def vector_env_step_pallas(
     cfg: EnvConfig,
     state: EnvState,
@@ -325,6 +362,15 @@ class VectorBiddingEnv:
         if self.cfg.day_kernel == "pallas":
             return vector_env_step_pallas(self.cfg, state, bids, budget)
         return vector_env_step_xla(self.cfg, state, bids, budget)
+
+    def autoreset_step(self, state: EnvState, bids, budget=None, reset_kw: bool = False):
+        """``step`` with the reset of ended episodes
+        (``vector_env_autoreset_step``; fresh keywords from the env's table
+        when ``reset_kw``). The XLA day step only, as in the JAX package."""
+        if self.cfg.day_kernel == "pallas":
+            raise NotImplementedError("autoreset_step() drives the XLA day step")
+        return vector_env_autoreset_step(self.cfg, state, bids, budget, reset_kw, self._table,
+                                         self._no_vol_prob)
 
     def rollout(self, state: EnvState, bids, num_days: int, budget=None):
         """``num_days`` steps (``vector_env_rollout``): bids (E, K) or

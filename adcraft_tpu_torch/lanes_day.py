@@ -1,0 +1,307 @@
+"""The lanes day's three phases as three CUDA kernels, each beside its plain version.
+
+The JAX package's default ``EnvConfig`` samples every cell in lanes
+(``cost_sampling``, ``conv_sampling`` and ``rev_sampling="lanes"``) with
+``jax.random.binomial`` (``binomial_sampler="exact"``), and XLA compiles
+that day (``adcraft_tpu/step.py:simulate_day``, :991): ``_cell_tables``'
+lanes branch (:926-951) on ``run_cell_auctions`` (``auction.py:355``),
+``_append_conv_rev_tables`` (:953-988), the budget gate over the ``T K``
+cells in (t, k) order (``_gate_keywords``, :115; its lazy and Jacobi
+schedules are bit-identical to it) and the gathers and day sums of phase 3
+(:1392-1502). The port runs it as three kernels of ``csrc/lanes_day.cu``,
+built with nvcc on first use (``cuda_build``) and bound with ctypes:
+
+* ``lanes_counts`` (plain: ``lanes_counts_reference``): per (env,
+  sub-timestep) the impressions ``Binomial(n_auc, p_win)`` and the clicks
+  ``Binomial(impressions, bctr)``, each one ``jax.random.binomial`` call of
+  K keywords in lockstep (``binomial_sampler="exact"``) or the inverse-CDF
+  walk (``"inversion"``);
+* ``lanes_gate`` (plain: ``lanes_gate_reference``): the cost lanes (in
+  cents) of each cell and the sequential gate (``gate_keywords``): accepted
+  clicks, spend cents and the simulated cell count ``n_sim``;
+* ``lanes_outcomes`` (plain: ``lanes_outcomes_reference``): conversions
+  (the first ``accepted`` conversion flags), revenue (the first ``nconv``
+  revenue draws, in cents), the ``cell_out`` masks and the (E, K) day sums.
+
+Keys follow the JAX tree: per sub-timestep ``kt = fold_in(k_cells, t)``,
+``k_auc, k_click, k_conv, k_rev = split(kt, 4)``, ``k_imp, k_cost =
+split(k_auc)``. A ``(K,)`` draw takes keyword k's word at counter k and an
+``(m, K)`` table lane j's at ``j K + k``, so only the lanes a result reads
+are drawn: cost lanes below the cell's clicks, flags below its accepted
+clicks, revenue below its conversions. Lanes at t = 0 run to ``m0``, after
+to ``m1`` (``Lanes``; its ``L`` is not used here).
+
+Each wrapper runs the plain version for CPU tensors and launches its kernel
+for CUDA tensors: on a CUDA tensor it launches or raises. ``launches``
+counts the launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from adcraft_tpu_torch import distributions as dist
+from adcraft_tpu_torch import prng
+from adcraft_tpu_torch.agg_day import (BCTR, BID, LOC, NUM_PARAMS, REV_MEAN, REV_STD, SCALE,
+                                       SCTR, Lanes, _check, _check_keys, _check_lanes,
+                                       _Kernel, _launch_args, pack_params, y0_of)
+from adcraft_tpu_torch.auction import implicit_single_win_prob
+from adcraft_tpu_torch.cuda_build import CudaLibrary
+
+SAMPLERS = ("exact", "inversion")
+_INT32 = 2**32
+
+
+def wrap32(x: torch.Tensor) -> torch.Tensor:
+    """int64 values taken modulo 2**32 into int32, as XLA's int32 sums wrap."""
+    return ((x + 2**31) % _INT32 - 2**31).to(torch.int32)
+
+
+def lanes_keys(k_cells: torch.Tensor, t: int):
+    """Sub-timestep t's (k_imp, k_cost, k_click, k_conv, k_rev), each (E, 2)."""
+    kt = prng.fold_in(k_cells, t)
+    k_auc, k_click, k_conv, k_rev = prng.split(kt, 4).unbind(-2)
+    k_imp, k_cost = prng.split(k_auc).unbind(-2)
+    return k_imp, k_cost, k_click, k_conv, k_rev
+
+
+def _check_sampler(sampler: str) -> None:
+    if sampler not in SAMPLERS:
+        raise ValueError(f"sampler must be one of {SAMPLERS}, got {sampler!r}")
+
+
+def lanes_counts_reference(params, n_auc01, k_cells, lanes: Lanes, sampler: str = "exact"):
+    """Plain impressions and clicks, (E, T, K) int32 each: per (env,
+    sub-timestep) ``bfn(k_imp, n_auc, p_win)`` then ``bfn(k_click,
+    impressions, bctr)``, ``bfn`` the sampler's binomial."""
+    _check_sampler(sampler)
+    p = params
+    p_win = implicit_single_win_prob(p[BID], p[LOC], p[SCALE])
+    imp_t, ncl_t = [], []
+    for t in range(lanes.T):
+        k_imp, _, k_click, _, _ = lanes_keys(k_cells, t)
+        n = n_auc01[0] if t == 0 else n_auc01[1]
+        if sampler == "exact":
+            imp = dist.binomial(k_imp, n, p_win)
+            ncl = dist.binomial(k_click, imp, p[BCTR])
+        else:
+            imp = dist.binomial_inv(k_imp, n, p_win, lanes.m(t), lanes.bits)
+            ncl = dist.binomial_inv(k_click, imp, p[BCTR], lanes.m(t), lanes.bits)
+        imp_t.append(imp)
+        ncl_t.append(ncl)
+    return torch.stack(imp_t, 1), torch.stack(ncl_t, 1)
+
+
+def cost_cents(params, k_cost, m: int, bits: int) -> torch.Tensor:
+    """A sub-timestep's (E, m, K) lane costs in int32 cents, ``round(|L| *
+    100)`` of ``implicit_single_auction``'s truncated-Laplace draws."""
+    loc, scale, y0 = (x[:, None, :] for x in (params[LOC], params[SCALE], y0_of(params)))
+    trunc = dist.truncated_laplace(k_cost, loc, scale, -y0, y0, (m, params.shape[2]), bits)
+    return torch.round(torch.abs(trunc) * 100.0).to(torch.int32)
+
+
+def prefix_sums(x: torch.Tensor) -> torch.Tensor:
+    """(E, m, K) int32 lanes -> (E, m + 1, K) int32 prefix sums with a zero
+    row first, wrapping as XLA's int32 ``cumsum``."""
+    zero = torch.zeros_like(x[:, :1])
+    return torch.cat([zero, wrap32(torch.cumsum(x.to(torch.int64), 1))], 1)
+
+
+def gate_keywords(b, broken, prefix, n_clicks):
+    """The sequential budget rule of ``_gate_keywords`` (``step.py:115``)
+    over one sub-timestep's keywords, for E envs at once: ``b`` (E,) int32
+    cents, ``broken`` (E,) bool, ``prefix`` (E, m + 1, K) int32, ``n_clicks``
+    (E, K). Keyword k accepts its longest prefix of clicks whose running
+    sums all stay ``<= b`` (lanes below ``n_clicks``), spends its prefix sum
+    there, and the day breaks once ``b <= 0``; nothing is accepted after a
+    break. Returns ``(b, broken), (accepted, spend, simulated)``, each of
+    the latter (E, K)."""
+    E, m1, K = prefix.shape
+    lane = torch.arange(m1 - 1, device=prefix.device)
+    acc, spend, sim = [], [], []
+    for k in range(K):
+        col = prefix[:, :, k]
+        valid = (col[:, 1:] <= b[:, None]) & (lane < n_clicks[:, k, None])
+        p = torch.cumprod(valid.to(torch.int32), 1).sum(1, dtype=torch.int32)
+        s = col.gather(1, p.to(torch.int64)[:, None])[:, 0]
+        p = torch.where(broken, 0, p)
+        s = torch.where(broken, 0, s)
+        acc.append(p)
+        spend.append(s)
+        sim.append(~broken)
+        b = wrap32(b.to(torch.int64) - s.to(torch.int64))
+        broken = broken | (b <= 0)
+    return (b, broken), tuple(torch.stack(x, 1) for x in (acc, spend, sim))
+
+
+def lanes_gate_reference(params, k_cells, n_clicks, budget_c, lanes: Lanes):
+    """Plain cost lanes and gate: accepted clicks and spend cents (E, T, K)
+    int32, and each env's simulated cell count ``n_sim`` (E,) int32 (cells
+    ``t K + k < n_sim`` were simulated)."""
+    E = params.shape[1]
+    b = budget_c
+    broken = torch.zeros(E, dtype=torch.bool, device=params.device)
+    acc_t, spend_t, sim_t = [], [], []
+    for t in range(lanes.T):
+        k_cost = lanes_keys(k_cells, t)[1]
+        prefix = prefix_sums(cost_cents(params, k_cost, lanes.m(t), lanes.bits))
+        (b, broken), (acc, spend, sim) = gate_keywords(b, broken, prefix, n_clicks[:, t])
+        acc_t.append(acc)
+        spend_t.append(spend)
+        sim_t.append(sim)
+    n_sim = torch.stack(sim_t, 1).sum((1, 2), dtype=torch.int32)
+    return torch.stack(acc_t, 1), torch.stack(spend_t, 1), n_sim
+
+
+def _take(prefix: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``prefix[e, idx[e, k], k]``: (E, m + 1, K) at (E, K) -> (E, K)."""
+    return prefix.gather(1, idx.to(torch.int64)[:, None, :])[:, 0]
+
+
+def lanes_outcomes_reference(params, k_cells, imp, acc, spend, n_sim, n_auc01, lanes: Lanes):
+    """Plain post-gate phase: the (E, K) int32 day sums (impressions,
+    clicks, cost cents, conversions, revenue cents, eligible volume).
+    Conversions are the flags ``uniform(k_conv, (m, K)) <= sctr`` below the
+    accepted clicks; revenue the ``rev_normal_cents(k_rev, ...)`` draws
+    below the conversions (``_append_conv_rev_tables``)."""
+    E, T, K = imp.shape
+    p = params
+    cell = torch.arange(T * K, device=imp.device, dtype=torch.int32).view(T, K)
+    sim = cell[None] < n_sim[:, None, None]
+    sums = [torch.zeros((E, K), dtype=torch.int32, device=imp.device) for _ in range(6)]
+    for t in range(T):
+        _, _, _, k_conv, k_rev = lanes_keys(k_cells, t)
+        m = lanes.m(t)
+        flags = (prng.uniform(k_conv, (m, K)) <= p[SCTR][:, None, :]).to(torch.int32)
+        nconv = _take(prefix_sums(flags), acc[:, t])
+        revs = dist.rev_normal_cents(k_rev, p[REV_MEAN][:, None, :], p[REV_STD][:, None, :], (m, K))
+        rev = _take(prefix_sums(revs), nconv)
+        s = sim[:, t]
+        imp_m = torch.where(s, imp[:, t], 0)
+        n_t = n_auc01[0] if t == 0 else n_auc01[1]
+        cell_out = (imp_m, torch.where(s, acc[:, t], 0), torch.where(s, spend[:, t], 0),
+                    torch.where(s, nconv, 0), torch.where(s, rev, 0),
+                    torch.where(s & (imp_m >= 1), n_t, 0))
+        for i, x in enumerate(cell_out):
+            sums[i] = wrap32(sums[i].to(torch.int64) + x)
+    return tuple(sums)
+
+
+def bind(lib: ctypes.CDLL) -> None:
+    """The ctypes signatures of ``csrc/lanes_day.cu``'s C interface."""
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.lanes_counts_launch.argtypes = [p, p, p, ll, p, p] + [i] * 8 + [p]
+    lib.lanes_counts_launch.restype = i
+    lib.lanes_gate_launch.argtypes = [p, p, ll, p, p, p, p, p] + [i] * 7 + [p]
+    lib.lanes_gate_launch.restype = i
+    lib.lanes_outcomes_launch.argtypes = [p, p, ll, p, p, p, p, p, p] + [i] * 6 + [p]
+    lib.lanes_outcomes_launch.restype = i
+
+
+library = CudaLibrary("lanes_day", bind)
+
+
+class LanesCounts(_Kernel):
+    """The ``lanes_counts`` kernel's wrapper."""
+
+    def __call__(self, params, n_auc01, k_cells, lanes: Lanes, sampler: str = "exact"):
+        """Outputs as ``lanes_counts_reference``: ``params`` (NUM_PARAMS, E,
+        K) f32, ``n_auc01`` (2, E, K) int32 (the auction counts at t = 0 and
+        t >= 1), ``k_cells`` (E, 2) int64."""
+        _, E, K = params.shape
+        device = params.device
+        _check_sampler(sampler)
+        _check_lanes(lanes)
+        _check(device, ("params", params, torch.float32, (NUM_PARAMS, E, K)),
+               ("n_auc01", n_auc01, torch.int32, (2, E, K)))
+        _check_keys(k_cells, E, device)
+        if device.type == "cpu":
+            return lanes_counts_reference(params, n_auc01, k_cells, lanes, sampler)
+        lib = self._cuda(device)
+        imp, ncl = (torch.empty((E, lanes.T, K), dtype=torch.int32, device=device)
+                    for _ in range(2))
+        err = lib.lanes_counts_launch(
+            params.data_ptr(), n_auc01.data_ptr(), k_cells.data_ptr(), k_cells.stride(0),
+            imp.data_ptr(), ncl.data_ptr(), E, K, lanes.T, lanes.m0, lanes.m1, lanes.bits,
+            int(sampler == "exact"), *_launch_args(device),
+        )
+        self.library.check(err, self.name)
+        self.launches += 1
+        return imp, ncl
+
+
+class LanesGate(_Kernel):
+    """The ``lanes_gate`` kernel's wrapper."""
+
+    def __call__(self, params, k_cells, n_clicks, budget_c, lanes: Lanes):
+        """Outputs as ``lanes_gate_reference``, but on the card the cells at
+        or past each env's break (``t K + k >= n_sim``) are not written."""
+        _, E, K = params.shape
+        device = params.device
+        _check_lanes(lanes)
+        _check(device, ("params", params, torch.float32, (NUM_PARAMS, E, K)),
+               ("n_clicks", n_clicks, torch.int32, (E, lanes.T, K)),
+               ("budget_c", budget_c, torch.int32, (E,)))
+        _check_keys(k_cells, E, device)
+        if device.type == "cpu":
+            return lanes_gate_reference(params, k_cells, n_clicks, budget_c, lanes)
+        lib = self._cuda(device)
+        acc, spend = (torch.empty((E, lanes.T, K), dtype=torch.int32, device=device)
+                      for _ in range(2))
+        n_sim = torch.empty((E,), dtype=torch.int32, device=device)
+        err = lib.lanes_gate_launch(
+            params.data_ptr(), k_cells.data_ptr(), k_cells.stride(0), n_clicks.data_ptr(),
+            budget_c.data_ptr(), acc.data_ptr(), spend.data_ptr(), n_sim.data_ptr(), E, K,
+            lanes.T, lanes.m0, lanes.m1, lanes.bits, *_launch_args(device),
+        )
+        self.library.check(err, self.name)
+        self.launches += 1
+        return acc, spend, n_sim
+
+
+class LanesOutcomes(_Kernel):
+    """The ``lanes_outcomes`` kernel's wrapper."""
+
+    def __call__(self, params, k_cells, imp, acc, spend, n_sim, n_auc01, lanes: Lanes):
+        """Outputs as ``lanes_outcomes_reference``."""
+        E, T, K = imp.shape
+        device = params.device
+        _check_lanes(lanes)
+        _check(device, ("params", params, torch.float32, (NUM_PARAMS, E, K)),
+               ("imp", imp, torch.int32, (E, lanes.T, K)),
+               ("acc", acc, torch.int32, (E, T, K)),
+               ("spend", spend, torch.int32, (E, T, K)),
+               ("n_sim", n_sim, torch.int32, (E,)),
+               ("n_auc01", n_auc01, torch.int32, (2, E, K)))
+        _check_keys(k_cells, E, device)
+        if device.type == "cpu":
+            return lanes_outcomes_reference(params, k_cells, imp, acc, spend, n_sim, n_auc01,
+                                            lanes)
+        lib = self._cuda(device)
+        out = torch.empty((6, E, K), dtype=torch.int32, device=device)
+        err = lib.lanes_outcomes_launch(
+            params.data_ptr(), k_cells.data_ptr(), k_cells.stride(0), imp.data_ptr(),
+            acc.data_ptr(), spend.data_ptr(), n_sim.data_ptr(), n_auc01.data_ptr(),
+            out.data_ptr(), E, K, T, lanes.m0, lanes.m1, *_launch_args(device),
+        )
+        self.library.check(err, self.name)
+        self.launches += 1
+        return tuple(out.unbind(0))
+
+
+lanes_counts = LanesCounts("lanes_counts", library)
+lanes_gate = LanesGate("lanes_gate", library)
+lanes_outcomes = LanesOutcomes("lanes_outcomes", library)
+
+
+def simulate_day_lanes(lanes: Lanes, k_cells, kw, bids, budget_c, n_auc01,
+                       sampler: str = "exact") -> Tuple[torch.Tensor, ...]:
+    """The lanes day's three phases, one launch each: the six (E, K) int32
+    day sums."""
+    params = pack_params(kw, bids)
+    imp, ncl = lanes_counts(params, n_auc01, k_cells, lanes, sampler)
+    acc, spend, n_sim = lanes_gate(params, k_cells, ncl, budget_c, lanes)
+    return lanes_outcomes(params, k_cells, imp, acc, spend, n_sim, n_auc01, lanes)

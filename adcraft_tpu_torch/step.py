@@ -1,26 +1,37 @@
 """Day outcomes, the volume split, the XLA day step and the keyword drift.
 
 Counterpart of ``adcraft_tpu/step.py``: ``DayOutcomes`` (:69),
-``split_volume`` (:100), ``simulate_day`` (:991) for the JAX package's
-default day step and ``update_keywords`` (:1580). ``simulate_day`` runs
-the configuration that ``bench.py:47-76`` times (``day_kernel="xla"``,
-aggregate costs, conversion counts, revenue sums, inversion binomials,
-implicit single-competitor keywords), and the same with one revenue draw
-per keyword and day (``rev_sampling="day"``, ``train_rl.py``'s fast
-mode), on the two kernels of ``adcraft_tpu_torch.agg_day``; every other XLA-path configuration raises
-``NotImplementedError`` (``check_xla_config``). The day-kernel path
-(``day_kernel="pallas"``) runs in ``adcraft_tpu_torch.day_kernel``.
+``split_volume`` (:100), ``simulate_day`` (:991), ``sample_day_draws``
+(:1503) and ``update_keywords`` (:1580), for implicit single-competitor
+keywords. ``simulate_day`` runs two families of the XLA day step
+(``day_kernel="xla"``), by ``cfg.cost_sampling``:
+
+* ``"lanes"``, the JAX package's ``EnvConfig`` defaults: cost, conversion
+  and revenue lanes, ``jax.random.binomial`` (``binomial_sampler="exact"``)
+  or the inverse-CDF walk, 32- or 16-bit lane uniforms, on the three
+  kernels of ``adcraft_tpu_torch.lanes_day``; the budget gate is
+  ``_gate_keywords``' sequential rule (``lanes_day.gate_keywords``);
+* ``"agg"``, the configuration that ``bench.py:47-76`` times (aggregate
+  costs, conversion counts, revenue sums, inversion binomials), and the
+  same with one revenue draw per keyword and day (``rev_sampling="day"``,
+  ``train_rl.py``'s fast mode), on the two kernels of
+  ``adcraft_tpu_torch.agg_day``.
+
+Every other XLA-path configuration raises ``NotImplementedError``
+(``check_xla_config``). The day-kernel path (``day_kernel="pallas"``) runs
+in ``adcraft_tpu_torch.day_kernel``.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Dict, NamedTuple
 
 import torch
 
-from adcraft_tpu_torch import agg_day
+from adcraft_tpu_torch import agg_day, lanes_day
 from adcraft_tpu_torch import distributions as dist
 from adcraft_tpu_torch import prng
+from adcraft_tpu_torch.auction import cell_binomial_fn, run_cell_auctions
 from adcraft_tpu_torch.config import CompetitorModel, EnvConfig, KeywordKind
 from adcraft_tpu_torch.keywords import KeywordState
 
@@ -60,19 +71,30 @@ def check_xla_config(cfg: EnvConfig) -> None:
     """Raise ``NotImplementedError`` for an XLA-path configuration the port
     does not run, naming its ROADMAP.md item.
 
-    The gate knobs (``gate_mode``, ``gate_scope``, ``gate_chunk_t``,
-    ``gate_compact*``, ``gate_scan_unroll``) select TPU schedules that are
-    bit-identical to one sequential gate, which is the port's, so they
-    are accepted and change nothing.
+    The port runs all lanes (cost, conversion and revenue lanes, either
+    binomial sampler) or bench.py's aggregate knobs (``conv_sampling=
+    "counts"``, ``rev_sampling`` "sum" or "day", the inversion sampler),
+    with either ``lane_bits``. The gate knobs (``gate_mode``,
+    ``gate_scope``, ``gate_chunk_t``, ``gate_compact*``,
+    ``gate_scan_unroll``) select TPU schedules that are bit-identical to
+    one sequential gate, which is the port's, so they are accepted and
+    change nothing.
     """
+    lanes = cfg.cost_sampling == "lanes"
+    mixed = "mixed sampling knobs (ROADMAP.md item 2)"
     unported = [
         (cfg.kind is not KeywordKind.IMPLICIT, "explicit keywords (ROADMAP.md item 3)"),
         (cfg.competitor_model is not CompetitorModel.SINGLE_ABS_CENTS,
          "the binomial pool (ROADMAP.md item 4)"),
-        (cfg.cost_sampling != "agg", "cost_sampling='lanes' (ROADMAP.md item 2)"),
-        (cfg.conv_sampling != "counts", "conv_sampling='lanes' (ROADMAP.md item 2)"),
-        (cfg.rev_sampling == "lanes", "rev_sampling='lanes' (ROADMAP.md item 2)"),
-        (cfg.binomial_sampler != "inversion", "binomial_sampler='exact' (ROADMAP.md item 2)"),
+        (lanes and cfg.conv_sampling != "lanes", f"conv_sampling='counts' with lane costs: {mixed}"),
+        (lanes and cfg.rev_sampling != "lanes",
+         f"rev_sampling={cfg.rev_sampling!r} with lane costs: {mixed}"),
+        (not lanes and cfg.conv_sampling != "counts",
+         f"conv_sampling='lanes' with aggregate costs: {mixed}"),
+        (not lanes and cfg.rev_sampling == "lanes",
+         f"rev_sampling='lanes' with aggregate costs: {mixed}"),
+        (not lanes and cfg.binomial_sampler != "inversion",
+         f"binomial_sampler='exact' with aggregate costs: {mixed}"),
         (cfg.agg_draw_bits != 32, "agg_draw_bits=16 (ROADMAP.md item 2)"),
         (cfg.use_x64, "use_x64 money and int64 cents (ROADMAP.md item 2)"),
     ]
@@ -108,8 +130,9 @@ def simulate_day(
 
     ``split(key)`` gives the volume key and the cell key; volumes are
     ``min(round(max(N(mean, std), 0)), max_volume)``; the three phases run
-    in ``agg_day``, with revenue per cell (``rev_sampling="sum"``) or per
-    keyword and day (``"day"``).
+    in ``lanes_day`` (``cost_sampling="lanes"``) or ``agg_day`` (``"agg"``,
+    with revenue per cell, ``rev_sampling="sum"``, or per keyword and day,
+    ``"day"``).
     """
     check_xla_config(cfg)
     lanes = xla_lanes(cfg)
@@ -118,9 +141,14 @@ def simulate_day(
                          max=cfg.max_volume)
     n_auc = split_volume(cfg, volume)
     n_auc01 = torch.stack([n_auc[0], n_auc[1] if lanes.T > 1 else torch.zeros_like(n_auc[0])])
-    imp, clicks, cost_c, convs, rev_c, elig = agg_day.simulate_day_agg(
-        lanes, k_cells, kw, bids, budget_cents(budget), n_auc01, cfg.rev_sampling
-    )
+    if cfg.cost_sampling == "lanes":
+        imp, clicks, cost_c, convs, rev_c, elig = lanes_day.simulate_day_lanes(
+            lanes, k_cells, kw, bids, budget_cents(budget), n_auc01, cfg.binomial_sampler
+        )
+    else:
+        imp, clicks, cost_c, convs, rev_c, elig = agg_day.simulate_day_agg(
+            lanes, k_cells, kw, bids, budget_cents(budget), n_auc01, cfg.rev_sampling
+        )
     # jitted XLA divides by the constant as a product with its reciprocal,
     # and fuses one of the two products into the profit's subtraction: the
     # revenue's where it is a sum over cells, the cost's where the revenue
@@ -142,6 +170,44 @@ def simulate_day(
         volume=volume,
         eligible_volume=elig,
     )
+
+
+def sample_day_draws(cfg: EnvConfig, key: torch.Tensor, kw: KeywordState,
+                     bids: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The lanes day's whole draw table for E envs (tests only; memory
+    grows with ``E T K M``), the JAX function for each env's key: the
+    volume (E, K), impressions and clicks (E, T, K), and the lane tables
+    (E, T, K, M) of costs (money), conversion flags (bool) and revenue
+    (money), lanes past a sub-timestep's buffer zero. Same key tree as
+    ``simulate_day``, so ``adcraft_tpu/oracle``'s numpy day run on one
+    env's slice reproduces that env's day."""
+    if (cfg.cost_sampling, cfg.conv_sampling, cfg.rev_sampling) != ("lanes",) * 3:
+        raise ValueError("injected-draw parity requires conv_sampling, rev_sampling and "
+                         "cost_sampling 'lanes'")
+    K, M, T = kw.num_keywords, cfg.max_clicks_per_cell, cfg.timesteps_per_day
+    k_vol, k_cells = prng.split(key).unbind(-2)
+    volume = torch.clamp(dist.nonneg_int_normal(k_vol, kw.vol_mean, kw.vol_std),
+                         max=cfg.max_volume)
+    n_auc = split_volume(cfg, volume)
+    tables = {f: [] for f in ("impressions", "n_clicks", "costs", "conv_flags", "revs")}
+    for t in range(T):
+        m = M if t == 0 else cfg.max_clicks_rest
+        k_auc, k_click, k_conv, k_rev = prng.split(prng.fold_in(k_cells, t), 4).unbind(-2)
+        cell = run_cell_auctions(cfg, k_auc, bids, n_auc[t], kw, max_clicks=m)
+        flags = prng.uniform(k_conv, (m, K)) <= kw.sctr[:, None, :]
+        revs = dist.rev_normal_cents(k_rev, kw.rev_mean[:, None, :], kw.rev_std[:, None, :],
+                                     (m, K)) * dist.recip(100.0)
+
+        def pad(x):
+            """(E, m, K) lanes -> (E, K, M) rows, zero past the buffer."""
+            return torch.nn.functional.pad(x.transpose(1, 2), (0, M - m))
+
+        tables["impressions"].append(cell.impressions)
+        tables["n_clicks"].append(cell_binomial_fn(cfg, m)(k_click, cell.n_candidates, kw.bctr))
+        tables["costs"].append(pad(cell.cost_draws))
+        tables["conv_flags"].append(pad(flags))
+        tables["revs"].append(pad(revs))
+    return {"volume": volume, **{f: torch.stack(x, 1) for f, x in tables.items()}}
 
 
 def update_keywords(cfg: EnvConfig, key: torch.Tensor, kw: KeywordState) -> KeywordState:

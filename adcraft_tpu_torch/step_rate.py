@@ -13,12 +13,15 @@ bids $1.00. For each env count:
   their intervals), and the idle share ``1 - busy / step time``, with the
   step time of the unprofiled runs.
 
-Two day-step routes, run in turns in one process (pallas, xla, xla,
-pallas): ``pallas`` is ``day_kernel="pallas"`` (the CUDA day kernel),
-``xla`` is ``day_kernel="xla"`` with bench.py's knobs (the two agg_day
-kernels).
+Three day-step routes: ``pallas`` is ``day_kernel="pallas"`` (the CUDA
+day kernel), ``xla`` is ``day_kernel="xla"`` with bench.py's knobs (the
+two agg_day kernels), ``lanes`` is the JAX package's default knobs (the
+three lanes_day kernels). ``--routes`` picks them; each env count runs them
+in turns in one process, forward then backward (pallas, xla, xla,
+pallas by default).
 
-    python3 -m adcraft_tpu_torch.step_rate [--envs 1024 4096 8192] [--json PATH]
+    python3 -m adcraft_tpu_torch.step_rate [--envs 1024 4096 8192]
+        [--routes pallas xla lanes] [--json PATH]
 
 It runs on the card only.
 """
@@ -36,7 +39,7 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from adcraft_tpu_torch import EnvConfig, KeywordKind, VectorBiddingEnv, agg_day, prng
+from adcraft_tpu_torch import EnvConfig, KeywordKind, VectorBiddingEnv, agg_day, lanes_day, prng
 from adcraft_tpu_torch import day_kernel as dk
 from adcraft_tpu_torch import prng_kernel as pk
 from adcraft_tpu_torch.config import BENCH_XLA_KNOBS
@@ -44,14 +47,16 @@ from adcraft_tpu_torch.quantiles import simple_experiment_table
 
 K, MAX_VOLUME, BID = 100, 576, 1.00
 WARMUP, RUNS, STEPS = 3, 5, 10
-ROUTES = ("pallas", "xla", "xla", "pallas")
+ROUTE_KNOBS = {"pallas": {"day_kernel": "pallas"}, "xla": BENCH_XLA_KNOBS, "lanes": {}}
 KERNELS = {"day_kernel": dk.day_kernel, "threefry_words": pk.threefry_words,
-           "agg_cells_gate": agg_day.agg_cells_gate, "agg_outcomes": agg_day.agg_outcomes}
+           "agg_cells_gate": agg_day.agg_cells_gate, "agg_outcomes": agg_day.agg_outcomes,
+           "lanes_counts": lanes_day.lanes_counts, "lanes_gate": lanes_day.lanes_gate,
+           "lanes_outcomes": lanes_day.lanes_outcomes}
 
 
 def route_config(route: str) -> EnvConfig:
-    knobs = BENCH_XLA_KNOBS if route == "xla" else {"day_kernel": "pallas"}
-    return EnvConfig(num_keywords=K, kind=KeywordKind.IMPLICIT, max_volume=MAX_VOLUME, **knobs)
+    return EnvConfig(num_keywords=K, kind=KeywordKind.IMPLICIT, max_volume=MAX_VOLUME,
+                     **ROUTE_KNOBS[route])
 
 
 def busy_ms(events) -> float:
@@ -103,6 +108,8 @@ def measure(num_envs: int, route: str, device: torch.device) -> dict:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--envs", type=int, nargs="+", default=[1024, 4096, 8192])
+    parser.add_argument("--routes", nargs="+", choices=sorted(ROUTE_KNOBS),
+                        default=["pallas", "xla"])
     parser.add_argument("--json", type=Path, help="also write the results here")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -115,7 +122,7 @@ def main(argv=None) -> int:
     print(card, flush=True)
     results = []
     for num_envs in args.envs:
-        for route in ROUTES:
+        for route in args.routes + args.routes[::-1]:
             r = measure(num_envs, route, device)
             results.append(r)
             print(f"{num_envs} envs, {route}: {r['env_steps_per_s']:.1f} env-steps/s "

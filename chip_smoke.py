@@ -11,7 +11,8 @@ Phases, each fatal on failure:
 1. the card: name, and power limit as nvidia-smi reports it;
 2. build the CUDA libraries from adcraft_tpu_torch/csrc, one nvcc per
    build, all at once (the day kernel; the threefry kernels; the XLA day
-   step's kernels, and those again with -DAGG_STAGE_CLOCKS);
+   step's kernels, and those again with -DAGG_STAGE_CLOCKS; the lanes
+   day's kernels);
 3. day kernel vs its plain PyTorch version on the card at the slice's full
    width (4096 envs x 100 keywords x 24 sub-timesteps x 47 lanes), same
    inputs and seed, budgets unbound / binding / zero: every output
@@ -60,7 +61,23 @@ Phases, each fatal on failure:
    step; the same slice again under experiments/train_rl.py's fast knobs
    (rev_sampling="day"), with its own counts; and the budget's cast on
    both routes: one day at $inf and $1e8 equal to the day at $1e6, one at
-   -$3e7 with no click accepted, each equal to its plain day.
+   -$3e7 with no click accepted, each equal to its plain day;
+10. the lanes day (the JAX package's default knobs: cost, conversion and
+   revenue lanes, jax.random.binomial) on its three kernels at 4096 envs
+   x 100 keywords x 24 sub-timesteps, unbound and $1000: lanes_counts,
+   lanes_gate and lanes_outcomes each equal to their plain version bit
+   for bit (every simulated cell, n_sim, the day sums), timed beside
+   their bounds and plain versions, with ptxas' registers and spills;
+   lanes_counts alone on a grid of (n, p) pairs on both sides of the
+   binomial's algorithm switch at 1024 envs: equal to its plain version,
+   and its impressions' mean and variance within 6 standard errors of
+   the Binomial's; the inversion sampler and 16-bit lanes at 1024 envs,
+   each equal to its plain version; then the slice, 5 steps, rollout(5)
+   and 4 days of autoreset_step at max_days 3 (every episode ends and
+   restarts), counts zeroed just before: one launch of each kernel per
+   day, and steps, keys and autoreset states equal to the same days
+   through the plain versions; CUDA device events, device busy time and
+   idle share per step.
 
 The line before the last is a JSON object with each kernel's launches on
 its path, error, times and bound; the last line is {"ok": true, "device":
@@ -264,17 +281,24 @@ def bound(nbytes: float, ops: float, ops_per_s: float):
     return (byte_ms, "bytes") if byte_ms >= op_ms else (op_ms, "operations")
 
 
-def cuda_events_per_step(run, steps: int) -> float:
-    """CUDA device events (kernels and copies) per step under torch.profiler."""
+def device_busy(run, steps: int):
+    """(CUDA device events per step, device-busy ms per step, wall ms per
+    step) of ``run`` under torch.profiler; busy is the union of the device
+    events' intervals (``step_rate.busy_ms``)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from adcraft_tpu_torch.step_rate import busy_ms
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
-    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA) / steps
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return len(device) / steps, busy_ms(device) / steps, wall_ms / steps
 
 
 XLA_BUDGET = 1000.0
@@ -693,7 +717,7 @@ def xla_phase(torch, dev, card, table, ops_per_word, int_ops_per_s, fp_ops_per_s
             for _ in range(STEPS):
                 st, _ts = slice_env.step(st, bids)
 
-        events = cuda_events_per_step(run_steps, STEPS)
+        events = device_busy(run_steps, STEPS)[0]
         imps = sum(ts.outcomes.impressions.sum().item() for ts in steps)
         cost = sum(ts.outcomes.cost.sum().item() for ts in steps)
         revenue = sum(ts.outcomes.revenue.sum().item() for ts in steps)
@@ -794,6 +818,375 @@ def budget_cast_phase(torch, dev, card, table, pallas_env):
               f"({card})")
 
 
+LANES_BUDGET = 1000.0
+AUTORESET_DAYS = 3  # max_days of the autoreset run, which steps one more day
+LANES_VARIANT_ENVS = 1024
+# float instructions per element and pass of binomial.cuh's loops (XLA's log
+# with its float64 fused multiply-adds, the divisions, the Stirling terms),
+# per cost lane (the truncated Laplace inverse CDF in cents) and per revenue
+# lane (XLA's erf_inv and log1p), as written; used only for the bounds
+INVERSION_PASS_FP = 40
+BTRS_PASS_FP = 200
+COST_LANE_FP = 30
+REVENUE_LANE_FP = 80
+# key blocks: lanes_counts per (env, t) kt, k_auc, k_imp, k_click and per
+# pass of a loop 2 (inversion) or 3 (BTRS); lanes_gate per simulated (env,
+# t) kt, k_auc, k_cost; lanes_outcomes per (env, t) with a simulated cell
+# kt, k_conv, k_rev
+COUNTS_KEY_BLOCKS, GATE_KEY_BLOCKS, OUTCOME_KEY_BLOCKS = 4, 3, 3
+
+
+@contextlib.contextmanager
+def lanes_plain(ld):
+    """Route the lanes day through the plain versions of its kernels."""
+    kernels = (ld.lanes_counts, ld.lanes_gate, ld.lanes_outcomes)
+    ld.lanes_counts, ld.lanes_gate, ld.lanes_outcomes = (
+        ld.lanes_counts_reference, ld.lanes_gate_reference, ld.lanes_outcomes_reference)
+    try:
+        yield
+    finally:
+        ld.lanes_counts, ld.lanes_gate, ld.lanes_outcomes = kernels
+
+
+def inversion_passes(n, p, draws):
+    """Passes of the exact binomial's inversion loop per call (row): the
+    largest q-space draw plus one over the call's inversion elements, 1
+    where it has none but runs (a BTRS element needs one pass), 0 where
+    the call runs no inversion element."""
+    import torch
+
+    q = torch.where(p < 0.5, p, 1.0 - p)
+    inv = n.float() * q <= 10.0
+    s = torch.where(p < 0.5, draws, n - draws).float()
+    passes = torch.where(inv, s + 1.0, torch.zeros_like(s)).amax(-1)
+    return torch.where(inv.any(-1), passes.clamp(min=1.0), torch.zeros_like(passes)), inv
+
+
+def lanes_phase(torch, dev, card, table, ops_per_word, int_ops_per_s, fp_ops_per_s, sms):
+    """Phase 10: the lanes day (the JAX package's default knobs) on its three
+    kernels against their plain versions at full width, the binomial alone,
+    the 1024-env variants, then the slice through them. Returns their JSON
+    entries."""
+    from adcraft_tpu_torch import EnvConfig, KeywordKind, VectorBiddingEnv
+    from adcraft_tpu_torch import agg_day as ad
+    from adcraft_tpu_torch import distributions as dist
+    from adcraft_tpu_torch import lanes_day as ld
+    from adcraft_tpu_torch import prng
+    from adcraft_tpu_torch import prng_kernel as pk
+    from adcraft_tpu_torch.auction import implicit_single_win_prob
+    from adcraft_tpu_torch.step import budget_cents, split_volume, xla_lanes
+
+    cfg = EnvConfig(num_keywords=K, kind=KeywordKind.IMPLICIT, max_volume=MAX_VOLUME,
+                    budget=LANES_BUDGET)
+    lanes = xla_lanes(cfg)
+    kernels = {"lanes_counts": ld.lanes_counts, "lanes_gate": ld.lanes_gate,
+               "lanes_outcomes": ld.lanes_outcomes}
+    max_err = dict.fromkeys(kernels, 0)
+    for name in kernels:
+        print(f"{name}: ptxas {kernel_ptxas(ld.library.build_log, name + '_kernel')}")
+
+    def compare(name, pairs, label):
+        for what, g, w in pairs:
+            if g.shape != w.shape or g.dtype != w.dtype:
+                fail(f"{name} vs plain ({label}): {what} is {g.dtype} {tuple(g.shape)}, plain "
+                     f"{w.dtype} {tuple(w.shape)}")
+            err = (g.long() - w.long()).abs().max().item() if g.numel() else 0
+            max_err[name] = max(max_err[name], err)
+            if err:
+                fail(f"{name} vs plain ({label}): {what} differs, max error {err}")
+
+    def day_inputs(envs, seed, lanes_cfg):
+        state, _ = VectorBiddingEnv(lanes_cfg, envs, table, device=dev).reset(
+            prng.PRNGKey(seed))
+        k_vol, k_cells = prng.split(prng.split(prng.PRNGKey(seed + 1, dev), envs)).unbind(-2)
+        kw = state.kw
+        volume = torch.clamp(dist.nonneg_int_normal(k_vol, kw.vol_mean, kw.vol_std),
+                             max=MAX_VOLUME)
+        n_auc = split_volume(lanes_cfg, volume)
+        n_auc01 = torch.stack([n_auc[0], n_auc[1]]).contiguous()
+        params = ad.pack_params(kw, torch.full((envs, K), BID, device=dev))
+        return params, n_auc01, k_cells
+
+    def check_day(params, n_auc01, k_cells, budget_c, lanes_, sampler, label):
+        """The three kernels against their plain versions on one day; returns
+        the kernels' outputs, the plain ones and the plain times."""
+        envs = params.shape[1]
+        got_counts = ld.lanes_counts(params, n_auc01, k_cells, lanes_, sampler)
+        torch.cuda.synchronize()
+        with words_replaced(pk, pk.threefry_words_reference):
+            want_counts, counts_ms = once_ms(lambda: ld.lanes_counts_reference(
+                params, n_auc01, k_cells, lanes_, sampler))
+        compare("lanes_counts", zip(("imp", "ncl"), got_counts, want_counts), label)
+        imp, ncl = got_counts
+        got_gate = ld.lanes_gate(params, k_cells, ncl, budget_c, lanes_)
+        torch.cuda.synchronize()
+        with words_replaced(pk, pk.threefry_words_reference):
+            want_gate, gate_ms = once_ms(lambda: ld.lanes_gate_reference(
+                params, k_cells, ncl, budget_c, lanes_))
+        n_sim = want_gate[2]
+        sim = torch.arange(lanes_.T * K, device=dev).view(1, lanes_.T, K) < n_sim.view(-1, 1, 1)
+        compare("lanes_gate", [("n_sim", got_gate[2], n_sim)] + [
+            (what, g[sim], w[sim]) for what, g, w in zip(("acc", "spend"), got_gate, want_gate)],
+            label)
+        acc, spend = want_gate[:2]
+        acc, spend = acc * sim, spend * sim
+        got_out = ld.lanes_outcomes(params, k_cells, imp, got_gate[0], got_gate[1], n_sim,
+                                    n_auc01, lanes_)
+        torch.cuda.synchronize()
+        with words_replaced(pk, pk.threefry_words_reference):
+            want_out, out_ms = once_ms(lambda: ld.lanes_outcomes_reference(
+                params, k_cells, imp, acc, spend, n_sim, n_auc01, lanes_))
+        compare("lanes_outcomes", [(f"day sum {i}", g, w) for i, (g, w) in
+                                   enumerate(zip(got_out, want_out))], label)
+        if (got_out[2].sum(1) > budget_c.clamp(min=0)).any():
+            fail(f"lanes day ({label}): an env spent more than its budget")
+        if not ((got_out[1] <= got_out[0]).all() and (got_out[3] <= got_out[1]).all()):
+            fail(f"lanes day ({label}): clicks <= imps, convs <= clicks violated")
+        print(f"lanes_counts, lanes_gate, lanes_outcomes == plain ({label}, {envs} envs): "
+              f"simulated cells {sim.sum().item()} of {sim.numel()}, "
+              f"imps {got_out[0].sum().item()} clicks {got_out[1].sum().item()} cost "
+              f"${got_out[2].sum().item() / 100:.2f} convs {got_out[3].sum().item()} revenue "
+              f"${got_out[4].sum().item() / 100:.2f}")
+        return (imp, ncl, got_gate, n_sim, sim, got_out,
+                {"lanes_counts": counts_ms, "lanes_gate": gate_ms, "lanes_outcomes": out_ms})
+
+    # the three kernels against their plain versions at full width, timed
+    params, n_auc01, k_cells = day_inputs(E, 20, cfg)
+    p_win = implicit_single_win_prob(params[ad.BID], params[ad.LOC], params[ad.SCALE])
+    n_t = torch.stack([n_auc01[0]] + [n_auc01[1]] * (T - 1), 1)  # (E, T, K)
+    timed = {}
+    for label, budget in (("unbound", 1e6), ("binding", LANES_BUDGET)):
+        budget_c = budget_cents(torch.full((E,), budget, device=dev))
+        imp, ncl, gate, n_sim, sim, out, plain_ms = check_day(
+            params, n_auc01, k_cells, budget_c, lanes, "exact", label)
+        calls = {
+            "lanes_counts": lambda: ld.lanes_counts(params, n_auc01, k_cells, lanes),
+            "lanes_gate": lambda: ld.lanes_gate(params, k_cells, ncl, budget_c, lanes),
+            "lanes_outcomes": lambda: ld.lanes_outcomes(params, k_cells, imp, gate[0], gate[1],
+                                                        n_sim, n_auc01, lanes),
+        }
+        # lanes_counts: per call of K keywords, K words a pass of each loop
+        # it runs (the inversion loop's passes from its draws, BTRS's at
+        # least one, and a BTRS pass draws two words) and their key blocks
+        counts_words = COUNTS_KEY_BLOCKS * E * T
+        counts_fp = 0.0
+        for n, p, x in ((n_t, p_win[:, None, :].expand(E, T, K), imp),
+                        (imp, params[ad.BCTR][:, None, :].expand(E, T, K), ncl)):
+            passes, inv = inversion_passes(n, p, x)
+            btrs = (~inv).any(-1).float()
+            counts_words += (passes * (K + 2) + btrs * (2 * K + 3)).sum().item()
+            counts_fp += (K * (passes * INVERSION_PASS_FP + btrs * BTRS_PASS_FP)).sum().item()
+        counts_bytes = 4 * (4 * E * K + 2 * E * K) + 16 * E + 8 * E * T * K
+        # lanes_gate: each simulated cell's cost lanes up to the first over
+        # the budget or its last click; its key blocks per simulated (env, t)
+        acc = gate[0] * sim
+        looked = (torch.minimum(acc + 1, ncl) * sim).sum().item()
+        gate_words = looked + GATE_KEY_BLOCKS * sim.any(2).sum().item()
+        gate_bytes = 4 * (3 * E * K + E * T * K + E) + 16 * E + 8 * sim.sum().item() + 4 * E
+        # lanes_outcomes: a flag word per accepted click, a revenue word per
+        # conversion, its key blocks per (env, t) with a simulated cell
+        convs = out[3].sum().item()
+        out_words = acc.sum().item() + convs + OUTCOME_KEY_BLOCKS * sim.any(2).sum().item()
+        out_bytes = 12 * sim.sum().item() + 4 * (3 * E * K + 2 * E * K + E) + 16 * E + 24 * E * K
+        work = {
+            "lanes_counts": (counts_bytes, counts_words, counts_fp),
+            "lanes_gate": (gate_bytes, gate_words, COST_LANE_FP * looked),
+            "lanes_outcomes": (out_bytes, out_words, REVENUE_LANE_FP * convs),
+        }
+        timed[label] = {}
+        for name, call in calls.items():
+            nbytes, words, fp = work[name]
+            kbound = max(bound(nbytes, words * ops_per_word, int_ops_per_s),
+                         bound(nbytes, fp, fp_ops_per_s))
+            ms = cuda_ms(call, reps=10)
+            timed[label][name] = (ms, plain_ms[name], kbound)
+            print(f"  {name} ({label}): kernel {ms:.4f} ms, plain {plain_ms[name]:.1f} ms; "
+                  f"{words:.0f} threefry words, {fp:.4g} float ops, {nbytes / 1e6:.1f} MB; bound "
+                  f"{kbound[0]:.4f} ms ({kbound[1]}), {100 * kbound[0] / ms:.1f}% of it reached "
+                  f"({card})")
+
+    # the binomial alone: lanes_counts on a grid of (n, p), one pair per
+    # keyword, n the same at every sub-timestep; p is the win probability
+    # of loc 0 and the scale that gives the pair's p (p = 0 at a bid of
+    # $0.005, p = 1 at a vanishing scale)
+    envs = LANES_VARIANT_ENVS
+    n_grid = torch.tensor([0, 1, 5, 19, 20, 21, 30, 47, 100, 300, 600] * 10, device=dev)[:K]
+    p_grid = torch.tensor([0.0, 0.5, 1.0, 0.02, 0.3, 0.45, 0.55, 0.7, 0.98, 0.1], device=dev)
+    p_grid = p_grid.repeat_interleave(11)[:K]
+    bid = torch.where(p_grid == 0.0, 0.005, 1.0)
+    y0 = bid - 0.005
+    scale = torch.where(p_grid >= 1.0, 1e-30,
+                        torch.where(p_grid == 0.0, 1.0, -y0 / torch.log1p(-p_grid)))
+    gparams = torch.zeros((ad.NUM_PARAMS, envs, K), device=dev)
+    gparams[ad.BID], gparams[ad.SCALE], gparams[ad.BCTR] = bid, scale, 0.5
+    gparams[ad.LOC] = 0.0
+    gn = n_grid.to(torch.int32).expand(2, envs, K).contiguous()
+    gkeys = prng.split(prng.PRNGKey(31, dev), envs)
+    got = ld.lanes_counts(gparams, gn, gkeys, lanes)
+    torch.cuda.synchronize()
+    with words_replaced(pk, pk.threefry_words_reference):
+        want = ld.lanes_counts_reference(gparams, gn, gkeys, lanes)
+    compare("lanes_counts", zip(("grid imp", "grid ncl"), got, want), "binomial grid")
+    gp = implicit_single_win_prob(gparams[ad.BID], gparams[ad.LOC], gparams[ad.SCALE])[0].double()
+    nd = n_grid.double()
+    x = got[0].double()  # (envs, T, K)
+    samples = envs * T
+    mean, var = x.mean((0, 1)), x.var((0, 1))
+    want_mean, want_var = nd * gp, nd * gp * (1 - gp)
+    mu4 = want_var * (1 + 3 * (nd - 2) * gp * (1 - gp))
+    se_mean = (want_var / samples).sqrt()
+    # the sample variance's variance: mu4 / N - sigma^4 (N - 3) / (N (N - 1))
+    se_var = (mu4 / samples - want_var ** 2 * (samples - 3) / (samples * (samples - 1))).sqrt()
+    z_mean = ((mean - want_mean).abs() / se_mean.clamp(min=1e-12))
+    z_var = ((var - want_var).abs() / se_var.clamp(min=1e-12))
+    degenerate = want_var == 0
+    if not torch.equal(mean[degenerate], want_mean[degenerate]):
+        fail("binomial grid: a degenerate pair (n = 0, p = 0 or p = 1) drew off its value")
+    worst = max(z_mean[~degenerate].max().item(), z_var[~degenerate].max().item())
+    if worst > MAX_SE:
+        fail(f"binomial grid: mean or variance {worst:.2f} standard errors off")
+    inv_pairs = (nd * torch.minimum(gp, 1 - gp) <= 10).sum().item()
+    print(f"binomial grid ({envs} envs x {T} sub-timesteps per pair, {K} pairs, {inv_pairs} on "
+          f"the inversion side, n up to {int(nd.max())}): == plain; mean and variance within "
+          f"{worst:.2f} standard errors (limit {MAX_SE:g})")
+
+    # the 1024-env variants: the inversion sampler and 16-bit lanes
+    for knobs in ({"binomial_sampler": "inversion"}, {"lane_bits": 16}):
+        vcfg = cfg.replace(**knobs)
+        vparams, vn, vkeys = day_inputs(envs, 40, vcfg)
+        check_day(vparams, vn, vkeys, budget_cents(torch.full((envs,), LANES_BUDGET, device=dev)),
+                  xla_lanes(vcfg), vcfg.binomial_sampler, f"variant {knobs}")
+
+    # the slice: 5 steps, rollout(5) and an autoreset run whose episodes end
+    # (max_days 3, 4 days), counts zeroed just before and read just after;
+    # then the same days through the plain versions
+    env = VectorBiddingEnv(cfg, E, table, device=dev)
+    reset_env = VectorBiddingEnv(cfg.replace(max_days=AUTORESET_DAYS), E, table, device=dev)
+    state_a, _ = env.reset(prng.PRNGKey(21))
+    state_r, _ = reset_env.reset(prng.PRNGKey(22))
+    bids = torch.full((E, K), BID, device=dev)
+    torch.cuda.synchronize()
+    for kernel in kernels.values():
+        kernel.launches = 0
+    pk.threefry_words.launches = 0
+    t0 = time.perf_counter()
+    state, steps = state_a, []
+    for _ in range(STEPS):
+        state, ts = env.step(state, bids)
+        steps.append(ts)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    end_step = state
+    end_roll, roll = env.rollout(state_a, bids, STEPS)
+    state, resets = state_r, []
+    for _ in range(AUTORESET_DAYS + 1):
+        state, ts = reset_env.autoreset_step(state, bids)
+        resets.append((state, ts))
+    torch.cuda.synchronize()
+    launches = {name: kernel.launches for name, kernel in kernels.items()}
+    words_launches = pk.threefry_words.launches
+    days = 2 * STEPS + AUTORESET_DAYS + 1
+    if any(n != days for n in launches.values()):
+        fail(f"lanes slice launches {launches}, want {days} of each")
+    if words_launches == 0:
+        fail("lanes slice: no threefry_words launch")
+    for i, ts in enumerate(steps):
+        o = ts.outcomes
+        if not ((o.buyside_clicks <= o.impressions).all() and (o.impressions <= o.volume).all()
+                and (o.sellside_conversions <= o.buyside_clicks).all()
+                and (o.revenue >= 0.01 * o.sellside_conversions - 1e-3).all()):
+            fail(f"lanes step {i}: clicks <= imps <= volume, convs <= clicks, revenue >= $0.01 "
+                 f"per conversion violated")
+        if (o.cost.sum(1) > LANES_BUDGET + 1e-3).any():
+            fail(f"lanes step {i}: an env spent more than the ${LANES_BUDGET:g} budget")
+        if not torch.isfinite(ts.reward).all():
+            fail(f"lanes step {i}: non-finite reward")
+        for f in o._fields:
+            if not torch.equal(getattr(o, f), getattr(roll.outcomes, f)[i]):
+                fail(f"lanes rollout day {i}: {f} differs from step {i}")
+    if not (torch.equal(end_step.key, end_roll.key) and (end_step.day == STEPS).all()):
+        fail("lanes rollout: the final state differs from the steps'")
+    if steps[-1].outcomes.sellside_conversions.sum().item() <= 0:
+        fail("lanes slice: no conversions")
+    ended = resets[AUTORESET_DAYS - 1]
+    if not (ended[1].terminated.all() and (ended[0].day == 0).all()
+            and (resets[-1][0].day == 1).all()):
+        fail("lanes autoreset: the episodes did not end and restart at max_days")
+
+    t0 = time.perf_counter()
+    with lanes_plain(ld), words_replaced(pk, pk.threefry_words_reference):
+        state = state_a
+        for i in range(STEPS):
+            state, ts = env.step(state, bids)
+            want = steps[i]
+            pairs = [("reward", ts.reward, want.reward)]
+            pairs += [("obs." + f, ts.obs[f], want.obs[f]) for f in want.obs]
+            pairs += [("outcomes." + f, getattr(ts.outcomes, f), getattr(want.outcomes, f))
+                      for f in want.outcomes._fields]
+            for name, a, b in pairs:
+                if not torch.equal(a, b):
+                    fail(f"lanes slice step {i}: {name} differs between kernels and plain")
+        if not torch.equal(state.key, end_step.key):
+            fail("lanes slice: the state key differs between kernels and plain")
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        state = state_r
+        for i, (want_state, want_ts) in enumerate(resets):
+            state, ts = reset_env.autoreset_step(state, bids)
+            for f in want_ts.outcomes._fields:
+                if not torch.equal(getattr(ts.outcomes, f), getattr(want_ts.outcomes, f)):
+                    fail(f"lanes autoreset day {i}: outcomes.{f} differs between kernels and plain")
+            for f in ("day", "cumulative_profit", "budget", "key"):
+                if not torch.equal(getattr(state, f), getattr(want_state, f)):
+                    fail(f"lanes autoreset day {i}: state {f} differs between kernels and plain")
+            for f, a in zip(state.kw._fields, state.kw):
+                if not torch.equal(a, getattr(want_state.kw, f)):
+                    fail(f"lanes autoreset day {i}: kw.{f} differs between kernels and plain")
+
+    def run_steps():
+        st = state_a
+        for _ in range(STEPS):
+            st, _ts = env.step(st, bids)
+
+    events, busy_ms, wall_ms = device_busy(run_steps, STEPS)
+    imps = sum(ts.outcomes.impressions.sum().item() for ts in steps)
+    cost = sum(ts.outcomes.cost.sum().item() for ts in steps)
+    print(f"lanes slice: {STEPS} steps, rollout({STEPS}) and {AUTORESET_DAYS + 1} autoreset days "
+          f"(max_days {AUTORESET_DAYS}) x {E} envs x {K} keywords, bids ${BID:.2f}, budget "
+          f"${LANES_BUDGET:g}: {imps} impressions, ${cost:.2f} spent; launches {launches}, "
+          f"threefry_words {words_launches / days:g} per day; == plain (steps, keys, autoreset "
+          f"states); kernels {STEPS * E / step_s:.1f} env-steps/s ({step_s:.3f} s), plain "
+          f"{STEPS * E / plain_s:.1f} env-steps/s; per step under the profiler: {events:.1f} CUDA "
+          f"device events, device busy {busy_ms:.3f} ms of {wall_ms:.3f} ms, idle "
+          f"{100 * (1 - busy_ms / wall_ms):.1f}% ({card})")
+
+    ms = timed["binding"]
+    replaces = {
+        "lanes_counts": "adcraft_tpu/step.py:926-951 (_cell_tables' lanes impressions and clicks, "
+                        "auction.py:126 and distributions.py:84; no TPU kernel)",
+        "lanes_gate": "adcraft_tpu/step.py:115 (_gate_keywords; cost lanes of auction.py:126; no "
+                      "TPU kernel)",
+        "lanes_outcomes": "adcraft_tpu/step.py:953-988 and :1400-1502 (lanes conversions, revenue "
+                          "and day sums; no TPU kernel)",
+    }
+    return [
+        {
+            "name": name,
+            "route": "cuda",
+            "source": "adcraft_tpu_torch/csrc/lanes_day.cu",
+            "replaces": replaces[name],
+            "launches": launches[name],
+            "max_abs_err": max_err[name],
+            "ms": ms[name][0],
+            "plain_ms": ms[name][1],
+            "bound_ms": ms[name][2][0],
+            "bound_by": ms[name][2][1],
+            "library_ms": None,
+        }
+        for name in kernels
+    ]
+
+
 def main() -> int:
     try:
         import torch
@@ -809,6 +1202,7 @@ def main() -> int:
         from adcraft_tpu_torch import cuda_build
         from adcraft_tpu_torch import day_kernel as dk
         from adcraft_tpu_torch import distributions as dist
+        from adcraft_tpu_torch import lanes_day as ld
         from adcraft_tpu_torch import prng
         from adcraft_tpu_torch import prng_kernel as pk
         from adcraft_tpu_torch import probe_prng as probe
@@ -833,7 +1227,7 @@ def main() -> int:
 
     # 2. build, one nvcc per source, all started together
     clocked = stage_clocked(ad, cuda_build)
-    libraries = (dk.day_kernel.library, pk.library, ad.library, clocked.library)
+    libraries = (dk.day_kernel.library, pk.library, ad.library, clocked.library, ld.library)
     t0 = time.perf_counter()
     cuda_build.build_all(libraries)
     print(f"build: {time.perf_counter() - t0:.1f} s for {len(libraries)} libraries")
@@ -1139,9 +1533,9 @@ def main() -> int:
         for _ in range(STEPS):
             st, _ts = env.step(st, bid_steps)
 
-    events_kernel = cuda_events_per_step(run_steps, STEPS)
+    events_kernel = device_busy(run_steps, STEPS)[0]
     with words_replaced(pk, pk.threefry_words_reference):
-        events_plain = cuda_events_per_step(run_steps, STEPS)
+        events_plain = device_busy(run_steps, STEPS)[0]
     print(f"slice RNG: kernel {STEPS * E / rng_kernel_s:.1f} env-steps/s, plain "
           f"{STEPS * E / rng_plain_s:.1f} env-steps/s ({STEPS} steps after reset); "
           f"threefry_words {launches['threefry_words'] / STEPS:g} launches per step; CUDA "
@@ -1181,6 +1575,10 @@ def main() -> int:
     xla_kernels = xla_phase(torch, dev, card, table, ops_per_word, int_ops_per_s, fp_ops_per_s,
                             sms, ptxas[ad.library], clocked)
     budget_cast_phase(torch, dev, card, table, env)
+
+    # 10. the lanes day (the JAX package's default knobs)
+    lanes_kernels = lanes_phase(torch, dev, card, table, ops_per_word, int_ops_per_s,
+                                fp_ops_per_s, sms)
 
     if "jax" in sys.modules:
         fail("jax was imported")
@@ -1229,7 +1627,7 @@ def main() -> int:
             "bound_by": rate_bound[1],
             "library_ms": None,
         },
-    ] + xla_kernels}))
+    ] + xla_kernels + lanes_kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

@@ -189,8 +189,7 @@ def test_unported_samplers_raise():
     from adcraft_tpu_torch import EnvConfig, KeywordKind
 
     cfg = EnvConfig(kind=KeywordKind.IMPLICIT, binomial_sampler="exact")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ta.cell_binomial_fn(cfg, 8)
+    assert ta.cell_binomial_fn(cfg, 8) is td.binomial  # jax.random.binomial's port
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         td.agg_cost_cents(keys(0)[1], torch.ones(E, K, dtype=torch.int32), torch.ones(E, K),
                           torch.ones(E, K), torch.ones(E, K), bits=16)

@@ -338,3 +338,67 @@ def test_xla_env_step_launches_each_agg_kernel_once(cuda):
     assert ts.outcomes.impressions.is_cuda and (end.day == 3).all()
     assert roll.outcomes.impressions.shape == (2, 32, 8)
     assert (ts.outcomes.cost.sum(1) <= 3.0 + 1e-4).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K, sampler, bits", [(7, "exact", 32), (100, "exact", 16),
+                                              (300, "inversion", 32), (33, "exact", 32)])
+def test_lanes_kernels_match_reference(cuda, K, sampler, bits):
+    """lanes_counts, lanes_gate and lanes_outcomes each equal their plain
+    version on the same inputs, budgets unbound, binding, small and zero:
+    every simulated cell, n_sim and the day sums exactly."""
+    from adcraft_tpu_torch import lanes_day
+    from adcraft_tpu_torch.step import budget_cents
+
+    E = 97
+    cfg = EnvConfig(num_keywords=K, kind=KeywordKind.IMPLICIT, max_volume=576,
+                    binomial_sampler=sampler, lane_bits=bits)
+    lanes, params, n_auc01, keys = xla_inputs(cfg, E, K + bits, cuda)
+    cell = torch.arange(lanes.T * K, device=cuda).view(1, lanes.T, K)
+    imp, ncl = lanes_day.lanes_counts(params, n_auc01, keys, lanes, sampler)
+    torch.cuda.synchronize()
+    want_counts = lanes_day.lanes_counts_reference(params, n_auc01, keys, lanes, sampler)
+    for g, w in zip((imp, ncl), want_counts):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    regimes = set()
+    for budget in (1e6, 20.0 * K / 7, 0.5, 0.0):
+        budget_c = budget_cents(torch.full((E,), budget, device=cuda))
+        acc, spend, n_sim = lanes_day.lanes_gate(params, keys, ncl, budget_c, lanes)
+        torch.cuda.synchronize()
+        want = lanes_day.lanes_gate_reference(params, keys, ncl, budget_c, lanes)
+        sim = cell < want[2].view(E, 1, 1)
+        torch.testing.assert_close(n_sim, want[2], rtol=0, atol=0)
+        for g, w in zip((acc, spend), want[:2]):
+            torch.testing.assert_close(g[sim], w[sim], rtol=0, atol=0)
+        out = lanes_day.lanes_outcomes(params, keys, imp, acc, spend, n_sim, n_auc01, lanes)
+        torch.cuda.synchronize()
+        want_out = lanes_day.lanes_outcomes_reference(params, keys, imp, want[0], want[1],
+                                                      want[2], n_auc01, lanes)
+        for g, w in zip(out, want_out):
+            torch.testing.assert_close(g, w, rtol=0, atol=0)
+        assert (out[2].sum(1) <= budget_c.clamp(min=0)).all()
+        regimes |= {"unbroken" if n == lanes.T * K else "t0" if n <= K else "mid-day"
+                    for n in n_sim.tolist()}
+    assert regimes == {"unbroken", "t0", "mid-day"}, regimes
+
+
+@pytest.mark.cuda
+def test_lanes_env_step_launches_each_lanes_kernel_once(cuda):
+    """The default knobs' env on the card: one launch of each lanes kernel
+    per day, through step, rollout and autoreset_step."""
+    from adcraft_tpu_torch import lanes_day
+
+    cfg = EnvConfig(num_keywords=8, kind=KeywordKind.IMPLICIT, max_volume=96,
+                    timesteps_per_day=6, max_days=2)
+    env = VectorBiddingEnv(cfg, 32, simple_experiment_table(64, 0.5))
+    state, _ = env.reset(prng.PRNGKey(0))
+    bids = torch.full((32, 8), 1.0, device=cuda)
+    kernels = (lanes_day.lanes_counts, lanes_day.lanes_gate, lanes_day.lanes_outcomes)
+    before = [k.launches for k in kernels]
+    state, ts = env.step(state, bids, torch.full((32,), 3.0, device=cuda))
+    end, roll = env.rollout(state, bids, 2)
+    reset, _ = env.autoreset_step(state, bids)
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(kernels, before)] == [4, 4, 4]
+    assert ts.outcomes.impressions.is_cuda and (end.day == 3).all() and (reset.day == 0).all()
+    assert (ts.outcomes.cost.sum(1) <= 3.0 + 1e-4).all()

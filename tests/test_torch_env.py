@@ -130,7 +130,8 @@ def test_step_on_the_counter_rng():
 
 def test_unported_paths_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        VectorBiddingEnv(CFG.replace(day_kernel="xla"), E, t_table(64, 0.5), device="cpu")
+        VectorBiddingEnv(CFG.replace(day_kernel="xla", agg_draw_bits=16), E, t_table(64, 0.5),
+                         device="cpu")
     env = VectorBiddingEnv(CFG, E, t_table(64, 0.5), device="cpu")
     state, _ = env.reset(prng.PRNGKey(0))
     with pytest.raises(NotImplementedError):
