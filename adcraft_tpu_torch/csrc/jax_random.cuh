@@ -51,10 +51,12 @@ __device__ __forceinline__ float lane_uniform(Key k, uint32_t counter, int bits)
   return uniform32(w);
 }
 
-// a * b + c rounded once, as the plain version's float64 (a * b + c)
+// a * b + c rounded once, as the plain version's float64 (a * b + c): the
+// product of two floats is exact in float64, so one float64 fused
+// multiply-add rounds the same double as the product then the sum
 __device__ __forceinline__ float fma32(float a, float b, float c) {
-  return __double2float_rn(__dadd_rn(__dmul_rn(static_cast<double>(a), static_cast<double>(b)),
-                                     static_cast<double>(c)));
+  return __double2float_rn(
+      __fma_rn(static_cast<double>(a), static_cast<double>(b), static_cast<double>(c)));
 }
 
 // prng.erfinv: XLA's float32 polynomial without contraction

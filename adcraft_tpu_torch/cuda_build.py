@@ -64,14 +64,16 @@ class CudaLibrary:
 
     ``bind`` declares the ctypes signatures of the library's launchers;
     ``flags`` are more nvcc flags (a second build of the same source, such
-    as one with a diagnostic compiled in). The source also exports
+    as one with a diagnostic compiled in); ``csrc`` is the directory of the
+    source and its headers (another tree's, to time two versions of a
+    kernel side by side). The source also exports
     ``<name>_error_string(int)``, which ``check`` uses to turn a launcher's
     nonzero CUDA error into an exception.
     """
 
     def __init__(self, name: str, bind: Callable[[ctypes.CDLL], None],
-                 flags: Tuple[str, ...] = ()):
-        self.source = CSRC / f"{name}.cu"
+                 flags: Tuple[str, ...] = (), csrc: Path = CSRC):
+        self.source = Path(csrc).resolve() / f"{name}.cu"
         self.name = name
         self.flags = tuple(flags)
         self._bind = bind

@@ -15,10 +15,14 @@ built with nvcc on first use (``cuda_build``) and bound with ctypes:
   sub-timestep) the impressions ``Binomial(n_auc, p_win)`` and the clicks
   ``Binomial(impressions, bctr)``, each one ``jax.random.binomial`` call of
   K keywords in lockstep (``binomial_sampler="exact"``) or the inverse-CDF
-  walk (``"inversion"``);
+  walk (``"inversion"``); on the card one warp per (env, sub-timestep), up
+  to four keywords a lane, any K;
 * ``lanes_gate`` (plain: ``lanes_gate_reference``): the cost lanes (in
   cents) of each cell and the sequential gate (``gate_keywords``): accepted
-  clicks, spend cents and the simulated cell count ``n_sim``;
+  clicks, spend cents and the simulated cell count ``n_sim``; on the card
+  one warp per env, drawing the cost lanes of windows of up to 32 cells
+  densely before deciding them (``tests/test_torch_lanes_gate_walk.py``
+  models the walk);
 * ``lanes_outcomes`` (plain: ``lanes_outcomes_reference``): conversions
   (the first ``accepted`` conversion flags), revenue (the first ``nconv``
   revenue draws, in cents), the ``cell_out`` masks and the (E, K) day sums.
@@ -46,7 +50,7 @@ import torch
 from adcraft_tpu_torch import distributions as dist
 from adcraft_tpu_torch import prng
 from adcraft_tpu_torch.agg_day import (BCTR, BID, LOC, NUM_PARAMS, REV_MEAN, REV_STD, SCALE,
-                                       SCTR, Lanes, _check, _check_keys, _check_lanes,
+                                       SCTR, Lanes, _check, _check_keys, _check_lanes, _index,
                                        _Kernel, _launch_args, pack_params, y0_of)
 from adcraft_tpu_torch.auction import implicit_single_win_prob
 from adcraft_tpu_torch.cuda_build import CudaLibrary
@@ -190,8 +194,9 @@ def lanes_outcomes_reference(params, k_cells, imp, acc, spend, n_sim, n_auc01, l
     return tuple(sums)
 
 
-def bind(lib: ctypes.CDLL) -> None:
-    """The ctypes signatures of ``csrc/lanes_day.cu``'s C interface."""
+def bind_launchers(lib: ctypes.CDLL) -> None:
+    """The ctypes signatures of the three launchers, which every version of
+    ``csrc/lanes_day.cu`` exports."""
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.lanes_counts_launch.argtypes = [p, p, p, ll, p, p] + [i] * 8 + [p]
     lib.lanes_counts_launch.restype = i
@@ -199,6 +204,14 @@ def bind(lib: ctypes.CDLL) -> None:
     lib.lanes_gate_launch.restype = i
     lib.lanes_outcomes_launch.argtypes = [p, p, ll, p, p, p, p, p, p] + [i] * 6 + [p]
     lib.lanes_outcomes_launch.restype = i
+
+
+def bind(lib: ctypes.CDLL) -> None:
+    """The ctypes signatures of ``csrc/lanes_day.cu``'s C interface."""
+    bind_launchers(lib)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.lanes_day_occupancy.argtypes = [i, i, i, p, p, p]
+    lib.lanes_day_occupancy.restype = i
 
 
 library = CudaLibrary("lanes_day", bind)
@@ -290,6 +303,27 @@ class LanesOutcomes(_Kernel):
         self.library.check(err, self.name)
         self.launches += 1
         return tuple(out.unbind(0))
+
+
+def occupancy(K: int, lanes: Lanes, device):
+    """Resident blocks per SM of ``lanes_counts`` at K keywords and of
+    ``lanes_gate`` at ``lanes.T`` sub-timesteps, and ``lanes_gate``'s
+    dynamic shared memory per block in bytes."""
+    counts, gate, smem = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_longlong(0)
+    err = library.get().lanes_day_occupancy(K, lanes.T, _index(device),
+                                            ctypes.byref(counts), ctypes.byref(gate),
+                                            ctypes.byref(smem))
+    library.check(err, "lanes_day_occupancy")
+    return counts.value, gate.value, smem.value
+
+
+def kernels_built_from(csrc) -> dict:
+    """The three kernels' wrappers on a build of another tree's ``csrc``
+    (such as the parent commit's), to time two versions of them in turns."""
+    other = CudaLibrary("lanes_day", bind_launchers, csrc=csrc)
+    return {"lanes_counts": LanesCounts("lanes_counts (parent)", other),
+            "lanes_gate": LanesGate("lanes_gate (parent)", other),
+            "lanes_outcomes": LanesOutcomes("lanes_outcomes (parent)", other)}
 
 
 lanes_counts = LanesCounts("lanes_counts", library)

@@ -18,10 +18,13 @@ day kernel), ``xla`` is ``day_kernel="xla"`` with bench.py's knobs (the
 two agg_day kernels), ``lanes`` is the JAX package's default knobs (the
 three lanes_day kernels). ``--routes`` picks them; each env count runs them
 in turns in one process, forward then backward (pallas, xla, xla,
-pallas by default).
+pallas by default). With ``--parent-csrc DIR``, the route ``lanes_parent``
+is the lanes route on the lanes_day kernels built from DIR (another
+tree's ``adcraft_tpu_torch/csrc``, such as the parent commit's), to time
+two versions of those kernels in turns.
 
     python3 -m adcraft_tpu_torch.step_rate [--envs 1024 4096 8192]
-        [--routes pallas xla lanes] [--json PATH]
+        [--routes pallas xla lanes lanes_parent] [--parent-csrc DIR] [--json PATH]
 
 It runs on the card only.
 """
@@ -29,6 +32,7 @@ It runs on the card only.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import statistics
 import subprocess
@@ -47,11 +51,17 @@ from adcraft_tpu_torch.quantiles import simple_experiment_table
 
 K, MAX_VOLUME, BID = 100, 576, 1.00
 WARMUP, RUNS, STEPS = 3, 5, 10
-ROUTE_KNOBS = {"pallas": {"day_kernel": "pallas"}, "xla": BENCH_XLA_KNOBS, "lanes": {}}
+ROUTE_KNOBS = {"pallas": {"day_kernel": "pallas"}, "xla": BENCH_XLA_KNOBS, "lanes": {},
+               "lanes_parent": {}}
+LANES_KERNELS = ("lanes_counts", "lanes_gate", "lanes_outcomes")
 KERNELS = {"day_kernel": dk.day_kernel, "threefry_words": pk.threefry_words,
-           "agg_cells_gate": agg_day.agg_cells_gate, "agg_outcomes": agg_day.agg_outcomes,
-           "lanes_counts": lanes_day.lanes_counts, "lanes_gate": lanes_day.lanes_gate,
-           "lanes_outcomes": lanes_day.lanes_outcomes}
+           "agg_cells_gate": agg_day.agg_cells_gate, "agg_outcomes": agg_day.agg_outcomes}
+
+
+def counted_kernels() -> dict:
+    """The kernels whose launches a step counts, the lanes day's as the step
+    calls them."""
+    return dict(KERNELS, **{name: getattr(lanes_day, name) for name in LANES_KERNELS})
 
 
 def route_config(route: str) -> EnvConfig:
@@ -70,7 +80,28 @@ def busy_ms(events) -> float:
     return total / 1e3
 
 
-def measure(num_envs: int, route: str, device: torch.device) -> dict:
+@contextlib.contextmanager
+def lanes_kernels(kernels):
+    """Route the lanes day through ``kernels`` (name -> wrapper), if given."""
+    if kernels is None:
+        yield
+        return
+    own = {name: getattr(lanes_day, name) for name in LANES_KERNELS}
+    for name in LANES_KERNELS:
+        setattr(lanes_day, name, kernels[name])
+    try:
+        yield
+    finally:
+        for name, kernel in own.items():
+            setattr(lanes_day, name, kernel)
+
+
+def measure(num_envs: int, route: str, device: torch.device, parent=None) -> dict:
+    with lanes_kernels(parent if route == "lanes_parent" else None):
+        return _measure(num_envs, route, device)
+
+
+def _measure(num_envs: int, route: str, device: torch.device) -> dict:
     env = VectorBiddingEnv(route_config(route), num_envs, simple_experiment_table(128, 0.8),
                            device=device)
     bids = torch.full((num_envs, K), BID, device=device)
@@ -78,7 +109,7 @@ def measure(num_envs: int, route: str, device: torch.device) -> dict:
     for _ in range(WARMUP):
         state, _ = env.step(state, bids)
     torch.cuda.synchronize(device)
-    for kernel in KERNELS.values():
+    for kernel in counted_kernels().values():
         kernel.launches = 0
     rates = []
     for _ in range(RUNS):
@@ -87,7 +118,8 @@ def measure(num_envs: int, route: str, device: torch.device) -> dict:
             state, _ = env.step(state, bids)
         torch.cuda.synchronize(device)
         rates.append(STEPS * num_envs / (time.perf_counter() - t0))
-    launches = {name: k.launches / (RUNS * STEPS) for name, k in KERNELS.items() if k.launches}
+    launches = {name: k.launches / (RUNS * STEPS) for name, k in counted_kernels().items()
+                if k.launches}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(STEPS):
             state, _ = env.step(state, bids)
@@ -110,8 +142,15 @@ def main(argv=None) -> int:
     parser.add_argument("--envs", type=int, nargs="+", default=[1024, 4096, 8192])
     parser.add_argument("--routes", nargs="+", choices=sorted(ROUTE_KNOBS),
                         default=["pallas", "xla"])
+    parser.add_argument("--parent-csrc", type=Path,
+                        help="the csrc directory the lanes_parent route builds")
     parser.add_argument("--json", type=Path, help="also write the results here")
     args = parser.parse_args(argv)
+    if ("lanes_parent" in args.routes) != (args.parent_csrc is not None):
+        parser.error("the lanes_parent route and --parent-csrc go together")
+    parent = None
+    if args.parent_csrc is not None:
+        parent = lanes_day.kernels_built_from(args.parent_csrc)
     if not torch.cuda.is_available():
         raise SystemExit("step_rate runs on the card only: no CUDA device")
     device = torch.device("cuda")
@@ -123,7 +162,7 @@ def main(argv=None) -> int:
     results = []
     for num_envs in args.envs:
         for route in args.routes + args.routes[::-1]:
-            r = measure(num_envs, route, device)
+            r = measure(num_envs, route, device, parent)
             results.append(r)
             print(f"{num_envs} envs, {route}: {r['env_steps_per_s']:.1f} env-steps/s "
                   f"[{r['min']:.1f}, {r['max']:.1f}], step {r['step_ms']:.3f} ms; "

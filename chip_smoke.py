@@ -12,7 +12,8 @@ Phases, each fatal on failure:
 2. build the CUDA libraries from adcraft_tpu_torch/csrc, one nvcc per
    build, all at once (the day kernel; the threefry kernels; the XLA day
    step's kernels, and those again with -DAGG_STAGE_CLOCKS; the lanes
-   day's kernels);
+   day's kernels, and those again with -DLANES_STAGE_CLOCKS; with
+   --parent-csrc, another tree's lanes day too);
 3. day kernel vs its plain PyTorch version on the card at the slice's full
    width (4096 envs x 100 keywords x 24 sub-timesteps x 47 lanes), same
    inputs and seed, budgets unbound / binding / zero: every output
@@ -67,22 +68,32 @@ Phases, each fatal on failure:
    x 100 keywords x 24 sub-timesteps, unbound and $1000: lanes_counts,
    lanes_gate and lanes_outcomes each equal to their plain version bit
    for bit (every simulated cell, n_sim, the day sums), timed beside
-   their bounds and plain versions, with ptxas' registers and spills;
-   lanes_counts alone on a grid of (n, p) pairs on both sides of the
-   binomial's algorithm switch at 1024 envs: equal to its plain version,
-   and its impressions' mean and variance within 6 standard errors of
-   the Binomial's; the inversion sampler and 16-bit lanes at 1024 envs,
-   each equal to its plain version; then the slice, 5 steps, rollout(5)
-   and 4 days of autoreset_step at max_days 3 (every episode ends and
-   restarts), counts zeroed just before: one launch of each kernel per
-   day, and steps, keys and autoreset states equal to the same days
-   through the plain versions; CUDA device events, device busy time and
-   idle share per step.
+   their bounds and plain versions, with ptxas' registers and spills,
+   blocks per SM and lanes_gate's shared memory; from the
+   -DLANES_STAGE_CLOCKS build (equal outputs too), lanes_gate's cells
+   (whole, passive, decided alone, lane-resolved), windows (cut by the
+   buffer), lanes per simulated cell and SM clocks per stage, and
+   lanes_counts' passes per call and SM clocks in each loop; with
+   --parent-csrc DIR, the lanes day built from DIR (the parent commit's
+   adcraft_tpu_torch/csrc) equal to this one's and each kernel timed in
+   turns with it (parent, this, this, parent); lanes_counts alone on a
+   grid of (n, p) pairs on both sides of the binomial's algorithm switch
+   at 1024 envs: equal to its plain version, and its impressions' mean
+   and variance within 6 standard errors of the Binomial's; the
+   inversion sampler and 16-bit lanes at 1024 envs, each equal to its
+   plain version; then the slice, 5 steps, rollout(5) and 4 days of
+   autoreset_step at max_days 3 (every episode ends and restarts), counts
+   zeroed just before: one launch of each kernel per day, and steps,
+   keys and autoreset states equal to the same days through the plain
+   versions; CUDA device events, device busy time and idle share per
+   step.
 
 The line before the last is a JSON object with each kernel's launches on
 its path, error, times and bound; the last line is {"ok": true, "device":
 {...}}. Without a CUDA device, or outside the repository, it exits 1 and
 prints no result.
+
+    python3 chip_smoke.py [--parent-csrc DIR]
 """
 
 from __future__ import annotations
@@ -92,6 +103,7 @@ import contextlib
 import ctypes
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -836,6 +848,39 @@ REVENUE_LANE_FP = 80
 COUNTS_KEY_BLOCKS, GATE_KEY_BLOCKS, OUTCOME_KEY_BLOCKS = 4, 3, 3
 
 
+# the counters of lanes_day.cu's build with -DLANES_STAGE_CLOCKS, in its
+# order (g_lanes_stats): lane 0's SM clocks per stage of each warp, the gate
+# walk's cells and windows, the binomial loops' calls and passes
+LANES_STATS = (
+    "gate keys clocks", "gate stage A clocks", "gate stage B clocks", "gate warps", "windows",
+    "cut windows", "deep cells", "skipped", "redrawn", "cost lanes", "simulated cells", "whole",
+    "passive", "alone whole", "alone passive", "lane-resolved", "inversion clocks",
+    "BTRS clocks", "counts clocks", "calls", "inversion calls", "inversion passes",
+    "inversion max", "BTRS calls", "BTRS passes", "BTRS max",
+)
+
+
+def lanes_stats_build(ld, cuda_build):
+    """lanes_counts and lanes_gate built with -DLANES_STAGE_CLOCKS: the same
+    kernels, whose warps also count their stages' clocks, cells and passes."""
+
+    def bind(lib):
+        ld.bind(lib)
+        lib.lanes_day_stats.argtypes = [ctypes.c_int, ctypes.c_void_p]
+        lib.lanes_day_stats.restype = ctypes.c_int
+
+    library = cuda_build.CudaLibrary("lanes_day", bind, flags=("-DLANES_STAGE_CLOCKS",))
+    return {"lanes_counts": ld.LanesCounts("lanes_counts (stats)", library),
+            "lanes_gate": ld.LanesGate("lanes_gate (stats)", library)}
+
+
+def read_lanes_stats(library, device_index: int) -> dict:
+    """The counters summed since the last read, by name; zeroes them."""
+    out = (ctypes.c_ulonglong * len(LANES_STATS))()
+    library.check(library.get().lanes_day_stats(device_index, out), "lanes_day_stats")
+    return dict(zip(LANES_STATS, out))
+
+
 @contextlib.contextmanager
 def lanes_plain(ld):
     """Route the lanes day through the plain versions of its kernels."""
@@ -862,11 +907,51 @@ def inversion_passes(n, p, draws):
     return torch.where(inv.any(-1), passes.clamp(min=1.0), torch.zeros_like(passes)), inv
 
 
-def lanes_phase(torch, dev, card, table, ops_per_word, int_ops_per_s, fp_ops_per_s, sms):
+def lanes_counters(stats_kernels, lanes, params, n_auc01, k_cells, ncl, budget_c, gate, sim,
+                   label):
+    """One day through the -DLANES_STAGE_CLOCKS build (its outputs equal to
+    ``ncl`` and ``gate``); prints the gate walk's cells, windows and stage
+    clocks and the binomial loops' passes and clocks."""
+    import torch
+
+    counts, gate_k = stats_kernels["lanes_counts"], stats_kernels["lanes_gate"]
+    index = params.device.index or 0
+    read_lanes_stats(counts.library, index)  # zero the counters
+    _, ncl_s = counts(params, n_auc01, k_cells, lanes)
+    g = gate_k(params, k_cells, ncl, budget_c, lanes)
+    st = read_lanes_stats(counts.library, index)
+    if not (torch.equal(ncl_s, ncl) and torch.equal(g[2], gate[2])
+            and all(torch.equal(a[sim], b[sim]) for a, b in zip(g[:2], gate[:2]))):
+        fail(f"lanes day ({label}): the -DLANES_STAGE_CLOCKS build's outputs differ")
+    warps, cells = st["gate warps"], st["simulated cells"]
+    alone = st["alone whole"] + st["alone passive"] + st["lane-resolved"] + st["redrawn"]
+    print(f"  lanes_gate walk ({label}): {cells} simulated cells: {st['whole']} whole and "
+          f"{st['passive']} passive in runs, {alone} decided alone ({st['alone whole']} whole, "
+          f"{st['alone passive']} passive, {st['lane-resolved']} lane-resolved, "
+          f"{st['redrawn']} walked after a skip), {st['deep cells']} deep; {st['windows']} "
+          f"windows, {st['cut windows']} cut by the buffer, {st['skipped']} cells' lanes after "
+          f"the first skipped; {st['cost lanes']} cost lanes drawn in windows, "
+          f"{st['cost lanes'] / cells:.3f} per simulated cell; SM clocks per warp: keys "
+          f"{st['gate keys clocks'] / warps:.0f}, stage A "
+          f"{st['gate stage A clocks'] / warps:.0f}, stage B "
+          f"{st['gate stage B clocks'] / warps:.0f}")
+    calls = st["calls"]
+    inv_calls, btrs_calls = max(st["inversion calls"], 1), max(st["BTRS calls"], 1)
+    print(f"  lanes_counts loops ({label}): {calls} calls; inversion in {st['inversion calls']}, "
+          f"{st['inversion passes'] / inv_calls:.2f} passes per call (most "
+          f"{st['inversion max']}); BTRS in {st['BTRS calls']}, "
+          f"{st['BTRS passes'] / btrs_calls:.2f} passes per call (most {st['BTRS max']}); SM "
+          f"clocks per warp (two calls): inversion {2 * st['inversion clocks'] / calls:.0f}, "
+          f"BTRS {2 * st['BTRS clocks'] / calls:.0f}, all {2 * st['counts clocks'] / calls:.0f}")
+
+
+def lanes_phase(torch, dev, card, table, ops_per_word, int_ops_per_s, fp_ops_per_s, sms,
+                stats_kernels, parent):
     """Phase 10: the lanes day (the JAX package's default knobs) on its three
-    kernels against their plain versions at full width, the binomial alone,
-    the 1024-env variants, then the slice through them. Returns their JSON
-    entries."""
+    kernels against their plain versions at full width, its counters from
+    ``stats_kernels``, the parent's kernels (``parent``, or None) in turns,
+    the binomial alone, the 1024-env variants, then the slice through them.
+    Returns their JSON entries."""
     from adcraft_tpu_torch import EnvConfig, KeywordKind, VectorBiddingEnv
     from adcraft_tpu_torch import agg_day as ad
     from adcraft_tpu_torch import distributions as dist
@@ -882,8 +967,14 @@ def lanes_phase(torch, dev, card, table, ops_per_word, int_ops_per_s, fp_ops_per
     kernels = {"lanes_counts": ld.lanes_counts, "lanes_gate": ld.lanes_gate,
                "lanes_outcomes": ld.lanes_outcomes}
     max_err = dict.fromkeys(kernels, 0)
-    for name in kernels:
-        print(f"{name}: ptxas {kernel_ptxas(ld.library.build_log, name + '_kernel')}")
+    log = ld.library.build_log
+    for R in range(1, 5):
+        print(f"lanes_counts<{R}>: ptxas {kernel_ptxas(log, f'lanes_counts_kernelILi{R}E')}")
+    for name in ("lanes_gate", "lanes_outcomes"):
+        print(f"{name}: ptxas {kernel_ptxas(log, name + '_kernel')}")
+    counts_blocks, gate_blocks, gate_smem = ld.occupancy(K, lanes, dev)
+    print(f"lanes_counts: {counts_blocks} blocks of 4 warps per SM at K = {K}; lanes_gate: "
+          f"{gate_blocks} blocks of 4 warps per SM, {gate_smem} B shared memory per block")
 
     def compare(name, pairs, label):
         for what, g, w in pairs:
@@ -1004,6 +1095,30 @@ def lanes_phase(torch, dev, card, table, ops_per_word, int_ops_per_s, fp_ops_per
                   f"{words:.0f} threefry words, {fp:.4g} float ops, {nbytes / 1e6:.1f} MB; bound "
                   f"{kbound[0]:.4f} ms ({kbound[1]}), {100 * kbound[0] / ms:.1f}% of it reached "
                   f"({card})")
+        lanes_counters(stats_kernels, lanes, params, n_auc01, k_cells, ncl, budget_c, gate, sim,
+                       label)
+        if parent is not None:
+            pcalls = {
+                "lanes_counts": lambda: parent["lanes_counts"](params, n_auc01, k_cells, lanes),
+                "lanes_gate": lambda: parent["lanes_gate"](params, k_cells, ncl, budget_c, lanes),
+                "lanes_outcomes": lambda: parent["lanes_outcomes"](
+                    params, k_cells, imp, gate[0], gate[1], n_sim, n_auc01, lanes),
+            }
+            pcounts, pgate, pout = (pcalls[name]() for name in kernels)
+            compare("lanes_counts", zip(("parent imp", "parent ncl"), pcounts, (imp, ncl)), label)
+            compare("lanes_gate", [("parent n_sim", pgate[2], n_sim)] + [
+                ("parent " + what, g[sim], w[sim])
+                for what, g, w in zip(("acc", "spend"), pgate, gate)], label)
+            compare("lanes_outcomes", [(f"parent day sum {i}", g, w) for i, (g, w) in
+                                       enumerate(zip(pout, out))], label)
+            for name, call in calls.items():
+                turns = [cuda_ms(c, reps=10) for c in (pcalls[name], call, call, pcalls[name])]
+                kb = timed[label][name][2][0]
+                print(f"  {name} ({label}) in turns with the parent's (== its outputs): parent "
+                      f"{turns[0]:.4f} / {turns[3]:.4f} ms ({100 * kb / turns[0]:.1f}% / "
+                      f"{100 * kb / turns[3]:.1f}% of the bound), this {turns[1]:.4f} / "
+                      f"{turns[2]:.4f} ms ({100 * kb / turns[1]:.1f}% / "
+                      f"{100 * kb / turns[2]:.1f}%) ({card})")
 
     # the binomial alone: lanes_counts on a grid of (n, p), one pair per
     # keyword, n the same at every sub-timestep; p is the win probability
@@ -1187,7 +1302,14 @@ def lanes_phase(torch, dev, card, table, ops_per_word, int_ops_per_s, fp_ops_per
     ]
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    args = sys.argv[1:] if argv is None else argv
+    parent_csrc = None
+    if args[:1] == ["--parent-csrc"] and len(args) == 2:
+        parent_csrc = Path(args[1])
+    elif args:
+        print("usage: python3 chip_smoke.py [--parent-csrc DIR]", flush=True)
+        return 2
     try:
         import torch
     except ImportError:
@@ -1227,13 +1349,19 @@ def main() -> int:
 
     # 2. build, one nvcc per source, all started together
     clocked = stage_clocked(ad, cuda_build)
-    libraries = (dk.day_kernel.library, pk.library, ad.library, clocked.library, ld.library)
+    lanes_stats = lanes_stats_build(ld, cuda_build)
+    parent = None if parent_csrc is None else ld.kernels_built_from(parent_csrc)
+    libraries = (dk.day_kernel.library, pk.library, ad.library, clocked.library, ld.library,
+                 lanes_stats["lanes_gate"].library)
+    if parent is not None:
+        libraries += (parent["lanes_gate"].library,)
     t0 = time.perf_counter()
     cuda_build.build_all(libraries)
     print(f"build: {time.perf_counter() - t0:.1f} s for {len(libraries)} libraries")
     ptxas = {}
     for lib in libraries:
-        print(f"  {' '.join((lib.source.name,) + lib.flags)}: {lib.build_seconds:.1f} s")
+        print(f"  {' '.join((os.path.relpath(lib.source),) + lib.flags)}: "
+              f"{lib.build_seconds:.1f} s")
         ptxas[lib] = [line.strip() for line in lib.build_log.splitlines()
                       if "registers" in line or "smem" in line or "spill" in line]
         for line in ptxas[lib]:
@@ -1578,7 +1706,7 @@ def main() -> int:
 
     # 10. the lanes day (the JAX package's default knobs)
     lanes_kernels = lanes_phase(torch, dev, card, table, ops_per_word, int_ops_per_s,
-                                fp_ops_per_s, sms)
+                                fp_ops_per_s, sms, lanes_stats, parent)
 
     if "jax" in sys.modules:
         fail("jax was imported")

@@ -340,9 +340,13 @@ def test_xla_env_step_launches_each_agg_kernel_once(cuda):
     assert (ts.outcomes.cost.sum(1) <= 3.0 + 1e-4).all()
 
 
+# K = 1, 7, 32, 33, 100 and 129 cover lanes_counts' 1 to 4 slots a lane, a
+# full warp and the first call of two groups of 128 keywords
 @pytest.mark.cuda
 @pytest.mark.parametrize("K, sampler, bits", [(7, "exact", 32), (100, "exact", 16),
-                                              (300, "inversion", 32), (33, "exact", 32)])
+                                              (300, "inversion", 32), (33, "exact", 32),
+                                              (1, "exact", 32), (32, "exact", 32),
+                                              (129, "exact", 32)])
 def test_lanes_kernels_match_reference(cuda, K, sampler, bits):
     """lanes_counts, lanes_gate and lanes_outcomes each equal their plain
     version on the same inputs, budgets unbound, binding, small and zero:
@@ -380,6 +384,38 @@ def test_lanes_kernels_match_reference(cuda, K, sampler, bits):
         regimes |= {"unbroken" if n == lanes.T * K else "t0" if n <= K else "mid-day"
                     for n in n_sim.tolist()}
     assert regimes == {"unbroken", "t0", "mid-day"}, regimes
+
+
+@pytest.mark.cuda
+def test_lanes_kernels_take_many_keywords(cuda):
+    """K = 1500, past the 1024 threads of a block: lanes_counts' calls run
+    in 12 groups, and all three kernels equal their plain versions."""
+    from adcraft_tpu_torch import lanes_day
+    from adcraft_tpu_torch.step import budget_cents
+
+    E, K = 3, 1500
+    cfg = EnvConfig(num_keywords=K, kind=KeywordKind.IMPLICIT, max_volume=576)
+    lanes, params, n_auc01, keys = xla_inputs(cfg, E, 15, cuda)
+    imp, ncl = lanes_day.lanes_counts(params, n_auc01, keys, lanes)
+    torch.cuda.synchronize()
+    for g, w in zip((imp, ncl), lanes_day.lanes_counts_reference(params, n_auc01, keys, lanes)):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    cell = torch.arange(lanes.T * K, device=cuda).view(1, lanes.T, K)
+    for budget in (1e6, 300.0):
+        budget_c = budget_cents(torch.full((E,), budget, device=cuda))
+        acc, spend, n_sim = lanes_day.lanes_gate(params, keys, ncl, budget_c, lanes)
+        torch.cuda.synchronize()
+        want = lanes_day.lanes_gate_reference(params, keys, ncl, budget_c, lanes)
+        sim = cell < want[2].view(E, 1, 1)
+        torch.testing.assert_close(n_sim, want[2], rtol=0, atol=0)
+        for g, w in zip((acc, spend), want[:2]):
+            torch.testing.assert_close(g[sim], w[sim], rtol=0, atol=0)
+        out = lanes_day.lanes_outcomes(params, keys, imp, acc, spend, n_sim, n_auc01, lanes)
+        torch.cuda.synchronize()
+        want_out = lanes_day.lanes_outcomes_reference(params, keys, imp, want[0], want[1],
+                                                      want[2], n_auc01, lanes)
+        for g, w in zip(out, want_out):
+            torch.testing.assert_close(g, w, rtol=0, atol=0)
 
 
 @pytest.mark.cuda
