@@ -16,10 +16,11 @@
 //   are bit-identical to it): one warp per env walks the cells through
 //   windows of up to 32 (below);
 // * lanes_outcomes replaces _append_conv_rev_tables (:953) and phase 3's
-//   gathers and sums (:1400-1502): one block per env, one thread per
-//   simulated cell at a time, drawing the conversion flags below the
-//   accepted clicks and the revenue below the conversions, with integer
-//   atomics into the keywords' sums in shared memory.
+//   gathers and sums (:1400-1502): one block per env, its warps reading
+//   tiles of 32 consecutive simulated cells, each warp drawing the
+//   conversion flags below the accepted clicks and then the revenue below
+//   the conversions densely, 32 lanes a step from two per-warp queues of
+//   lanes (below), with integer atomics into the keywords' sums.
 //
 // The plain PyTorch versions are adcraft_tpu_torch/lanes_day.py:
 // lanes_counts_reference, lanes_gate_reference, lanes_outcomes_reference.
@@ -52,15 +53,33 @@
 // skipped and a wrapped negative spend has grown the budget), and on from
 // the next cell with the new budget. lanes_counts derives each pass's
 // subkeys once per warp and draws only the call's live elements, packed
-// (binomial.cuh).
+// (binomial.cuh). lanes_outcomes' cells need from 0 to m lanes each (a
+// flag word per accepted click, then a revenue normal per conversion), so
+// a thread per cell would idle while the deepest cell of its warp walks;
+// its warps queue lanes, not cells: a cell's flag lanes join the warp's
+// flag ring, and once its conversions are known its revenue lanes join the
+// revenue ring. Each draw step takes the 32 lanes at a ring's head, a lane
+// finding its cell from an OR of the 32 entries' starts, so a cell may
+// straddle two steps; a segmented ballot counts a cell's set flags. A
+// revenue lane's erf_inv runs one of the two branches of XLA's log1p, each
+// a chain of float64 fused multiply-adds (fma32: two conversions each, at
+// a quarter of the float32 rate), so a warp that mixed them would run both:
+// a revenue draw step stages each lane's uniform by its branch, and an
+// erf_inv step runs 32 staged lanes of one branch. Every sum is int32
+// arithmetic modulo 2**32, so any order of lanes and atomics gives the
+// plain version's sums. The keywords' constants and sums sit in shared
+// memory, or, for a K whose tables a block cannot hold, in device memory
+// (the same kernel, its other instance).
 //
 // Built with -DLANES_STAGE_CLOCKS (chip_smoke.py builds it so beside the
-// plain build), lane 0 of each warp also counts its SM clocks per stage
-// and the walk's cells and the loops' passes into g_lanes_stats, read with
-// lanes_day_stats.
+// plain build), lane 0 of each warp also counts its SM clocks per stage,
+// the walk's cells, the loops' passes and the outcome lanes and draw steps
+// into g_lanes_stats, read with lanes_day_stats.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <mutex>
 
 #include "binomial.cuh"
 #include "jax_random.cuh"
@@ -75,8 +94,11 @@ constexpr int kMaxSlots = 4;          // R, the slots a lane holds of a group of
 constexpr int kCountsBlocks = 5;      // lanes_counts blocks per SM its registers are capped for
 constexpr int kGateWarps = 4;         // envs per lanes_gate block, one warp each
 constexpr int kGateCap = 256;         // cost lanes of a window, a warp's shared buffer
-constexpr int kOutcomeThreads = 256;  // threads of a lanes_outcomes block
-constexpr int kIntMin = static_cast<int>(0x80000000u);
+constexpr int kOutWarps = 4;          // warps of a lanes_outcomes block, one env
+constexpr int kOutBlocks = 10;        // lanes_outcomes blocks per SM its registers are capped for
+constexpr int kRing = 64;             // entries of a lanes_outcomes warp's lane ring
+static_assert((kRing & (kRing - 1)) == 0 && kRing >= 63, "a ring holds 31 + 32 entries");
+constexpr int kMaxDevices = 64;       // devices whose lanes_outcomes configuration is remembered
 
 // g_lanes_stats: SM clocks of lane 0 of each warp per stage, the walk's
 // cells and windows, the binomial loops' passes; lanes_day_stats reads them
@@ -107,6 +129,22 @@ enum {
   kCountsBtrsCalls,     // calls that ran the BTRS loop
   kCountsBtrsPasses,
   kCountsBtrsMax,
+  kOutPrologueClocks,   // lanes_outcomes: keys, keyword tables, zeroed sums
+  kOutTileClocks,       // ... the tiles' loads, cheap sums and flag-ring pushes
+  kOutFlagClocks,       // ... the flag draw steps (and revenue-ring pushes)
+  kOutRevClocks,        // ... the revenue draw steps (uniforms, sorted by log1p branch)
+  kOutErfClocks,        // ... the erf_inv steps (revenue cents and their sums)
+  kOutWriteClocks,      // ... the block barrier and the write-out
+  kOutWarpsRun,         // warps run
+  kOutFlagLanes,        // flag lanes drawn
+  kOutRevLanes,         // revenue lanes drawn
+  kOutFlagSteps,        // flag draw steps
+  kOutRevSteps,
+  kOutFlagPartial,      // flag draw steps of fewer than 32 lanes
+  kOutRevPartial,
+  kOutErfSteps,         // erf_inv steps
+  kOutErfLogSteps,      // ... of them on log1p's log branch
+  kOutErfPartial,       // ... of fewer than 32 lanes
   kNumStats
 };
 
@@ -551,65 +589,432 @@ __global__ void __launch_bounds__(32 * kGateWarps)
   st.flush(lane);
 }
 
-// One block per env over its simulated cells: conversions, revenue and the
-// six day sums, accumulated per keyword in shared memory.
-__global__ void lanes_outcomes_kernel(const float* __restrict__ params,
-                                      const long long* __restrict__ keys, long long key_stride,
-                                      const int* __restrict__ imp, const int* __restrict__ acc,
-                                      const int* __restrict__ spend,
-                                      const int* __restrict__ n_sim,
-                                      const int* __restrict__ n_auc01, int* __restrict__ out,
-                                      int E, int K, int T) {
-  extern __shared__ int smem[];
-  int* sums = smem;                                       // (6, K)
-  Key* tkeys = reinterpret_cast<Key*>(smem + 6 * K);      // (T, 2): k_conv, k_rev
-  const int e = blockIdx.x;
-  const long long EK = static_cast<long long>(E) * K;
-  for (int i = threadIdx.x; i < 6 * K; i += blockDim.x) sums[i] = 0;
-  const Key kc = load_key(keys, key_stride, e);
-  for (int t = threadIdx.x; t < T; t += blockDim.x) {
-    const Key kt = child(kc, static_cast<uint32_t>(t));
-    tkeys[2 * t] = child(kt, 2);
-    tkeys[2 * t + 1] = child(kt, 3);
+// ---- lanes_outcomes: one block per env, warp tiles of cells, per-warp lane rings ----
+
+// A warp's ring of cells whose lanes wait for a draw step. Entry i sits at
+// slot i mod kRing; its lanes are the warp's stream positions off .. off + n
+// - 1 (positions wrap as uint32; only differences are read). Between tiles
+// fewer than 32 lanes wait, so at most 31 entries, and a tile or a flag
+// step adds at most 32.
+struct LaneRing {
+  uint32_t off[kRing];
+  int n[kRing];
+  int k[kRing];
+  int t[kRing];
+  int conv[kRing];  // the flag ring: the cell's set flags drawn so far
+};
+
+// A ring's cursors, warp-uniform: entries [head, tail) and stream
+// positions [head_lane, tail_lane) wait.
+struct RingCursor {
+  int head = 0, tail = 0;
+  uint32_t head_lane = 0, tail_lane = 0;
+  __device__ int waiting() const { return static_cast<int>(tail_lane - head_lane); }
+};
+
+// Appends this lane's cell to the ring if it has n > 0 lanes, in lane
+// order, its lanes after the ring's last.
+__device__ __forceinline__ void ring_push(LaneRing& r, RingCursor& c, int n, int k, int t,
+                                          int lane) {
+  const bool take = n > 0;
+  const unsigned mask = __ballot_sync(kFull, take);
+  int incl = take ? n : 0;  // inclusive scan of the lanes
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int up = __shfl_up_sync(kFull, incl, d);
+    if (lane >= d) incl += up;
   }
-  __syncthreads();
-  const int cells = n_sim[e];
-  for (int c = threadIdx.x; c < cells; c += blockDim.x) {
-    const int t = c / K, k = c % K;
-    const long long ek = static_cast<long long>(e) * K + k;
-    const long long cell = static_cast<long long>(e) * T * K + c;
-    const int im = imp[cell], a = acc[cell];
-    int nconv = 0, rev = 0;
-    if (a > 0) {
-      const float sctr = params[SCTR * EK + ek];
-      const Key k_conv = tkeys[2 * t];
-      for (int j = 0; j < a; ++j) {
-        nconv += uniform32(bits32(k_conv, static_cast<uint32_t>(j * K + k))) <= sctr ? 1 : 0;
-      }
-      const float mean = params[REV_MEAN * EK + ek];
-      const float std_sqrt2 = __fmul_rn(params[REV_STD * EK + ek], 1.41421354f);
-      const Key k_rev = tkeys[2 * t + 1];
-      for (int j = 0; j < nconv; ++j) {
-        const float erf = xla_erfinv(uniform_open(k_rev, static_cast<uint32_t>(j * K + k)));
-        const float draw = fmaxf(fma32(std_sqrt2, erf, mean), static_cast<float>(0.01));
-        rev = wrap_add(rev, static_cast<int>(rintf(__fmul_rn(draw, 100.0f))));
-      }
-    }
-    atomicAdd(&sums[k], im);
-    atomicAdd(&sums[K + k], a);
-    atomicAdd(&sums[2 * K + k], spend[cell]);
-    atomicAdd(&sums[3 * K + k], nconv);
-    atomicAdd(&sums[4 * K + k], rev);
-    if (im >= 1) atomicAdd(&sums[5 * K + k], n_auc01[(t == 0 ? 0 : EK) + ek]);
+  if (take) {
+    const int slot = (c.tail + __popc(mask & ((1u << lane) - 1u))) & (kRing - 1);
+    r.off[slot] = c.tail_lane + static_cast<uint32_t>(incl - n);
+    r.n[slot] = n;
+    r.k[slot] = k;
+    r.t[slot] = t;
+    r.conv[slot] = 0;
   }
-  __syncthreads();
-  for (int i = threadIdx.x; i < 6 * K; i += blockDim.x) {
-    out[(i / K) * EK + static_cast<long long>(e) * K + i % K] = sums[i];
-  }
+  c.tail += __popc(mask);
+  c.tail_lane += static_cast<uint32_t>(__shfl_sync(kFull, incl, 31));
 }
 
-size_t outcomes_smem(int K, int T) {
-  return static_cast<size_t>(6 * K) * sizeof(int) + static_cast<size_t>(2 * T) * sizeof(Key);
+// This lane's place in a draw step of `live` <= 32 lanes from the ring's
+// head: stream lane head_lane + lane is lane j of the entry at `slot`,
+// whose lanes in this step are [start, end); `done` if its last lane is in
+// this step. Lane l loads entry head + l (each entry has a lane, so the
+// step's lanes lie in those 32); an OR over the warp of the lanes at which
+// they start (the head entry's at 0) gives each lane its entry: the number
+// of starts at or below it, less one.
+struct StepLane {
+  int slot, j, k, t, start, end;
+  bool done;
+};
+
+__device__ __forceinline__ StepLane step_lane(const LaneRing& r, const RingCursor& c, int live,
+                                              int lane) {
+  const int e = c.head + lane;
+  const int slot_l = e & (kRing - 1);
+  const bool valid = e < c.tail;
+  const int rel_l = valid ? static_cast<int>(r.off[slot_l] - c.head_lane) : 32;
+  const int n_l = valid ? r.n[slot_l] : 0;
+  const int k_l = valid ? r.k[slot_l] : 0, t_l = valid ? r.t[slot_l] : 0;
+  const unsigned starts = __reduce_or_sync(kFull, rel_l < 32 ? 1u << max(rel_l, 0) : 0u);
+  const unsigned upto = starts & (kFull >> (31 - lane));
+  const int i = __popc(upto) - 1;
+  StepLane out;
+  const int rel = __shfl_sync(kFull, rel_l, i), n = __shfl_sync(kFull, n_l, i);
+  out.slot = (c.head + i) & (kRing - 1);
+  out.j = lane - rel;
+  out.k = __shfl_sync(kFull, k_l, i);
+  out.t = __shfl_sync(kFull, t_l, i);
+  out.start = 31 - __clz(upto);
+  out.end = min(rel + n, live);
+  out.done = rel + n <= live;
+  return out;
+}
+
+// A warp's staging ring of drawn revenue uniforms (and their keywords) for
+// one branch of XLA's log1p in erf_inv: [0] its rational function, [1] the
+// log. Between draw steps fewer than 32 wait; a draw step adds at most 32.
+struct ErfStage {
+  float u[kRing];
+  int k[kRing];
+};
+
+// Appends this lane's uniform (if `take`) to the stage, in lane order.
+__device__ __forceinline__ void stage_push(ErfStage& st, int& tail, bool take, float u, int k,
+                                           int lane) {
+  const unsigned mask = __ballot_sync(kFull, take);
+  if (take) {
+    const int slot = (tail + __popc(mask & ((1u << lane) - 1u))) & (kRing - 1);
+    st.u[slot] = u;
+    st.k[slot] = k;
+  }
+  tail += __popc(mask);
+}
+
+// The rows of the day sums
+enum { kSumImp, kSumClicks, kSumCost, kSumConv, kSumRev, kSumElig, kSums };
+
+// The keywords' constants and the day sums of one env: in shared memory
+// (kShared: std already times sqrt(2), sums rows K apart) or in device
+// memory (the parameters as given, the sums the output's rows, E K apart).
+struct OutTables {
+  const float* sctr;
+  const float* mean;
+  const float* stdv;
+  const int* n0;
+  const int* n1;
+  int* sums;
+  long long row;
+};
+
+// One flag draw step of `live` lanes: each lane draws its cell's flag
+// word; a ballot counts each cell's set flags over its lanes of the step,
+// added by the cell's first lane in the step to its count; a cell whose
+// last lane is drawn adds its conversions to the keyword's sum and, if it
+// converts, joins the revenue ring.
+__device__ __forceinline__ void flag_step(LaneRing& fr, RingCursor& fc, LaneRing& rr,
+                                          RingCursor& rc, const Key* conv_keys,
+                                          const OutTables& tab, int K, int live, int lane) {
+  __syncwarp();  // the ring's pushes and the last step's counts are written
+  const StepLane s = step_lane(fr, fc, live, lane);
+  const bool in = lane < live;
+  bool flag = false;
+  if (in) {
+    const uint32_t ctr = static_cast<uint32_t>(s.j) * static_cast<uint32_t>(K) + s.k;
+    flag = uniform32(bits32(conv_keys[s.t], ctr)) <= tab.sctr[s.k];
+  }
+  const unsigned set = __ballot_sync(kFull, flag);
+  const bool first = in && lane == s.start;
+  int nconv = 0;
+  if (first) {
+    const unsigned below_end = s.end == 32 ? kFull : (1u << s.end) - 1u;
+    nconv = fr.conv[s.slot] + __popc(set & below_end & ~((1u << s.start) - 1u));
+    if (!s.done) fr.conv[s.slot] = nconv;
+  }
+  const bool finished = first && s.done;
+  if (finished && nconv != 0) atomicAdd(&tab.sums[kSumConv * tab.row + s.k], nconv);
+  ring_push(rr, rc, finished ? nconv : 0, s.k, s.t, lane);
+  fc.head += __popc(__ballot_sync(kFull, finished));
+  fc.head_lane += static_cast<uint32_t>(live);
+}
+
+// The cursors of a warp's two erf_inv stages, warp-uniform.
+struct StageCursor {
+  int head[2] = {0, 0}, tail[2] = {0, 0};
+  __device__ int waiting(int b) const { return tail[b] - head[b]; }
+};
+
+// One revenue draw step of `live` lanes: each lane draws its cell's
+// revenue uniform and stages it by the branch of log1p that its erf_inv
+// takes, so that an erf_inv step runs one branch on 32 lanes.
+__device__ __forceinline__ void revenue_step(const LaneRing& rr, RingCursor& rc,
+                                             ErfStage* stage, StageCursor& sc,
+                                             const Key* rev_keys, int K, int live, int lane) {
+  __syncwarp();  // the ring's pushes are written
+  const StepLane s = step_lane(rr, rc, live, lane);
+  const bool in = lane < live;
+  float u = 0.0f;
+  bool rational = false;
+  if (in) {
+    const uint32_t ctr = static_cast<uint32_t>(s.j) * static_cast<uint32_t>(K) + s.k;
+    u = uniform_open(rev_keys[s.t], ctr);
+    rational = xla_log1p_rational_at(__fmul_rn(u, -u));
+  }
+  stage_push(stage[0], sc.tail[0], in && rational, u, s.k, lane);
+  stage_push(stage[1], sc.tail[1], in && !rational, u, s.k, lane);
+  rc.head += __popc(__ballot_sync(kFull, in && lane == s.end - 1 && s.done));
+  rc.head_lane += static_cast<uint32_t>(live);
+}
+
+// One erf_inv step of `live` staged uniforms of log1p branch kBranch: each
+// lane's normal (prng.erfinv's XLA polynomial), revenue in cents, added to
+// its keyword's sum.
+template <bool kShared, int kBranch>
+__device__ __forceinline__ void erf_step(const ErfStage& st, StageCursor& sc,
+                                         const OutTables& tab, int live, int lane) {
+  __syncwarp();  // the stage's pushes are written
+  if (lane < live) {
+    const int slot = (sc.head[kBranch] + lane) & (kRing - 1);
+    const float u = st.u[slot];
+    const int k = st.k[slot];
+    const float x = __fmul_rn(u, -u);
+    const float l1p = kBranch == 0 ? xla_log1p_rational(x) : xla_log(__fadd_rn(x, 1.0f));
+    const float std_sqrt2 = kShared ? tab.stdv[k] : __fmul_rn(tab.stdv[k], 1.41421354f);
+    const float draw =
+        fmaxf(fma32(std_sqrt2, xla_erfinv_of(u, l1p), tab.mean[k]), static_cast<float>(0.01));
+    const int v = static_cast<int>(rintf(__fmul_rn(draw, 100.0f)));
+    if (v != 0) atomicAdd(&tab.sums[kSumRev * tab.row + k], v);
+  }
+  sc.head[kBranch] += live;
+}
+
+// Dynamic shared memory of a lanes_outcomes block: the keys (k_conv per
+// sub-timestep, then k_rev), each warp's flag and revenue rings and its two
+// erf_inv stages, and, with
+// the tables in shared memory, the keywords' constants (sctr, the revenue
+// mean, std sqrt(2), both auction counts) and the six sums.
+enum { kTabSctr, kTabMean, kTabStd, kTabN0, kTabN1, kTabRows };
+
+size_t outcomes_smem(int K, int T, bool tables) {
+  size_t bytes = sizeof(Key) * 2 * static_cast<size_t>(T) +
+                 (sizeof(LaneRing) + sizeof(ErfStage)) * 2 * kOutWarps;
+  if (tables) bytes += sizeof(int) * static_cast<size_t>(kTabRows + kSums) * K;
+  return bytes;
+}
+
+// One block per env: its simulated cells c = t K + k < n_sim in warp tiles
+// of 32 consecutive cells (coalesced, each tile's loads issued one tile
+// ahead); the cheap sums (impressions, clicks, cost, eligible volume) by
+// atomics, zeros skipped; the cells' flag lanes into the warp's flag ring,
+// drawn 32 a step whenever 32 wait, each finished cell's revenue lanes
+// into the revenue ring, drawn 32 a step whenever 32 wait, their uniforms
+// into the erf_inv stages, run 32 a step whenever 32 wait; the partial
+// rests drained once at the end. The steps are chains of dependent
+// latency (threefry rounds, float64 fused multiply-adds), so registers are
+// capped for kOutBlocks blocks (40 warps) per SM, a few spilled.
+template <bool kShared>
+__global__ void __launch_bounds__(32 * kOutWarps, kOutBlocks)
+    lanes_outcomes_kernel(const float* __restrict__ params, const long long* __restrict__ keys,
+                          long long key_stride, const int* __restrict__ imp,
+                          const int* __restrict__ acc, const int* __restrict__ spend,
+                          const int* __restrict__ n_sim, const int* __restrict__ n_auc01,
+                          int* __restrict__ out, int E, int K, int T) {
+  extern __shared__ unsigned long long out_smem_raw[];
+  Key* conv_keys = reinterpret_cast<Key*>(out_smem_raw);
+  Key* rev_keys = conv_keys + T;
+  LaneRing* rings = reinterpret_cast<LaneRing*>(rev_keys + T);  // [warp][flag, revenue]
+  ErfStage* stages = reinterpret_cast<ErfStage*>(rings + 2 * kOutWarps);  // [warp][branch]
+  const int e = blockIdx.x;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const long long EK = static_cast<long long>(E) * K;
+  const long long eK = static_cast<long long>(e) * K;
+  Stats st;
+  unsigned long long mark = stage_clock();
+  const auto lap = [&](int stage) {
+    const unsigned long long now = stage_clock();
+    st.add(stage, now - mark);
+    mark = now;
+  };
+
+  // the prologue: the keys of the sub-timesteps with a simulated cell, the
+  // keywords' constants and the zeroed sums
+  const int nsim = n_sim[e];
+  const int t_end = min(T, nsim / K + (nsim % K != 0 ? 1 : 0));
+  const Key kc = load_key(keys, key_stride, e);
+  for (int j = tid; j < 2 * t_end; j += 32 * kOutWarps) {
+    const int t = j < t_end ? j : j - t_end;
+    (j < t_end ? conv_keys : rev_keys)[t] = child(child(kc, static_cast<uint32_t>(t)),
+                                                  j < t_end ? 2u : 3u);
+  }
+  OutTables tab;
+  if constexpr (kShared) {
+    float* kwf = reinterpret_cast<float*>(stages + 2 * kOutWarps);
+    int* kwi = reinterpret_cast<int*>(kwf);
+    tab = OutTables{kwf + kTabSctr * K, kwf + kTabMean * K, kwf + kTabStd * K, kwi + kTabN0 * K,
+                    kwi + kTabN1 * K, kwi + kTabRows * K, K};
+    for (int k = tid; k < K; k += 32 * kOutWarps) {
+      const long long ek = eK + k;
+      kwf[kTabSctr * K + k] = params[SCTR * EK + ek];
+      kwf[kTabMean * K + k] = params[REV_MEAN * EK + ek];
+      kwf[kTabStd * K + k] = __fmul_rn(params[REV_STD * EK + ek], 1.41421354f);
+      kwi[kTabN0 * K + k] = n_auc01[ek];
+      kwi[kTabN1 * K + k] = n_auc01[EK + ek];
+#pragma unroll
+      for (int i = 0; i < kSums; ++i) tab.sums[i * K + k] = 0;
+    }
+  } else {
+    tab = OutTables{params + SCTR * EK + eK, params + REV_MEAN * EK + eK,
+                    params + REV_STD * EK + eK, n_auc01 + eK, n_auc01 + EK + eK, out + eK, EK};
+    for (int k = tid; k < K; k += 32 * kOutWarps) {
+#pragma unroll
+      for (int i = 0; i < kSums; ++i) tab.sums[i * EK + k] = 0;
+    }
+  }
+  __syncthreads();
+  lap(kOutPrologueClocks);
+
+  LaneRing& fr = rings[2 * warp];
+  LaneRing& rr = rings[2 * warp + 1];
+  ErfStage* stage = stages + 2 * warp;
+  RingCursor fc, rc;
+  StageCursor sc;
+  const long long row = static_cast<long long>(e) * T * K;
+  const int step_t = 32 * kOutWarps / K, step_k = 32 * kOutWarps % K;
+  int t = (warp * 32 + lane) / K;
+  int k = warp * 32 + lane - t * K;
+  int a_next = 0, im_next = 0, sp_next = 0;
+  if (warp * 32 + lane < nsim) {
+    a_next = acc[row + warp * 32 + lane];
+    im_next = imp[row + warp * 32 + lane];
+    sp_next = spend[row + warp * 32 + lane];
+  }
+  // the erf_inv stages' full steps (at most one each) after a revenue draw
+  // step, and with `drain` their rests
+  const auto erf_steps = [&](bool drain) {
+#pragma unroll
+    for (int b = 0; b < 2; ++b) {
+      while (sc.waiting(b) >= 32 || (drain && sc.waiting(b) > 0)) {
+        const int live = min(sc.waiting(b), 32);
+        if (b == 0) {
+          erf_step<kShared, 0>(stage[0], sc, tab, live, lane);
+        } else {
+          erf_step<kShared, 1>(stage[1], sc, tab, live, lane);
+        }
+        st.add(kOutErfSteps, 1);
+        st.add(kOutErfLogSteps, b);
+        st.add(kOutErfPartial, live < 32 ? 1 : 0);
+      }
+    }
+    lap(kOutErfClocks);
+  };
+  // the revenue ring's full steps after a flag step
+  const auto revenue_steps = [&]() {
+    while (rc.waiting() >= 32) {
+      revenue_step(rr, rc, stage, sc, rev_keys, K, 32, lane);
+      st.add(kOutRevSteps, 1);
+      st.add(kOutRevLanes, 32);
+      lap(kOutRevClocks);
+      erf_steps(false);
+    }
+  };
+  for (int base = warp * 32; base < nsim; base += 32 * kOutWarps) {
+    const int a = a_next, im = im_next, sp = sp_next;
+    const int c = base + 32 * kOutWarps + lane;
+    const bool in = c < nsim;
+    a_next = in ? acc[row + c] : 0;
+    im_next = in ? imp[row + c] : 0;
+    sp_next = in ? spend[row + c] : 0;
+    if (im != 0) atomicAdd(&tab.sums[kSumImp * tab.row + k], im);
+    if (im >= 1) {
+      const int n = t == 0 ? tab.n0[k] : tab.n1[k];
+      if (n != 0) atomicAdd(&tab.sums[kSumElig * tab.row + k], n);
+    }
+    if (a != 0) atomicAdd(&tab.sums[kSumClicks * tab.row + k], a);
+    if (sp != 0) atomicAdd(&tab.sums[kSumCost * tab.row + k], sp);
+    // a cell past the tile's end has a = 0, and no flag lane
+    ring_push(fr, fc, a > 0 ? a : 0, k, t, lane);
+    lap(kOutTileClocks);
+    while (fc.waiting() >= 32) {
+      flag_step(fr, fc, rr, rc, conv_keys, tab, K, 32, lane);
+      st.add(kOutFlagSteps, 1);
+      st.add(kOutFlagLanes, 32);
+      lap(kOutFlagClocks);
+      revenue_steps();
+    }
+    t += step_t;
+    k += step_k;
+    if (k >= K) {
+      k -= K;
+      ++t;
+    }
+  }
+  // the rests, fewer than 32 lanes each: one partial step each
+  if (fc.waiting() > 0) {
+    const int live = fc.waiting();
+    flag_step(fr, fc, rr, rc, conv_keys, tab, K, live, lane);
+    st.add(kOutFlagSteps, 1);
+    st.add(kOutFlagLanes, live);
+    st.add(kOutFlagPartial, 1);
+    lap(kOutFlagClocks);
+    revenue_steps();
+  }
+  if (rc.waiting() > 0) {
+    const int live = rc.waiting();
+    revenue_step(rr, rc, stage, sc, rev_keys, K, live, lane);
+    st.add(kOutRevSteps, 1);
+    st.add(kOutRevLanes, live);
+    st.add(kOutRevPartial, 1);
+    lap(kOutRevClocks);
+  }
+  erf_steps(true);
+  __syncthreads();
+  if constexpr (kShared) {
+    for (int j = tid; j < K; j += 32 * kOutWarps) {
+#pragma unroll
+      for (int i = 0; i < kSums; ++i) out[i * EK + eK + j] = tab.sums[i * K + j];
+    }
+  }
+  lap(kOutWriteClocks);
+  st.add(kOutWarpsRun, 1);
+  st.flush(lane);
+}
+
+// The dynamic shared memory a lanes_outcomes block may take on `device`,
+// into *limit; the first call for a device also lets both instances take
+// it.
+cudaError_t outcomes_configure(int device, int* limit) {
+  static std::mutex mu;
+  static int limits[kMaxDevices] = {};
+  const bool known = device >= 0 && device < kMaxDevices;
+  std::lock_guard<std::mutex> lock(mu);
+  if (known && limits[device] > 0) {
+    *limit = limits[device];
+    return cudaSuccess;
+  }
+  cudaError_t err = cudaDeviceGetAttribute(limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(lanes_outcomes_kernel<true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, *limit);
+  }
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(lanes_outcomes_kernel<false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, *limit);
+  }
+  if (err == cudaSuccess && known) limits[device] = *limit;
+  return err;
+}
+
+// lanes_outcomes' instance and dynamic shared memory at (K, T) on the
+// current device, `device`: the tables in shared memory where a block can
+// hold them, else in device memory; an error only if not even the keys and
+// rings fit (T in the tens of thousands).
+cudaError_t outcomes_plan(int K, int T, int device, bool* tables, size_t* smem) {
+  int limit = 0;
+  const cudaError_t err = outcomes_configure(device, &limit);
+  if (err != cudaSuccess) return err;
+  *tables = outcomes_smem(K, T, true) <= static_cast<size_t>(limit);
+  *smem = outcomes_smem(K, T, *tables);
+  return *smem <= static_cast<size_t>(limit) ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -676,10 +1081,13 @@ int lanes_gate_launch(const float* params, const long long* keys, long long key_
   return static_cast<int>(cudaGetLastError());
 }
 
-// Resident blocks per SM of lanes_counts (at K keywords) and lanes_gate (at
-// T sub-timesteps), and lanes_gate's dynamic shared memory per block.
+// Resident blocks per SM of lanes_counts (at K keywords), lanes_gate (at
+// T sub-timesteps) and lanes_outcomes (at K and T), and lanes_gate's and
+// lanes_outcomes' dynamic shared memory per block; *out_tables is 1 where
+// lanes_outcomes keeps its tables in shared memory.
 int lanes_day_occupancy(int K, int T, int device, int* counts_blocks, int* gate_blocks,
-                        long long* gate_smem_bytes) {
+                        long long* gate_smem_bytes, int* out_blocks, long long* out_smem_bytes,
+                        int* out_tables) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int slots = K < 32 * kMaxSlots ? (K + 31) / 32 : kMaxSlots;
@@ -696,8 +1104,20 @@ int lanes_day_occupancy(int K, int T, int device, int* counts_blocks, int* gate_
                                static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(gate_blocks, lanes_gate_kernel,
+                                                      32 * kGateWarps, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  bool tables = false;
+  size_t out_smem = 0;
+  err = outcomes_plan(K, T, device, &tables, &out_smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *out_smem_bytes = static_cast<long long>(out_smem);
+  *out_tables = tables ? 1 : 0;
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      gate_blocks, lanes_gate_kernel, 32 * kGateWarps, smem));
+      out_blocks,
+      tables ? reinterpret_cast<const void*>(lanes_outcomes_kernel<true>)
+             : reinterpret_cast<const void*>(lanes_outcomes_kernel<false>),
+      32 * kOutWarps, out_smem));
 }
 
 #ifdef LANES_STAGE_CLOCKS
@@ -714,19 +1134,28 @@ int lanes_day_stats(int device, unsigned long long* out) {
 #endif
 
 // lanes_outcomes: the six (E, K) day sums into out (6, E, K) from the
-// simulated cells.
+// simulated cells; any K >= 1 (past a block's shared memory, the keyword
+// tables and sums stay in device memory).
 int lanes_outcomes_launch(const float* params, const long long* keys, long long key_stride,
                           const int* imp, const int* acc, const int* spend, const int* n_sim,
                           const int* n_auc01, int* out, int E, int K, int T, int m0, int m1,
                           int device, void* stream) {
   if (E <= 0) return static_cast<int>(cudaSuccess);
   if (K < 1 || T < 1 || m0 < 1 || m1 < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = outcomes_smem(K, T);
-  if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  lanes_outcomes_kernel<<<E, kOutcomeThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      params, keys, key_stride, imp, acc, spend, n_sim, n_auc01, out, E, K, T);
+  bool tables = false;
+  size_t smem = 0;
+  err = outcomes_plan(K, T, device, &tables, &smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tables) {
+    lanes_outcomes_kernel<true><<<E, 32 * kOutWarps, smem, s>>>(
+        params, keys, key_stride, imp, acc, spend, n_sim, n_auc01, out, E, K, T);
+  } else {
+    lanes_outcomes_kernel<false><<<E, 32 * kOutWarps, smem, s>>>(
+        params, keys, key_stride, imp, acc, spend, n_sim, n_auc01, out, E, K, T);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

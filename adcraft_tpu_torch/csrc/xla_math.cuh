@@ -40,13 +40,17 @@ __device__ float xla_log(float y) {
   return out;
 }
 
-// log(1 + x) outside |x| < sqrt(2) - 1, a rational function inside
-__device__ float xla_log1p(float x) {
+// whether xla_log1p takes its rational function at x: |x| < sqrt(2) - 1
+__device__ __forceinline__ bool xla_log1p_rational_at(float x) {
+  return fabsf(x) < f32(0x3ED413CDu);
+}
+
+// xla_log1p's rational function, for |x| < sqrt(2) - 1
+__device__ float xla_log1p_rational(float x) {
   const uint32_t num_c[7] = {0x383DE04Bu, 0x3EFF40C5u, 0x40D284FAu, 0x41EF4B9Cu,
                              0x4273CC76u, 0x426473ADu, 0x41A05101u};
   const uint32_t den_c[6] = {0x417101ADu, 0x42A6185Bu, 0x435DC32Du,
                              0x439A8CA3u, 0x43586D8Au, 0x42707982u};
-  if (!(fabsf(x) < f32(0x3ED413CDu))) return xla_log(__fadd_rn(x, 1.0f));
   float num = f32(num_c[0]);
 #pragma unroll
   for (int i = 1; i < 7; ++i) num = fma32(num, x, f32(num_c[i]));
@@ -57,13 +61,18 @@ __device__ float xla_log1p(float x) {
   return __fadd_rn(x, fma32(x2, -0.5f, __fmul_rn(__fmul_rn(x, x2), __fdiv_rn(num, den))));
 }
 
-// Giles' erf_inv in w = -log1p(-x^2), by fused Horner steps
-__device__ float xla_erfinv(float x) {
+// log(1 + x) outside |x| < sqrt(2) - 1, a rational function inside
+__device__ float xla_log1p(float x) {
+  if (!xla_log1p_rational_at(x)) return xla_log(__fadd_rn(x, 1.0f));
+  return xla_log1p_rational(x);
+}
+
+// Giles' erf_inv of x in w = -l1p, l1p = log1p(-x^2), by fused Horner steps
+__device__ float xla_erfinv_of(float x, float l1p) {
   const uint32_t lt5[9] = {0x32F16588u, 0x34B84B36u, 0xB66C7357u, 0xB6935AC1u, 0x396532DBu,
                            0xBAA45408u, 0xBB88E4EFu, 0x3E7C8F63u, 0x3FC02E2Fu};
   const uint32_t ge5[9] = {0xB951F09Bu, 0x38D3B56Bu, 0x3AB0DC72u, 0xBB70BDE7u, 0x3BBC127Bu,
                            0xBBF9C5D7u, 0x3C1AA57Eu, 0x3F8036DBu, 0x40354F7Eu};
-  const float l1p = xla_log1p(__fmul_rn(x, -x));
   const bool lt = l1p > -5.0f;
   const float w = lt ? __fsub_rn(-2.5f, l1p) : __fsub_rn(sqrtf(-l1p), 3.0f);
   float p = f32(lt ? lt5[0] : ge5[0]);

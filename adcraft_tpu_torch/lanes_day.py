@@ -25,7 +25,11 @@ built with nvcc on first use (``cuda_build``) and bound with ctypes:
   models the walk);
 * ``lanes_outcomes`` (plain: ``lanes_outcomes_reference``): conversions
   (the first ``accepted`` conversion flags), revenue (the first ``nconv``
-  revenue draws, in cents), the ``cell_out`` masks and the (E, K) day sums.
+  revenue draws, in cents), the ``cell_out`` masks and the (E, K) day sums;
+  on the card one block per env, each warp reading tiles of 32 cells and
+  drawing their flag lanes, then their revenue lanes, 32 a step from two
+  per-warp queues of lanes, any K
+  (``tests/test_torch_lanes_outcomes_walk.py`` models the queues).
 
 Keys follow the JAX tree: per sub-timestep ``kt = fold_in(k_cells, t)``,
 ``k_auc, k_click, k_conv, k_rev = split(kt, 4)``, ``k_imp, k_cost =
@@ -210,7 +214,7 @@ def bind(lib: ctypes.CDLL) -> None:
     """The ctypes signatures of ``csrc/lanes_day.cu``'s C interface."""
     bind_launchers(lib)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.lanes_day_occupancy.argtypes = [i, i, i, p, p, p]
+    lib.lanes_day_occupancy.argtypes = [i, i, i, p, p, p, p, p, p]
     lib.lanes_day_occupancy.restype = i
 
 
@@ -279,7 +283,7 @@ class LanesOutcomes(_Kernel):
     """The ``lanes_outcomes`` kernel's wrapper."""
 
     def __call__(self, params, k_cells, imp, acc, spend, n_sim, n_auc01, lanes: Lanes):
-        """Outputs as ``lanes_outcomes_reference``."""
+        """Outputs as ``lanes_outcomes_reference``, for any number of keywords."""
         E, T, K = imp.shape
         device = params.device
         _check_lanes(lanes)
@@ -305,16 +309,20 @@ class LanesOutcomes(_Kernel):
         return tuple(out.unbind(0))
 
 
-def occupancy(K: int, lanes: Lanes, device):
-    """Resident blocks per SM of ``lanes_counts`` at K keywords and of
-    ``lanes_gate`` at ``lanes.T`` sub-timesteps, and ``lanes_gate``'s
-    dynamic shared memory per block in bytes."""
-    counts, gate, smem = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_longlong(0)
-    err = library.get().lanes_day_occupancy(K, lanes.T, _index(device),
-                                            ctypes.byref(counts), ctypes.byref(gate),
-                                            ctypes.byref(smem))
+def occupancy(K: int, lanes: Lanes, device) -> dict:
+    """Resident blocks per SM of the three kernels at K keywords and
+    ``lanes.T`` sub-timesteps, ``lanes_gate``'s and ``lanes_outcomes``'
+    dynamic shared memory per block in bytes, and whether ``lanes_outcomes``
+    keeps its keyword tables in shared memory (else in device memory)."""
+    counts, gate, out, tables = (ctypes.c_int(0) for _ in range(4))
+    gate_smem, out_smem = ctypes.c_longlong(0), ctypes.c_longlong(0)
+    err = library.get().lanes_day_occupancy(
+        K, lanes.T, _index(device), ctypes.byref(counts), ctypes.byref(gate),
+        ctypes.byref(gate_smem), ctypes.byref(out), ctypes.byref(out_smem), ctypes.byref(tables))
     library.check(err, "lanes_day_occupancy")
-    return counts.value, gate.value, smem.value
+    return {"counts_blocks": counts.value, "gate_blocks": gate.value, "gate_smem": gate_smem.value,
+            "outcomes_blocks": out.value, "outcomes_smem": out_smem.value,
+            "outcomes_tables_in_smem": bool(tables.value)}
 
 
 def kernels_built_from(csrc) -> dict:

@@ -73,15 +73,21 @@ Phases, each fatal on failure:
    -DLANES_STAGE_CLOCKS build (equal outputs too), lanes_gate's cells
    (whole, passive, decided alone, lane-resolved), windows (cut by the
    buffer), lanes per simulated cell and SM clocks per stage, and
-   lanes_counts' passes per call and SM clocks in each loop; with
-   --parent-csrc DIR, the lanes day built from DIR (the parent commit's
-   adcraft_tpu_torch/csrc) equal to this one's and each kernel timed in
-   turns with it (parent, this, this, parent); lanes_counts alone on a
+   lanes_counts' passes per call and SM clocks in each loop, and
+   lanes_outcomes' flag and revenue lanes (each what the plain version
+   needs), draw steps (partial ones at most one per warp and ring) and SM
+   clocks per stage, its erf_inv steps by log1p branch; lanes_outcomes'
+   float64 conversions (F2F) per revenue lane from its SASS; with --parent-csrc DIR, the lanes day built from
+   DIR (the parent commit's adcraft_tpu_torch/csrc) equal to this one's
+   and each kernel timed in turns with it (parent, this, this, parent);
+   lanes_counts alone on a
    grid of (n, p) pairs on both sides of the binomial's algorithm switch
    at 1024 envs: equal to its plain version, and its impressions' mean
    and variance within 6 standard errors of the Binomial's; the
    inversion sampler and 16-bit lanes at 1024 envs, each equal to its
-   plain version; then the slice, 5 steps, rollout(5) and 4 days of
+   plain version (and lanes_outcomes to the parent's); the three kernels
+   at K = 2100 keywords and 3 envs, past lanes_outcomes' old limit, equal
+   to their plain versions; then the slice, 5 steps, rollout(5) and 4 days of
    autoreset_step at max_days 3 (every episode ends and restarts), counts
    zeroed just before: one launch of each kernel per day, and steps,
    keys and autoreset states equal to the same days through the plain
@@ -244,6 +250,25 @@ def sass_ops_per_word(library_path: Path, kernel: str):
                 best = ops
         if best:
             return len(best), dict(collections.Counter(best).most_common())
+    return None
+
+
+def sass_ops(library_path: Path, kernel: str):
+    """``kernel``'s SASS instructions as (opcode, operands) pairs, from
+    ``cuobjdump -sass`` (the first function whose name holds ``kernel``),
+    or None if SASS is unreadable."""
+    from adcraft_tpu_torch.cuda_build import find_nvcc
+
+    cuobjdump = Path(find_nvcc()).parent / "cuobjdump"
+    proc = subprocess.run([str(cuobjdump), "-sass", str(library_path)],
+                          capture_output=True, text=True, timeout=120, check=False)
+    if proc.returncode != 0:
+        return None
+    for section in proc.stdout.split("Function : ")[1:]:
+        if kernel in section.splitlines()[0]:
+            return [(found.group(2), found.group(3)) for found in map(_SASS_INSN.search,
+                                                                         section.splitlines())
+                    if found]
     return None
 
 
@@ -833,6 +858,8 @@ def budget_cast_phase(torch, dev, card, table, pallas_env):
 LANES_BUDGET = 1000.0
 AUTORESET_DAYS = 3  # max_days of the autoreset run, which steps one more day
 LANES_VARIANT_ENVS = 1024
+WIDE_K, WIDE_ENVS = 2100, 3  # past lanes_outcomes' old limit of 48 KB of keyword tables
+PARENT_OUTCOMES_MAX_K = 2032  # that limit at T = 24: a parent tree may refuse more keywords
 # float instructions per element and pass of binomial.cuh's loops (XLA's log
 # with its float64 fused multiply-adds, the divisions, the Stirling terms),
 # per cost lane (the truncated Laplace inverse CDF in cents) and per revenue
@@ -856,13 +883,18 @@ LANES_STATS = (
     "cut windows", "deep cells", "skipped", "redrawn", "cost lanes", "simulated cells", "whole",
     "passive", "alone whole", "alone passive", "lane-resolved", "inversion clocks",
     "BTRS clocks", "counts clocks", "calls", "inversion calls", "inversion passes",
-    "inversion max", "BTRS calls", "BTRS passes", "BTRS max",
+    "inversion max", "BTRS calls", "BTRS passes", "BTRS max", "outcomes prologue clocks",
+    "outcomes tile clocks", "flag step clocks", "revenue step clocks", "erf step clocks",
+    "outcomes write clocks", "outcomes warps", "flag lanes", "revenue lanes", "flag steps",
+    "revenue steps", "partial flag steps", "partial revenue steps", "erf steps", "erf log steps",
+    "partial erf steps",
 )
 
 
 def lanes_stats_build(ld, cuda_build):
-    """lanes_counts and lanes_gate built with -DLANES_STAGE_CLOCKS: the same
-    kernels, whose warps also count their stages' clocks, cells and passes."""
+    """The three lanes kernels built with -DLANES_STAGE_CLOCKS: the same
+    kernels, whose warps also count their stages' clocks, cells, passes,
+    lanes and draw steps."""
 
     def bind(lib):
         ld.bind(lib)
@@ -871,7 +903,8 @@ def lanes_stats_build(ld, cuda_build):
 
     library = cuda_build.CudaLibrary("lanes_day", bind, flags=("-DLANES_STAGE_CLOCKS",))
     return {"lanes_counts": ld.LanesCounts("lanes_counts (stats)", library),
-            "lanes_gate": ld.LanesGate("lanes_gate (stats)", library)}
+            "lanes_gate": ld.LanesGate("lanes_gate (stats)", library),
+            "lanes_outcomes": ld.LanesOutcomes("lanes_outcomes (stats)", library)}
 
 
 def read_lanes_stats(library, device_index: int) -> dict:
@@ -907,11 +940,12 @@ def inversion_passes(n, p, draws):
     return torch.where(inv.any(-1), passes.clamp(min=1.0), torch.zeros_like(passes)), inv
 
 
-def lanes_counters(stats_kernels, lanes, params, n_auc01, k_cells, ncl, budget_c, gate, sim,
-                   label):
+def lanes_counters(stats_kernels, lanes, params, n_auc01, k_cells, imp, ncl, budget_c, gate,
+                   sim, out, label):
     """One day through the -DLANES_STAGE_CLOCKS build (its outputs equal to
-    ``ncl`` and ``gate``); prints the gate walk's cells, windows and stage
-    clocks and the binomial loops' passes and clocks."""
+    ``ncl``, ``gate`` and ``out``); prints the gate walk's cells, windows
+    and stage clocks, the binomial loops' passes and clocks, and the
+    outcome lanes, draw steps and stage clocks of lanes_outcomes."""
     import torch
 
     counts, gate_k = stats_kernels["lanes_counts"], stats_kernels["lanes_gate"]
@@ -919,10 +953,36 @@ def lanes_counters(stats_kernels, lanes, params, n_auc01, k_cells, ncl, budget_c
     read_lanes_stats(counts.library, index)  # zero the counters
     _, ncl_s = counts(params, n_auc01, k_cells, lanes)
     g = gate_k(params, k_cells, ncl, budget_c, lanes)
+    o = stats_kernels["lanes_outcomes"](params, k_cells, imp, gate[0], gate[1], gate[2], n_auc01,
+                                        lanes)
     st = read_lanes_stats(counts.library, index)
     if not (torch.equal(ncl_s, ncl) and torch.equal(g[2], gate[2])
-            and all(torch.equal(a[sim], b[sim]) for a, b in zip(g[:2], gate[:2]))):
+            and all(torch.equal(a[sim], b[sim]) for a, b in zip(g[:2], gate[:2]))
+            and all(torch.equal(a, b) for a, b in zip(o, out))):
         fail(f"lanes day ({label}): the -DLANES_STAGE_CLOCKS build's outputs differ")
+    flag_lanes = (gate[0].clamp(min=0) * sim).sum().item()
+    convs = out[3].long().sum().item()
+    owarps = st["outcomes warps"]
+    if st["flag lanes"] != flag_lanes or st["revenue lanes"] != convs:
+        fail(f"lanes_outcomes ({label}): {st['flag lanes']} flag and {st['revenue lanes']} revenue "
+             f"lanes drawn, want {flag_lanes} and {convs}")
+    if (st["partial flag steps"] > owarps or st["partial revenue steps"] > owarps
+            or st["partial erf steps"] > 2 * owarps):
+        fail(f"lanes_outcomes ({label}): more partial steps than warps' final drains")
+    print(f"  lanes_outcomes lanes ({label}): {owarps} warps; {st['flag lanes']} flag lanes in "
+          f"{st['flag steps']} steps ({st['partial flag steps']} partial), {st['revenue lanes']} "
+          f"revenue lanes in {st['revenue steps']} draw steps ({st['partial revenue steps']} "
+          f"partial) and {st['erf steps']} erf_inv steps ({st['erf log steps']} on log1p's log "
+          f"branch, {st['partial erf steps']} partial); SM clocks per warp: prologue "
+          f"{st['outcomes prologue clocks'] / owarps:.0f}, tiles and cheap sums "
+          f"{st['outcomes tile clocks'] / owarps:.0f}, flag draws "
+          f"{st['flag step clocks'] / owarps:.0f}, revenue draws "
+          f"{st['revenue step clocks'] / owarps:.0f}, erf_inv steps "
+          f"{st['erf step clocks'] / owarps:.0f}, barrier and write-out "
+          f"{st['outcomes write clocks'] / owarps:.0f}; per step: flag "
+          f"{st['flag step clocks'] / max(st['flag steps'], 1):.0f}, revenue draw "
+          f"{st['revenue step clocks'] / max(st['revenue steps'], 1):.0f}, erf_inv "
+          f"{st['erf step clocks'] / max(st['erf steps'], 1):.0f}")
     warps, cells = st["gate warps"], st["simulated cells"]
     alone = st["alone whole"] + st["alone passive"] + st["lane-resolved"] + st["redrawn"]
     print(f"  lanes_gate walk ({label}): {cells} simulated cells: {st['whole']} whole and "
@@ -970,11 +1030,32 @@ def lanes_phase(torch, dev, card, table, ops_per_word, int_ops_per_s, fp_ops_per
     log = ld.library.build_log
     for R in range(1, 5):
         print(f"lanes_counts<{R}>: ptxas {kernel_ptxas(log, f'lanes_counts_kernelILi{R}E')}")
-    for name in ("lanes_gate", "lanes_outcomes"):
-        print(f"{name}: ptxas {kernel_ptxas(log, name + '_kernel')}")
-    counts_blocks, gate_blocks, gate_smem = ld.occupancy(K, lanes, dev)
-    print(f"lanes_counts: {counts_blocks} blocks of 4 warps per SM at K = {K}; lanes_gate: "
-          f"{gate_blocks} blocks of 4 warps per SM, {gate_smem} B shared memory per block")
+    print(f"lanes_gate: ptxas {kernel_ptxas(log, 'lanes_gate_kernel')}")
+    for tables, where in (("1", "shared"), ("0", "device")):
+        print(f"lanes_outcomes (keyword tables in {where} memory): ptxas "
+              f"{kernel_ptxas(log, f'lanes_outcomes_kernelILb{tables}E')}")
+    occ = ld.occupancy(K, lanes, dev)
+    print(f"lanes_counts: {occ['counts_blocks']} blocks of 4 warps per SM at K = {K}; lanes_gate: "
+          f"{occ['gate_blocks']} blocks of 4 warps per SM, {occ['gate_smem']} B shared memory per "
+          f"block; lanes_outcomes: {occ['outcomes_blocks']} blocks of 4 warps per SM, "
+          f"{occ['outcomes_smem']} B shared memory per block (keyword tables in "
+          f"{'shared' if occ['outcomes_tables_in_smem'] else 'device'} memory)")
+    # the float64 conversions (fma32's) of a revenue lane's erf_inv: the
+    # kernel's F2F over its inlined erf_inv steps, one per compare of
+    # erf_inv's w with -5 (each step runs one branch of log1p)
+    sass = sass_ops(ld.library.path, "lanes_outcomes_kernelILb1E")
+    if sass is None:
+        print("lanes_outcomes SASS: not readable")
+    else:
+        copies = sum(op.startswith("FSETP") and re.search(r",\s*-5(\.0*)?\s*,", args) is not None
+                     for op, args in sass)
+        ops = collections.Counter(op.split(".")[0] for op, _ in sass)
+        f2f = collections.Counter(op for op, _ in sass if op.startswith("F2F"))
+        warp = {op: ops[op] for op in ("SHFL", "VOTE", "REDUX", "WARPSYNC", "BSSY", "ATOMS")}
+        print(f"lanes_outcomes SASS: {len(sass)} instructions, {copies} inlined erf_inv steps; per "
+              f"revenue lane {ops['F2F'] / max(copies, 1):g} F2F {dict(f2f)}, "
+              f"{ops['DFMA'] / max(copies, 1):g} DFMA, {ops['MUFU'] / max(copies, 1):g} MUFU; "
+              f"warp intrinsics and their convergence code {warp}")
 
     def compare(name, pairs, label):
         for what, g, w in pairs:
@@ -995,13 +1076,14 @@ def lanes_phase(torch, dev, card, table, ops_per_word, int_ops_per_s, fp_ops_per
                              max=MAX_VOLUME)
         n_auc = split_volume(lanes_cfg, volume)
         n_auc01 = torch.stack([n_auc[0], n_auc[1]]).contiguous()
-        params = ad.pack_params(kw, torch.full((envs, K), BID, device=dev))
+        params = ad.pack_params(kw, torch.full((envs, lanes_cfg.num_keywords), BID, device=dev))
         return params, n_auc01, k_cells
 
     def check_day(params, n_auc01, k_cells, budget_c, lanes_, sampler, label):
-        """The three kernels against their plain versions on one day; returns
-        the kernels' outputs, the plain ones and the plain times."""
-        envs = params.shape[1]
+        """The three kernels against their plain versions on one day, and
+        lanes_outcomes against the parent's where it takes the day's K;
+        returns the kernels' outputs, the plain ones and the plain times."""
+        envs, nk = params.shape[1:]
         got_counts = ld.lanes_counts(params, n_auc01, k_cells, lanes_, sampler)
         torch.cuda.synchronize()
         with words_replaced(pk, pk.threefry_words_reference):
@@ -1015,7 +1097,7 @@ def lanes_phase(torch, dev, card, table, ops_per_word, int_ops_per_s, fp_ops_per
             want_gate, gate_ms = once_ms(lambda: ld.lanes_gate_reference(
                 params, k_cells, ncl, budget_c, lanes_))
         n_sim = want_gate[2]
-        sim = torch.arange(lanes_.T * K, device=dev).view(1, lanes_.T, K) < n_sim.view(-1, 1, 1)
+        sim = torch.arange(lanes_.T * nk, device=dev).view(1, lanes_.T, nk) < n_sim.view(-1, 1, 1)
         compare("lanes_gate", [("n_sim", got_gate[2], n_sim)] + [
             (what, g[sim], w[sim]) for what, g, w in zip(("acc", "spend"), got_gate, want_gate)],
             label)
@@ -1029,6 +1111,17 @@ def lanes_phase(torch, dev, card, table, ops_per_word, int_ops_per_s, fp_ops_per
                 params, k_cells, imp, acc, spend, n_sim, n_auc01, lanes_))
         compare("lanes_outcomes", [(f"day sum {i}", g, w) for i, (g, w) in
                                    enumerate(zip(got_out, want_out))], label)
+        if parent is not None:
+            try:
+                pout = parent["lanes_outcomes"](params, k_cells, imp, got_gate[0], got_gate[1],
+                                                n_sim, n_auc01, lanes_)
+            except RuntimeError as exc:
+                if nk <= PARENT_OUTCOMES_MAX_K:
+                    raise
+                print(f"  the parent's lanes_outcomes refuses K = {nk} ({label}): {exc}")
+            else:
+                compare("lanes_outcomes", [(f"parent day sum {i}", g, w) for i, (g, w) in
+                                           enumerate(zip(pout, got_out))], label)
         if (got_out[2].sum(1) > budget_c.clamp(min=0)).any():
             fail(f"lanes day ({label}): an env spent more than its budget")
         if not ((got_out[1] <= got_out[0]).all() and (got_out[3] <= got_out[1]).all()):
@@ -1095,8 +1188,8 @@ def lanes_phase(torch, dev, card, table, ops_per_word, int_ops_per_s, fp_ops_per
                   f"{words:.0f} threefry words, {fp:.4g} float ops, {nbytes / 1e6:.1f} MB; bound "
                   f"{kbound[0]:.4f} ms ({kbound[1]}), {100 * kbound[0] / ms:.1f}% of it reached "
                   f"({card})")
-        lanes_counters(stats_kernels, lanes, params, n_auc01, k_cells, ncl, budget_c, gate, sim,
-                       label)
+        lanes_counters(stats_kernels, lanes, params, n_auc01, k_cells, imp, ncl, budget_c, gate,
+                       sim, out, label)
         if parent is not None:
             pcalls = {
                 "lanes_counts": lambda: parent["lanes_counts"](params, n_auc01, k_cells, lanes),
@@ -1171,6 +1264,16 @@ def lanes_phase(torch, dev, card, table, ops_per_word, int_ops_per_s, fp_ops_per
         vparams, vn, vkeys = day_inputs(envs, 40, vcfg)
         check_day(vparams, vn, vkeys, budget_cents(torch.full((envs,), LANES_BUDGET, device=dev)),
                   xla_lanes(vcfg), vcfg.binomial_sampler, f"variant {knobs}")
+    # more keywords than lanes_outcomes' shared tables took before (48 KB)
+    wcfg = cfg.replace(num_keywords=WIDE_K)
+    wlanes = xla_lanes(wcfg)
+    wparams, wn, wkeys = day_inputs(WIDE_ENVS, 50, wcfg)
+    wocc = ld.occupancy(WIDE_K, wlanes, dev)
+    check_day(wparams, wn, wkeys, budget_cents(torch.full((WIDE_ENVS,), 1e6, device=dev)), wlanes,
+              "exact", f"K = {WIDE_K}")
+    print(f"  lanes_outcomes at K = {WIDE_K}: {wocc['outcomes_smem']} B shared memory per block "
+          f"(tables in {'shared' if wocc['outcomes_tables_in_smem'] else 'device'} memory), "
+          f"{wocc['outcomes_blocks']} blocks per SM")
 
     # the slice: 5 steps, rollout(5) and an autoreset run whose episodes end
     # (max_days 3, 4 days), counts zeroed just before and read just after;

@@ -350,8 +350,10 @@ def test_xla_env_step_launches_each_agg_kernel_once(cuda):
 def test_lanes_kernels_match_reference(cuda, K, sampler, bits):
     """lanes_counts, lanes_gate and lanes_outcomes each equal their plain
     version on the same inputs, budgets unbound, binding, small and zero:
-    every simulated cell, n_sim and the day sums exactly."""
-    from adcraft_tpu_torch import lanes_day
+    every simulated cell, n_sim and the day sums exactly; lanes_outcomes
+    also on the plain gate's outputs, and with its revenue sums wrapping
+    int32 (a revenue mean of $15M a conversion)."""
+    from adcraft_tpu_torch import agg_day, lanes_day
     from adcraft_tpu_torch.step import budget_cents
 
     E = 97
@@ -364,12 +366,13 @@ def test_lanes_kernels_match_reference(cuda, K, sampler, bits):
     want_counts = lanes_day.lanes_counts_reference(params, n_auc01, keys, lanes, sampler)
     for g, w in zip((imp, ncl), want_counts):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
-    regimes = set()
+    regimes, unbound = set(), None
     for budget in (1e6, 20.0 * K / 7, 0.5, 0.0):
         budget_c = budget_cents(torch.full((E,), budget, device=cuda))
         acc, spend, n_sim = lanes_day.lanes_gate(params, keys, ncl, budget_c, lanes)
         torch.cuda.synchronize()
         want = lanes_day.lanes_gate_reference(params, keys, ncl, budget_c, lanes)
+        unbound = want if budget == 1e6 else unbound
         sim = cell < want[2].view(E, 1, 1)
         torch.testing.assert_close(n_sim, want[2], rtol=0, atol=0)
         for g, w in zip((acc, spend), want[:2]):
@@ -384,6 +387,16 @@ def test_lanes_kernels_match_reference(cuda, K, sampler, bits):
         regimes |= {"unbroken" if n == lanes.T * K else "t0" if n <= K else "mid-day"
                     for n in n_sim.tolist()}
     assert regimes == {"unbroken", "t0", "mid-day"}, regimes
+    rich = params.clone()
+    rich[agg_day.REV_MEAN] = 1.5e7
+    acc, spend, n_sim = unbound
+    out = lanes_day.lanes_outcomes(rich, keys, imp, acc, spend, n_sim, n_auc01, lanes)
+    torch.cuda.synchronize()
+    want_out = lanes_day.lanes_outcomes_reference(rich, keys, imp, acc, spend, n_sim, n_auc01,
+                                                  lanes)
+    for g, w in zip(out, want_out):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    assert (want_out[4] < 0).any()  # the revenue sums wrapped
 
 
 @pytest.mark.cuda
@@ -416,6 +429,49 @@ def test_lanes_kernels_take_many_keywords(cuda):
                                                       want[2], n_auc01, lanes)
         for g, w in zip(out, want_out):
             torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+# K = 2100 needs more than the default 48 KB of shared memory for
+# lanes_outcomes' keyword tables; K = 10000 more than a block can hold
+# (24 B of sums a keyword alone), so its tables stay in device memory
+@pytest.mark.cuda
+@pytest.mark.parametrize("K, budget", [(2100, 1e6), (10000, 2000.0)])
+def test_lanes_kernels_take_any_keyword_count(cuda, K, budget):
+    """lanes_outcomes on the plain versions' impressions, accepted clicks,
+    spends and n_sim equals its plain version; then the three kernels as a
+    chain at the same K equal their plain versions."""
+    from adcraft_tpu_torch import lanes_day
+    from adcraft_tpu_torch.step import budget_cents
+
+    E = 3
+    cfg = EnvConfig(num_keywords=K, kind=KeywordKind.IMPLICIT, max_volume=576)
+    lanes, params, n_auc01, keys = xla_inputs(cfg, E, 17, cuda)
+    occupancy = lanes_day.occupancy(K, lanes, cuda)
+    assert occupancy["outcomes_tables_in_smem"] == (K == 2100)
+    assert occupancy["outcomes_blocks"] >= 1
+    budget_c = budget_cents(torch.full((E,), budget, device=cuda))
+    imp, ncl = lanes_day.lanes_counts_reference(params, n_auc01, keys, lanes)
+    acc, spend, n_sim = lanes_day.lanes_gate_reference(params, keys, ncl, budget_c, lanes)
+    want = lanes_day.lanes_outcomes_reference(params, keys, imp, acc, spend, n_sim, n_auc01,
+                                              lanes)
+    out = lanes_day.lanes_outcomes(params, keys, imp, acc, spend, n_sim, n_auc01, lanes)
+    torch.cuda.synchronize()
+    for g, w in zip(out, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    assert want[3].sum() > 0
+    # the chain
+    got_imp, got_ncl = lanes_day.lanes_counts(params, n_auc01, keys, lanes)
+    got_acc, got_spend, got_n_sim = lanes_day.lanes_gate(params, keys, got_ncl, budget_c, lanes)
+    chain = lanes_day.lanes_outcomes(params, keys, got_imp, got_acc, got_spend, got_n_sim,
+                                     n_auc01, lanes)
+    torch.cuda.synchronize()
+    for g, w in zip((got_imp, got_ncl, got_n_sim), (imp, ncl, n_sim)):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    sim = torch.arange(lanes.T * K, device=cuda).view(1, lanes.T, K) < n_sim.view(E, 1, 1)
+    for g, w in zip((got_acc, got_spend), (acc, spend)):
+        torch.testing.assert_close(g[sim], w[sim], rtol=0, atol=0)
+    for g, w in zip(chain, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
 
 
 @pytest.mark.cuda
