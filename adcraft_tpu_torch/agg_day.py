@@ -44,6 +44,16 @@ split(k_cost)``, ``k_lite, k_rest = split(k_lanes)``. A draw of shape
 ``(K,)`` takes keyword k's word at counter k, the lite table ``(L, K)``
 lane l's at ``l * K + k``, a deep column lane i's at ``i``.
 
+Explicit keywords (bench.py's ``dense_explicit`` regime) take the same
+two kernels; ``agg_cells_gate`` has one instance per cost model
+(``IMPLICIT``, ``EXPLICIT_RUST``, ``EXPLICIT_PYTHON``; the gate's unit is
+``AGG_SCALE[model]`` per dollar). An explicit day's win probability is the
+threshold sigmoid and its cost moments the model's (``explicit_moments``,
+computed per (env, keyword) in the kernel's prologue as in the plain
+version), clicks are drawn over
+``max(impressions, 1)`` candidates (the phantom-click quirk) and lane
+costs are the cost model's normal draws (step.py:868-912, :1126-1128).
+
 The day's constants (the win probability and its t >= 1 CDF ladder, the
 cost moments, the revenue moments) are computed once per (env, keyword)
 inside ``agg_cells_gate`` and ``agg_outcomes`` from the raw bids and
@@ -62,13 +72,20 @@ from typing import NamedTuple, Tuple
 import torch
 
 from adcraft_tpu_torch import distributions as dist
-from adcraft_tpu_torch import prng
+from adcraft_tpu_torch import prng, xla_math
 from adcraft_tpu_torch.auction import implicit_single_win_prob
 from adcraft_tpu_torch.cuda_build import CudaLibrary
 
 # rows of the (NUM_PARAMS, E, K) float32 parameter tensor the kernels read
-BID, BCTR, SCTR, LOC, SCALE, REV_MEAN, REV_STD = range(7)
-NUM_PARAMS = 7
+BID, BCTR, SCTR, LOC, SCALE, REV_MEAN, REV_STD, IMP_THRESH, IMP_INTERCEPT, IMP_SLOPE = range(10)
+NUM_PARAMS = 10
+
+# the day's cost model: implicit single-competitor keywords (cents), or
+# explicit keywords with the rust cost_create (decicents) or the python
+# generic_cost (cents); the gate's unit per dollar is AGG_SCALE[model]
+IMPLICIT, EXPLICIT_RUST, EXPLICIT_PYTHON = range(3)
+AGG_SCALE = (100.0, 1000.0, 100.0)
+COST_GRID = 304  # the python model's cent cells, EnvConfig.agg_cost_grid's default
 
 
 class Lanes(NamedTuple):
@@ -87,7 +104,8 @@ class Lanes(NamedTuple):
 
 def pack_params(kw, bids: torch.Tensor) -> torch.Tensor:
     """The kernels' (NUM_PARAMS, E, K) float32 rows: bids and keyword params."""
-    rows = [bids, kw.bctr, kw.sctr, kw.bid_loc, kw.bid_scale, kw.rev_mean, kw.rev_std]
+    rows = [bids, kw.bctr, kw.sctr, kw.bid_loc, kw.bid_scale, kw.rev_mean, kw.rev_std,
+            kw.imp_thresh, kw.imp_intercept, kw.imp_slope]
     shape = bids.shape
     return torch.stack([r.to(torch.float32).expand(shape) for r in rows]).contiguous()
 
@@ -97,13 +115,42 @@ def y0_of(params: torch.Tensor) -> torch.Tensor:
     return params[BID] - 0.005
 
 
-def cell_constants(params: torch.Tensor, n1: torch.Tensor, m1: int):
+def explicit_moments(params: torch.Tensor, model: int, grid: int) -> Tuple[torch.Tensor, ...]:
+    """The explicit cost model's per-click moments for the day, (mu, sigma,
+    cmax) in the gate's unit: decicents of ``cost_create_deci_moments`` or
+    cents of ``generic_cost_cent_moments`` over a ``grid``-cell cent grid
+    (``EnvConfig.agg_cost_grid``)."""
+    bid = params[BID]
+    if model == EXPLICIT_RUST:
+        return dist.cost_create_deci_moments(bid)
+    if model == EXPLICIT_PYTHON:
+        return dist.generic_cost_cent_moments(bid, grid)
+    raise ValueError(f"model {model} has no explicit cost moments")
+
+
+def explicit_costs(model: int, e: torch.Tensor, bid) -> torch.Tensor:
+    """Explicit lane costs in the gate's unit, int32, at ``e = erf_inv(u)``
+    of each lane's normal: ``round(cost * AGG_SCALE[model])``."""
+    cost = dist.cost_create_e(e, bid) if model == EXPLICIT_RUST else dist.generic_cost_e(e, bid)
+    return torch.round(cost * AGG_SCALE[model]).to(torch.int32)
+
+
+def cell_constants(params: torch.Tensor, n1: torch.Tensor, m1: int, model: int = IMPLICIT,
+                   cost_grid: int = COST_GRID):
     """Plain sampling-phase constants: (p_win, ladder (E, m1, K), cost mu,
-    sigma, cmax), what ``agg_cells_gate`` computes per (env, keyword)."""
+    sigma, cmax), what ``agg_cells_gate`` computes per (env, keyword). An
+    explicit model's win probability is the threshold sigmoid and its
+    moments ``explicit_moments``."""
     bid, loc, scale = params[BID], params[LOC], params[SCALE]
-    p_win = implicit_single_win_prob(bid, loc, scale)
+    if model == IMPLICIT:
+        p_win = implicit_single_win_prob(bid, loc, scale)
+        moments = dist.single_cost_cent_moments_closed(bid, loc, scale)
+    else:
+        p_win = dist.threshold_sigmoid(bid, params[IMP_THRESH], params[IMP_INTERCEPT],
+                                       params[IMP_SLOPE])
+        moments = explicit_moments(params, model, cost_grid)
     ladder = dist.binomial_cdf(n1, p_win, m1)[0][:m1].permute(1, 0, 2).contiguous()
-    return (p_win, ladder, *dist.single_cost_cent_moments_closed(bid, loc, scale))
+    return (p_win, ladder, *moments)
 
 
 class _TKeys(NamedTuple):
@@ -130,14 +177,24 @@ def _cost_cents(x: torch.Tensor) -> torch.Tensor:
     return torch.round(torch.abs(x) * 100.0).to(torch.int32)
 
 
-def agg_cells_reference(params, n_auc01, k_cells, lanes: Lanes, keep_constants: bool = False):
+def agg_cells_reference(params, n_auc01, k_cells, lanes: Lanes, keep_constants: bool = False,
+                        model: int = IMPLICIT, cost_grid: int = COST_GRID):
     """Plain sampling phase: (imp, n_clicks, s_full) (E, T, K) and lite
-    costs (E, T, L, K), all int32 (cents for the costs); with
-    ``keep_constants``, also the ``cell_constants`` the day used."""
+    costs (E, T, L, K), all int32 (costs in the gate's unit); with
+    ``keep_constants``, also the ``cell_constants`` the day used.
+
+    Explicit keywords (``model`` EXPLICIT_*; the python model's moments
+    over ``cost_grid`` cent cells) draw their clicks over
+    ``max(impressions, 1)`` candidates: a cell
+    without impressions still flips one phantom candidate, whose clicks
+    spend nothing (``s_full`` and its lite lanes 0). Their lite lanes are
+    the cost model's normal draws at counter ``l * K + k`` of ``k_lite``
+    (32-bit words whatever ``lanes.bits``)."""
     p = params
     K = p.shape[2]
     bits = lanes.bits
-    consts = cell_constants(params, n_auc01[1], lanes.m1)
+    explicit = model != IMPLICIT
+    consts = cell_constants(params, n_auc01[1], lanes.m1, model, cost_grid)
     p_win, ladder, mu, sigma, cmax = consts
     imp_t, ncl_t, sfull_t, lite_t = [], [], [], []
     for t in range(lanes.T):
@@ -149,41 +206,60 @@ def agg_cells_reference(params, n_auc01, k_cells, lanes: Lanes, keep_constants: 
             u = dist.lane_uniform(keys.k_imp, (K,), bits)
             imp = dist.binomial_inv_from_cdf_u(u, ladder.permute(1, 0, 2), p_win > 0.5,
                                                n_auc01[1])
-        ncl = dist.binomial_inv(keys.k_click, imp, p[BCTR], m, bits)
+        candidates = torch.clamp(imp, min=1) if explicit else imp
+        ncl = dist.binomial_inv(keys.k_click, candidates, p[BCTR], m, bits)
         s_full = dist.agg_cost_cents(keys.k_sfull, ncl, mu, sigma, cmax)
-        y0 = y0_of(p)[:, None]
-        lite = dist.truncated_laplace(keys.k_lite, p[LOC][:, None], p[SCALE][:, None], -y0, y0,
-                                      (lanes.L, K), bits)
+        if explicit:
+            e = prng.normal_erfinv(keys.k_lite, (lanes.L, K))
+            phantom = imp == 0
+            s_full = torch.where(phantom, 0, s_full)
+            lite = torch.where(phantom[:, None], 0, explicit_costs(model, e, p[BID][:, None]))
+        else:
+            y0 = y0_of(p)[:, None]
+            lite = _cost_cents(dist.truncated_laplace(keys.k_lite, p[LOC][:, None],
+                                                      p[SCALE][:, None], -y0, y0, (lanes.L, K),
+                                                      bits))
         imp_t.append(imp)
         ncl_t.append(ncl)
         sfull_t.append(s_full)
-        lite_t.append(_cost_cents(lite))
+        lite_t.append(lite)
     outs = (torch.stack(imp_t, 1), torch.stack(ncl_t, 1), torch.stack(sfull_t, 1),
             torch.stack(lite_t, 1))
     return (*outs, tuple(consts)) if keep_constants else outs
 
 
-def resolve_cells(params, k_rest, lite_col, k: int, B, n, m: int, lanes: Lanes):
+def resolve_cells(params, k_rest, lite_col, k: int, B, n, m: int, lanes: Lanes,
+                  model: int = IMPLICIT):
     """Lane resolution of partial cells, one row each: the lite costs
     ``lite_col`` (rows, L) then ``m - L`` deep costs from ``fold_in(k_rest,
     k)``, accepted up to the first prefix over ``B``. Returns (accepted
-    clicks int32, spend int64)."""
+    clicks int32, spend int64). An explicit model's deep lanes take the bid
+    as the JAX resolver rebuilds it, ``(bid - 0.005) + 0.005`` in float32,
+    which is not always the bid."""
     costs = lite_col[:, :m].to(torch.int64)
     if m > lanes.L:
         k_col = prng.fold_in(k_rest, k)
-        loc, scale, y0 = (x[:, k][:, None] for x in (params[LOC], params[SCALE], y0_of(params)))
-        deep = dist.truncated_laplace(k_col, loc, scale, -y0, y0, (m - lanes.L,), lanes.bits)
-        costs = torch.cat([costs, _cost_cents(deep).to(torch.int64)], 1)
+        y0 = y0_of(params)[:, k][:, None]
+        if model == IMPLICIT:
+            loc, scale = params[LOC][:, k][:, None], params[SCALE][:, k][:, None]
+            deep = _cost_cents(dist.truncated_laplace(k_col, loc, scale, -y0, y0,
+                                                      (m - lanes.L,), lanes.bits))
+        else:
+            e = prng.normal_erfinv(k_col, (m - lanes.L,))
+            deep = explicit_costs(model, e, y0 + 0.005)
+        costs = torch.cat([costs, deep.to(torch.int64)], 1)
     lane = torch.arange(m, device=costs.device)
     ok = (torch.cumsum(costs, 1) <= B[:, None]) & (lane < n[:, None])
     ok = torch.cumprod(ok.to(torch.int64), 1)
     return ok.sum(1).to(torch.int32), (costs * ok).sum(1)
 
 
-def agg_gate_reference(params, k_cells, s_full, n_clicks, lite, budget_c, lanes: Lanes):
+def agg_gate_reference(params, k_cells, s_full, n_clicks, lite, budget_c, lanes: Lanes,
+                       model: int = IMPLICIT):
     """Plain gate, one cell at a time over all envs: accepted clicks and
-    spend cents (E, T, K) int32, and each env's simulated cell count
-    ``n_sim`` (E,) int32 (cells ``t * K + k < n_sim`` were simulated)."""
+    spend (E, T, K) int32 in the gate's unit (``budget_c`` too), and each
+    env's simulated cell count ``n_sim`` (E,) int32 (cells ``t * K + k <
+    n_sim`` were simulated)."""
     E, T, K = s_full.shape
     device = s_full.device
     B = budget_c.to(torch.int64)
@@ -206,7 +282,7 @@ def agg_gate_reference(params, k_cells, s_full, n_clicks, lite, budget_c, lanes:
                 if k_rest is None:
                     k_rest = t_keys(k_cells, t).k_rest
                 pj, sj = resolve_cells(params[:, rows], k_rest[rows], lite[rows, t, :, k], k,
-                                       B[rows], n[rows], m, lanes)
+                                       B[rows], n[rows], m, lanes, model)
                 p[rows] = pj
                 sp[rows] = sj
             live = ~broken
@@ -220,14 +296,16 @@ def agg_gate_reference(params, k_cells, s_full, n_clicks, lite, budget_c, lanes:
 
 
 def agg_cells_gate_reference(params, n_auc01, k_cells, budget_c, lanes: Lanes,
-                             keep_constants: bool = False):
+                             keep_constants: bool = False, model: int = IMPLICIT,
+                             cost_grid: int = COST_GRID):
     """Plain sampling phase and gate: ``agg_cells_reference``, then
     ``agg_gate_reference`` on its tables. Returns (imp, acc, spend) (E, T,
     K) int32 and ``n_sim`` (E,) int32; with ``keep_constants``, also the
     ``cell_constants`` the day used."""
-    cells = agg_cells_reference(params, n_auc01, k_cells, lanes, keep_constants)
+    cells = agg_cells_reference(params, n_auc01, k_cells, lanes, keep_constants, model,
+                                cost_grid)
     imp, ncl, s_full, lite = cells[:4]
-    out = (imp, *agg_gate_reference(params, k_cells, s_full, ncl, lite, budget_c, lanes))
+    out = (imp, *agg_gate_reference(params, k_cells, s_full, ncl, lite, budget_c, lanes, model))
     return (*out, cells[4]) if keep_constants else out
 
 
@@ -286,11 +364,11 @@ def bind(lib: ctypes.CDLL) -> None:
     """The ctypes signatures of ``csrc/agg_day.cu``'s C interface."""
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     pi = ctypes.POINTER(i)
-    lib.agg_cells_gate_launch.argtypes = [p, p, p, ll] + [p] * 6 + [i] * 9 + [p]
+    lib.agg_cells_gate_launch.argtypes = [p, p, p, ll] + [p] * 6 + [i] * 11 + [p]
     lib.agg_cells_gate_launch.restype = i
-    lib.agg_cells_gate_occupancy.argtypes = [i] * 6 + [pi]
+    lib.agg_cells_gate_occupancy.argtypes = [i] * 7 + [pi]
     lib.agg_cells_gate_occupancy.restype = i
-    lib.agg_cells_gate_default_chunk_t.argtypes = [i] * 6 + [pi]
+    lib.agg_cells_gate_default_chunk_t.argtypes = [i] * 7 + [pi]
     lib.agg_cells_gate_default_chunk_t.restype = i
     lib.agg_cells_gate_smem_bytes.argtypes = [i] * 5
     lib.agg_cells_gate_smem_bytes.restype = ll
@@ -371,10 +449,11 @@ class AggCellsGate(_Kernel):
         """The dynamic shared memory a block may take on the card, in bytes."""
         return self._int_out(self.library.get().agg_cells_gate_smem_limit, _index(device))
 
-    def occupancy(self, chunk_t: int, K: int, lanes: Lanes, device) -> int:
-        """Resident blocks per SM at ``chunk_t``; 0 if a block does not fit."""
-        return self._int_out(self.library.get().agg_cells_gate_occupancy, chunk_t, K, lanes.m0,
-                             lanes.m1, lanes.L, _index(device))
+    def occupancy(self, chunk_t: int, K: int, lanes: Lanes, device, model: int = IMPLICIT) -> int:
+        """Resident blocks per SM of the cost model's instance at
+        ``chunk_t``; 0 if a block does not fit."""
+        return self._int_out(self.library.get().agg_cells_gate_occupancy, model, chunk_t, K,
+                             lanes.m0, lanes.m1, lanes.L, _index(device))
 
     def _fits(self, chunk_t: int, K: int, lanes: Lanes, device) -> None:
         key = (_index(device), K, lanes, chunk_t)
@@ -386,28 +465,33 @@ class AggCellsGate(_Kernel):
                              f"shared memory per block, above the card's limit of {limit} B")
         self._fitting.add(key)
 
-    def default_chunk_t(self, K: int, lanes: Lanes, device) -> int:
+    def default_chunk_t(self, K: int, lanes: Lanes, device, model: int = IMPLICIT) -> int:
         """The largest chunk of sub-timesteps that keeps the kernel's target
-        of resident blocks per SM (or as many as a chunk of one keeps);
-        raises ``ValueError`` if not even one sub-timestep fits."""
-        key = (_index(device), K, lanes)
+        of resident blocks per SM for the cost model's instance (or as many
+        as a chunk of one keeps); raises ``ValueError`` if not even one
+        sub-timestep fits."""
+        key = (_index(device), K, lanes, model)
         if key not in self._chunk_t:
             self._fits(1, K, lanes, device)
             self._chunk_t[key] = self._int_out(self.library.get().agg_cells_gate_default_chunk_t,
-                                               K, lanes.T, lanes.m0, lanes.m1, lanes.L,
+                                               model, K, lanes.T, lanes.m0, lanes.m1, lanes.L,
                                                key[0])
         return self._chunk_t[key]
 
     def __call__(self, params, n_auc01, k_cells, budget_c, lanes: Lanes,
-                 keep_constants: bool = False, *, chunk_t=None):
+                 keep_constants: bool = False, *, chunk_t=None, model: int = IMPLICIT,
+                 cost_grid: int = COST_GRID):
         """Outputs as ``agg_cells_gate_reference``, but on the card the cells
         at or past each env's break (``t * K + k >= n_sim``) are not
         written. ``params`` (NUM_PARAMS, E, K) f32, ``n_auc01`` (2, E, K)
         int32 (the auction counts at t = 0 and t >= 1), ``k_cells`` (E, 2)
-        int64, ``budget_c`` (E,) int32 cents. ``keep_constants`` appends the
-        constants the day used, (p_win, ladder (E, m1, K), cost mu, sigma,
-        cmax). ``chunk_t``, the kernel's sub-timesteps per chunk, defaults
-        to ``default_chunk_t``; outputs do not depend on it."""
+        int64, ``budget_c`` (E,) int32 in the gate's unit. ``model`` is the
+        cost model (IMPLICIT, EXPLICIT_RUST or EXPLICIT_PYTHON);
+        ``cost_grid`` the python model's cent cells (33 to 1024).
+        ``keep_constants`` appends the constants the day used, (p_win,
+        ladder (E, m1, K), cost mu, sigma, cmax). ``chunk_t``, the kernel's
+        sub-timesteps per chunk, defaults to ``default_chunk_t``; outputs
+        do not depend on it."""
         _, E, K = params.shape
         device = params.device
         _check_lanes(lanes)
@@ -415,14 +499,18 @@ class AggCellsGate(_Kernel):
                ("n_auc01", n_auc01, torch.int32, (2, E, K)),
                ("budget_c", budget_c, torch.int32, (E,)))
         _check_keys(k_cells, E, device)
+        if model not in (IMPLICIT, EXPLICIT_RUST, EXPLICIT_PYTHON):
+            raise ValueError(f"unknown cost model {model}")
+        if model == EXPLICIT_PYTHON and not 32 < cost_grid <= 1024:
+            raise ValueError(f"cost_grid {cost_grid} outside 33..1024")
         if chunk_t is not None and chunk_t < 1:
             raise ValueError("chunk_t must be >= 1")
         if device.type == "cpu":
             return agg_cells_gate_reference(params, n_auc01, k_cells, budget_c, lanes,
-                                            keep_constants)
+                                            keep_constants, model, cost_grid)
         lib = self._cuda(device)
         if chunk_t is None:
-            chunk_t = self.default_chunk_t(K, lanes, device)
+            chunk_t = self.default_chunk_t(K, lanes, device, model)
         chunk_t = min(chunk_t, lanes.T)
         self._fits(chunk_t, K, lanes, device)
         T, m1 = lanes.T, lanes.m1
@@ -435,7 +523,7 @@ class AggCellsGate(_Kernel):
             params.data_ptr(), n_auc01.data_ptr(), k_cells.data_ptr(), k_cells.stride(0),
             budget_c.data_ptr(), imp.data_ptr(), acc.data_ptr(), spend.data_ptr(),
             n_sim.data_ptr(), None if kept is None else kept.data_ptr(), E, K, T, lanes.m0, m1,
-            lanes.L, lanes.bits, chunk_t, *_launch_args(device),
+            lanes.L, lanes.bits, chunk_t, model, cost_grid, *_launch_args(device),
         )
         self.library.check(err, self.name)
         self.launches += 1
@@ -492,9 +580,14 @@ agg_outcomes = AggOutcomes("agg_outcomes")
 
 
 def simulate_day_agg(lanes: Lanes, k_cells, kw, bids, budget_c, n_auc01,
-                     rev_sampling: str = "sum") -> Tuple[torch.Tensor, ...]:
+                     rev_sampling: str = "sum", model: int = IMPLICIT,
+                     cost_grid: int = COST_GRID) -> Tuple[torch.Tensor, ...]:
     """The three phases for one day, in two launches: the six (E, K) int32
-    day sums, revenue by ``rev_sampling`` ("sum" or "day")."""
+    day sums (cost and ``budget_c`` in the gate's unit, ``AGG_SCALE[model]``
+    per dollar; revenue in cents by ``rev_sampling``, "sum" or "day"), for
+    the cost model ``model`` (``cost_grid`` cent cells for the python
+    one)."""
     params = pack_params(kw, bids)
-    imp, acc, spend, n_sim = agg_cells_gate(params, n_auc01, k_cells, budget_c, lanes)
+    imp, acc, spend, n_sim = agg_cells_gate(params, n_auc01, k_cells, budget_c, lanes,
+                                            model=model, cost_grid=cost_grid)
     return agg_outcomes(params, k_cells, imp, acc, spend, n_sim, n_auc01, lanes, rev_sampling)

@@ -76,7 +76,8 @@ def run_cell_auctions(cfg: EnvConfig, key, bids, n_auctions, kw, max_clicks=None
     """The cell auction of the env's keyword kind and competitor model;
     only implicit single-competitor keywords are ported."""
     if cfg.kind is not KeywordKind.IMPLICIT:
-        raise NotImplementedError("explicit keywords are not ported (ROADMAP.md item 3)")
+        raise NotImplementedError("explicit keywords with lane costs are not ported (ROADMAP.md "
+                                  "item 3b)")
     if cfg.competitor_model is not CompetitorModel.SINGLE_ABS_CENTS:
         raise NotImplementedError("the binomial pool is not ported (ROADMAP.md item 4)")
     m = cfg.max_clicks_per_cell if max_clicks is None else max_clicks

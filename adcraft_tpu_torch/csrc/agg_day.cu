@@ -1,11 +1,14 @@
 // The XLA day step on Hopper (sm_90a): two kernels for the three phases
 // of adcraft_tpu/step.py:simulate_day (:991) in the configuration that
 // bench.py:47-76 times (aggregate costs, conversion counts, revenue sums,
-// inversion binomials, implicit single-competitor keywords). The JAX
-// package left these phases to XLA, so no Pallas kernel constrains them:
+// inversion binomials; implicit single-competitor keywords, and explicit
+// keywords with either cost model, bench.py's dense_explicit regime). The
+// JAX package left these phases to XLA, so no Pallas kernel constrains
+// them:
 //
 // * agg_cells_gate replaces the sampling phase, _cell_tables' agg
-//   implicit-single branch (step.py:858-926) vmapped over sub-timesteps,
+//   implicit-single and explicit branches (step.py:858-926) vmapped over
+//   sub-timesteps,
 //   with the day-hoisted impression ladder (:1263-1282), and the budget
 //   gate (:1295-1391): the sequential rule of _gate_keywords_scan_agg
 //   (:740) with _resolve_cell (:1087), to which the lazy, chunked and
@@ -118,6 +121,7 @@
 
 #include "jax_random.cuh"
 #include "threefry.cuh"
+#include "xla_math.cuh"
 
 namespace {
 
@@ -142,8 +146,14 @@ constexpr int kOutStages = 4;
 __device__ unsigned long long g_outcomes_clocks[kOutStages + 1];
 #endif
 
-// agg_cells_gate's per-keyword float rows in shared memory
+// agg_cells_gate's per-keyword float rows in shared memory. An explicit
+// model keeps the lite lanes' bid in kLoc and the deep lanes' bid, (bid -
+// 0.005) + 0.005 as the JAX resolver rebuilds it, in kScale; it reads
+// neither truncation bound.
 enum { kPWin, kFLo, kFHi, kMu, kSigma, kCmax, kLoc, kScale, kBctr, kKwRows };
+enum { kBidLite = kLoc, kBidDeep = kScale };
+// the day's cost model (agg_day.IMPLICIT, EXPLICIT_RUST, EXPLICIT_PYTHON)
+enum { kImplicit, kExplicitRust, kExplicitPython, kModels };
 
 // distributions.agg_cost_cents_z and rev_sum_cents_z
 __device__ __forceinline__ int agg_cost(int n, float mu, float sigma, float cmax, float z) {
@@ -277,33 +287,20 @@ __device__ __forceinline__ int ladder_count(const float* ladder, int stride, int
   return lo;
 }
 
-// jax.scipy.special.ndtr's branches (distributions._ndtr)
-__device__ __forceinline__ float ndtr(float x) {
-  const float inv_sqrt2 = 0.70710677f;
-  const float w = __fmul_rn(x, inv_sqrt2);
-  const float z = fabsf(w);
-  const float y = z < inv_sqrt2 ? __fadd_rn(1.0f, erff(w))
-                                : (w > 0.0f ? __fsub_rn(2.0f, erfcf(z)) : erfcf(z));
-  return __fmul_rn(0.5f, y);
-}
-
 // distributions.rev_sum_moments: (100 m1, sqrt((100 s1)^2 + 1/12)) of the
-// censored normal max(N(mean, std), 0.01)
+// censored normal max(N(mean, std), 0.01), on XLA's ndtr and pdf with its
+// contractions (distributions.censored_normal_moments)
 __device__ float2 rev_moments(float mean, float std) {
   const float low = 0.01f;
   const float safe = fmaxf(std, 1e-20f);
   const float a = __fdiv_rn(__fsub_rn(low, mean), safe);
-  const float big_f = ndtr(a);
-  const float small_f =
-      expf(__fsub_rn(__fmul_rn(-0.5f, __fmul_rn(a, a)), 0.918938518f));
-  const float one_f = __fsub_rn(1.0f, big_f);
-  float m1 = __fadd_rn(__fadd_rn(__fmul_rn(low, big_f), __fmul_rn(mean, one_f)),
-                       __fmul_rn(safe, small_f));
-  const float m2 = __fadd_rn(
-      __fadd_rn(__fmul_rn(1e-4f, big_f),
-                __fmul_rn(__fadd_rn(__fmul_rn(mean, mean), __fmul_rn(safe, safe)), one_f)),
-      __fmul_rn(__fmul_rn(safe, __fadd_rn(mean, low)), small_f));
-  float var = fmaxf(__fsub_rn(m2, __fmul_rn(m1, m1)), 0.0f);
+  const float big_f = xla_ndtr(a);
+  const float small_f = xla_normal_pdf(a);
+  const float rest = __fsub_rn(1.0f, big_f);
+  float m1 = fma32(safe, small_f, fma32(low, big_f, __fmul_rn(mean, rest)));
+  float m2 = fma32(1e-4f, big_f, __fmul_rn(fma32(mean, mean, __fmul_rn(safe, safe)), rest));
+  m2 = fma32(__fmul_rn(safe, __fadd_rn(mean, low)), small_f, m2);
+  float var = fmaxf(fma32(-m1, m1, m2), 0.0f);
   if (std <= 0.0f) {
     m1 = fmaxf(mean, low);
     var = 0.0f;
@@ -335,8 +332,11 @@ __device__ __forceinline__ int warp_saturating_sum(int v, int lane) {
 // _resolve_cell on one warp: lanes < L from the cell's lite costs (lane l
 // at lite_c[l * lite_stride]), the rest drawn from fold_in(k_rest, k),
 // whose key and truncation bounds are derived only if a deep lane is
-// reached; the first prefix over B (or lane min(n, m)) stops it. Returns
-// the accepted clicks, and their spend in *spend (warp-uniform).
+// reached; the first prefix over B (or lane min(n, m)) stops it. An
+// explicit model's deep lane is its cost model's draw at the normal's
+// counter idx - L. Returns the accepted clicks, and their spend in *spend
+// (warp-uniform).
+template <int kModel>
 __device__ int resolve_cell(const int* lite_c, int lite_stride, const float* kw, int K, Key k_rest,
                             int k, int n, long long B, int m, int L, int bits, int lane,
                             long long* spend) {
@@ -356,25 +356,33 @@ __device__ int resolve_cell(const int* lite_c, int lite_stride, const float* kw,
   }
   bool have_deep = false;
   Key k_col{0u, 0u};
-  float loc = 0.0f, scale = 1.0f, f_lo = 0.0f, f_hi = 0.0f;
+  float loc = 0.0f, scale = 1.0f, f_lo = 0.0f, f_hi = 0.0f, bid_deep = 0.0f;
   long long carry = 0;
   int accepted = 0;
   for (int base = 0; base < lanes; base += 32) {
     if (!have_deep && lanes > L && base + 31 >= L) {
-      loc = kw[kLoc * K + k];
-      scale = kw[kScale * K + k];
-      f_lo = kw[kFLo * K + k];
-      f_hi = kw[kFHi * K + k];
+      if (kModel == kImplicit) {
+        loc = kw[kLoc * K + k];
+        scale = kw[kScale * K + k];
+        f_lo = kw[kFLo * K + k];
+        f_hi = kw[kFHi * K + k];
+      } else {
+        bid_deep = kw[kBidDeep * K + k];
+      }
       k_col = child(k_rest, static_cast<uint32_t>(k));
       have_deep = true;
     }
     const int idx = base + lane;
     const bool in = idx < lanes;
     long long c = 0;
-    if (in) {
-      c = idx < L ? lite_c[idx * lite_stride]
-                  : lane_cost(lane_uniform(k_col, static_cast<uint32_t>(idx - L), bits), loc,
-                              scale, f_lo, f_hi);
+    if (in && idx < L) {
+      c = lite_c[idx * lite_stride];
+    } else if (in && kModel == kImplicit) {
+      c = lane_cost(lane_uniform(k_col, static_cast<uint32_t>(idx - L), bits), loc, scale, f_lo,
+                    f_hi);
+    } else if (in) {
+      c = explicit_cost(kModel == kExplicitRust,
+                        xla_normal_erfinv(k_col, static_cast<uint32_t>(idx - L)), bid_deep);
     }
     const long long incl = warp_inclusive_sum(c, lane) + carry;
     const unsigned bad = __ballot_sync(kFull, !(in && incl <= B));
@@ -411,7 +419,9 @@ __host__ __device__ inline size_t cells_gate_smem(int chunk_t, int K, int m0, in
 // next 32 cells. Each cell's accepted clicks and spend replace its clicks
 // and aggregate spend; B, the budget left, carries across chunks. Returns
 // the cells simulated: all of them, or those up to and including the one
-// that breaks the day.
+// that breaks the day. An explicit model's phantom cells (no impression,
+// clicks that spend nothing) have s = 0 and take the passive run.
+template <int kModel>
 __device__ int gate_chunk(int* sfull, int* ncl, const int* lite, int lite_stride, const float* kw,
                           const Key* tkeys, int cells, int t0, int K, int m0, int m1, int L,
                           int bits, int lane, long long& B, bool& broken) {
@@ -454,8 +464,8 @@ __device__ int gate_chunk(int* sfull, int* ncl, const int* lite, int lite_stride
     } else if (s_p > B) {
       const int tt = p / K;
       const int k = p - tt * K;
-      accepted = resolve_cell(lite + p, lite_stride, kw, K, tkeys[kChunkKeys * tt + 4], k, n_p, B,
-                              t0 + tt == 0 ? m0 : m1, L, bits, lane, &spend);
+      accepted = resolve_cell<kModel>(lite + p, lite_stride, kw, K, tkeys[kChunkKeys * tt + 4], k,
+                                      n_p, B, t0 + tt == 0 ? m0 : m1, L, bits, lane, &spend);
     }
     if (lane == 0) {
       ncl[p] = accepted;
@@ -472,13 +482,22 @@ __device__ int gate_chunk(int* sfull, int* ncl, const int* lite, int lite_stride
 }
 
 // ---- agg_cells_gate: one block per env, the sub-timesteps in chunks ----
+// One instance per cost model. The explicit ones (explicit keywords, the
+// rust or python cost model) differ in three places: the prologue's win
+// probability is the threshold sigmoid and its cost moments are the
+// model's (xla_math.cuh: the clipped normal's, or the python model's
+// cost_grid-cell Abel sums, by each keyword's thread); stage A draws
+// clicks over max(impressions, 1) candidates, a phantom cell (no
+// impression) spending nothing, and the lite lanes from the cost model's
+// normals at counter l * K + k; and resolve_cell's deep lanes.
+template <int kModel>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
     agg_cells_gate_kernel(const float* __restrict__ params, const int* __restrict__ n_auc01,
                           const long long* __restrict__ keys, long long key_stride,
                           const int* __restrict__ budget_c, int* __restrict__ imp_out,
                           int* __restrict__ acc_out, int* __restrict__ spend_out,
                           int* __restrict__ n_sim, float* __restrict__ consts_out, int E, int K,
-                          int T, int m0, int m1, int L, int bits, int chunk_t) {
+                          int T, int m0, int m1, int L, int bits, int chunk_t, int cost_grid) {
   extern __shared__ unsigned long long smem[];
   const int max_cells = chunk_t * K;
   const int nmax = max(m0, m1);
@@ -528,17 +547,30 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     const float loc = params[LOC * EK + ek], scale = params[SCALE * EK + ek];
     const int n1 = n_auc01[EK + ek];
     const float y0 = __fsub_rn(bid, 0.005f);
-    const float f_lo = laplace_cdf(-y0, loc, scale), f_hi = laplace_cdf(y0, loc, scale);
-    const float p_win = fminf(fmaxf(__fsub_rn(f_hi, f_lo), 0.0f), 1.0f);
-    const CostMoments cm = cost_moments(bid, loc, scale);
+    float p_win;
+    CostMoments cm;
+    if (kModel == kImplicit) {
+      const float f_lo = laplace_cdf(-y0, loc, scale), f_hi = laplace_cdf(y0, loc, scale);
+      p_win = fminf(fmaxf(__fsub_rn(f_hi, f_lo), 0.0f), 1.0f);
+      cm = cost_moments(bid, loc, scale);
+      kw[kFLo * K + k] = f_lo;
+      kw[kFHi * K + k] = f_hi;
+      kw[kLoc * K + k] = loc;
+      kw[kScale * K + k] = scale;
+    } else {
+      p_win = threshold_sigmoid(bid, params[IMP_THRESH * EK + ek], params[IMP_INTERCEPT * EK + ek],
+                                params[IMP_SLOPE * EK + ek]);
+      const ExplicitMoments em = kModel == kExplicitRust
+                                     ? cost_create_deci_moments(bid)
+                                     : generic_cost_cent_moments(bid, cost_grid);
+      cm = CostMoments{em.mu, em.sigma, em.cmax};
+      kw[kBidLite * K + k] = bid;
+      kw[kBidDeep * K + k] = __fadd_rn(y0, 0.005f);
+    }
     kw[kPWin * K + k] = p_win;
-    kw[kFLo * K + k] = f_lo;
-    kw[kFHi * K + k] = f_hi;
     kw[kMu * K + k] = cm.mu;
     kw[kSigma * K + k] = cm.sigma;
     kw[kCmax * K + k] = cm.cmax;
-    kw[kLoc * K + k] = loc;
-    kw[kScale * K + k] = scale;
     kw[kBctr * K + k] = params[BCTR * EK + ek];
     n01[k] = n_auc01[ek];
     n01[K + k] = n1;
@@ -603,19 +635,33 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
           im = p_win > 0.5f ? n1 - cnt : cnt;
         }
       }
+      // an explicit cell without impressions still flips one phantom
+      // candidate
+      const int candidates = kModel == kImplicit ? im : max(im, 1);
       int nc = 0, s = 0;
-      if (im != 0) {
-        nc = binomial_walk(lane_uniform(tk[1], k, bits), im, kw[kBctr * K + k],
+      if (candidates != 0) {
+        nc = binomial_walk(lane_uniform(tk[1], k, bits), candidates, kw[kBctr * K + k],
                            first_t ? m0 : m1, table);
       }
-      if (nc != 0) {
+      if (nc != 0 && im == 0) {  // phantom clicks: no spend, lite lanes 0
+        for (int l = 0; l < L; ++l) lite[l * max_cells + c] = 0;
+      } else if (nc != 0) {
         s = agg_cost(nc, kw[kMu * K + k], kw[kSigma * K + k], kw[kCmax * K + k],
-                     normal(tk[2], k));
-        const float loc = kw[kLoc * K + k], scale = kw[kScale * K + k];
-        const float f_lo = kw[kFLo * K + k], f_hi = kw[kFHi * K + k];
-        for (int l = 0; l < L; ++l) {
-          const float u = lane_uniform(tk[3], static_cast<uint32_t>(l * K + k), bits);
-          lite[l * max_cells + c] = lane_cost(u, loc, scale, f_lo, f_hi);
+                     xla_normal(tk[2], k));
+        if (kModel == kImplicit) {
+          const float loc = kw[kLoc * K + k], scale = kw[kScale * K + k];
+          const float f_lo = kw[kFLo * K + k], f_hi = kw[kFHi * K + k];
+          for (int l = 0; l < L; ++l) {
+            const float u = lane_uniform(tk[3], static_cast<uint32_t>(l * K + k), bits);
+            lite[l * max_cells + c] = lane_cost(u, loc, scale, f_lo, f_hi);
+          }
+        } else {
+          const float bid = kw[kBidLite * K + k];
+          for (int l = 0; l < L; ++l) {
+            lite[l * max_cells + c] = explicit_cost(
+                kModel == kExplicitRust,
+                xla_normal_erfinv(tk[3], static_cast<uint32_t>(l * K + k)), bid);
+          }
         }
       }
       imp[c] = im;
@@ -627,8 +673,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 
     // Stage B: the gate
     if (tid < 32) {
-      const int end = gate_chunk(sfull, ncl, lite, max_cells, kw, tkeys, cells, t0, K, m0, m1, L,
-                                 bits, tid, B, broken);
+      const int end = gate_chunk<kModel>(sfull, ncl, lite, max_cells, kw, tkeys, cells, t0, K, m0,
+                                         m1, L, bits, tid, B, broken);
       if (tid == 0) {
         s_end = end;
         s_broken = broken;
@@ -714,7 +760,7 @@ struct Outcomes {
   // the revenue cents of n > 0 conversions at the normal of `key` at k
   __device__ int revenue(Key key, int k, int n) const {
     return rev_sum(n, kwf[kMeanC * K + k], kwf[kStdC * K + k], kwf[kRevStd * K + k],
-                   normal(key, static_cast<uint32_t>(k)));
+                   xla_normal(key, static_cast<uint32_t>(k)));
   }
 };
 
@@ -900,20 +946,38 @@ __global__ void __launch_bounds__(kThreads)
 #endif
 }
 
+// agg_cells_gate's instance for a cost model
+const void* cells_gate_kernel(int model) {
+  switch (model) {
+    case kExplicitRust:
+      return reinterpret_cast<const void*>(agg_cells_gate_kernel<kExplicitRust>);
+    case kExplicitPython:
+      return reinterpret_cast<const void*>(agg_cells_gate_kernel<kExplicitPython>);
+    default:
+      return reinterpret_cast<const void*>(agg_cells_gate_kernel<kImplicit>);
+  }
+}
+
 // The dynamic shared memory an agg_cells_gate block may take on `device`:
-// the device's opt-in shared memory per block less the kernel's static.
+// the device's opt-in shared memory per block less the largest static
+// shared memory of the kernel's instances.
 cudaError_t smem_limit(int device, int* bytes) {
   cudaError_t err = cudaDeviceGetAttribute(bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  if (err != cudaSuccess) return err;
-  cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, agg_cells_gate_kernel);
-  if (err == cudaSuccess) *bytes -= static_cast<int>(attr.sharedSizeBytes);
+  int most = 0;
+  for (int model = 0; err == cudaSuccess && model < kModels; ++model) {
+    cudaFuncAttributes attr;
+    err = cudaFuncGetAttributes(&attr, cells_gate_kernel(model));
+    if (err == cudaSuccess && static_cast<int>(attr.sharedSizeBytes) > most) {
+      most = static_cast<int>(attr.sharedSizeBytes);
+    }
+  }
+  if (err == cudaSuccess) *bytes -= most;
   return err;
 }
 
-// Lets agg_cells_gate blocks on the current device, `device`, take up to
-// smem_limit, with shared memory preferred over L1 (the kernel reads device
-// memory only to stage); done once per device.
+// Lets agg_cells_gate blocks of every instance on the current device,
+// `device`, take up to smem_limit, with shared memory preferred over L1
+// (the kernel reads device memory only to stage); done once per device.
 cudaError_t cells_gate_configure(int device) {
   static std::mutex mu;
   static bool done[kMaxDevices] = {};
@@ -922,19 +986,23 @@ cudaError_t cells_gate_configure(int device) {
   if (known && done[device]) return cudaSuccess;
   int limit = 0;
   cudaError_t err = smem_limit(device, &limit);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(agg_cells_gate_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             limit);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(agg_cells_gate_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                             cudaSharedmemCarveoutMaxShared);
+  for (int model = 0; err == cudaSuccess && model < kModels; ++model) {
+    err = cudaFuncSetAttribute(cells_gate_kernel(model),
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, limit);
+    if (err == cudaSuccess) {
+      err = cudaFuncSetAttribute(cells_gate_kernel(model),
+                                 cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 cudaSharedmemCarveoutMaxShared);
+    }
+  }
   if (err == cudaSuccess && known) done[device] = true;
   return err;
 }
 
-// Resident agg_cells_gate blocks per SM; 0 when a block needs more shared
-// memory than the device gives one.
-cudaError_t cells_gate_occupancy(int chunk_t, int K, int m0, int m1, int L, int device,
+// Resident blocks per SM of the cost model's agg_cells_gate instance (the
+// instances share their shared memory but not their registers); 0 when a
+// block needs more shared memory than the device gives one.
+cudaError_t cells_gate_occupancy(int model, int chunk_t, int K, int m0, int m1, int L, int device,
                                  int* blocks_per_sm) {
   int limit = 0;
   cudaError_t err = smem_limit(device, &limit);
@@ -944,8 +1012,8 @@ cudaError_t cells_gate_occupancy(int chunk_t, int K, int m0, int m1, int L, int 
   if (smem > static_cast<size_t>(limit)) return cudaSuccess;
   err = cells_gate_configure(device);
   if (err != cudaSuccess) return err;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, agg_cells_gate_kernel,
-                                                       kThreads, smem);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, cells_gate_kernel(model), kThreads, smem);
 }
 
 // Lets agg_outcomes blocks take `smem` bytes of dynamic shared memory: past
@@ -964,15 +1032,19 @@ extern "C" {
 // right after the launch (the library's runtime has its own current device).
 
 // agg_cells_gate: imp, acc, spend (E, T, K) of the simulated cells (those
-// with t * K + k < n_sim[e]; the others are not written) and n_sim (E,).
-// consts_out, if not null, receives the (4 + m1, E, K) constants the day
-// used: p_win, cost mu, sigma, cmax, then the ladder's m1 levels.
+// with t * K + k < n_sim[e]; the others are not written) and n_sim (E,),
+// for the cost model `model` (0 implicit, 1 explicit rust, 2 explicit
+// python, whose moments sum cost_grid cent cells). consts_out,
+// if not null, receives the (4 + m1, E, K) constants the day used: p_win,
+// cost mu, sigma, cmax, then the ladder's m1 levels.
 int agg_cells_gate_launch(const float* params, const int* n_auc01, const long long* keys,
                           long long key_stride, const int* budget_c, int* imp, int* acc,
                           int* spend, int* n_sim, float* consts_out, int E, int K, int T, int m0,
-                          int m1, int L, int bits, int chunk_t, int device, void* stream) {
+                          int m1, int L, int bits, int chunk_t, int model, int cost_grid,
+                          int device, void* stream) {
   if (E <= 0) return static_cast<int>(cudaSuccess);
-  if (K < 1 || T < 1 || m0 < 1 || m1 < 1 || L < 1 || L > m1 || chunk_t < 1) {
+  if (K < 1 || T < 1 || m0 < 1 || m1 < 1 || L < 1 || L > m1 || chunk_t < 1 || model < 0 ||
+      model >= kModels || (model == kExplicitPython && (cost_grid <= 32 || cost_grid > 1024))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaSetDevice(device);
@@ -981,34 +1053,43 @@ int agg_cells_gate_launch(const float* params, const int* n_auc01, const long lo
   const size_t smem = cells_gate_smem(chunk_t, K, m0, m1, L);
   err = cells_gate_configure(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  agg_cells_gate_kernel<<<E, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  decltype(&agg_cells_gate_kernel<kImplicit>) kernel = agg_cells_gate_kernel<kImplicit>;
+  if (model == kExplicitRust) kernel = agg_cells_gate_kernel<kExplicitRust>;
+  if (model == kExplicitPython) kernel = agg_cells_gate_kernel<kExplicitPython>;
+  kernel<<<E, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       params, n_auc01, keys, key_stride, budget_c, imp, acc, spend, n_sim, consts_out, E, K, T,
-      m0, m1, L, bits, chunk_t);
+      m0, m1, L, bits, chunk_t, cost_grid);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Resident agg_cells_gate blocks per SM at chunk_t into *blocks_per_sm; 0
-// when a block needs more shared memory than the device gives one.
-int agg_cells_gate_occupancy(int chunk_t, int K, int m0, int m1, int L, int device,
+// Resident blocks per SM of the cost model's agg_cells_gate at chunk_t into
+// *blocks_per_sm; 0 when a block needs more shared memory than the device
+// gives one.
+int agg_cells_gate_occupancy(int model, int chunk_t, int K, int m0, int m1, int L, int device,
                              int* blocks_per_sm) {
+  if (model < 0 || model >= kModels) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cells_gate_occupancy(chunk_t, K, m0, m1, L, device, blocks_per_sm));
+  return static_cast<int>(
+      cells_gate_occupancy(model, chunk_t, K, m0, m1, L, device, blocks_per_sm));
 }
 
-// The largest chunk_t <= T that keeps kMinBlocks blocks resident per SM (or
-// as many as chunk_t = 1 keeps) into *chunk_t; 0 if not even chunk_t = 1
-// fits the device's shared memory per block.
-int agg_cells_gate_default_chunk_t(int K, int T, int m0, int m1, int L, int device, int* chunk_t) {
+// The largest chunk_t <= T that keeps kMinBlocks blocks of the cost model's
+// instance resident per SM (or as many as chunk_t = 1 keeps) into
+// *chunk_t; 0 if not even chunk_t = 1 fits the device's shared memory per
+// block.
+int agg_cells_gate_default_chunk_t(int model, int K, int T, int m0, int m1, int L, int device,
+                                   int* chunk_t) {
+  if (model < 0 || model >= kModels) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   int target = 0, blocks = 0;
-  err = cells_gate_occupancy(1, K, m0, m1, L, device, &target);
+  err = cells_gate_occupancy(model, 1, K, m0, m1, L, device, &target);
   *chunk_t = 0;
   if (err != cudaSuccess || target == 0) return static_cast<int>(err);
   if (target > kMinBlocks) target = kMinBlocks;
   for (*chunk_t = 1; err == cudaSuccess && *chunk_t < T; ++*chunk_t) {
-    err = cells_gate_occupancy(*chunk_t + 1, K, m0, m1, L, device, &blocks);
+    err = cells_gate_occupancy(model, *chunk_t + 1, K, m0, m1, L, device, &blocks);
     if (blocks < target) break;
   }
   return static_cast<int>(err);

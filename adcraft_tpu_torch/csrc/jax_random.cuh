@@ -1,7 +1,7 @@
 // jax.random's key tree and draws on Hopper, for the kernels of
 // agg_day.cu and lanes_day.cu: keys and their children, the uniform
 // transforms, the exact fused multiply-add of the plain versions' fma32,
-// prng.erfinv's normal, the (truncated) Laplace draws in cents and the
+// the (truncated) Laplace draws in cents and the
 // inverse-CDF binomial walk. Every float operation is the one the plain
 // PyTorch version performs on the card, spelled so that nvcc cannot
 // contract or reorder it (__fmul_rn, __fadd_rn, __fdiv_rn, IEEE sqrtf,
@@ -19,7 +19,7 @@
 namespace {
 
 // rows of the (kNumParams, E, K) parameter tensor (agg_day.py)
-enum { BID, BCTR, SCTR, LOC, SCALE, REV_MEAN, REV_STD, kNumParams };
+enum { BID, BCTR, SCTR, LOC, SCALE, REV_MEAN, REV_STD, IMP_THRESH, IMP_INTERCEPT, IMP_SLOPE, kNumParams };
 
 struct Key {
   uint32_t k0, k1;
@@ -57,31 +57,6 @@ __device__ __forceinline__ float lane_uniform(Key k, uint32_t counter, int bits)
 __device__ __forceinline__ float fma32(float a, float b, float c) {
   return __double2float_rn(
       __fma_rn(static_cast<double>(a), static_cast<double>(b), static_cast<double>(c)));
-}
-
-// prng.erfinv: XLA's float32 polynomial without contraction
-__device__ float erfinv(float x) {
-  const float lt5[9] = {2.81022636e-08f, 3.43273939e-07f, -3.5233877e-06f, -4.39150654e-06f,
-                        0.00021858087f, -0.00125372503f, -0.00417768164f, 0.246640727f,
-                        1.50140941f};
-  const float ge5[9] = {-0.000200214257f, 0.000100950558f, 0.00134934322f, -0.00367342844f,
-                        0.00573950773f, -0.0076224613f, 0.00943887047f, 1.00167406f,
-                        2.83297682f};
-  float w = -log1pf(__fmul_rn(-x, x));
-  const bool lt = w < 5.0f;
-  w = lt ? __fsub_rn(w, 2.5f) : __fsub_rn(sqrtf(w), 3.0f);
-  float p = lt ? lt5[0] : ge5[0];
-#pragma unroll
-  for (int i = 1; i < 9; ++i) p = __fadd_rn(lt ? lt5[i] : ge5[i], __fmul_rn(p, w));
-  return fabsf(x) == 1.0f ? __fmul_rn(x, __int_as_float(0x7F800000)) : __fmul_rn(p, x);
-}
-
-// prng.normal: sqrt(2) erfinv(u), u uniform on [nextafter(-1, 0), 1)
-__device__ __forceinline__ float normal(Key k, uint32_t counter) {
-  const float lo = __int_as_float(0xBF7FFFFF);
-  const float span = __fsub_rn(1.0f, lo);
-  const float u = fmaxf(__fadd_rn(__fmul_rn(uniform32(bits32(k, counter)), span), lo), lo);
-  return __fmul_rn(1.41421354f, erfinv(u));
 }
 
 __device__ __forceinline__ float laplace_cdf(float x, float loc, float scale) {

@@ -767,7 +767,7 @@ __device__ __forceinline__ void revenue_step(const LaneRing& rr, RingCursor& rc,
 }
 
 // One erf_inv step of `live` staged uniforms of log1p branch kBranch: each
-// lane's normal (prng.erfinv's XLA polynomial), revenue in cents, added to
+// lane's normal (XLA's erf_inv polynomial), revenue in cents, added to
 // its keyword's sum.
 template <bool kShared, int kBranch>
 __device__ __forceinline__ void erf_step(const ErfStage& st, StageCursor& sc,

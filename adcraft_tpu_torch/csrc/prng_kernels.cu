@@ -5,8 +5,9 @@
 // * threefry_words replaces `kernel` (:21, words seeded per (seed, program
 //   id)) and `kernel2` (:56, successive draws from one seed): keys are
 //   explicit and the stream advances by the counter. It is also the word
-//   source of adcraft_tpu_torch/prng.py (split, fold_in, random_bits), so
-//   the env step's key tree runs as one launch per call.
+//   source of adcraft_tpu_torch/prng.py (split, fold_in, random_bits, and
+//   normal, whose float transform threefry_normal_kernel runs in the same
+//   launch), so the env step's key tree runs as one launch per call.
 // * threefry_rate replaces `kernel3` (:88), the PRNG throughput probe.
 // The plain PyTorch versions are adcraft_tpu_torch/prng_kernel.py:
 // threefry_words_reference and threefry_rate_reference.
@@ -25,6 +26,7 @@
 #include <stdint.h>
 
 #include "threefry.cuh"
+#include "xla_math.cuh"
 
 namespace {
 
@@ -63,6 +65,26 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// normal: out (N, n) float32 = jax.random.normal's draw from the word at
+// counter (0, i), sqrt(2) erf_inv(u) on XLA's log1p and erf_inv
+// (prng_kernel.normal_from_words), for n < 2^32. A kernel of its own, so
+// threefry_words_kernel's loop stays one threefry body.
+__global__ void __launch_bounds__(kThreads)
+    threefry_normal_kernel(const long long* __restrict__ keys, long long key_stride, long long N,
+                           long long n, float* __restrict__ out) {
+  const long long key_step = static_cast<long long>(gridDim.y) * blockDim.y;
+  const long long count_step = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long k = static_cast<long long>(blockIdx.y) * blockDim.y + threadIdx.y; k < N;
+       k += key_step) {
+    const Key key{static_cast<uint32_t>(keys[k * key_stride]),
+                  static_cast<uint32_t>(keys[k * key_stride + 1])};
+    for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
+         i += count_step) {
+      out[k * n + i] = xla_normal(key, static_cast<uint32_t>(i));
+    }
+  }
+}
+
 // out (P, cells) int32: out[p, c] is the xor of the words at counters
 // (j, c), j < draws, under key (seed[0], p). The probe's rate counts every
 // one of those words, so every one is folded into the result: nothing is
@@ -89,11 +111,21 @@ unsigned grid_for(long long work, unsigned per_block) {
   return static_cast<unsigned>(blocks < kMaxGrid ? blocks : kMaxGrid);
 }
 
+// counters across x, keys across y: a block of tx x ty threads with tx the
+// power of two >= n (at most kThreads), so short rows (split's 4,
+// randint's 1) still fill the block with keys
+void words_shape(long long N, long long n, dim3* threads, dim3* grid) {
+  unsigned tx = 1;
+  while (tx < kThreads && tx < n) tx <<= 1;
+  *threads = dim3(tx, kThreads / tx);
+  *grid = dim3(grid_for(n, threads->x), grid_for(N, threads->y));
+}
+
 }  // namespace
 
 extern "C" {
 
-// Both launchers run on `stream` of `device` and return cudaGetLastError()
+// Each launcher runs on `stream` of `device` and returns cudaGetLastError()
 // right after the launch. The library links its own CUDA runtime, whose
 // current device is not PyTorch's, so the caller names the device.
 
@@ -103,15 +135,22 @@ int threefry_words_launch(const long long* keys, long long key_stride, long long
   if (N <= 0 || n <= 0) return static_cast<int>(cudaSuccess);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  // counters across x, keys across y: a block of tx x ty threads with tx
-  // the power of two >= n (at most kThreads), so short rows (split's 4,
-  // randint's 1) still fill the block with keys
-  unsigned tx = 1;
-  while (tx < kThreads && tx < n) tx <<= 1;
-  const dim3 threads(tx, kThreads / tx);
-  const dim3 grid(grid_for(n, threads.x), grid_for(N, threads.y));
+  dim3 threads, grid;
+  words_shape(N, n, &threads, &grid);
   threefry_words_kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
       keys, key_stride, N, n, pair, base, mask, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int threefry_normal_launch(const long long* keys, long long key_stride, long long N, long long n,
+                           float* out, int device, void* stream) {
+  if (N <= 0 || n <= 0) return static_cast<int>(cudaSuccess);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 threads, grid;
+  words_shape(N, n, &threads, &grid);
+  threefry_normal_kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      keys, key_stride, N, n, out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,5 +1,7 @@
-// XLA's float32 log, log1p and erf_inv on the CPU, and jax.random.normal on
-// them, as adcraft_tpu_torch/xla_math.py computes them: the same algorithms
+// XLA's float32 log, log1p, erf_inv, exp, erf and erfc on the CPU,
+// jax.random.normal on them, and the explicit keywords' impression rate,
+// cost moments and lane costs (adcraft_tpu_torch/distributions.py), as the
+// plain version computes them: the same algorithms
 // and constants (bit patterns), every product and sum spelled with
 // __fmul_rn / __fadd_rn, and each fused multiply-add that LLVM forms on the
 // CPU as fma32 (a float64 product and sum rounded to float32, which is what
@@ -86,6 +88,203 @@ __device__ __forceinline__ float uniform_open(Key k, uint32_t counter) {
   const float lo = __int_as_float(0xBF7FFFFF);
   const float span = __fsub_rn(1.0f, lo);
   return fmaxf(__fadd_rn(__fmul_rn(uniform32(bits32(k, counter)), span), lo), lo);
+}
+
+// prng.normal_erfinv: erf_inv of jax.random.normal's uniform at a
+// counter (the normal is this times sqrt(2))
+__device__ __forceinline__ float xla_normal_erfinv(Key k, uint32_t counter) {
+  const float u = uniform_open(k, counter);
+  return xla_erfinv_of(u, xla_log1p(__fmul_rn(u, -u)));
+}
+
+// prng.normal: jax.random.normal's draw at a counter, sqrt(2) erf_inv(u)
+__device__ __forceinline__ float xla_normal(Key k, uint32_t counter) {
+  return __fmul_rn(xla_normal_erfinv(k, counter), 1.41421354f);
+}
+
+// xla_math.ftz: XLA's CPU code flushes subnormal results to zero
+__device__ __forceinline__ float xla_ftz(float x) {
+  return fabsf(x) < f32(0x00800000u) ? 0.0f : x;
+}
+
+// xla_math.exp: Cephes expf as XLA emits it; x clamped as torch.clamp
+// clamps (a NaN passes)
+__device__ float xla_exp(float x) {
+  const float lo = f32(0xC2AF999Au), hi = f32(0x42B1999Au);
+  x = x < lo ? lo : (x > hi ? hi : x);
+  float n = floorf(fma32(x, f32(0x3FB8AA3Bu), 0.5f));
+  n = n < -127.0f ? -127.0f : (n > 127.0f ? 127.0f : n);
+  float r = fma32(n, -f32(0x3F318000u), x);
+  r = fma32(n, -f32(0xB95E8083u), r);
+  float p = fma32(r, f32(0x39506967u), f32(0x3AB743CEu));
+  p = fma32(p, r, f32(0x3C088908u));
+  p = fma32(p, r, f32(0x3D2AA9C1u));
+  p = fma32(p, r, f32(0x3E2AAAAAu));
+  p = fma32(p, r, 0.5f);
+  const float y = __fadd_rn(fma32(p, __fmul_rn(r, r), r), 1.0f);
+  const float scale = __int_as_float((static_cast<int>(n) + 127) << 23);
+  return xla_ftz(__fmul_rn(y, scale));
+}
+
+// xla_math.erf: XLA's rational function, x clamped to +-3.7439
+__device__ float xla_erf(float x) {
+  const float c = f32(0x406F9C68u);
+  x = x < -c ? -c : (x > c ? c : x);
+  const float x2 = __fmul_rn(x, x);
+  float p = fma32(x2, f32(0x39702D51u), f32(0x3B5F5DA2u));
+  p = fma32(p, x2, f32(0x3D50B6EBu));
+  p = fma32(p, x2, f32(0x3E3DA740u));
+  p = fma32(p, x2, f32(0x3F906EBAu));
+  float q = fma32(x2, f32(0xB3FD3906u), f32(0x37C588DFu));
+  q = fma32(q, x2, f32(0x3A856D28u));
+  q = fma32(q, x2, f32(0x3C6687D4u));
+  q = fma32(q, x2, f32(0x3DE34C21u));
+  q = fma32(q, x2, f32(0x3EFEB44Au));
+  return __fdiv_rn(__fmul_rn(x, p), fma32(q, x2, 1.0f));
+}
+
+// the fused Horner steps of xla_math._horner: ((c0 x + c1) x + c2) ...
+template <int N>
+__device__ __forceinline__ float xla_horner(float x, const uint32_t (&c)[N]) {
+  float p = fma32(x, f32(c[0]), f32(c[1]));
+#pragma unroll
+  for (int i = 2; i < N; ++i) p = fma32(p, x, f32(c[i]));
+  return p;
+}
+
+// xla_math.erfc: 1 - x P(x^2) below 1, else exp(-x^2) / |x| times a
+// polynomial in 1 / x^2 (one below 2, one above), 0 past x^2 = 88.72
+__device__ float xla_erfc(float x) {
+  const uint32_t small_c[7] = {0x38A4B519u, 0xBA51FB80u, 0x3BAA02D9u, 0xBCDBFC87u,
+                               0x3DE7167Cu, 0xBEC0939Fu, 0x3F906EBAu};
+  const uint32_t lt2_c[9] = {0x3CBE9CF4u, 0xBE0E0868u, 0x3EBCCBD0u, 0xBF151CF8u, 0x3F1EF9E3u,
+                             0xBEFD28C0u, 0x3EAE5471u, 0xBE8C5880u, 0x3F1056E6u};
+  const uint32_t ge2_c[8] = {0xC127A483u, 0x414FA29Cu, 0xC0EFDB4Au, 0x403AF1FAu,
+                             0xBF81F436u, 0x3ED7FC3Eu, 0xBE906C5Du, 0x3F106EB9u};
+  const float z = fabsf(x);
+  const float x2 = __fmul_rn(x, x);
+  if (z < 1.0f) return fma32(-x, xla_horner(x2, small_c), 1.0f);
+  const float q = __fdiv_rn(1.0f, x2);
+  const float tail = z < 2.0f ? xla_horner(q, lt2_c) : xla_horner(q, ge2_c);
+  float large = xla_ftz(__fmul_rn(__fmul_rn(xla_exp(-x2), __fdiv_rn(1.0f, z)), tail));
+  if (x2 > f32(0x42B17218u)) large = 0.0f;
+  return x < 0.0f ? __fsub_rn(2.0f, large) : large;
+}
+
+// distributions.ndtr: jax.scipy.special.ndtr on XLA's erf and erfc
+__device__ float xla_ndtr(float x) {
+  const float inv_sqrt2 = f32(0x3F3504F3u);
+  const float w = __fmul_rn(x, inv_sqrt2);
+  const float z = fabsf(w);
+  const float y = z < inv_sqrt2 ? __fadd_rn(1.0f, xla_erf(w))
+                                : (w > 0.0f ? __fsub_rn(2.0f, xla_erfc(z)) : xla_erfc(z));
+  return __fmul_rn(y, 0.5f);
+}
+
+// distributions.normal_pdf: exp(-(x^2 + log(2 pi)) / 2)
+__device__ __forceinline__ float xla_normal_pdf(float x) {
+  return xla_exp(__fmul_rn(fma32(x, x, f32(0x3FEB3F8Eu)), -0.5f));
+}
+
+// An explicit cost model's per-click moments in the gate's unit
+struct ExplicitMoments {
+  float mu, sigma, cmax;
+};
+
+// distributions.cost_create_deci_moments: the clipped-normal moments of
+// clip(N(sqrt(bid)/4 + 2.2, 1e-10 + sqrt(bid)/6), 0, 4.4) (its
+// clipped_normal_moments at low 0, high 4.4) in decicents, with the 1/12
+// quantization variance
+__device__ ExplicitMoments cost_create_deci_moments(float bid) {
+  const float s = sqrtf(bid);
+  const float mean = fma32(s, 0.25f, 2.2f);
+  const float std = fma32(s, f32(0x3E2AAAABu), 1e-10f);
+  const float high = 4.4f;
+  const float safe = std < 1e-20f ? 1e-20f : std;
+  const float a = __fdiv_rn(__fsub_rn(0.0f, mean), safe);
+  const float b = __fdiv_rn(__fsub_rn(high, mean), safe);
+  const float fa = xla_ndtr(a), fb = xla_ndtr(b);
+  const float pa = xla_normal_pdf(a), pb = xla_normal_pdf(b);
+  const float mid = __fsub_rn(fb, fa), dp = __fsub_rn(pa, pb), ss = __fmul_rn(safe, safe);
+  const float one_fb = __fsub_rn(1.0f, fb);
+  float m1 = xla_ftz(fma32(safe, dp, fma32(mean, mid, fma32(high, one_fb, __fmul_rn(0.0f, fa)))));
+  float m2 = fma32(f32(0x419AE148u), one_fb, __fmul_rn(0.0f, fa));  // 4.4 * 4.4 folded
+  m2 = fma32(fma32(mean, mean, ss), mid, m2);
+  m2 = fma32(__fmul_rn(__fmul_rn(mean, 2.0f), safe), dp, m2);
+  m2 = fma32(ss, fma32(a, pa, -__fmul_rn(b, pb)), m2);
+  float var = fma32(-m1, m1, m2);
+  var = xla_ftz(var < 0.0f ? 0.0f : var);
+  if (std <= 0.0f) {
+    m1 = mean < 0.0f ? 0.0f : (mean > high ? high : mean);
+    var = 0.0f;
+  }
+  const float h = __fmul_rn(sqrtf(var), 1000.0f);
+  return ExplicitMoments{__fmul_rn(m1, 1000.0f), sqrtf(fma32(h, h, f32(0x3DAAAAABu))),
+                         4400.0f};
+}
+
+// distributions.generic_cost_cent_moments: Abel sums of the normal's tail
+// over `grid` cent cells (33 <= grid <= 1024), each sum in XLA's order:
+// windows of 32 consecutive terms offset by half the padding to a multiple
+// of 32 (the terms are non-negative, so the zero pads add nothing), the
+// window sums then summed in order. From the first cell whose edge reaches
+// the bid on, every term is 0 (its CDF is 1), and adding 0 changes no sum,
+// so the walk stops there.
+__device__ ExplicitMoments generic_cost_cent_moments(float bid, int grid) {
+  const float s = sqrtf(bid);
+  const float mu_r = __fadd_rn(__fmul_rn(s, 0.25f), __fmul_rn(bid, 0.5f));
+  const float sig_r = fma32(s, f32(0x3E2AAAABu), 1e-10f);
+  const int lo = ((32 - grid % 32) % 32) / 2;
+  float mu = 0.0f, m2 = 0.0f, w_mu = 0.0f, w_m2 = 0.0f;
+  for (int i = 0; i < grid; ++i) {
+    const float fi = static_cast<float>(i);
+    const float edge = __fmul_rn(__fadd_rn(fi, 0.5f), 0.01f);
+    if (edge >= bid) break;
+    float tail = __fsub_rn(1.0f, xla_ndtr(__fdiv_rn(__fsub_rn(edge, mu_r), sig_r)));
+    tail = tail < 0.0f ? 0.0f : tail;
+    w_mu = __fadd_rn(w_mu, tail);
+    w_m2 = __fadd_rn(w_m2, __fmul_rn(fma32(fi, 2.0f, 1.0f), tail));
+    if ((i + lo + 1) % 32 == 0) {  // a window ends
+      mu = __fadd_rn(mu, w_mu);
+      m2 = __fadd_rn(m2, w_m2);
+      w_mu = w_m2 = 0.0f;
+    }
+  }
+  mu = __fadd_rn(mu, w_mu);  // the window the walk stopped in
+  m2 = __fadd_rn(m2, w_m2);
+  float var = fma32(-mu, mu, m2);
+  var = var < 0.0f ? 0.0f : var;
+  return ExplicitMoments{mu, sqrtf(var), rintf(__fmul_rn(bid, 100.0f))};
+}
+
+// distributions.threshold_sigmoid: with c = clip(2 thresh, 0, 1),
+// clip((1 + c) sigmoid(slope (bid - intercept)) - c / 2, 0, 1), the
+// sigmoid XLA's 1 / (exp(-x) + 1)
+__device__ float threshold_sigmoid(float bid, float thresh, float intercept, float slope) {
+  float c = __fmul_rn(thresh, 2.0f);
+  c = c < 0.0f ? 0.0f : (c > 1.0f ? 1.0f : c);
+  const float x = __fmul_rn(slope, __fsub_rn(bid, intercept));
+  const float r = xla_ftz(__fdiv_rn(1.0f, __fadd_rn(xla_exp(-x), 1.0f)));
+  const float rate = fma32(r, __fadd_rn(c, 1.0f), -__fmul_rn(c, 0.5f));
+  return rate < 0.0f ? 0.0f : (rate > 1.0f ? 1.0f : rate);
+}
+
+// agg_day.explicit_costs: one explicit lane cost in the gate's unit at e =
+// erf_inv(u) of its normal: the rust cost_create in decicents (rust) or
+// the python generic_cost in cents
+__device__ int explicit_cost(bool rust, float e, float bid) {
+  const float s = sqrtf(bid);
+  const float std = __fmul_rn(fma32(s, f32(0x3E2AAAABu), 1e-10f), f32(0x3FB504F3u));
+  if (rust) {
+    float c = fma32(std, e, fma32(s, 0.25f, 2.2f));
+    c = c < 0.0f ? 0.0f : (c > 4.4f ? 4.4f : c);
+    return static_cast<int>(rintf(__fmul_rn(c, 1000.0f)));
+  }
+  float c = fma32(std, e, __fadd_rn(__fmul_rn(s, 0.25f), __fmul_rn(bid, 0.5f)));
+  c = c < 0.0f ? 0.0f : c;
+  c = c < bid ? c : bid;
+  c = __fmul_rn(rintf(__fmul_rn(c, 100.0f)), 0.01f);
+  return static_cast<int>(rintf(__fmul_rn(c, 100.0f)));
 }
 
 }  // namespace

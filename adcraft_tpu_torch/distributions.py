@@ -17,8 +17,11 @@ Float arithmetic follows what jitted XLA computes on the CPU, where that
 is not what the source spells: XLA divides by a constant as a product
 with its float32 reciprocal (``_recip``), and contracts ``c + a * b``
 into a fused multiply-add in ``laplace_icdf``, ``truncated_laplace``,
-``agg_cost_cents`` and ``rev_sum_cents`` (``fma32``). Transcendentals
-(``exp``, ``log``, ``pow``) are torch's, within an ulp or two of XLA's.
+``agg_cost_cents``, ``rev_sum_cents`` and the censored and clipped normal
+moments (``fma32``). The normal moments (revenue and explicit costs) run on
+XLA's own ``exp``, ``erf`` and ``erfc`` (``xla_math``) and equal XLA's bit
+for bit; the other transcendentals (the implicit cost moments' ``exp`` and
+``expm1``, ``log``, ``pow``) are torch's, within an ulp or two of XLA's.
 Every per-cell function here is also what the CUDA kernels of
 ``agg_day`` compute, operation for operation, so the kernels and these
 functions agree exactly on the card.
@@ -36,7 +39,6 @@ from adcraft_tpu_torch.xla_math import fma32
 
 _INV_65536 = 1.0 / 65536.0
 _INV_SQRT2 = float(np.float32(1.0 / math.sqrt(2.0)))
-_LOG_SQRT_2PI = float(np.float32(0.5 * math.log(2.0 * math.pi)))
 
 
 def recip(x: float) -> float:
@@ -230,6 +232,74 @@ def binomial(key: torch.Tensor, n, p, shape=None) -> torch.Tensor:
     return torch.minimum(torch.clamp(draw, min=0.0), n).to(torch.int32)
 
 
+def _gamma_log_one(keys: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+    """``jax.random``'s ``_gamma_one`` with ``log_space=True`` for a batch of
+    independent elements: keys (N, 2), alpha (N,) float32. Marsaglia and
+    Tsang's squeeze: each outer pass splits its key three ways and draws
+    normals (from the second) until ``v = 1 + x c > 0``, then a uniform;
+    it stops when the squeeze or the log test accepts. An element's loops
+    end on their own (``vmap``'s frozen carry), so the passes run over the
+    live elements. Alphas below 1 take ``alpha + 1`` and add ``log(u) /
+    alpha``. The alphas of every caller are constants, which XLA folds on
+    the host: ``d``, ``c`` and ``log(d)`` are then correctly rounded (the
+    float64 log rounded), not its CPU polynomial's."""
+    boost = alpha >= 1.0
+    a = torch.where(boost, alpha, alpha + 1.0)
+    d = a - _c(1.0 / 3.0)
+    c = _c(1.0 / 3.0) / xla_math.sqrt(d)
+    key, subkey = prng.split(keys).unbind(-2)
+    V = torch.ones_like(alpha)
+    live = torch.ones_like(boost)
+    while True:
+        rows = _rows_where(live)
+        if rows.numel() == 0:
+            break
+        key[rows], x_key, u_key = prng.split(key[rows], 3).unbind(-2)
+        c_r = c[rows]
+        x = torch.zeros_like(c_r)
+        v = torch.full_like(c_r, -1.0)
+        while True:
+            redo = _rows_where(v <= 0.0)
+            if redo.numel() == 0:
+                break
+            x_key[redo], sub = prng.split(x_key[redo]).unbind(-2)
+            x[redo] = prng.normal(sub, ())
+            v[redo] = fma32(x[redo], c_r[redo], 1.0)
+        X = x * x
+        vv = (v * v) * v
+        U = prng.uniform(u_key, ())
+        squeeze = U >= fma32(_c(-0.0331), X * X, 1.0)
+        log_test = xla_math.log(U) >= fma32(d[rows], (1.0 - vv) + xla_math.log(vv), X * 0.5)
+        V[rows] = vv
+        live[rows] = squeeze & log_test
+    log_u = xla_math.log1p(-prng.uniform(subkey, ()))
+    log_boost = torch.where(boost | (log_u == 0), 0.0, log_u * (1.0 / alpha))
+    log_d = torch.log(d.double()).float()
+    return (log_d + xla_math.log(V)) + log_boost
+
+
+def loggamma(key: torch.Tensor, alpha, shape) -> torch.Tensor:
+    """``jax.random.loggamma``: ``key`` (..., 2), one split per element."""
+    shape = tuple(shape)
+    n = math.prod(shape)
+    keys = prng.split(key, n).reshape(-1, 2)
+    batch = tuple(key.shape[:-1])
+    a = torch.as_tensor(alpha, dtype=torch.float32, device=key.device).expand(batch + shape)
+    return _gamma_log_one(keys, a.reshape(-1).clone()).reshape(batch + shape)
+
+
+def beta(key: torch.Tensor, a, b, shape) -> torch.Tensor:
+    """``jax.random.beta``: ``key`` (..., 2), draws ``(..., *shape)``, from the
+    two log-gamma draws, ``exp(la - m) / (exp(la - m) + exp(lb - m))``."""
+    key_a, key_b = prng.split(key).unbind(-2)
+    la = loggamma(key_a, a, shape)
+    lb = loggamma(key_b, b, shape)
+    top = torch.maximum(la, lb)
+    ga = xla_math.exp(la - top)
+    gb = xla_math.exp(lb - top)
+    return ga / (ga + gb)
+
+
 def rev_normal_cents(key: torch.Tensor, mean, std, shape) -> torch.Tensor:
     """Per-conversion revenue draws in int32 cents: ``round(max(N(mean,
     std), 0.01), 2)`` in cents, as the lanes day takes them
@@ -237,7 +307,7 @@ def rev_normal_cents(key: torch.Tensor, mean, std, shape) -> torch.Tensor:
     XLA folds the normal's ``sqrt(2)`` into ``std`` (one rounded product),
     contracts the sum into a fused multiply-add, and drops the division and
     second rounding of ``round_cents``, which change no cent."""
-    erf = xla_math.erfinv(xla_math.uniform_open(key, shape))
+    erf = prng.normal_erfinv(key, shape)
     draw = torch.clamp(fma32(std * xla_math.SQRT2, erf, mean), min=_c(0.01))
     return torch.round(draw * 100.0).to(torch.int32)
 
@@ -310,32 +380,37 @@ def binomial_inv_from_cdf(key, ladder, bits: int = 32) -> torch.Tensor:
     return binomial_inv_from_cdf_u(u, cdf[:nmax], flip, ni)
 
 
-def _ndtr(x: torch.Tensor) -> torch.Tensor:
-    """The standard normal CDF, ``jax.scipy.special.ndtr``'s branches."""
+def ndtr(x: torch.Tensor) -> torch.Tensor:
+    """``jax.scipy.special.ndtr`` on XLA's erf and erfc."""
     w = x * _INV_SQRT2
     z = torch.abs(w)
-    y = torch.where(z < _INV_SQRT2, 1.0 + torch.erf(w),
-                    torch.where(w > 0, 2.0 - torch.erfc(z), torch.erfc(z)))
-    return 0.5 * y
+    y = torch.where(z < _INV_SQRT2, 1.0 + xla_math.erf(w),
+                    torch.where(w > 0, 2.0 - xla_math.erfc(z), xla_math.erfc(z)))
+    return y * 0.5
+
+
+def normal_pdf(x: torch.Tensor) -> torch.Tensor:
+    """``jax.scipy.stats.norm.pdf``: ``exp(-(x**2 + log(2 pi)) / 2)``."""
+    return xla_math.exp(fma32(x, x, _c(math.log(2.0 * math.pi))) * -0.5)
 
 
 def censored_normal_moments(mean, std, low: float):
     """Mean and std of ``max(N(mean, std), low)``; std 0 gives (max(mean,
-    low), 0)."""
+    low), 0). Sums of products fuse as XLA fuses them."""
     mean = torch.as_tensor(mean).to(torch.float32)
     std = torch.as_tensor(std).to(torch.float32)
     safe = torch.clamp(std, min=1e-20)
     a = (low - mean) / safe
-    big_f = _ndtr(a)
-    small_f = torch.exp(-0.5 * (a * a) - _LOG_SQRT_2PI)
-    m1 = low * big_f + mean * (1.0 - big_f) + safe * small_f
-    m2 = (low * low * big_f + (mean * mean + safe * safe) * (1.0 - big_f)
-          + safe * (mean + low) * small_f)
-    var = torch.clamp(m2 - m1 * m1, min=0.0)
+    big_f, small_f = ndtr(a), normal_pdf(a)
+    rest = 1.0 - big_f
+    m1 = fma32(safe, small_f, fma32(_c(low), big_f, mean * rest))
+    m2 = fma32(_c(low * low), big_f, fma32(mean, mean, safe * safe) * rest)
+    m2 = fma32(safe * (mean + low), small_f, m2)
+    var = torch.clamp(fma32(-m1, m1, m2), min=0.0)
     deg = std <= 0.0
     m1 = torch.where(deg, torch.clamp(mean, min=low), m1)
     var = torch.where(deg, torch.zeros_like(var), var)
-    return m1, torch.sqrt(var)
+    return m1, xla_math.sqrt(var)
 
 
 def rev_sum_moments(rev_mean, rev_std):
@@ -343,7 +418,7 @@ def rev_sum_moments(rev_mean, rev_std):
     ``(100 m1, sqrt((100 s1)**2 + 1/12))`` of the censored normal at $0.01."""
     m1, s1 = censored_normal_moments(rev_mean, rev_std, 0.01)
     h = 100.0 * s1
-    return 100.0 * m1, torch.sqrt(fma32(h, h, float(np.float32(1.0 / 12.0))))
+    return 100.0 * m1, xla_math.sqrt(fma32(h, h, _c(1.0 / 12.0)))
 
 
 def rev_sum_cents_z(z, nconv, mean_c, std_c, rev_std) -> torch.Tensor:
@@ -436,6 +511,134 @@ def single_cost_cent_moments_closed(bid, loc, scale):
     return mu, torch.sqrt(var), torch.clamp(bc - 1.0, min=0.0)
 
 
+# ---- explicit keywords: the impression rate, both cost models and their
+# per-click moments (adcraft_tpu/distributions.py:307-512). All follow
+# jitted XLA on the CPU bit for bit: its exp, erf and erfc
+# (``xla_math``), its fused multiply-adds (``fma32``), its reciprocal of a
+# constant divisor, and its flush of subnormal results to zero ----
+
+RUST_COST_PLACEHOLDER = 4.4  # rust cost_create's fill value: p/2 term and clamp ceiling
+_SIXTH = _c(1.0 / 6.0)
+
+
+def threshold_sigmoid(bid, thresh, intercept, slope) -> torch.Tensor:
+    """Thresholded sigmoid impression rate: with ``c = clip(2 thresh, 0,
+    1)``, ``clip((1 + c) sigmoid(slope (bid - intercept)) - c / 2, 0, 1)``.
+    (The source's ``2 + 1e-10`` is 2 in float32, and XLA folds its halving
+    and doubling into these.)"""
+    c = torch.clamp(thresh * 2.0, 0.0, 1.0)
+    r = xla_math.sigmoid(slope * (bid - intercept))
+    return torch.clamp(fma32(r, c + 1.0, -(c * 0.5)), 0.0, 1.0)
+
+
+def _cost_noise_std(s: torch.Tensor) -> torch.Tensor:
+    """``1e-10 + sqrt(bid) / 6``, the cost models' noise std, with XLA's
+    contraction."""
+    return fma32(s, _SIXTH, _c(1e-10))
+
+
+def cost_create_e(e: torch.Tensor, bid) -> torch.Tensor:
+    """``cost_create`` at ``e = erf_inv(u)`` of the normal's uniform:
+    ``clip(sqrt(bid)/4 + 2.2 + N(0, 1e-10 + sqrt(bid)/6), 0, 4.4)``, the
+    normal's ``sqrt(2)`` folded into its std as XLA folds it."""
+    s = xla_math.sqrt(torch.as_tensor(bid, dtype=torch.float32))
+    raw = fma32(_cost_noise_std(s) * xla_math.SQRT2, e, fma32(s, 0.25, _c(2.2)))
+    return torch.clamp(raw, 0.0, _c(RUST_COST_PLACEHOLDER))
+
+
+def generic_cost_e(e: torch.Tensor, bid) -> torch.Tensor:
+    """``generic_cost`` at ``e = erf_inv(u)``: ``round(clip(sqrt(bid)/4 +
+    bid/2 + N(0, 1e-10 + sqrt(bid)/6), 0, bid), 2)``."""
+    bid = torch.as_tensor(bid, dtype=torch.float32)
+    s = xla_math.sqrt(bid)
+    raw = fma32(_cost_noise_std(s) * xla_math.SQRT2, e, s * 0.25 + bid * 0.5)
+    return torch.round(torch.minimum(torch.clamp(raw, min=0.0), bid) * 100.0) * _c(0.01)
+
+
+def cost_create(key, bid, shape) -> torch.Tensor:
+    """Rust ``cost_create`` draws (continuous, not rounded), float32."""
+    return cost_create_e(prng.normal_erfinv(key, shape), bid)
+
+
+def generic_cost(key, bid, shape) -> torch.Tensor:
+    """Python ``generic_cost`` draws, rounded to cents, float32."""
+    return generic_cost_e(prng.normal_erfinv(key, shape), bid)
+
+
+def clipped_normal_moments(mean, std, low: float, high: float):
+    """Mean and std of ``clip(N(mean, std), low, high)``; std 0 gives
+    (clip(mean, low, high), 0). Sums of products fuse as XLA fuses them
+    for ``low = 0`` (the only bound the models use)."""
+    mean = torch.as_tensor(mean).to(torch.float32)
+    std = torch.as_tensor(std).to(torch.float32)
+    safe = torch.clamp(std, min=1e-20)
+    a = (low - mean) / safe
+    b = (high - mean) / safe
+    fa, fb = ndtr(a), ndtr(b)
+    pa, pb = normal_pdf(a), normal_pdf(b)
+    mid, dp, ss = fb - fa, pa - pb, safe * safe
+    m1 = xla_math.ftz(fma32(safe, dp, fma32(mean, mid, fma32(_c(high), 1.0 - fb, low * fa))))
+    m2 = fma32(_c(high * high), 1.0 - fb, _c(low * low) * fa)
+    m2 = fma32(fma32(mean, mean, ss), mid, m2)
+    m2 = fma32((mean * 2.0) * safe, dp, m2)
+    m2 = fma32(ss, fma32(a, pa, -(b * pb)), m2)
+    var = xla_math.ftz(torch.clamp(fma32(-m1, m1, m2), min=0.0))
+    deg = std <= 0.0
+    m1 = torch.where(deg, torch.clamp(mean, low, high), m1)
+    var = torch.where(deg, torch.zeros_like(var), var)
+    return m1, xla_math.sqrt(var)
+
+
+def cost_create_deci_moments(bid):
+    """Per-click ``cost_create`` moments in decicents: (1000 m1, sqrt((1000
+    s1)**2 + 1/12), 4400) of the clipped normal on [0, 4.4]."""
+    s = xla_math.sqrt(torch.as_tensor(bid).to(torch.float32))
+    m1, s1 = clipped_normal_moments(fma32(s, 0.25, _c(2.2)), _cost_noise_std(s), 0.0,
+                                    RUST_COST_PLACEHOLDER)
+    h = s1 * 1000.0
+    sig = xla_math.sqrt(fma32(h, h, _c(1.0 / 12.0)))
+    return m1 * 1000.0, sig, torch.full_like(m1, _c(RUST_COST_PLACEHOLDER * 1000.0))
+
+
+def _tree_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the first axis in XLA's CPU order: past 32 terms, padded
+    with zeros on both sides to windows of 32, each window summed in order,
+    then the window sums (the tree reduction rewrite); else in order."""
+    n = x.shape[0]
+    if n > 32:
+        pad = -n % 32
+        z = x.new_zeros((1,) + tuple(x.shape[1:]))
+        x = torch.cat([z.expand((pad // 2,) + z.shape[1:]), x,
+                       z.expand((pad - pad // 2,) + z.shape[1:])])
+        x = x.reshape((-1, 32) + tuple(x.shape[1:]))
+        return _tree_sum(torch.stack([_tree_sum(w) for w in x]))
+    total = torch.zeros_like(x[0])
+    for term in x:
+        total = total + term
+    return total
+
+
+def generic_cost_cent_moments(bid, grid: int):
+    """Per-click ``generic_cost`` moments in cents: (mean, std, round(100
+    bid)), Abel sums of the normal's tail over the cent grid's ``grid``
+    cells (exact for ``bid <= grid / 100``). XLA's order of the sums is
+    followed for ``grid > 32`` (the tree reduction); smaller grids sum in
+    another order there, which ``step.check_xla_config`` refuses."""
+    bid = torch.as_tensor(bid).to(torch.float32)
+    s = xla_math.sqrt(bid)
+    mu_r = s * 0.25 + bid * 0.5
+    sig_r = _cost_noise_std(s)
+    i = torch.arange(grid, dtype=torch.float32, device=bid.device)
+    i = i.reshape((grid,) + (1,) * bid.dim())
+    edge = (i + 0.5) * _c(0.01)
+    g = ndtr((torch.minimum(edge, bid) - mu_r) / sig_r)
+    tail = torch.clamp(1.0 - torch.where(edge >= bid, 1.0, g), min=0.0)
+    mu = _tree_sum(tail)
+    m2 = _tree_sum(fma32(i, 2.0, 1.0) * tail)
+    var = torch.clamp(fma32(-mu, mu, m2), min=0.0)
+    return mu, xla_math.sqrt(var), torch.round(bid * 100.0)
+
+
 def agg_cost_cents_z(z, n_clicks, mu, sigma, cmax) -> torch.Tensor:
     """``agg_cost_cents`` at the standard normal ``z``, int32 cents."""
     n = n_clicks.to(torch.float32)
@@ -468,12 +671,13 @@ def round_cents(x: torch.Tensor) -> torch.Tensor:
     return torch.round(x * 100.0) / 100.0
 
 
-def cents_int32(money) -> torch.Tensor:
-    """``round(money * 100)`` in float32, converted to int32 as XLA converts
-    float32: saturating at both ends (``inf`` to INT32_MAX, ``-inf`` to
-    INT32_MIN) and NaN to 0. The budget's cents on both day routes
-    (``adcraft_tpu/step.py:1211-1218``, ``pallas_kernels.py:272-274``)."""
-    c = torch.round(torch.as_tensor(money).to(torch.float32) * 100.0)
+def cents_int32(money, scale: float = 100.0) -> torch.Tensor:
+    """``round(money * scale)`` in float32 (cents by default), converted to
+    int32 as XLA converts float32: saturating at both ends (``inf`` to
+    INT32_MAX, ``-inf`` to INT32_MIN) and NaN to 0. The budget in the gate's
+    unit on both day routes (``adcraft_tpu/step.py:1211-1218``,
+    ``pallas_kernels.py:272-274``)."""
+    c = torch.round(torch.as_tensor(money).to(torch.float32) * scale)
     c = torch.nan_to_num(c, nan=0.0).clamp(-(2.0**31), 2.0**31)
     return c.to(torch.int64).clamp(-(2**31), 2**31 - 1).to(torch.int32)
 

@@ -2,7 +2,7 @@
 
 Counterpart of ``adcraft_tpu/env.py``: ``EnvState`` (:36), ``TimeStep``
 (:50), ``zero_observation`` (:66), ``batch_keys`` (:84), ``env_reset``
-(:96, implicit keywords), ``env_step`` (:134) vmapped over envs as
+(:96), ``env_step`` (:134) vmapped over envs as
 ``vector_env_step_xla``, ``env_rollout`` (:196) as ``vector_env_rollout``,
 ``env_autoreset_step`` (:247) vmapped over envs as
 ``vector_env_autoreset_step``, ``vector_env_step_pallas`` (:287) and ``VectorBiddingEnv`` (:369) with
@@ -21,7 +21,8 @@ from adcraft_tpu_torch import distributions as dist
 from adcraft_tpu_torch import prng
 from adcraft_tpu_torch.config import EnvConfig, KeywordKind, resolve_device
 from adcraft_tpu_torch.day_kernel import UniformSource, pallas_simulate_day
-from adcraft_tpu_torch.keywords import KeywordState, sample_implicit_keywords
+from adcraft_tpu_torch.keywords import (KeywordState, sample_explicit_keywords,
+                                        sample_implicit_keywords)
 from adcraft_tpu_torch.quantiles import QuantileTable
 from adcraft_tpu_torch.step import DayOutcomes, check_xla_config, simulate_day, update_keywords
 
@@ -89,16 +90,19 @@ def env_reset(
 ):
     """Fresh state for a batch of keys ``(..., 2)``; returns (state, obs).
 
-    With ``kw`` None, implicit keywords are sampled from ``table``.
+    With ``kw`` None, keywords are sampled by ``cfg.kind``: implicit ones
+    from ``table``, explicit ones by ``sample_explicit_keywords``.
     """
     k_kw, k_state = prng.split(key).unbind(-2)
     batch = tuple(key.shape[:-1])
     if kw is None:
-        if cfg.kind is not KeywordKind.IMPLICIT:
-            raise NotImplementedError("explicit keywords are not ported yet (ROADMAP.md)")
-        if table is None:
+        if cfg.kind is KeywordKind.EXPLICIT:
+            kw = sample_explicit_keywords(k_kw, cfg.num_keywords, updater_mask)
+        elif table is None:
             raise ValueError("implicit envs need a quantile table")
-        kw = sample_implicit_keywords(k_kw, cfg.num_keywords, table, no_vol_prob, updater_mask)
+        else:
+            kw = sample_implicit_keywords(k_kw, cfg.num_keywords, table, no_vol_prob,
+                                          updater_mask)
     dtype = cfg.money_dtype
     device = key.device
 
@@ -265,8 +269,9 @@ def vector_env_autoreset_step(
 
     After the step, each env's key splits into the next key and a reset
     key. An env that terminated or truncated takes ``env_reset`` from the
-    reset key (fresh keywords from ``table`` with ``no_vol_prob`` when
-    ``reset_kw``, else the stepped keywords) with the next key; the others
+    reset key (fresh keywords by ``cfg.kind`` when ``reset_kw``, implicit
+    ones from ``table`` with ``no_vol_prob``; else the stepped keywords)
+    with the next key; the others
     keep the stepped state with the next key.
     """
     new_state, ts = vector_env_step_xla(cfg, state, bids, budget)
@@ -365,8 +370,9 @@ class VectorBiddingEnv:
 
     def autoreset_step(self, state: EnvState, bids, budget=None, reset_kw: bool = False):
         """``step`` with the reset of ended episodes
-        (``vector_env_autoreset_step``; fresh keywords from the env's table
-        when ``reset_kw``). The XLA day step only, as in the JAX package."""
+        (``vector_env_autoreset_step``; fresh keywords when ``reset_kw``:
+        explicit ones, or implicit ones from the env's table). The XLA day
+        step only, as in the JAX package."""
         if self.cfg.day_kernel == "pallas":
             raise NotImplementedError("autoreset_step() drives the XLA day step")
         return vector_env_autoreset_step(self.cfg, state, bids, budget, reset_kw, self._table,

@@ -1,6 +1,9 @@
-"""Keyword state (struct of tensors) and the implicit keyword generator.
+"""Keyword state (struct of tensors) and the keyword generators.
 
-Counterpart of ``adcraft_tpu/keywords.py``. A campaign of K keywords is one
+Counterpart of ``adcraft_tpu/keywords.py``: ``make_keyword_state``, the
+key-driven ``sample_implicit_keywords`` and ``sample_explicit_keywords``
+(:194), and ``sample_explicit_keywords_numpy`` (:233, the reference's
+``np.random.Generator`` draw order). A campaign of K keywords is one
 ``KeywordState`` of ``(K,)`` tensors; the batched env holds ``(E, K)``.
 """
 
@@ -8,8 +11,10 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
+from adcraft_tpu_torch import distributions as dist
 from adcraft_tpu_torch import prng
 from adcraft_tpu_torch.quantiles import IMPLICIT_PARAMS, QuantileTable, sample_from_quantiles
 
@@ -18,6 +23,8 @@ DEFAULT_BID_LOC = 0.0
 DEFAULT_BID_SCALE = 0.1
 DEFAULT_MAX_BIDDERS = 30
 DEFAULT_PARTICIPATION_RATE = 3 / 5
+# The explicit-keyword generator's fixed impression threshold.
+EXPLICIT_GEN_IMP_THRESH = 0.05
 
 
 class KeywordState(NamedTuple):
@@ -162,4 +169,72 @@ def sample_implicit_keywords(
         cols["rpsc"],
         cols["std_rpsc"],
         updater_mask,
+    )
+
+
+def sample_explicit_keywords(key: torch.Tensor, num_keywords: int,
+                             updater_mask=None) -> KeywordState:
+    """Key-driven explicit keywords (the reference's
+    ``sample_random_keywords``); ``key`` is ``(..., 2)`` and the state gets
+    its batch axes. ``split(key, 8)`` keys, in order: vol_mean =
+    ``floor(2**Beta(2, 5) * 15 - 1)`` (14..29), vol_std = ``U * 0.5 *
+    (vol_mean + 1)``, sctr = Beta(5, 2), imp_intercept = ``U * 1.5``,
+    rev_mean = ``Beta(2, 5) * 1.5``, rev_std = ``Beta(2, 5) * rev_mean``,
+    bctr = Beta(2, 5), imp_slope = ``Beta(5, 5) * 25``; imp_thresh 0.05.
+
+    ``2**b`` is the correctly rounded power (XLA calls libm's ``exp2f``
+    on the CPU) and ``* 15 - 1`` one fused multiply-add, as jitted XLA
+    computes them.
+    """
+    n = num_keywords
+    ks = prng.split(key, 8).unbind(-2)
+    pow2 = torch.exp2(dist.beta(ks[0], 2.0, 5.0, (n,)).double()).float()
+    v_mean = torch.floor(dist.fma32(pow2, 15.0, -1.0))
+    v_std = prng.uniform(ks[1], (n,)) * 0.5 * (v_mean + 1.0)
+    rev_mean = dist.beta(ks[4], 2.0, 5.0, (n,)) * 1.5
+    return make_keyword_state(
+        n,
+        vol_mean=v_mean,
+        vol_std=v_std,
+        bctr=dist.beta(ks[6], 2.0, 5.0, (n,)),
+        sctr=dist.beta(ks[2], 5.0, 2.0, (n,)),
+        rev_mean=rev_mean,
+        rev_std=dist.beta(ks[5], 2.0, 5.0, (n,)) * rev_mean,
+        imp_thresh=EXPLICIT_GEN_IMP_THRESH,
+        imp_intercept=prng.uniform(ks[3], (n,)) * 1.5,
+        imp_slope=dist.beta(ks[7], 5.0, 5.0, (n,)) * 25.0,
+        updater_mask=updater_mask,
+        batch_shape=tuple(key.shape[:-1]),
+        device=key.device,
+    )
+
+
+def sample_explicit_keywords_numpy(rng: np.random.Generator, num_keywords: int,
+                                   updater_mask=None, device=None) -> KeywordState:
+    """Explicit keywords in the reference's draw order
+    (``gymnasium_kw_utils.py:129-140``) from an ``np.random.Generator``:
+    the same fields as ``sample_explicit_keywords`` in float64 numpy, then
+    float32 tensors on ``device``."""
+    n = num_keywords
+    v_mean = (2 ** rng.beta(2, 5, size=n) * 15 - 1).astype(int)
+    v_std = rng.random(size=n) * 0.5 * (v_mean + 1)
+    sctr = rng.beta(5, 2, size=n)
+    imp_intercept = rng.random(size=n) * 1.5
+    rev_mean = rng.beta(2, 5, size=n) * 1.5
+    rev_std = rng.beta(2, 5, size=n) * rev_mean
+    bctr = rng.beta(2, 5, size=n)
+    imp_slope = rng.beta(5, 5, size=n) * 25
+    return make_keyword_state(
+        n,
+        vol_mean=v_mean.astype(np.float32),
+        vol_std=v_std.astype(np.float32),
+        bctr=bctr,
+        sctr=sctr,
+        rev_mean=rev_mean,
+        rev_std=rev_std,
+        imp_thresh=EXPLICIT_GEN_IMP_THRESH,
+        imp_intercept=imp_intercept,
+        imp_slope=imp_slope,
+        updater_mask=updater_mask,
+        device=device,
     )

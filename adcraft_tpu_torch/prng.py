@@ -9,17 +9,15 @@ Bit layouts follow JAX 0.9 with ``jax_threefry_partitionable=True``
 (``jax/_src/prng.py``: ``_threefry_split_foldlike``,
 ``_threefry_fold_in``, ``_threefry_random_bits_partitionable``;
 ``jax/_src/random.py``: ``_uniform``, ``_randint``, ``_normal_real``).
-Every draw is bitwise equal to ``jax.random`` except ``normal``: it is
-``sqrt(2) * erfinv(u)`` with XLA's float32 ``erf_inv`` polynomial ported
-to plain tensor ops, and differs from JAX's in the last ulps for about 5%
-of draws (``log1p`` ulps and XLA's FMA contraction; at most 2.4e-7
-relative, tests/test_torch_prng.py).
+Every draw is bitwise equal to ``jax.random``: ``normal`` is ``sqrt(2) *
+erf_inv(u)`` on XLA's own ``log1p`` and ``erf_inv`` (``xla_math``).
 
 uint32 words live in int64 tensors, since torch has no full uint32
-arithmetic. ``split``, ``fold_in`` and ``random_bits`` take their words
+arithmetic. ``split``, ``fold_in``, ``random_bits`` and ``normal`` take their words
 from ``prng_kernel.threefry_words``: the CUDA kernel for CUDA keys, the
-plain ``prng_kernel.threefry2x32`` for CPU keys; the float and integer transforms on
-top of the words are tensor ops.
+plain ``prng_kernel.threefry2x32`` for CPU keys. ``normal``'s float
+transform runs in the same launch (its normal mode); the other float and
+integer transforms on top of the words are tensor ops.
 """
 
 from __future__ import annotations
@@ -30,7 +28,7 @@ from typing import Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from adcraft_tpu_torch import prng_kernel
+from adcraft_tpu_torch import prng_kernel, xla_math
 from adcraft_tpu_torch.prng_kernel import MASK32
 
 Shape = Union[int, Sequence[int]]
@@ -94,12 +92,7 @@ def uniform(
     key: torch.Tensor, shape: Shape = (), minval: float = 0.0, maxval: float = 1.0
 ) -> torch.Tensor:
     """``jax.random.uniform`` in float32: the top 23 bits as a mantissa."""
-    bits = random_bits(key, shape)
-    floats = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
-    # bounds and span rounded to float32 as JAX computes them; Python
-    # scalars keep the op free of host-to-device copies
-    lo, hi = np.float32(minval), np.float32(maxval)
-    return torch.clamp(floats * float(hi - lo) + float(lo), min=float(lo))
+    return prng_kernel.uniform_from_words(random_bits(key, shape), minval, maxval)
 
 
 def randint(key: torch.Tensor, shape: Shape, minval: int, maxval: int) -> torch.Tensor:
@@ -126,45 +119,22 @@ def randint(key: torch.Tensor, shape: Shape, minval: int, maxval: int) -> torch.
     return (minval + offset).to(torch.int32)
 
 
-# XLA's float32 erf_inv: Giles' single-precision polynomials in
-# w = -log1p(-x^2), one for w < 5 and one for the tails
-_ERFINV_W_LT5 = (
-    2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06, 0.00021858087,
-    -0.00125372503, -0.00417768164, 0.246640727, 1.50140941,
-)
-_ERFINV_W_GE5 = (
-    -0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844, 0.00573950773,
-    -0.0076224613, 0.00943887047, 1.00167406, 2.83297682,
-)
+def uniform_open(key: torch.Tensor, shape: Shape) -> torch.Tensor:
+    """``jax.random.normal``'s uniform on [nextafter(-1, 0), 1)."""
+    return uniform(key, shape, prng_kernel.NORMAL_LO, 1.0)
 
 
-def erfinv(x: torch.Tensor) -> torch.Tensor:
-    """float32 inverse error function, XLA's algorithm in plain f32 ops.
-
-    ``torch.erfinv`` is not used: on the CPU it is not reproducible from
-    one process to the next (some runs take a path up to 6.6e-5 relative
-    off XLA's). This agrees with XLA's ``erf_inv`` to 2e-7 relative; the
-    rest is ``log1p`` ulps and XLA contracting ``c + p*w`` into FMAs.
-    """
-    w = -torch.log1p(-x * x)
-    lt = w < 5.0
-    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
-
-    def coefficient(i):
-        return torch.where(lt, _ERFINV_W_LT5[i], _ERFINV_W_GE5[i])
-
-    p = coefficient(0)
-    for i in range(1, len(_ERFINV_W_LT5)):
-        p = coefficient(i) + p * w
-    return torch.where(x.abs() == 1.0, x * float("inf"), p * x)
+def normal_erfinv(key: torch.Tensor, shape: Shape) -> torch.Tensor:
+    """``erf_inv(u)`` of ``jax.random.normal``'s uniform: the normal is this
+    times ``xla_math.SQRT2``, a product that jitted XLA folds into a
+    constant factor of the draw's scale where there is one, so callers
+    apply it."""
+    return xla_math.erfinv(uniform_open(key, shape))
 
 
 def normal(key: torch.Tensor, shape: Shape = ()) -> torch.Tensor:
-    """``jax.random.normal`` in float32: ``sqrt(2) * erfinv(u)``.
-
-    ``u`` is bitwise JAX's; ``erfinv`` is XLA's algorithm, within 2.4e-7
-    relative of JAX's draw (module docstring).
-    """
-    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
-    u = uniform(key, shape, lo, 1.0)
-    return np.float32(np.sqrt(2)).item() * erfinv(u)
+    """``jax.random.normal`` in float32, ``sqrt(2) * erf_inv(u)``: on CUDA
+    keys one ``threefry_words`` launch in normal mode."""
+    shape = _shape(shape)
+    draws = prng_kernel.threefry_words(_key_rows(key), math.prod(shape), prng_kernel.NORMAL)
+    return draws.reshape(key.shape[:-1] + shape)

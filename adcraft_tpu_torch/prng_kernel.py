@@ -7,11 +7,13 @@ tensor ops on uint32 values held in int64 tensors; ``prng`` builds the
 
 * ``threefry_words`` (plain: ``threefry_words_reference``): for ``(N,
   2)`` keys and ``n`` counters, either both words ``(y0, y1)`` at counter
-  ``(0, base + i)`` (mode ``"pair"``: ``split``, ``fold_in``) or the word
+  ``(0, base + i)`` (mode ``"pair"``: ``split``, ``fold_in``), or the word
   ``y0 ^ y1`` at counter ``(i >> 32, i mod 2**32)``, masked to
-  ``bit_width`` bits (mode ``"xor"``: ``random_bits``). Replaces the TPU
-  PRNG probes ``kernel`` and ``kernel2`` (``scripts/probe_prng.py:21``,
-  ``:56``) and carries every draw of the env step.
+  ``bit_width`` bits (mode ``"xor"``: ``random_bits``), or that 32-bit
+  word's ``jax.random.normal`` float32 draw (mode ``"normal"``:
+  ``prng.normal``, ``normal_from_words``). Replaces the TPU PRNG probes
+  ``kernel`` and ``kernel2`` (``scripts/probe_prng.py:21``, ``:56``) and
+  carries every draw of the env step.
 * ``threefry_rate`` (plain: ``threefry_rate_reference``): the throughput
   probe, replacing ``kernel3`` (``scripts/probe_prng.py:88``).
 
@@ -25,15 +27,19 @@ from __future__ import annotations
 import ctypes
 from typing import Sequence, Tuple
 
+import numpy as np
 import torch
 
+from adcraft_tpu_torch import xla_math
 from adcraft_tpu_torch.cuda_build import CudaLibrary
 
 MASK32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _KS_PARITY = 0x1BD11BDA
-PAIR, XOR = "pair", "xor"
+PAIR, XOR, NORMAL = "pair", "xor", "normal"
 BIT_WIDTHS = (16, 32)
+# jax.random.normal's uniform is on [nextafter(-1, 0), 1)
+NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
 
 # the rate probe's shapes (scripts/probe_prng.py:87-117): per program, REPS
 # draws of (RATE_DRAWS, RATE_ROWS, RATE_COLS) words folded into one block
@@ -69,19 +75,36 @@ def _check_mode(mode: str, base: int, bit_width: int) -> None:
             raise ValueError("pair mode writes whole 32-bit words")
         if not 0 <= base <= MASK32:
             raise ValueError(f"base {base} is not a uint32")
-    elif mode == XOR:
+    elif mode in (XOR, NORMAL):
         if base != 0:
-            raise ValueError("xor mode counts from 0")
-        if bit_width not in BIT_WIDTHS:
-            raise ValueError(f"bit_width must be one of {BIT_WIDTHS}, got {bit_width}")
+            raise ValueError(f"{mode} mode counts from 0")
+        if bit_width not in (BIT_WIDTHS if mode == XOR else (32,)):
+            raise ValueError(f"bit_width {bit_width} not allowed in {mode} mode")
     else:
-        raise ValueError(f"mode must be {PAIR!r} or {XOR!r}, got {mode!r}")
+        raise ValueError(f"mode must be {PAIR!r}, {XOR!r} or {NORMAL!r}, got {mode!r}")
+
+
+def uniform_from_words(words: torch.Tensor, minval: float, maxval: float) -> torch.Tensor:
+    """``jax.random.uniform``'s float32 of 32-bit words: the top 23 bits as a
+    mantissa, scaled to [minval, maxval)."""
+    floats = ((words >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    # bounds and span rounded to float32 as JAX computes them; Python
+    # scalars keep the op free of host-to-device copies
+    lo, hi = np.float32(minval), np.float32(maxval)
+    return torch.clamp(floats * float(hi - lo) + float(lo), min=float(lo))
+
+
+def normal_from_words(words: torch.Tensor) -> torch.Tensor:
+    """``jax.random.normal``'s float32 draw of 32-bit words, ``sqrt(2)
+    erf_inv(u)`` on XLA's ``erf_inv``: equal to the JAX package's draw."""
+    return xla_math.erfinv(uniform_from_words(words, NORMAL_LO, 1.0)) * xla_math.SQRT2
 
 
 def threefry_words_reference(
     keys: torch.Tensor, n: int, mode: str, base: int = 0, bit_width: int = 32
 ) -> torch.Tensor:
-    """Plain version of ``threefry_words``: ``(N, n, 2)`` or ``(N, n)`` int64."""
+    """Plain version of ``threefry_words``: ``(N, n, 2)`` or ``(N, n)`` int64,
+    or ``(N, n)`` float32 in normal mode."""
     _check_mode(mode, base, bit_width)
     k0, k1 = keys[:, 0:1], keys[:, 1:2]
     count = torch.arange(n, dtype=torch.int64, device=keys.device)
@@ -90,6 +113,8 @@ def threefry_words_reference(
         return torch.stack([y0, y1], dim=-1)
     y0, y1 = threefry2x32(k0, k1, count >> 32, count & MASK32)
     word = y0 ^ y1
+    if mode == NORMAL:
+        return normal_from_words(word)
     return word if bit_width == 32 else word & ((1 << bit_width) - 1)
 
 
@@ -97,6 +122,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     p, i, ll, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint
     lib.threefry_words_launch.argtypes = [p, ll, ll, ll, i, u, u, p, i, p]
     lib.threefry_words_launch.restype = i
+    lib.threefry_normal_launch.argtypes = [p, ll, ll, ll, p, i, p]
+    lib.threefry_normal_launch.restype = i
     lib.threefry_rate_launch.argtypes = [p, i, i, i, p, i, p]
     lib.threefry_rate_launch.restype = i
 
@@ -132,14 +159,18 @@ class ThreefryWords:
         if device.type != "cuda":
             raise ValueError(f"threefry_words: no implementation for {device.type} tensors")
         N = keys.shape[0]
-        out = torch.empty((N, n, 2) if mode == PAIR else (N, n), dtype=torch.int64, device=device)
+        out = torch.empty((N, n, 2) if mode == PAIR else (N, n),
+                          dtype=torch.float32 if mode == NORMAL else torch.int64, device=device)
         if out.numel() == 0:
             return out
-        err = self.library.get().threefry_words_launch(
-            keys.data_ptr(), keys.stride(0), N, n, int(mode == PAIR), base,
-            (1 << bit_width) - 1, out.data_ptr(), device.index,
-            torch.cuda.current_stream(device).cuda_stream,
-        )
+        stream = torch.cuda.current_stream(device).cuda_stream
+        if mode == NORMAL:
+            err = self.library.get().threefry_normal_launch(
+                keys.data_ptr(), keys.stride(0), N, n, out.data_ptr(), device.index, stream)
+        else:
+            err = self.library.get().threefry_words_launch(
+                keys.data_ptr(), keys.stride(0), N, n, int(mode == PAIR), base,
+                (1 << bit_width) - 1, out.data_ptr(), device.index, stream)
         self.library.check(err, "threefry_words")
         self.launches += 1
         return out

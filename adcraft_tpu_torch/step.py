@@ -15,7 +15,8 @@ keywords. ``simulate_day`` runs two families of the XLA day step
   costs, conversion counts, revenue sums, inversion binomials), and the
   same with one revenue draw per keyword and day (``rev_sampling="day"``,
   ``train_rl.py``'s fast mode), on the two kernels of
-  ``adcraft_tpu_torch.agg_day``.
+  ``adcraft_tpu_torch.agg_day``, for implicit keywords and for explicit
+  ones with either cost model (bench.py's ``dense_explicit`` regime).
 
 Every other XLA-path configuration raises ``NotImplementedError``
 (``check_xla_config``). The day-kernel path (``day_kernel="pallas"``) runs
@@ -32,7 +33,7 @@ from adcraft_tpu_torch import agg_day, lanes_day
 from adcraft_tpu_torch import distributions as dist
 from adcraft_tpu_torch import prng
 from adcraft_tpu_torch.auction import cell_binomial_fn, run_cell_auctions
-from adcraft_tpu_torch.config import CompetitorModel, EnvConfig, KeywordKind
+from adcraft_tpu_torch.config import CompetitorModel, CostModel, EnvConfig, KeywordKind
 from adcraft_tpu_torch.keywords import KeywordState
 
 class DayOutcomes(NamedTuple):
@@ -74,7 +75,8 @@ def check_xla_config(cfg: EnvConfig) -> None:
     The port runs all lanes (cost, conversion and revenue lanes, either
     binomial sampler) or bench.py's aggregate knobs (``conv_sampling=
     "counts"``, ``rev_sampling`` "sum" or "day", the inversion sampler),
-    with either ``lane_bits``. The gate knobs (``gate_mode``,
+    with either ``lane_bits``; explicit keywords on the aggregate knobs
+    only. The gate knobs (``gate_mode``,
     ``gate_scope``, ``gate_chunk_t``, ``gate_compact*``,
     ``gate_scan_unroll``) select TPU schedules that are bit-identical to
     one sequential gate, which is the port's, so they are accepted and
@@ -82,9 +84,12 @@ def check_xla_config(cfg: EnvConfig) -> None:
     """
     lanes = cfg.cost_sampling == "lanes"
     mixed = "mixed sampling knobs (ROADMAP.md item 2)"
+    explicit = cfg.kind is KeywordKind.EXPLICIT
     unported = [
-        (cfg.kind is not KeywordKind.IMPLICIT, "explicit keywords (ROADMAP.md item 3)"),
-        (cfg.competitor_model is not CompetitorModel.SINGLE_ABS_CENTS,
+        (explicit and lanes, "explicit keywords with lane costs (ROADMAP.md item 3b)"),
+        (explicit and cfg.cost_model is CostModel.PYTHON and not 32 < cfg.agg_cost_grid <= 1024,
+         "agg_cost_grid outside 33..1024 with the python cost model (ROADMAP.md item 3b)"),
+        (not explicit and cfg.competitor_model is not CompetitorModel.SINGLE_ABS_CENTS,
          "the binomial pool (ROADMAP.md item 4)"),
         (lanes and cfg.conv_sampling != "lanes", f"conv_sampling='counts' with lane costs: {mixed}"),
         (lanes and cfg.rev_sampling != "lanes",
@@ -111,11 +116,23 @@ def xla_lanes(cfg: EnvConfig) -> agg_day.Lanes:
     )
 
 
-def budget_cents(budget: torch.Tensor) -> torch.Tensor:
-    """``min(round(budget * 100), INT32_MAX)`` as int32 cents, cast as XLA
-    casts (``distributions.cents_int32``): saturating at both ends, NaN to
-    0."""
-    return dist.cents_int32(budget)
+def budget_cents(budget: torch.Tensor, scale: float = 100.0) -> torch.Tensor:
+    """``min(round(budget * scale), INT32_MAX)`` as int32 units (cents by
+    default), cast as XLA casts (``distributions.cents_int32``): saturating
+    at both ends, NaN to 0."""
+    return dist.cents_int32(budget, scale)
+
+
+def agg_model(cfg: EnvConfig) -> int:
+    """The aggregate route's cost model (``agg_day.IMPLICIT``,
+    ``EXPLICIT_RUST`` or ``EXPLICIT_PYTHON``); its gate unit is
+    ``agg_day.AGG_SCALE[model]`` per dollar (decicents for the rust
+    model, ``adcraft_tpu/step.py:1056-1066``)."""
+    if cfg.kind is KeywordKind.IMPLICIT:
+        return agg_day.IMPLICIT
+    if cfg.cost_model is CostModel.RUST_QUIRK:
+        return agg_day.EXPLICIT_RUST
+    return agg_day.EXPLICIT_PYTHON
 
 
 def simulate_day(
@@ -142,22 +159,27 @@ def simulate_day(
     n_auc = split_volume(cfg, volume)
     n_auc01 = torch.stack([n_auc[0], n_auc[1] if lanes.T > 1 else torch.zeros_like(n_auc[0])])
     if cfg.cost_sampling == "lanes":
+        unit = 100.0
         imp, clicks, cost_c, convs, rev_c, elig = lanes_day.simulate_day_lanes(
             lanes, k_cells, kw, bids, budget_cents(budget), n_auc01, cfg.binomial_sampler
         )
     else:
+        model = agg_model(cfg)
+        unit = agg_day.AGG_SCALE[model]
         imp, clicks, cost_c, convs, rev_c, elig = agg_day.simulate_day_agg(
-            lanes, k_cells, kw, bids, budget_cents(budget), n_auc01, cfg.rev_sampling
+            lanes, k_cells, kw, bids, budget_cents(budget, unit), n_auc01, cfg.rev_sampling,
+            model, cfg.agg_cost_grid
         )
-    # jitted XLA divides by the constant as a product with its reciprocal,
-    # and fuses one of the two products into the profit's subtraction: the
-    # revenue's where it is a sum over cells, the cost's where the revenue
-    # is the day's one draw
+    # jitted XLA divides by the constant as a product with its reciprocal
+    # (for 1000 as for 100), and fuses one of the two products into the
+    # profit's subtraction: the revenue's where it is a sum over cells, the
+    # cost's where the revenue is the day's one draw
     cents = dist.recip(100.0)
-    cost = cost_c.to(torch.float32) * cents
+    per_unit = dist.recip(unit)
+    cost = cost_c.to(torch.float32) * per_unit
     revenue = rev_c.to(torch.float32) * cents
     if cfg.rev_sampling == "day":
-        profit = dist.fma32(cost_c.to(torch.float32), -cents, revenue)
+        profit = dist.fma32(cost_c.to(torch.float32), -per_unit, revenue)
     else:
         profit = dist.fma32(rev_c.to(torch.float32), cents, -cost)
     return DayOutcomes(

@@ -1,8 +1,9 @@
 """env-steps/s of ``VectorBiddingEnv.step`` on the card, and its device share.
 
-The slice's configuration: 100 implicit single-competitor keywords from
-``simple_experiment_table(128, 0.8)``, ``max_volume=576``, budget $1000,
-bids $1.00. For each env count:
+The slice's configuration: 100 keywords (implicit single-competitor ones
+from ``simple_experiment_table(128, 0.8)``, or explicit ones on the
+``explicit`` route), ``max_volume=576``, budget $1000, bids $1.00. For each
+env count:
 
 * rate: reset, 3 warm-up steps, then 5 runs of 10 steps, each timed on
   the host clock and ended by ``torch.cuda.synchronize()``; median and
@@ -13,10 +14,14 @@ bids $1.00. For each env count:
   their intervals), and the idle share ``1 - busy / step time``, with the
   step time of the unprofiled runs.
 
-Three day-step routes: ``pallas`` is ``day_kernel="pallas"`` (the CUDA
+Four day-step routes: ``pallas`` is ``day_kernel="pallas"`` (the CUDA
 day kernel), ``xla`` is ``day_kernel="xla"`` with bench.py's knobs (the
 two agg_day kernels), ``lanes`` is the JAX package's default knobs (the
-three lanes_day kernels). ``--routes`` picks them; each env count runs them
+three lanes_day kernels), ``explicit`` is bench.py's ``dense_explicit``
+regime (``bench.py:210-216``: the ``xla`` route's knobs with 100 explicit
+keywords from ``sample_explicit_keywords`` and the default rust cost
+model, on agg_cells_gate's explicit mode and agg_outcomes). ``--routes``
+picks them; each env count runs them
 in turns in one process, forward then backward (pallas, xla, xla,
 pallas by default). With ``--parent-csrc DIR``, the route ``lanes_parent``
 is the lanes route on the lanes_day kernels built from DIR (another
@@ -24,7 +29,8 @@ tree's ``adcraft_tpu_torch/csrc``, such as the parent commit's), to time
 two versions of those kernels in turns.
 
     python3 -m adcraft_tpu_torch.step_rate [--envs 1024 4096 8192]
-        [--routes pallas xla lanes lanes_parent] [--parent-csrc DIR] [--json PATH]
+        [--routes pallas xla lanes explicit lanes_parent] [--parent-csrc DIR]
+        [--json PATH]
 
 It runs on the card only.
 """
@@ -52,7 +58,7 @@ from adcraft_tpu_torch.quantiles import simple_experiment_table
 K, MAX_VOLUME, BID = 100, 576, 1.00
 WARMUP, RUNS, STEPS = 3, 5, 10
 ROUTE_KNOBS = {"pallas": {"day_kernel": "pallas"}, "xla": BENCH_XLA_KNOBS, "lanes": {},
-               "lanes_parent": {}}
+               "lanes_parent": {}, "explicit": BENCH_XLA_KNOBS}
 LANES_KERNELS = ("lanes_counts", "lanes_gate", "lanes_outcomes")
 KERNELS = {"day_kernel": dk.day_kernel, "threefry_words": pk.threefry_words,
            "agg_cells_gate": agg_day.agg_cells_gate, "agg_outcomes": agg_day.agg_outcomes}
@@ -65,8 +71,8 @@ def counted_kernels() -> dict:
 
 
 def route_config(route: str) -> EnvConfig:
-    return EnvConfig(num_keywords=K, kind=KeywordKind.IMPLICIT, max_volume=MAX_VOLUME,
-                     **ROUTE_KNOBS[route])
+    kind = KeywordKind.EXPLICIT if route == "explicit" else KeywordKind.IMPLICIT
+    return EnvConfig(num_keywords=K, kind=kind, max_volume=MAX_VOLUME, **ROUTE_KNOBS[route])
 
 
 def busy_ms(events) -> float:

@@ -1,5 +1,5 @@
-"""XLA's float32 ``log``, ``log1p``, ``erf_inv`` and ``sqrt`` on the CPU,
-operation for operation, and ``jax.random.normal``'s uniform.
+"""XLA's float32 ``log``, ``log1p``, ``erf_inv``, ``sqrt``, ``exp``, ``erf``
+and ``erfc`` on the CPU, operation for operation.
 
 Jitted JAX on the CPU lowers these through LLVM with floating-point
 contraction on, so a product whose only use is a sum becomes one fused
@@ -8,19 +8,21 @@ optimised LLVM IR that XLA emits for them (``--xla_dump_to``), and every
 such contraction is written as ``fma32``: Eigen's Cephes ``logf``
 (``plog_float``), XLA's ``log1p`` (``log(1 + x)`` outside ``|x| <
 sqrt(2) - 1``, a rational function inside) and Giles' ``erf_inv``
-polynomial. ``torch.log`` and ``prng.erfinv`` differ from them in the
-last ulp on 14% and about 5% of inputs; these do not, so the lanes day's
-binomial and revenue draws equal the JAX package's draw for draw. The
-CUDA kernels spell the same operations (``csrc/xla_math.cuh``), so on the
-card they equal these functions exactly.
+polynomial. ``torch.log`` differs from them in the last ulp on 14% of
+inputs; these do not, so ``jax.random.normal`` (``prng.normal``) and the
+day's binomial and revenue draws equal the JAX package's draw for draw.
+``exp`` is XLA's own polynomial (``jax.nn.sigmoid`` is ``1 / (exp(-x) +
+1)`` on the CPU), ``erf`` its rational function, and ``erfc`` the
+expansion JAX's ``chlo.erfc`` lowers to; together they give ``ndtr`` and
+the normal pdf of the revenue and explicit cost moments. The CUDA kernels
+spell the same operations (``csrc/xla_math.cuh``), so on the card they
+equal these functions exactly.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
-
-from adcraft_tpu_torch import prng
 
 
 def fma32(a: torch.Tensor, b, c) -> torch.Tensor:
@@ -70,7 +72,6 @@ _ERFINV_LT5 = tuple(f32(b) for b in (0x32F16588, 0x34B84B36, 0xB66C7357, 0xB6935
 _ERFINV_GE5 = tuple(f32(b) for b in (0xB951F09B, 0x38D3B56B, 0x3AB0DC72, 0xBB70BDE7, 0x3BBC127B,
                                      0xBBF9C5D7, 0x3C1AA57E, 0x3F8036DB, 0x40354F7E))
 SQRT2 = float(np.float32(np.sqrt(2.0)))
-_NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
 
 
 def log(y: torch.Tensor) -> torch.Tensor:
@@ -125,6 +126,78 @@ def erfinv(x: torch.Tensor) -> torch.Tensor:
     return x * torch.where(torch.abs(x) == 1.0, float("inf"), p)
 
 
-def uniform_open(key: torch.Tensor, shape) -> torch.Tensor:
-    """``jax.random.normal``'s uniform on [nextafter(-1, 0), 1)."""
-    return prng.uniform(key, shape, _NORMAL_LO, 1.0)
+# exp: Cephes expf as XLA's CPU backend emits it: x clamped to the float
+# range, n = floor(x log2(e) + 1/2) in [-127, 127], r = x - n ln 2 in two
+# parts, a degree-5 polynomial, and the scale 2**n built in the exponent
+# bits (2**-127 is 0)
+_EXP_LO, _EXP_HI = f32(0xC2AF999A), f32(0x42B1999A)
+_LOG2E = f32(0x3FB8AA3B)
+_EXP_C1, _EXP_C2 = f32(0x3F318000), f32(0xB95E8083)
+_EXP_P = tuple(f32(b) for b in (0x39506967, 0x3AB743CE, 0x3C088908, 0x3D2AA9C1, 0x3E2AAAAA))
+# erf: x clamped to +-3.7439, x P(x**2) / Q(x**2)
+_ERF_CLAMP = f32(0x406F9C68)
+_ERF_P = tuple(f32(b) for b in (0x39702D51, 0x3B5F5DA2, 0x3D50B6EB, 0x3E3DA740, 0x3F906EBA))
+_ERF_Q = tuple(f32(b) for b in (0xB3FD3906, 0x37C588DF, 0x3A856D28, 0x3C6687D4, 0x3DE34C21,
+                                0x3EFEB44A))
+# erfc: 1 - x P(x**2) below 1, else exp(-x**2) / x times a polynomial in
+# 1/x**2 (one below 2, one above), 0 past x**2 = 88.72
+_ERFC_SMALL = tuple(np.float32(c).item() for c in (
+    7.85386146e-05, -0.000801019371, 0.00518832775, -0.0268538129, 0.112835854, -0.37612626,
+    1.12837911))
+_ERFC_LT2 = tuple(np.float32(c).item() for c in (
+    0.0232682, -0.138703942, 0.368742466, -0.582473278, 0.621000469, -0.494451523, 0.340488,
+    -0.274112701, 0.563825965))
+_ERFC_GE2 = tuple(np.float32(c).item() for c in (
+    -10.477664, 12.9772, -7.49551868, 2.92101908, -1.01526523, 0.42184633, -0.282076746,
+    0.564189494))
+_ERFC_UNDERFLOW = f32(0x42B17218)
+
+
+def ftz(x: torch.Tensor) -> torch.Tensor:
+    """Subnormal results to zero: XLA's CPU code runs with flush-to-zero."""
+    return torch.where(torch.abs(x) < _FLT_MIN, 0.0, x)
+
+
+def _horner(x: torch.Tensor, coefs) -> torch.Tensor:
+    """``((c0 x + c1) x + c2) ...`` by fused steps."""
+    p = fma32(x, coefs[0], coefs[1])
+    for c in coefs[2:]:
+        p = fma32(p, x, c)
+    return p
+
+
+def exp(x: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 ``exp`` on the CPU."""
+    x = torch.clamp(x, _EXP_LO, _EXP_HI)
+    n = torch.clamp(torch.floor(fma32(x, _LOG2E, 0.5)), -127.0, 127.0)
+    r = fma32(n, -_EXP_C1, x)
+    r = fma32(n, -_EXP_C2, r)
+    y = fma32(_horner(r, _EXP_P), r, 0.5)
+    y = fma32(y, r * r, r) + 1.0
+    return ftz(y * ((n.to(torch.int32) + 127) << 23).view(torch.float32))
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid`` (XLA's ``logistic``) on the CPU: ``1 / (exp(-x) +
+    1)``."""
+    return ftz(1.0 / (exp(-x) + 1.0))
+
+
+def erf(x: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 ``erf`` on the CPU."""
+    x = torch.clamp(x, -_ERF_CLAMP, _ERF_CLAMP)
+    x2 = x * x
+    return (x * _horner(x2, _ERF_P)) / fma32(_horner(x2, _ERF_Q), x2, 1.0)
+
+
+def erfc(x: torch.Tensor) -> torch.Tensor:
+    """JAX's float32 ``erfc`` as XLA computes it on the CPU."""
+    z = torch.abs(x)
+    x2 = x * x
+    small = fma32(-x, _horner(x2, _ERFC_SMALL), 1.0)
+    q = 1.0 / x2
+    tail = torch.where(z < 2.0, _horner(q, _ERFC_LT2), _horner(q, _ERFC_GE2))
+    large = ftz((exp(-x2) * (1.0 / z)) * tail)
+    large = torch.where(x2 > _ERFC_UNDERFLOW, 0.0, large)
+    large = torch.where(x < 0, 2.0 - large, large)
+    return torch.where(z < 1.0, small, large)

@@ -30,8 +30,9 @@ Phases, each fatal on failure:
    the plain day (equal outcomes), with env-steps/s for both;
 6. threefry_words vs the plain threefry2x32 on the card, bit for bit:
    split of 4096 keys into 4, fold_in, random_bits at (4096, 100) and
-   (4096, 3, 100) in 32 and 16 bits, keys with strided rows, and more than
-   2**24 words;
+   (4096, 3, 100) in 32 and 16 bits, keys with strided rows, more than
+   2**24 words, and the normal mode (jax.random.normal's draws) at (4096,
+   100) and on strided rows; prng.normal on the card equals the CPU's;
 7. the PRNG probe (adcraft_tpu_torch.probe_prng): draw, draw2 and draw3
    equal their plain versions bit for bit at the JAX probe's shapes, the
    threefry_rate blocks of all 24 programs too; bit health within 5
@@ -92,7 +93,20 @@ Phases, each fatal on failure:
    zeroed just before: one launch of each kernel per day, and steps,
    keys and autoreset states equal to the same days through the plain
    versions; CUDA device events, device busy time and idle share per
-   step.
+   step;
+11. explicit keywords on the XLA day step (bench.py's dense_explicit
+   regime: its knobs with kind=EXPLICIT) at 4096 envs x 100 keywords x 24
+   sub-timesteps, for the rust and the python cost model, at $1000 and at
+   a tight budget ($10 and $2): agg_cells_gate's explicit mode equal to its plain version
+   on every simulated cell, on n_sim and (bit for bit) on the day's
+   constants, with the chunk chosen and forced to 1, and agg_outcomes on
+   its tables in both revenue modes; the mode timed beside its bound
+   (threefry words and the normal lanes' erf_inv float work this run's
+   cells need) and its plain version, its ptxas registers and spills;
+   then the slice per cost model: reset, 2 steps, rollout(2) and one
+   autoreset_step(reset_kw=True) day that ends every episode (max_days
+   3), counts zeroed just before: one launch of each kernel per day, and
+   outcomes and keys equal to the same days through the plain versions.
 
 The line before the last is a JSON object with each kernel's launches on
 its path, error, times and bound; the last line is {"ok": true, "device":
@@ -302,14 +316,26 @@ def check_moments(params, n_auc, m, out) -> None:
             fail(f"RNG moments: {name} is {z:+.2f} standard errors off")
 
 
-def threefry_words_bound(calls, ops_per_word: float, int_ops_per_s: float):
+# float instructions of one normal-mode draw, counted from csrc/xla_math.cuh
+# (fused multiply-adds once): the uniform 3, log1p's rational function 17
+# (or its log about as many), erf_inv's polynomial 10, the sqrt(2) product
+NORMAL_OPS = 31
+WORD_OUT_BYTES = {"pair": 16, "xor": 8, "normal": 4}
+
+
+def threefry_words_bound(calls, ops_per_word: float, int_ops_per_s: float,
+                         fp_ops_per_s: float):
     """(bound_ms, bound_by) for a list of threefry_words calls
-    ``(N, n, mode)``: each key read once (16 bytes), each output word
-    written once (8 bytes, two in pair mode), one threefry block per (key,
-    counter)."""
+    ``(N, n, mode)``: each key read once (16 bytes), each output written
+    once (an int64 word, two in pair mode, a float32 in normal mode), one
+    threefry block per (key, counter) on the integer pipes and a normal's
+    float work (NORMAL_OPS) beside them."""
     blocks = sum(N * n for N, n, _ in calls)
-    nbytes = sum(16 * N + 8 * N * n * (2 if mode == "pair" else 1) for N, n, mode in calls)
-    return bound(nbytes, blocks * ops_per_word, int_ops_per_s)
+    normals = sum(N * n for N, n, mode in calls if mode == "normal")
+    nbytes = sum(16 * N + WORD_OUT_BYTES[mode] * N * n for N, n, mode in calls)
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    op_ms = max(blocks * ops_per_word / int_ops_per_s, normals * NORMAL_OPS / fp_ops_per_s) * 1e3
+    return (byte_ms, "bytes") if byte_ms >= op_ms else (op_ms, "operations")
 
 
 def bound(nbytes: float, ops: float, ops_per_s: float):
@@ -809,6 +835,242 @@ def xla_phase(torch, dev, card, table, ops_per_word, int_ops_per_s, fp_ops_per_s
         }
         for name in ("agg_cells_gate", "agg_outcomes")
     ]
+
+
+# $1000, and a tight budget per cost model: a rust click costs $2.20-4.40,
+# so $10 lets a few clicks through and then resolves lanes; a python one
+# about half the bid
+EXPLICIT_BUDGETS = {"RUST_QUIRK": (("$1000", XLA_BUDGET), ("tight", 10.0)),
+                    "PYTHON": (("$1000", XLA_BUDGET), ("tight", 2.0))}
+EXPLICIT_STEPS = 2
+EXPLICIT_MAX_DAYS = EXPLICIT_STEPS + 1  # the slice's autoreset day ends every episode
+# float instructions counted from csrc/xla_math.cuh (fused multiply-adds
+# once): one explicit lane cost (the normal's uniform 3, log1p's rational
+# function 17 or its log about as many, erf_inv's polynomial 10, the cost
+# model 9); per (env, keyword) the threshold sigmoid (its exp 15, 10 more)
+# and the rust moments (two ndtr of about 30 and two pdf of about 17 with
+# the clipped normal's 25 products and sums); per cent cell of the python
+# moments below the bid (an ndtr and 10 more; the cells from the bid on
+# add 0)
+EXPLICIT_LANE_OPS = 39
+SIGMOID_OPS = 25
+RUST_MOMENT_OPS = 120
+PYTHON_CELL_OPS = 40
+
+
+def explicit_phase(torch, dev, card, ops_per_word, int_ops_per_s, fp_ops_per_s):
+    """Phase 11: agg_cells_gate's explicit mode against its plain version
+    at full width for both cost models, timed beside its bound; then each
+    model's slice through the kernels and the plain versions. Returns the
+    mode's JSON entries, one per cost model."""
+    from adcraft_tpu_torch import EnvConfig, KeywordKind, VectorBiddingEnv
+    from adcraft_tpu_torch import agg_day as ad
+    from adcraft_tpu_torch import distributions as dist
+    from adcraft_tpu_torch import prng
+    from adcraft_tpu_torch import prng_kernel as pk
+    from adcraft_tpu_torch.config import BENCH_XLA_KNOBS, CostModel
+    from adcraft_tpu_torch.step import agg_model, budget_cents, split_volume, xla_lanes
+
+    fused = ad.agg_cells_gate
+    bids = torch.full((E, K), BID, device=dev)
+    cell = torch.arange(T * K, device=dev).view(1, T, K)
+    entries = []
+    for model_name, instance in (("RUST_QUIRK", "ILi1E"), ("PYTHON", "ILi2E")):
+        cfg = EnvConfig(num_keywords=K, kind=KeywordKind.EXPLICIT,
+                        cost_model=getattr(CostModel, model_name), max_volume=MAX_VOLUME,
+                        budget=XLA_BUDGET, max_days=EXPLICIT_MAX_DAYS, **BENCH_XLA_KNOBS)
+        model, lanes = agg_model(cfg), xla_lanes(cfg)
+        scale = ad.AGG_SCALE[model]
+        L, m0, m1 = lanes.L, lanes.m0, lanes.m1
+        name = f"agg_cells_gate (explicit, {model_name.lower()})"
+        env = VectorBiddingEnv(cfg, E, device=dev)
+        state0, _ = env.reset(prng.PRNGKey(14))
+        kw = state0.kw
+        k_vol, k_cells = prng.split(prng.split(prng.PRNGKey(15, dev), E)).unbind(-2)
+        volume = torch.clamp(dist.nonneg_int_normal(k_vol, kw.vol_mean, kw.vol_std),
+                             max=MAX_VOLUME)
+        n_auc = split_volume(cfg, volume)
+        n_auc01 = torch.stack([n_auc[0], n_auc[1]]).contiguous()
+        n0, n1 = n_auc01[0], n_auc01[1]
+        params = ad.pack_params(kw, bids)
+        chunk_t = fused.default_chunk_t(K, lanes, dev, model)
+        blocks = fused.occupancy(chunk_t, K, lanes, dev, model)
+        print(f"{name}: ptxas {kernel_ptxas(ad.library.build_log, instance)}; chunk_t "
+              f"{chunk_t}, {blocks} blocks per SM")
+        with words_replaced(pk, pk.threefry_words_reference):
+            imp_p, ncl_p, sfull_p, _ = ad.agg_cells_reference(params, n_auc01, k_cells, lanes,
+                                                              model=model)
+        ladder_steps = torch.log2(n1.clamp(max=m1).double() + 1).ceil() * (n1 > 0)
+        max_err, timed = 0, {}
+        for label, budget in EXPLICIT_BUDGETS[model_name]:
+            budget_c = budget_cents(torch.full((E,), budget, device=dev), scale)
+
+            def gate_call(chunk=None):
+                return fused(params, n_auc01, k_cells, budget_c, lanes, chunk_t=chunk,
+                             model=model)
+
+            got = fused(params, n_auc01, k_cells, budget_c, lanes, keep_constants=True,
+                        model=model)
+            one = gate_call(1)
+            torch.cuda.synchronize()
+            with words_replaced(pk, pk.threefry_words_reference):
+                want, plain_ms = once_ms(lambda: ad.agg_cells_gate_reference(
+                    params, n_auc01, k_cells, budget_c, lanes, True, model))
+            n_sim = want[3]
+            sim = cell < n_sim.view(E, 1, 1)
+            for out, chunk in ((got, chunk_t), (one, 1)):
+                pairs = [("n_sim", out[3], n_sim)] + [
+                    (what, out[i][sim], want[i][sim])
+                    for i, what in enumerate(("imp", "acc", "spend"))]
+                for what, g, w in pairs:
+                    err = (g.long() - w.long()).abs().max().item() if g.numel() else 0
+                    max_err = max(max_err, err)
+                    if err:
+                        fail(f"{name} vs plain ({label}, chunk_t {chunk}): {what} differs, "
+                             f"max error {err}")
+            for i, (g, w) in enumerate(zip(got[4], want[4])):
+                if not torch.equal(g.view(torch.int32), w.view(torch.int32)):
+                    fail(f"{name} vs plain ({label}): constant {i} differs in its bits")
+            imp, acc, spend = want[:3]
+            for mode in ad.REV_SAMPLING:
+                out = ad.agg_outcomes(params, k_cells, *got[:4], n_auc01, lanes, mode)
+                with words_replaced(pk, pk.threefry_words_reference):
+                    out_want = ad.agg_outcomes_reference(params, k_cells, *want[:4], n_auc01,
+                                                         lanes, mode)
+                if not all(torch.equal(g, w) for g, w in zip(out, out_want)):
+                    fail(f"agg_outcomes on {name}'s tables ({label}, {mode}) differs from plain")
+            if (out[2].sum(1) > budget_c.clamp(min=0)).any():
+                fail(f"{name} ({label}): an env spent more than its budget")
+            phantom = sim & (imp == 0) & (acc > 0)
+            gate_ms = cuda_ms(gate_call, reps=20)
+            # the work this run's cells need, as phase 9 counts it: per
+            # simulated cell an impression word where it has auctions, a
+            # click word (every explicit cell has a candidate), a spend
+            # normal where it has clicks and impressions (a phantom cell
+            # spends nothing); the key blocks of each (env, t) with a
+            # simulated cell; of each partial cell the lanes up to the
+            # first over the budget or its last click, lite then deep, with
+            # the keys they need. Float: the walks' levels, the ladder's
+            # bisection, and each needed lane's normal and cost
+            # (EXPLICIT_LANE_OPS), and each (env, keyword)'s sigmoid and
+            # moments. Bytes: five parameter rows, counts, keys and budgets
+            # in; imp, acc and spend of the simulated cells and n_sim out.
+            flat = spend.view(E, T * K).long()
+            b_before = budget_c.view(E, 1).long() - (torch.cumsum(flat, 1) - flat)
+            simf = sim.view(E, T * K)
+            partial = simf & (sfull_p.view(E, T * K).long() > b_before)
+            accf, nclf = acc.view(E, T * K), ncl_p.view(E, T * K)
+            m_cell = torch.where(cell.view(1, T * K) < K, m0, m1)
+            looked = torch.minimum(torch.minimum(accf + 1, nclf), m_cell) * partial
+            lite_words = looked.clamp(max=L).sum().item()
+            deep_cells = (looked - L).clamp(min=0)
+            deep = deep_cells.sum().item()
+            n_deep_cells = (deep_cells > 0).sum().item()
+            t_partial = partial.view(E, T, K).any(2).sum().item()
+            t_rest = (deep_cells > 0).view(E, T, K).any(2).sum().item()
+            n_t = torch.stack([n0] + [n1] * (T - 1), 1)
+            cand = imp_p.clamp(min=1)
+            cell_words = (((n_t > 0) & sim).sum() + sim.sum()
+                          + ((ncl_p > 0) & (imp_p > 0) & sim).sum()).item()
+            key_blocks = CELL_KEY_BLOCKS * sim.any(2).sum().item()
+            words = (cell_words + key_blocks + lite_words + deep + n_deep_cells
+                     + PARTIAL_KEY_BLOCKS * t_partial + t_rest)
+            fp = (WALK_OPS * (walk_levels(imp_p[:, 0] * sim[:, 0], n0 * sim[:, 0])
+                              + walk_levels(ncl_p * sim, cand * sim))
+                  + (ladder_steps * sim[:, 1:].sum(1)).sum()).item()
+            if model == ad.EXPLICIT_RUST:
+                moment_ops = RUST_MOMENT_OPS * E * K
+            else:
+                grid = cfg.agg_cost_grid
+                edges = (torch.arange(grid, device=dev, dtype=torch.float32) + 0.5) * 0.01
+                cells = torch.searchsorted(edges, params[ad.BID].reshape(-1)).sum().item()
+                moment_ops = PYTHON_CELL_OPS * cells
+            fp += EXPLICIT_LANE_OPS * (lite_words + deep) + SIGMOID_OPS * E * K + moment_ops
+            nbytes = 4 * (5 * E * K + 2 * E * K + E) + 16 * E + 12 * simf.sum().item() + 4 * E
+            gate_bound = max(bound(nbytes, words * ops_per_word, int_ops_per_s),
+                             bound(nbytes, fp, fp_ops_per_s))
+            timed[label] = (gate_ms, plain_ms, gate_bound)
+            print(f"  {name} == plain ({label}, ${budget:g} = {int(budget_c[0])} units): "
+                  f"simulated cells {sim.sum().item()} of {E * T * K}, {phantom.sum().item()} "
+                  f"with phantom clicks, {partial.sum().item()} partial, {n_deep_cells} reach "
+                  f"{deep} deep lanes; accepted clicks {acc[sim].sum().item()}, spend "
+                  f"${spend[sim].sum().item() / scale:.2f}; agg_outcomes == plain in both "
+                  f"modes; kernel {gate_ms:.4f} ms, plain {plain_ms:.1f} ms; {words} words, "
+                  f"{fp:.4g} float ops, {nbytes / 1e6:.1f} MB; bound {gate_bound[0]:.4f} ms "
+                  f"({gate_bound[1]}), {100 * gate_bound[0] / gate_ms:.1f}% of it reached "
+                  f"({card})", flush=True)
+
+        # the slice: counts zeroed just before, read just after
+        kernels = {"agg_cells_gate": ad.agg_cells_gate, "agg_outcomes": ad.agg_outcomes}
+        torch.cuda.synchronize()
+        for kernel in kernels.values():
+            kernel.launches = 0
+        t0 = time.perf_counter()
+        state = state0
+        steps = []
+        for _ in range(EXPLICIT_STEPS):
+            state, ts = env.step(state, bids)
+            steps.append(ts)
+        end_roll, roll = env.rollout(state0, bids, EXPLICIT_STEPS)
+        reset_state, reset_ts = env.autoreset_step(state, bids, reset_kw=True)
+        torch.cuda.synchronize()
+        slice_s = time.perf_counter() - t0
+        launches = {n: k.launches for n, k in kernels.items()}
+        days = 2 * EXPLICIT_STEPS + 1
+        if any(n != days for n in launches.values()):
+            fail(f"{name} slice launches {launches}, want {days} of each")
+        if not (torch.equal(end_roll.key, state.key) and bool(reset_ts.terminated.all())
+                and bool((reset_state.day == 0).all())):
+            fail(f"{name} slice: rollout or autoreset state wrong")
+        if torch.equal(reset_state.kw.vol_mean, state.kw.vol_mean):
+            fail(f"{name} slice: autoreset(reset_kw=True) kept the keywords")
+        for i, ts in enumerate(steps):
+            o = ts.outcomes
+            if not ((o.sellside_conversions <= o.buyside_clicks).all()
+                    and torch.isfinite(ts.reward).all()
+                    and (o.cost.sum(1) <= XLA_BUDGET + 1e-3).all()):
+                fail(f"{name} slice step {i}: invariants violated")
+            for f in o._fields:
+                if not torch.equal(getattr(o, f), getattr(roll.outcomes, f)[i]):
+                    fail(f"{name} rollout day {i}: {f} differs from step {i}")
+        with agg_plain(ad), words_replaced(pk, pk.threefry_words_reference):
+            plain = state0
+            for i in range(EXPLICIT_STEPS):
+                plain, ts = env.step(plain, bids)
+                for f in ts.outcomes._fields:
+                    if not torch.equal(getattr(ts.outcomes, f), getattr(steps[i].outcomes, f)):
+                        fail(f"{name} slice step {i}: {f} differs between kernels and plain")
+            plain_reset, plain_ts = env.autoreset_step(plain, bids, reset_kw=True)
+        for a, b in zip(torch.utils._pytree.tree_leaves((plain_reset, plain_ts)),
+                        torch.utils._pytree.tree_leaves((reset_state, reset_ts))):
+            if not torch.equal(a, b):
+                fail(f"{name} slice: the autoreset day differs between kernels and plain")
+        o = [ts.outcomes for ts in steps]
+        print(f"{name} slice: {EXPLICIT_STEPS} steps, rollout({EXPLICIT_STEPS}) and an autoreset "
+              f"day x {E} envs "
+              f"x {K} keywords, bids ${BID:.2f}, budget ${XLA_BUDGET:g}: "
+              f"{sum(x.impressions.sum().item() for x in o)} impressions, "
+              f"{sum(x.buyside_clicks.sum().item() for x in o)} clicks, "
+              f"${sum(x.cost.sum().item() for x in o):.2f} spent; launches {launches}; "
+              f"{days * E / slice_s:.1f} env-days/s; outcomes, keys and the reset state "
+              f"equal to the plain versions' ({card})", flush=True)
+        ms = timed["$1000"]
+        entries.append({
+            "name": name,
+            "route": "cuda",
+            "source": "adcraft_tpu_torch/csrc/agg_day.cu",
+            "replaces": "adcraft_tpu/step.py:858-926 (_cell_tables, agg explicit branch), "
+                        ":740 (_gate_keywords_scan_agg) and :1087 (_resolve_cell); the XLA "
+                        "step has no TPU kernel",
+            "launches": launches["agg_cells_gate"],
+            "max_abs_err": max_err,
+            "ms": ms[0],
+            "plain_ms": ms[1],
+            "bound_ms": ms[2][0],
+            "bound_by": ms[2][1],
+            "library_ms": None,
+        })
+    return entries
 
 
 CAST_BUDGETS = (1e6, math.inf, 1e8, -3e7)  # unbound, two "unlimited" ones, INT32_MIN cents
@@ -1642,6 +1904,8 @@ def main(argv=None) -> int:
         (f"random_bits ({E}, 3, 100) 16-bit", keys, 300, pk.XOR, 0, 16),
         ("random_bits, strided key rows", strided, 100, pk.XOR, 0, 32),
         (f"random_bits, {E} x 4097 words (> 2**24 at 4096 keys)", keys, 4097, pk.XOR, 0, 32),
+        (f"normal ({E}, 100)", keys, 100, pk.NORMAL, 0, 32),
+        ("normal, strided key rows", strided, 100, pk.NORMAL, 0, 32),
     )
     words_err = 0
     for label, k, n, mode, base, width in cases:
@@ -1656,6 +1920,8 @@ def main(argv=None) -> int:
     if not torch.equal(prng.random_bits(keys, (3, 100), 16).cpu(),
                        prng.random_bits(keys.cpu(), (3, 100), 16)):
         fail("prng.random_bits on the card differs from the CPU")
+    if not torch.equal(prng.normal(keys, (3, 100)).cpu(), prng.normal(keys.cpu(), (3, 100))):
+        fail("prng.normal on the card differs from the CPU")
 
     # 7. the probe: its path with the counts zeroed just before
     pk.threefry_words.launches = pk.threefry_rate.launches = 0
@@ -1787,8 +2053,8 @@ def main(argv=None) -> int:
     words_plain_ms = sum(cuda_ms(lambda c=c: pk.threefry_words_reference(*c), reps=5)
                          for c in replay)
     words_bound = threefry_words_bound(
-        [(N, n, mode) for N, _s, n, mode, _b, _w in step_calls], ops_per_word, int_ops_per_s
-    )
+        [(N, n, mode) for N, _s, n, mode, _b, _w in step_calls], ops_per_word, int_ops_per_s,
+        fp_ops_per_s)
     print(f"threefry_words per step: {len(step_calls)} calls "
           f"{[(N, n, mode) for N, _s, n, mode, _b, _w in step_calls]}: kernel {words_ms:.4f} ms, "
           f"plain {words_plain_ms:.3f} ms, bound {words_bound[0]:.5f} ms ({words_bound[1]}) "
@@ -1810,6 +2076,10 @@ def main(argv=None) -> int:
     # 10. the lanes day (the JAX package's default knobs)
     lanes_kernels = lanes_phase(torch, dev, card, table, ops_per_word, int_ops_per_s,
                                 fp_ops_per_s, sms, lanes_stats, parent)
+
+    # 11. explicit keywords on the XLA day step
+    explicit_kernels = explicit_phase(torch, dev, card, ops_per_word, int_ops_per_s,
+                                      fp_ops_per_s)
 
     if "jax" in sys.modules:
         fail("jax was imported")
@@ -1858,7 +2128,7 @@ def main(argv=None) -> int:
             "bound_by": rate_bound[1],
             "library_ms": None,
         },
-    ] + xla_kernels + lanes_kernels}))
+    ] + xla_kernels + lanes_kernels + explicit_kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

@@ -2,11 +2,12 @@
 CPU: the sampling phase, the gate, the post-gate draws and whole days.
 
 Inputs are made from numpy seeds and handed to both sides. The day's
-float constants (the win probability and its t >= 1 ladder, the cost and
-revenue moments) are injected from the JAX functions that ``simulate_day``
-calls (``inject_jax_constants`` patches ``agg_day.cell_constants`` and
-``distributions.rev_sum_moments``), because torch's exp/log/erf differ from XLA's by an ulp on 10-20%
-of inputs (tests/test_torch_agg_dist.py); with them, every integer output
+float cell constants (the win probability and its t >= 1 ladder, the cost
+moments) are injected from the JAX functions that ``simulate_day`` calls
+(``inject_jax_constants`` patches ``agg_day.cell_constants``), because
+torch's exp/expm1 differ from XLA's by an ulp on 10-20% of inputs
+(tests/test_torch_agg_dist.py); the revenue moments are the port's own,
+equal to XLA's. With them, every integer output
 is exactly equal and money within the float32 sums' own rounding, which
 is the same here (exactly equal). Without injection the whole day was
 measured separately: 0 of 1600 env-days mismatched (16 envs × 20 seeds ×
@@ -85,35 +86,23 @@ def _jax_cell_constants(bids, loc, scale, n1):
     return (p, cdf, *jd.single_cost_cent_moments_closed(bids, loc, scale))
 
 
-@jax.jit
-def _jax_rev_sum_moments(rev_mean, rev_std):
-    m1, s1 = jd.censored_normal_moments(rev_mean, rev_std, 0.01)
-    return 100.0 * m1, jnp.sqrt((100.0 * s1) ** 2 + (1.0 / 12.0))
-
-
 def _torch(xs):
     return [torch.from_numpy(np.array(x)) for x in xs]
 
 
-def jax_cell_constants(params, n1, m1):
+def jax_cell_constants(params, n1, m1, model=agg_day.IMPLICIT, cost_grid=None):
     """``agg_day.cell_constants`` by the JAX functions ``simulate_day``
-    calls (for m1 = 16)."""
-    assert m1 == 16
+    calls (for m1 = 16, implicit keywords)."""
+    assert m1 == 16 and model == agg_day.IMPLICIT
     p, cdf, mu, sigma, cmax = _torch(_jax_cell_constants(
         *(x.cpu().numpy() for x in (params[agg_day.BID], params[agg_day.LOC],
                                     params[agg_day.SCALE], n1))))
     return p, cdf[:m1].permute(1, 0, 2).contiguous(), mu, sigma, cmax
 
 
-def jax_rev_sum_moments(rev_mean, rev_std):
-    """``distributions.rev_sum_moments`` by the JAX functions."""
-    return tuple(_torch(_jax_rev_sum_moments(rev_mean.cpu().numpy(), rev_std.cpu().numpy())))
-
-
 def inject_jax_constants(monkeypatch):
     """Make the port's plain day take its constants from the JAX package."""
     monkeypatch.setattr(agg_day, "cell_constants", jax_cell_constants)
-    monkeypatch.setattr(tdist, "rev_sum_moments", jax_rev_sum_moments)
 
 
 _jax_days = {}
@@ -136,8 +125,8 @@ class GateRecorder:
         self.cells_gate = agg_day.agg_cells_gate
         monkeypatch.setattr(agg_day, "agg_cells_gate", self)
 
-    def __call__(self, *args):
-        out = self.cells_gate(*args)
+    def __call__(self, *args, **kwargs):
+        out = self.cells_gate(*args, **kwargs)
         self.n_sim.append(out[3])
         return out
 

@@ -110,7 +110,9 @@ def test_rollout_equals_steps_and_jax():
     {"rev_sampling": "lanes"},
     {"binomial_sampler": "exact"},
     {"agg_draw_bits": 16},
-    {"kind": KeywordKind.EXPLICIT},
+    # explicit keywords run on the aggregate knobs; with lane costs they raise
+    {"kind": KeywordKind.EXPLICIT, "cost_sampling": "lanes", "conv_sampling": "lanes",
+     "rev_sampling": "lanes", "binomial_sampler": "exact", "gate_scope": "per_t"},
     {"competitor_model": "binomial_pool"},
     {"use_x64": True},
 ])

@@ -161,6 +161,8 @@ WORD_CASES = [
     (pk.XOR, 257, 300, 0, 32),
     (pk.XOR, 3, 70000, 0, 16),
     (pk.XOR, 64, 129, 0, 16),
+    (pk.NORMAL, 5, 300, 0, 32),
+    (pk.NORMAL, 257, 100, 0, 32),
 ]
 
 
@@ -177,7 +179,7 @@ def test_threefry_words_matches_reference(cuda, mode, N, n, base, bit_width, str
     assert pk.threefry_words.launches == before + 1
     want = pk.threefry_words_reference(keys, n, mode, base, bit_width)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
-    assert got.is_cuda and got.dtype == torch.int64
+    assert got.is_cuda and got.dtype == (torch.float32 if mode == pk.NORMAL else torch.int64)
 
 
 @pytest.mark.cuda
@@ -185,7 +187,8 @@ def test_prng_on_the_card_equals_the_cpu(cuda):
     key = prng.split(prng.PRNGKey(42), 5)
     for fn in (lambda k: prng.split(k, 3), lambda k: prng.fold_in(k, 99),
                lambda k: prng.random_bits(k, (4, 7)), lambda k: prng.random_bits(k, 9, 16),
-               lambda k: prng.uniform(k, (2, 3)), lambda k: prng.randint(k, (6,), -3, 70000)):
+               lambda k: prng.uniform(k, (2, 3)), lambda k: prng.randint(k, (6,), -3, 70000),
+               lambda k: prng.normal(k, (3, 50))):
         torch.testing.assert_close(fn(key.to(cuda)).cpu(), fn(key), rtol=0, atol=0)
     with pytest.raises(ValueError, match="adjacent"):
         pk.threefry_words(torch.zeros((2, 4), dtype=torch.int64, device=cuda).t(), 1, pk.XOR)
@@ -338,6 +341,99 @@ def test_xla_env_step_launches_each_agg_kernel_once(cuda):
     assert ts.outcomes.impressions.is_cuda and (end.day == 3).all()
     assert roll.outcomes.impressions.shape == (2, 32, 8)
     assert (ts.outcomes.cost.sum(1) <= 3.0 + 1e-4).all()
+
+
+def explicit_config(K, model, max_volume=576, **knobs):
+    from adcraft_tpu_torch.config import BENCH_XLA_KNOBS, CostModel
+
+    return EnvConfig(num_keywords=K, kind=KeywordKind.EXPLICIT,
+                     cost_model=getattr(CostModel, model), max_volume=max_volume,
+                     **dict(BENCH_XLA_KNOBS, **knobs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K, model, bits", [(7, "RUST_QUIRK", 16), (100, "RUST_QUIRK", 32),
+                                            (7, "PYTHON", 32), (300, "PYTHON", 16)])
+def test_agg_cells_gate_explicit_matches_reference(cuda, K, model, bits):
+    """agg_cells_gate's explicit mode equals its plain version on explicit
+    keywords (threshold-sigmoid impressions, phantom clicks, the cost
+    model's lite and deep lanes, the moments in the kernel's prologue, the
+    gate in decicents or cents), budgets
+    ample and tight, every simulated cell, n_sim and the constants exactly,
+    the chunk left to the wrapper and forced to 1; then agg_outcomes on its
+    tables."""
+    from adcraft_tpu_torch import agg_day
+    from adcraft_tpu_torch.keywords import sample_explicit_keywords
+    from adcraft_tpu_torch.step import agg_model, budget_cents, xla_lanes
+
+    E = 97
+    cfg = explicit_config(K, model, lane_bits=bits)
+    lanes, agg = xla_lanes(cfg), agg_model(cfg)
+    kw = sample_explicit_keywords(prng.split(prng.PRNGKey(K, cuda), E), K)
+    gen = torch.Generator().manual_seed(K)
+    bids = (torch.round(0.2 + 3.0 * torch.rand((E, K), generator=gen), decimals=2)).to(cuda)
+    vol = torch.randint(0, cfg.max_volume + 1, (E, K), generator=gen, dtype=torch.int32)
+    n_auc = split_volume(cfg, vol)
+    n_auc01 = torch.stack([n_auc[0], n_auc[1]]).contiguous().to(cuda)
+    params = agg_day.pack_params(kw, bids)
+    keys = prng.split(prng.PRNGKey(K + 1, cuda), E)
+    cell = torch.arange(lanes.T * K, device=cuda).view(1, lanes.T, K)
+    fused = agg_day.agg_cells_gate
+    chunk_t = fused.default_chunk_t(K, lanes, cuda, agg)
+    assert 1 <= chunk_t <= lanes.T and fused.occupancy(chunk_t, K, lanes, cuda, agg) >= 1
+    for budget in (1e6, 2.0 * K, 4.0):
+        budget_c = budget_cents(torch.full((E,), budget, device=cuda), agg_day.AGG_SCALE[agg])
+        got = agg_day.agg_cells_gate(params, n_auc01, keys, budget_c, lanes, keep_constants=True,
+                                     model=agg)
+        one = agg_day.agg_cells_gate(params, n_auc01, keys, budget_c, lanes, chunk_t=1,
+                                     model=agg)
+        torch.cuda.synchronize()
+        want = agg_day.agg_cells_gate_reference(params, n_auc01, keys, budget_c, lanes, True,
+                                                agg)
+        sim = cell < want[3].view(E, 1, 1)
+        for out in (got, one):
+            torch.testing.assert_close(out[3], want[3], rtol=0, atol=0)
+            for g, w in zip(out[:3], want[:3]):
+                torch.testing.assert_close(g[sim], w[sim], rtol=0, atol=0)
+        for g, w in zip(got[4], want[4]):
+            assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+        imp, acc = want[0], want[1]
+        assert bool(((imp == 0) & (acc > 0) & sim).any())  # phantom clicks
+        for mode in ("sum", "day"):
+            out = agg_day.agg_outcomes(params, keys, *got[:4], n_auc01, lanes, mode)
+            want_out = agg_day.agg_outcomes_reference(params, keys, *want[:4], n_auc01, lanes,
+                                                      mode)
+            for g, w in zip(out, want_out):
+                torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["RUST_QUIRK", "PYTHON"])
+def test_explicit_env_runs_on_the_kernels(cuda, model, monkeypatch):
+    """VectorBiddingEnv with explicit keywords on the card: step, rollout
+    and autoreset launch agg_cells_gate (its explicit mode) and
+    agg_outcomes once a day, and equal the same env on the card with the
+    plain versions of both kernels."""
+    from adcraft_tpu_torch import agg_day
+
+    cfg = explicit_config(8, model, max_volume=96, timesteps_per_day=6, max_days=2)
+    bids = torch.full((32, 8), 1.0, device=cuda)
+    kernels = (agg_day.agg_cells_gate, agg_day.agg_outcomes)
+    runs = []
+    for plain in (False, True):
+        if plain:
+            monkeypatch.setattr(agg_day, "agg_cells_gate", agg_day.agg_cells_gate_reference)
+            monkeypatch.setattr(agg_day, "agg_outcomes", agg_day.agg_outcomes_reference)
+        env = VectorBiddingEnv(cfg, 32)
+        state, _ = env.reset(prng.PRNGKey(0))
+        before = [k.launches for k in kernels]
+        state, ts = env.step(state, bids, torch.full((32,), 3.0, device=cuda))
+        state, roll = env.rollout(state, bids, 2)
+        state, auto = env.autoreset_step(state, bids, reset_kw=True)
+        torch.cuda.synchronize()
+        assert [k.launches - b for k, b in zip(kernels, before)] == ([0, 0] if plain else [4, 4])
+        runs.append(torch.utils._pytree.tree_leaves((ts, roll, auto, state)))
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
 
 
 # K = 1, 7, 32, 33, 100 and 129 cover lanes_counts' 1 to 4 slots a lane, a

@@ -136,10 +136,11 @@ def test_unported_paths_raise():
     state, _ = env.reset(prng.PRNGKey(0))
     with pytest.raises(NotImplementedError):
         env.rollout(state, torch.ones(E, K), 3)
+    # explicit keywords reset, but the day kernel refuses them, as in JAX
+    explicit = VectorBiddingEnv(CFG.replace(kind=KeywordKind.EXPLICIT), E, device="cpu")
+    state, _ = explicit.reset(prng.PRNGKey(0))
     with pytest.raises(NotImplementedError):
-        VectorBiddingEnv(CFG.replace(kind=KeywordKind.EXPLICIT), E, device="cpu").reset(
-            prng.PRNGKey(0)
-        )
+        explicit.step(state, torch.ones(E, K))
 
 
 def test_port_runs_with_jax_blocked():

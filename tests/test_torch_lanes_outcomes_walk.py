@@ -229,7 +229,7 @@ def draw_tables(params, keys, lanes, K):
         flags.append((prng.uniform(k_conv, (m, K)) <= params[agg_day.SCTR][:, None, :]).numpy())
         revs.append(dist.rev_normal_cents(k_rev, params[agg_day.REV_MEAN][:, None, :],
                                           params[agg_day.REV_STD][:, None, :], (m, K)).numpy())
-        u = xla_math.uniform_open(k_rev, (m, K)).numpy()
+        u = prng.uniform_open(k_rev, (m, K)).numpy()
         branches.append(~(np.abs(u * -u) < xla_math.f32(0x3ED413CD)))
     return flags, revs, branches
 
