@@ -174,7 +174,10 @@ def t_keys(k_cells: torch.Tensor, t: int) -> _TKeys:
 
 
 def _cost_cents(x: torch.Tensor) -> torch.Tensor:
-    return torch.round(torch.abs(x) * 100.0).to(torch.int32)
+    """A truncated-Laplace draw's cost in cents, converted as XLA converts:
+    a draw at XLA's log of 0 (a subnormal CDF argument) is infinite, and its
+    cents INT32_MAX."""
+    return dist.int32_of(torch.round(torch.abs(x) * 100.0))
 
 
 def agg_cells_reference(params, n_auc01, k_cells, lanes: Lanes, keep_constants: bool = False,

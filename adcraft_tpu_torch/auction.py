@@ -3,9 +3,9 @@
 Counterparts of ``adcraft_tpu/auction.py``: ``CellAuction`` (:43),
 ``cell_binomial_fn`` (:57, both samplers),
 ``_single_abs_cents_win_threshold`` (:101), ``implicit_single_win_prob``
-(:113), ``implicit_single_auction`` (:126) and ``run_cell_auctions``
-(:355) for implicit single-competitor keywords. Explicit keywords and the
-binomial pool raise (ROADMAP.md items 3 and 4).
+(:113), ``implicit_single_auction`` (:126), ``explicit_auction`` (:209) and
+``run_cell_auctions`` (:355) for implicit single-competitor and explicit
+keywords. The binomial pool raises (ROADMAP.md item 4).
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ import torch
 
 from adcraft_tpu_torch import distributions as dist
 from adcraft_tpu_torch import prng
-from adcraft_tpu_torch.config import CompetitorModel, EnvConfig, KeywordKind
+from adcraft_tpu_torch.config import CompetitorModel, CostModel, EnvConfig, KeywordKind
 
 
 class CellAuction(NamedTuple):
@@ -72,15 +72,35 @@ def implicit_single_auction(key, bid, n_auctions, bid_loc, bid_scale, max_clicks
     return CellAuction(impressions, impressions, dist.round_cents(torch.abs(trunc)))
 
 
+def explicit_auction(key, bid, n_auctions, imp_thresh, imp_intercept, imp_slope,
+                     cost_model: CostModel, max_clicks: int,
+                     binomial_fn=dist.binomial) -> CellAuction:
+    """The explicit parametric auction of a batch of cells: ``key`` (...,
+    2), the rest (..., K). ``k_imp, k_cost = split(key)``; impressions are
+    Binomial(n, threshold_sigmoid(bid)); costs are ``max_clicks`` lanes of
+    the cost model's draws (``cost_create``, continuous, or
+    ``generic_cost``, in cents). The phantom-click quirk: a cell without
+    impressions still has one click candidate, whose cost is 0."""
+    k_imp, k_cost = prng.split(key).unbind(-2)
+    rate = dist.threshold_sigmoid(bid, imp_thresh, imp_intercept, imp_slope)
+    impressions = binomial_fn(k_imp, n_auctions, rate)
+    cost_fn = dist.cost_create if cost_model is CostModel.RUST_QUIRK else dist.generic_cost
+    costs = cost_fn(k_cost, bid[..., None, :], (max_clicks, bid.shape[-1]))
+    phantom = impressions == 0
+    return CellAuction(impressions, torch.clamp(impressions, min=1),
+                       torch.where(phantom[..., None, :], 0.0, costs))
+
+
 def run_cell_auctions(cfg: EnvConfig, key, bids, n_auctions, kw, max_clicks=None) -> CellAuction:
     """The cell auction of the env's keyword kind and competitor model;
-    only implicit single-competitor keywords are ported."""
-    if cfg.kind is not KeywordKind.IMPLICIT:
-        raise NotImplementedError("explicit keywords with lane costs are not ported (ROADMAP.md "
-                                  "item 3b)")
+    the binomial pool is not ported."""
+    m = cfg.max_clicks_per_cell if max_clicks is None else max_clicks
+    if cfg.kind is KeywordKind.EXPLICIT:
+        return explicit_auction(key, bids, n_auctions, kw.imp_thresh, kw.imp_intercept,
+                                kw.imp_slope, cfg.cost_model, m,
+                                binomial_fn=cell_binomial_fn(cfg, m))
     if cfg.competitor_model is not CompetitorModel.SINGLE_ABS_CENTS:
         raise NotImplementedError("the binomial pool is not ported (ROADMAP.md item 4)")
-    m = cfg.max_clicks_per_cell if max_clicks is None else max_clicks
     return implicit_single_auction(key, bids, n_auctions, kw.bid_loc, kw.bid_scale, m,
                                    lane_bits=cfg.lane_bits,
                                    binomial_fn=cell_binomial_fn(cfg, m))

@@ -24,10 +24,10 @@
 // and agg_outcomes_reference. Every float operation here is the one that
 // version's tensor ops perform on the card, spelled so that nvcc cannot
 // contract or reorder it: __fmul_rn, __fadd_rn, __fdiv_rn, IEEE sqrtf,
-// rintf, the same expf, logf, log1pf and powf that PyTorch's CUDA kernels
-// call, and fused multiply-adds (XLA's contractions, which the plain
-// version writes in float64) as a float64 product and sum rounded to
-// float32. So the kernels equal it exactly.
+// rintf, the powf that PyTorch's CUDA kernels
+// call, and fused multiply-adds (XLA's contractions) as __fmaf_rn, which
+// rounds once as the plain version's fma32 does. So the kernels equal it
+// exactly.
 //
 // Keys follow jax.random's tree (threefry.cuh): per env and sub-timestep
 // kt = fold_in(k_cells, t); k_auc, k_click, k_conv, k_rev = split(kt, 4);
@@ -108,8 +108,8 @@
 // thread per keyword with conversions draws the day's normal. Integer sums
 // are exact in any order, so neither the queues' order nor the atomics
 // change the outputs. Measured on the card, the draws' arithmetic beyond
-// threefry (powf, log1pf and the erfinv polynomial, sqrtf, the float64
-// products of the exact fused multiply-adds) bounds it when most cells
+// threefry (powf, log1pf and the erfinv polynomial, sqrtf, the fused
+// multiply-adds) bounds it when most cells
 // have clicks; splitting an env's keywords over several blocks, two cells
 // per lane, packing the sums into 64-bit atomics, and capping registers
 // for more blocks per SM were each measured slower.
@@ -180,16 +180,18 @@ struct CostMoments {
 
 struct Geo {
   float c, em1, e_c;
-  __device__ float geo0(float n) const { return __fdiv_rn(-expm1f(__fmul_rn(-n, c)), em1); }
+  __device__ float geo0(float n) const {
+    return __fdiv_rn(-xla_expm1(__fmul_rn(-n, c)), em1);
+  }
   __device__ float geo1(float n) const {
-    const float x = __fadd_rn(
-        __fsub_rn(1.0f, __fmul_rn(n, expf(__fmul_rn(-__fsub_rn(n, 1.0f), c)))),
-        __fmul_rn(__fsub_rn(n, 1.0f), expf(__fmul_rn(-n, c))));
+    const float e1 = xla_exp(__fmul_rn(-__fsub_rn(n, 1.0f), c));
+    const float e2 = xla_exp(__fmul_rn(-n, c));
+    const float x = fma32(__fsub_rn(n, 1.0f), e2, fma32(-n, e1, 1.0f));
     return __fdiv_rn(__fmul_rn(e_c, x), __fmul_rn(em1, em1));
   }
 };
 
-__device__ __forceinline__ float safe_exp(float x) { return expf(fminf(x, 0.0f)); }
+__device__ __forceinline__ float safe_exp(float x) { return xla_exp(fminf(x, 0.0f)); }
 
 __device__ CostMoments cost_moments(float bid, float loc, float scale) {
   const float a = fabsf(loc);
@@ -199,42 +201,40 @@ __device__ CostMoments cost_moments(float bid, float loc, float scale) {
   g.c = __fdiv_rn(1.0f, __fmul_rn(100.0f, s));
   const float bc = rintf(__fmul_rn(bid, 100.0f));
   const float big_i = fmaxf(__fsub_rn(bc, 1.0f), 0.0f);
-  const float m = fminf(fmaxf(ceilf(__fsub_rn(__fmul_rn(100.0f, a), 0.5f)), 0.0f), big_i);
-  g.em1 = -expm1f(-g.c);
-  g.e_c = expf(-g.c);
+  const float m = fminf(fmaxf(ceilf(fma32(a, 100.0f, -0.5f)), 0.0f), big_i);
+  g.em1 = -xla_expm1(-g.c);
+  g.e_c = xla_exp(-g.c);
   const float geo0_i = g.geo0(big_i), geo1_i = g.geo1(big_i);
 
   const float e_ay = safe_exp(__fdiv_rn(-__fsub_rn(a, y0), s));
   const float b_fac = safe_exp(__fdiv_rn(-__fadd_rn(a, 0.005f), s));
   const float b_cut = safe_exp(__fdiv_rn(-__fadd_rn(a, y0), s));
   const float half_ii = __fmul_rn(__fmul_rn(0.5f, big_i), __fsub_rn(big_i, 1.0f));
-  const float sum_b = __fmul_rn(0.5f, __fsub_rn(__fmul_rn(b_fac, geo0_i), __fmul_rn(big_i, b_cut)));
-  const float sum_ib =
-      __fmul_rn(0.5f, __fsub_rn(__fmul_rn(b_fac, geo1_i), __fmul_rn(half_ii, b_cut)));
+  const float sum_b = __fmul_rn(0.5f, fma32(b_fac, geo0_i, -__fmul_rn(big_i, b_cut)));
+  const float sum_ib = __fmul_rn(0.5f, fma32(b_fac, geo1_i, -__fmul_rn(half_ii, b_cut)));
 
   // r2(n): t2 = safe_exp(-(100 a - n + 0.5) c); (t2 geo0(n), t2 ((n - 1) geo0(n) - geo1(n)))
-  const float a100 = __fmul_rn(100.0f, a);
-  const float t2_i = safe_exp(__fmul_rn(-__fadd_rn(__fsub_rn(a100, big_i), 0.5f), g.c));
+  const float t2_i = safe_exp(__fmul_rn(-__fadd_rn(fma32(a, 100.0f, -big_i), 0.5f), g.c));
   const float r2_i = __fmul_rn(t2_i, geo0_i);
-  const float r2w_i = __fmul_rn(
-      t2_i, __fsub_rn(__fmul_rn(__fsub_rn(big_i, 1.0f), geo0_i), geo1_i));
-  const float sum_a_low = __fmul_rn(0.5f, __fsub_rn(__fmul_rn(big_i, e_ay), r2_i));
-  const float sum_ia_low = __fmul_rn(0.5f, __fsub_rn(__fmul_rn(half_ii, e_ay), r2w_i));
+  const float r2w_i = __fmul_rn(t2_i, fma32(__fsub_rn(big_i, 1.0f), geo0_i, -geo1_i));
+  const float sum_a_low = __fmul_rn(0.5f, fma32(big_i, e_ay, -r2_i));
+  const float sum_ia_low = __fmul_rn(0.5f, fma32(half_ii, e_ay, -r2w_i));
 
   const float e_ya = safe_exp(__fdiv_rn(-__fsub_rn(y0, a), s));
   const float geo0_m = g.geo0(m), geo1_m = g.geo1(m);
-  const float t2_m = safe_exp(__fmul_rn(-__fadd_rn(__fsub_rn(a100, m), 0.5f), g.c));
+  const float t2_m = safe_exp(__fmul_rn(-__fadd_rn(fma32(a, 100.0f, -m), 0.5f), g.c));
   const float r2_m = __fmul_rn(t2_m, geo0_m);
-  const float r2w_m = __fmul_rn(t2_m, __fsub_rn(__fmul_rn(__fsub_rn(m, 1.0f), geo0_m), geo1_m));
+  const float r2w_m = __fmul_rn(t2_m, fma32(__fsub_rn(m, 1.0f), geo0_m, -geo1_m));
   const float keep = __fsub_rn(1.0f, __fmul_rn(0.5f, e_ya));
-  const float sum_a_pre = __fsub_rn(__fmul_rn(m, keep), __fmul_rn(0.5f, r2_m));
-  const float sum_ia_pre = __fsub_rn(
-      __fmul_rn(__fmul_rn(__fmul_rn(0.5f, m), __fsub_rn(m, 1.0f)), keep), __fmul_rn(0.5f, r2w_m));
+  const float sum_a_pre = fma32(m, keep, -__fmul_rn(0.5f, r2_m));
+  const float sum_ia_pre = fma32(__fmul_rn(__fmul_rn(0.5f, m), __fsub_rn(m, 1.0f)), keep,
+                                 -__fmul_rn(0.5f, r2w_m));
   const float n_top = __fsub_rn(big_i, m);
-  const float t3 = expf(fminf(__fmul_rn(-__fsub_rn(__fadd_rn(m, 0.5f), a100), g.c), 30.0f));
-  const float s3 = __fmul_rn(t3, g.geo0(n_top));
-  const float s3w = __fadd_rn(__fmul_rn(t3, g.geo1(n_top)), __fmul_rn(m, s3));
-  const float sum_a_top = __fmul_rn(0.5f, __fsub_rn(s3, __fmul_rn(n_top, e_ya)));
+  const float t3 = xla_exp(fminf(__fmul_rn(-fma32(a, -100.0f, __fadd_rn(m, 0.5f)), g.c), 30.0f));
+  const float geo0_top = g.geo0(n_top);
+  const float s3 = __fmul_rn(t3, geo0_top);
+  const float s3w = fma32(m, s3, __fmul_rn(t3, g.geo1(n_top)));
+  const float sum_a_top = __fmul_rn(0.5f, fma32(t3, geo0_top, -__fmul_rn(n_top, e_ya)));
   const float sum_i_top =
       __fmul_rn(__fmul_rn(0.5f, __fadd_rn(__fsub_rn(big_i, 1.0f), m)), n_top);
   const float sum_ia_top =
@@ -249,18 +249,19 @@ __device__ CostMoments cost_moments(float bid, float loc, float scale) {
   const float tail1 = fmaxf(__fadd_rn(sum_ia, sum_ib), 0.0f);
   const float mu = __fdiv_rn(tail0, zsafe);
   const float m2 = __fdiv_rn(__fadd_rn(__fmul_rn(2.0f, tail1), tail0), zsafe);
-  const float var = fmaxf(__fsub_rn(m2, __fmul_rn(mu, mu)), 0.0f);
+  const float var = fmaxf(fma32(-mu, mu, m2), 0.0f);
   return CostMoments{mu, sqrtf(var), fmaxf(__fsub_rn(bc, 1.0f), 0.0f)};
 }
 
 // the t >= 1 impression ladder of distributions.binomial_cdf: level 0 is
-// pmf0, level j adds pmf0 times the product of the factors up to j, in
-// order (recip_j is the float64 1/j rounded to float32)
+// pmf0 = (1 - q)^n (XLA's powf), level j the XLA scan (blocks of 16) of
+// the pmfs up to j, pmf j being pmf0 times the XLA scan of the factors
+// (n - j + 1) / j r up to j
 struct Ladder {
   float nf, r, pmf0;
-  __device__ float factor(int j, float recip_j) const {
-    return fmaxf(__fmul_rn(__fmul_rn(__fsub_rn(nf, static_cast<float>(j - 1)), recip_j), r),
-                 0.0f);
+  __device__ float factor(int j) const {
+    return fmaxf(__fmul_rn(__fdiv_rn(__fsub_rn(nf, static_cast<float>(j - 1)),
+                                     static_cast<float>(j)), r), 0.0f);
   }
 };
 
@@ -268,7 +269,7 @@ __device__ Ladder make_ladder(int n, float p) {
   p = fminf(fmaxf(p, 0.0f), 1.0f);
   const float q = p > 0.5f ? __fsub_rn(1.0f, p) : p;
   const float nf = static_cast<float>(n);
-  return Ladder{nf, __fdiv_rn(q, __fsub_rn(1.0f, q)), powf(__fsub_rn(1.0f, q), nf)};
+  return Ladder{nf, __fdiv_rn(q, __fsub_rn(1.0f, q)), xla_pow(__fsub_rn(1.0f, q), nf)};
 }
 
 // The ladder's levels below u, by bisection over its m1 levels (level j
@@ -403,14 +404,14 @@ __device__ int resolve_cell(const int* lite_c, int lite_stride, const float* kw,
 
 // Shared memory of one agg_cells_gate block, in bytes: the chunk's keys
 // (8-byte aligned, first), then per keyword kKwRows floats and the two
-// auction counts, the ladder (m1 x K), the walk's and the ladder's tables
-// of 1/j (max(m0, m1) and m1), then per cell of a chunk the aggregate
+// auction counts, the ladder (m1 x K), the walk's table of 1/j (max(m0,
+// m1)), then per cell of a chunk the aggregate
 // spend, the clicks, the impressions and the L lite costs.
 __host__ __device__ inline size_t cells_gate_smem(int chunk_t, int K, int m0, int m1, int L) {
   const size_t cells = static_cast<size_t>(chunk_t) * K;
   const size_t nmax = static_cast<size_t>(m0 > m1 ? m0 : m1);
   return static_cast<size_t>(chunk_t) * kChunkKeys * sizeof(Key) +
-         sizeof(int) * ((kKwRows + 2 + static_cast<size_t>(m1)) * K + nmax + m1 +
+         sizeof(int) * ((kKwRows + 2 + static_cast<size_t>(m1)) * K + nmax +
                         (3 + static_cast<size_t>(L)) * cells);
 }
 
@@ -505,9 +506,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   float* kw = reinterpret_cast<float*>(tkeys + kChunkKeys * chunk_t);  // [kKwRows][K]
   int* n01 = reinterpret_cast<int*>(kw + kKwRows * K);                 // [2][K]
   float* ladder = reinterpret_cast<float*>(n01 + 2 * K);                // [m1][K]
-  float* walk_recip = ladder + m1 * K;      // [j]: __fdiv_rn(1, j)
-  float* ladder_recip = walk_recip + nmax;  // [j]: 1 / j in float64, rounded
-  int* sfull = reinterpret_cast<int*>(ladder_recip + m1);  // spend after the gate
+  float* walk_recip = ladder + m1 * K;  // [j]: __fdiv_rn(1, j)
+  int* sfull = reinterpret_cast<int*>(walk_recip + nmax);  // spend after the gate
   int* ncl = sfull + max_cells;                            // accepted clicks after the gate
   int* imp = ncl + max_cells;
   int* lite = imp + max_cells;  // [L][max_cells]
@@ -534,9 +534,6 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 
   for (int j = tid; j < nmax; j += kThreads) {
     walk_recip[j] = __fdiv_rn(1.0f, static_cast<float>(j));
-  }
-  for (int j = tid; j < m1; j += kThreads) {
-    ladder_recip[j] = __double2float_rn(__ddiv_rn(1.0, static_cast<double>(j)));
   }
   __syncthreads();
 
@@ -575,14 +572,13 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     n01[k] = n_auc01[ek];
     n01[K + k] = n1;
     const Ladder lad = make_ladder(n1, p_win);
-    float cp = 1.0f, cdf = lad.pmf0;
+    XlaScan<true> cp;
+    XlaScan<false> cdf;
     for (int j = 0; j < m1; ++j) {
-      if (j > 0) {
-        cp = __fmul_rn(cp, lad.factor(j, ladder_recip[j]));
-        cdf = __fadd_rn(cdf, __fmul_rn(lad.pmf0, cp));
-      }
-      ladder[j * K + k] = cdf;
-      if (consts_out != nullptr) consts_out[(4 + j) * EK + ek] = cdf;
+      const float pmf = j == 0 ? lad.pmf0 : xla_ftz(__fmul_rn(lad.pmf0, cp.push(lad.factor(j))));
+      const float level = cdf.push(pmf);
+      ladder[j * K + k] = level;
+      if (consts_out != nullptr) consts_out[(4 + j) * EK + ek] = level;
     }
     if (consts_out != nullptr) {
       consts_out[ek] = p_win;

@@ -29,7 +29,7 @@
 // runs every group for exactly P passes.
 //
 // What bounds it: the warp's issue of a long per-slot chain (a threefry
-// word, XLA's log with its float64 fused multiply-adds, a division), and,
+// word, XLA's log with its fused multiply-adds, a division), and,
 // we infer, the kernel's instruction cache: a version whose slots were
 // unrolled into registers, with the loops inlined once per call and per
 // phase, ran 2.3 times slower than a block per call. So both loops keep

@@ -1,8 +1,7 @@
 // jax.random's key tree and draws on Hopper, for the kernels of
 // agg_day.cu and lanes_day.cu: keys and their children, the uniform
-// transforms, the exact fused multiply-add of the plain versions' fma32,
-// the (truncated) Laplace draws in cents and the
-// inverse-CDF binomial walk. Every float operation is the one the plain
+// transforms, the fused multiply-add of the plain versions' fma32 and the
+// inverse-CDF binomial walk (the Laplace draws are in xla_math.cuh). Every float operation is the one the plain
 // PyTorch version performs on the card, spelled so that nvcc cannot
 // contract or reorder it (__fmul_rn, __fadd_rn, __fdiv_rn, IEEE sqrtf,
 // rintf, and the expf, logf, log1pf and powf that PyTorch's CUDA kernels
@@ -51,32 +50,9 @@ __device__ __forceinline__ float lane_uniform(Key k, uint32_t counter, int bits)
   return uniform32(w);
 }
 
-// a * b + c rounded once, as the plain version's float64 (a * b + c): the
-// product of two floats is exact in float64, so one float64 fused
-// multiply-add rounds the same double as the product then the sum
-__device__ __forceinline__ float fma32(float a, float b, float c) {
-  return __double2float_rn(
-      __fma_rn(static_cast<double>(a), static_cast<double>(b), static_cast<double>(c)));
-}
-
-__device__ __forceinline__ float laplace_cdf(float x, float loc, float scale) {
-  const float z = __fdiv_rn(__fsub_rn(x, loc), scale);
-  return z < 0.0f ? __fmul_rn(0.5f, expf(z)) : __fsub_rn(1.0f, __fmul_rn(0.5f, expf(-z)));
-}
-
-// the plain version computes both branches' logs and selects one; the
-// kernel computes only the selected one
-__device__ __forceinline__ float laplace_icdf(float u, float loc, float scale) {
-  const bool low = u < 0.5f;
-  const float l = logf(fmaxf(__fmul_rn(2.0f, low ? u : __fsub_rn(1.0f, u)), 1e-38f));
-  return fma32(scale, low ? l : -l, loc);
-}
-
-// one lane cost in cents: round(|Laplace truncated to [-y0, y0]| * 100)
-__device__ __forceinline__ int lane_cost(float u, float loc, float scale, float f_lo, float f_hi) {
-  const float x = laplace_icdf(fma32(u, __fsub_rn(f_hi, f_lo), f_lo), loc, scale);
-  return static_cast<int>(rintf(__fmul_rn(fabsf(x), 100.0f)));
-}
+// a * b + c rounded once, as XLA's contractions round it and as the plain
+// version's fma32 computes it (a float64 sum rounded to odd, then cast)
+__device__ __forceinline__ float fma32(float a, float b, float c) { return __fmaf_rn(a, b, c); }
 
 // The walk's constants for a success probability p: 1 - q and r = q / (1 -
 // q) for q = min(p, 1 - p) (p clamped to [0, 1]), and whether the count

@@ -1,29 +1,44 @@
-// The lanes day on Hopper (sm_90a): three kernels for the three phases of
+// The lanes day on Hopper (sm_90a): kernels for the three phases of
 // adcraft_tpu/step.py:simulate_day (:991) in the JAX package's default
-// configuration (cost, conversion and revenue lanes, jax.random.binomial,
-// implicit single-competitor keywords). The JAX package left these phases
-// to XLA, so no Pallas kernel constrains them:
+// configuration (cost, conversion and revenue lanes, jax.random.binomial),
+// for implicit single-competitor keywords and for explicit ones (kind
+// EXPLICIT, EnvConfig's default) with either cost model. The JAX package
+// left these phases to XLA, so no Pallas kernel constrains them. CUDA C++
+// rather than Triton: the gates are sequential walks of one warp per env
+// and the binomials warp-wide lockstep loops, both built on shuffles,
+// ballots and per-warp shared buffers, not elementwise passes:
 //
 // * lanes_counts replaces _cell_tables' impressions and clicks
 //   (run_cell_auctions -> implicit_single_auction, auction.py:126, and the
 //   clicks binomial, step.py:934): one warp per (env, sub-timestep), four
 //   such warps a block with no block barrier, each binomial one warp-wide
 //   lockstep call of K elements, R = ceil(K / 32) slots a lane up to 4
-//   (binomial.cuh), or the inverse-CDF walk (sampler "inversion");
+//   (binomial.cuh), or the inverse-CDF walk (sampler "inversion"); its
+//   explicit instance replaces explicit_auction's impressions (auction.py:
+//   209, the threshold sigmoid's rate) and draws the clicks over max(imp,
+//   1) candidates (the phantom click);
 // * lanes_gate replaces the cost lanes (implicit_single_auction's truncated
 //   Laplace, in cents) and the budget gate over the T K cells in (t, k)
 //   order (_gate_keywords, step.py:115; the lazy and Jacobi TPU schedules
 //   are bit-identical to it): one warp per env walks the cells through
-//   windows of up to 32 (below);
+//   windows of up to 32 (below); its python instance draws the python
+//   model's cents (generic_cost, distributions.py:340), 0 in phantom cells;
+// * lanes_gate_float replaces, for the rust model's continuous costs
+//   (cost_create, distributions.py:325), the float32 gate that JAX runs
+//   for costs that are not cents (_gate_keywords_jacobi, step.py:152):
+//   one warp per env, one cell a step (at lanes_gate_float_kernel);
 // * lanes_outcomes replaces _append_conv_rev_tables (:953) and phase 3's
 //   gathers and sums (:1400-1502): one block per env, its warps reading
 //   tiles of 32 consecutive simulated cells, each warp drawing the
 //   conversion flags below the accepted clicks and then the revenue below
 //   the conversions densely, 32 lanes a step from two per-warp queues of
-//   lanes (below), with integer atomics into the keywords' sums.
+//   lanes (below), with integer atomics into the keywords' sums; in its
+//   float mode (the rust model) one thread per keyword also adds the
+//   float32 spends in XLA's order.
 //
 // The plain PyTorch versions are adcraft_tpu_torch/lanes_day.py:
-// lanes_counts_reference, lanes_gate_reference, lanes_outcomes_reference.
+// lanes_counts_reference, lanes_gate_reference, lanes_gate_float_reference,
+// lanes_outcomes_reference.
 // Every float operation here is the one that version's tensor ops perform
 // on the card (jax_random.cuh, xla_math.cuh), so the kernels equal it
 // exactly.
@@ -36,9 +51,10 @@
 //
 // What bounds them: threefry words and the float work of the draws (the
 // binomial's loops of XLA's log, the Laplace inverse CDF, the erf_inv
-// polynomial and its log1p); all three issue more instructions than the
-// work needs, lanes_gate most of all, since its decisions are one chain per
-// env. The gate's window splits the chain: stage A (all 32 lanes) takes up
+// polynomial and its log1p); all issue more instructions than the work
+// needs, the gates most of all, since their decisions are one chain per
+// env (lanes_gate_float's a float one, in XLA's order of sums, so it
+// decides one cell a step). The gate's window splits the chain: stage A (all 32 lanes) takes up
 // to 32 cells, with their clicks and keyword parameters loaded one window
 // ahead, draws each cell's first cost lane, then the other lanes of the
 // cells whose first lane is within the budget (the others are "skipped":
@@ -62,8 +78,7 @@
 // finding its cell from an OR of the 32 entries' starts, so a cell may
 // straddle two steps; a segmented ballot counts a cell's set flags. A
 // revenue lane's erf_inv runs one of the two branches of XLA's log1p, each
-// a chain of float64 fused multiply-adds (fma32: two conversions each, at
-// a quarter of the float32 rate), so a warp that mixed them would run both:
+// a chain of fused multiply-adds, so a warp that mixed them would run both:
 // a revenue draw step stages each lane's uniform by its branch, and an
 // erf_inv step runs 32 staged lanes of one branch. Every sum is int32
 // arithmetic modulo 2**32, so any order of lanes and atomics gives the
@@ -209,8 +224,10 @@ __device__ __forceinline__ void count_passes(Stats& st, const BinomialPasses& p)
 
 // One warp per (env, sub-timestep): the impressions' call, then the clicks'
 // on those impressions. R slots a lane; a call of more than 32 R keywords
-// runs in groups (binomial.cuh).
-template <int R>
+// runs in groups (binomial.cuh). The explicit instance (kExplicit) takes the
+// impression rate from the threshold sigmoid of the bid and draws the
+// clicks over max(impressions, 1) candidates (the phantom click).
+template <int R, bool kExplicit>
 __global__ void __launch_bounds__(32 * kCountsWarps, kCountsBlocks)
     lanes_counts_kernel(const float* __restrict__ params, const int* __restrict__ n_auc01,
                         const long long* __restrict__ keys, long long key_stride,
@@ -231,6 +248,14 @@ __global__ void __launch_bounds__(32 * kCountsWarps, kCountsBlocks)
   const float* loc = params + LOC * EK + eK;
   const float* scale = params + SCALE * EK + eK;
   const float* bctr = params + BCTR * EK + eK;
+  const float* thresh = params + IMP_THRESH * EK + eK;
+  const float* intercept = params + IMP_INTERCEPT * EK + eK;
+  const float* slope = params + IMP_SLOPE * EK + eK;
+  const auto rate = [&](int k) {
+    return kExplicit ? threshold_sigmoid(bid[k], thresh[k], intercept[k], slope[k])
+                     : win_prob(bid[k], loc[k], scale[k]);
+  };
+  const auto candidates = [](int im) { return kExplicit ? max(im, 1) : im; };
   const int* n_row = n_auc01 + (t == 0 ? 0 : EK) + eK;
   int* imp_row = imp + call * K;
   int* ncl_row = ncl + call * K;
@@ -248,9 +273,10 @@ __global__ void __launch_bounds__(32 * kCountsWarps, kCountsBlocks)
           clicks ? k_click : k_imp, K,
           [&](int k, int r) {
             if (clicks) {
-              return make_float2(static_cast<float>(one_group ? im[r] : imp_row[k]), bctr[k]);
+              return make_float2(static_cast<float>(candidates(one_group ? im[r] : imp_row[k])),
+                                 bctr[k]);
             }
-            return make_float2(static_cast<float>(n_row[k]), win_prob(bid[k], loc[k], scale[k]));
+            return make_float2(static_cast<float>(n_row[k]), rate(k));
           },
           [&](int k, int r, int x) {
             im[r] = x;
@@ -262,10 +288,9 @@ __global__ void __launch_bounds__(32 * kCountsWarps, kCountsBlocks)
     const int m = t == 0 ? m0 : m1;
     auto recip = [](int j) { return __fdiv_rn(1.0f, static_cast<float>(j)); };
     for (int k = lane; k < K; k += 32) {
-      const int i = binomial_walk(lane_uniform(k_imp, k, bits), n_row[k],
-                                  win_prob(bid[k], loc[k], scale[k]), m, recip);
+      const int i = binomial_walk(lane_uniform(k_imp, k, bits), n_row[k], rate(k), m, recip);
       imp_row[k] = i;
-      ncl_row[k] = binomial_walk(lane_uniform(k_click, k, bits), i, bctr[k], m, recip);
+      ncl_row[k] = binomial_walk(lane_uniform(k_click, k, bits), candidates(i), bctr[k], m, recip);
     }
   }
   st.add(kCountsClocks, stage_clock() - start);
@@ -289,20 +314,44 @@ __device__ __forceinline__ Key shfl_key(Key k, int src) {
   return Key{__shfl_sync(kFull, k.k0, src), __shfl_sync(kFull, k.k1, src)};
 }
 
+// A cell's lane costs in cents: the implicit keywords' truncated Laplace
+// (a, b, c, d: loc, scale and the truncation's CDF bounds), or the python
+// model's generic_cost of the bid (a: the bid, b: 1 for a phantom cell,
+// which costs nothing), lane j at counter j K + k.
+struct CellCost {
+  float a, b, c, d;
+};
+
+template <bool kPython>
+__device__ __forceinline__ CellCost cell_cost(float bid, float loc, float scale, int imp) {
+  if (kPython) return CellCost{bid, imp == 0 ? 1.0f : 0.0f, 0.0f, 0.0f};
+  const float y0 = __fsub_rn(bid, 0.005f);
+  return CellCost{loc, scale, laplace_cdf(-y0, loc, scale), laplace_cdf(y0, loc, scale)};
+}
+
+template <bool kPython>
+__device__ __forceinline__ int lane_cents(Key key, uint32_t ctr, const CellCost& c, int bits) {
+  if (kPython) return c.b != 0.0f ? 0 : explicit_cost(false, xla_normal_erfinv(key, ctr), c.a);
+  return lane_cost(lane_uniform(key, ctr, bits), c.a, c.b, c.c, c.d);
+}
+
+__device__ __forceinline__ CellCost shfl_cost(const CellCost& c, int src) {
+  return CellCost{__shfl_sync(kFull, c.a, src), __shfl_sync(kFull, c.b, src),
+                  __shfl_sync(kFull, c.c, src), __shfl_sync(kFull, c.d, src)};
+}
+
 // One cell's accepted clicks p and spend s at budget B, its lanes drawn 32
 // at a time up to its first prefix over B: a cell too deep for the buffer,
 // or one whose lanes stage A skipped.
-__device__ void walk_cell(Key key, int n, int k, int K, float loc, float scale, float f_lo,
-                          float f_hi, int bits, int B, int lane, int& p, int& s) {
+template <bool kPython>
+__device__ void walk_cell(Key key, int n, int k, int K, const CellCost& cc, int bits, int B,
+                          int lane, int& p, int& s) {
   p = 0;
   s = 0;
   for (int j0 = 0; j0 < n; j0 += 32) {
     const int j = j0 + lane;
     int v = 0;
-    if (j < n) {
-      v = lane_cost(lane_uniform(key, static_cast<uint32_t>(j) * K + k, bits), loc, scale, f_lo,
-                    f_hi);
-    }
+    if (j < n) v = lane_cents<kPython>(key, static_cast<uint32_t>(j) * K + k, cc, bits);
 #pragma unroll
     for (int d = 1; d < 32; d <<= 1) {
       const int up = __shfl_up_sync(kFull, v, d);
@@ -326,11 +375,15 @@ __device__ void walk_cell(Key key, int n, int k, int K, float loc, float scale, 
 // One warp per env: the cells in (t, k) order. A cell accepts its longest
 // prefix of clicks whose running cost sums all stay <= the budget; the day
 // breaks once the budget is <= 0, and no cell at or past the break is
-// written (n_sim counts the simulated cells).
+// written (n_sim counts the simulated cells). The python instance
+// (kPython) draws the python model's cents and reads the impressions
+// (imp) for its phantom cells.
+template <bool kPython>
 __global__ void __launch_bounds__(32 * kGateWarps)
     lanes_gate_kernel(const float* __restrict__ params, const long long* __restrict__ keys,
                       long long key_stride, const int* __restrict__ ncl,
-                      const int* __restrict__ budget_c, int* __restrict__ acc,
+                      const int* __restrict__ imp, const int* __restrict__ budget_c,
+                      int* __restrict__ acc,
                       int* __restrict__ spend, int* __restrict__ n_sim, int E, int K, int T,
                       int m0, int m1, int bits) {
   extern __shared__ unsigned long long gate_smem_raw[];
@@ -345,6 +398,7 @@ __global__ void __launch_bounds__(32 * kGateWarps)
   const long long eK = static_cast<long long>(e) * K;
   const int TK = T * K;
   const int* ncl_e = ncl + static_cast<long long>(e) * TK;
+  const int* imp_e = kPython ? imp + static_cast<long long>(e) * TK : nullptr;
   int* acc_e = acc + static_cast<long long>(e) * TK;
   int* spend_e = spend + static_cast<long long>(e) * TK;
 
@@ -360,7 +414,7 @@ __global__ void __launch_bounds__(32 * kGateWarps)
     tkeys[t] = child(child(child(kc, static_cast<uint32_t>(t)), 0), 1);
   }
   // a window's clicks and keyword parameters, loaded one window ahead
-  int ld_cell = -1, ld_n = 0;
+  int ld_cell = -1, ld_n = 0, ld_imp = 1;
   float ld_bid = 0.0f, ld_loc = 0.0f, ld_scale = 1.0f;
   int t0 = 0, k0 = 0;  // the next cell to decide, as t0 K + k0
   // (t, k) of the cell `add` after t0 K + k0, without a division
@@ -379,8 +433,12 @@ __global__ void __launch_bounds__(32 * kGateWarps)
       cell_tk(add + lane, t, k);
       ld_n = ncl_e[c];
       ld_bid = params[BID * EK + eK + k];
-      ld_loc = params[LOC * EK + eK + k];
-      ld_scale = params[SCALE * EK + eK + k];
+      if (kPython) {
+        ld_imp = imp_e[c];
+      } else {
+        ld_loc = params[LOC * EK + eK + k];
+        ld_scale = params[SCALE * EK + eK + k];
+      }
     }
     ld_cell = start;
   };
@@ -401,17 +459,13 @@ __global__ void __launch_bounds__(32 * kGateWarps)
     cell_tk(lane, t, k);
     if (!in) t = k = 0;
     const int n = in ? min(max(ld_n, 0), t == 0 ? m0 : m1) : 0;  // lanes past m do not exist
-    const float loc = ld_loc, scale = ld_scale;
-    const float y0 = __fsub_rn(ld_bid, 0.005f);
-    const float f_lo = laplace_cdf(-y0, loc, scale), f_hi = laplace_cdf(y0, loc, scale);
+    const CellCost cc = cell_cost<kPython>(ld_bid, ld_loc, ld_scale, ld_imp);
     load(cell + 32, 32);  // the next window, if this one takes all 32 cells
     // each cell's first lane; the rest only where the first is within the
     // budget (a cell whose first lane is over it accepts nothing while the
     // budget does not grow)
     const Key key = tkeys[t];
-    const int first = n > 0 ? lane_cost(lane_uniform(key, static_cast<uint32_t>(k), bits), loc,
-                                        scale, f_lo, f_hi)
-                            : 0;
+    const int first = n > 0 ? lane_cents<kPython>(key, static_cast<uint32_t>(k), cc, bits) : 0;
     const bool skipped = n > 1 && first > B;
     const int rest = n > 1 && !skipped ? n - 1 : 0;
     int end = min(rest, kGateCap + 1);
@@ -425,9 +479,8 @@ __global__ void __launch_bounds__(32 * kGateWarps)
     const int nc = fits == kFull ? 32 : __ffs(~fits) - 1;
     if (nc == 0) {  // a deep cell: more lanes than the buffer
       int p, s;
-      walk_cell(shfl_key(key, 0), __shfl_sync(kFull, n, 0), __shfl_sync(kFull, k, 0),
-                K, __shfl_sync(kFull, loc, 0), __shfl_sync(kFull, scale, 0),
-                __shfl_sync(kFull, f_lo, 0), __shfl_sync(kFull, f_hi, 0), bits, B, lane, p, s);
+      walk_cell<kPython>(shfl_key(key, 0), __shfl_sync(kFull, n, 0), __shfl_sync(kFull, k, 0),
+                         K, shfl_cost(cc, 0), bits, B, lane, p, s);
       if (lane == 0) {
         acc_e[cell] = p;
         spend_e[cell] = s;
@@ -468,13 +521,9 @@ __global__ void __launch_bounds__(32 * kGateWarps)
       const int ki = __shfl_sync(kFull, k, i), ni = __shfl_sync(kFull, n, i);
       const int first_i = __shfl_sync(kFull, first, i);
       const Key key_i = shfl_key(key, i);
-      const float loc_i = __shfl_sync(kFull, loc, i), scale_i = __shfl_sync(kFull, scale, i);
-      const float lo_i = __shfl_sync(kFull, f_lo, i), hi_i = __shfl_sync(kFull, f_hi, i);
+      const CellCost cc_i = shfl_cost(cc, i);
       int v = 0;
-      if (g < lanes) {
-        v = lane_cost(lane_uniform(key_i, static_cast<uint32_t>(j) * K + ki, bits), loc_i,
-                      scale_i, lo_i, hi_i);
-      }
+      if (g < lanes) v = lane_cents<kPython>(key_i, static_cast<uint32_t>(j) * K + ki, cc_i, bits);
       int S = v;  // the running sum over the window's lanes, wrapping
 #pragma unroll
       for (int d = 1; d < 32; d <<= 1) {
@@ -546,9 +595,8 @@ __global__ void __launch_bounds__(32 * kGateWarps)
         p = s = 0;
         st.add(kGateAlonePassive, 1);
       } else if (skipped_a) {  // the budget grew past its first lane: its lanes now
-        walk_cell(shfl_key(key, q), n_a, __shfl_sync(kFull, k, q), K,
-                  __shfl_sync(kFull, loc, q), __shfl_sync(kFull, scale, q),
-                  __shfl_sync(kFull, f_lo, q), __shfl_sync(kFull, f_hi, q), bits, B, lane, p, s);
+        walk_cell<kPython>(shfl_key(key, q), n_a, __shfl_sync(kFull, k, q), K, shfl_cost(cc, q),
+                           bits, B, lane, p, s);
         st.add(kGateRedrawn, 1);
       } else if (plain_a && total_a <= B) {  // every prefix within the budget
         p = n_a;
@@ -587,6 +635,245 @@ __global__ void __launch_bounds__(32 * kGateWarps)
   st.add(kGateWarpsRun, 1);
   st.add(kGateSimulated, cell);
   st.flush(lane);
+}
+
+// ---- lanes_gate_float: the rust model's float32 gate ----
+
+constexpr int kFloatCap = 256;  // lanes of a float gate window, a warp's shared buffer
+
+// A float gate warp's window: its cells' lanes after the first, drawn
+// densely, then each cell's prefixes of them in XLA's order, in place.
+struct FloatWindow {
+  float pre[kFloatCap];  // prefix j + 1 of a cell's lanes at off + j - 1, j >= 1
+};
+
+size_t gate_float_smem(int T) {
+  return kGateWarps * (static_cast<size_t>(T) * sizeof(Key) + sizeof(FloatWindow));
+}
+
+// lanes_day.cost_dollars: one rust lane cost, cost_create at the lane's
+// normal, 0 for a phantom cell
+__device__ __forceinline__ float rust_lane(Key key, uint32_t ctr, float bid, bool phantom) {
+  return phantom ? 0.0f : cost_create_e(xla_normal_erfinv(key, ctr), bid);
+}
+
+// One cell's accepted clicks p and spend s at budget B from its lanes
+// drawn 32 at a time, their prefixes scanned in XLA's order by every lane
+// alike: a cell too deep for the window's buffer.
+__device__ void walk_cell_float(Key key, int n, int k, int K, float bid, bool phantom, float B,
+                                int lane, int& p, float& s) {
+  XlaScan<false> scan;
+  p = n;
+  s = 0.0f;
+  for (int j0 = 0; j0 < n; j0 += 32) {
+    const float x = j0 + lane < n ? rust_lane(key, static_cast<uint32_t>(j0 + lane) * K + k, bid,
+                                              phantom)
+                                  : 0.0f;
+    const int live = min(n - j0, 32);
+    for (int i = 0; i < live; ++i) {
+      const float pre = scan.push(__shfl_sync(kFull, x, i));
+      if (pre > B) {
+        p = j0 + i;
+        return;
+      }
+      s = pre;
+    }
+  }
+}
+
+// One warp per env: _gate_keywords_jacobi (step.py:152), which JAX runs
+// per sub-timestep for costs that are not cents, in float32 dollars. Its
+// fixed point is unique, since a cell depends only on the cells before it,
+// so one pass in (t, k) order finds it, provided every sum is XLA's: cell
+// k starts from B_k = b - excl_k, excl the XLA scan (blocks of 16) of the
+// sub-timestep's spends before k; it accepts its longest run of lanes
+// whose prefixes (the XLA scan of its lane costs) are <= B_k, and is
+// simulated if no cell before it in the sub-timestep left B_j - spend_j <=
+// 0; the next sub-timestep starts from b - (the scan of all K spends), and
+// the day breaks after a sub-timestep in which b - (the scan up to some
+// cell) <= 0. A cell not simulated before a later simulated one gets
+// accepted clicks -1. Costs are >= 0, so the prefixes never fall and B
+// never grows: as in lanes_gate, stage A draws each window cell's first
+// lane and, for the cells whose first lane is within the budget, its
+// other lanes densely into the warp's buffer, where each cell's lane then
+// scans its own lanes in XLA's order; stage B decides the window's cells
+// one at a time, a whole cell by its total, a partial one by a ballot over
+// its prefixes. The sums are float and their order is XLA's, so the
+// decisions form one chain: this first version walks it one cell a step.
+// It writes every cell of the sub-timesteps it walks (to the end of the one
+// after which the day breaks, or all T K), and no other.
+__global__ void __launch_bounds__(32 * kGateWarps)
+    lanes_gate_float_kernel(const float* __restrict__ params, const long long* __restrict__ keys,
+                            long long key_stride, const int* __restrict__ ncl,
+                            const int* __restrict__ imp, const float* __restrict__ budget,
+                            int* __restrict__ acc, float* __restrict__ spend,
+                            int* __restrict__ n_sim, int E, int K, int T, int m0, int m1) {
+  extern __shared__ unsigned long long gate_smem_raw[];
+  const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int e = blockIdx.x * kGateWarps + w;
+  if (e >= E) return;
+  Key* tkeys = reinterpret_cast<Key*>(gate_smem_raw) + static_cast<size_t>(w) * T;
+  FloatWindow& win =
+      reinterpret_cast<FloatWindow*>(reinterpret_cast<Key*>(gate_smem_raw) + kGateWarps * T)[w];
+  const long long EK = static_cast<long long>(E) * K;
+  const long long eK = static_cast<long long>(e) * K;
+  const int TK = T * K;
+  const int* ncl_e = ncl + static_cast<long long>(e) * TK;
+  const int* imp_e = imp + static_cast<long long>(e) * TK;
+  int* acc_e = acc + static_cast<long long>(e) * TK;
+  float* spend_e = spend + static_cast<long long>(e) * TK;
+  const Key kc = load_key(keys, key_stride, e);
+  for (int t = lane; t < T; t += 32) {
+    tkeys[t] = child(child(child(kc, static_cast<uint32_t>(t)), 0), 1);
+  }
+  __syncwarp();
+
+  float b = budget[e];  // the sub-timestep's budget
+  float B = b;          // the next cell's, b - excl
+  XlaScan<false> excl;  // the sub-timestep's spends so far
+  bool alive = true;    // no cell of the sub-timestep has left B - spend <= 0
+  bool low = false;     // some b - (scan up to a cell) <= 0 in the sub-timestep
+  bool broken = false;
+  int cell = 0, nsim = 0;
+  int t0 = 0, k0 = 0;  // the next cell as t0 K + k0
+  const auto cell_tk = [&](int add, int& t, int& k) {
+    t = t0;
+    k = k0 + add;
+    while (k >= K) {
+      k -= K;
+      ++t;
+    }
+  };
+  // the decision of the next cell, (p, s), and its sub-timestep's end
+  const auto commit = [&](int k, int& p, float& s) {
+    if (!alive) {
+      p = -1;
+      s = 0.0f;
+    } else {
+      alive = __fsub_rn(B, s) > 0.0f;
+      B = __fsub_rn(b, excl.push(s));
+      low = low || B <= 0.0f;
+      nsim = cell + 1;
+    }
+    ++cell;
+    if (k == K - 1) {  // B is b - the scan of all K spends (later zeros add nothing)
+      b = B;
+      broken = low;
+      low = false;
+      alive = true;
+      excl = XlaScan<false>();
+    }
+  };
+  while (cell < TK && !broken) {
+    // ---- stage A: the window from `cell`, lane i its cell i
+    const int c = cell + lane;
+    const bool in = c < TK;
+    int t, k;
+    cell_tk(lane, t, k);
+    if (!in) t = k = 0;
+    const int n = in ? min(max(ncl_e[c], 0), t == 0 ? m0 : m1) : 0;
+    const float bid = params[BID * EK + eK + k];
+    const bool phantom = in && imp_e[c] == 0;
+    const Key key = tkeys[t];
+    const float first = n > 0 ? rust_lane(key, static_cast<uint32_t>(k), bid, phantom) : 0.0f;
+    const int rest = n > 1 && first <= B ? n - 1 : 0;  // first > B: accepts nothing from here on
+    int end = min(rest, kFloatCap + 1);
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int up = __shfl_up_sync(kFull, end, d);
+      if (lane >= d) end = min(end + up, kFloatCap + 1);
+    }
+    const int off = end - rest;
+    const unsigned fits = __ballot_sync(kFull, in && end <= kFloatCap);
+    const int nc = fits == kFull ? 32 : __ffs(~fits) - 1;
+    if (nc == 0) {  // a deep cell: more lanes than the buffer
+      int p;
+      float s = 0.0f;
+      if (alive) {
+        walk_cell_float(shfl_key(key, 0), __shfl_sync(kFull, n, 0), __shfl_sync(kFull, k, 0), K,
+                        __shfl_sync(kFull, bid, 0), __shfl_sync(kFull, phantom, 0), B, lane, p, s);
+      }
+      const int c0 = cell;
+      commit(__shfl_sync(kFull, k, 0), p, s);
+      if (lane == 0) {
+        acc_e[c0] = p;
+        spend_e[c0] = s;
+      }
+      cell_tk(1, t0, k0);
+      continue;
+    }
+    // the window's lanes after the first, drawn 32 a step (buffer lane g
+    // belongs to the last cell whose offset is <= g), then each cell's
+    // prefixes scanned by its own lane
+    const int lanes = __shfl_sync(kFull, end, nc - 1);
+    const int off_key = lane < nc ? off : 0x7FFFFFFF;
+    for (int g0 = 0; g0 < lanes; g0 += 32) {
+      const int g = g0 + lane;
+      int i = 0;
+#pragma unroll
+      for (int sh = 16; sh >= 1; sh >>= 1) {
+        if (__shfl_sync(kFull, off_key, i + sh) <= g) i += sh;
+      }
+      const int j = g - __shfl_sync(kFull, off, i) + 1;  // the cell's lane, from 1
+      const int ki = __shfl_sync(kFull, k, i);
+      const Key key_i = shfl_key(key, i);
+      const float bid_i = __shfl_sync(kFull, bid, i);
+      const bool phantom_i = __shfl_sync(kFull, phantom, i);
+      if (g < lanes) win.pre[g] = rust_lane(key_i, static_cast<uint32_t>(j) * K + ki, bid_i,
+                                            phantom_i);
+    }
+    __syncwarp();
+    float total = first;
+    if (lane < nc && rest > 0) {
+      XlaScan<false> scan;
+      scan.push(first);
+      for (int j = 1; j < n; ++j) {
+        total = scan.push(win.pre[off + j - 1]);
+        win.pre[off + j - 1] = total;
+      }
+    }
+    __syncwarp();
+
+    // ---- stage B: the window's cells in order
+    int my_p = 0;
+    float my_s = 0.0f;
+    const int start = cell;
+    for (int q = 0; q < nc && !broken; ++q) {
+      const int n_q = __shfl_sync(kFull, n, q), k_q = __shfl_sync(kFull, k, q);
+      const float first_q = __shfl_sync(kFull, first, q), total_q = __shfl_sync(kFull, total, q);
+      const int off_q = __shfl_sync(kFull, off, q);
+      int p = 0;
+      float s = 0.0f;
+      if (!alive || n_q == 0 || first_q > B) {
+      } else if (total_q <= B) {  // every prefix within the budget
+        p = n_q;
+        s = total_q;
+      } else {  // the first prefix over the budget, 32 lanes a step
+        p = n_q;
+        for (int j0 = 1; j0 < n_q; j0 += 32) {
+          const int j = j0 + lane;
+          const unsigned over = __ballot_sync(kFull, j < n_q && win.pre[off_q + j - 1] > B);
+          if (over != 0u) {
+            p = j0 + __ffs(over) - 1;
+            break;
+          }
+        }
+        s = p == 1 ? first_q : win.pre[off_q + p - 2];
+      }
+      commit(k_q, p, s);
+      if (lane == q) {
+        my_p = p;
+        my_s = s;
+      }
+    }
+    const int decided = cell - start;
+    if (lane < decided) {
+      acc_e[start + lane] = my_p;
+      spend_e[start + lane] = my_s;
+    }
+    cell_tk(decided, t0, k0);
+  }
+  if (lane == 0) n_sim[e] = nsim;
 }
 
 // ---- lanes_outcomes: one block per env, warp tiles of cells, per-warp lane rings ----
@@ -810,15 +1097,20 @@ size_t outcomes_smem(int K, int T, bool tables) {
 // into the revenue ring, drawn 32 a step whenever 32 wait, their uniforms
 // into the erf_inv stages, run 32 a step whenever 32 wait; the partial
 // rests drained once at the end. The steps are chains of dependent
-// latency (threefry rounds, float64 fused multiply-adds), so registers are
-// capped for kOutBlocks blocks (40 warps) per SM, a few spilled.
+// latency (threefry rounds, fused multiply-adds), so registers are
+// capped for kOutBlocks blocks (40 warps) per SM, a few spilled. A cell
+// whose accepted clicks are -1 (the float gate's) was not simulated. In
+// the float mode (spend_f, the rust model's dollars, for spend) each
+// keyword's float cost is summed by one thread in XLA's order, t >= 1 in
+// order and then t = 0, into cost_f, and the int cost row stays 0.
 template <bool kShared>
 __global__ void __launch_bounds__(32 * kOutWarps, kOutBlocks)
     lanes_outcomes_kernel(const float* __restrict__ params, const long long* __restrict__ keys,
                           long long key_stride, const int* __restrict__ imp,
                           const int* __restrict__ acc, const int* __restrict__ spend,
-                          const int* __restrict__ n_sim, const int* __restrict__ n_auc01,
-                          int* __restrict__ out, int E, int K, int T) {
+                          const float* __restrict__ spend_f, const int* __restrict__ n_sim,
+                          const int* __restrict__ n_auc01, int* __restrict__ out,
+                          float* __restrict__ cost_f, int E, int K, int T) {
   extern __shared__ unsigned long long out_smem_raw[];
   Key* conv_keys = reinterpret_cast<Key*>(out_smem_raw);
   Key* rev_keys = conv_keys + T;
@@ -886,7 +1178,7 @@ __global__ void __launch_bounds__(32 * kOutWarps, kOutBlocks)
   if (warp * 32 + lane < nsim) {
     a_next = acc[row + warp * 32 + lane];
     im_next = imp[row + warp * 32 + lane];
-    sp_next = spend[row + warp * 32 + lane];
+    sp_next = spend != nullptr ? spend[row + warp * 32 + lane] : 0;
   }
   // the erf_inv stages' full steps (at most one each) after a revenue draw
   // step, and with `drain` their rests
@@ -918,19 +1210,19 @@ __global__ void __launch_bounds__(32 * kOutWarps, kOutBlocks)
     }
   };
   for (int base = warp * 32; base < nsim; base += 32 * kOutWarps) {
-    const int a = a_next, im = im_next, sp = sp_next;
+    const int a = a_next, im = a >= 0 ? im_next : 0, sp = sp_next;
     const int c = base + 32 * kOutWarps + lane;
     const bool in = c < nsim;
     a_next = in ? acc[row + c] : 0;
     im_next = in ? imp[row + c] : 0;
-    sp_next = in ? spend[row + c] : 0;
+    sp_next = in && spend != nullptr ? spend[row + c] : 0;
     if (im != 0) atomicAdd(&tab.sums[kSumImp * tab.row + k], im);
     if (im >= 1) {
       const int n = t == 0 ? tab.n0[k] : tab.n1[k];
       if (n != 0) atomicAdd(&tab.sums[kSumElig * tab.row + k], n);
     }
-    if (a != 0) atomicAdd(&tab.sums[kSumClicks * tab.row + k], a);
-    if (sp != 0) atomicAdd(&tab.sums[kSumCost * tab.row + k], sp);
+    if (a > 0) atomicAdd(&tab.sums[kSumClicks * tab.row + k], a);
+    if (sp != 0 && a >= 0) atomicAdd(&tab.sums[kSumCost * tab.row + k], sp);
     // a cell past the tile's end has a = 0, and no flag lane
     ring_push(fr, fc, a > 0 ? a : 0, k, t, lane);
     lap(kOutTileClocks);
@@ -967,6 +1259,16 @@ __global__ void __launch_bounds__(32 * kOutWarps, kOutBlocks)
     lap(kOutRevClocks);
   }
   erf_steps(true);
+  if (cost_f != nullptr) {
+    for (int j = tid; j < K; j += 32 * kOutWarps) {
+      float total = 0.0f;
+      for (int t1 = 1; t1 <= T; ++t1) {  // t = 0 last
+        const int c = (t1 % T) * K + j;
+        if (c < nsim && acc[row + c] >= 0) total = __fadd_rn(total, spend_f[row + c]);
+      }
+      cost_f[eK + j] = total;
+    }
+  }
   __syncthreads();
   if constexpr (kShared) {
     for (int j = tid; j < K; j += 32 * kOutWarps) {
@@ -1017,18 +1319,13 @@ cudaError_t outcomes_plan(int K, int T, int device, bool* tables, size_t* smem) 
   return *smem <= static_cast<size_t>(limit) ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-}  // namespace
-
-extern "C" {
-
-// Each launcher runs on `stream` of `device` and returns cudaGetLastError()
-// right after the launch (the library's runtime has its own current device).
-
 // lanes_counts: imp and ncl (E, T, K); exact 1 for jax.random.binomial, 0
-// for the inverse-CDF walk on `bits`-bit uniforms.
-int lanes_counts_launch(const float* params, const int* n_auc01, const long long* keys,
-                        long long key_stride, int* imp, int* ncl, int E, int K, int T, int m0,
-                        int m1, int bits, int exact, int device, void* stream) {
+// for the inverse-CDF walk on `bits`-bit uniforms. lanes_counts_explicit_launch
+// runs the explicit instance, with the same arguments.
+template <bool kExplicit>
+int counts_launch(const float* params, const int* n_auc01, const long long* keys,
+                  long long key_stride, int* imp, int* ncl, int E, int K, int T, int m0, int m1,
+                  int bits, int exact, int device, void* stream) {
   if (E <= 0) return static_cast<int>(cudaSuccess);
   if (K < 1 || T < 1 || m0 < 1 || m1 < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
@@ -1040,72 +1337,144 @@ int lanes_counts_launch(const float* params, const int* n_auc01, const long long
   static_assert(kMaxSlots == 4, "one instance per slot count");
   switch (slots) {
     case 1:
-      lanes_counts_kernel<1><<<blocks, 32 * kCountsWarps, 0, s>>>(
+      lanes_counts_kernel<1, kExplicit><<<blocks, 32 * kCountsWarps, 0, s>>>(
           params, n_auc01, keys, key_stride, imp, ncl, E, K, T, m0, m1, bits, exact);
       break;
     case 2:
-      lanes_counts_kernel<2><<<blocks, 32 * kCountsWarps, 0, s>>>(
+      lanes_counts_kernel<2, kExplicit><<<blocks, 32 * kCountsWarps, 0, s>>>(
           params, n_auc01, keys, key_stride, imp, ncl, E, K, T, m0, m1, bits, exact);
       break;
     case 3:
-      lanes_counts_kernel<3><<<blocks, 32 * kCountsWarps, 0, s>>>(
+      lanes_counts_kernel<3, kExplicit><<<blocks, 32 * kCountsWarps, 0, s>>>(
           params, n_auc01, keys, key_stride, imp, ncl, E, K, T, m0, m1, bits, exact);
       break;
     default:
-      lanes_counts_kernel<4><<<blocks, 32 * kCountsWarps, 0, s>>>(
+      lanes_counts_kernel<4, kExplicit><<<blocks, 32 * kCountsWarps, 0, s>>>(
           params, n_auc01, keys, key_stride, imp, ncl, E, K, T, m0, m1, bits, exact);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// lanes_gate: acc and spend (E, T, K) of the simulated cells (t K + k <
-// n_sim[e]; the others are not written) and n_sim (E,).
-int lanes_gate_launch(const float* params, const long long* keys, long long key_stride,
-                      const int* ncl, const int* budget_c, int* acc, int* spend, int* n_sim, int E,
-                      int K, int T, int m0, int m1, int bits, int device, void* stream) {
-  if (E <= 0) return static_cast<int>(cudaSuccess);
+// The gates' checks, device and shared memory: `smem` per block of
+// `kernel`, above 48 KB only once allowed
+cudaError_t gate_prepare(const void* kernel, int K, int T, int m0, int m1, size_t smem,
+                         int device) {
   if (K < 1 || T < 1 || m0 < 1 || m1 < 1 || static_cast<long long>(T) * K > 0x7FFFFFFFLL) {
-    return static_cast<int>(cudaErrorInvalidValue);
+    return cudaErrorInvalidValue;
   }
   cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = gate_smem(T);
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(lanes_gate_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  if (err == cudaSuccess && smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
   }
+  return err;
+}
+
+// lanes_gate: acc and spend (E, T, K) of the simulated cells (t K + k <
+// n_sim[e]; the others are not written) and n_sim (E,); the python
+// instance reads imp (E, T, K) for its phantom cells.
+template <bool kPython>
+int gate_launch(const float* params, const long long* keys, long long key_stride, const int* ncl,
+                const int* imp, const int* budget_c, int* acc, int* spend, int* n_sim, int E,
+                int K, int T, int m0, int m1, int bits, int device, void* stream) {
+  if (E <= 0) return static_cast<int>(cudaSuccess);
+  const size_t smem = gate_smem(T);
+  const cudaError_t err = gate_prepare(reinterpret_cast<const void*>(lanes_gate_kernel<kPython>),
+                                       K, T, m0, m1, smem, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const int blocks = (E + kGateWarps - 1) / kGateWarps;
-  lanes_gate_kernel<<<blocks, 32 * kGateWarps, smem, static_cast<cudaStream_t>(stream)>>>(
-      params, keys, key_stride, ncl, budget_c, acc, spend, n_sim, E, K, T, m0, m1, bits);
+  lanes_gate_kernel<kPython><<<blocks, 32 * kGateWarps, smem, static_cast<cudaStream_t>(stream)>>>(
+      params, keys, key_stride, ncl, imp, budget_c, acc, spend, n_sim, E, K, T, m0, m1, bits);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Resident blocks per SM of lanes_counts (at K keywords), lanes_gate (at
-// T sub-timesteps) and lanes_outcomes (at K and T), and lanes_gate's and
-// lanes_outcomes' dynamic shared memory per block; *out_tables is 1 where
-// lanes_outcomes keeps its tables in shared memory.
-int lanes_day_occupancy(int K, int T, int device, int* counts_blocks, int* gate_blocks,
+}  // namespace
+
+extern "C" {
+
+// Each launcher runs on `stream` of `device` and returns cudaGetLastError()
+// right after the launch (the library's runtime has its own current device).
+
+int lanes_counts_launch(const float* params, const int* n_auc01, const long long* keys,
+                        long long key_stride, int* imp, int* ncl, int E, int K, int T, int m0,
+                        int m1, int bits, int exact, int device, void* stream) {
+  return counts_launch<false>(params, n_auc01, keys, key_stride, imp, ncl, E, K, T, m0, m1, bits,
+                              exact, device, stream);
+}
+
+int lanes_counts_explicit_launch(const float* params, const int* n_auc01, const long long* keys,
+                                 long long key_stride, int* imp, int* ncl, int E, int K, int T,
+                                 int m0, int m1, int bits, int exact, int device, void* stream) {
+  return counts_launch<true>(params, n_auc01, keys, key_stride, imp, ncl, E, K, T, m0, m1, bits,
+                             exact, device, stream);
+}
+
+int lanes_gate_launch(const float* params, const long long* keys, long long key_stride,
+                      const int* ncl, const int* budget_c, int* acc, int* spend, int* n_sim, int E,
+                      int K, int T, int m0, int m1, int bits, int device, void* stream) {
+  return gate_launch<false>(params, keys, key_stride, ncl, nullptr, budget_c, acc, spend, n_sim,
+                            E, K, T, m0, m1, bits, device, stream);
+}
+
+int lanes_gate_python_launch(const float* params, const long long* keys, long long key_stride,
+                             const int* ncl, const int* imp, const int* budget_c, int* acc,
+                             int* spend, int* n_sim, int E, int K, int T, int m0, int m1, int bits,
+                             int device, void* stream) {
+  return gate_launch<true>(params, keys, key_stride, ncl, imp, budget_c, acc, spend, n_sim, E, K,
+                           T, m0, m1, bits, device, stream);
+}
+
+// lanes_gate_float: acc (-1 in a cell not simulated) and spend (E, T, K)
+// float32 of the cells in the sub-timesteps up to that of cell n_sim[e] - 1
+// (the others are not written), n_sim (E,), one past the last simulated
+// cell, from budget (E,) float32 dollars.
+int lanes_gate_float_launch(const float* params, const long long* keys, long long key_stride,
+                            const int* ncl, const int* imp, const float* budget, int* acc,
+                            float* spend, int* n_sim, int E, int K, int T, int m0, int m1,
+                            int device, void* stream) {
+  if (E <= 0) return static_cast<int>(cudaSuccess);
+  const size_t smem = gate_float_smem(T);
+  const cudaError_t err = gate_prepare(reinterpret_cast<const void*>(lanes_gate_float_kernel), K,
+                                       T, m0, m1, smem, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = (E + kGateWarps - 1) / kGateWarps;
+  lanes_gate_float_kernel<<<blocks, 32 * kGateWarps, smem, static_cast<cudaStream_t>(stream)>>>(
+      params, keys, key_stride, ncl, imp, budget, acc, spend, n_sim, E, K, T, m0, m1);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Resident blocks per SM of the cost model's (0 implicit, 1 rust, 2
+// python) lanes_counts instance (at K keywords), its gate (lanes_gate's
+// instance, or for the rust model lanes_gate_float, at T sub-timesteps)
+// and lanes_outcomes (at K and T), and the gate's and lanes_outcomes'
+// dynamic shared memory per block; *out_tables is 1 where lanes_outcomes
+// keeps its tables in shared memory.
+int lanes_day_occupancy(int model, int K, int T, int device, int* counts_blocks, int* gate_blocks,
                         long long* gate_smem_bytes, int* out_blocks, long long* out_smem_bytes,
                         int* out_tables) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int slots = K < 32 * kMaxSlots ? (K + 31) / 32 : kMaxSlots;
-  const void* counts = slots == 1   ? reinterpret_cast<const void*>(lanes_counts_kernel<1>)
-                       : slots == 2 ? reinterpret_cast<const void*>(lanes_counts_kernel<2>)
-                       : slots == 3 ? reinterpret_cast<const void*>(lanes_counts_kernel<3>)
-                                    : reinterpret_cast<const void*>(lanes_counts_kernel<4>);
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(counts_blocks, counts, 32 * kCountsWarps, 0);
+  const void* counts[2][4] = {
+      {reinterpret_cast<const void*>(lanes_counts_kernel<1, false>),
+       reinterpret_cast<const void*>(lanes_counts_kernel<2, false>),
+       reinterpret_cast<const void*>(lanes_counts_kernel<3, false>),
+       reinterpret_cast<const void*>(lanes_counts_kernel<4, false>)},
+      {reinterpret_cast<const void*>(lanes_counts_kernel<1, true>),
+       reinterpret_cast<const void*>(lanes_counts_kernel<2, true>),
+       reinterpret_cast<const void*>(lanes_counts_kernel<3, true>),
+       reinterpret_cast<const void*>(lanes_counts_kernel<4, true>)}};
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(counts_blocks, counts[model != 0][slots - 1],
+                                                      32 * kCountsWarps, 0);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = gate_smem(T);
+  const void* gate = model == 1   ? reinterpret_cast<const void*>(lanes_gate_float_kernel)
+                     : model == 2 ? reinterpret_cast<const void*>(lanes_gate_kernel<true>)
+                                  : reinterpret_cast<const void*>(lanes_gate_kernel<false>);
+  const size_t smem = model == 1 ? gate_float_smem(T) : gate_smem(T);
   *gate_smem_bytes = static_cast<long long>(smem);
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(lanes_gate_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(gate_blocks, lanes_gate_kernel,
-                                                      32 * kGateWarps, smem);
+  err = gate_prepare(gate, 1, T, 1, 1, smem, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(gate_blocks, gate, 32 * kGateWarps, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   bool tables = false;
   size_t out_smem = 0;
@@ -1136,10 +1505,10 @@ int lanes_day_stats(int device, unsigned long long* out) {
 // lanes_outcomes: the six (E, K) day sums into out (6, E, K) from the
 // simulated cells; any K >= 1 (past a block's shared memory, the keyword
 // tables and sums stay in device memory).
-int lanes_outcomes_launch(const float* params, const long long* keys, long long key_stride,
-                          const int* imp, const int* acc, const int* spend, const int* n_sim,
-                          const int* n_auc01, int* out, int E, int K, int T, int m0, int m1,
-                          int device, void* stream) {
+static int outcomes_launch(const float* params, const long long* keys, long long key_stride,
+                    const int* imp, const int* acc, const int* spend, const float* spend_f,
+                    const int* n_sim, const int* n_auc01, int* out, float* cost_f, int E, int K,
+                    int T, int m0, int m1, int device, void* stream) {
   if (E <= 0) return static_cast<int>(cudaSuccess);
   if (K < 1 || T < 1 || m0 < 1 || m1 < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
@@ -1151,12 +1520,30 @@ int lanes_outcomes_launch(const float* params, const long long* keys, long long 
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (tables) {
     lanes_outcomes_kernel<true><<<E, 32 * kOutWarps, smem, s>>>(
-        params, keys, key_stride, imp, acc, spend, n_sim, n_auc01, out, E, K, T);
+        params, keys, key_stride, imp, acc, spend, spend_f, n_sim, n_auc01, out, cost_f, E, K, T);
   } else {
     lanes_outcomes_kernel<false><<<E, 32 * kOutWarps, smem, s>>>(
-        params, keys, key_stride, imp, acc, spend, n_sim, n_auc01, out, E, K, T);
+        params, keys, key_stride, imp, acc, spend, spend_f, n_sim, n_auc01, out, cost_f, E, K, T);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+int lanes_outcomes_launch(const float* params, const long long* keys, long long key_stride,
+                          const int* imp, const int* acc, const int* spend, const int* n_sim,
+                          const int* n_auc01, int* out, int E, int K, int T, int m0, int m1,
+                          int device, void* stream) {
+  return outcomes_launch(params, keys, key_stride, imp, acc, spend, nullptr, n_sim, n_auc01, out,
+                         nullptr, E, K, T, m0, m1, device, stream);
+}
+
+// lanes_outcomes' float mode (the rust model): spend_f (E, T, K) float32
+// dollars, the float cost sums into cost_f (E, K), out's cost row 0.
+int lanes_outcomes_float_launch(const float* params, const long long* keys, long long key_stride,
+                                const int* imp, const int* acc, const float* spend_f,
+                                const int* n_sim, const int* n_auc01, int* out, float* cost_f,
+                                int E, int K, int T, int m0, int m1, int device, void* stream) {
+  return outcomes_launch(params, keys, key_stride, imp, acc, nullptr, spend_f, n_sim, n_auc01,
+                         out, cost_f, E, K, T, m0, m1, device, stream);
 }
 
 const char* lanes_day_error_string(int err) {

@@ -106,6 +106,43 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// xla_math.cuh's functions on float32 arrays, for holding them to the
+// plain xla_math on the card: op kFma out = fma32(a, b, c), kExpm1
+// xla_expm1(a), kPow xla_pow(a, b), kTanh xla_tanh(a), kLaplaceCdf
+// laplace_cdf(a, b, c) over n elements; kCumsum and kCumprod XlaScan along
+// each of the `rows` rows of n elements of a (n elements per row).
+enum { kFma, kExpm1, kPow, kTanh, kLaplaceCdf, kCumsum, kCumprod };
+
+__global__ void __launch_bounds__(kThreads)
+    xla_math_probe_kernel(int op, const float* __restrict__ a, const float* __restrict__ b,
+                          const float* __restrict__ c, float* __restrict__ out, long long n,
+                          long long rows) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  const long long first = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (op == kCumsum || op == kCumprod) {
+    for (long long r = first; r < rows; r += stride) {
+      XlaScan<false> sum;
+      XlaScan<true> prod;
+      for (long long i = 0; i < n; ++i) {
+        const float x = a[r * n + i];
+        out[r * n + i] = op == kCumsum ? sum.push(x) : prod.push(x);
+      }
+    }
+    return;
+  }
+  for (long long i = first; i < n; i += stride) {
+    float v = 0.0f;
+    switch (op) {
+      case kFma: v = fma32(a[i], b[i], c[i]); break;
+      case kExpm1: v = xla_expm1(a[i]); break;
+      case kPow: v = xla_pow(a[i], b[i]); break;
+      case kTanh: v = xla_tanh(a[i]); break;
+      default: v = laplace_cdf(a[i], b[i], c[i]);
+    }
+    out[i] = v;
+  }
+}
+
 unsigned grid_for(long long work, unsigned per_block) {
   const long long blocks = (work + per_block - 1) / per_block;
   return static_cast<unsigned>(blocks < kMaxGrid ? blocks : kMaxGrid);
@@ -162,6 +199,18 @@ int threefry_rate_launch(const int* seed, int programs, int draws, int cells, in
   const dim3 grid(grid_for(cells, kThreads), static_cast<unsigned>(programs));
   threefry_rate_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       seed, draws, cells, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// xla_math_probe: see xla_math_probe_kernel; `rows` rows for the scans
+int xla_math_probe_launch(int op, const float* a, const float* b, const float* c, float* out,
+                          long long n, long long rows, int device, void* stream) {
+  if (n <= 0) return static_cast<int>(cudaSuccess);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long work = op == kCumsum || op == kCumprod ? rows : n;
+  xla_math_probe_kernel<<<grid_for(work, kThreads), kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(op, a, b, c, out, n, rows);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,11 +1,12 @@
-// XLA's float32 log, log1p, erf_inv, exp, erf and erfc on the CPU,
-// jax.random.normal on them, and the explicit keywords' impression rate,
+// XLA's float32 log, log1p, erf_inv, exp, expm1, tanh, pow, erf and erfc
+// and its float scans on the CPU, jax.random.normal and the Laplace draws
+// on them, and the explicit keywords' impression rate,
 // cost moments and lane costs (adcraft_tpu_torch/distributions.py), as the
 // plain version computes them: the same algorithms
 // and constants (bit patterns), every product and sum spelled with
 // __fmul_rn / __fadd_rn, and each fused multiply-add that LLVM forms on the
-// CPU as fma32 (a float64 product and sum rounded to float32, which is what
-// the plain version computes). So the kernels equal the plain version on
+// CPU as fma32 (__fmaf_rn, rounded once, as the plain version's fma32
+// rounds it). So the kernels equal the plain version on
 // the card bit for bit, and both equal jax.random's draws.
 
 #pragma once
@@ -152,6 +153,147 @@ __device__ __forceinline__ float xla_horner(float x, const uint32_t (&c)[N]) {
   return p;
 }
 
+// distributions.laplace_cdf on XLA's exp
+__device__ __forceinline__ float laplace_cdf(float x, float loc, float scale) {
+  const float z = __fdiv_rn(__fsub_rn(x, loc), scale);
+  return z < 0.0f ? __fmul_rn(0.5f, xla_exp(z)) : __fsub_rn(1.0f, __fmul_rn(0.5f, xla_exp(-z)));
+}
+
+// distributions.laplace_icdf on XLA's log: the plain version computes both
+// branches' logs and selects one; the kernel computes only the selected one
+__device__ __forceinline__ float laplace_icdf(float u, float loc, float scale) {
+  const bool low = u < 0.5f;
+  const float l = xla_log(fmaxf(__fmul_rn(2.0f, low ? u : __fsub_rn(1.0f, u)), 1e-38f));
+  return fma32(scale, low ? l : -l, loc);
+}
+
+// distributions.int32_of: float to int32 as XLA converts it, toward zero,
+// saturating at both ends, NaN to 0
+__device__ __forceinline__ int xla_int32(float x) {
+  if (x != x) return 0;
+  if (x >= 2147483648.0f) return 0x7FFFFFFF;
+  if (x <= -2147483648.0f) return static_cast<int>(0x80000000u);
+  return static_cast<int>(x);
+}
+
+// one lane cost in cents: round(|Laplace truncated to [-y0, y0]| * 100); a
+// draw at XLA's log of 0 (a subnormal CDF argument) is infinite, and its
+// cents INT32_MAX
+__device__ __forceinline__ int lane_cost(float u, float loc, float scale, float f_lo, float f_hi) {
+  const float x = laplace_icdf(fma32(u, __fsub_rn(f_hi, f_lo), f_lo), loc, scale);
+  return xla_int32(rintf(__fmul_rn(fabsf(x), 100.0f)));
+}
+
+// xla_math.tanh: XLA's rational tanh, x clamped to +-7.998; x itself
+// below 4e-4, +-1 from 20 on
+__device__ float xla_tanh(float x) {
+  const uint32_t p_c[7] = {0xA59F25C0u, 0x2A61337Eu, 0xAEBD37FFu, 0x335C0041u,
+                           0x3779434Au, 0x3A270DEDu, 0x3BA059DCu};
+  const uint32_t q_c[4] = {0x35A0D3D8u, 0x38F895D6u, 0x3B14AA05u, 0x3BA059DDu};
+  const float c = f32(0x40FFF644u);
+  const float xc = x < -c ? -c : (x > c ? c : x);
+  const float x2 = __fmul_rn(xc, xc);
+  float out = __fdiv_rn(__fmul_rn(xc, xla_horner(x2, p_c)), xla_horner(x2, q_c));
+  if (fabsf(x) < f32(0x39D1B717u)) out = x;
+  if (fabsf(x) >= 20.0f) out = copysignf(1.0f, x);
+  return out;
+}
+
+// xla_math.expm1: exp(x) - 1 where |x| > 1/2, else tanh(x / 2) (exp(x) + 1),
+// and x where x / 2 is 0
+__device__ float xla_expm1(float x) {
+  const float e = xla_exp(x);
+  const float half = __fmul_rn(x, 0.5f);
+  const float out =
+      fabsf(x) > 0.5f ? __fsub_rn(e, 1.0f) : __fmul_rn(xla_tanh(half), __fadd_rn(e, 1.0f));
+  return half == 0.0f ? x : out;
+}
+
+// xla_math.pow: the C library's powf, as XLA's CPU code calls it, for
+// normal x > 0 (or y 0, or x 1): log2 and exp2 in double precision on its
+// tables, each double operation as the plain version's tensor op
+__constant__ double kPowInvc[16] = {
+    0x1.661ec79f8f3bep+0, 0x1.571ed4aaf883dp+0, 0x1.49539f0f010b0p+0, 0x1.3c995b0b80385p+0,
+    0x1.30d190c8864a5p+0, 0x1.25e227b0b8ea0p+0, 0x1.1bb4a4a1a343fp+0, 0x1.12358f08ae5bap+0,
+    0x1.0953f419900a7p+0, 0x1p+0, 0x1.e608cfd9a47acp-1, 0x1.ca4b31f026aa0p-1,
+    0x1.b2036576afce6p-1, 0x1.9c2d163a1aa2dp-1, 0x1.886e6037841edp-1, 0x1.767dcf5534862p-1};
+__constant__ double kPowLogc[16] = {
+    -0x1.efec65b963019p-2, -0x1.b0b6832d4fca4p-2, -0x1.7418b0a1fb77bp-2, -0x1.39de91a6dcf7bp-2,
+    -0x1.01d9bf3f2b631p-2, -0x1.97c1d1b3b7af0p-3, -0x1.2f9e393af3c9fp-3, -0x1.960cbbf788d5cp-4,
+    -0x1.a6f9db6475fcep-5, 0x0p+0, 0x1.338ca9f24f53dp-4, 0x1.476a9543891bap-3,
+    0x1.e840b4ac4e4d2p-3, 0x1.40645f0c6651cp-2, 0x1.88e9c2c1b9ff8p-2, 0x1.ce0a44eb17bccp-2};
+__constant__ unsigned long long kExp2T[32] = {
+    0x3FF0000000000000ull, 0x3FEFD9B0D3158574ull, 0x3FEFB5586CF9890Full, 0x3FEF9301D0125B51ull,
+    0x3FEF72B83C7D517Bull, 0x3FEF54873168B9AAull, 0x3FEF387A6E756238ull, 0x3FEF1E9DF51FDEE1ull,
+    0x3FEF06FE0A31B715ull, 0x3FEEF1A7373AA9CBull, 0x3FEEDEA64C123422ull, 0x3FEECE086061892Dull,
+    0x3FEEBFDAD5362A27ull, 0x3FEEB42B569D4F82ull, 0x3FEEAB07DD485429ull, 0x3FEEA47EB03A5585ull,
+    0x3FEEA09E667F3BCDull, 0x3FEE9F75E8EC5F74ull, 0x3FEEA11473EB0187ull, 0x3FEEA589994CCE13ull,
+    0x3FEEACE5422AA0DBull, 0x3FEEB737B0CDC5E5ull, 0x3FEEC49182A3F090ull, 0x3FEED503B23E255Dull,
+    0x3FEEE89F995AD3ADull, 0x3FEEFF76F2FB5E47ull, 0x3FEF199BDD85529Cull, 0x3FEF3720DCEF9069ull,
+    0x3FEF5818DCFBA487ull, 0x3FEF7C97337B9B5Full, 0x3FEFA4AFA2A490DAull, 0x3FEFD0765B6E4540ull};
+
+__device__ float xla_pow(float x, float y) {
+  if (y == 0.0f || x == 1.0f) return 1.0f;
+  const int ix = __float_as_int(x);
+  const int tmp = ix - 0x3F330000;
+  const int i = (tmp >> 19) & 15;
+  const int top = tmp & -0x800000;
+  const double z = static_cast<double>(__int_as_float(ix - top));
+  const double r = __dadd_rn(__dmul_rn(z, kPowInvc[i]), -1.0);
+  const double y0 = __dadd_rn(kPowLogc[i], static_cast<double>(top >> 23));
+  const double r2 = __dmul_rn(r, r);
+  const double lo = __dadd_rn(__dmul_rn(0x1.27616c9496e0bp-2, r), -0x1.71969a075c67ap-2);
+  const double mid = __dadd_rn(__dmul_rn(0x1.ec70a6ca7baddp-2, r), -0x1.7154748bef6c8p-1);
+  const double hi = __dadd_rn(__dmul_rn(0x1.71547652ab82bp+0, r), y0);
+  const double log2x = __dadd_rn(__dmul_rn(lo, __dmul_rn(r2, r2)), __dadd_rn(__dmul_rn(mid, r2), hi));
+  const double ylogx = __dmul_rn(static_cast<double>(y), log2x);
+  const double shift = 0x1.8p+47;
+  double kd = __dadd_rn(ylogx, shift);
+  const long long ki = __double_as_longlong(kd);
+  kd = __dsub_rn(kd, shift);
+  const double rr = __dsub_rn(ylogx, kd);
+  const double s = __longlong_as_double(static_cast<long long>(kExp2T[ki & 31]) +
+                                        ((ki - 0x42E8000000000000ll) << 47));
+  const double p = __dadd_rn(__dmul_rn(0x1.c6af84b912394p-5, rr), 0x1.ebfce50fac4f3p-3);
+  const double q = __dadd_rn(__dmul_rn(0x1.62e42ff0c52d6p-1, rr), 1.0);
+  double out = __dmul_rn(__dadd_rn(__dmul_rn(p, __dmul_rn(rr, rr)), q), s);
+  if (ylogx <= -150.0) out = 0.0;
+  return xla_ftz(__double2float_rn(out));
+}
+
+// xla_math.cumsum / cumprod, one element at a time: XLA's CPU float scan
+// adds (or multiplies) in blocks of 16, each block's elements in order;
+// the blocks' totals are scanned the same way, level by level, and each
+// element of a block after the first is combined with the scan of the
+// totals before its block (the carry). kLevels levels hold 16^kLevels
+// elements. Products flush subnormal results to zero, as XLA's CPU code.
+template <bool kMul, int kLevels = 4>
+struct XlaScan {
+  float w[kLevels] = {};      // each level's running value within its current block
+  float carry[kLevels] = {};  // the scan of the totals before that block
+  int count[kLevels] = {};
+  __device__ static float op(float a, float b) {
+    return kMul ? xla_ftz(__fmul_rn(a, b)) : __fadd_rn(a, b);
+  }
+  // the scan's value at the next element x
+  __device__ float push(float x) {
+    float out = 0.0f, v = x;
+#pragma unroll
+    for (int l = 0; l < kLevels; ++l) {
+      w[l] = count[l] % 16 == 0 ? v : op(w[l], v);
+      const float o = count[l] >= 16 ? op(w[l], carry[l]) : w[l];
+      if (l == 0) {
+        out = o;
+      } else {
+        carry[l - 1] = o;
+      }
+      if (++count[l] % 16 != 0) break;
+      v = w[l];  // a finished block's total goes up a level
+    }
+    return out;
+  }
+};
+
 // xla_math.erfc: 1 - x P(x^2) below 1, else exp(-x^2) / |x| times a
 // polynomial in 1 / x^2 (one below 2, one above), 0 past x^2 = 88.72
 __device__ float xla_erfc(float x) {
@@ -269,17 +411,22 @@ __device__ float threshold_sigmoid(float bid, float thresh, float intercept, flo
   return rate < 0.0f ? 0.0f : (rate > 1.0f ? 1.0f : rate);
 }
 
+// distributions.cost_create_e: the rust cost_create at e = erf_inv(u) of
+// its normal, in dollars
+__device__ __forceinline__ float cost_create_e(float e, float bid) {
+  const float s = sqrtf(bid);
+  const float std = __fmul_rn(fma32(s, f32(0x3E2AAAABu), 1e-10f), f32(0x3FB504F3u));
+  const float c = fma32(std, e, fma32(s, 0.25f, 2.2f));
+  return c < 0.0f ? 0.0f : (c > 4.4f ? 4.4f : c);
+}
+
 // agg_day.explicit_costs: one explicit lane cost in the gate's unit at e =
 // erf_inv(u) of its normal: the rust cost_create in decicents (rust) or
 // the python generic_cost in cents
 __device__ int explicit_cost(bool rust, float e, float bid) {
+  if (rust) return static_cast<int>(rintf(__fmul_rn(cost_create_e(e, bid), 1000.0f)));
   const float s = sqrtf(bid);
   const float std = __fmul_rn(fma32(s, f32(0x3E2AAAABu), 1e-10f), f32(0x3FB504F3u));
-  if (rust) {
-    float c = fma32(std, e, fma32(s, 0.25f, 2.2f));
-    c = c < 0.0f ? 0.0f : (c > 4.4f ? 4.4f : c);
-    return static_cast<int>(rintf(__fmul_rn(c, 1000.0f)));
-  }
   float c = fma32(std, e, __fadd_rn(__fmul_rn(s, 0.25f), __fmul_rn(bid, 0.5f)));
   c = c < 0.0f ? 0.0f : c;
   c = c < bid ? c : bid;

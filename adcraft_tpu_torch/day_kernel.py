@@ -379,16 +379,20 @@ def pallas_simulate_day(
     imp, clicks, cost_c, convs, rev_c, elig, flag = day_kernel(
         params, n_auctions, budget_c, seed, cfg.max_clicks_per_cell, uniform
     )
+    # as jitted XLA computes them (VectorBiddingEnv jits the step): the
+    # division by 100 a product with its reciprocal, the revenue's fused
+    # into the profit's subtraction
     dtype = cfg.money_dtype
-    cost = cost_c.to(dtype) / 100.0
-    revenue = rev_c.to(dtype) / 100.0
+    cents = dist.recip(100.0)
+    cost = cost_c.to(dtype) * cents
+    revenue = rev_c.to(dtype) * cents
     day = DayOutcomes(
         impressions=imp,
         buyside_clicks=clicks,
         cost=cost,
         sellside_conversions=convs,
         revenue=revenue,
-        profit=revenue - cost,
+        profit=dist.fma32(rev_c.to(dtype), cents, -cost),
         volume=volumes.to(torch.int32),
         eligible_volume=elig,
     )

@@ -18,10 +18,14 @@ is not what the source spells: XLA divides by a constant as a product
 with its float32 reciprocal (``_recip``), and contracts ``c + a * b``
 into a fused multiply-add in ``laplace_icdf``, ``truncated_laplace``,
 ``agg_cost_cents``, ``rev_sum_cents`` and the censored and clipped normal
-moments (``fma32``). The normal moments (revenue and explicit costs) run on
-XLA's own ``exp``, ``erf`` and ``erfc`` (``xla_math``) and equal XLA's bit
-for bit; the other transcendentals (the implicit cost moments' ``exp`` and
-``expm1``, ``log``, ``pow``) are torch's, within an ulp or two of XLA's.
+moments (``fma32``). The transcendentals are XLA's own (``xla_math``):
+``exp``, ``expm1``, ``log``, ``erf`` and ``erfc`` read off its CPU code,
+``pow`` the C library's ``powf`` it calls, and its float scans in blocks of
+16 (the ladder's ``cumprod`` and ``cumsum``); so the Laplace draws, the
+win probability, the ladder, the revenue and explicit cost moments and
+the implicit cost moments' mean equal jitted XLA's bit for bit (the
+implicit std on all but about 0.1% of cells). The inverse-CDF walk's
+``pow`` is still torch's.
 Every per-cell function here is also what the CUDA kernels of
 ``agg_day`` compute, operation for operation, so the kernels and these
 functions agree exactly on the card.
@@ -72,13 +76,13 @@ def lane_uniform(key: torch.Tensor, shape, bits: int) -> torch.Tensor:
 def laplace_cdf(x, loc, scale) -> torch.Tensor:
     """CDF of Laplace(loc, scale)."""
     z = (x - loc) / scale
-    return torch.where(z < 0, 0.5 * torch.exp(z), 1.0 - 0.5 * torch.exp(-z))
+    return torch.where(z < 0, 0.5 * xla_math.exp(z), 1.0 - 0.5 * xla_math.exp(-z))
 
 
 def laplace_icdf(u: torch.Tensor, loc, scale) -> torch.Tensor:
     """Inverse CDF of Laplace(loc, scale); logs clamped away from 0."""
-    lo = torch.log(torch.clamp(2.0 * u, min=1e-38))
-    hi = -torch.log(torch.clamp(2.0 * (1.0 - u), min=1e-38))
+    lo = xla_math.log(torch.clamp(2.0 * u, min=1e-38))
+    hi = -xla_math.log(torch.clamp(2.0 * (1.0 - u), min=1e-38))
     return fma32(scale, torch.where(u < 0.5, lo, hi), loc)
 
 
@@ -347,7 +351,8 @@ def binomial_inv(key, n, p, nmax: int, bits: int = 32, shape=None) -> torch.Tens
 def binomial_cdf(n, p, nmax: int):
     """``binomial_inv``'s CDF ladder for fixed (n, p): ``(cdf, flip, ni)``,
     ``cdf`` of shape ``(nmax + 1, *shape)``, by a cumulative product and
-    a cumulative sum (not the walk's order of rounding)."""
+    a cumulative sum in XLA's order (``xla_math.cumprod``, ``cumsum``; not
+    the walk's order of rounding)."""
     n = torch.as_tensor(n).to(torch.float32)
     p = torch.clamp(torch.as_tensor(p, device=n.device).to(torch.float32), 0.0, 1.0)
     n, p = torch.broadcast_tensors(n, p)
@@ -356,11 +361,10 @@ def binomial_cdf(n, p, nmax: int):
     r = q / (1.0 - q)
     j = torch.arange(1, nmax + 1, dtype=torch.float32, device=n.device)
     j = j.reshape((nmax,) + (1,) * n.dim())
-    recip_j = (1.0 / j.double()).float()  # XLA's folded reciprocal of a constant
-    f = torch.clamp((n[None] - (j - 1.0)) * recip_j * r[None], min=0.0)
-    pmf0 = torch.pow(1.0 - q, n)
-    pmf = torch.cat([pmf0[None], pmf0[None] * torch.cumprod(f, dim=0)])
-    cdf = torch.cumsum(pmf, dim=0)
+    f = torch.clamp((n[None] - (j - 1.0)) / j * r[None], min=0.0)
+    pmf0 = xla_math.pow(1.0 - q, n)
+    pmf = torch.cat([pmf0[None], xla_math.ftz(pmf0[None] * xla_math.cumprod(f, 0))])
+    cdf = xla_math.cumsum(pmf, 0)
     return cdf, flip, torch.round(n).to(torch.int32)
 
 
@@ -446,7 +450,11 @@ def single_cost_cent_moments_closed(bid, loc, scale):
     The per-click cost is ``100 * round(|L|, 2)`` for ``L ~ Laplace(loc,
     scale)`` conditioned on ``|L| < bid - 0.005``; the JAX docstring
     derives the geometric sums term by term, and this follows it line for
-    line.
+    line, on XLA's ``exp`` and ``expm1`` and with the products that XLA
+    contracts into the sums after them as ``fma32`` (found term by term
+    against jitted XLA): the mean equals jitted XLA's bit for bit, the std
+    on all but about 0.1% of cells, where a contraction in the second
+    moment's ``m > 0`` branch is not yet found (ROADMAP.md, F5).
     """
     bid = torch.as_tensor(bid).to(torch.float32)
     a = torch.abs(torch.as_tensor(loc).to(torch.float32))
@@ -457,45 +465,49 @@ def single_cost_cent_moments_closed(bid, loc, scale):
     c = 1.0 / (100.0 * s)
     bc = torch.round(bid * 100.0)
     big_i = torch.clamp(bc - 1.0, min=0.0)
-    m = torch.minimum(torch.clamp(torch.ceil(100.0 * a - 0.5), min=0.0), big_i)
-    em1 = -torch.expm1(-c)
+    m = torch.minimum(torch.clamp(torch.ceil(fma32(a, 100.0, -0.5)), min=0.0), big_i)
+    em1 = -xla_math.expm1(-c)
 
     def geo0(n):
-        return -torch.expm1(-n * c) / em1
+        return -xla_math.expm1(-n * c) / em1
 
     def geo1(n):
-        e_c = torch.exp(-c)
-        return (e_c * (1.0 - n * torch.exp(-(n - 1.0) * c) + (n - 1.0) * torch.exp(-n * c))
-                / (em1 * em1))
+        e1 = xla_math.exp(-(n - 1.0) * c)
+        e2 = xla_math.exp(-n * c)
+        return (xla_math.exp(-c) * fma32(n - 1.0, e2, fma32(-n, e1, 1.0))) / (em1 * em1)
 
     def safe_exp(x):
-        return torch.exp(torch.clamp(x, max=0.0))
+        return xla_math.exp(torch.clamp(x, max=0.0))
 
     e_ay = safe_exp(-(a - y0) / s)
     b_fac = safe_exp(-(a + 0.005) / s)
     b_cut = safe_exp(-(a + y0) / s)
-    sum_b = 0.5 * (b_fac * geo0(big_i) - big_i * b_cut)
-    sum_ib = 0.5 * (b_fac * geo1(big_i) - 0.5 * big_i * (big_i - 1.0) * b_cut)
+    geo0_i, geo1_i = geo0(big_i), geo1(big_i)
+    half_ii = (0.5 * big_i) * (big_i - 1.0)
+    sum_b = 0.5 * fma32(b_fac, geo0_i, -(big_i * b_cut))
+    sum_ib = 0.5 * fma32(b_fac, geo1_i, -(half_ii * b_cut))
 
-    def r2(n):
-        t2 = safe_exp(-(100.0 * a - n + 0.5) * c)
-        return t2 * geo0(n), t2 * ((n - 1.0) * geo0(n) - geo1(n))
+    def r2(n, g0, g1):
+        t2 = safe_exp(-(fma32(a, 100.0, -n) + 0.5) * c)
+        return t2 * g0, t2 * fma32(n - 1.0, g0, -g1)
 
-    r2_i, r2w_i = r2(big_i)
-    sum_a_low = 0.5 * (big_i * e_ay - r2_i)
-    sum_ia_low = 0.5 * (0.5 * big_i * (big_i - 1.0) * e_ay - r2w_i)
+    r2_i, r2w_i = r2(big_i, geo0_i, geo1_i)
+    sum_a_low = 0.5 * fma32(big_i, e_ay, -r2_i)
+    sum_ia_low = 0.5 * fma32(half_ii, e_ay, -r2w_i)
 
     e_ya = safe_exp(-(y0 - a) / s)
-    r2_m, r2w_m = r2(m)
-    sum_a_pre = m * (1.0 - 0.5 * e_ya) - 0.5 * r2_m
-    sum_ia_pre = 0.5 * m * (m - 1.0) * (1.0 - 0.5 * e_ya) - 0.5 * r2w_m
+    r2_m, r2w_m = r2(m, geo0(m), geo1(m))
+    keep = 1.0 - 0.5 * e_ya
+    sum_a_pre = fma32(m, keep, -(0.5 * r2_m))
+    sum_ia_pre = fma32((0.5 * m) * (m - 1.0), keep, -(0.5 * r2w_m))
     n_top = big_i - m
-    t3 = torch.exp(torch.clamp(-(m + 0.5 - 100.0 * a) * c, max=30.0))
-    s3 = t3 * geo0(n_top)
-    s3w = t3 * geo1(n_top) + m * s3
-    sum_a_top = 0.5 * (s3 - n_top * e_ya)
-    sum_i_top = 0.5 * (big_i - 1.0 + m) * n_top
-    sum_ia_top = 0.5 * s3w - 0.5 * sum_i_top * e_ya
+    t3 = xla_math.exp(torch.clamp(-fma32(a, -100.0, m + 0.5) * c, max=30.0))
+    geo0_top = geo0(n_top)
+    s3 = t3 * geo0_top
+    s3w = fma32(m, s3, t3 * geo1(n_top))
+    sum_a_top = 0.5 * fma32(t3, geo0_top, -(n_top * e_ya))
+    sum_i_top = (0.5 * (big_i - 1.0 + m)) * n_top
+    sum_ia_top = 0.5 * s3w - (0.5 * sum_i_top) * e_ya
 
     low = y0 <= a
     sum_a = torch.where(low, sum_a_low, sum_a_pre + sum_a_top)
@@ -507,8 +519,8 @@ def single_cost_cent_moments_closed(bid, loc, scale):
     tail1 = torch.clamp(sum_ia + sum_ib, min=0.0)
     mu = tail0 / zsafe
     m2 = (2.0 * tail1 + tail0) / zsafe
-    var = torch.clamp(m2 - mu * mu, min=0.0)
-    return mu, torch.sqrt(var), torch.clamp(bc - 1.0, min=0.0)
+    var = torch.clamp(fma32(-mu, mu, m2), min=0.0)
+    return mu, xla_math.sqrt(var), torch.clamp(bc - 1.0, min=0.0)
 
 
 # ---- explicit keywords: the impression rate, both cost models and their
@@ -671,15 +683,20 @@ def round_cents(x: torch.Tensor) -> torch.Tensor:
     return torch.round(x * 100.0) / 100.0
 
 
+def int32_of(x: torch.Tensor) -> torch.Tensor:
+    """float32 to int32 as XLA converts it: toward zero, saturating at both
+    ends (``inf`` to INT32_MAX, ``-inf`` to INT32_MIN) and NaN to 0, where
+    torch's CPU cast wraps (``inf`` to INT32_MIN)."""
+    c = torch.nan_to_num(x, nan=0.0).clamp(-(2.0**31), 2.0**31)
+    return c.to(torch.int64).clamp(-(2**31), 2**31 - 1).to(torch.int32)
+
+
 def cents_int32(money, scale: float = 100.0) -> torch.Tensor:
     """``round(money * scale)`` in float32 (cents by default), converted to
-    int32 as XLA converts float32: saturating at both ends (``inf`` to
-    INT32_MAX, ``-inf`` to INT32_MIN) and NaN to 0. The budget in the gate's
+    int32 as XLA converts float32 (``int32_of``). The budget in the gate's
     unit on both day routes (``adcraft_tpu/step.py:1211-1218``,
     ``pallas_kernels.py:272-274``)."""
-    c = torch.round(torch.as_tensor(money).to(torch.float32) * scale)
-    c = torch.nan_to_num(c, nan=0.0).clamp(-(2.0**31), 2.0**31)
-    return c.to(torch.int64).clamp(-(2**31), 2**31 - 1).to(torch.int32)
+    return int32_of(torch.round(torch.as_tensor(money).to(torch.float32) * scale))
 
 
 def nonneg_int_normal(key: torch.Tensor, mean, std, shape=None) -> torch.Tensor:
@@ -694,5 +711,6 @@ def nonneg_int_normal(key: torch.Tensor, mean, std, shape=None) -> torch.Tensor:
     if shape is None:
         batch = key.dim() - 1
         shape = torch.broadcast_shapes(mean.shape, std.shape)[batch:]
-    draw = mean + std * prng.normal(key, shape)
+    # jitted XLA contracts the draw into a fused multiply-add
+    draw = fma32(std, prng.normal(key, shape), mean)
     return torch.round(torch.clamp(draw, min=0.0)).to(torch.int32)

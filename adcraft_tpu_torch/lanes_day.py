@@ -1,4 +1,4 @@
-"""The lanes day's three phases as three CUDA kernels, each beside its plain version.
+"""The lanes day's three phases as CUDA kernels, each beside its plain version.
 
 The JAX package's default ``EnvConfig`` samples every cell in lanes
 (``cost_sampling``, ``conv_sampling`` and ``rev_sampling="lanes"``) with
@@ -8,28 +8,46 @@ lanes branch (:926-951) on ``run_cell_auctions`` (``auction.py:355``),
 ``_append_conv_rev_tables`` (:953-988), the budget gate over the ``T K``
 cells in (t, k) order (``_gate_keywords``, :115; its lazy and Jacobi
 schedules are bit-identical to it) and the gathers and day sums of phase 3
-(:1392-1502). The port runs it as three kernels of ``csrc/lanes_day.cu``,
-built with nvcc on first use (``cuda_build``) and bound with ctypes:
+(:1392-1502). Explicit keywords (``kind=EXPLICIT``, ``EnvConfig``'s
+default) take ``explicit_auction`` (``auction.py:209``) and their cost
+model's lanes: the python ``generic_cost`` in cents on the same gate, the
+rust ``cost_create`` in float32 dollars on ``_gate_keywords_jacobi``
+(:152, which ``gate_mode="auto"`` takes for costs that are not cents).
+The port runs it as kernels of ``csrc/lanes_day.cu``, built with nvcc on
+first use (``cuda_build``) and bound with ctypes, one launch of each of
+three a day:
 
 * ``lanes_counts`` (plain: ``lanes_counts_reference``): per (env,
   sub-timestep) the impressions ``Binomial(n_auc, p_win)`` and the clicks
   ``Binomial(impressions, bctr)``, each one ``jax.random.binomial`` call of
   K keywords in lockstep (``binomial_sampler="exact"``) or the inverse-CDF
   walk (``"inversion"``); on the card one warp per (env, sub-timestep), up
-  to four keywords a lane, any K;
+  to four keywords a lane, any K. For explicit keywords (its explicit
+  instance) the impression rate is the threshold sigmoid of the bid and
+  the clicks are drawn over ``max(impressions, 1)`` candidates (the
+  phantom click);
 * ``lanes_gate`` (plain: ``lanes_gate_reference``): the cost lanes (in
   cents) of each cell and the sequential gate (``gate_keywords``): accepted
   clicks, spend cents and the simulated cell count ``n_sim``; on the card
   one warp per env, drawing the cost lanes of windows of up to 32 cells
   densely before deciding them (``tests/test_torch_lanes_gate_walk.py``
-  models the walk);
+  models the walk); its python instance draws ``generic_cost``'s cents, 0
+  in a phantom cell;
+* ``lanes_gate_float`` (plain: ``lanes_gate_float_reference``), for the
+  rust model: the float32 cost lanes, their prefixes in XLA's scan order
+  (``xla_math.cumsum``, blocks of 16) and the Jacobi gate's fixed point
+  (``gate_keywords_float``): accepted clicks (-1 in a cell not simulated
+  before a simulated one), float spends and ``n_sim`` (the plain version
+  also the carried budget); on the card one warp per env, one cell a step;
 * ``lanes_outcomes`` (plain: ``lanes_outcomes_reference``): conversions
   (the first ``accepted`` conversion flags), revenue (the first ``nconv``
   revenue draws, in cents), the ``cell_out`` masks and the (E, K) day sums;
   on the card one block per env, each warp reading tiles of 32 cells and
   drawing their flag lanes, then their revenue lanes, 32 a step from two
   per-warp queues of lanes, any K
-  (``tests/test_torch_lanes_outcomes_walk.py`` models the queues).
+  (``tests/test_torch_lanes_outcomes_walk.py`` models the queues); with
+  float32 spends (its float mode) the cost sum is float32 dollars, added
+  in XLA's order.
 
 Keys follow the JAX tree: per sub-timestep ``kt = fold_in(k_cells, t)``,
 ``k_auc, k_click, k_conv, k_rev = split(kt, 4)``, ``k_imp, k_cost =
@@ -52,10 +70,12 @@ from typing import Tuple
 import torch
 
 from adcraft_tpu_torch import distributions as dist
-from adcraft_tpu_torch import prng
-from adcraft_tpu_torch.agg_day import (BCTR, BID, LOC, NUM_PARAMS, REV_MEAN, REV_STD, SCALE,
-                                       SCTR, Lanes, _check, _check_keys, _check_lanes, _index,
-                                       _Kernel, _launch_args, pack_params, y0_of)
+from adcraft_tpu_torch import prng, xla_math
+from adcraft_tpu_torch.agg_day import (BCTR, BID, EXPLICIT_PYTHON, EXPLICIT_RUST, IMP_INTERCEPT,
+                                       IMP_SLOPE, IMP_THRESH, IMPLICIT, LOC, NUM_PARAMS,
+                                       REV_MEAN, REV_STD, SCALE, SCTR, Lanes, _check, _check_keys,
+                                       _check_lanes, _cost_cents, _index, _Kernel, _launch_args,
+                                       explicit_costs, pack_params, y0_of)
 from adcraft_tpu_torch.auction import implicit_single_win_prob
 from adcraft_tpu_torch.cuda_build import CudaLibrary
 
@@ -81,34 +101,72 @@ def _check_sampler(sampler: str) -> None:
         raise ValueError(f"sampler must be one of {SAMPLERS}, got {sampler!r}")
 
 
-def lanes_counts_reference(params, n_auc01, k_cells, lanes: Lanes, sampler: str = "exact"):
+MODELS = (IMPLICIT, EXPLICIT_RUST, EXPLICIT_PYTHON)
+
+
+def _check_model(model: int) -> None:
+    if model not in MODELS:
+        raise ValueError(f"unknown cost model {model}")
+
+
+def win_rate(params, model: int = IMPLICIT) -> torch.Tensor:
+    """The cells' impression probability: the single competitor's win
+    probability, or an explicit keyword's threshold sigmoid of the bid."""
+    p = params
+    if model == IMPLICIT:
+        return implicit_single_win_prob(p[BID], p[LOC], p[SCALE])
+    return dist.threshold_sigmoid(p[BID], p[IMP_THRESH], p[IMP_INTERCEPT], p[IMP_SLOPE])
+
+
+def lanes_counts_reference(params, n_auc01, k_cells, lanes: Lanes, sampler: str = "exact",
+                           model: int = IMPLICIT):
     """Plain impressions and clicks, (E, T, K) int32 each: per (env,
     sub-timestep) ``bfn(k_imp, n_auc, p_win)`` then ``bfn(k_click,
-    impressions, bctr)``, ``bfn`` the sampler's binomial."""
+    candidates, bctr)``, ``bfn`` the sampler's binomial. The candidates are
+    the impressions, or for explicit keywords (``model`` EXPLICIT_*) at
+    least one, the phantom click (``explicit_auction``)."""
     _check_sampler(sampler)
+    _check_model(model)
     p = params
-    p_win = implicit_single_win_prob(p[BID], p[LOC], p[SCALE])
+    p_win = win_rate(params, model)
     imp_t, ncl_t = [], []
     for t in range(lanes.T):
         k_imp, _, k_click, _, _ = lanes_keys(k_cells, t)
         n = n_auc01[0] if t == 0 else n_auc01[1]
-        if sampler == "exact":
-            imp = dist.binomial(k_imp, n, p_win)
-            ncl = dist.binomial(k_click, imp, p[BCTR])
-        else:
-            imp = dist.binomial_inv(k_imp, n, p_win, lanes.m(t), lanes.bits)
-            ncl = dist.binomial_inv(k_click, imp, p[BCTR], lanes.m(t), lanes.bits)
+
+        def bfn(key, count, prob, m=lanes.m(t)):
+            if sampler == "exact":
+                return dist.binomial(key, count, prob)
+            return dist.binomial_inv(key, count, prob, m, lanes.bits)
+
+        imp = bfn(k_imp, n, p_win)
+        ncl = bfn(k_click, imp if model == IMPLICIT else torch.clamp(imp, min=1), p[BCTR])
         imp_t.append(imp)
         ncl_t.append(ncl)
     return torch.stack(imp_t, 1), torch.stack(ncl_t, 1)
 
 
-def cost_cents(params, k_cost, m: int, bits: int) -> torch.Tensor:
-    """A sub-timestep's (E, m, K) lane costs in int32 cents, ``round(|L| *
-    100)`` of ``implicit_single_auction``'s truncated-Laplace draws."""
+def cost_cents(params, k_cost, m: int, bits: int, model: int = IMPLICIT,
+               imp=None) -> torch.Tensor:
+    """A sub-timestep's (E, m, K) lane costs in int32 cents: ``round(|L| *
+    100)`` of ``implicit_single_auction``'s truncated-Laplace draws, or the
+    python model's ``generic_cost`` cents (``model`` EXPLICIT_PYTHON; 0 in
+    the cells ``imp`` (E, K) without impressions)."""
+    if model == EXPLICIT_PYTHON:
+        e = prng.normal_erfinv(k_cost, (m, params.shape[2]))
+        cents = explicit_costs(model, e, params[BID][:, None, :])
+        return torch.where(imp[:, None, :] == 0, 0, cents)
     loc, scale, y0 = (x[:, None, :] for x in (params[LOC], params[SCALE], y0_of(params)))
     trunc = dist.truncated_laplace(k_cost, loc, scale, -y0, y0, (m, params.shape[2]), bits)
-    return torch.round(torch.abs(trunc) * 100.0).to(torch.int32)
+    return _cost_cents(trunc)
+
+
+def cost_dollars(params, k_cost, m: int, imp) -> torch.Tensor:
+    """A sub-timestep's (E, m, K) float32 lane costs of the rust model,
+    ``cost_create``'s draws, 0 in the cells without impressions."""
+    e = prng.normal_erfinv(k_cost, (m, params.shape[2]))
+    costs = dist.cost_create_e(e, params[BID][:, None, :])
+    return torch.where(imp[:, None, :] == 0, 0.0, costs)
 
 
 def prefix_sums(x: torch.Tensor) -> torch.Tensor:
@@ -145,23 +203,92 @@ def gate_keywords(b, broken, prefix, n_clicks):
     return (b, broken), tuple(torch.stack(x, 1) for x in (acc, spend, sim))
 
 
-def lanes_gate_reference(params, k_cells, n_clicks, budget_c, lanes: Lanes):
+def lanes_gate_reference(params, k_cells, n_clicks, budget_c, lanes: Lanes,
+                         model: int = IMPLICIT, imp=None):
     """Plain cost lanes and gate: accepted clicks and spend cents (E, T, K)
     int32, and each env's simulated cell count ``n_sim`` (E,) int32 (cells
-    ``t K + k < n_sim`` were simulated)."""
+    ``t K + k < n_sim`` were simulated). ``model`` IMPLICIT or
+    EXPLICIT_PYTHON (whose phantom cells are the cells of ``imp`` (E, T,
+    K) without impressions)."""
     E = params.shape[1]
     b = budget_c
     broken = torch.zeros(E, dtype=torch.bool, device=params.device)
     acc_t, spend_t, sim_t = [], [], []
     for t in range(lanes.T):
         k_cost = lanes_keys(k_cells, t)[1]
-        prefix = prefix_sums(cost_cents(params, k_cost, lanes.m(t), lanes.bits))
+        imp_t = None if imp is None else imp[:, t]
+        prefix = prefix_sums(cost_cents(params, k_cost, lanes.m(t), lanes.bits, model, imp_t))
         (b, broken), (acc, spend, sim) = gate_keywords(b, broken, prefix, n_clicks[:, t])
         acc_t.append(acc)
         spend_t.append(spend)
         sim_t.append(sim)
     n_sim = torch.stack(sim_t, 1).sum((1, 2), dtype=torch.int32)
     return torch.stack(acc_t, 1), torch.stack(spend_t, 1), n_sim
+
+
+def gate_keywords_float(b, broken, prefix, n_clicks):
+    """One sub-timestep's float32 budget gate, ``_gate_keywords_jacobi``
+    (``step.py:152``; ``gate_mode="auto"`` takes it for costs that are not
+    cents) for E envs: ``b`` (E,) float32, ``broken`` (E,) bool, ``prefix``
+    (E, m + 1, K) float32 (the lane costs' XLA cumsum after a zero row),
+    ``n_clicks`` (E, K). Cell k starts from ``B_k = b - excl_k``, ``excl``
+    the XLA cumsum of the spends before it, accepts its longest run of
+    lanes whose prefixes are ``<= B_k`` and spends the prefix there; it is
+    simulated if no cell before it left ``B_j - spend_j <= 0``. The Jacobi
+    sweeps run until nothing changes, as in JAX; the fixed point is unique,
+    since a cell depends only on the cells before it. Returns ``(b_path[-1],
+    broken | any(b_path <= 0))`` with ``b_path = b - cumsum(spend)``, and
+    (accepted, spend, simulated), each (E, K)."""
+    E, m1, K = prefix.shape
+    valid_lane = torch.arange(m1 - 1, device=prefix.device)[None, :, None] < n_clicks[:, None, :]
+    live = ~broken[:, None]
+
+    def g(B):
+        valid = (prefix[:, 1:] <= B[:, None, :]) & valid_lane
+        p = torch.cumprod(valid.to(torch.int32), 1).sum(1, dtype=torch.int32)
+        return p, prefix.gather(1, p.to(torch.int64)[:, None, :])[:, 0]
+
+    p, s = g(b[:, None].expand(E, K))
+    s = torch.where(live, s, 0.0)
+    p = torch.where(live, p, 0)
+    for _ in range(K + 2):
+        incl = xla_math.cumsum(s, 1)
+        B = b[:, None] - torch.cat([torch.zeros_like(incl[:, :1]), incl[:, :-1]], 1)
+        p2, s2 = g(B)
+        alive = torch.cumprod((B - s2 > 0).to(torch.int32), 1).bool()
+        sim = live & torch.cat([torch.ones_like(alive[:, :1]), alive[:, :-1]], 1)
+        s2 = torch.where(sim, s2, 0.0)
+        p2 = torch.where(sim, p2, 0)
+        done = bool((s2 == s).all() and (p2 == p).all())
+        s, p = s2, p2
+        if done:
+            break
+    b_path = b[:, None] - xla_math.cumsum(s, 1)
+    return (b_path[:, -1], broken | (b_path <= 0).any(1)), (p, s, sim)
+
+
+def lanes_gate_float_reference(params, k_cells, n_clicks, imp, budget, lanes: Lanes):
+    """Plain float32 gate of the rust cost model (continuous costs, gated
+    in dollars as JAX gates them): ``cost_dollars`` lanes, their XLA
+    cumsum, and ``gate_keywords_float`` per sub-timestep. Returns accepted
+    clicks (E, T, K) int32, -1 in a cell not simulated; spend (E, T, K)
+    float32; ``n_sim`` (E,) int32, one past the last simulated cell; and
+    the budget carried out of the day (E,) float32."""
+    E = params.shape[1]
+    b = budget
+    broken = torch.zeros(E, dtype=torch.bool, device=params.device)
+    acc_t, spend_t, sim_t = [], [], []
+    for t in range(lanes.T):
+        costs = cost_dollars(params, lanes_keys(k_cells, t)[1], lanes.m(t), imp[:, t])
+        prefix = torch.cat([torch.zeros_like(costs[:, :1]), xla_math.cumsum(costs, 1)], 1)
+        (b, broken), (acc, spend, sim) = gate_keywords_float(b, broken, prefix, n_clicks[:, t])
+        acc_t.append(torch.where(sim, acc, -1))
+        spend_t.append(spend)
+        sim_t.append(sim)
+    sim = torch.stack(sim_t, 1).flatten(1)
+    cell = torch.arange(1, sim.shape[1] + 1, device=sim.device, dtype=torch.int32)
+    n_sim = torch.where(sim, cell, 0).amax(1).to(torch.int32)
+    return torch.stack(acc_t, 1), torch.stack(spend_t, 1), n_sim, b
 
 
 def _take(prefix: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -174,17 +301,24 @@ def lanes_outcomes_reference(params, k_cells, imp, acc, spend, n_sim, n_auc01, l
     clicks, cost cents, conversions, revenue cents, eligible volume).
     Conversions are the flags ``uniform(k_conv, (m, K)) <= sctr`` below the
     accepted clicks; revenue the ``rev_normal_cents(k_rev, ...)`` draws
-    below the conversions (``_append_conv_rev_tables``)."""
+    below the conversions (``_append_conv_rev_tables``). A cell is
+    simulated if ``t K + k < n_sim`` and its accepted clicks are not -1.
+    With float32 ``spend`` (the rust model's dollars) the cost is the
+    float32 sum of the simulated cells' spends as jitted XLA adds the day's
+    (T, K) spends: those of t >= 1 in order, then t = 0's."""
     E, T, K = imp.shape
     p = params
     cell = torch.arange(T * K, device=imp.device, dtype=torch.int32).view(T, K)
-    sim = cell[None] < n_sim[:, None, None]
+    sim = (cell[None] < n_sim[:, None, None]) & (acc >= 0)
+    dollars = spend.dtype == torch.float32
     sums = [torch.zeros((E, K), dtype=torch.int32, device=imp.device) for _ in range(6)]
+    if dollars:
+        sums[2] = torch.zeros((E, K), dtype=torch.float32, device=imp.device)
     for t in range(T):
         _, _, _, k_conv, k_rev = lanes_keys(k_cells, t)
         m = lanes.m(t)
         flags = (prng.uniform(k_conv, (m, K)) <= p[SCTR][:, None, :]).to(torch.int32)
-        nconv = _take(prefix_sums(flags), acc[:, t])
+        nconv = _take(prefix_sums(flags), torch.clamp(acc[:, t], min=0))
         revs = dist.rev_normal_cents(k_rev, p[REV_MEAN][:, None, :], p[REV_STD][:, None, :], (m, K))
         rev = _take(prefix_sums(revs), nconv)
         s = sim[:, t]
@@ -194,7 +328,13 @@ def lanes_outcomes_reference(params, k_cells, imp, acc, spend, n_sim, n_auc01, l
                     torch.where(s, nconv, 0), torch.where(s, rev, 0),
                     torch.where(s & (imp_m >= 1), n_t, 0))
         for i, x in enumerate(cell_out):
-            sums[i] = wrap32(sums[i].to(torch.int64) + x)
+            if dollars and i == 2:
+                if t > 0:  # t = 0's spends go last, as XLA adds them
+                    sums[2] = sums[2] + x
+            else:
+                sums[i] = wrap32(sums[i].to(torch.int64) + x)
+    if dollars:
+        sums[2] = sums[2] + torch.where(sim[:, 0], spend[:, 0], 0.0)
     return tuple(sums)
 
 
@@ -213,8 +353,16 @@ def bind_launchers(lib: ctypes.CDLL) -> None:
 def bind(lib: ctypes.CDLL) -> None:
     """The ctypes signatures of ``csrc/lanes_day.cu``'s C interface."""
     bind_launchers(lib)
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.lanes_day_occupancy.argtypes = [i, i, i, p, p, p, p, p, p]
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.lanes_counts_explicit_launch.argtypes = lib.lanes_counts_launch.argtypes
+    lib.lanes_counts_explicit_launch.restype = i
+    lib.lanes_gate_python_launch.argtypes = [p, p, ll, p, p, p, p, p, p] + [i] * 7 + [p]
+    lib.lanes_gate_python_launch.restype = i
+    lib.lanes_gate_float_launch.argtypes = [p, p, ll, p, p, p, p, p, p] + [i] * 6 + [p]
+    lib.lanes_gate_float_launch.restype = i
+    lib.lanes_outcomes_float_launch.argtypes = [p, p, ll, p, p, p, p, p, p, p] + [i] * 6 + [p]
+    lib.lanes_outcomes_float_launch.restype = i
+    lib.lanes_day_occupancy.argtypes = [i, i, i, i, p, p, p, p, p, p]
     lib.lanes_day_occupancy.restype = i
 
 
@@ -224,23 +372,27 @@ library = CudaLibrary("lanes_day", bind)
 class LanesCounts(_Kernel):
     """The ``lanes_counts`` kernel's wrapper."""
 
-    def __call__(self, params, n_auc01, k_cells, lanes: Lanes, sampler: str = "exact"):
+    def __call__(self, params, n_auc01, k_cells, lanes: Lanes, sampler: str = "exact",
+                 model: int = IMPLICIT):
         """Outputs as ``lanes_counts_reference``: ``params`` (NUM_PARAMS, E,
         K) f32, ``n_auc01`` (2, E, K) int32 (the auction counts at t = 0 and
-        t >= 1), ``k_cells`` (E, 2) int64."""
+        t >= 1), ``k_cells`` (E, 2) int64; ``model`` IMPLICIT or an explicit
+        cost model (the kernel's explicit instance)."""
         _, E, K = params.shape
         device = params.device
         _check_sampler(sampler)
+        _check_model(model)
         _check_lanes(lanes)
         _check(device, ("params", params, torch.float32, (NUM_PARAMS, E, K)),
                ("n_auc01", n_auc01, torch.int32, (2, E, K)))
         _check_keys(k_cells, E, device)
         if device.type == "cpu":
-            return lanes_counts_reference(params, n_auc01, k_cells, lanes, sampler)
+            return lanes_counts_reference(params, n_auc01, k_cells, lanes, sampler, model)
         lib = self._cuda(device)
         imp, ncl = (torch.empty((E, lanes.T, K), dtype=torch.int32, device=device)
                     for _ in range(2))
-        err = lib.lanes_counts_launch(
+        launch = lib.lanes_counts_launch if model == IMPLICIT else lib.lanes_counts_explicit_launch
+        err = launch(
             params.data_ptr(), n_auc01.data_ptr(), k_cells.data_ptr(), k_cells.stride(0),
             imp.data_ptr(), ncl.data_ptr(), E, K, lanes.T, lanes.m0, lanes.m1, lanes.bits,
             int(sampler == "exact"), *_launch_args(device),
@@ -253,26 +405,69 @@ class LanesCounts(_Kernel):
 class LanesGate(_Kernel):
     """The ``lanes_gate`` kernel's wrapper."""
 
-    def __call__(self, params, k_cells, n_clicks, budget_c, lanes: Lanes):
+    def __call__(self, params, k_cells, n_clicks, budget_c, lanes: Lanes, model: int = IMPLICIT,
+                 imp=None):
         """Outputs as ``lanes_gate_reference``, but on the card the cells at
-        or past each env's break (``t K + k >= n_sim``) are not written."""
+        or past each env's break (``t K + k >= n_sim``) are not written.
+        ``model`` IMPLICIT or EXPLICIT_PYTHON (the kernel's python
+        instance, which reads the impressions ``imp`` (E, T, K) int32)."""
+        _, E, K = params.shape
+        device = params.device
+        _check_lanes(lanes)
+        if model not in (IMPLICIT, EXPLICIT_PYTHON):
+            raise ValueError(f"lanes_gate gates cents: model {model} is not IMPLICIT or "
+                             "EXPLICIT_PYTHON")
+        python = model == EXPLICIT_PYTHON
+        _check(device, ("params", params, torch.float32, (NUM_PARAMS, E, K)),
+               ("n_clicks", n_clicks, torch.int32, (E, lanes.T, K)),
+               ("budget_c", budget_c, torch.int32, (E,)),
+               *((("imp", imp, torch.int32, (E, lanes.T, K)),) if python else ()))
+        _check_keys(k_cells, E, device)
+        if device.type == "cpu":
+            return lanes_gate_reference(params, k_cells, n_clicks, budget_c, lanes, model, imp)
+        lib = self._cuda(device)
+        acc, spend = (torch.empty((E, lanes.T, K), dtype=torch.int32, device=device)
+                      for _ in range(2))
+        n_sim = torch.empty((E,), dtype=torch.int32, device=device)
+        head = (params.data_ptr(), k_cells.data_ptr(), k_cells.stride(0), n_clicks.data_ptr())
+        tail = (budget_c.data_ptr(), acc.data_ptr(), spend.data_ptr(), n_sim.data_ptr(), E, K,
+                lanes.T, lanes.m0, lanes.m1, lanes.bits, *_launch_args(device))
+        if python:
+            err = lib.lanes_gate_python_launch(*head, imp.data_ptr(), *tail)
+        else:
+            err = lib.lanes_gate_launch(*head, *tail)
+        self.library.check(err, self.name)
+        self.launches += 1
+        return acc, spend, n_sim
+
+
+class LanesGateFloat(_Kernel):
+    """The ``lanes_gate_float`` kernel's wrapper (the rust cost model)."""
+
+    def __call__(self, params, k_cells, n_clicks, imp, budget, lanes: Lanes):
+        """``acc``, ``spend`` and ``n_sim`` as ``lanes_gate_float_reference``
+        (not the carried budget), but on the card only the sub-timesteps up
+        to that of cell ``n_sim - 1`` are written. ``budget`` (E,) float32
+        dollars, ``imp`` (E, T, K) int32 (cells without impressions cost
+        nothing)."""
         _, E, K = params.shape
         device = params.device
         _check_lanes(lanes)
         _check(device, ("params", params, torch.float32, (NUM_PARAMS, E, K)),
                ("n_clicks", n_clicks, torch.int32, (E, lanes.T, K)),
-               ("budget_c", budget_c, torch.int32, (E,)))
+               ("imp", imp, torch.int32, (E, lanes.T, K)),
+               ("budget", budget, torch.float32, (E,)))
         _check_keys(k_cells, E, device)
         if device.type == "cpu":
-            return lanes_gate_reference(params, k_cells, n_clicks, budget_c, lanes)
+            return lanes_gate_float_reference(params, k_cells, n_clicks, imp, budget, lanes)[:3]
         lib = self._cuda(device)
-        acc, spend = (torch.empty((E, lanes.T, K), dtype=torch.int32, device=device)
-                      for _ in range(2))
+        acc = torch.empty((E, lanes.T, K), dtype=torch.int32, device=device)
+        spend = torch.empty((E, lanes.T, K), dtype=torch.float32, device=device)
         n_sim = torch.empty((E,), dtype=torch.int32, device=device)
-        err = lib.lanes_gate_launch(
+        err = lib.lanes_gate_float_launch(
             params.data_ptr(), k_cells.data_ptr(), k_cells.stride(0), n_clicks.data_ptr(),
-            budget_c.data_ptr(), acc.data_ptr(), spend.data_ptr(), n_sim.data_ptr(), E, K,
-            lanes.T, lanes.m0, lanes.m1, lanes.bits, *_launch_args(device),
+            imp.data_ptr(), budget.data_ptr(), acc.data_ptr(), spend.data_ptr(), n_sim.data_ptr(),
+            E, K, lanes.T, lanes.m0, lanes.m1, *_launch_args(device),
         )
         self.library.check(err, self.name)
         self.launches += 1
@@ -283,14 +478,17 @@ class LanesOutcomes(_Kernel):
     """The ``lanes_outcomes`` kernel's wrapper."""
 
     def __call__(self, params, k_cells, imp, acc, spend, n_sim, n_auc01, lanes: Lanes):
-        """Outputs as ``lanes_outcomes_reference``, for any number of keywords."""
+        """Outputs as ``lanes_outcomes_reference``, for any number of
+        keywords: with int32 ``spend`` (cents) six int32 sums, with float32
+        ``spend`` (dollars; the kernel's float mode) the cost sum float32."""
         E, T, K = imp.shape
         device = params.device
         _check_lanes(lanes)
+        dollars = spend.dtype == torch.float32
         _check(device, ("params", params, torch.float32, (NUM_PARAMS, E, K)),
                ("imp", imp, torch.int32, (E, lanes.T, K)),
                ("acc", acc, torch.int32, (E, T, K)),
-               ("spend", spend, torch.int32, (E, T, K)),
+               ("spend", spend, torch.float32 if dollars else torch.int32, (E, T, K)),
                ("n_sim", n_sim, torch.int32, (E,)),
                ("n_auc01", n_auc01, torch.int32, (2, E, K)))
         _check_keys(k_cells, E, device)
@@ -299,25 +497,31 @@ class LanesOutcomes(_Kernel):
                                             lanes)
         lib = self._cuda(device)
         out = torch.empty((6, E, K), dtype=torch.int32, device=device)
-        err = lib.lanes_outcomes_launch(
-            params.data_ptr(), k_cells.data_ptr(), k_cells.stride(0), imp.data_ptr(),
-            acc.data_ptr(), spend.data_ptr(), n_sim.data_ptr(), n_auc01.data_ptr(),
-            out.data_ptr(), E, K, T, lanes.m0, lanes.m1, *_launch_args(device),
-        )
+        head = (params.data_ptr(), k_cells.data_ptr(), k_cells.stride(0), imp.data_ptr(),
+                acc.data_ptr(), spend.data_ptr(), n_sim.data_ptr(), n_auc01.data_ptr(),
+                out.data_ptr())
+        tail = (E, K, T, lanes.m0, lanes.m1, *_launch_args(device))
+        if dollars:
+            cost = torch.empty((E, K), dtype=torch.float32, device=device)
+            err = lib.lanes_outcomes_float_launch(*head, cost.data_ptr(), *tail)
+        else:
+            err = lib.lanes_outcomes_launch(*head, *tail)
         self.library.check(err, self.name)
         self.launches += 1
-        return tuple(out.unbind(0))
+        sums = out.unbind(0)
+        return (*sums[:2], cost, *sums[3:]) if dollars else tuple(sums)
 
 
-def occupancy(K: int, lanes: Lanes, device) -> dict:
-    """Resident blocks per SM of the three kernels at K keywords and
-    ``lanes.T`` sub-timesteps, ``lanes_gate``'s and ``lanes_outcomes``'
+def occupancy(K: int, lanes: Lanes, device, model: int = IMPLICIT) -> dict:
+    """Resident blocks per SM of the cost model's three kernels at K
+    keywords and ``lanes.T`` sub-timesteps (its gate ``lanes_gate`` or, for
+    the rust model, ``lanes_gate_float``), the gate's and ``lanes_outcomes``'
     dynamic shared memory per block in bytes, and whether ``lanes_outcomes``
     keeps its keyword tables in shared memory (else in device memory)."""
     counts, gate, out, tables = (ctypes.c_int(0) for _ in range(4))
     gate_smem, out_smem = ctypes.c_longlong(0), ctypes.c_longlong(0)
     err = library.get().lanes_day_occupancy(
-        K, lanes.T, _index(device), ctypes.byref(counts), ctypes.byref(gate),
+        model, K, lanes.T, _index(device), ctypes.byref(counts), ctypes.byref(gate),
         ctypes.byref(gate_smem), ctypes.byref(out), ctypes.byref(out_smem), ctypes.byref(tables))
     library.check(err, "lanes_day_occupancy")
     return {"counts_blocks": counts.value, "gate_blocks": gate.value, "gate_smem": gate_smem.value,
@@ -336,14 +540,22 @@ def kernels_built_from(csrc) -> dict:
 
 lanes_counts = LanesCounts("lanes_counts", library)
 lanes_gate = LanesGate("lanes_gate", library)
+lanes_gate_float = LanesGateFloat("lanes_gate_float", library)
 lanes_outcomes = LanesOutcomes("lanes_outcomes", library)
 
 
-def simulate_day_lanes(lanes: Lanes, k_cells, kw, bids, budget_c, n_auc01,
-                       sampler: str = "exact") -> Tuple[torch.Tensor, ...]:
-    """The lanes day's three phases, one launch each: the six (E, K) int32
-    day sums."""
+def simulate_day_lanes(lanes: Lanes, k_cells, kw, bids, budget, n_auc01,
+                       sampler: str = "exact", model: int = IMPLICIT) -> Tuple[torch.Tensor, ...]:
+    """The lanes day's three phases, one launch each: the six (E, K) day
+    sums, int32 but for the rust model's cost (float32 dollars). ``budget``
+    is int32 cents, or float32 dollars for the rust model (``model``
+    EXPLICIT_RUST), whose gate is ``lanes_gate_float``."""
     params = pack_params(kw, bids)
-    imp, ncl = lanes_counts(params, n_auc01, k_cells, lanes, sampler)
-    acc, spend, n_sim = lanes_gate(params, k_cells, ncl, budget_c, lanes)
+    imp, ncl = lanes_counts(params, n_auc01, k_cells, lanes, sampler, model)
+    if model == EXPLICIT_RUST:
+        # [:3]: the plain version also returns the carried budget
+        acc, spend, n_sim = lanes_gate_float(params, k_cells, ncl, imp, budget, lanes)[:3]
+    else:
+        acc, spend, n_sim = lanes_gate(params, k_cells, ncl, budget, lanes, model,
+                                       imp if model == EXPLICIT_PYTHON else None)
     return lanes_outcomes(params, k_cells, imp, acc, spend, n_sim, n_auc01, lanes)

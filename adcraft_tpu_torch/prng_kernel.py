@@ -118,7 +118,9 @@ def threefry_words_reference(
     return word if bit_width == 32 else word & ((1 << bit_width) - 1)
 
 
-def _bind(lib: ctypes.CDLL) -> None:
+def bind_launchers(lib: ctypes.CDLL) -> None:
+    """The ctypes signatures of the launchers that every version of
+    ``csrc/prng_kernels.cu`` exports."""
     p, i, ll, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint
     lib.threefry_words_launch.argtypes = [p, ll, ll, ll, i, u, u, p, i, p]
     lib.threefry_words_launch.restype = i
@@ -128,15 +130,24 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.threefry_rate_launch.restype = i
 
 
+def _bind(lib: ctypes.CDLL) -> None:
+    bind_launchers(lib)
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.xla_math_probe_launch.argtypes = [i, p, p, p, p, ll, ll, i, p]
+    lib.xla_math_probe_launch.restype = i
+
+
 library = CudaLibrary("prng_kernels", _bind)
 
 
 class ThreefryWords:
-    """The ``threefry_words`` kernel's wrapper; ``launches`` counts launches."""
+    """The ``threefry_words`` kernel's wrapper; ``launches`` counts launches.
+    ``cuda_library`` may be another tree's build (such as the parent
+    commit's, to time two versions in turns)."""
 
-    def __init__(self):
+    def __init__(self, cuda_library: CudaLibrary = library):
         self.launches = 0
-        self.library = library
+        self.library = cuda_library
 
     def __call__(
         self, keys: torch.Tensor, n: int, mode: str, base: int = 0, bit_width: int = 32
@@ -256,3 +267,26 @@ class ThreefryRate:
 
 
 threefry_rate = ThreefryRate()
+
+
+# xla_math_probe's functions: xla_math.fma32, expm1, pow, tanh,
+# distributions.laplace_cdf and xla_math.cumsum and cumprod along the last axis
+XLA_MATH_OPS = ("fma32", "expm1", "pow", "tanh", "laplace_cdf", "cumsum", "cumprod")
+
+
+def xla_math_on_card(op: str, a: torch.Tensor, b=None, c=None) -> torch.Tensor:
+    """``csrc/xla_math.cuh``'s device function ``op`` on CUDA float32
+    tensors, to hold it to its plain ``xla_math`` version: elementwise on
+    ``a`` (and ``b``, ``c``), or, for the scans, along the last axis of a
+    2-D ``a``. Raises for CPU tensors: it has no plain fallback."""
+    if a.device.type != "cuda":
+        raise ValueError("xla_math_on_card: CUDA tensors only")
+    args = [x.contiguous() if x is not None else None for x in (a, b, c)]
+    out = torch.empty_like(args[0])
+    rows, n = (a.shape[0], a.shape[1]) if op in ("cumsum", "cumprod") else (1, a.numel())
+    ptr = [x.data_ptr() if x is not None else None for x in args]
+    err = library.get().xla_math_probe_launch(XLA_MATH_OPS.index(op), *ptr, out.data_ptr(), n,
+                                              rows, a.device.index,
+                                              torch.cuda.current_stream(a.device).cuda_stream)
+    library.check(err, "xla_math_probe")
+    return out

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from adcraft_tpu_torch import prng
+from adcraft_tpu_torch.xla_math import fma32
 
 # parameter order used by the implicit keyword sampler: vol first, then these
 IMPLICIT_PARAMS = ("ave_cpc", "std_cpc", "bctr", "sctr", "rpsc", "std_rpsc")
@@ -72,6 +73,5 @@ def sample_from_quantiles(key: torch.Tensor, n: int, triples) -> torch.Tensor:
     q = prng.uniform(k_q, (n,))
     t = triples[bucket.long()]  # (..., n, 3)
     lo, med, hi = t[..., 0], t[..., 1], t[..., 2]
-    return torch.where(
-        q < 0.5, lo + (med - lo) * (q / 0.5), med + (hi - med) * ((q - 0.5) / 0.5)
-    )
+    # jitted XLA contracts each branch's product and sum into one rounding
+    return torch.where(q < 0.5, fma32(med - lo, q * 2.0, lo), fma32(hi - med, (q - 0.5) * 2.0, med))

@@ -9,8 +9,11 @@ keywords. ``simulate_day`` runs two families of the XLA day step
 * ``"lanes"``, the JAX package's ``EnvConfig`` defaults: cost, conversion
   and revenue lanes, ``jax.random.binomial`` (``binomial_sampler="exact"``)
   or the inverse-CDF walk, 32- or 16-bit lane uniforms, on the three
-  kernels of ``adcraft_tpu_torch.lanes_day``; the budget gate is
-  ``_gate_keywords``' sequential rule (``lanes_day.gate_keywords``);
+  kernels of ``adcraft_tpu_torch.lanes_day``, for implicit keywords and
+  explicit ones with either cost model; the budget gate is
+  ``_gate_keywords``' sequential rule in cents (``lanes_day.gate_keywords``)
+  or, for the rust model's continuous costs, the float32 Jacobi gate
+  (``lanes_day.gate_keywords_float``);
 * ``"agg"``, the configuration that ``bench.py:47-76`` times (aggregate
   costs, conversion counts, revenue sums, inversion binomials), and the
   same with one revenue draw per keyword and day (``rev_sampling="day"``,
@@ -75,19 +78,27 @@ def check_xla_config(cfg: EnvConfig) -> None:
     The port runs all lanes (cost, conversion and revenue lanes, either
     binomial sampler) or bench.py's aggregate knobs (``conv_sampling=
     "counts"``, ``rev_sampling`` "sum" or "day", the inversion sampler),
-    with either ``lane_bits``; explicit keywords on the aggregate knobs
-    only. The gate knobs (``gate_mode``,
-    ``gate_scope``, ``gate_chunk_t``, ``gate_compact*``,
-    ``gate_scan_unroll``) select TPU schedules that are bit-identical to
-    one sequential gate, which is the port's, so they are accepted and
-    change nothing.
+    with either ``lane_bits``, for implicit keywords and explicit ones with
+    either cost model. The gate knobs (``gate_mode``, ``gate_scope``,
+    ``gate_chunk_t``, ``gate_compact*``, ``gate_scan_unroll``) select TPU
+    schedules that are bit-identical to one sequential gate in integer
+    units, which is the port's, so they are accepted and change nothing.
+    The rust model's lanes gate in float32 dollars, where the schedule sets
+    the order of the sums: the port runs the default, ``gate_mode="auto"``'s
+    Jacobi gate per sub-timestep, and refuses ``gate_mode="scan"`` and
+    ``gate_scope="global"`` there.
     """
     lanes = cfg.cost_sampling == "lanes"
     mixed = "mixed sampling knobs (ROADMAP.md item 2)"
     explicit = cfg.kind is KeywordKind.EXPLICIT
+    float_gate = explicit and lanes and cfg.cost_model is CostModel.RUST_QUIRK
     unported = [
-        (explicit and lanes, "explicit keywords with lane costs (ROADMAP.md item 3b)"),
-        (explicit and cfg.cost_model is CostModel.PYTHON and not 32 < cfg.agg_cost_grid <= 1024,
+        (float_gate and cfg.gate_mode == "scan",
+         "gate_mode='scan' with the rust model's float lane costs (ROADMAP.md item 3b)"),
+        (float_gate and cfg.gate_scope == "global",
+         "gate_scope='global' with the rust model's float lane costs (ROADMAP.md item 3b)"),
+        (explicit and not lanes and cfg.cost_model is CostModel.PYTHON
+         and not 32 < cfg.agg_cost_grid <= 1024,
          "agg_cost_grid outside 33..1024 with the python cost model (ROADMAP.md item 3b)"),
         (not explicit and cfg.competitor_model is not CompetitorModel.SINGLE_ABS_CENTS,
          "the binomial pool (ROADMAP.md item 4)"),
@@ -124,10 +135,11 @@ def budget_cents(budget: torch.Tensor, scale: float = 100.0) -> torch.Tensor:
 
 
 def agg_model(cfg: EnvConfig) -> int:
-    """The aggregate route's cost model (``agg_day.IMPLICIT``,
-    ``EXPLICIT_RUST`` or ``EXPLICIT_PYTHON``); its gate unit is
-    ``agg_day.AGG_SCALE[model]`` per dollar (decicents for the rust
-    model, ``adcraft_tpu/step.py:1056-1066``)."""
+    """The day's cost model (``agg_day.IMPLICIT``, ``EXPLICIT_RUST`` or
+    ``EXPLICIT_PYTHON``). On the aggregate route its gate unit is
+    ``agg_day.AGG_SCALE[model]`` per dollar (decicents for the rust model,
+    ``adcraft_tpu/step.py:1056-1066``); on the lanes route cents, or for
+    the rust model float32 dollars."""
     if cfg.kind is KeywordKind.IMPLICIT:
         return agg_day.IMPLICIT
     if cfg.cost_model is CostModel.RUST_QUIRK:
@@ -158,13 +170,19 @@ def simulate_day(
                          max=cfg.max_volume)
     n_auc = split_volume(cfg, volume)
     n_auc01 = torch.stack([n_auc[0], n_auc[1] if lanes.T > 1 else torch.zeros_like(n_auc[0])])
+    model = agg_model(cfg)
     if cfg.cost_sampling == "lanes":
         unit = 100.0
+        # the rust model's costs are continuous: JAX gates them in float32
+        # dollars, the budget as given (step.py:1223-1224)
+        rust = model == agg_day.EXPLICIT_RUST
         imp, clicks, cost_c, convs, rev_c, elig = lanes_day.simulate_day_lanes(
-            lanes, k_cells, kw, bids, budget_cents(budget), n_auc01, cfg.binomial_sampler
+            lanes, k_cells, kw, bids,
+            budget.to(torch.float32) if rust else budget_cents(budget), n_auc01,
+            cfg.binomial_sampler, model
         )
     else:
-        model = agg_model(cfg)
+        rust = False
         unit = agg_day.AGG_SCALE[model]
         imp, clicks, cost_c, convs, rev_c, elig = agg_day.simulate_day_agg(
             lanes, k_cells, kw, bids, budget_cents(budget, unit), n_auc01, cfg.rev_sampling,
@@ -176,7 +194,7 @@ def simulate_day(
     # cost's where the revenue is the day's one draw
     cents = dist.recip(100.0)
     per_unit = dist.recip(unit)
-    cost = cost_c.to(torch.float32) * per_unit
+    cost = cost_c if rust else cost_c.to(torch.float32) * per_unit  # rust: float32 dollars
     revenue = rev_c.to(torch.float32) * cents
     if cfg.rev_sampling == "day":
         profit = dist.fma32(cost_c.to(torch.float32), -per_unit, revenue)
@@ -243,12 +261,12 @@ def update_keywords(cfg: EnvConfig, key: torch.Tensor, kw: KeywordState) -> Keyw
     u = cfg.updater
     u3 = prng.uniform(key, (3, kw.num_keywords), -1.0, 1.0)
     vol_step = u3[..., 0, :] * u.vol_scale
-    ctr_step = u3[..., 1, :] * u.ctr_scale
-    cvr_step = u3[..., 2, :] * u.cvr_scale
     mask = kw.updater_mask
-    new_vol = dist.nonnegify(kw.vol_mean + vol_step * kw.vol_drift_ref)
-    new_bctr = dist.probify(kw.bctr * (1.0 + ctr_step))
-    new_sctr = dist.probify(kw.sctr * (1.0 + cvr_step))
+    # jitted XLA (VectorBiddingEnv's program) contracts these sums of
+    # products into fused multiply-adds
+    new_vol = dist.nonnegify(dist.fma32(vol_step, kw.vol_drift_ref, kw.vol_mean))
+    new_bctr = dist.probify(kw.bctr * dist.fma32(u3[..., 1, :], u.ctr_scale, 1.0))
+    new_sctr = dist.probify(kw.sctr * dist.fma32(u3[..., 2, :], u.cvr_scale, 1.0))
     return kw._replace(
         vol_mean=torch.where(mask, new_vol, kw.vol_mean),
         bctr=torch.where(mask, new_bctr, kw.bctr),

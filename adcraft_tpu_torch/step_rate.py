@@ -14,14 +14,17 @@ env count:
   their intervals), and the idle share ``1 - busy / step time``, with the
   step time of the unprofiled runs.
 
-Four day-step routes: ``pallas`` is ``day_kernel="pallas"`` (the CUDA
+Five day-step routes: ``pallas`` is ``day_kernel="pallas"`` (the CUDA
 day kernel), ``xla`` is ``day_kernel="xla"`` with bench.py's knobs (the
-two agg_day kernels), ``lanes`` is the JAX package's default knobs (the
-three lanes_day kernels), ``explicit`` is bench.py's ``dense_explicit``
-regime (``bench.py:210-216``: the ``xla`` route's knobs with 100 explicit
-keywords from ``sample_explicit_keywords`` and the default rust cost
-model, on agg_cells_gate's explicit mode and agg_outcomes). ``--routes``
-picks them; each env count runs them
+two agg_day kernels), ``lanes`` is the JAX package's default knobs with
+implicit keywords (the three lanes_day kernels), ``explicit`` is bench.py's
+``dense_explicit`` regime (``bench.py:210-216``: the ``xla`` route's knobs
+with 100 explicit keywords from ``sample_explicit_keywords`` and the
+default rust cost model, on agg_cells_gate's explicit mode and
+agg_outcomes), ``explicit_lanes`` is ``EnvConfig``'s own defaults (the
+lanes knobs with explicit keywords and the rust cost model, on
+lanes_counts' explicit instance, lanes_gate_float and lanes_outcomes'
+float mode). ``--routes`` picks them; each env count runs them
 in turns in one process, forward then backward (pallas, xla, xla,
 pallas by default). With ``--parent-csrc DIR``, the route ``lanes_parent``
 is the lanes route on the lanes_day kernels built from DIR (another
@@ -29,7 +32,7 @@ tree's ``adcraft_tpu_torch/csrc``, such as the parent commit's), to time
 two versions of those kernels in turns.
 
     python3 -m adcraft_tpu_torch.step_rate [--envs 1024 4096 8192]
-        [--routes pallas xla lanes explicit lanes_parent] [--parent-csrc DIR]
+        [--routes pallas xla lanes explicit explicit_lanes lanes_parent] [--parent-csrc DIR]
         [--json PATH]
 
 It runs on the card only.
@@ -58,7 +61,8 @@ from adcraft_tpu_torch.quantiles import simple_experiment_table
 K, MAX_VOLUME, BID = 100, 576, 1.00
 WARMUP, RUNS, STEPS = 3, 5, 10
 ROUTE_KNOBS = {"pallas": {"day_kernel": "pallas"}, "xla": BENCH_XLA_KNOBS, "lanes": {},
-               "lanes_parent": {}, "explicit": BENCH_XLA_KNOBS}
+               "lanes_parent": {}, "explicit": BENCH_XLA_KNOBS, "explicit_lanes": {}}
+EXPLICIT_ROUTES = ("explicit", "explicit_lanes")
 LANES_KERNELS = ("lanes_counts", "lanes_gate", "lanes_outcomes")
 KERNELS = {"day_kernel": dk.day_kernel, "threefry_words": pk.threefry_words,
            "agg_cells_gate": agg_day.agg_cells_gate, "agg_outcomes": agg_day.agg_outcomes}
@@ -67,11 +71,12 @@ KERNELS = {"day_kernel": dk.day_kernel, "threefry_words": pk.threefry_words,
 def counted_kernels() -> dict:
     """The kernels whose launches a step counts, the lanes day's as the step
     calls them."""
-    return dict(KERNELS, **{name: getattr(lanes_day, name) for name in LANES_KERNELS})
+    lanes = LANES_KERNELS + ("lanes_gate_float",)
+    return dict(KERNELS, **{name: getattr(lanes_day, name) for name in lanes})
 
 
 def route_config(route: str) -> EnvConfig:
-    kind = KeywordKind.EXPLICIT if route == "explicit" else KeywordKind.IMPLICIT
+    kind = KeywordKind.EXPLICIT if route in EXPLICIT_ROUTES else KeywordKind.IMPLICIT
     return EnvConfig(num_keywords=K, kind=kind, max_volume=MAX_VOLUME, **ROUTE_KNOBS[route])
 
 

@@ -1,5 +1,6 @@
-"""XLA's float32 ``log``, ``log1p``, ``erf_inv``, ``sqrt``, ``exp``, ``erf``
-and ``erfc`` on the CPU, operation for operation.
+"""XLA's float32 ``log``, ``log1p``, ``erf_inv``, ``sqrt``, ``exp``, ``expm1``,
+``tanh``, ``erf`` and ``erfc``, its fused multiply-add and its float scans
+on the CPU, operation for operation.
 
 Jitted JAX on the CPU lowers these through LLVM with floating-point
 contraction on, so a product whose only use is a sum becomes one fused
@@ -25,19 +26,87 @@ import numpy as np
 import torch
 
 
+def _fma32_odd(a, b, c) -> torch.Tensor:
+    """``fma32`` by float64: the product of two float32 values is exact in
+    float64, so only the float64 sum rounds before the cast to float32,
+    which then rounds again. That changes the result only where the sum
+    lies on a float32 midpoint, and there the sum is rounded to odd first:
+    where it is inexact (its TwoSum error is not 0) and its last bit is
+    even, it steps to its neighbour on the error's side. A float64 rounded
+    to odd has more than two bits beyond float32's, so the cast then rounds
+    correctly. The rounding to odd runs only when some sum's low 28 bits
+    are 0 (every midpoint's are, normal or subnormal)."""
+
+    def f64(x):  # a Python number is the float32 constant XLA computes with
+        return x.double() if isinstance(x, torch.Tensor) else float(np.float32(x))
+
+    p, c = f64(a) * f64(b), f64(c)
+    s = p + c
+    if not isinstance(s, torch.Tensor):
+        s = torch.tensor(s, dtype=torch.float64)
+    bits = s.view(torch.int64)
+    if not bool(((bits & 0xFFFFFFF) == 0).any()):
+        return s.float()
+    back = s - p
+    err = (p - (s - back)) + (c - back)
+    step = (err != 0) & ((bits & 1) == 0) & torch.isfinite(s)
+    away = (err > 0) == (s > 0)  # the neighbour of larger magnitude
+    bits = bits + torch.where(step, torch.where(away, 1, -1), 0)
+    return bits.view(torch.float64).float()
+
+
 def fma32(a: torch.Tensor, b, c) -> torch.Tensor:
-    """float32 ``a * b + c`` rounded once (a fused multiply-add).
+    """float32 ``a * b + c`` rounded once (a fused multiply-add), as XLA's
+    contractions and CUDA's ``__fmaf_rn`` round it. On the card, torch's
+    float32 ``addcmul``, which rounds once there (``tests/test_torch_cuda.py``
+    holds it to ``_fma32_odd`` on halfway triples); on the CPU,
+    ``_fma32_odd``'s float64 rounded to odd. Python numbers stay scalars or
+    become fills (no host-to-device copy)."""
+    like = next((x for x in (a, b, c) if isinstance(x, torch.Tensor)), None)
+    if like is not None and like.is_cuda:
+        a, b, c = (torch.full_like(like, x, dtype=torch.float32)
+                   if not isinstance(x, torch.Tensor)
+                   else x if x.is_floating_point() else x.float() for x in (a, b, c))
+        if not all(x.dtype == torch.float32 for x in (a, b, c)):
+            raise TypeError("fma32 takes float32 (or integer) tensors")
+        return torch.addcmul(c, a, b)
+    return _fma32_odd(a, b, c)
 
-    The product of two float32 values is exact in float64, so only the sum
-    rounds twice, which changes the float32 result for about one input in
-    2**29. The CUDA kernels compute the same float64 operations. Python
-    numbers stay scalars (no host-to-device copy).
-    """
 
-    def f64(x):
-        return x.double() if isinstance(x, torch.Tensor) else float(x)
+_SCAN_BLOCK = 16
 
-    return (f64(a) * f64(b) + f64(c)).float()
+
+def _scan(x: torch.Tensor, dim: int, mul: bool) -> torch.Tensor:
+    """XLA's CPU float scan along ``dim``: blocks of 16 scanned in order,
+    the blocks' totals scanned the same way (recursively), and each block
+    after the first combined with the total of the blocks before it.
+    Products flush subnormal results to zero, as XLA's CPU code does."""
+    op = (lambda a, b: ftz(a * b)) if mul else torch.add
+    x = x.movedim(dim, 0)
+    n = x.shape[0]
+    if n <= _SCAN_BLOCK:
+        out = [x[0]] if n else []
+        for i in range(1, n):
+            out.append(op(out[-1], x[i]))
+        return (torch.stack(out) if n else x).movedim(0, dim)
+    pad = -n % _SCAN_BLOCK
+    fill = x.new_ones if mul else x.new_zeros
+    blocks = torch.cat([x, fill((pad,) + tuple(x.shape[1:]))]).unflatten(0, (-1, _SCAN_BLOCK))
+    within = _scan(blocks, 1, mul)
+    carry = _scan(within[:, -1], 0, mul)
+    out = torch.cat([within[:1], op(within[1:], carry[:-1].unsqueeze(1))])
+    return out.flatten(0, 1)[:n].movedim(0, dim)
+
+
+def cumsum(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """``jnp.cumsum`` of a float tensor as jitted XLA adds it on the CPU:
+    not in sequence but in blocks of 16 (``_scan``)."""
+    return _scan(x, dim, mul=False)
+
+
+def cumprod(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """``jnp.cumprod`` of a float tensor in XLA's CPU order (``_scan``)."""
+    return _scan(x, dim, mul=True)
 
 
 def sqrt(x: torch.Tensor) -> torch.Tensor:
@@ -45,6 +114,68 @@ def sqrt(x: torch.Tensor) -> torch.Tensor:
     ``sqrtf``): torch's own on the CPU is not, on about 0.7% of inputs. The
     float64 root rounds to the same float32."""
     return torch.sqrt(x.double()).float()
+
+
+def _f64(hexes: str) -> tuple:
+    return tuple(float.fromhex(h) for h in hexes.split())
+
+
+# the C library's powf (its double-precision log2 and exp2): 16 (1/c,
+# log2(c)) pairs, the log2 polynomial, 32 entries 2**(i/32) less i << 47
+# (bit patterns) and the exp2 polynomial
+_POW_INVC = _f64("""0x1.661ec79f8f3bep+0 0x1.571ed4aaf883dp+0 0x1.49539f0f010b0p+0
+    0x1.3c995b0b80385p+0 0x1.30d190c8864a5p+0 0x1.25e227b0b8ea0p+0 0x1.1bb4a4a1a343fp+0
+    0x1.12358f08ae5bap+0 0x1.0953f419900a7p+0 0x1p+0 0x1.e608cfd9a47acp-1 0x1.ca4b31f026aa0p-1
+    0x1.b2036576afce6p-1 0x1.9c2d163a1aa2dp-1 0x1.886e6037841edp-1 0x1.767dcf5534862p-1""")
+_POW_LOGC = _f64("""-0x1.efec65b963019p-2 -0x1.b0b6832d4fca4p-2 -0x1.7418b0a1fb77bp-2
+    -0x1.39de91a6dcf7bp-2 -0x1.01d9bf3f2b631p-2 -0x1.97c1d1b3b7af0p-3 -0x1.2f9e393af3c9fp-3
+    -0x1.960cbbf788d5cp-4 -0x1.a6f9db6475fcep-5 0x0p+0 0x1.338ca9f24f53dp-4 0x1.476a9543891bap-3
+    0x1.e840b4ac4e4d2p-3 0x1.40645f0c6651cp-2 0x1.88e9c2c1b9ff8p-2 0x1.ce0a44eb17bccp-2""")
+_POW_A = _f64("""0x1.27616c9496e0bp-2 -0x1.71969a075c67ap-2 0x1.ec70a6ca7baddp-2
+    -0x1.7154748bef6c8p-1 0x1.71547652ab82bp+0""")
+_EXP2_T = (
+    0x3FF0000000000000, 0x3FEFD9B0D3158574, 0x3FEFB5586CF9890F, 0x3FEF9301D0125B51,
+    0x3FEF72B83C7D517B, 0x3FEF54873168B9AA, 0x3FEF387A6E756238, 0x3FEF1E9DF51FDEE1,
+    0x3FEF06FE0A31B715, 0x3FEEF1A7373AA9CB, 0x3FEEDEA64C123422, 0x3FEECE086061892D,
+    0x3FEEBFDAD5362A27, 0x3FEEB42B569D4F82, 0x3FEEAB07DD485429, 0x3FEEA47EB03A5585,
+    0x3FEEA09E667F3BCD, 0x3FEE9F75E8EC5F74, 0x3FEEA11473EB0187, 0x3FEEA589994CCE13,
+    0x3FEEACE5422AA0DB, 0x3FEEB737B0CDC5E5, 0x3FEEC49182A3F090, 0x3FEED503B23E255D,
+    0x3FEEE89F995AD3AD, 0x3FEEFF76F2FB5E47, 0x3FEF199BDD85529C, 0x3FEF3720DCEF9069,
+    0x3FEF5818DCFBA487, 0x3FEF7C97337B9B5F, 0x3FEFA4AFA2A490DA, 0x3FEFD0765B6E4540)
+_EXP2_C = _f64("0x1.c6af84b912394p-5 0x1.ebfce50fac4f3p-3 0x1.62e42ff0c52d6p-1")
+_EXP2_SHIFT = float.fromhex("0x1.8p+47")
+_EXP2_SHIFT_BITS = 0x42E8000000000000
+
+
+def pow(x: torch.Tensor, y) -> torch.Tensor:
+    """float32 ``x ** y`` for normal ``x > 0`` (or ``y`` 0, or ``x`` 1) as
+    XLA's CPU code computes it: by the C library's ``powf``, whose log2
+    and exp2 run in float64 on tables (read off glibc's); a result below
+    float32's normal range is flushed to zero, as XLA's CPU code runs."""
+    y = torch.as_tensor(y, dtype=torch.float32, device=x.device).double()
+    ix = x.view(torch.int32)
+    tmp = ix - 0x3F330000
+    i = ((tmp >> 19) & 15).to(torch.int64)
+    top = tmp & -0x800000
+    z = (ix - top).view(torch.float32).double()
+    k = (top >> 23).double()
+    table = lambda vals, dtype: torch.tensor(vals, dtype=dtype, device=x.device)[i]  # noqa: E731
+    r = z * table(_POW_INVC, torch.float64) - 1.0
+    y0 = table(_POW_LOGC, torch.float64) + k
+    a = _POW_A
+    r2 = r * r
+    log2x = (a[0] * r + a[1]) * (r2 * r2) + ((a[2] * r + a[3]) * r2 + (a[4] * r + y0))
+    ylogx = y * log2x
+    kd = ylogx + _EXP2_SHIFT
+    ki = kd.view(torch.int64)
+    kd = kd - _EXP2_SHIFT
+    r = ylogx - kd
+    t = torch.tensor(_EXP2_T, dtype=torch.int64, device=x.device)[ki & 31]
+    s = (t + ((ki - _EXP2_SHIFT_BITS) << 47)).view(torch.float64)
+    c = _EXP2_C
+    out = ((c[0] * r + c[1]) * (r * r) + (c[2] * r + 1.0)) * s
+    out = torch.where(ylogx <= -150.0, 0.0, out).float()
+    return torch.where((y == 0) | (x == 1.0), 1.0, ftz(out))
 
 
 def f32(bits: int) -> float:
@@ -175,6 +306,32 @@ def exp(x: torch.Tensor) -> torch.Tensor:
     y = fma32(_horner(r, _EXP_P), r, 0.5)
     y = fma32(y, r * r, r) + 1.0
     return ftz(y * ((n.to(torch.int32) + 127) << 23).view(torch.float32))
+
+
+# tanh: x clamped to +-7.998, x P(x**2) / Q(x**2); x itself below 4e-4,
+# +-1 from 20 on
+_TANH_CLAMP, _TANH_SMALL = f32(0x40FFF644), f32(0x39D1B717)
+_TANH_P = tuple(f32(b) for b in (0xA59F25C0, 0x2A61337E, 0xAEBD37FF, 0x335C0041, 0x3779434A,
+                                 0x3A270DED, 0x3BA059DC))
+_TANH_Q = tuple(f32(b) for b in (0x35A0D3D8, 0x38F895D6, 0x3B14AA05, 0x3BA059DD))
+
+
+def tanh(x: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 ``tanh`` on the CPU (its rational approximation)."""
+    xc = torch.clamp(x, -_TANH_CLAMP, _TANH_CLAMP)
+    x2 = xc * xc
+    out = (xc * _horner(x2, _TANH_P)) / _horner(x2, _TANH_Q)
+    out = torch.where(torch.abs(x) < _TANH_SMALL, x, out)
+    return torch.where(torch.abs(x) >= 20.0, torch.copysign(torch.ones_like(x), x), out)
+
+
+def expm1(x: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 ``expm1`` on the CPU: ``exp(x) - 1`` where ``|x| >
+    1/2``, else ``tanh(x / 2) (exp(x) + 1)``, and x where ``x / 2`` is 0."""
+    e = exp(x)
+    half = x * 0.5
+    out = torch.where(torch.abs(x) > 0.5, e - 1.0, tanh(half) * (e + 1.0))
+    return torch.where(half == 0, x, out)
 
 
 def sigmoid(x: torch.Tensor) -> torch.Tensor:

@@ -13,7 +13,8 @@ Phases, each fatal on failure:
    build, all at once (the day kernel; the threefry kernels; the XLA day
    step's kernels, and those again with -DAGG_STAGE_CLOCKS; the lanes
    day's kernels, and those again with -DLANES_STAGE_CLOCKS; with
-   --parent-csrc, another tree's lanes day too);
+   --parent-csrc, another tree's lanes day, agg day and threefry kernels
+   too);
 3. day kernel vs its plain PyTorch version on the card at the slice's full
    width (4096 envs x 100 keywords x 24 sub-timesteps x 47 lanes), same
    inputs and seed, budgets unbound / binding / zero: every output
@@ -78,8 +79,10 @@ Phases, each fatal on failure:
    lanes_outcomes' flag and revenue lanes (each what the plain version
    needs), draw steps (partial ones at most one per warp and ring) and SM
    clocks per stage, its erf_inv steps by log1p branch; lanes_outcomes'
-   float64 conversions (F2F) per revenue lane from its SASS; with --parent-csrc DIR, the lanes day built from
-   DIR (the parent commit's adcraft_tpu_torch/csrc) equal to this one's
+   conversions (F2F) per revenue lane from its SASS; with --parent-csrc DIR, the lanes day built from
+   DIR (the parent commit's adcraft_tpu_torch/csrc), the cells where its
+   outputs differ from this one's counted (a tree whose float arithmetic
+   differs, as F4's single rounding and F5's XLA math do, draws otherwise),
    and each kernel timed in turns with it (parent, this, this, parent);
    lanes_counts alone on a
    grid of (n, p) pairs on both sides of the binomial's algorithm switch
@@ -106,7 +109,29 @@ Phases, each fatal on failure:
    then the slice per cost model: reset, 2 steps, rollout(2) and one
    autoreset_step(reset_kw=True) day that ends every episode (max_days
    3), counts zeroed just before: one launch of each kernel per day, and
-   outcomes and keys equal to the same days through the plain versions.
+   outcomes and keys equal to the same days through the plain versions;
+12. explicit keywords on the lanes day (EnvConfig's defaults: kind,
+   cost model and sampling knobs), for the rust model (float32 dollars on
+   lanes_gate_float, lanes_outcomes' float mode) and the python model
+   (cents on lanes_gate's python instance), at 4096 envs x 100 keywords x
+   24 sub-timesteps (m0 = 47) and at EnvConfig's own lanes (4096 envs x 10
+   keywords, m0 = 65), at $1000, a tight budget ($10, $2) and $0, and
+   for the rust model at a budget its first sub-timestep's spends reach
+   exactly (days break after their first sub-timestep at the last two):
+   lanes_counts' explicit instance, the gate and lanes_outcomes each equal
+   to their plain version bit for bit (every simulated cell, for
+   lanes_gate_float every cell it walks, -1 where not simulated; n_sim,
+   the float spends, the day sums), timed at full width beside their
+   bounds and plain versions, with ptxas' registers and spills and blocks
+   per SM; then the slice per cost model: reset, 5 steps, rollout(5) and
+   4 autoreset_step(reset_kw=True) days at max_days 3 (every episode ends
+   and draws fresh keywords), counts zeroed just before: one launch of
+   each kernel per day, outcomes, keys and autoreset days equal to the
+   plain versions;
+   CUDA device events, device busy time and idle share per step. With --parent-csrc DIR, then, agg_cells_gate's
+   three instances, agg_outcomes and threefry_words at full width in
+   turns with DIR's build, with the count of outputs where the trees
+   differ.
 
 The line before the last is a JSON object with each kernel's launches on
 its path, error, times and bound; the last line is {"ok": true, "device":
@@ -1123,7 +1148,7 @@ LANES_VARIANT_ENVS = 1024
 WIDE_K, WIDE_ENVS = 2100, 3  # past lanes_outcomes' old limit of 48 KB of keyword tables
 PARENT_OUTCOMES_MAX_K = 2032  # that limit at T = 24: a parent tree may refuse more keywords
 # float instructions per element and pass of binomial.cuh's loops (XLA's log
-# with its float64 fused multiply-adds, the divisions, the Stirling terms),
+# with its fused multiply-adds, the divisions, the Stirling terms),
 # per cost lane (the truncated Laplace inverse CDF in cents) and per revenue
 # lane (XLA's erf_inv and log1p), as written; used only for the bounds
 INVERSION_PASS_FP = 40
@@ -1179,13 +1204,15 @@ def read_lanes_stats(library, device_index: int) -> dict:
 @contextlib.contextmanager
 def lanes_plain(ld):
     """Route the lanes day through the plain versions of its kernels."""
-    kernels = (ld.lanes_counts, ld.lanes_gate, ld.lanes_outcomes)
-    ld.lanes_counts, ld.lanes_gate, ld.lanes_outcomes = (
-        ld.lanes_counts_reference, ld.lanes_gate_reference, ld.lanes_outcomes_reference)
+    names = ("lanes_counts", "lanes_gate", "lanes_gate_float", "lanes_outcomes")
+    kernels = [getattr(ld, n) for n in names]
+    for n in names:
+        setattr(ld, n, getattr(ld, n + "_reference"))
     try:
         yield
     finally:
-        ld.lanes_counts, ld.lanes_gate, ld.lanes_outcomes = kernels
+        for n, kernel in zip(names, kernels):
+            setattr(ld, n, kernel)
 
 
 def inversion_passes(n, p, draws):
@@ -1291,8 +1318,8 @@ def lanes_phase(torch, dev, card, table, ops_per_word, int_ops_per_s, fp_ops_per
     max_err = dict.fromkeys(kernels, 0)
     log = ld.library.build_log
     for R in range(1, 5):
-        print(f"lanes_counts<{R}>: ptxas {kernel_ptxas(log, f'lanes_counts_kernelILi{R}E')}")
-    print(f"lanes_gate: ptxas {kernel_ptxas(log, 'lanes_gate_kernel')}")
+        print(f"lanes_counts<{R}>: ptxas {kernel_ptxas(log, f'lanes_counts_kernelILi{R}ELb0E')}")
+    print(f"lanes_gate: ptxas {kernel_ptxas(log, 'lanes_gate_kernelILb0E')}")
     for tables, where in (("1", "shared"), ("0", "device")):
         print(f"lanes_outcomes (keyword tables in {where} memory): ptxas "
               f"{kernel_ptxas(log, f'lanes_outcomes_kernelILb{tables}E')}")
@@ -1302,8 +1329,9 @@ def lanes_phase(torch, dev, card, table, ops_per_word, int_ops_per_s, fp_ops_per
           f"block; lanes_outcomes: {occ['outcomes_blocks']} blocks of 4 warps per SM, "
           f"{occ['outcomes_smem']} B shared memory per block (keyword tables in "
           f"{'shared' if occ['outcomes_tables_in_smem'] else 'device'} memory)")
-    # the float64 conversions (fma32's) of a revenue lane's erf_inv: the
-    # kernel's F2F over its inlined erf_inv steps, one per compare of
+    # the float conversions of a revenue lane's erf_inv (fma32's, which
+    # were float64 before it became __fmaf_rn): the kernel's F2F over its
+    # inlined erf_inv steps, one per compare of
     # erf_inv's w with -5 (each step runs one branch of log1p)
     sass = sass_ops(ld.library.path, "lanes_outcomes_kernelILb1E")
     if sass is None:
@@ -1328,6 +1356,14 @@ def lanes_phase(torch, dev, card, table, ops_per_word, int_ops_per_s, fp_ops_per
             max_err[name] = max(max_err[name], err)
             if err:
                 fail(f"{name} vs plain ({label}): {what} differs, max error {err}")
+
+    def parent_differs(name, pairs, label):
+        """Prints how many of the parent's outputs differ from this tree's:
+        none where the two trees compute the same, some where this tree's
+        float arithmetic changed (F4's single rounding, F5's XLA math)."""
+        counts = {what: (g != w).sum().item() for what, g, w in pairs}
+        print(f"  {name} ({label}): the parent's outputs differ from this tree's in "
+              + ", ".join(f"{n} of {what}" for what, n in counts.items()))
 
     def day_inputs(envs, seed, lanes_cfg):
         state, _ = VectorBiddingEnv(lanes_cfg, envs, table, device=dev).reset(
@@ -1382,8 +1418,8 @@ def lanes_phase(torch, dev, card, table, ops_per_word, int_ops_per_s, fp_ops_per
                     raise
                 print(f"  the parent's lanes_outcomes refuses K = {nk} ({label}): {exc}")
             else:
-                compare("lanes_outcomes", [(f"parent day sum {i}", g, w) for i, (g, w) in
-                                           enumerate(zip(pout, got_out))], label)
+                parent_differs("lanes_outcomes", [(f"day sum {i}", g, w) for i, (g, w) in
+                                                  enumerate(zip(pout, got_out))], label)
         if (got_out[2].sum(1) > budget_c.clamp(min=0)).any():
             fail(f"lanes day ({label}): an env spent more than its budget")
         if not ((got_out[1] <= got_out[0]).all() and (got_out[3] <= got_out[1]).all()):
@@ -1460,16 +1496,16 @@ def lanes_phase(torch, dev, card, table, ops_per_word, int_ops_per_s, fp_ops_per
                     params, k_cells, imp, gate[0], gate[1], n_sim, n_auc01, lanes),
             }
             pcounts, pgate, pout = (pcalls[name]() for name in kernels)
-            compare("lanes_counts", zip(("parent imp", "parent ncl"), pcounts, (imp, ncl)), label)
-            compare("lanes_gate", [("parent n_sim", pgate[2], n_sim)] + [
-                ("parent " + what, g[sim], w[sim])
-                for what, g, w in zip(("acc", "spend"), pgate, gate)], label)
-            compare("lanes_outcomes", [(f"parent day sum {i}", g, w) for i, (g, w) in
-                                       enumerate(zip(pout, out))], label)
+            parent_differs("lanes_counts", zip(("imp", "ncl"), pcounts, (imp, ncl)), label)
+            parent_differs("lanes_gate", [("n_sim", pgate[2], n_sim)] + [
+                (what, g[sim], w[sim]) for what, g, w in zip(("acc", "spend"), pgate, gate)],
+                label)
+            parent_differs("lanes_outcomes", [(f"day sum {i}", g, w) for i, (g, w) in
+                                              enumerate(zip(pout, out))], label)
             for name, call in calls.items():
                 turns = [cuda_ms(c, reps=10) for c in (pcalls[name], call, call, pcalls[name])]
                 kb = timed[label][name][2][0]
-                print(f"  {name} ({label}) in turns with the parent's (== its outputs): parent "
+                print(f"  {name} ({label}) in turns with the parent's: parent "
                       f"{turns[0]:.4f} / {turns[3]:.4f} ms ({100 * kb / turns[0]:.1f}% / "
                       f"{100 * kb / turns[3]:.1f}% of the bound), this {turns[1]:.4f} / "
                       f"{turns[2]:.4f} ms ({100 * kb / turns[1]:.1f}% / "
@@ -1667,6 +1703,423 @@ def lanes_phase(torch, dev, card, table, ops_per_word, int_ops_per_s, fp_ops_per
     ]
 
 
+# "prefix": each env's budget the scan of its first sub-timestep's unbound
+# spends reaches exactly at cell PREFIX_CELL (a later cell's B - spend is 0);
+# at it and at $0 days break after their first sub-timestep
+EXPLICIT_LANES_BUDGETS = {"RUST_QUIRK": (("$1000", XLA_BUDGET), ("tight", 10.0), ("$0", 0.0),
+                                         ("prefix", None)),
+                          "PYTHON": (("$1000", XLA_BUDGET), ("tight", 2.0), ("$0", 0.0))}
+PREFIX_CELL = 19  # past the spends' first block of 16 (K - 3 where K is smaller)
+# EnvConfig's own lane counts: max_volume 1024 at T = 24 gives m0 = 65 (past
+# the kernels' 32-lane windows) and m1 = 42; its 10 keywords
+DEFAULT_SHAPE = {"max_volume": 1024, "num_keywords": 10}
+# float instructions per scan step of a cost lane's prefix (the float gate)
+SCAN_OPS = 6
+
+
+def explicit_lanes_kind(name: str) -> str:
+    """The work and launch count a phase 12 kernel name goes by: its gate,
+    lanes_outcomes (either mode) or lanes_counts' explicit instance."""
+    if "gate" in name:
+        return "gate"
+    return "lanes_outcomes" if name.startswith("lanes_outcomes") else name
+
+
+def explicit_lanes_phase(torch, dev, card, ops_per_word, int_ops_per_s, fp_ops_per_s):
+    """Phase 12: explicit keywords on the lanes route (EnvConfig's defaults),
+    both cost models: lanes_counts' explicit instance, lanes_gate's python
+    instance or lanes_gate_float, and lanes_outcomes (float mode for the
+    rust model) against their plain versions at full width and at
+    EnvConfig's own lane counts, timed beside their bounds; then each
+    model's slice through the kernels and the plain versions. Returns the
+    JSON entries of the new kernels and instances."""
+    from adcraft_tpu_torch import EnvConfig, VectorBiddingEnv
+    from adcraft_tpu_torch import agg_day as ad
+    from adcraft_tpu_torch import distributions as dist
+    from adcraft_tpu_torch import lanes_day as ld
+    from adcraft_tpu_torch import prng
+    from adcraft_tpu_torch import prng_kernel as pk
+    from adcraft_tpu_torch import xla_math
+    from adcraft_tpu_torch.config import CostModel
+    from adcraft_tpu_torch.step import agg_model, budget_cents, split_volume, xla_lanes
+
+    log = ld.library.build_log
+    print(f"lanes_counts<4> (explicit): ptxas {kernel_ptxas(log, 'lanes_counts_kernelILi4ELb1E')}")
+    print(f"lanes_gate (python): ptxas {kernel_ptxas(log, 'lanes_gate_kernelILb1E')}")
+    print(f"lanes_gate_float: ptxas {kernel_ptxas(log, 'lanes_gate_float_kernel')}")
+    entries, max_err = {}, collections.defaultdict(int)
+
+    def compare(name, pairs, label):
+        for what, g, w in pairs:
+            if g.shape != w.shape or g.dtype != w.dtype:
+                fail(f"{name} vs plain ({label}): {what} is {g.dtype} {tuple(g.shape)}, plain "
+                     f"{w.dtype} {tuple(w.shape)}")
+            if g.dtype == torch.float32:  # bit for bit
+                g, w = g.view(torch.int32), w.view(torch.int32)
+            err = (g.long() - w.long()).abs().max().item() if g.numel() else 0
+            max_err[name] = max(max_err[name], err)
+            if err:
+                fail(f"{name} vs plain ({label}): {what} differs, max error {err}")
+
+    def inputs(cfg, envs, seed):
+        env = VectorBiddingEnv(cfg, envs, device=dev)
+        state, _ = env.reset(prng.PRNGKey(seed))
+        k_vol, k_cells = prng.split(prng.split(prng.PRNGKey(seed + 1, dev), envs)).unbind(-2)
+        volume = torch.clamp(dist.nonneg_int_normal(k_vol, state.kw.vol_mean, state.kw.vol_std),
+                             max=cfg.max_volume)
+        n_auc = split_volume(cfg, volume)
+        n_auc01 = torch.stack([n_auc[0], n_auc[1]]).contiguous()
+        bids = torch.full((envs, cfg.num_keywords), BID, device=dev)
+        return env, state, ad.pack_params(state.kw, bids), n_auc01, k_cells
+
+    def check_counts(cfg, params, n_auc01, k_cells, label):
+        """lanes_counts' explicit instance against its plain version (the
+        counts do not depend on the budget): its outputs and plain time."""
+        model, lanes = agg_model(cfg), xla_lanes(cfg)
+        counts = ld.lanes_counts(params, n_auc01, k_cells, lanes, "exact", model)
+        torch.cuda.synchronize()
+        with words_replaced(pk, pk.threefry_words_reference):
+            want, counts_ms = once_ms(lambda: ld.lanes_counts_reference(
+                params, n_auc01, k_cells, lanes, "exact", model))
+        compare("lanes_counts (explicit)", zip(("imp", "ncl"), counts, want), label)
+        return counts, counts_ms
+
+    def check_day(cfg, params, n_auc01, k_cells, counts, budget, label):
+        """The gate and lanes_outcomes on ``counts`` against their plain
+        versions on one day: the outputs, the plain times, and the calls
+        that time the kernels."""
+        model, lanes = agg_model(cfg), xla_lanes(cfg)
+        rust = model == ad.EXPLICIT_RUST
+        envs, nk = params.shape[1:]
+        gate_name = "lanes_gate_float" if rust else "lanes_gate (python)"
+        out_name = "lanes_outcomes (float)" if rust else "lanes_outcomes"
+        (imp, ncl), counts_ms = counts
+        if rust:
+            if budget is None:
+                unbound = ld.lanes_gate_float_reference(
+                    params, k_cells, ncl, imp, torch.full((envs,), 1e9, device=dev), lanes)[1]
+                budget_g = xla_math.cumsum(unbound[:, 0], 1)[:, min(PREFIX_CELL, nk - 3)]
+                budget_g = budget_g.contiguous()
+            else:
+                budget_g = torch.full((envs,), budget, device=dev)
+            gate_call = lambda: ld.lanes_gate_float(params, k_cells, ncl, imp, budget_g, lanes)  # noqa: E731
+            plain_gate = lambda: ld.lanes_gate_float_reference(  # noqa: E731
+                params, k_cells, ncl, imp, budget_g, lanes)
+        else:
+            budget_g = budget_cents(torch.full((envs,), budget, device=dev))
+            gate_call = lambda: ld.lanes_gate(params, k_cells, ncl, budget_g, lanes, model, imp)  # noqa: E731
+            plain_gate = lambda: ld.lanes_gate_reference(  # noqa: E731
+                params, k_cells, ncl, budget_g, lanes, model, imp)
+        gate = gate_call()
+        torch.cuda.synchronize()
+        with words_replaced(pk, pk.threefry_words_reference):
+            want_gate, gate_ms = once_ms(plain_gate)
+        n_sim = want_gate[2]
+        cell = torch.arange(lanes.T * nk, device=dev).view(1, lanes.T, nk)
+        sim = cell < n_sim.view(-1, 1, 1)
+        # lanes_gate_float writes the whole sub-timesteps it walks: the -1
+        # of the cells after a stop too
+        walked = cell < ((n_sim + nk - 1) // nk * nk).view(-1, 1, 1) if rust else sim
+        pairs = [("n_sim", gate[2], n_sim)] + [
+            (what, g[walked], w[walked]) for what, g, w in zip(("acc", "spend"), gate, want_gate)]
+        compare(gate_name, pairs, label)
+        if budget in (0.0, None):
+            broke = (n_sim <= nk).sum().item()
+            unsimulated = (gate[0][walked] == -1).sum().item()
+            marked = f"; {unsimulated} walked cells not simulated (-1)" if rust else ""
+            print(f"  {gate_name} ({label}): {broke} of {envs} days break after the first "
+                  f"sub-timestep{marked}")
+            if broke == 0 or (rust and unsimulated == 0):
+                fail(f"{gate_name} ({label}): no day broke or no walked cell was left unsimulated")
+        out_call = lambda: ld.lanes_outcomes(params, k_cells, imp, gate[0], gate[1], n_sim,  # noqa: E731
+                                             n_auc01, lanes)
+        out = out_call()
+        torch.cuda.synchronize()
+        with words_replaced(pk, pk.threefry_words_reference):
+            want_out, out_ms = once_ms(lambda: ld.lanes_outcomes_reference(
+                params, k_cells, imp, *want_gate[:3], n_auc01, lanes))
+        compare(out_name, [(f"day sum {i}", g, w) for i, (g, w) in enumerate(zip(out, want_out))],
+                label)
+        spent = out[2].sum(1) if rust else out[2].sum(1) / 100.0
+        if (spent > (budget_g if rust else budget_g / 100.0) + 1e-3).any():
+            fail(f"explicit lanes day ({label}): an env spent more than its budget")
+        phantom = (sim & (imp == 0) & (gate[0] > 0)).sum().item()
+        simulated = sim & (gate[0] >= 0)
+        print(f"  lanes_counts (explicit), {gate_name}, {out_name} == plain ({label}, {envs} envs "
+              f"x {nk} keywords, m0 {lanes.m0}): simulated cells {simulated.sum().item()} of "
+              f"{sim.numel()}, {phantom} with phantom clicks; imps {out[0].sum().item()} clicks "
+              f"{out[1].sum().item()} cost ${spent.sum().item():.2f} convs "
+              f"{out[3].sum().item()} revenue ${out[4].sum().item() / 100:.2f}", flush=True)
+        calls = {"lanes_counts (explicit)": lambda: ld.lanes_counts(params, n_auc01, k_cells, lanes,
+                                                                    "exact", model),
+                 gate_name: gate_call, out_name: out_call}
+        plain = {"lanes_counts (explicit)": counts_ms, gate_name: gate_ms, out_name: out_ms}
+        return imp, ncl, gate, sim & (gate[0] >= 0), out, calls, plain
+
+    timed = {}
+    for model_name in ("RUST_QUIRK", "PYTHON"):
+        cost_model = getattr(CostModel, model_name)
+        cfg = EnvConfig(num_keywords=K, max_volume=MAX_VOLUME, cost_model=cost_model,
+                        budget=XLA_BUDGET, max_days=AUTORESET_DAYS)
+        model, lanes = agg_model(cfg), xla_lanes(cfg)
+        occ = ld.occupancy(K, lanes, dev, model)
+        print(f"explicit lanes, {model_name.lower()} model: lanes_counts {occ['counts_blocks']} "
+              f"blocks per SM; gate {occ['gate_blocks']} blocks per SM, {occ['gate_smem']} B "
+              f"shared memory; lanes_outcomes {occ['outcomes_blocks']} blocks per SM")
+        env, state0, params, n_auc01, k_cells = inputs(cfg, E, 60)
+        rate = dist.threshold_sigmoid(params[ad.BID], params[ad.IMP_THRESH],
+                                      params[ad.IMP_INTERCEPT], params[ad.IMP_SLOPE])
+        n_t = torch.stack([n_auc01[0]] + [n_auc01[1]] * (T - 1), 1)
+        counts = check_counts(cfg, params, n_auc01, k_cells, model_name)
+        for label, budget in EXPLICIT_LANES_BUDGETS[model_name]:
+            imp, ncl, gate, sim, out, calls, plain = check_day(
+                cfg, params, n_auc01, k_cells, counts, budget, f"{model_name} {label}")
+            if budget in (0.0, None):  # checked only: the days break at once
+                continue
+            # the work this run's data needs, as phase 10 counts it: the
+            # binomial's words and loop passes over the (impressions and
+            # clicks') calls, clicks over max(impressions, 1) candidates;
+            # each simulated cell's cost lanes up to the first over the
+            # budget or its last click, a normal and a cost each (and a scan
+            # step for the float gate); a flag word per accepted click and a
+            # revenue word per conversion
+            counts_words = COUNTS_KEY_BLOCKS * E * T
+            counts_fp = 0.0
+            for n, p, x in ((n_t, rate[:, None, :].expand(E, T, K), imp),
+                            (imp.clamp(min=1), params[ad.BCTR][:, None, :].expand(E, T, K), ncl)):
+                passes, inv = inversion_passes(n, p, x)
+                btrs = (~inv).any(-1).float()
+                counts_words += (passes * (K + 2) + btrs * (2 * K + 3)).sum().item()
+                counts_fp += (K * (passes * INVERSION_PASS_FP + btrs * BTRS_PASS_FP)).sum().item()
+            acc = gate[0].clamp(min=0) * sim
+            looked = (torch.minimum(acc + 1, ncl) * sim).sum().item()
+            lane_fp = EXPLICIT_LANE_OPS + (SCAN_OPS if model == ad.EXPLICIT_RUST else 0)
+            convs = out[3].sum().item()
+            keys = sim.any(2).sum().item()
+            work = {
+                "lanes_counts (explicit)": (4 * (6 * E * K + 2 * E * K) + 16 * E + 8 * E * T * K,
+                                            counts_words, counts_fp),
+                "gate": (4 * (E * K + 2 * E * T * K + E) + 16 * E + 8 * sim.sum().item() + 8 * E,
+                         looked + GATE_KEY_BLOCKS * keys, lane_fp * looked),
+                "lanes_outcomes": (12 * sim.sum().item() + 4 * (3 * E * K + 2 * E * K + E)
+                                   + 16 * E + 24 * E * K,
+                                   acc.sum().item() + convs + OUTCOME_KEY_BLOCKS * keys,
+                                   REVENUE_LANE_FP * convs),
+            }
+            for name, call in calls.items():
+                nbytes, words, fp = work[explicit_lanes_kind(name)]
+                kbound = max(bound(nbytes, words * ops_per_word, int_ops_per_s),
+                             bound(nbytes, fp, fp_ops_per_s))
+                ms = cuda_ms(call, reps=10)
+                timed[(name, label)] = (ms, plain[name], kbound)
+                print(f"  {name} ({model_name} {label}): kernel {ms:.4f} ms, plain "
+                      f"{plain[name]:.1f} ms; {words:.0f} threefry words, {fp:.4g} float ops, "
+                      f"{nbytes / 1e6:.1f} MB; bound {kbound[0]:.4f} ms ({kbound[1]}), "
+                      f"{100 * kbound[0] / ms:.1f}% of it reached ({card})", flush=True)
+        # EnvConfig's own lane counts (m0 = 65) at both budgets
+        dcfg = cfg.replace(**DEFAULT_SHAPE)
+        _, _, dparams, dn, dkeys = inputs(dcfg, E, 70)
+        dcounts = check_counts(dcfg, dparams, dn, dkeys, f"{model_name}, m0 65")
+        for label, budget in EXPLICIT_LANES_BUDGETS[model_name]:
+            check_day(dcfg, dparams, dn, dkeys, dcounts, budget, f"{model_name} {label}, m0 65")
+
+        # the slice: counts zeroed just before, read just after (the
+        # episodes end on the third autoreset day)
+        n_steps, reset_days = STEPS, AUTORESET_DAYS + 1
+        gate_kernel = ld.lanes_gate_float if model == ad.EXPLICIT_RUST else ld.lanes_gate
+        kernels = {"lanes_counts (explicit)": ld.lanes_counts, "gate": gate_kernel,
+                   "lanes_outcomes": ld.lanes_outcomes}
+        bids = torch.full((E, K), BID, device=dev)
+        torch.cuda.synchronize()
+        for kernel in kernels.values():
+            kernel.launches = 0
+        t0 = time.perf_counter()
+        state, steps = state0, []
+        for _ in range(n_steps):
+            state, ts = env.step(state, bids)
+            steps.append(ts)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        end_roll, roll = env.rollout(state0, bids, n_steps)
+        state_r, resets = state0, []
+        for _ in range(reset_days):
+            state_r, ts = env.autoreset_step(state_r, bids, reset_kw=True)
+            resets.append((state_r, ts))
+        torch.cuda.synchronize()
+        launches = {n: k.launches for n, k in kernels.items()}
+        days = 2 * n_steps + reset_days
+        if any(n != days for n in launches.values()):
+            fail(f"explicit lanes slice ({model_name}): launches {launches}, want {days} of each")
+        for i, ts in enumerate(steps):
+            o = ts.outcomes
+            if not ((o.sellside_conversions <= o.buyside_clicks).all()
+                    and torch.isfinite(ts.reward).all()
+                    and (o.cost.sum(1) <= XLA_BUDGET + 1e-3).all()):
+                fail(f"explicit lanes step {i} ({model_name}): invariants violated")
+            for f in o._fields:
+                if not torch.equal(getattr(o, f), getattr(roll.outcomes, f)[i]):
+                    fail(f"explicit lanes rollout day {i} ({model_name}): {f} differs from the "
+                         f"step's")
+        if not torch.equal(end_roll.key, state.key):
+            fail(f"explicit lanes rollout ({model_name}): the final key differs from the steps'")
+        ended = resets[AUTORESET_DAYS - 1]
+        if not (ended[1].terminated.all() and (ended[0].day == 0).all()):
+            fail(f"explicit lanes autoreset ({model_name}): the episodes did not end at max_days")
+        with lanes_plain(ld), words_replaced(pk, pk.threefry_words_reference):
+            plain_state = state0
+            for i in range(n_steps):
+                plain_state, ts = env.step(plain_state, bids)
+                for f in ts.outcomes._fields:
+                    if not torch.equal(getattr(ts.outcomes, f), getattr(steps[i].outcomes, f)):
+                        fail(f"explicit lanes step {i} ({model_name}): {f} differs between the "
+                             f"kernels and plain")
+            if not torch.equal(plain_state.key, state.key):
+                fail(f"explicit lanes ({model_name}): the key differs between kernels and plain")
+            plain_r = state0
+            for i, (want_state, want_ts) in enumerate(resets):
+                plain_r, ts = env.autoreset_step(plain_r, bids, reset_kw=True)
+                for a, b in zip(torch.utils._pytree.tree_leaves((plain_r, ts)),
+                                torch.utils._pytree.tree_leaves((want_state, want_ts))):
+                    if not torch.equal(a, b):
+                        fail(f"explicit lanes autoreset day {i} ({model_name}): differs between "
+                             f"the kernels and plain")
+
+        def run_steps():
+            st = state0
+            for _ in range(n_steps):
+                st, _ts = env.step(st, bids)
+
+        events, busy, wall = device_busy(run_steps, n_steps)
+        o = [ts.outcomes for ts in steps]
+        print(f"explicit lanes slice ({model_name}): {n_steps} steps, rollout({n_steps}) and "
+              f"{reset_days} autoreset days (max_days {AUTORESET_DAYS}, fresh keywords) x "
+              f"{E} envs x {K} keywords, bids ${BID:.2f}, budget ${XLA_BUDGET:g}: "
+              f"{sum(x.impressions.sum().item() for x in o)} impressions, "
+              f"{sum(x.buyside_clicks.sum().item() for x in o)} clicks, "
+              f"${sum(x.cost.sum().item() for x in o):.2f} spent; launches {launches}; "
+              f"{n_steps * E / step_s:.1f} env-steps/s; == plain (steps, keys, autoreset days); "
+              f"per step under the profiler: {events:.1f} CUDA device events, device busy "
+              f"{busy:.3f} ms of {wall:.3f} ms, idle {100 * (1 - busy / wall):.1f}% ({card})",
+              flush=True)
+        gate_name = "lanes_gate_float" if model == ad.EXPLICIT_RUST else "lanes_gate (python)"
+        out_name = "lanes_outcomes (float)" if model == ad.EXPLICIT_RUST else None
+        names = [gate_name] + ([out_name] if out_name else [])
+        if model == ad.EXPLICIT_RUST:
+            names.insert(0, "lanes_counts (explicit)")
+        for name in names:
+            entries[name] = (launches[explicit_lanes_kind(name)], timed[(name, "$1000")])
+    replaces = {
+        "lanes_counts (explicit)": "adcraft_tpu/auction.py:209 (explicit_auction's impressions) "
+                                   "and step.py:934 (the clicks over max(impressions, 1)); no "
+                                   "TPU kernel",
+        "lanes_gate (python)": "adcraft_tpu/step.py:115 (_gate_keywords in cents; "
+                               "distributions.py:340 generic_cost lanes); no TPU kernel",
+        "lanes_gate_float": "adcraft_tpu/step.py:152 (_gate_keywords_jacobi in float32; "
+                            "distributions.py:325 cost_create lanes); no TPU kernel",
+        "lanes_outcomes (float)": "adcraft_tpu/step.py:953-988 and :1400-1502 with float32 spends "
+                                  "(the day's cost sum); no TPU kernel",
+    }
+    return [
+        {
+            "name": name,
+            "route": "cuda",
+            "source": "adcraft_tpu_torch/csrc/lanes_day.cu",
+            "replaces": replaces[name],
+            "launches": launches_n,
+            "max_abs_err": max_err[name],
+            "ms": t[0],
+            "plain_ms": t[1],
+            "bound_ms": t[2][0],
+            "bound_by": t[2][1],
+            "library_ms": None,
+        }
+        for name, (launches_n, t) in entries.items()
+    ]
+
+
+def parent_builds(parent_csrc, cuda_build):
+    """The parent tree's agg_day and prng_kernels libraries (their
+    launchers only), to time this tree's kernels in turns with them."""
+    from adcraft_tpu_torch import agg_day as ad
+    from adcraft_tpu_torch import prng_kernel as pk
+
+    agg = cuda_build.CudaLibrary("agg_day", ad.bind, csrc=parent_csrc)
+    words = cuda_build.CudaLibrary("prng_kernels", pk.bind_launchers, csrc=parent_csrc)
+    return {"agg_cells_gate": ad.AggCellsGate("agg_cells_gate (parent)", agg),
+            "agg_outcomes": ad.AggOutcomes("agg_outcomes (parent)", agg),
+            "threefry_words": pk.ThreefryWords(words)}
+
+
+def parent_turns_phase(torch, dev, card, table, parent):
+    """With --parent-csrc: the agg route's kernels (agg_cells_gate's three
+    instances, agg_outcomes) and threefry_words at full width, each timed
+    in turns with the parent tree's build on the same inputs (parent,
+    this, this, parent), with the count of outputs where the two trees
+    differ (F4's single rounding and F5's XLA math change draws)."""
+    from adcraft_tpu_torch import EnvConfig, KeywordKind, VectorBiddingEnv
+    from adcraft_tpu_torch import agg_day as ad
+    from adcraft_tpu_torch import distributions as dist
+    from adcraft_tpu_torch import prng
+    from adcraft_tpu_torch import prng_kernel as pk
+    from adcraft_tpu_torch.config import BENCH_XLA_KNOBS, CostModel
+    from adcraft_tpu_torch.step import agg_model, budget_cents, split_volume, xla_lanes
+
+    def turns(name, this, other, label):
+        ms = [cuda_ms(c, reps=20) for c in (other, this, this, other)]
+        print(f"  {name} ({label}) in turns with the parent's: parent {ms[0]:.4f} / {ms[3]:.4f} "
+              f"ms, this {ms[1]:.4f} / {ms[2]:.4f} ms ({card})", flush=True)
+
+    bids = torch.full((E, K), BID, device=dev)
+    cell = torch.arange(T * K, device=dev).view(1, T, K)
+    for kind, model_name in ((KeywordKind.IMPLICIT, None), (KeywordKind.EXPLICIT, "RUST_QUIRK"),
+                             (KeywordKind.EXPLICIT, "PYTHON")):
+        extra = {} if model_name is None else {"cost_model": getattr(CostModel, model_name)}
+        cfg = EnvConfig(num_keywords=K, kind=kind, max_volume=MAX_VOLUME, budget=XLA_BUDGET,
+                        **BENCH_XLA_KNOBS, **extra)
+        model, lanes = agg_model(cfg), xla_lanes(cfg)
+        state, _ = VectorBiddingEnv(cfg, E, table, device=dev).reset(prng.PRNGKey(80))
+        k_vol, k_cells = prng.split(prng.split(prng.PRNGKey(81, dev), E)).unbind(-2)
+        volume = torch.clamp(dist.nonneg_int_normal(k_vol, state.kw.vol_mean, state.kw.vol_std),
+                             max=MAX_VOLUME)
+        n_auc = split_volume(cfg, volume)
+        n_auc01 = torch.stack([n_auc[0], n_auc[1]]).contiguous()
+        params = ad.pack_params(state.kw, bids)
+        budget_c = budget_cents(torch.full((E,), XLA_BUDGET, device=dev), ad.AGG_SCALE[model])
+        name = "agg_cells_gate" + ("" if model_name is None else f" (explicit, "
+                                                                f"{model_name.lower()})")
+
+        def gate(kernel):
+            return lambda: kernel(params, n_auc01, k_cells, budget_c, lanes, model=model)
+
+        got, other = gate(ad.agg_cells_gate)(), gate(parent["agg_cells_gate"])()
+        sim = cell < got[3].view(E, 1, 1)
+        differ = {"n_sim": (got[3] != other[3]).sum().item(),
+                  "spend": ((got[2] != other[2]) & sim).sum().item()}
+        print(f"  {name} ($1000): the parent's outputs differ from this tree's in "
+              f"{differ['n_sim']} n_sim of {E} and {differ['spend']} spends of "
+              f"{sim.sum().item()} simulated cells")
+        turns(name, gate(ad.agg_cells_gate), gate(parent["agg_cells_gate"]), "$1000")
+        if model_name is None:
+            def outcomes(kernel):
+                return lambda: kernel(params, k_cells, *got[:4], n_auc01, lanes, "sum")
+
+            a, b = outcomes(ad.agg_outcomes)(), outcomes(parent["agg_outcomes"])()
+            print(f"  agg_outcomes ($1000, sum): the parent's day sums differ from this "
+                  f"tree's in {sum((x != y).sum().item() for x, y in zip(a, b))} of {6 * E * K}")
+            turns("agg_outcomes", outcomes(ad.agg_outcomes), outcomes(parent["agg_outcomes"]),
+                  "$1000, sum")
+    keys = prng.split(prng.PRNGKey(82, dev), E)
+    for mode in ("normal", "xor"):
+        def words(kernel):
+            return lambda: kernel(keys, K, mode)
+
+        differ = (words(pk.threefry_words)() != words(parent["threefry_words"])()).sum().item()
+        print(f"  threefry_words ({mode}, {E} keys x {K}): the parent's words differ from this "
+              f"tree's in {differ} of {E * K}")
+        turns("threefry_words", words(pk.threefry_words), words(parent["threefry_words"]),
+              f"{mode}, {E} x {K}")
+
+
 def main(argv=None) -> int:
     args = sys.argv[1:] if argv is None else argv
     parent_csrc = None
@@ -1719,7 +2172,9 @@ def main(argv=None) -> int:
     libraries = (dk.day_kernel.library, pk.library, ad.library, clocked.library, ld.library,
                  lanes_stats["lanes_gate"].library)
     if parent is not None:
-        libraries += (parent["lanes_gate"].library,)
+        parent_other = parent_builds(parent_csrc, cuda_build)
+        libraries += (parent["lanes_gate"].library, parent_other["agg_cells_gate"].library,
+                      parent_other["threefry_words"].library)
     t0 = time.perf_counter()
     cuda_build.build_all(libraries)
     print(f"build: {time.perf_counter() - t0:.1f} s for {len(libraries)} libraries")
@@ -2081,6 +2536,13 @@ def main(argv=None) -> int:
     explicit_kernels = explicit_phase(torch, dev, card, ops_per_word, int_ops_per_s,
                                       fp_ops_per_s)
 
+    # 12. explicit keywords on the lanes day (EnvConfig's defaults)
+    explicit_lanes_kernels = explicit_lanes_phase(torch, dev, card, ops_per_word, int_ops_per_s,
+                                                  fp_ops_per_s)
+    if parent is not None:
+        print("the agg route's kernels and threefry_words in turns with the parent tree's:")
+        parent_turns_phase(torch, dev, card, table, parent_other)
+
     if "jax" in sys.modules:
         fail("jax was imported")
     print(f"day kernel summary: chunk_t {chunk_t}, {blocks_per_sm} blocks per SM, {smem} B "
@@ -2128,7 +2590,7 @@ def main(argv=None) -> int:
             "bound_by": rate_bound[1],
             "library_ms": None,
         },
-    ] + xla_kernels + lanes_kernels + explicit_kernels}))
+    ] + xla_kernels + lanes_kernels + explicit_kernels + explicit_lanes_kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

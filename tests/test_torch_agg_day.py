@@ -3,22 +3,15 @@ CPU: the sampling phase, the gate, the post-gate draws and whole days.
 
 Inputs are made from numpy seeds and handed to both sides. The day's
 float cell constants (the win probability and its t >= 1 ladder, the cost
-moments) are injected from the JAX functions that ``simulate_day`` calls
-(``inject_jax_constants`` patches ``agg_day.cell_constants``), because
-torch's exp/expm1 differ from XLA's by an ulp on 10-20% of inputs
-(tests/test_torch_agg_dist.py); the revenue moments are the port's own,
-equal to XLA's. With them, every integer output
-is exactly equal and money within the float32 sums' own rounding, which
-is the same here (exactly equal). Without injection the whole day was
-measured separately: 0 of 1600 env-days mismatched (16 envs × 20 seeds ×
-5 budgets, lane_bits=16), and ``test_day_without_injection`` pins 0 of
-320. A mismatch would have an ulp-level cause: a cost or revenue draw
-within an ulp of a cent boundary, or a walk's CDF within an ulp of its
-uniform.
+moments, the revenue moments) are the port's own, on XLA's ``exp``,
+``expm1``, ``powf`` and scans in blocks of 16: the win probability, the
+ladder and the cost mean equal the JAX functions' bit for bit, the cost
+std on all but about 0.1% of cells (tests/test_torch_agg_dist.py). Every
+output is exactly equal; ``test_day_without_injection`` pins 0 of 320
+env-days differing. A mismatch would have an ulp-level cause: a cost draw
+within an ulp of a cent boundary under a std an ulp off.
 
-Tolerances: exact, except the lite lane costs, which may differ only
-where the JAX float lies within 1e-3 cent of a rounding boundary (torch's
-exp/log ulps; tests/test_torch_agg_dist.py).
+Tolerances: exact.
 """
 
 import jax
@@ -80,29 +73,10 @@ def day_keys(seed, E=E):
 
 
 @jax.jit
-def _jax_cell_constants(bids, loc, scale, n1):
+def jax_cell_constants(bids, loc, scale, n1):
     p = ja.implicit_single_win_prob(bids, loc, scale)
     cdf, _, _ = jd.binomial_cdf(n1, p, 16)
     return (p, cdf, *jd.single_cost_cent_moments_closed(bids, loc, scale))
-
-
-def _torch(xs):
-    return [torch.from_numpy(np.array(x)) for x in xs]
-
-
-def jax_cell_constants(params, n1, m1, model=agg_day.IMPLICIT, cost_grid=None):
-    """``agg_day.cell_constants`` by the JAX functions ``simulate_day``
-    calls (for m1 = 16, implicit keywords)."""
-    assert m1 == 16 and model == agg_day.IMPLICIT
-    p, cdf, mu, sigma, cmax = _torch(_jax_cell_constants(
-        *(x.cpu().numpy() for x in (params[agg_day.BID], params[agg_day.LOC],
-                                    params[agg_day.SCALE], n1))))
-    return p, cdf[:m1].permute(1, 0, 2).contiguous(), mu, sigma, cmax
-
-
-def inject_jax_constants(monkeypatch):
-    """Make the port's plain day take its constants from the JAX package."""
-    monkeypatch.setattr(agg_day, "cell_constants", jax_cell_constants)
 
 
 _jax_days = {}
@@ -157,13 +131,18 @@ def cell_inputs(seed, tcfg):
 @pytest.mark.parametrize("bits", [16, 32])
 def test_cell_tables_match_jax(bits, monkeypatch):
     """``_cell_tables``' four outputs at t = 0 (the walk, m0 lanes) and t >=
-    1 (the ladder, m1 lanes), with the JAX cost moments and ladder."""
+    1 (the ladder, m1 lanes), with the port's cost moments and ladder, whose
+    win probability, ladder and mean equal the JAX functions'."""
     jcfg, tcfg = configs(bits)
     lanes = lanes_of(tcfg)
-    inject_jax_constants(monkeypatch)
     kw, bids, jk, tk, n_auc, n_auc01, params = cell_inputs(3 + bits, tcfg)
     *got, (p_win, lad, mu, sigma, cmax) = agg_day.agg_cells_reference(params, n_auc01, tk, lanes,
                                                                       keep_constants=True)
+    want = jax_cell_constants(*(x.numpy() for x in (params[agg_day.BID], params[agg_day.LOC],
+                                                    params[agg_day.SCALE], n_auc01[1])))
+    for name, g, w in (("p_win", p_win, want[0]), ("ladder", lad.permute(1, 0, 2), want[1][:16]),
+                       ("mu", mu, want[2]), ("cmax", cmax, want[4])):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=name)
     ladder = jnp.asarray(np.concatenate(
         [lad.permute(1, 0, 2).numpy(), np.zeros((1, E, K), np.float32)]))
     cm = tuple(jnp.asarray(x.numpy()) for x in (mu, sigma, cmax))
@@ -184,9 +163,7 @@ def test_cell_tables_match_jax(bits, monkeypatch):
     )
     for name, g, w in zip(("impressions", "n_clicks", "s_full"), got[:3], want[:3]):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=name)
-    lite_j = np.asarray(want[3])  # (E, T, L, K)
-    off = got[3].numpy() != lite_j
-    assert off.mean() < 1e-2, off.mean()
+    np.testing.assert_array_equal(got[3].numpy(), np.asarray(want[3]), err_msg="lite")
     assert (got[0] > 0).any() and (got[1] > 0).any() and (got[2] > 0).any()
     assert (got[0] <= n_auc.permute(1, 0, 2)).all() and (got[1] <= got[0]).all()
 
@@ -218,7 +195,6 @@ def test_gate_matches_scan_agg(bits, monkeypatch):
     clicks, spend and the simulated mask exactly."""
     jcfg, tcfg = configs(bits, agg_lite_lanes=2)
     lanes = lanes_of(tcfg)
-    inject_jax_constants(monkeypatch)
     kw, bids, jk, tk, n_auc, n_auc01, params = cell_inputs(11 + bits, tcfg)
     imp, ncl, s_full, lite = agg_day.agg_cells_reference(params, n_auc01, tk, lanes)
     p = params.numpy()
@@ -263,7 +239,6 @@ def test_conversions_and_revenue_match_jax(bits, monkeypatch):
     and revenue sums (``k_rev``) of the gated cells, and the day sums."""
     jcfg, tcfg = configs(bits)
     lanes = lanes_of(tcfg)
-    inject_jax_constants(monkeypatch)
     kw, bids, jk, tk, n_auc, n_auc01, params = cell_inputs(21 + bits, tcfg)
     budget_c = tstep.budget_cents(torch.full((E,), 2.0))
     imp, acc, spend, n_sim = agg_day.agg_cells_gate(params, n_auc01, tk, budget_c, lanes)
@@ -305,12 +280,11 @@ def test_conversions_and_revenue_match_jax(bits, monkeypatch):
 
 @pytest.mark.parametrize("bits", [16, 32])
 def test_day_matches_jax(bits, monkeypatch):
-    """Whole days, ``simulate_day`` vmapped, with the JAX constants: every
-    DayOutcomes field exactly equal, budgets unbound, binding, zero and
-    small enough to break mid-day and in sub-timestep 0."""
+    """Whole days, ``simulate_day`` vmapped, on the port's own constants:
+    every DayOutcomes field exactly equal, budgets unbound, binding, zero
+    and small enough to break mid-day and in sub-timestep 0."""
     jcfg, tcfg = configs(bits)
     recorder = GateRecorder(monkeypatch)
-    inject_jax_constants(monkeypatch)
     for seed in (0, 1):
         kw = random_kw(seed)
         bids = random_bids(seed)

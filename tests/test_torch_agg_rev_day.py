@@ -5,13 +5,13 @@ against the JAX package on the CPU.
 In ``"day"`` mode the cells' revenue is zero and each (env, keyword) makes
 one ``rev_sum_cents`` draw from the day's masked conversions, keyed by
 ``split(fold_in(k_cells, T), 4)[3]`` at counter k (``adcraft_tpu/step.py``
-:1407-1411, :1476-1488). The day's float constants are injected from the
-JAX functions as in tests/test_torch_agg_day.py.
+:1407-1411, :1476-1488). The day's float constants are the port's own,
+as in tests/test_torch_agg_day.py.
 
 Tolerances: day outcomes exactly equal; reward and cumulative profit
 within rtol 1e-6 (float32 sums over keywords in another order); keyword
-floats after the drift within rtol 1e-6 (XLA contracts the drift's ``1 + u
-* scale`` into an FMA, tests/test_torch_agg_env.py).
+floats, drifted too, exactly equal (the drift's fused multiply-adds are
+XLA's, tests/test_torch_keywords.py).
 """
 
 import os
@@ -25,7 +25,7 @@ import numpy as np
 import pytest
 import torch
 from test_torch_agg_day import (E, assert_day_equal, cell_inputs, configs, day_keys,
-                                inject_jax_constants, jax_day, random_bids, random_kw)
+                                jax_day, random_bids, random_kw)
 from test_torch_env import assert_state, assert_timestep
 
 import adcraft_tpu.env as jenv
@@ -48,10 +48,9 @@ FAST = dict(FAST_XLA_KNOBS, num_keywords=ENV_K, max_volume=96, timesteps_per_day
 @pytest.mark.parametrize("bits", [16, 32])
 def test_day_revenue_matches_jax(bits, monkeypatch):
     """Whole days with ``rev_sampling="day"``, ``simulate_day`` vmapped,
-    with the JAX constants: every DayOutcomes field exactly equal, budgets
-    unbound, binding, breaking mid-day and zero."""
+    on the port's own constants: every DayOutcomes field exactly equal,
+    budgets unbound, binding, breaking mid-day and zero."""
     jcfg, tcfg = configs(bits, rev_sampling="day")
-    inject_jax_constants(monkeypatch)
     kw = random_kw(bits)
     bids = random_bids(bits)
     jk, tk = day_keys(bits + 200)
@@ -103,11 +102,9 @@ def fast_jax_env():
 @pytest.mark.parametrize("seed, drift", [(0, False), (3, True)])
 def test_three_days_under_fast_knobs_match_jax(seed, drift, monkeypatch):
     """``VectorBiddingEnv`` under ``train_rl.py``'s fast knobs against the JAX
-    env for three days (the second with a budget that binds), with the JAX
-    constants injected: from the port's own reset and from the JAX state
-    carried across. (Without injection, seed 3's first day differs from
-    JAX by one cent of one keyword's cost: a draw within an ulp of a cent
-    under the port's own constants, ROADMAP.md §3.)"""
+    env for three days (the second with a budget that binds), on the port's
+    own constants: from the port's own reset and from the JAX state carried
+    across."""
     jax_env = fast_jax_env()
     jstate, _ = jax_env.reset(jax.random.PRNGKey(seed))
     env = VectorBiddingEnv(EnvConfig(kind=KeywordKind.IMPLICIT, **FAST), ENV_E,
@@ -119,7 +116,6 @@ def test_three_days_under_fast_knobs_match_jax(seed, drift, monkeypatch):
         own = own._replace(kw=own.kw._replace(updater_mask=torch.ones_like(own.kw.updater_mask)))
     carried = env_state_from_numpy(jax.tree.map(np.asarray, jstate), device="cpu")
     bids = np.full((ENV_E, ENV_K), 1.0, np.float32)
-    inject_jax_constants(monkeypatch)
     for budget in (None, 2.0, None):
         jbudget = None if budget is None else jnp.full((ENV_E,), budget)
         tbudget = None if budget is None else torch.full((ENV_E,), budget)
@@ -128,8 +124,8 @@ def test_three_days_under_fast_knobs_match_jax(seed, drift, monkeypatch):
         carried, carried_ts = env.step(carried, torch.from_numpy(bids), tbudget)
         for ts in (own_ts, carried_ts):
             assert_timestep(jts, ts)
-        assert_state(jstate, own, kw_rtol=1e-6)
-        assert_state(jstate, carried, kw_rtol=1e-6 if drift else 0.0)
+        assert_state(jstate, own)
+        assert_state(jstate, carried)
         assert int(np.asarray(jts.outcomes.sellside_conversions).sum()) > 0
 
 

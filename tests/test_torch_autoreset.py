@@ -8,8 +8,8 @@ Tolerances: observations, day outcomes, keys, days, flags and keyword
 parameters exactly equal (both sides start from the same carried state);
 reward and cumulative profit within rtol 1e-6 (float32 sums over keywords
 in another order, ROADMAP.md section 3). Fresh keywords (``reset_kw``)
-come from the quantile table, within rtol 1e-6 (XLA contracts the
-quantile interpolation into an FMA, tests/test_torch_keywords.py).
+come from the quantile table, exactly equal (the port's interpolation is
+XLA's fused multiply-add, tests/test_torch_keywords.py).
 """
 
 import functools
@@ -63,7 +63,7 @@ def test_autoreset_matches_jax(knobs, reset_kw):
         jstate, jts = jax_autoreset(jcfg, reset_kw)(jstate, jnp.asarray(bids))
         state, ts = env.autoreset_step(state, torch.from_numpy(bids), reset_kw=reset_kw)
         assert_timestep(jts, ts)
-        assert_state(jstate, state, kw_rtol=1e-6 if reset_kw else 0.0)
+        assert_state(jstate, state)
         ended += [int(np.asarray(jts.terminated).sum()), int(np.asarray(jts.truncated).sum())]
     assert ended.min() > 0, ended  # both kinds of episode end happened
     assert (state.day < 3).all()

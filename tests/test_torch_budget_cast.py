@@ -115,7 +115,7 @@ def test_rollout_of_zero_days_matches_jax():
     env = VectorBiddingEnv(cfg, E, t_table(16, 0.8), device="cpu")
     state = env_state_from_numpy(jax.tree.map(np.asarray, jstate), device="cpu")
     end, ts = env.rollout(state, torch.ones((E, cfg.num_keywords)), 0)
-    assert_state(jend, end, kw_rtol=0.0)
+    assert_state(jend, end)
     assert end is state
     pairs = [("reward", jts.reward, ts.reward), ("terminated", jts.terminated, ts.terminated),
              ("truncated", jts.truncated, ts.truncated)]

@@ -17,6 +17,8 @@ from adcraft_tpu_torch import day_kernel as dk
 from adcraft_tpu_torch import prng
 from adcraft_tpu_torch import prng_kernel as pk
 from adcraft_tpu_torch import probe_prng
+from adcraft_tpu_torch import xla_math
+from adcraft_tpu_torch.distributions import laplace_cdf
 from adcraft_tpu_torch.step import split_volume
 
 
@@ -590,3 +592,152 @@ def test_lanes_env_step_launches_each_lanes_kernel_once(cuda):
     assert [k.launches - b for k, b in zip(kernels, before)] == [4, 4, 4]
     assert ts.outcomes.impressions.is_cuda and (end.day == 3).all() and (reset.day == 0).all()
     assert (ts.outcomes.cost.sum(1) <= 3.0 + 1e-4).all()
+
+
+@pytest.mark.cuda
+def test_xla_math_device_functions_equal_plain(cuda):
+    """``__fmaf_rn``'s fma32 and ``xla_math.fma32`` on the card (torch's
+    ``addcmul``) on halfway triples and random ones, and the device expm1,
+    tanh, pow, Laplace CDF and 16-block scans, each equal to its plain
+    xla_math version on the CPU."""
+    gen = torch.Generator().manual_seed(11)
+    n = 1 << 20
+    j = torch.randint(1, 64, (n,), generator=gen).double()
+    e = torch.randint(-20, 20, (n,), generator=gen).double()
+    odd = torch.randint(0, 1 << 22, (n,), generator=gen).double() * 2 + 1 + 2**23
+    c = (odd * 2.0 ** (e - 23)).float()
+    a = (1 + 2.0**-23 * j).float()
+    b = ((1 - 2.0**-23 * j) * 2.0 ** (e - 24)).float()
+    rand = torch.randn((3, n), generator=gen)
+    for x, y, z in ((a, b, c), tuple(rand)):
+        want = xla_math.fma32(x, y, z)
+        got = pk.xla_math_on_card("fma32", x.to(cuda), y.to(cuda), z.to(cuda)).cpu()
+        assert torch.equal(got, want)
+        assert torch.equal(xla_math.fma32(x.to(cuda), y.to(cuda), z.to(cuda)).cpu(), want)
+    u = torch.rand((4, n), generator=gen)
+    x = (u[0] - 0.5) * 4
+    cases = {"expm1": (x,), "tanh": (x * 3,), "pow": (0.5 + u[1] * 0.5, torch.floor(u[2] * 1100)),
+             "laplace_cdf": (x, u[1] * 1.5, 0.01 + u[3] * 0.5)}
+    want = {"expm1": xla_math.expm1(x), "tanh": xla_math.tanh(x * 3),
+            "pow": xla_math.pow(*cases["pow"]), "laplace_cdf": laplace_cdf(*cases["laplace_cdf"])}
+    for op, args in cases.items():
+        got = pk.xla_math_on_card(op, *(t.to(cuda) for t in args)).cpu()
+        assert torch.equal(got, want[op]), op
+    for length in (*range(1, 301, 7), 256, 257, 2400, 4097):
+        rows = torch.rand((5, length), generator=gen) * 3
+        assert torch.equal(pk.xla_math_on_card("cumsum", rows.to(cuda)).cpu(),
+                           xla_math.cumsum(rows, 1)), length
+        f = 0.9 + 0.2 * torch.rand((5, length), generator=gen)
+        assert torch.equal(pk.xla_math_on_card("cumprod", f.to(cuda)).cpu(),
+                           xla_math.cumprod(f, 1)), length
+
+
+def explicit_inputs(cfg, E, seed, dev):
+    """xla_inputs with explicit keywords' impression rates and bids."""
+    from adcraft_tpu_torch import agg_day
+
+    lanes, params, n_auc01, keys = xla_inputs(cfg, E, seed, dev)
+    gen = torch.Generator().manual_seed(seed + 1)
+    u = torch.rand((3,) + tuple(params.shape[1:]), generator=gen).to(dev)
+    params[agg_day.BID] = torch.round((0.2 + 3.3 * u[0]) * 100) / 100
+    params[agg_day.IMP_THRESH] = 0.05
+    params[agg_day.IMP_INTERCEPT] = 0.1 + 1.1 * u[1]
+    params[agg_day.IMP_SLOPE] = 2.0 + 28.0 * u[2]
+    return lanes, params, n_auc01, keys
+
+
+# m0 = 47 (max_volume 576) and 65 (1024, EnvConfig's default, past a
+# 32-lane window); K = 40 takes the spends' scan past one block of 16
+@pytest.mark.cuda
+@pytest.mark.parametrize("K, max_volume, sampler", [(7, 576, "exact"), (40, 1024, "exact"),
+                                                    (100, 576, "inversion")])
+@pytest.mark.parametrize("model", ["RUST_QUIRK", "PYTHON"])
+def test_explicit_lanes_kernels_match_reference(cuda, K, max_volume, sampler, model):
+    """The explicit instances of lanes_counts and lanes_gate (python
+    cents) and lanes_gate_float (rust dollars), and lanes_outcomes on
+    them, each equal their plain versions at budgets unbound, binding,
+    tight and 0, and (rust) at a budget that the scan of the first
+    sub-timestep's unbound spends reaches exactly: every simulated cell
+    (for lanes_gate_float every cell of the sub-timesteps it walks, the
+    -1 of the cells a stopped sub-timestep does not simulate too), n_sim
+    and the day sums exactly. At the last two budgets days break."""
+    from adcraft_tpu_torch import agg_day, lanes_day
+    from adcraft_tpu_torch.config import CostModel
+    from adcraft_tpu_torch.step import agg_model, budget_cents
+
+    E = 61
+    cfg = EnvConfig(num_keywords=K, kind=KeywordKind.EXPLICIT, max_volume=max_volume,
+                    binomial_sampler=sampler, cost_model=getattr(CostModel, model))
+    mod = agg_model(cfg)
+    lanes, params, n_auc01, keys = explicit_inputs(cfg, E, K + max_volume, cuda)
+    cell = torch.arange(lanes.T * K, device=cuda).view(1, lanes.T, K)
+    imp, ncl = lanes_day.lanes_counts(params, n_auc01, keys, lanes, sampler, mod)
+    torch.cuda.synchronize()
+    want_counts = lanes_day.lanes_counts_reference(params, n_auc01, keys, lanes, sampler, mod)
+    for g, w in zip((imp, ncl), want_counts):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    assert ((ncl > 0) & (imp == 0)).any()  # phantom clicks
+    rust = mod == agg_day.EXPLICIT_RUST
+    for budget in (1e6, 1000.0, 2.0 * K, 0.0) + (("prefix",) if rust else ()):
+        if budget == "prefix":  # cell j's B - spend is 0 after the unbound spends up to j
+            dollars = xla_math.cumsum(unbound[:, 0], 1)[:, min(19, K - 3)].contiguous()
+        else:
+            dollars = torch.full((E,), budget, device=cuda)
+        if rust:
+            got = lanes_day.lanes_gate_float(params, keys, ncl, imp, dollars, lanes)
+            want = lanes_day.lanes_gate_float_reference(params, keys, ncl, imp, dollars, lanes)
+            unbound = want[1] if budget == 1e6 else unbound
+            walked = (want[2] + K - 1) // K * K
+        else:
+            b = budget_cents(dollars)
+            got = lanes_day.lanes_gate(params, keys, ncl, b, lanes, mod, imp)
+            want = lanes_day.lanes_gate_reference(params, keys, ncl, b, lanes, mod, imp)
+            walked = want[2]
+        torch.cuda.synchronize()
+        sim = cell < walked.view(E, 1, 1)
+        torch.testing.assert_close(got[2], want[2], rtol=0, atol=0)
+        for g, w in zip(got[:2], want[:2]):
+            torch.testing.assert_close(g[sim], w[sim], rtol=0, atol=0)
+        out = lanes_day.lanes_outcomes(params, keys, imp, *got[:3], n_auc01, lanes)
+        torch.cuda.synchronize()
+        want_out = lanes_day.lanes_outcomes_reference(params, keys, imp, *want[:3], n_auc01,
+                                                      lanes)
+        for g, w in zip(out, want_out):
+            torch.testing.assert_close(g, w, rtol=0, atol=0)
+        if budget in (0.0, "prefix"):  # days break after their first sub-timestep
+            assert (want[2] <= K).any() and (not rust or (got[0][sim] == -1).any())
+        elif budget < 1e6:
+            assert (want[2] < lanes.T * K).any() or rust
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["RUST_QUIRK", "PYTHON"])
+def test_explicit_lanes_env_step_launches_each_kernel_once(cuda, model, monkeypatch):
+    """EnvConfig's default kind and sampling knobs on the card, either cost
+    model: one launch of each of the day's three kernels per day through
+    step, rollout and autoreset_step, equal to the same env on the card
+    with the plain versions of the three kernels."""
+    from adcraft_tpu_torch import lanes_day
+    from adcraft_tpu_torch.config import CostModel
+
+    cfg = EnvConfig(num_keywords=8, max_volume=96, timesteps_per_day=6, max_days=2,
+                    cost_model=getattr(CostModel, model))
+    rust = model == "RUST_QUIRK"
+    gate = "lanes_gate_float" if rust else "lanes_gate"
+    kernels = [getattr(lanes_day, n) for n in ("lanes_counts", gate, "lanes_outcomes")]
+    bids = torch.full((16, 8), 1.5, device=cuda)
+    runs = []
+    for plain in (False, True):
+        if plain:
+            for name in ("lanes_counts", gate, "lanes_outcomes"):
+                monkeypatch.setattr(lanes_day, name, getattr(lanes_day, name + "_reference"))
+        env = VectorBiddingEnv(cfg, 16)
+        state, _ = env.reset(prng.PRNGKey(3))
+        before = [k.launches for k in kernels]
+        state, ts = env.step(state, bids, torch.full((16,), 20.0, device=cuda))
+        state, roll = env.rollout(state, bids, 2)
+        state, auto = env.autoreset_step(state, bids, reset_kw=True)
+        torch.cuda.synchronize()
+        assert [k.launches - b for k, b in zip(kernels, before)] == ([0] * 3 if plain else [4] * 3)
+        runs.append(torch.utils._pytree.tree_leaves((ts, roll, auto, state)))
+    assert all(torch.equal(a, b) for a, b in zip(*runs))

@@ -6,7 +6,8 @@ interpret mode. Both sides take the same uniforms: an integer hash of
 (global env, t, draw, keyword, lane). The JAX side gets it by patching the
 kernel's ``_uniform`` (keyed by ``program_id(0) * e_blk + iota``,
 ``program_id(1)`` and the call index mod 5); the port through its
-uniform-source argument. Tolerance: the six integer outputs and the flag
+uniform-source argument. The JAX day runs through ``jax.jit``, as the
+env runs it. Tolerance: the day's outputs, integer and money, and the flag
 exactly equal. The CUDA kernel's own tests are in tests/test_torch_cuda.py.
 """
 
@@ -156,10 +157,12 @@ REGIMES = {
 def run_both(hash_uniforms, budget, bid_scale):
     kw = kwstate(bid_scale)
     vol = volumes()
-    jday, jflag = jax_kernels.pallas_simulate_day(
-        JCFG, jnp.asarray(7, jnp.int32), kw, jnp.asarray(BIDS),
+    # through jax.jit, as VectorBiddingEnv runs the day (its money floats
+    # are jitted XLA's)
+    jday, jflag = jax.jit(lambda *a: jax_kernels.pallas_simulate_day(
+        JCFG, *a, e_block=4, interpret=INTERP))(
+        jnp.asarray(7, jnp.int32), kw, jnp.asarray(BIDS),
         jnp.full((E,), budget, jnp.float32), jnp.asarray(vol),
-        e_block=4, interpret=INTERP,
     )
     tday, tflag = dk.pallas_simulate_day(
         CFG, torch.tensor(7, dtype=torch.int32),

@@ -2,15 +2,17 @@
 package's, reset and three days.
 
 The JAX side is ``VectorBiddingEnv(day_kernel="pallas").reset`` followed
-by ``vector_env_step_pallas`` with the Pallas kernel interpreted; both
-sides take the shared hash uniforms of tests/test_torch_day_kernel.py.
+by ``vector_env_step_pallas`` through ``jax.jit``, as ``VectorBiddingEnv``
+runs it (``adcraft_tpu/env.py:408-411``), with the Pallas kernel
+interpreted; both sides take the shared hash uniforms of
+tests/test_torch_day_kernel.py.
 
 Tolerances: day outcomes, observations, keys, days and flags exactly
 equal; reward and cumulative profit within rtol 1e-6 (float32 sums over
-keywords in another order). Starting from the port's own reset, keyword
-floats are within rtol 1e-6 (XLA's jit contracts the quantile
-interpolation into an FMA, tests/test_torch_keywords.py); starting from
-the JAX state carried across (``env_state_from_numpy``), they are exact.
+keywords in another order). Keyword floats exactly equal, drifted or not,
+from the port's own reset (its quantile interpolation and drift are XLA's
+fused multiply-adds, tests/test_torch_keywords.py) and from the JAX state
+carried across (``env_state_from_numpy``).
 """
 
 import os
@@ -59,12 +61,10 @@ def assert_equal(a, b, name, rtol=0.0):
         np.testing.assert_array_equal(b, a, name)
 
 
-def assert_state(jstate, tstate, kw_rtol):
+def assert_state(jstate, tstate):
     t = env_state_to_numpy(tstate)
     for f in jstate.kw._fields:
-        a = np.asarray(getattr(jstate.kw, f))
-        rtol = kw_rtol if a.dtype == np.float32 else 0.0
-        assert_equal(a, getattr(t.kw, f), "kw." + f, rtol)
+        assert_equal(getattr(jstate.kw, f), getattr(t.kw, f), "kw." + f)
     for f in ("day", "budget", "loss_threshold", "max_days", "key"):
         assert_equal(getattr(jstate, f), getattr(t, f), f)
     assert_equal(jstate.cumulative_profit, t.cumulative_profit, "cumulative_profit", 1e-6)
@@ -88,28 +88,28 @@ def test_slice_matches_jax(hash_uniforms, seed, mean_volume, drift):  # noqa: F8
     env = VectorBiddingEnv(CFG, E, t_table(mean_volume, 0.5), updater_mask=mask, device="cpu")
     own, obs = env.reset(prng.PRNGKey(seed))
     carried = env_state_from_numpy(jax.tree.map(np.asarray, jstate), device="cpu")
-    assert_state(jstate, own, kw_rtol=1e-6)
-    assert_state(jstate, carried, kw_rtol=0.0)
+    assert_state(jstate, own)
+    assert_state(jstate, carried)
     for f in jobs:
         assert_equal(jobs[f], obs[f], "reset obs." + f)
 
     initial_bctr = np.asarray(jstate.kw.bctr)
     bids = np.full((E, K), 1.0, np.float32)
     source = hash_uniforms(E, K, CFG.max_clicks_per_cell)
+    jit_step = jax.jit(lambda s, b, bud: jenv.vector_env_step_pallas(
+        JCFG, s, b, bud, interpret=pltpu.InterpretParams()))
     for day, budget in enumerate(BUDGETS):
         jbudget = None if budget is None else jnp.full((E,), budget)
         tbudget = None if budget is None else torch.full((E,), budget)
-        jstate, jts = jenv.vector_env_step_pallas(
-            JCFG, jstate, jnp.asarray(bids), jbudget, interpret=pltpu.InterpretParams()
-        )
+        jstate, jts = jit_step(jstate, jnp.asarray(bids), jbudget)
         own, own_ts = vector_env_step_pallas(CFG, own, torch.from_numpy(bids), tbudget, source)
         carried, carried_ts = vector_env_step_pallas(
             CFG, carried, torch.from_numpy(bids), tbudget, source
         )
         assert_timestep(jts, own_ts)
         assert_timestep(jts, carried_ts)
-        assert_state(jstate, own, kw_rtol=1e-6)
-        assert_state(jstate, carried, kw_rtol=0.0)
+        assert_state(jstate, own)
+        assert_state(jstate, carried)
         assert int(np.asarray(jts.outcomes.impressions).sum()) > 0, day
     assert np.array_equal(np.asarray(jstate.kw.bctr), initial_bctr) != drift
 

@@ -42,6 +42,6 @@ def test_autoreset_with_fresh_keywords_matches_jax():
         # an ended env starts again from a cumulative profit of 0
         done = (ts.terminated | ts.truncated).numpy()
         scale = np.where(done, 0.0, scale + ts.outcomes.profit.abs().sum(1).numpy())
-        assert_step(jstate, jts, state, ts, 0.0, scale)
+        assert_step(jstate, jts, state, ts, scale)
         ended += [int(np.asarray(jts.terminated).sum()), int(np.asarray(jts.truncated).sum())]
     assert ended.min() > 0, ended  # both kinds of episode end happened

@@ -6,11 +6,11 @@ per-env keys), three steps with a budget that binds on day 2, and a
 
 Tolerances: keywords, keys, observations, day outcomes, days and flags
 exactly equal (from the port's own reset: the explicit sampler is
-bitwise); keyword floats within rtol 1e-6 once they drift (inside the
-vmapped ``env_step`` XLA contracts the drift's ``1 + u * scale`` into an
-FMA); reward and cumulative profit, float32 sums over keywords that XLA
-adds in another order, within K float32 epsilons of the sum of the
-profits' magnitudes (``assert_money``).
+bitwise), the drifted keyword floats too (the drift's fused multiply-adds
+are XLA's, tests/test_torch_keywords.py); reward and cumulative profit,
+float32 sums over keywords that XLA adds in another order, within K
+float32 epsilons of the sum of the profits' magnitudes
+(``assert_money``).
 """
 
 import jax
@@ -41,9 +41,9 @@ def assert_money(want, got, scale, name):
     assert (np.abs(got - want) <= K * EPS * scale).all(), (name, got, want)
 
 
-def assert_step(jstate, jts, state, ts, kw_rtol, scale):
-    """Everything exact but the keyword floats (``kw_rtol``) and the money
-    summed over keywords; ``scale`` is the running sum of |profit|."""
+def assert_step(jstate, jts, state, ts, scale):
+    """Everything exact but the money summed over keywords; ``scale`` is
+    the running sum of |profit|."""
     for f in jts.obs:
         if f != "cumulative_profit":
             assert_equal(jts.obs[f], ts.obs[f], "obs." + f)
@@ -55,7 +55,7 @@ def assert_step(jstate, jts, state, ts, kw_rtol, scale):
     assert_money(jstate.cumulative_profit, state.cumulative_profit, scale, "cumulative_profit")
     for f in jstate.kw._fields:
         a = np.asarray(getattr(jstate.kw, f))
-        assert_equal(a, getattr(state.kw, f), "kw." + f, kw_rtol if a.dtype == np.float32 else 0)
+        assert_equal(a, getattr(state.kw, f), "kw." + f)
     for f in ("day", "budget", "loss_threshold", "max_days"):
         assert_equal(getattr(jstate, f), getattr(state, f), f)
     assert_equal(jstate.key, state.key, "key")
@@ -86,7 +86,7 @@ def test_reset_and_three_days_match_jax():
         jstate, jts = jax_env.step(jstate, jnp.asarray(bids), jnp.full((E,), budget))
         state, ts = env.step(state, torch.from_numpy(bids), torch.full((E,), budget))
         scale = scale + ts.outcomes.profit.abs().sum(1).numpy()
-        assert_step(jstate, jts, state, ts, 1e-6, scale)
+        assert_step(jstate, jts, state, ts, scale)
         assert int(ts.outcomes.impressions.sum()) > 0
         # phantom clicks: clicks in keyword-days without an impression
         assert int((ts.outcomes.buyside_clicks * (ts.outcomes.impressions == 0)).sum()) > 0
