@@ -24,8 +24,8 @@
 // and agg_outcomes_reference. Every float operation here is the one that
 // version's tensor ops perform on the card, spelled so that nvcc cannot
 // contract or reorder it: __fmul_rn, __fadd_rn, __fdiv_rn, IEEE sqrtf,
-// rintf, the powf that PyTorch's CUDA kernels
-// call, and fused multiply-adds (XLA's contractions) as __fmaf_rn, which
+// rintf, XLA's powf (xla_pow, float64 on glibc's tables, xla_math.cuh),
+// and fused multiply-adds (XLA's contractions) as __fmaf_rn, which
 // rounds once as the plain version's fma32 does. So the kernels equal it
 // exactly.
 //
@@ -93,9 +93,9 @@
 // each) and each keyword's constants into shared memory: the walk's 1 - q,
 // r = q / (1 - q) and flip, the revenue moments and the auction counts,
 // beside a table of 1/j, so no per-cell or per-level division remains
-// (the walk's pmf0 = (1 - q)^a is one powf per cell with clicks, since it
-// depends on the cell's a: a table over a = 0..m0 would take (m0 + 1) K
-// powf per block, 4800 at the main path's m0 = 47 and K = 100, against at
+// (the walk's pmf0 = (1 - q)^a is one xla_pow per cell with clicks, since
+// it depends on the cell's a: a table over a = 0..m0 would take (m0 + 1) K
+// of them per block, 4800 at the main path's m0 = 47 and K = 100, against at
 // most T K = 2400 cells with clicks). Then each warp reads tiles of 32
 // consecutive cells (coalesced, each tile's loads issued while the tile
 // before is summed and drawn; no lane idles on K mod 32, no thread loops
@@ -108,7 +108,7 @@
 // thread per keyword with conversions draws the day's normal. Integer sums
 // are exact in any order, so neither the queues' order nor the atomics
 // change the outputs. Measured on the card, the draws' arithmetic beyond
-// threefry (powf, log1pf and the erfinv polynomial, sqrtf, the fused
+// threefry (pow, log1pf and the erfinv polynomial, sqrtf, the fused
 // multiply-adds) bounds it when most cells
 // have clicks; splitting an env's keywords over several blocks, two cells
 // per lane, packing the sums into 64-bit atomics, and capping registers
@@ -235,6 +235,9 @@ __device__ CostMoments cost_moments(float bid, float loc, float scale) {
   const float s3 = __fmul_rn(t3, geo0_top);
   const float s3w = fma32(m, s3, __fmul_rn(t3, g.geo1(n_top)));
   const float sum_a_top = __fmul_rn(0.5f, fma32(t3, geo0_top, -__fmul_rn(n_top, e_ya)));
+  // XLA's std recomputes the first moment's sums in a fusion in which s3
+  // has two uses, so there n_top e_ya is the product contracted
+  const float sum_a_top_std = __fmul_rn(0.5f, fma32(-n_top, e_ya, s3));
   const float sum_i_top =
       __fmul_rn(__fmul_rn(0.5f, __fadd_rn(__fsub_rn(big_i, 1.0f), m)), n_top);
   const float sum_ia_top =
@@ -242,13 +245,15 @@ __device__ CostMoments cost_moments(float bid, float loc, float scale) {
 
   const bool low = y0 <= a;
   const float sum_a = low ? sum_a_low : __fadd_rn(sum_a_pre, sum_a_top);
+  const float sum_a_std = low ? sum_a_low : __fadd_rn(sum_a_pre, sum_a_top_std);
   const float sum_ia = low ? sum_ia_low : __fadd_rn(sum_ia_pre, sum_ia_top);
   const float z = __fsub_rn(laplace_cdf(y0, a, s), laplace_cdf(-y0, a, s));
   const float zsafe = fmaxf(z, 1e-12f);
   const float tail0 = fmaxf(__fadd_rn(sum_a, sum_b), 0.0f);
   const float tail1 = fmaxf(__fadd_rn(sum_ia, sum_ib), 0.0f);
   const float mu = __fdiv_rn(tail0, zsafe);
-  const float m2 = __fdiv_rn(__fadd_rn(__fmul_rn(2.0f, tail1), tail0), zsafe);
+  const float tail0_std = fmaxf(__fadd_rn(sum_a_std, sum_b), 0.0f);
+  const float m2 = __fdiv_rn(__fadd_rn(__fmul_rn(2.0f, tail1), tail0_std), zsafe);
   const float var = fmaxf(fma32(-mu, mu, m2), 0.0f);
   return CostMoments{mu, sqrtf(var), fmaxf(__fsub_rn(bc, 1.0f), 0.0f)};
 }

@@ -1,10 +1,10 @@
 // jax.random's key tree and draws on Hopper, for the kernels of
 // agg_day.cu and lanes_day.cu: keys and their children, the uniform
-// transforms, the fused multiply-add of the plain versions' fma32 and the
-// inverse-CDF binomial walk (the Laplace draws are in xla_math.cuh). Every float operation is the one the plain
+// transforms and the fused multiply-add of the plain versions' fma32 (the
+// Laplace draws and the inverse-CDF binomial walk are in xla_math.cuh). Every float operation is the one the plain
 // PyTorch version performs on the card, spelled so that nvcc cannot
 // contract or reorder it (__fmul_rn, __fadd_rn, __fdiv_rn, IEEE sqrtf,
-// rintf, and the expf, logf, log1pf and powf that PyTorch's CUDA kernels
+// rintf, and the expf, logf and log1pf that PyTorch's CUDA kernels
 // call). The build hashes this header into each library's cache name
 // (adcraft_tpu_torch/cuda_build.py).
 
@@ -53,47 +53,5 @@ __device__ __forceinline__ float lane_uniform(Key k, uint32_t counter, int bits)
 // a * b + c rounded once, as XLA's contractions round it and as the plain
 // version's fma32 computes it (a float64 sum rounded to odd, then cast)
 __device__ __forceinline__ float fma32(float a, float b, float c) { return __fmaf_rn(a, b, c); }
-
-// The walk's constants for a success probability p: 1 - q and r = q / (1 -
-// q) for q = min(p, 1 - p) (p clamped to [0, 1]), and whether the count
-// flips (p > 1/2). They depend only on p, so agg_outcomes keeps them per
-// keyword in shared memory.
-struct WalkConsts {
-  float omq, r;
-  bool flip;
-};
-
-__device__ __forceinline__ WalkConsts walk_consts(float p) {
-  p = fminf(fmaxf(p, 0.0f), 1.0f);
-  const bool flip = p > 0.5f;
-  const float q = flip ? __fsub_rn(1.0f, p) : p;
-  const float omq = __fsub_rn(1.0f, q);
-  return WalkConsts{omq, __fdiv_rn(q, omq), flip};
-}
-
-// distributions.binomial_inv_u: the inverse-CDF walk over nmax levels from
-// the constants w; recip(j) is the float32 1/j
-template <class Recip>
-__device__ int walk_count(float u, int n, const WalkConsts& w, int nmax, Recip recip) {
-  const float nf = static_cast<float>(n);
-  float pmf = powf(w.omq, nf);
-  float cdf = pmf;
-  int cnt = 0;
-  // the CDF never falls, so the count stops at its first level >= u
-  for (int j = 1; j <= nmax && cdf < u; ++j) {
-    ++cnt;
-    if (j == nmax) break;
-    const float f = __fmul_rn(__fsub_rn(nf, static_cast<float>(j - 1)), __fmul_rn(w.r, recip(j)));
-    pmf = fmaxf(__fmul_rn(pmf, f), 0.0f);
-    cdf = __fadd_rn(cdf, pmf);
-  }
-  cnt = min(max(cnt, 0), n);
-  return w.flip ? n - cnt : cnt;
-}
-
-template <class Recip>
-__device__ __forceinline__ int binomial_walk(float u, int n, float p, int nmax, Recip recip) {
-  return walk_count(u, n, walk_consts(p), nmax, recip);
-}
 
 }  // namespace

@@ -26,7 +26,8 @@
 // * lanes_gate_float replaces, for the rust model's continuous costs
 //   (cost_create, distributions.py:325), the float32 gate that JAX runs
 //   for costs that are not cents (_gate_keywords_jacobi, step.py:152):
-//   one warp per env, one cell a step (at lanes_gate_float_kernel);
+//   one warp per env, windows of cells decided in runs by a scan of
+//   guessed spends and a ballot (at lanes_gate_float_kernel);
 // * lanes_outcomes replaces _append_conv_rev_tables (:953) and phase 3's
 //   gathers and sums (:1400-1502): one block per env, its warps reading
 //   tiles of 32 consecutive simulated cells, each warp drawing the
@@ -53,8 +54,8 @@
 // binomial's loops of XLA's log, the Laplace inverse CDF, the erf_inv
 // polynomial and its log1p); all issue more instructions than the work
 // needs, the gates most of all, since their decisions are one chain per
-// env (lanes_gate_float's a float one, in XLA's order of sums, so it
-// decides one cell a step). The gate's window splits the chain: stage A (all 32 lanes) takes up
+// env (lanes_gate_float's a float one, in XLA's order of sums). The
+// gate's window splits the chain: stage A (all 32 lanes) takes up
 // to 32 cells, with their clicks and keyword parameters loaded one window
 // ahead, draws each cell's first cost lane, then the other lanes of the
 // cells whose first lane is within the budget (the others are "skipped":
@@ -160,6 +161,20 @@ enum {
   kOutErfSteps,         // erf_inv steps
   kOutErfLogSteps,      // ... of them on log1p's log branch
   kOutErfPartial,       // ... of fewer than 32 lanes
+  kFloatAClocks,        // lanes_gate_float: stage A (keys, loads, first and dense lanes, prefixes)
+  kFloatBClocks,        // ... stage B (the decisions and writes)
+  kFloatWarpsRun,       // envs walked
+  kFloatWindows,        // windows drawn
+  kFloatLanes,          // cost lanes after the first drawn in windows
+  kFloatDead,           // cells walked after a stop in their sub-timestep (-1)
+  kFloatNoClick,        // simulated cells without clicks
+  kFloatOver,           // ... whose first lane is over the budget
+  kFloatWhole,          // ... that accept all their clicks
+  kFloatPartial,        // ... that accept some, resolved over their prefixes
+  kFloatDeep,           // cells with more lanes than the buffer, walked alone
+  kFloatBroken,         // days broken
+  kFloatRuns,           // runs of cells decided by one ballot
+  kFloatRedrawn,        // cells whose lanes were drawn alone, the budget having grown
   kNumStats
 };
 
@@ -639,12 +654,18 @@ __global__ void __launch_bounds__(32 * kGateWarps)
 
 // ---- lanes_gate_float: the rust model's float32 gate ----
 
-constexpr int kFloatCap = 256;  // lanes of a float gate window, a warp's shared buffer
+constexpr int kFloatCap = 256;    // lanes of a float gate window, a warp's shared buffer
+constexpr int kFloatBlocks = 8;   // lanes_gate_float blocks per SM its registers are capped for
+constexpr int kScanFixed = 256;   // a sub-timestep's spends before the first whose zero may
+                                  // move XLA's scan (a 16-block's start past element 256)
 
 // A float gate warp's window: its cells' lanes after the first, drawn
-// densely, then each cell's prefixes of them in XLA's order, in place.
+// densely, then each cell's prefixes of them in XLA's order, in place;
+// and each window cell's lanes, first lane, total and offset in pre.
 struct FloatWindow {
   float pre[kFloatCap];  // prefix j + 1 of a cell's lanes at off + j - 1, j >= 1
+  float first[32], total[32];
+  int n[32], off[32];
 };
 
 size_t gate_float_smem(int T) {
@@ -659,7 +680,8 @@ __device__ __forceinline__ float rust_lane(Key key, uint32_t ctr, float bid, boo
 
 // One cell's accepted clicks p and spend s at budget B from its lanes
 // drawn 32 at a time, their prefixes scanned in XLA's order by every lane
-// alike: a cell too deep for the window's buffer.
+// alike: a cell too deep for the window's buffer, or one whose lanes
+// stage A skipped.
 __device__ void walk_cell_float(Key key, int n, int k, int K, float bid, bool phantom, float B,
                                 int lane, int& p, float& s) {
   XlaScan<false> scan;
@@ -689,20 +711,43 @@ __device__ void walk_cell_float(Key key, int n, int k, int K, float bid, bool ph
 // sub-timestep's spends before k; it accepts its longest run of lanes
 // whose prefixes (the XLA scan of its lane costs) are <= B_k, and is
 // simulated if no cell before it in the sub-timestep left B_j - spend_j <=
-// 0; the next sub-timestep starts from b - (the scan of all K spends), and
-// the day breaks after a sub-timestep in which b - (the scan up to some
-// cell) <= 0. A cell not simulated before a later simulated one gets
-// accepted clicks -1. Costs are >= 0, so the prefixes never fall and B
-// never grows: as in lanes_gate, stage A draws each window cell's first
-// lane and, for the cells whose first lane is within the budget, its
-// other lanes densely into the warp's buffer, where each cell's lane then
-// scans its own lanes in XLA's order; stage B decides the window's cells
-// one at a time, a whole cell by its total, a partial one by a ballot over
-// its prefixes. The sums are float and their order is XLA's, so the
-// decisions form one chain: this first version walks it one cell a step.
-// It writes every cell of the sub-timesteps it walks (to the end of the one
+// 0 ("alive"); the next sub-timestep starts from b - (the scan of all K
+// spends, 0 for a cell not simulated), and the day breaks after a
+// sub-timestep in which b - (the scan up to some cell) <= 0. A cell not
+// simulated before a later simulated one gets accepted clicks -1. It
+// writes every cell of the sub-timesteps it walks (to the end of the one
 // after which the day breaks, or all T K), and no other.
-__global__ void __launch_bounds__(32 * kGateWarps)
+//
+// The decisions form one chain of float sums in XLA's order, so what
+// bounds the walk is the work per cell of that chain. Stage A (all 32
+// lanes) takes a window of up to 32 cells: each cell's first lane and, for
+// the cells whose first lane is within the budget, its other lanes
+// densely into the warp's buffer, where each cell's lane then scans its
+// own lanes in XLA's order; each cell's lanes, first lane and total go to
+// shared memory. Stage B decides the window from cell q on in rounds:
+// each lane guesses its cell's spend from the current B (0 if passive: no
+// click or a first lane over B; else its total), the lanes scan the
+// guesses in XLA's order (a block's elements in order, each lane adding
+// its block's guesses before it, at most 15; the blocks' totals up a level
+// as XlaScan sends them), so each lane has its cell's exact B_k if every
+// guess before it holds; one ballot then takes the run of cells whose
+// decision at their B_k is the guess (passive, or whole with B_k - total >
+// 0). A cell that breaks the run is decided alone (partial, by one ballot
+// over its prefixes; deep or redrawn, by its lanes drawn 32 at a time: a
+// cell skipped in stage A whose first lane a grown budget admits). Once a
+// cell has stopped the sub-timestep, the rest of it is not simulated: one
+// run, the spend scan skipping its zeros in closed form (a finished
+// block's unchanged total up a level, XlaScan::skip_zeros); past element
+// 256 of a sub-timestep a zero that starts a block of 16 takes the next
+// level's carry, which adds the blocks' totals in another order and can
+// move the scan's value, so such a run ends there and the day's break is
+// tested on every value. The first form of this kernel's stage B took
+// only runs of passive cells by one ballot and every other cell alone:
+// at $1000 a third of the cells are whole and none partial, and it
+// measured 0.99 against the first version's 1.04 ms (chip_smoke.py phase
+// 12's stage clocks: stage B 1.29M SM clocks per warp against 1.40M, for
+// 2.98M whole cells alone), so the runs take whole cells too.
+__global__ void __launch_bounds__(32 * kGateWarps, kFloatBlocks)
     lanes_gate_float_kernel(const float* __restrict__ params, const long long* __restrict__ keys,
                             long long key_stride, const int* __restrict__ ncl,
                             const int* __restrict__ imp, const float* __restrict__ budget,
@@ -712,6 +757,13 @@ __global__ void __launch_bounds__(32 * kGateWarps)
   const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int e = blockIdx.x * kGateWarps + w;
   if (e >= E) return;
+  Stats st;
+  unsigned long long mark = stage_clock();
+  const auto lap = [&](int stage) {
+    const unsigned long long now = stage_clock();
+    st.add(stage, now - mark);
+    mark = now;
+  };
   Key* tkeys = reinterpret_cast<Key*>(gate_smem_raw) + static_cast<size_t>(w) * T;
   FloatWindow& win =
       reinterpret_cast<FloatWindow*>(reinterpret_cast<Key*>(gate_smem_raw) + kGateWarps * T)[w];
@@ -731,6 +783,7 @@ __global__ void __launch_bounds__(32 * kGateWarps)
   float b = budget[e];  // the sub-timestep's budget
   float B = b;          // the next cell's, b - excl
   XlaScan<false> excl;  // the sub-timestep's spends so far
+  float V = 0.0f;       // the scan's value after them (b - V is B)
   bool alive = true;    // no cell of the sub-timestep has left B - spend <= 0
   bool low = false;     // some b - (scan up to a cell) <= 0 in the sub-timestep
   bool broken = false;
@@ -742,26 +795,6 @@ __global__ void __launch_bounds__(32 * kGateWarps)
     while (k >= K) {
       k -= K;
       ++t;
-    }
-  };
-  // the decision of the next cell, (p, s), and its sub-timestep's end
-  const auto commit = [&](int k, int& p, float& s) {
-    if (!alive) {
-      p = -1;
-      s = 0.0f;
-    } else {
-      alive = __fsub_rn(B, s) > 0.0f;
-      B = __fsub_rn(b, excl.push(s));
-      low = low || B <= 0.0f;
-      nsim = cell + 1;
-    }
-    ++cell;
-    if (k == K - 1) {  // B is b - the scan of all K spends (later zeros add nothing)
-      b = B;
-      broken = low;
-      low = false;
-      alive = true;
-      excl = XlaScan<false>();
     }
   };
   while (cell < TK && !broken) {
@@ -785,85 +818,190 @@ __global__ void __launch_bounds__(32 * kGateWarps)
     }
     const int off = end - rest;
     const unsigned fits = __ballot_sync(kFull, in && end <= kFloatCap);
-    const int nc = fits == kFull ? 32 : __ffs(~fits) - 1;
-    if (nc == 0) {  // a deep cell: more lanes than the buffer
-      int p;
-      float s = 0.0f;
-      if (alive) {
-        walk_cell_float(shfl_key(key, 0), __shfl_sync(kFull, n, 0), __shfl_sync(kFull, k, 0), K,
-                        __shfl_sync(kFull, bid, 0), __shfl_sync(kFull, phantom, 0), B, lane, p, s);
-      }
-      const int c0 = cell;
-      commit(__shfl_sync(kFull, k, 0), p, s);
-      if (lane == 0) {
-        acc_e[c0] = p;
-        spend_e[c0] = s;
-      }
-      cell_tk(1, t0, k0);
-      continue;
-    }
-    // the window's lanes after the first, drawn 32 a step (buffer lane g
-    // belongs to the last cell whose offset is <= g), then each cell's
-    // prefixes scanned by its own lane
-    const int lanes = __shfl_sync(kFull, end, nc - 1);
-    const int off_key = lane < nc ? off : 0x7FFFFFFF;
-    for (int g0 = 0; g0 < lanes; g0 += 32) {
-      const int g = g0 + lane;
-      int i = 0;
-#pragma unroll
-      for (int sh = 16; sh >= 1; sh >>= 1) {
-        if (__shfl_sync(kFull, off_key, i + sh) <= g) i += sh;
-      }
-      const int j = g - __shfl_sync(kFull, off, i) + 1;  // the cell's lane, from 1
-      const int ki = __shfl_sync(kFull, k, i);
-      const Key key_i = shfl_key(key, i);
-      const float bid_i = __shfl_sync(kFull, bid, i);
-      const bool phantom_i = __shfl_sync(kFull, phantom, i);
-      if (g < lanes) win.pre[g] = rust_lane(key_i, static_cast<uint32_t>(j) * K + ki, bid_i,
-                                            phantom_i);
-    }
-    __syncwarp();
+    // a deep cell (more lanes than the buffer) is a window of its own,
+    // whose lanes stage B draws
+    const bool deep = fits == 0u;
+    const int nc = deep ? 1 : fits == kFull ? 32 : __ffs(~fits) - 1;
     float total = first;
-    if (lane < nc && rest > 0) {
-      XlaScan<false> scan;
-      scan.push(first);
-      for (int j = 1; j < n; ++j) {
-        total = scan.push(win.pre[off + j - 1]);
-        win.pre[off + j - 1] = total;
+    if (!deep) {
+      // the window's lanes after the first, drawn 32 a step (buffer lane
+      // g belongs to the last cell whose offset is <= g), then each
+      // cell's prefixes scanned by its own lane
+      const int lanes = __shfl_sync(kFull, end, nc - 1);
+      st.add(kFloatLanes, lanes);
+      const int off_key = lane < nc ? off : 0x7FFFFFFF;
+      for (int g0 = 0; g0 < lanes; g0 += 32) {
+        const int g = g0 + lane;
+        int i = 0;
+#pragma unroll
+        for (int sh = 16; sh >= 1; sh >>= 1) {
+          if (__shfl_sync(kFull, off_key, i + sh) <= g) i += sh;
+        }
+        const int j = g - __shfl_sync(kFull, off, i) + 1;  // the cell's lane, from 1
+        const int ki = __shfl_sync(kFull, k, i);
+        const Key key_i = shfl_key(key, i);
+        const float bid_i = __shfl_sync(kFull, bid, i);
+        const bool phantom_i = __shfl_sync(kFull, phantom, i);
+        if (g < lanes) win.pre[g] = rust_lane(key_i, static_cast<uint32_t>(j) * K + ki, bid_i,
+                                              phantom_i);
+      }
+      __syncwarp();
+      if (lane < nc && rest > 0) {
+        XlaScan<false> scan;
+        scan.push(first);
+        for (int j = 1; j < n; ++j) {
+          total = scan.push(win.pre[off + j - 1]);
+          win.pre[off + j - 1] = total;
+        }
       }
     }
+    // cells whose lanes stage B draws: the deep one, and those skipped here
+    // that a grown budget admits
+    const unsigned walk = __ballot_sync(kFull, lane < nc && n > 1 && (deep || rest == 0));
+    if (lane < nc) {
+      win.n[lane] = n;
+      win.first[lane] = first;
+      win.total[lane] = total;
+      win.off[lane] = off;
+    }
     __syncwarp();
+    st.add(kFloatWindows, 1);
+    lap(kFloatAClocks);
 
-    // ---- stage B: the window's cells in order
+    // ---- stage B: the window's cells from q on, in runs or alone
     int my_p = 0;
     float my_s = 0.0f;
     const int start = cell;
-    for (int q = 0; q < nc && !broken; ++q) {
-      const int n_q = __shfl_sync(kFull, n, q), k_q = __shfl_sync(kFull, k, q);
-      const float first_q = __shfl_sync(kFull, first, q), total_q = __shfl_sync(kFull, total, q);
-      const int off_q = __shfl_sync(kFull, off, q);
-      int p = 0;
-      float s = 0.0f;
-      if (!alive || n_q == 0 || first_q > B) {
-      } else if (total_q <= B) {  // every prefix within the budget
-        p = n_q;
-        s = total_q;
-      } else {  // the first prefix over the budget, 32 lanes a step
-        p = n_q;
-        for (int j0 = 1; j0 < n_q; j0 += 32) {
-          const int j = j0 + lane;
-          const unsigned over = __ballot_sync(kFull, j < n_q && win.pre[off_q + j - 1] > B);
-          if (over != 0u) {
-            p = j0 + __ffs(over) - 1;
-            break;
-          }
+    int q = 0, kq = k0;  // window cell q is sub-timestep cell kq
+    while (q < nc && !broken) {
+      const int room = min(nc - q, K - kq);  // the window's cells left in the sub-timestep
+      int run = 0;
+      if (!alive) {  // not simulated: -1, a zero spend; the run ends at the
+                     // first cell that may move the scan
+        run = kq + room <= kScanFixed
+                  ? room
+                  : min(room, (kq <= kScanFixed ? kScanFixed : (kq + 15) & ~15) - kq + 1);
+        if (lane >= q && lane < q + run) my_p = -1;
+        st.add(kFloatDead, run);
+        V = excl.skip_zeros(run);
+        B = __fsub_rn(b, V);
+        low = low || B <= 0.0f;
+      } else {
+        // guess each cell's spend from B (0 where passive, its total
+        // else), scan the guesses in XLA's order across the lanes, and
+        // take the run of cells whose decision at their own B_k is the
+        // guess: those spends, and so every B_k up to the first miss, are
+        // exact
+        const bool mine = lane >= q && lane < q + room;
+        const bool guess_passive = n == 0 || first > B;
+        const float x = mine && !guess_passive ? total : 0.0f;
+        const int pos = kq + lane - q;  // the lane's element of the spends' scan
+        const int base = kq & ~15;      // the first element of the scan's current block
+        const bool based = (kq & 15) != 0 && pos < base + 16;  // continues that block
+        const int from = max(q, lane - (pos & 15));            // its block's first lane here
+        float wsum = based ? excl.w[0] : 0.0f;
+#pragma unroll
+        for (int d = 0; d < 16; ++d) {  // the block's running sum, in order
+          const int src = from + d;
+          const float v = __shfl_sync(kFull, x, src & 31);
+          if (src <= lane) wsum = d == 0 && !based ? v : __fadd_rn(wsum, v);
         }
-        s = p == 1 ? first_q : win.pre[off_q + p - 2];
+        // the carries of the blocks the round finishes: their totals up a
+        // level, on a copy of the scan
+        const int end0 = q + 15 - (kq & 15);  // the lane that finishes the current block
+        const float total0 = __shfl_sync(kFull, wsum, min(end0, 31));
+        const float total1 = __shfl_sync(kFull, wsum, min(end0 + 16, 31));
+        XlaScan<false> next = excl;
+        const float carry1 = next.up(total0);
+        const float carry2 = next.up(total1);
+        const float carry = pos >= base + 32 ? carry2 : pos >= base + 16 ? carry1 : excl.carry[0];
+        const float incl = pos >= 16 ? __fadd_rn(wsum, carry) : wsum;
+        const float up_incl = __shfl_up_sync(kFull, incl, 1);
+        const float Bk = __fsub_rn(b, lane == q ? V : up_incl);
+        const bool passive = n == 0 || first > Bk;
+        const bool ok = mine && Bk > 0.0f &&
+                        (passive ? guess_passive
+                                 : !guess_passive && !((walk >> lane) & 1u) && total <= Bk &&
+                                       __fsub_rn(Bk, total) > 0.0f);
+        const unsigned fine = __ballot_sync(kFull, ok) >> q;
+        run = min(fine == kFull ? 32 : __ffs(~fine) - 1, room);
+        if (run > 0) {
+          if (lane >= q && lane < q + run) {
+            my_p = passive ? 0 : n;
+            my_s = x;
+          }
+#ifdef LANES_STAGE_CLOCKS
+          const unsigned in_run = (run < 32 ? 1u << run : 0u) - 1u;
+          const int whole = __popc((__ballot_sync(kFull, !passive) >> q) & in_run);
+          const int clickless = __popc((__ballot_sync(kFull, n == 0) >> q) & in_run);
+          st.add(kFloatWhole, whole);
+          st.add(kFloatNoClick, clickless);
+          st.add(kFloatOver, run - whole - clickless);
+          st.add(kFloatRuns, 1);
+#endif
+          // the scan after the run's last cell
+          const int last = q + run - 1;
+          if (end0 <= last) excl.up(total0);
+          if (end0 + 16 <= last) excl.up(total1);
+          excl.w[0] = __shfl_sync(kFull, wsum, last);
+          excl.count[0] += run;
+          V = __shfl_sync(kFull, incl, last);
+          B = __fsub_rn(b, V);
+          low = low || B <= 0.0f;
+          nsim = cell + run;
+        }
       }
-      commit(k_q, p, s);
-      if (lane == q) {
-        my_p = p;
-        my_s = s;
+      if (run == 0) {  // cell q alone
+        run = 1;
+        const int n_q = win.n[q];
+        const float first_q = win.first[q];
+        int p = 0;
+        float s = 0.0f;
+        if (n_q == 0 || first_q > B) {  // accepts nothing (B <= 0 here)
+          st.add(n_q == 0 ? kFloatNoClick : kFloatOver, 1);
+        } else if ((walk >> q) & 1u) {
+          walk_cell_float(shfl_key(key, q), n_q, kq, K, __shfl_sync(kFull, bid, q),
+                          __shfl_sync(kFull, phantom, q), B, lane, p, s);
+          st.add(deep ? kFloatDeep : kFloatRedrawn, 1);
+        } else if (win.total[q] <= B) {  // whole, but B - total <= 0
+          p = n_q;
+          s = win.total[q];
+          st.add(kFloatWhole, 1);
+        } else {  // the first prefix over the budget, 32 lanes a step
+          const int off_q = win.off[q];
+          p = n_q;
+          for (int j0 = 1; j0 < n_q; j0 += 32) {
+            const int j = j0 + lane;
+            const unsigned over = __ballot_sync(kFull, j < n_q && win.pre[off_q + j - 1] > B);
+            if (over != 0u) {
+              p = j0 + __ffs(over) - 1;
+              break;
+            }
+          }
+          s = p == 1 ? first_q : win.pre[off_q + p - 2];
+          st.add(kFloatPartial, 1);
+        }
+        alive = __fsub_rn(B, s) > 0.0f;
+        V = excl.push(s);
+        B = __fsub_rn(b, V);
+        low = low || B <= 0.0f;
+        nsim = cell + 1;
+        if (lane == q) {
+          my_p = p;
+          my_s = s;
+        }
+      }
+      cell += run;
+      q += run;
+      kq += run;
+      if (kq == K) {  // the sub-timestep's end: B is b - the scan of all K spends
+        kq = 0;
+        b = B;
+        broken = low;
+        low = false;
+        alive = true;
+        excl = XlaScan<false>();
+        V = 0.0f;
       }
     }
     const int decided = cell - start;
@@ -872,8 +1010,12 @@ __global__ void __launch_bounds__(32 * kGateWarps)
       spend_e[start + lane] = my_s;
     }
     cell_tk(decided, t0, k0);
+    lap(kFloatBClocks);
   }
   if (lane == 0) n_sim[e] = nsim;
+  st.add(kFloatWarpsRun, 1);
+  st.add(kFloatBroken, broken);
+  st.flush(lane);
 }
 
 // ---- lanes_outcomes: one block per env, warp tiles of cells, per-warp lane rings ----

@@ -261,6 +261,48 @@ __device__ float xla_pow(float x, float y) {
   return xla_ftz(__double2float_rn(out));
 }
 
+// The walk's constants for a success probability p: 1 - q and r = q / (1 -
+// q) for q = min(p, 1 - p) (p clamped to [0, 1]), and whether the count
+// flips (p > 1/2). They depend only on p, so agg_outcomes keeps them per
+// keyword in shared memory.
+struct WalkConsts {
+  float omq, r;
+  bool flip;
+};
+
+__device__ __forceinline__ WalkConsts walk_consts(float p) {
+  p = fminf(fmaxf(p, 0.0f), 1.0f);
+  const bool flip = p > 0.5f;
+  const float q = flip ? __fsub_rn(1.0f, p) : p;
+  const float omq = __fsub_rn(1.0f, q);
+  return WalkConsts{omq, __fdiv_rn(q, omq), flip};
+}
+
+// distributions.binomial_inv_u: the inverse-CDF walk over nmax levels from
+// the constants w, pmf0 = (1 - q)^n XLA's powf; recip(j) is the float32 1/j
+template <class Recip>
+__device__ int walk_count(float u, int n, const WalkConsts& w, int nmax, Recip recip) {
+  const float nf = static_cast<float>(n);
+  float pmf = xla_pow(w.omq, nf);  // 1 - q >= 1/2: in xla_pow's domain
+  float cdf = pmf;
+  int cnt = 0;
+  // the CDF never falls, so the count stops at its first level >= u
+  for (int j = 1; j <= nmax && cdf < u; ++j) {
+    ++cnt;
+    if (j == nmax) break;
+    const float f = __fmul_rn(__fsub_rn(nf, static_cast<float>(j - 1)), __fmul_rn(w.r, recip(j)));
+    pmf = fmaxf(__fmul_rn(pmf, f), 0.0f);
+    cdf = __fadd_rn(cdf, pmf);
+  }
+  cnt = min(max(cnt, 0), n);
+  return w.flip ? n - cnt : cnt;
+}
+
+template <class Recip>
+__device__ __forceinline__ int binomial_walk(float u, int n, float p, int nmax, Recip recip) {
+  return walk_count(u, n, walk_consts(p), nmax, recip);
+}
+
 // xla_math.cumsum / cumprod, one element at a time: XLA's CPU float scan
 // adds (or multiplies) in blocks of 16, each block's elements in order;
 // the blocks' totals are scanned the same way, level by level, and each
@@ -277,18 +319,38 @@ struct XlaScan {
   }
   // the scan's value at the next element x
   __device__ float push(float x) {
-    float out = 0.0f, v = x;
+    w[0] = count[0] % 16 == 0 ? x : op(w[0], x);
+    const float out = count[0] >= 16 ? op(w[0], carry[0]) : w[0];
+    if (++count[0] % 16 == 0) up(w[0]);
+    return out;
+  }
+  // a finished level-0 block's total v into the levels above; returns
+  // the carry of the next level-0 block
+  __device__ float up(float v) {
 #pragma unroll
-    for (int l = 0; l < kLevels; ++l) {
+    for (int l = 1; l < kLevels; ++l) {
       w[l] = count[l] % 16 == 0 ? v : op(w[l], v);
-      const float o = count[l] >= 16 ? op(w[l], carry[l]) : w[l];
-      if (l == 0) {
-        out = o;
-      } else {
-        carry[l - 1] = o;
-      }
+      carry[l - 1] = count[l] >= 16 ? op(w[l], carry[l]) : w[l];
       if (++count[l] % 16 != 0) break;
-      v = w[l];  // a finished block's total goes up a level
+      v = w[l];
+    }
+    return carry[0];
+  }
+  // the scan's value after L >= 1 zeros, as L calls of push(0.0f) give
+  // it: a zero leaves its block's running value as it is (or starts the
+  // block at 0), so only each block it finishes sends its total up a
+  // level, once per block and not once per zero
+  __device__ float skip_zeros(int L) {
+    static_assert(!kMul, "a product scan skips no zeros");
+    float out = 0.0f;
+    while (L > 0) {
+      const int pos = count[0] % 16;
+      const int step = min(L, 16 - pos);
+      w[0] = pos == 0 ? 0.0f : op(w[0], 0.0f);
+      out = count[0] + step - 1 >= 16 ? op(w[0], carry[0]) : w[0];
+      count[0] += step;
+      L -= step;
+      if (count[0] % 16 == 0) up(w[0]);
     }
     return out;
   }

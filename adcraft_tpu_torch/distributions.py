@@ -321,14 +321,15 @@ def binomial_inv_u(u: torch.Tensor, n, p, nmax: int) -> torch.Tensor:
 
     ``count = #{j < nmax : P(X <= j) < u}``, clipped to [0, n], on q =
     min(p, 1 - p) with the count flipped when p > 1/2; the pmf by the
-    ratio recurrence, one level at a time, as ``binomial_inv`` walks it.
+    ratio recurrence, one level at a time, as ``binomial_inv`` walks it;
+    ``pmf0 = (1 - q)^n`` is XLA's ``powf`` (``xla_math.pow``).
     """
     n = torch.as_tensor(n, device=u.device).to(torch.float32)
     p = torch.clamp(torch.as_tensor(p, device=u.device).to(torch.float32), 0.0, 1.0)
     flip = p > 0.5
     q = torch.where(flip, 1.0 - p, p)
     r = q / (1.0 - q)
-    pmf = torch.pow(1.0 - q, n)
+    pmf = xla_math.pow(1.0 - q, n)
     cdf = pmf
     cnt = (cdf < u).to(torch.int32)
     for j in range(1, nmax):
@@ -451,10 +452,13 @@ def single_cost_cent_moments_closed(bid, loc, scale):
     scale)`` conditioned on ``|L| < bid - 0.005``; the JAX docstring
     derives the geometric sums term by term, and this follows it line for
     line, on XLA's ``exp`` and ``expm1`` and with the products that XLA
-    contracts into the sums after them as ``fma32`` (found term by term
-    against jitted XLA): the mean equals jitted XLA's bit for bit, the std
-    on all but about 0.1% of cells, where a contraction in the second
-    moment's ``m > 0`` branch is not yet found (ROADMAP.md, F5).
+    contracts into the sums after them as ``fma32``: both equal jitted
+    XLA's bit for bit. LLVM contracts, of a sum's two products, the one
+    with fewer uses, so a fusion that uses a product twice contracts the
+    other one. XLA computes the std in a fusion of its own that recomputes
+    the first moment's sums, and there ``s3`` has two uses: its
+    ``sum_a_top`` contracts ``n_top e_ya`` where the mean's contracts ``t3
+    geo0_top`` (read off the dumped IR, ``XLA_FLAGS=--xla_dump_to=DIR``).
     """
     bid = torch.as_tensor(bid).to(torch.float32)
     a = torch.abs(torch.as_tensor(loc).to(torch.float32))
@@ -506,11 +510,13 @@ def single_cost_cent_moments_closed(bid, loc, scale):
     s3 = t3 * geo0_top
     s3w = fma32(m, s3, t3 * geo1(n_top))
     sum_a_top = 0.5 * fma32(t3, geo0_top, -(n_top * e_ya))
+    sum_a_top_std = 0.5 * fma32(-n_top, e_ya, s3)
     sum_i_top = (0.5 * (big_i - 1.0 + m)) * n_top
     sum_ia_top = 0.5 * s3w - (0.5 * sum_i_top) * e_ya
 
     low = y0 <= a
     sum_a = torch.where(low, sum_a_low, sum_a_pre + sum_a_top)
+    sum_a_std = torch.where(low, sum_a_low, sum_a_pre + sum_a_top_std)
     sum_ia = torch.where(low, sum_ia_low, sum_ia_pre + sum_ia_top)
 
     z = laplace_cdf(y0, a, s) - laplace_cdf(-y0, a, s)
@@ -518,7 +524,7 @@ def single_cost_cent_moments_closed(bid, loc, scale):
     tail0 = torch.clamp(sum_a + sum_b, min=0.0)
     tail1 = torch.clamp(sum_ia + sum_ib, min=0.0)
     mu = tail0 / zsafe
-    m2 = (2.0 * tail1 + tail0) / zsafe
+    m2 = (2.0 * tail1 + torch.clamp(sum_a_std + sum_b, min=0.0)) / zsafe
     var = torch.clamp(fma32(-mu, mu, m2), min=0.0)
     return mu, xla_math.sqrt(var), torch.clamp(bc - 1.0, min=0.0)
 

@@ -38,7 +38,9 @@ three a day:
   (``xla_math.cumsum``, blocks of 16) and the Jacobi gate's fixed point
   (``gate_keywords_float``): accepted clicks (-1 in a cell not simulated
   before a simulated one), float spends and ``n_sim`` (the plain version
-  also the carried budget); on the card one warp per env, one cell a step;
+  also the carried budget); on the card one warp per env, windows of up
+  to 32 cells decided in runs by a scan of guessed spends and a ballot
+  (``tests/test_torch_lanes_gate_float_walk.py`` models the walk);
 * ``lanes_outcomes`` (plain: ``lanes_outcomes_reference``): conversions
   (the first ``accepted`` conversion flags), revenue (the first ``nconv``
   revenue draws, in cents), the ``cell_out`` masks and the (E, K) day sums;
@@ -338,9 +340,8 @@ def lanes_outcomes_reference(params, k_cells, imp, acc, spend, n_sim, n_auc01, l
     return tuple(sums)
 
 
-def bind_launchers(lib: ctypes.CDLL) -> None:
-    """The ctypes signatures of the three launchers, which every version of
-    ``csrc/lanes_day.cu`` exports."""
+def bind(lib: ctypes.CDLL) -> None:
+    """The ctypes signatures of ``csrc/lanes_day.cu``'s C interface."""
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.lanes_counts_launch.argtypes = [p, p, p, ll, p, p] + [i] * 8 + [p]
     lib.lanes_counts_launch.restype = i
@@ -348,12 +349,6 @@ def bind_launchers(lib: ctypes.CDLL) -> None:
     lib.lanes_gate_launch.restype = i
     lib.lanes_outcomes_launch.argtypes = [p, p, ll, p, p, p, p, p, p] + [i] * 6 + [p]
     lib.lanes_outcomes_launch.restype = i
-
-
-def bind(lib: ctypes.CDLL) -> None:
-    """The ctypes signatures of ``csrc/lanes_day.cu``'s C interface."""
-    bind_launchers(lib)
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.lanes_counts_explicit_launch.argtypes = lib.lanes_counts_launch.argtypes
     lib.lanes_counts_explicit_launch.restype = i
     lib.lanes_gate_python_launch.argtypes = [p, p, ll, p, p, p, p, p, p] + [i] * 7 + [p]
@@ -530,11 +525,13 @@ def occupancy(K: int, lanes: Lanes, device, model: int = IMPLICIT) -> dict:
 
 
 def kernels_built_from(csrc) -> dict:
-    """The three kernels' wrappers on a build of another tree's ``csrc``
-    (such as the parent commit's), to time two versions of them in turns."""
-    other = CudaLibrary("lanes_day", bind_launchers, csrc=csrc)
+    """The lanes kernels' wrappers on a build of another tree's ``csrc``
+    (such as the parent commit's, which exports this tree's C interface),
+    to time two versions of them in turns."""
+    other = CudaLibrary("lanes_day", bind, csrc=csrc)
     return {"lanes_counts": LanesCounts("lanes_counts (parent)", other),
             "lanes_gate": LanesGate("lanes_gate (parent)", other),
+            "lanes_gate_float": LanesGateFloat("lanes_gate_float (parent)", other),
             "lanes_outcomes": LanesOutcomes("lanes_outcomes (parent)", other)}
 
 

@@ -26,14 +26,15 @@ lanes knobs with explicit keywords and the rust cost model, on
 lanes_counts' explicit instance, lanes_gate_float and lanes_outcomes'
 float mode). ``--routes`` picks them; each env count runs them
 in turns in one process, forward then backward (pallas, xla, xla,
-pallas by default). With ``--parent-csrc DIR``, the route ``lanes_parent``
-is the lanes route on the lanes_day kernels built from DIR (another
+pallas by default). With ``--parent-csrc DIR``, the routes
+``lanes_parent`` and ``explicit_lanes_parent`` are the lanes and
+explicit_lanes routes on the lanes_day kernels built from DIR (another
 tree's ``adcraft_tpu_torch/csrc``, such as the parent commit's), to time
 two versions of those kernels in turns.
 
     python3 -m adcraft_tpu_torch.step_rate [--envs 1024 4096 8192]
-        [--routes pallas xla lanes explicit explicit_lanes lanes_parent] [--parent-csrc DIR]
-        [--json PATH]
+        [--routes pallas xla lanes explicit explicit_lanes lanes_parent explicit_lanes_parent]
+        [--parent-csrc DIR] [--json PATH]
 
 It runs on the card only.
 """
@@ -61,9 +62,11 @@ from adcraft_tpu_torch.quantiles import simple_experiment_table
 K, MAX_VOLUME, BID = 100, 576, 1.00
 WARMUP, RUNS, STEPS = 3, 5, 10
 ROUTE_KNOBS = {"pallas": {"day_kernel": "pallas"}, "xla": BENCH_XLA_KNOBS, "lanes": {},
-               "lanes_parent": {}, "explicit": BENCH_XLA_KNOBS, "explicit_lanes": {}}
-EXPLICIT_ROUTES = ("explicit", "explicit_lanes")
-LANES_KERNELS = ("lanes_counts", "lanes_gate", "lanes_outcomes")
+               "lanes_parent": {}, "explicit": BENCH_XLA_KNOBS, "explicit_lanes": {},
+               "explicit_lanes_parent": {}}
+EXPLICIT_ROUTES = ("explicit", "explicit_lanes", "explicit_lanes_parent")
+PARENT_ROUTES = ("lanes_parent", "explicit_lanes_parent")
+LANES_KERNELS = ("lanes_counts", "lanes_gate", "lanes_gate_float", "lanes_outcomes")
 KERNELS = {"day_kernel": dk.day_kernel, "threefry_words": pk.threefry_words,
            "agg_cells_gate": agg_day.agg_cells_gate, "agg_outcomes": agg_day.agg_outcomes}
 
@@ -71,8 +74,7 @@ KERNELS = {"day_kernel": dk.day_kernel, "threefry_words": pk.threefry_words,
 def counted_kernels() -> dict:
     """The kernels whose launches a step counts, the lanes day's as the step
     calls them."""
-    lanes = LANES_KERNELS + ("lanes_gate_float",)
-    return dict(KERNELS, **{name: getattr(lanes_day, name) for name in lanes})
+    return dict(KERNELS, **{name: getattr(lanes_day, name) for name in LANES_KERNELS})
 
 
 def route_config(route: str) -> EnvConfig:
@@ -108,7 +110,7 @@ def lanes_kernels(kernels):
 
 
 def measure(num_envs: int, route: str, device: torch.device, parent=None) -> dict:
-    with lanes_kernels(parent if route == "lanes_parent" else None):
+    with lanes_kernels(parent if route in PARENT_ROUTES else None):
         return _measure(num_envs, route, device)
 
 
@@ -154,11 +156,11 @@ def main(argv=None) -> int:
     parser.add_argument("--routes", nargs="+", choices=sorted(ROUTE_KNOBS),
                         default=["pallas", "xla"])
     parser.add_argument("--parent-csrc", type=Path,
-                        help="the csrc directory the lanes_parent route builds")
+                        help="the csrc directory the *_parent routes build")
     parser.add_argument("--json", type=Path, help="also write the results here")
     args = parser.parse_args(argv)
-    if ("lanes_parent" in args.routes) != (args.parent_csrc is not None):
-        parser.error("the lanes_parent route and --parent-csrc go together")
+    if bool(set(PARENT_ROUTES) & set(args.routes)) != (args.parent_csrc is not None):
+        parser.error("the *_parent routes and --parent-csrc go together")
     parent = None
     if args.parent_csrc is not None:
         parent = lanes_day.kernels_built_from(args.parent_csrc)

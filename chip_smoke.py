@@ -59,8 +59,9 @@ Phases, each fatal on failure:
    then the slice, VectorBiddingEnv(day_kernel="xla") reset, 5 steps
    and rollout(5) from the same state at bids $1.00 and the $1000 budget,
    counts zeroed just before: one launch of each kernel per day, 4
-   threefry_words launches per step, invariants, and every output equal
-   to the same days through the plain versions; CUDA device events per
+   threefry_words launches per step, invariants, and every output of the
+   first 3 days equal to those days through the plain versions (as in
+   phases 10 and 12); CUDA device events per
    step; the same slice again under experiments/train_rl.py's fast knobs
    (rev_sampling="day"), with its own counts; and the budget's cast on
    both routes: one day at $inf and $1e8 equal to the day at $1e6, one at
@@ -89,13 +90,15 @@ Phases, each fatal on failure:
    at 1024 envs: equal to its plain version, and its impressions' mean
    and variance within 6 standard errors of the Binomial's; the
    inversion sampler and 16-bit lanes at 1024 envs, each equal to its
-   plain version (and lanes_outcomes to the parent's); the three kernels
+   plain version (and lanes_outcomes to the parent's; with --parent-csrc
+   the inversion sampler's lanes_counts also against the parent's, its
+   differing counts counted, timed in turns); the three kernels
    at K = 2100 keywords and 3 envs, past lanes_outcomes' old limit, equal
    to their plain versions; then the slice, 5 steps, rollout(5) and 4 days of
    autoreset_step at max_days 3 (every episode ends and restarts), counts
    zeroed just before: one launch of each kernel per day, and steps,
    keys and autoreset states equal to the same days through the plain
-   versions; CUDA device events, device busy time and idle share per
+   versions (the steps' first 3); CUDA device events, device busy time and idle share per
    step;
 11. explicit keywords on the XLA day step (bench.py's dense_explicit
    regime: its knobs with kind=EXPLICIT) at 4096 envs x 100 keywords x 24
@@ -123,22 +126,32 @@ Phases, each fatal on failure:
    lanes_gate_float every cell it walks, -1 where not simulated; n_sim,
    the float spends, the day sums), timed at full width beside their
    bounds and plain versions, with ptxas' registers and spills and blocks
-   per SM; then the slice per cost model: reset, 5 steps, rollout(5) and
+   per SM; on every rust day lanes_gate_float's -DLANES_STAGE_CLOCKS
+   build (equal outputs): its walked cells by kind (not simulated, no
+   click, first lane over the budget, whole, partial, deep; they add up
+   to the cells walked), runs by ballot, redrawn cells, windows, lanes,
+   broken days and SM clocks per stage; with --parent-csrc its outputs
+   equal to the parent's bit for bit and its time in turns with it; the
+   rust model also at K = 300 keywords and 256 envs (past element 256 of
+   XLA's scan of a sub-timestep's spends), untimed, at $1000 and the
+   "prefix" budget; then
+   the slice per cost model: reset, 5 steps, rollout(5) and
    4 autoreset_step(reset_kw=True) days at max_days 3 (every episode ends
    and draws fresh keywords), counts zeroed just before: one launch of
    each kernel per day, outcomes, keys and autoreset days equal to the
-   plain versions;
+   plain versions (the steps' first 3);
    CUDA device events, device busy time and idle share per step. With --parent-csrc DIR, then, agg_cells_gate's
-   three instances, agg_outcomes and threefry_words at full width in
-   turns with DIR's build, with the count of outputs where the trees
-   differ.
+   three instances, agg_outcomes (both revenue modes) and threefry_words
+   at full width in turns with DIR's build, with the count of outputs
+   where the trees differ.
 
 The line before the last is a JSON object with each kernel's launches on
 its path, error, times and bound; the last line is {"ok": true, "device":
 {...}}. Without a CUDA device, or outside the repository, it exits 1 and
-prints no result.
+prints no result. With --phases (a comma-separated subset of 9, 10, 11
+and 12) it runs phases 1, 2 and those only, and prints no result lines.
 
-    python3 chip_smoke.py [--parent-csrc DIR]
+    python3 chip_smoke.py [--parent-csrc DIR] [--phases 9,10,11,12]
 """
 
 from __future__ import annotations
@@ -161,6 +174,9 @@ MAX_VOLUME = 576
 BID = 1.00
 SEED = 12345
 STEPS = 5
+# the slices' first steps re-run through the plain versions (phases 9, 10,
+# 12): the plain days are the script's longest part
+PLAIN_STEPS = 3
 DEVICE = "cuda:0"
 MAX_SE = 6.0
 BACKLOG_CYCLES = 20_000_000  # SM clock cycles the spin kernel holds the stream
@@ -733,8 +749,8 @@ def xla_phase(torch, dev, card, table, ops_per_word, int_ops_per_s, fp_ops_per_s
 
     def run_slice(slice_env, label):
         """Reset, 5 steps and rollout(5) from the same state, counts zeroed
-        just before and read just after; then the same days through the
-        plain versions. Returns the agg kernels' launches."""
+        just before and read just after; then the first PLAIN_STEPS days
+        through the plain versions. Returns the agg kernels' launches."""
         kernels = {"agg_cells_gate": ad.agg_cells_gate, "agg_outcomes": ad.agg_outcomes}
         state_a, _ = slice_env.reset(prng.PRNGKey(6))
         torch.cuda.synchronize()
@@ -743,10 +759,11 @@ def xla_phase(torch, dev, card, table, ops_per_word, int_ops_per_s, fp_ops_per_s
         pk.threefry_words.launches = 0
         t0 = time.perf_counter()
         state = state_a
-        steps = []
+        steps, states = [], []
         for _ in range(STEPS):
             state, ts = slice_env.step(state, bids)
             steps.append(ts)
+            states.append(state)
         torch.cuda.synchronize()
         step_s = time.perf_counter() - t0
         end_step = state
@@ -785,7 +802,7 @@ def xla_phase(torch, dev, card, table, ops_per_word, int_ops_per_s, fp_ops_per_s
         t0 = time.perf_counter()
         with agg_plain(ad), words_replaced(pk, pk.threefry_words_reference):
             state = state_a
-            for i in range(STEPS):
+            for i in range(PLAIN_STEPS):
                 state, ts = slice_env.step(state, bids)
                 want = steps[i]
                 pairs = [("reward", ts.reward, want.reward)]
@@ -796,7 +813,7 @@ def xla_phase(torch, dev, card, table, ops_per_word, int_ops_per_s, fp_ops_per_s
                     if not torch.equal(x, y):
                         fail(f"{label} slice step {i}: {name} differs between kernels and plain")
             torch.cuda.synchronize()
-            if not torch.equal(state.key, end_step.key):
+            if not torch.equal(state.key, states[PLAIN_STEPS - 1].key):
                 fail(f"{label} slice: the state key differs between kernels and plain")
         plain_s = time.perf_counter() - t0
 
@@ -813,7 +830,8 @@ def xla_phase(torch, dev, card, table, ops_per_word, int_ops_per_s, fp_ops_per_s
               f"bids ${BID:.2f}, budget ${XLA_BUDGET:g}: {imps} impressions, ${cost:.2f} spent, "
               f"${revenue:.2f} revenue; launches {launches}, threefry_words "
               f"{words_launches / (2 * STEPS):g} per step; kernels {STEPS * E / step_s:.1f} "
-              f"env-steps/s ({step_s:.3f} s), plain {STEPS * E / plain_s:.1f} env-steps/s; CUDA "
+              f"env-steps/s ({step_s:.3f} s), plain {PLAIN_STEPS * E / plain_s:.1f} env-steps/s "
+              f"(its first {PLAIN_STEPS} days); CUDA "
               f"device events per step {events:.1f} ({card})")
         return launches
 
@@ -1174,8 +1192,12 @@ LANES_STATS = (
     "outcomes tile clocks", "flag step clocks", "revenue step clocks", "erf step clocks",
     "outcomes write clocks", "outcomes warps", "flag lanes", "revenue lanes", "flag steps",
     "revenue steps", "partial flag steps", "partial revenue steps", "erf steps", "erf log steps",
-    "partial erf steps",
+    "partial erf steps", "float stage A clocks", "float stage B clocks", "float warps",
+    "float windows", "float lanes", "float dead", "float no click", "float over", "float whole",
+    "float partial", "float deep", "float broken", "float runs", "float redrawn",
 )
+FLOAT_KINDS = ("float dead", "float no click", "float over", "float whole", "float partial",
+               "float deep")
 
 
 def lanes_stats_build(ld, cuda_build):
@@ -1191,6 +1213,7 @@ def lanes_stats_build(ld, cuda_build):
     library = cuda_build.CudaLibrary("lanes_day", bind, flags=("-DLANES_STAGE_CLOCKS",))
     return {"lanes_counts": ld.LanesCounts("lanes_counts (stats)", library),
             "lanes_gate": ld.LanesGate("lanes_gate (stats)", library),
+            "lanes_gate_float": ld.LanesGateFloat("lanes_gate_float (stats)", library),
             "lanes_outcomes": ld.LanesOutcomes("lanes_outcomes (stats)", library)}
 
 
@@ -1292,6 +1315,43 @@ def lanes_counters(stats_kernels, lanes, params, n_auc01, k_cells, imp, ncl, bud
           f"{st['BTRS passes'] / btrs_calls:.2f} passes per call (most {st['BTRS max']}); SM "
           f"clocks per warp (two calls): inversion {2 * st['inversion clocks'] / calls:.0f}, "
           f"BTRS {2 * st['BTRS clocks'] / calls:.0f}, all {2 * st['counts clocks'] / calls:.0f}")
+
+
+def float_gate_counters(stats_kernel, params, k_cells, ncl, imp, budget, lanes, gate, label):
+    """One day of lanes_gate_float through the -DLANES_STAGE_CLOCKS build
+    (its outputs equal to ``gate`` on every cell it walks): prints its
+    cells by kind (which add up to the cells walked, the -1 ones "dead"),
+    windows, lanes, runs by ballot, redrawn cells, broken days and SM clocks
+    per stage."""
+    import torch
+
+    index = params.device.index or 0
+    read_lanes_stats(stats_kernel.library, index)  # zero the counters
+    got = stats_kernel(params, k_cells, ncl, imp, budget, lanes)
+    st = read_lanes_stats(stats_kernel.library, index)
+    envs, nk = params.shape[1:]
+    n_sim = gate[2]
+    cell = torch.arange(lanes.T * nk, device=params.device).view(1, lanes.T, nk)
+    walked = cell < ((n_sim + nk - 1) // nk * nk).view(-1, 1, 1)
+    if not (torch.equal(got[2], n_sim)
+            and all(torch.equal(a[walked], b[walked]) for a, b in zip(got[:2], gate[:2]))):
+        fail(f"lanes_gate_float ({label}): the -DLANES_STAGE_CLOCKS build's outputs differ")
+    n_walked = walked.sum().item()
+    dead = (gate[0][walked] == -1).sum().item()
+    if (sum(st[k] for k in FLOAT_KINDS) != n_walked or st["float dead"] != dead
+            or st["float warps"] != envs):
+        fail(f"lanes_gate_float ({label}): counters {[st[k] for k in FLOAT_KINDS]} over "
+             f"{st['float warps']} warps, want {n_walked} walked cells ({dead} dead) over {envs}")
+    warps = st["float warps"]
+    print(f"  lanes_gate_float walk ({label}): {n_walked} walked cells: "
+          + ", ".join(f"{st[k]} {k[6:]}" for k in FLOAT_KINDS)
+          + f"; {st['float runs']} runs by ballot, {st['float redrawn']} cells "
+          f"redrawn; {st['float windows']} windows, {st['float lanes']} lanes after the first; "
+          f"{st['float broken']} of {envs} days broken; SM clocks per warp: stage A "
+          f"{st['float stage A clocks'] / warps:.0f}, stage B "
+          f"{st['float stage B clocks'] / warps:.0f}; per walked cell "
+          f"{(st['float stage A clocks'] + st['float stage B clocks']) / n_walked:.1f}",
+          flush=True)
 
 
 def lanes_phase(torch, dev, card, table, ops_per_word, int_ops_per_s, fp_ops_per_s, sms,
@@ -1409,6 +1469,18 @@ def lanes_phase(torch, dev, card, table, ops_per_word, int_ops_per_s, fp_ops_per
                 params, k_cells, imp, acc, spend, n_sim, n_auc01, lanes_))
         compare("lanes_outcomes", [(f"day sum {i}", g, w) for i, (g, w) in
                                    enumerate(zip(got_out, want_out))], label)
+        if parent is not None and sampler == "inversion":
+            # the walk's pmf0 is XLA's powf (F7), so counts may differ from
+            # the parent's where a CDF lies within an ulp of its uniform
+            this_counts = lambda: ld.lanes_counts(params, n_auc01, k_cells, lanes_, sampler)  # noqa: E731
+            parent_counts = lambda: parent["lanes_counts"](  # noqa: E731
+                params, n_auc01, k_cells, lanes_, sampler)
+            parent_differs("lanes_counts", zip(("imp", "ncl"), parent_counts(), got_counts),
+                           label)
+            turns = [cuda_ms(c, reps=10) for c in (parent_counts, this_counts, this_counts,
+                                                    parent_counts)]
+            print(f"  lanes_counts ({label}) in turns with the parent's: parent {turns[0]:.4f} / "
+                  f"{turns[3]:.4f} ms, this {turns[1]:.4f} / {turns[2]:.4f} ms ({card})")
         if parent is not None:
             try:
                 pout = parent["lanes_outcomes"](params, k_cells, imp, got_gate[0], got_gate[1],
@@ -1586,10 +1658,11 @@ def lanes_phase(torch, dev, card, table, ops_per_word, int_ops_per_s, fp_ops_per
         kernel.launches = 0
     pk.threefry_words.launches = 0
     t0 = time.perf_counter()
-    state, steps = state_a, []
+    state, steps, states = state_a, [], []
     for _ in range(STEPS):
         state, ts = env.step(state, bids)
         steps.append(ts)
+        states.append(state)
     torch.cuda.synchronize()
     step_s = time.perf_counter() - t0
     end_step = state
@@ -1632,7 +1705,7 @@ def lanes_phase(torch, dev, card, table, ops_per_word, int_ops_per_s, fp_ops_per
     t0 = time.perf_counter()
     with lanes_plain(ld), words_replaced(pk, pk.threefry_words_reference):
         state = state_a
-        for i in range(STEPS):
+        for i in range(PLAIN_STEPS):
             state, ts = env.step(state, bids)
             want = steps[i]
             pairs = [("reward", ts.reward, want.reward)]
@@ -1642,7 +1715,7 @@ def lanes_phase(torch, dev, card, table, ops_per_word, int_ops_per_s, fp_ops_per
             for name, a, b in pairs:
                 if not torch.equal(a, b):
                     fail(f"lanes slice step {i}: {name} differs between kernels and plain")
-        if not torch.equal(state.key, end_step.key):
+        if not torch.equal(state.key, states[PLAIN_STEPS - 1].key):
             fail("lanes slice: the state key differs between kernels and plain")
         torch.cuda.synchronize()
         plain_s = time.perf_counter() - t0
@@ -1672,7 +1745,8 @@ def lanes_phase(torch, dev, card, table, ops_per_word, int_ops_per_s, fp_ops_per
           f"${LANES_BUDGET:g}: {imps} impressions, ${cost:.2f} spent; launches {launches}, "
           f"threefry_words {words_launches / days:g} per day; == plain (steps, keys, autoreset "
           f"states); kernels {STEPS * E / step_s:.1f} env-steps/s ({step_s:.3f} s), plain "
-          f"{STEPS * E / plain_s:.1f} env-steps/s; per step under the profiler: {events:.1f} CUDA "
+          f"{PLAIN_STEPS * E / plain_s:.1f} env-steps/s (its first {PLAIN_STEPS} days); per step "
+          f"under the profiler: {events:.1f} CUDA "
           f"device events, device busy {busy_ms:.3f} ms of {wall_ms:.3f} ms, idle "
           f"{100 * (1 - busy_ms / wall_ms):.1f}% ({card})")
 
@@ -1710,6 +1784,11 @@ EXPLICIT_LANES_BUDGETS = {"RUST_QUIRK": (("$1000", XLA_BUDGET), ("tight", 10.0),
                                          ("prefix", None)),
                           "PYTHON": (("$1000", XLA_BUDGET), ("tight", 2.0), ("$0", 0.0))}
 PREFIX_CELL = 19  # past the spends' first block of 16 (K - 3 where K is smaller)
+# lanes_gate_float past element 256 of a sub-timestep, where a zero spend at
+# a 16-block's start may move XLA's scan: K = 300 at a few hundred envs; its
+# "prefix" budget reached in the block from element 288
+WIDE_FLOAT_K, WIDE_FLOAT_ENVS, WIDE_PREFIX_CELL = 300, 256, 293
+WIDE_FLOAT_BUDGETS = ("$1000", "prefix")
 # EnvConfig's own lane counts: max_volume 1024 at T = 24 gives m0 = 65 (past
 # the kernels' 32-lane windows) and m1 = 42; its 10 keywords
 DEFAULT_SHAPE = {"max_volume": 1024, "num_keywords": 10}
@@ -1725,14 +1804,18 @@ def explicit_lanes_kind(name: str) -> str:
     return "lanes_outcomes" if name.startswith("lanes_outcomes") else name
 
 
-def explicit_lanes_phase(torch, dev, card, ops_per_word, int_ops_per_s, fp_ops_per_s):
+def explicit_lanes_phase(torch, dev, card, ops_per_word, int_ops_per_s, fp_ops_per_s,
+                         stats_kernels, parent):
     """Phase 12: explicit keywords on the lanes route (EnvConfig's defaults),
     both cost models: lanes_counts' explicit instance, lanes_gate's python
     instance or lanes_gate_float, and lanes_outcomes (float mode for the
-    rust model) against their plain versions at full width and at
-    EnvConfig's own lane counts, timed beside their bounds; then each
-    model's slice through the kernels and the plain versions. Returns the
-    JSON entries of the new kernels and instances."""
+    rust model) against their plain versions at full width, at
+    EnvConfig's own lane counts and (rust, untimed) at K = 300, timed
+    beside their bounds; lanes_gate_float's counters from the
+    -DLANES_STAGE_CLOCKS build on every rust day and, with ``parent``, its
+    outputs equal to the parent tree's and its time in turns with it; then
+    each model's slice through the kernels and the plain versions. Returns
+    the JSON entries of the new kernels and instances."""
     from adcraft_tpu_torch import EnvConfig, VectorBiddingEnv
     from adcraft_tpu_torch import agg_day as ad
     from adcraft_tpu_torch import distributions as dist
@@ -1798,7 +1881,8 @@ def explicit_lanes_phase(torch, dev, card, ops_per_word, int_ops_per_s, fp_ops_p
             if budget is None:
                 unbound = ld.lanes_gate_float_reference(
                     params, k_cells, ncl, imp, torch.full((envs,), 1e9, device=dev), lanes)[1]
-                budget_g = xla_math.cumsum(unbound[:, 0], 1)[:, min(PREFIX_CELL, nk - 3)]
+                prefix_cell = min(PREFIX_CELL, nk - 3) if nk <= 256 else WIDE_PREFIX_CELL
+                budget_g = xla_math.cumsum(unbound[:, 0], 1)[:, prefix_cell]
                 budget_g = budget_g.contiguous()
             else:
                 budget_g = torch.full((envs,), budget, device=dev)
@@ -1823,6 +1907,19 @@ def explicit_lanes_phase(torch, dev, card, ops_per_word, int_ops_per_s, fp_ops_p
         pairs = [("n_sim", gate[2], n_sim)] + [
             (what, g[walked], w[walked]) for what, g, w in zip(("acc", "spend"), gate, want_gate)]
         compare(gate_name, pairs, label)
+        parent_gate = None
+        if rust:
+            float_gate_counters(stats_kernels["lanes_gate_float"], params, k_cells, ncl, imp,
+                                budget_g, lanes, gate, label)
+            if parent is not None:
+                parent_gate = lambda: parent["lanes_gate_float"](  # noqa: E731
+                    params, k_cells, ncl, imp, budget_g, lanes)
+                # the walk is redesigned, its arithmetic is not: the parent's
+                # outputs equal this tree's bit for bit
+                pgate = parent_gate()
+                compare(gate_name, [("parent's n_sim", pgate[2], gate[2])] + [
+                    (f"parent's {what}", g[walked], w[walked])
+                    for what, g, w in zip(("acc", "spend"), pgate, gate)], label)
         if budget in (0.0, None):
             broke = (n_sim <= nk).sum().item()
             unsimulated = (gate[0][walked] == -1).sum().item()
@@ -1854,7 +1951,7 @@ def explicit_lanes_phase(torch, dev, card, ops_per_word, int_ops_per_s, fp_ops_p
                                                                     "exact", model),
                  gate_name: gate_call, out_name: out_call}
         plain = {"lanes_counts (explicit)": counts_ms, gate_name: gate_ms, out_name: out_ms}
-        return imp, ncl, gate, sim & (gate[0] >= 0), out, calls, plain
+        return imp, ncl, gate, sim & (gate[0] >= 0), out, calls, plain, parent_gate
 
     timed = {}
     for model_name in ("RUST_QUIRK", "PYTHON"):
@@ -1872,7 +1969,7 @@ def explicit_lanes_phase(torch, dev, card, ops_per_word, int_ops_per_s, fp_ops_p
         n_t = torch.stack([n_auc01[0]] + [n_auc01[1]] * (T - 1), 1)
         counts = check_counts(cfg, params, n_auc01, k_cells, model_name)
         for label, budget in EXPLICIT_LANES_BUDGETS[model_name]:
-            imp, ncl, gate, sim, out, calls, plain = check_day(
+            imp, ncl, gate, sim, out, calls, plain, parent_gate = check_day(
                 cfg, params, n_auc01, k_cells, counts, budget, f"{model_name} {label}")
             if budget in (0.0, None):  # checked only: the days break at once
                 continue
@@ -1916,12 +2013,27 @@ def explicit_lanes_phase(torch, dev, card, ops_per_word, int_ops_per_s, fp_ops_p
                       f"{plain[name]:.1f} ms; {words:.0f} threefry words, {fp:.4g} float ops, "
                       f"{nbytes / 1e6:.1f} MB; bound {kbound[0]:.4f} ms ({kbound[1]}), "
                       f"{100 * kbound[0] / ms:.1f}% of it reached ({card})", flush=True)
+                if name == "lanes_gate_float" and parent_gate is not None:
+                    turns = [cuda_ms(c, reps=10) for c in (parent_gate, call, call, parent_gate)]
+                    print(f"  {name} ({model_name} {label}) in turns with the parent's: parent "
+                          f"{turns[0]:.4f} / {turns[3]:.4f} ms ({100 * kbound[0] / turns[0]:.1f}% "
+                          f"/ {100 * kbound[0] / turns[3]:.1f}% of the bound), this "
+                          f"{turns[1]:.4f} / {turns[2]:.4f} ms ({100 * kbound[0] / turns[1]:.1f}% "
+                          f"/ {100 * kbound[0] / turns[2]:.1f}%) ({card})", flush=True)
         # EnvConfig's own lane counts (m0 = 65) at both budgets
         dcfg = cfg.replace(**DEFAULT_SHAPE)
         _, _, dparams, dn, dkeys = inputs(dcfg, E, 70)
         dcounts = check_counts(dcfg, dparams, dn, dkeys, f"{model_name}, m0 65")
         for label, budget in EXPLICIT_LANES_BUDGETS[model_name]:
             check_day(dcfg, dparams, dn, dkeys, dcounts, budget, f"{model_name} {label}, m0 65")
+        if model == ad.EXPLICIT_RUST:  # past XLA's scan boundary at element 256, untimed
+            wcfg = cfg.replace(num_keywords=WIDE_FLOAT_K)
+            _, _, wparams, wn, wkeys = inputs(wcfg, WIDE_FLOAT_ENVS, 75)
+            wcounts = check_counts(wcfg, wparams, wn, wkeys, f"{model_name}, K {WIDE_FLOAT_K}")
+            for label, budget in EXPLICIT_LANES_BUDGETS[model_name]:
+                if label in WIDE_FLOAT_BUDGETS:
+                    check_day(wcfg, wparams, wn, wkeys, wcounts, budget,
+                              f"{model_name} {label}, K {WIDE_FLOAT_K}")
 
         # the slice: counts zeroed just before, read just after (the
         # episodes end on the third autoreset day)
@@ -1934,10 +2046,11 @@ def explicit_lanes_phase(torch, dev, card, ops_per_word, int_ops_per_s, fp_ops_p
         for kernel in kernels.values():
             kernel.launches = 0
         t0 = time.perf_counter()
-        state, steps = state0, []
+        state, steps, states = state0, [], []
         for _ in range(n_steps):
             state, ts = env.step(state, bids)
             steps.append(ts)
+            states.append(state)
         torch.cuda.synchronize()
         step_s = time.perf_counter() - t0
         end_roll, roll = env.rollout(state0, bids, n_steps)
@@ -1967,13 +2080,13 @@ def explicit_lanes_phase(torch, dev, card, ops_per_word, int_ops_per_s, fp_ops_p
             fail(f"explicit lanes autoreset ({model_name}): the episodes did not end at max_days")
         with lanes_plain(ld), words_replaced(pk, pk.threefry_words_reference):
             plain_state = state0
-            for i in range(n_steps):
+            for i in range(PLAIN_STEPS):
                 plain_state, ts = env.step(plain_state, bids)
                 for f in ts.outcomes._fields:
                     if not torch.equal(getattr(ts.outcomes, f), getattr(steps[i].outcomes, f)):
                         fail(f"explicit lanes step {i} ({model_name}): {f} differs between the "
                              f"kernels and plain")
-            if not torch.equal(plain_state.key, state.key):
+            if not torch.equal(plain_state.key, states[PLAIN_STEPS - 1].key):
                 fail(f"explicit lanes ({model_name}): the key differs between kernels and plain")
             plain_r = state0
             for i, (want_state, want_ts) in enumerate(resets):
@@ -2100,14 +2213,17 @@ def parent_turns_phase(torch, dev, card, table, parent):
               f"{sim.sum().item()} simulated cells")
         turns(name, gate(ad.agg_cells_gate), gate(parent["agg_cells_gate"]), "$1000")
         if model_name is None:
-            def outcomes(kernel):
-                return lambda: kernel(params, k_cells, *got[:4], n_auc01, lanes, "sum")
+            def outcomes(kernel, mode):
+                return lambda: kernel(params, k_cells, *got[:4], n_auc01, lanes, mode)
 
-            a, b = outcomes(ad.agg_outcomes)(), outcomes(parent["agg_outcomes"])()
-            print(f"  agg_outcomes ($1000, sum): the parent's day sums differ from this "
-                  f"tree's in {sum((x != y).sum().item() for x, y in zip(a, b))} of {6 * E * K}")
-            turns("agg_outcomes", outcomes(ad.agg_outcomes), outcomes(parent["agg_outcomes"]),
-                  "$1000, sum")
+            for mode in ("sum", "day"):
+                a = outcomes(ad.agg_outcomes, mode)()
+                b = outcomes(parent["agg_outcomes"], mode)()
+                print(f"  agg_outcomes ($1000, {mode}): the parent's day sums differ from this "
+                      f"tree's in {sum((x != y).sum().item() for x, y in zip(a, b))} of "
+                      f"{6 * E * K}")
+                turns("agg_outcomes", outcomes(ad.agg_outcomes, mode),
+                      outcomes(parent["agg_outcomes"], mode), f"$1000, {mode}")
     keys = prng.split(prng.PRNGKey(82, dev), E)
     for mode in ("normal", "xor"):
         def words(kernel):
@@ -2120,13 +2236,46 @@ def parent_turns_phase(torch, dev, card, table, parent):
               f"{mode}, {E} x {K}")
 
 
+def route_phases(torch, dev, card, table, pallas_env, rates, sms, agg_ptxas, clocked,
+                 lanes_stats, parent, parent_other, phases=None):
+    """Phases 9-12 (those in ``phases``, all when None) and, with
+    --parent-csrc and phase 9, the agg route's kernels in turns with the
+    parent's; their kernels' JSON entries."""
+    run = lambda n: phases is None or n in phases  # noqa: E731
+    entries = []
+    # 9. the XLA day step
+    if run(9):
+        entries += xla_phase(torch, dev, card, table, *rates, sms, agg_ptxas, clocked)
+        budget_cast_phase(torch, dev, card, table, pallas_env)
+    # 10. the lanes day (the JAX package's default knobs)
+    if run(10):
+        entries += lanes_phase(torch, dev, card, table, *rates, sms, lanes_stats, parent)
+    # 11. explicit keywords on the XLA day step
+    if run(11):
+        entries += explicit_phase(torch, dev, card, *rates)
+    # 12. explicit keywords on the lanes day (EnvConfig's defaults)
+    if run(12):
+        entries += explicit_lanes_phase(torch, dev, card, *rates, lanes_stats, parent)
+    if parent_other is not None and run(9):
+        print("the agg route's kernels and threefry_words in turns with the parent tree's:")
+        parent_turns_phase(torch, dev, card, table, parent_other)
+    return entries
+
+
 def main(argv=None) -> int:
     args = sys.argv[1:] if argv is None else argv
-    parent_csrc = None
-    if args[:1] == ["--parent-csrc"] and len(args) == 2:
-        parent_csrc = Path(args[1])
-    elif args:
-        print("usage: python3 chip_smoke.py [--parent-csrc DIR]", flush=True)
+    parent_csrc, phases = None, None
+    while args:
+        if args[0] == "--parent-csrc" and len(args) >= 2:
+            parent_csrc, args = Path(args[1]), args[2:]
+        elif args[0] == "--phases" and len(args) >= 2 and re.fullmatch(r"\d+(,\d+)*", args[1]):
+            phases, args = {int(n) for n in args[1].split(",")}, args[2:]
+        else:
+            print("usage: python3 chip_smoke.py [--parent-csrc DIR] [--phases 9,10,11,12]",
+                  flush=True)
+            return 2
+    if phases is not None and not phases <= {9, 10, 11, 12}:
+        print("--phases takes phases 9 to 12", flush=True)
         return 2
     try:
         import torch
@@ -2169,6 +2318,7 @@ def main(argv=None) -> int:
     clocked = stage_clocked(ad, cuda_build)
     lanes_stats = lanes_stats_build(ld, cuda_build)
     parent = None if parent_csrc is None else ld.kernels_built_from(parent_csrc)
+    parent_other = None
     libraries = (dk.day_kernel.library, pk.library, ad.library, clocked.library, ld.library,
                  lanes_stats["lanes_gate"].library)
     if parent is not None:
@@ -2201,13 +2351,24 @@ def main(argv=None) -> int:
     ops_per_word = max(total - imad, imad, total * INT32_LANES_PER_SM / DISPATCH_PER_SM)
     print(f"  bound per word: {ops_per_word:g} INT32-lane clocks ({total - imad} ALU-pipe, "
           f"{imad} FMA-pipe, {total} issued)")
+    rates = (ops_per_word, int_ops_per_s, fp_ops_per_s)
+    table = simple_experiment_table(MEAN_VOLUME, CVR)
+    if phases is not None:  # a shorter run of some of the route phases: no result lines
+        pallas_env = VectorBiddingEnv(EnvConfig(num_keywords=K, kind=KeywordKind.IMPLICIT,
+                                                max_volume=MAX_VOLUME, day_kernel="pallas"),
+                                      E, table, device=dev)
+        route_phases(torch, dev, card, table, pallas_env, rates, sms, ptxas[ad.library], clocked,
+                     lanes_stats, parent, parent_other, phases)
+        if "jax" in sys.modules:
+            fail("jax was imported")
+        print(f"phases {sorted(phases)} passed ({card})", flush=True)
+        return 0
 
     # 3. kernel vs plain at full width, three budget regimes
     cfg = EnvConfig(
         num_keywords=K, kind=KeywordKind.IMPLICIT, max_volume=MAX_VOLUME, day_kernel="pallas"
     )
     m = cfg.max_clicks_per_cell
-    table = simple_experiment_table(MEAN_VOLUME, CVR)
     env = VectorBiddingEnv(cfg, E, table, device=dev)
     state0, _ = env.reset(prng.PRNGKey(0))
     k_day = prng.split(prng.PRNGKey(1), E).to(dev)
@@ -2523,25 +2684,9 @@ def main(argv=None) -> int:
           f"{100 * floored / words_ms:.1f}% of it "
           f"({'at least' if 2 * floored >= words_ms else 'under'} half) ({card})")
 
-    # 9. the XLA day step
-    xla_kernels = xla_phase(torch, dev, card, table, ops_per_word, int_ops_per_s, fp_ops_per_s,
-                            sms, ptxas[ad.library], clocked)
-    budget_cast_phase(torch, dev, card, table, env)
-
-    # 10. the lanes day (the JAX package's default knobs)
-    lanes_kernels = lanes_phase(torch, dev, card, table, ops_per_word, int_ops_per_s,
-                                fp_ops_per_s, sms, lanes_stats, parent)
-
-    # 11. explicit keywords on the XLA day step
-    explicit_kernels = explicit_phase(torch, dev, card, ops_per_word, int_ops_per_s,
-                                      fp_ops_per_s)
-
-    # 12. explicit keywords on the lanes day (EnvConfig's defaults)
-    explicit_lanes_kernels = explicit_lanes_phase(torch, dev, card, ops_per_word, int_ops_per_s,
-                                                  fp_ops_per_s)
-    if parent is not None:
-        print("the agg route's kernels and threefry_words in turns with the parent tree's:")
-        parent_turns_phase(torch, dev, card, table, parent_other)
+    # 9-12. the XLA day step, the lanes day and explicit keywords on both
+    route_kernels = route_phases(torch, dev, card, table, env, rates, sms, ptxas[ad.library],
+                                 clocked, lanes_stats, parent, parent_other)
 
     if "jax" in sys.modules:
         fail("jax was imported")
@@ -2590,7 +2735,7 @@ def main(argv=None) -> int:
             "bound_by": rate_bound[1],
             "library_ms": None,
         },
-    ] + xla_kernels + lanes_kernels + explicit_kernels + explicit_lanes_kernels}))
+    ] + route_kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

@@ -647,10 +647,11 @@ def explicit_inputs(cfg, E, seed, dev):
 
 
 # m0 = 47 (max_volume 576) and 65 (1024, EnvConfig's default, past a
-# 32-lane window); K = 40 takes the spends' scan past one block of 16
+# 32-lane window); K = 40 takes the spends' scan past one block of 16, K =
+# 300 past element 256, where a zero spend that starts a block may move it
 @pytest.mark.cuda
 @pytest.mark.parametrize("K, max_volume, sampler", [(7, 576, "exact"), (40, 1024, "exact"),
-                                                    (100, 576, "inversion")])
+                                                    (100, 576, "inversion"), (300, 576, "exact")])
 @pytest.mark.parametrize("model", ["RUST_QUIRK", "PYTHON"])
 def test_explicit_lanes_kernels_match_reference(cuda, K, max_volume, sampler, model):
     """The explicit instances of lanes_counts and lanes_gate (python
@@ -680,7 +681,8 @@ def test_explicit_lanes_kernels_match_reference(cuda, K, max_volume, sampler, mo
     rust = mod == agg_day.EXPLICIT_RUST
     for budget in (1e6, 1000.0, 2.0 * K, 0.0) + (("prefix",) if rust else ()):
         if budget == "prefix":  # cell j's B - spend is 0 after the unbound spends up to j
-            dollars = xla_math.cumsum(unbound[:, 0], 1)[:, min(19, K - 3)].contiguous()
+            j = min(19, K - 3) if K <= 256 else K - 7  # past element 288 at K = 300
+            dollars = xla_math.cumsum(unbound[:, 0], 1)[:, j].contiguous()
         else:
             dollars = torch.full((E,), budget, device=cuda)
         if rust:
