@@ -231,25 +231,27 @@ def agg_cells_reference(params, n_auc01, k_cells, lanes: Lanes, keep_constants: 
     return (*outs, tuple(consts)) if keep_constants else outs
 
 
-def resolve_cells(params, k_rest, lite_col, k: int, B, n, m: int, lanes: Lanes,
-                  model: int = IMPLICIT):
+def deep_lane_costs(params, keys, m: int, lanes: Lanes, model: int = IMPLICIT):
+    """Deep lane costs, lanes ``L .. m - 1``, of the cells whose parameters
+    are ``params`` (P, ...) and whose keys are ``keys`` (..., 2): (..., m -
+    L) int32. An explicit model's take the bid as the JAX resolver rebuilds
+    it, ``(bid - 0.005) + 0.005`` in float32, which is not always the bid."""
+    y0 = y0_of(params)[..., None]
+    if model == IMPLICIT:
+        loc, scale = params[LOC][..., None], params[SCALE][..., None]
+        return _cost_cents(dist.truncated_laplace(keys, loc, scale, -y0, y0, (m - lanes.L,),
+                                                  lanes.bits))
+    e = prng.normal_erfinv(keys, (m - lanes.L,))
+    return explicit_costs(model, e, y0 + 0.005)
+
+
+def resolve_cells(lite_col, deep, B, n, m: int, lanes: Lanes):
     """Lane resolution of partial cells, one row each: the lite costs
-    ``lite_col`` (rows, L) then ``m - L`` deep costs from ``fold_in(k_rest,
-    k)``, accepted up to the first prefix over ``B``. Returns (accepted
-    clicks int32, spend int64). An explicit model's deep lanes take the bid
-    as the JAX resolver rebuilds it, ``(bid - 0.005) + 0.005`` in float32,
-    which is not always the bid."""
+    ``lite_col`` (rows, L) then, where ``m > L``, the deep costs ``deep``
+    (rows, m - L; ``deep_lane_costs``), accepted up to the first prefix
+    over ``B``. Returns (accepted clicks int32, spend int64)."""
     costs = lite_col[:, :m].to(torch.int64)
     if m > lanes.L:
-        k_col = prng.fold_in(k_rest, k)
-        y0 = y0_of(params)[:, k][:, None]
-        if model == IMPLICIT:
-            loc, scale = params[LOC][:, k][:, None], params[SCALE][:, k][:, None]
-            deep = _cost_cents(dist.truncated_laplace(k_col, loc, scale, -y0, y0,
-                                                      (m - lanes.L,), lanes.bits))
-        else:
-            e = prng.normal_erfinv(k_col, (m - lanes.L,))
-            deep = explicit_costs(model, e, y0 + 0.005)
         costs = torch.cat([costs, deep.to(torch.int64)], 1)
     lane = torch.arange(m, device=costs.device)
     ok = (torch.cumsum(costs, 1) <= B[:, None]) & (lane < n[:, None])
@@ -273,7 +275,7 @@ def agg_gate_reference(params, k_cells, s_full, n_clicks, lite, budget_c, lanes:
     zero = torch.zeros((), dtype=torch.int64, device=device)
     for t in range(T):
         m = lanes.m(t)
-        k_rest = None
+        deep = None  # the sub-timestep's deep lanes, drawn at its first partial cell
         for k in range(K):
             s = s_full[:, t, k].to(torch.int64)
             n = n_clicks[:, t, k]
@@ -282,10 +284,13 @@ def agg_gate_reference(params, k_cells, s_full, n_clicks, lite, budget_c, lanes:
             sp = torch.where(full, s, zero)
             rows = (~full & ~broken).nonzero().squeeze(1)
             if rows.numel():
-                if k_rest is None:
-                    k_rest = t_keys(k_cells, t).k_rest
-                pj, sj = resolve_cells(params[:, rows], k_rest[rows], lite[rows, t, :, k], k,
-                                       B[rows], n[rows], m, lanes, model)
+                if deep is None and m > lanes.L:
+                    # fold_in(k_rest, k) of every k: split hashes the same
+                    # counter pairs (0, k)
+                    keys = prng.split(t_keys(k_cells, t).k_rest, K)
+                    deep = deep_lane_costs(params, keys, m, lanes, model)
+                pj, sj = resolve_cells(lite[rows, t, :, k], None if deep is None else deep[rows, k],
+                                       B[rows], n[rows], m, lanes)
                 p[rows] = pj
                 sp[rows] = sj
             live = ~broken

@@ -655,7 +655,10 @@ __global__ void __launch_bounds__(32 * kGateWarps)
 // ---- lanes_gate_float: the rust model's float32 gate ----
 
 constexpr int kFloatCap = 256;    // lanes of a float gate window, a warp's shared buffer
-constexpr int kFloatBlocks = 8;   // lanes_gate_float blocks per SM its registers are capped for
+// lanes_gate_float blocks per SM its registers are capped for: 64
+// registers and a few bytes of spills; uncapped it takes 72 registers,
+// no spills and 7 blocks per SM, and measured slower
+constexpr int kFloatBlocks = 8;
 constexpr int kScanFixed = 256;   // a sub-timestep's spends before the first whose zero may
                                   // move XLA's scan (a 16-block's start past element 256)
 
@@ -906,14 +909,13 @@ __global__ void __launch_bounds__(32 * kGateWarps, kFloatBlocks)
           const float v = __shfl_sync(kFull, x, src & 31);
           if (src <= lane) wsum = d == 0 && !based ? v : __fadd_rn(wsum, v);
         }
-        // the carries of the blocks the round finishes: their totals up a
-        // level, on a copy of the scan
+        // the carries of the blocks the round finishes, their totals up a
+        // level, the scan left as it is
         const int end0 = q + 15 - (kq & 15);  // the lane that finishes the current block
         const float total0 = __shfl_sync(kFull, wsum, min(end0, 31));
         const float total1 = __shfl_sync(kFull, wsum, min(end0 + 16, 31));
-        XlaScan<false> next = excl;
-        const float carry1 = next.up(total0);
-        const float carry2 = next.up(total1);
+        float carry1, carry2;
+        excl.peek_carries(total0, total1, carry1, carry2);
         const float carry = pos >= base + 32 ? carry2 : pos >= base + 16 ? carry1 : excl.carry[0];
         const float incl = pos >= 16 ? __fadd_rn(wsum, carry) : wsum;
         const float up_incl = __shfl_up_sync(kFull, incl, 1);

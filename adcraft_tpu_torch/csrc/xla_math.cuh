@@ -336,6 +336,23 @@ struct XlaScan {
     }
     return carry[0];
   }
+  // the carries of the next two level-0 blocks once blocks of totals v0
+  // and v1 finish, as two calls of up(v0), up(v1) return them, the scan
+  // left as it is: they take level 1 and, where v0 finishes a level-1
+  // block, level 2's carry after it
+  __device__ void peek_carries(float v0, float v1, float& c1, float& c2) const {
+    static_assert(kLevels >= 3, "the second carry may take level 2");
+    const int n1 = count[1];
+    const float w1 = n1 % 16 == 0 ? v0 : op(w[1], v0);
+    c1 = n1 >= 16 ? op(w1, carry[1]) : w1;
+    float carry1 = carry[1];
+    if ((n1 + 1) % 16 == 0) {
+      const float w2 = count[2] % 16 == 0 ? w1 : op(w[2], w1);
+      carry1 = count[2] >= 16 ? op(w2, carry[2]) : w2;
+    }
+    const float w1b = (n1 + 1) % 16 == 0 ? v1 : op(w1, v1);
+    c2 = n1 + 1 >= 16 ? op(w1b, carry1) : w1b;
+  }
   // the scan's value after L >= 1 zeros, as L calls of push(0.0f) give
   // it: a zero leaves its block's running value as it is (or starts the
   // block at 0), so only each block it finishes sends its total up a

@@ -115,8 +115,8 @@ def _stirling_approx_tail(k: torch.Tensor) -> torch.Tensor:
     k = torch.clamp(k, 0.0, 9.0)
     kp1sq = (k + 1.0) * (k + 1.0)
     approx = (_c(1.0 / 12) - (_c(1.0 / 360) - _c(1.0 / 1260) / kp1sq) / kp1sq) / (k + 1.0)
-    table = torch.tensor(_STIRLING_TAIL, dtype=torch.float32, device=k.device)
-    return torch.where(use_table, table[torch.floor(k).to(torch.int64)], approx)
+    tail = xla_math.table(_STIRLING_TAIL, torch.float32, k.device)
+    return torch.where(use_table, tail[torch.floor(k).to(torch.int64)], approx)
 
 
 def _rows_where(live: torch.Tensor) -> torch.Tensor:

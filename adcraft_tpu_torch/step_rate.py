@@ -26,15 +26,15 @@ lanes knobs with explicit keywords and the rust cost model, on
 lanes_counts' explicit instance, lanes_gate_float and lanes_outcomes'
 float mode). ``--routes`` picks them; each env count runs them
 in turns in one process, forward then backward (pallas, xla, xla,
-pallas by default). With ``--parent-csrc DIR``, the routes
-``lanes_parent`` and ``explicit_lanes_parent`` are the lanes and
-explicit_lanes routes on the lanes_day kernels built from DIR (another
-tree's ``adcraft_tpu_torch/csrc``, such as the parent commit's), to time
-two versions of those kernels in turns.
+pallas by default). With ``--parent-csrc DIR``, each lanes route asked
+for (``lanes``, ``explicit_lanes``) also runs, in its own turn after the
+route's, on the lanes_day kernels built from DIR (another tree's
+``adcraft_tpu_torch/csrc``, such as the parent commit's), to time two
+versions of those kernels in turns.
 
     python3 -m adcraft_tpu_torch.step_rate [--envs 1024 4096 8192]
-        [--routes pallas xla lanes explicit explicit_lanes lanes_parent explicit_lanes_parent]
-        [--parent-csrc DIR] [--json PATH]
+        [--routes pallas xla lanes explicit explicit_lanes] [--parent-csrc DIR]
+        [--json PATH]
 
 It runs on the card only.
 """
@@ -62,10 +62,9 @@ from adcraft_tpu_torch.quantiles import simple_experiment_table
 K, MAX_VOLUME, BID = 100, 576, 1.00
 WARMUP, RUNS, STEPS = 3, 5, 10
 ROUTE_KNOBS = {"pallas": {"day_kernel": "pallas"}, "xla": BENCH_XLA_KNOBS, "lanes": {},
-               "lanes_parent": {}, "explicit": BENCH_XLA_KNOBS, "explicit_lanes": {},
-               "explicit_lanes_parent": {}}
-EXPLICIT_ROUTES = ("explicit", "explicit_lanes", "explicit_lanes_parent")
-PARENT_ROUTES = ("lanes_parent", "explicit_lanes_parent")
+               "explicit": BENCH_XLA_KNOBS, "explicit_lanes": {}}
+EXPLICIT_ROUTES = ("explicit", "explicit_lanes")
+LANES_ROUTES = ("lanes", "explicit_lanes")
 LANES_KERNELS = ("lanes_counts", "lanes_gate", "lanes_gate_float", "lanes_outcomes")
 KERNELS = {"day_kernel": dk.day_kernel, "threefry_words": pk.threefry_words,
            "agg_cells_gate": agg_day.agg_cells_gate, "agg_outcomes": agg_day.agg_outcomes}
@@ -109,8 +108,8 @@ def lanes_kernels(kernels):
             setattr(lanes_day, name, kernel)
 
 
-def measure(num_envs: int, route: str, device: torch.device, parent=None) -> dict:
-    with lanes_kernels(parent if route in PARENT_ROUTES else None):
+def measure(num_envs: int, route: str, device: torch.device, kernels=None) -> dict:
+    with lanes_kernels(kernels):
         return _measure(num_envs, route, device)
 
 
@@ -156,14 +155,19 @@ def main(argv=None) -> int:
     parser.add_argument("--routes", nargs="+", choices=sorted(ROUTE_KNOBS),
                         default=["pallas", "xla"])
     parser.add_argument("--parent-csrc", type=Path,
-                        help="the csrc directory the *_parent routes build")
+                        help="also time the lanes routes on the kernels built from this "
+                             "csrc directory")
     parser.add_argument("--json", type=Path, help="also write the results here")
     args = parser.parse_args(argv)
-    if bool(set(PARENT_ROUTES) & set(args.routes)) != (args.parent_csrc is not None):
-        parser.error("the *_parent routes and --parent-csrc go together")
     parent = None
     if args.parent_csrc is not None:
+        if not set(LANES_ROUTES) & set(args.routes):
+            parser.error(f"--parent-csrc times the lanes routes {LANES_ROUTES}: ask for one")
         parent = lanes_day.kernels_built_from(args.parent_csrc)
+    # (route, tree): each lanes route on the parent's kernels too, after its own
+    turns = [(route, tree) for route in args.routes
+             for tree in (("this", "parent") if parent is not None and route in LANES_ROUTES
+                          else ("this",))]
     if not torch.cuda.is_available():
         raise SystemExit("step_rate runs on the card only: no CUDA device")
     device = torch.device("cuda")
@@ -174,10 +178,12 @@ def main(argv=None) -> int:
     print(card, flush=True)
     results = []
     for num_envs in args.envs:
-        for route in args.routes + args.routes[::-1]:
-            r = measure(num_envs, route, device, parent)
+        for route, tree in turns + turns[::-1]:
+            r = measure(num_envs, route, device, parent if tree == "parent" else None)
+            r["tree"] = tree
             results.append(r)
-            print(f"{num_envs} envs, {route}: {r['env_steps_per_s']:.1f} env-steps/s "
+            label = route if tree == "this" else f"{route} (parent)"
+            print(f"{num_envs} envs, {label}: {r['env_steps_per_s']:.1f} env-steps/s "
                   f"[{r['min']:.1f}, {r['max']:.1f}], step {r['step_ms']:.3f} ms; "
                   f"launches/step {r['launches_per_step']}; "
                   f"{r['cuda_events_per_step']:.1f} CUDA events/step, device busy "

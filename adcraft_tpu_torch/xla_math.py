@@ -22,6 +22,8 @@ equal these functions exactly.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -116,6 +118,13 @@ def sqrt(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(x.double()).float()
 
 
+@functools.lru_cache(maxsize=None)
+def table(values: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """A table of constants on ``device``, built once: ``torch.tensor`` on
+    a CUDA device is a blocking copy."""
+    return torch.tensor(values, dtype=dtype, device=device)
+
+
 def _f64(hexes: str) -> tuple:
     return tuple(float.fromhex(h) for h in hexes.split())
 
@@ -159,9 +168,8 @@ def pow(x: torch.Tensor, y) -> torch.Tensor:
     top = tmp & -0x800000
     z = (ix - top).view(torch.float32).double()
     k = (top >> 23).double()
-    table = lambda vals, dtype: torch.tensor(vals, dtype=dtype, device=x.device)[i]  # noqa: E731
-    r = z * table(_POW_INVC, torch.float64) - 1.0
-    y0 = table(_POW_LOGC, torch.float64) + k
+    r = z * table(_POW_INVC, torch.float64, x.device)[i] - 1.0
+    y0 = table(_POW_LOGC, torch.float64, x.device)[i] + k
     a = _POW_A
     r2 = r * r
     log2x = (a[0] * r + a[1]) * (r2 * r2) + ((a[2] * r + a[3]) * r2 + (a[4] * r + y0))
@@ -170,7 +178,7 @@ def pow(x: torch.Tensor, y) -> torch.Tensor:
     ki = kd.view(torch.int64)
     kd = kd - _EXP2_SHIFT
     r = ylogx - kd
-    t = torch.tensor(_EXP2_T, dtype=torch.int64, device=x.device)[ki & 31]
+    t = table(_EXP2_T, torch.int64, x.device)[ki & 31]
     s = (t + ((ki - _EXP2_SHIFT_BITS) << 47)).view(torch.float64)
     c = _EXP2_C
     out = ((c[0] * r + c[1]) * (r * r) + (c[2] * r + 1.0)) * s

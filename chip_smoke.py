@@ -59,9 +59,8 @@ Phases, each fatal on failure:
    then the slice, VectorBiddingEnv(day_kernel="xla") reset, 5 steps
    and rollout(5) from the same state at bids $1.00 and the $1000 budget,
    counts zeroed just before: one launch of each kernel per day, 4
-   threefry_words launches per step, invariants, and every output of the
-   first 3 days equal to those days through the plain versions (as in
-   phases 10 and 12); CUDA device events per
+   threefry_words launches per step, invariants, and every output equal
+   to the same days through the plain versions; CUDA device events per
    step; the same slice again under experiments/train_rl.py's fast knobs
    (rev_sampling="day"), with its own counts; and the budget's cast on
    both routes: one day at $inf and $1e8 equal to the day at $1e6, one at
@@ -98,7 +97,7 @@ Phases, each fatal on failure:
    autoreset_step at max_days 3 (every episode ends and restarts), counts
    zeroed just before: one launch of each kernel per day, and steps,
    keys and autoreset states equal to the same days through the plain
-   versions (the steps' first 3); CUDA device events, device busy time and idle share per
+   versions; CUDA device events, device busy time and idle share per
    step;
 11. explicit keywords on the XLA day step (bench.py's dense_explicit
    regime: its knobs with kind=EXPLICIT) at 4096 envs x 100 keywords x 24
@@ -139,7 +138,7 @@ Phases, each fatal on failure:
    4 autoreset_step(reset_kw=True) days at max_days 3 (every episode ends
    and draws fresh keywords), counts zeroed just before: one launch of
    each kernel per day, outcomes, keys and autoreset days equal to the
-   plain versions (the steps' first 3);
+   plain versions;
    CUDA device events, device busy time and idle share per step. With --parent-csrc DIR, then, agg_cells_gate's
    three instances, agg_outcomes (both revenue modes) and threefry_words
    at full width in turns with DIR's build, with the count of outputs
@@ -148,10 +147,10 @@ Phases, each fatal on failure:
 The line before the last is a JSON object with each kernel's launches on
 its path, error, times and bound; the last line is {"ok": true, "device":
 {...}}. Without a CUDA device, or outside the repository, it exits 1 and
-prints no result. With --phases (a comma-separated subset of 9, 10, 11
-and 12) it runs phases 1, 2 and those only, and prints no result lines.
+prints no result. Each of phases 3-8, 9, 10, 11 and 12 prints its wall
+time.
 
-    python3 chip_smoke.py [--parent-csrc DIR] [--phases 9,10,11,12]
+    python3 chip_smoke.py [--parent-csrc DIR]
 """
 
 from __future__ import annotations
@@ -174,9 +173,6 @@ MAX_VOLUME = 576
 BID = 1.00
 SEED = 12345
 STEPS = 5
-# the slices' first steps re-run through the plain versions (phases 9, 10,
-# 12): the plain days are the script's longest part
-PLAIN_STEPS = 3
 DEVICE = "cuda:0"
 MAX_SE = 6.0
 BACKLOG_CYCLES = 20_000_000  # SM clock cycles the spin kernel holds the stream
@@ -749,8 +745,8 @@ def xla_phase(torch, dev, card, table, ops_per_word, int_ops_per_s, fp_ops_per_s
 
     def run_slice(slice_env, label):
         """Reset, 5 steps and rollout(5) from the same state, counts zeroed
-        just before and read just after; then the first PLAIN_STEPS days
-        through the plain versions. Returns the agg kernels' launches."""
+        just before and read just after; then the same days through the
+        plain versions. Returns the agg kernels' launches."""
         kernels = {"agg_cells_gate": ad.agg_cells_gate, "agg_outcomes": ad.agg_outcomes}
         state_a, _ = slice_env.reset(prng.PRNGKey(6))
         torch.cuda.synchronize()
@@ -759,11 +755,10 @@ def xla_phase(torch, dev, card, table, ops_per_word, int_ops_per_s, fp_ops_per_s
         pk.threefry_words.launches = 0
         t0 = time.perf_counter()
         state = state_a
-        steps, states = [], []
+        steps = []
         for _ in range(STEPS):
             state, ts = slice_env.step(state, bids)
             steps.append(ts)
-            states.append(state)
         torch.cuda.synchronize()
         step_s = time.perf_counter() - t0
         end_step = state
@@ -802,7 +797,7 @@ def xla_phase(torch, dev, card, table, ops_per_word, int_ops_per_s, fp_ops_per_s
         t0 = time.perf_counter()
         with agg_plain(ad), words_replaced(pk, pk.threefry_words_reference):
             state = state_a
-            for i in range(PLAIN_STEPS):
+            for i in range(STEPS):
                 state, ts = slice_env.step(state, bids)
                 want = steps[i]
                 pairs = [("reward", ts.reward, want.reward)]
@@ -813,7 +808,7 @@ def xla_phase(torch, dev, card, table, ops_per_word, int_ops_per_s, fp_ops_per_s
                     if not torch.equal(x, y):
                         fail(f"{label} slice step {i}: {name} differs between kernels and plain")
             torch.cuda.synchronize()
-            if not torch.equal(state.key, states[PLAIN_STEPS - 1].key):
+            if not torch.equal(state.key, end_step.key):
                 fail(f"{label} slice: the state key differs between kernels and plain")
         plain_s = time.perf_counter() - t0
 
@@ -830,8 +825,7 @@ def xla_phase(torch, dev, card, table, ops_per_word, int_ops_per_s, fp_ops_per_s
               f"bids ${BID:.2f}, budget ${XLA_BUDGET:g}: {imps} impressions, ${cost:.2f} spent, "
               f"${revenue:.2f} revenue; launches {launches}, threefry_words "
               f"{words_launches / (2 * STEPS):g} per step; kernels {STEPS * E / step_s:.1f} "
-              f"env-steps/s ({step_s:.3f} s), plain {PLAIN_STEPS * E / plain_s:.1f} env-steps/s "
-              f"(its first {PLAIN_STEPS} days); CUDA "
+              f"env-steps/s ({step_s:.3f} s), plain {STEPS * E / plain_s:.1f} env-steps/s; CUDA "
               f"device events per step {events:.1f} ({card})")
         return launches
 
@@ -1658,11 +1652,10 @@ def lanes_phase(torch, dev, card, table, ops_per_word, int_ops_per_s, fp_ops_per
         kernel.launches = 0
     pk.threefry_words.launches = 0
     t0 = time.perf_counter()
-    state, steps, states = state_a, [], []
+    state, steps = state_a, []
     for _ in range(STEPS):
         state, ts = env.step(state, bids)
         steps.append(ts)
-        states.append(state)
     torch.cuda.synchronize()
     step_s = time.perf_counter() - t0
     end_step = state
@@ -1705,7 +1698,7 @@ def lanes_phase(torch, dev, card, table, ops_per_word, int_ops_per_s, fp_ops_per
     t0 = time.perf_counter()
     with lanes_plain(ld), words_replaced(pk, pk.threefry_words_reference):
         state = state_a
-        for i in range(PLAIN_STEPS):
+        for i in range(STEPS):
             state, ts = env.step(state, bids)
             want = steps[i]
             pairs = [("reward", ts.reward, want.reward)]
@@ -1715,7 +1708,7 @@ def lanes_phase(torch, dev, card, table, ops_per_word, int_ops_per_s, fp_ops_per
             for name, a, b in pairs:
                 if not torch.equal(a, b):
                     fail(f"lanes slice step {i}: {name} differs between kernels and plain")
-        if not torch.equal(state.key, states[PLAIN_STEPS - 1].key):
+        if not torch.equal(state.key, end_step.key):
             fail("lanes slice: the state key differs between kernels and plain")
         torch.cuda.synchronize()
         plain_s = time.perf_counter() - t0
@@ -1745,7 +1738,7 @@ def lanes_phase(torch, dev, card, table, ops_per_word, int_ops_per_s, fp_ops_per
           f"${LANES_BUDGET:g}: {imps} impressions, ${cost:.2f} spent; launches {launches}, "
           f"threefry_words {words_launches / days:g} per day; == plain (steps, keys, autoreset "
           f"states); kernels {STEPS * E / step_s:.1f} env-steps/s ({step_s:.3f} s), plain "
-          f"{PLAIN_STEPS * E / plain_s:.1f} env-steps/s (its first {PLAIN_STEPS} days); per step "
+          f"{STEPS * E / plain_s:.1f} env-steps/s; per step "
           f"under the profiler: {events:.1f} CUDA "
           f"device events, device busy {busy_ms:.3f} ms of {wall_ms:.3f} ms, idle "
           f"{100 * (1 - busy_ms / wall_ms):.1f}% ({card})")
@@ -2046,11 +2039,10 @@ def explicit_lanes_phase(torch, dev, card, ops_per_word, int_ops_per_s, fp_ops_p
         for kernel in kernels.values():
             kernel.launches = 0
         t0 = time.perf_counter()
-        state, steps, states = state0, [], []
+        state, steps = state0, []
         for _ in range(n_steps):
             state, ts = env.step(state, bids)
             steps.append(ts)
-            states.append(state)
         torch.cuda.synchronize()
         step_s = time.perf_counter() - t0
         end_roll, roll = env.rollout(state0, bids, n_steps)
@@ -2080,13 +2072,13 @@ def explicit_lanes_phase(torch, dev, card, ops_per_word, int_ops_per_s, fp_ops_p
             fail(f"explicit lanes autoreset ({model_name}): the episodes did not end at max_days")
         with lanes_plain(ld), words_replaced(pk, pk.threefry_words_reference):
             plain_state = state0
-            for i in range(PLAIN_STEPS):
+            for i in range(n_steps):
                 plain_state, ts = env.step(plain_state, bids)
                 for f in ts.outcomes._fields:
                     if not torch.equal(getattr(ts.outcomes, f), getattr(steps[i].outcomes, f)):
                         fail(f"explicit lanes step {i} ({model_name}): {f} differs between the "
                              f"kernels and plain")
-            if not torch.equal(plain_state.key, states[PLAIN_STEPS - 1].key):
+            if not torch.equal(plain_state.key, state.key):
                 fail(f"explicit lanes ({model_name}): the key differs between kernels and plain")
             plain_r = state0
             for i, (want_state, want_ts) in enumerate(resets):
@@ -2236,46 +2228,20 @@ def parent_turns_phase(torch, dev, card, table, parent):
               f"{mode}, {E} x {K}")
 
 
-def route_phases(torch, dev, card, table, pallas_env, rates, sms, agg_ptxas, clocked,
-                 lanes_stats, parent, parent_other, phases=None):
-    """Phases 9-12 (those in ``phases``, all when None) and, with
-    --parent-csrc and phase 9, the agg route's kernels in turns with the
-    parent's; their kernels' JSON entries."""
-    run = lambda n: phases is None or n in phases  # noqa: E731
-    entries = []
-    # 9. the XLA day step
-    if run(9):
-        entries += xla_phase(torch, dev, card, table, *rates, sms, agg_ptxas, clocked)
-        budget_cast_phase(torch, dev, card, table, pallas_env)
-    # 10. the lanes day (the JAX package's default knobs)
-    if run(10):
-        entries += lanes_phase(torch, dev, card, table, *rates, sms, lanes_stats, parent)
-    # 11. explicit keywords on the XLA day step
-    if run(11):
-        entries += explicit_phase(torch, dev, card, *rates)
-    # 12. explicit keywords on the lanes day (EnvConfig's defaults)
-    if run(12):
-        entries += explicit_lanes_phase(torch, dev, card, *rates, lanes_stats, parent)
-    if parent_other is not None and run(9):
-        print("the agg route's kernels and threefry_words in turns with the parent tree's:")
-        parent_turns_phase(torch, dev, card, table, parent_other)
-    return entries
+def phase_done(name: str, t0: float) -> float:
+    """Prints a phase's wall time since ``t0``; returns now."""
+    now = time.perf_counter()
+    print(f"phase {name}: {now - t0:.1f} s", flush=True)
+    return now
 
 
 def main(argv=None) -> int:
     args = sys.argv[1:] if argv is None else argv
-    parent_csrc, phases = None, None
-    while args:
-        if args[0] == "--parent-csrc" and len(args) >= 2:
-            parent_csrc, args = Path(args[1]), args[2:]
-        elif args[0] == "--phases" and len(args) >= 2 and re.fullmatch(r"\d+(,\d+)*", args[1]):
-            phases, args = {int(n) for n in args[1].split(",")}, args[2:]
-        else:
-            print("usage: python3 chip_smoke.py [--parent-csrc DIR] [--phases 9,10,11,12]",
-                  flush=True)
-            return 2
-    if phases is not None and not phases <= {9, 10, 11, 12}:
-        print("--phases takes phases 9 to 12", flush=True)
+    parent_csrc = None
+    if args[:1] == ["--parent-csrc"] and len(args) == 2:
+        parent_csrc = Path(args[1])
+    elif args:
+        print("usage: python3 chip_smoke.py [--parent-csrc DIR]", flush=True)
         return 2
     try:
         import torch
@@ -2353,16 +2319,7 @@ def main(argv=None) -> int:
           f"{imad} FMA-pipe, {total} issued)")
     rates = (ops_per_word, int_ops_per_s, fp_ops_per_s)
     table = simple_experiment_table(MEAN_VOLUME, CVR)
-    if phases is not None:  # a shorter run of some of the route phases: no result lines
-        pallas_env = VectorBiddingEnv(EnvConfig(num_keywords=K, kind=KeywordKind.IMPLICIT,
-                                                max_volume=MAX_VOLUME, day_kernel="pallas"),
-                                      E, table, device=dev)
-        route_phases(torch, dev, card, table, pallas_env, rates, sms, ptxas[ad.library], clocked,
-                     lanes_stats, parent, parent_other, phases)
-        if "jax" in sys.modules:
-            fail("jax was imported")
-        print(f"phases {sorted(phases)} passed ({card})", flush=True)
-        return 0
+    t_phase = time.perf_counter()
 
     # 3. kernel vs plain at full width, three budget regimes
     cfg = EnvConfig(
@@ -2684,9 +2641,25 @@ def main(argv=None) -> int:
           f"{100 * floored / words_ms:.1f}% of it "
           f"({'at least' if 2 * floored >= words_ms else 'under'} half) ({card})")
 
-    # 9-12. the XLA day step, the lanes day and explicit keywords on both
-    route_kernels = route_phases(torch, dev, card, table, env, rates, sms, ptxas[ad.library],
-                                 clocked, lanes_stats, parent, parent_other)
+    t_phase = phase_done("3-8", t_phase)
+
+    # 9. the XLA day step
+    route_kernels = xla_phase(torch, dev, card, table, *rates, sms, ptxas[ad.library], clocked)
+    budget_cast_phase(torch, dev, card, table, env)
+    t_phase = phase_done("9", t_phase)
+    # 10. the lanes day (the JAX package's default knobs)
+    route_kernels += lanes_phase(torch, dev, card, table, *rates, sms, lanes_stats, parent)
+    t_phase = phase_done("10", t_phase)
+    # 11. explicit keywords on the XLA day step
+    route_kernels += explicit_phase(torch, dev, card, *rates)
+    t_phase = phase_done("11", t_phase)
+    # 12. explicit keywords on the lanes day (EnvConfig's defaults)
+    route_kernels += explicit_lanes_phase(torch, dev, card, *rates, lanes_stats, parent)
+    t_phase = phase_done("12", t_phase)
+    if parent_other is not None:
+        print("the agg route's kernels and threefry_words in turns with the parent tree's:")
+        parent_turns_phase(torch, dev, card, table, parent_other)
+        phase_done("parent turns", t_phase)
 
     if "jax" in sys.modules:
         fail("jax was imported")

@@ -101,9 +101,11 @@ def walk_model(params, keys, s_full, n_clicks, lite, budget_c, lanes, chunk_t):
                         resolved_lite += 1
                     else:
                         k_rest = agg_day.t_keys(keys[e:e + 1], t).k_rest
+                        deep = agg_day.deep_lane_costs(params[:, e:e + 1, k],
+                                                       prng.fold_in(k_rest, k), lanes.m(t), lanes)
                         pj, spj = agg_day.resolve_cells(
-                            params[:, e:e + 1], k_rest, lite[e:e + 1, t, :, k], k,
-                            torch.tensor([B]), torch.tensor([ap]), lanes.m(t), lanes)
+                            lite[e:e + 1, t, :, k], deep, torch.tensor([B]), torch.tensor([ap]),
+                            lanes.m(t), lanes)
                         ap, sp = int(pj), int(spj)
                     resolved += 1
                     resolved_zero += ap == 0 and B > 0

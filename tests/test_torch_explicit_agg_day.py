@@ -89,8 +89,8 @@ class DeepLanes:
         self.resolve = agg_day.resolve_cells
         monkeypatch.setattr(agg_day, "resolve_cells", self)
 
-    def __call__(self, params, k_rest, lite_col, k, B, n, m, lanes, model=agg_day.IMPLICIT):
-        out = self.resolve(params, k_rest, lite_col, k, B, n, m, lanes, model)
+    def __call__(self, lite_col, deep, B, n, m, lanes):
+        out = self.resolve(lite_col, deep, B, n, m, lanes)
         if m > lanes.L:
             self.rows += int(((n > lanes.L) & (out[0] >= lanes.L)).sum())
         return out

@@ -133,6 +133,21 @@ class Scan:
         other.w, other.carry, other.count = list(self.w), list(self.carry), list(self.count)
         return other
 
+    def peek_carries(self, v0, v1):
+        """The carries ``up(v0)`` then ``up(v1)`` return, the scan left as
+        it is: level 1 and, where v0 finishes a level-1 block, level 2
+        (``XlaScan::peek_carries``)."""
+        n1 = self.count[1]
+        w1 = F32(v0) if n1 % 16 == 0 else F32(self.w[1] + v0)
+        c1 = F32(w1 + self.carry[1]) if n1 >= 16 else w1
+        carry1 = self.carry[1]
+        if (n1 + 1) % 16 == 0:
+            w2 = w1 if self.count[2] % 16 == 0 else F32(self.w[2] + w1)
+            carry1 = F32(w2 + self.carry[2]) if self.count[2] >= 16 else w2
+        w1b = F32(v1) if (n1 + 1) % 16 == 0 else F32(w1 + v1)
+        c2 = F32(w1b + carry1) if n1 + 1 >= 16 else w1b
+        return c1, c2
+
 
 def walk_cell(lanes_, n, B):
     """A cell's lanes walked 32 at a time, each prefix XLA's scan: (p, s)."""
@@ -234,9 +249,7 @@ def walk_model(costs, ncl, budget, m, cap):
                     end0 = q + 15 - (kq & 15)
                     total0, total1 = wsum[min(end0, 31)], wsum[min(end0 + 16, 31)]
                     carry = np.full(W, excl.carry[0], np.float32)
-                    nxt = excl.copy()
-                    carry1 = nxt.up(total0)
-                    carry2 = nxt.up(total1)
+                    carry1, carry2 = excl.peek_carries(total0, total1)
                     carry = np.where(pos >= base + 32, carry2,
                                      np.where(pos >= base + 16, carry1, carry)).astype(np.float32)
                     incl = np.where(pos >= 16, (wsum + carry).astype(np.float32), wsum)
@@ -480,6 +493,25 @@ def test_skip_zeros_equals_pushing_them():
         moved += sum(v != prev for v in values)
         i += run
     assert moved > 0  # zeros that move XLA's scan exist
+
+
+def test_peek_carries_equals_two_ups():
+    """The two carries a round of the walk reads, in closed form, equal
+    those of ``up`` twice on a copy of the scan, before every level-0
+    block up to element 4400: across each end of a level-1 block (256
+    elements) and of a level-2 block (4096)."""
+    rng = np.random.default_rng(8)
+    x = rng.uniform(0.0, 3.0, 4400).astype(np.float32)
+    scan, crossed = Scan(), 0
+    for i, v in enumerate(x):
+        if i % 16 == 0:
+            t0, t1 = (F32(t) for t in rng.uniform(0.0, 48.0, 2))
+            other = scan.copy()
+            want = (other.up(t0), other.up(t1))
+            assert scan.peek_carries(t0, t1) == want
+            crossed += (scan.count[1] + 1) % 16 == 0
+        scan.push(v)
+    assert crossed >= 17  # v0 finished a level-1 block, past a level-2 one too
 
 
 def test_walk_where_zeros_move_the_scan():
