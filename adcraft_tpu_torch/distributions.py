@@ -10,7 +10,8 @@ and moments: ``binomial_inv`` (:102),
 (:358), ``censored_normal_moments`` (:387), ``rev_sum_cents`` (:519),
 ``single_cost_cent_moments_closed`` (:589), ``agg_cost_cents`` (:704,
 32-bit draws), ``laplace_cdf`` (:874), ``laplace_icdf`` (:880) and
-``truncated_laplace`` (:888). ``torch.round`` rounds half to even, as
+``truncated_laplace`` (:888), and the oracle's competitor bids
+``abs_laplace_cents`` (:258). ``torch.round`` rounds half to even, as
 ``jnp.round`` does.
 
 Float arithmetic follows what jitted XLA computes on the CPU, where that
@@ -84,6 +85,21 @@ def laplace_icdf(u: torch.Tensor, loc, scale) -> torch.Tensor:
     lo = xla_math.log(torch.clamp(2.0 * u, min=1e-38))
     hi = -xla_math.log(torch.clamp(2.0 * (1.0 - u), min=1e-38))
     return fma32(scale, torch.where(u < 0.5, lo, hi), loc)
+
+
+def laplace(key: torch.Tensor, shape) -> torch.Tensor:
+    """``jax.random.laplace``: ``sign(u) * log1p(-|u|)`` of a uniform on
+    [nextafter(-1, 0), 1), XLA's ``log1p``."""
+    u = prng.uniform_open(key, shape)
+    return torch.sign(u) * xla_math.log1p(-u.abs())
+
+
+def abs_laplace_cents(key: torch.Tensor, loc, scale, shape, lowest_bid: float = 0.0
+                      ) -> torch.Tensor:
+    """``round(max(|loc + scale * Laplace|, lowest_bid), 2)`` draws: the
+    floor applies before the cent rounding, as in the reference."""
+    draw = loc + scale * laplace(key, shape)
+    return round_cents(torch.clamp(draw.abs(), min=lowest_bid))
 
 
 def truncated_laplace(key, loc, scale, low, high, shape, bits: int = 32) -> torch.Tensor:
@@ -685,8 +701,10 @@ def nonnegify(x: torch.Tensor) -> torch.Tensor:
 
 
 def round_cents(x: torch.Tensor) -> torch.Tensor:
-    """Round to 2 decimals, half to even (``np.around(x, 2)``)."""
-    return torch.round(x * 100.0) / 100.0
+    """Round to 2 decimals, half to even (``np.around(x, 2)``), as jitted
+    XLA computes ``round(x * 100) / 100``: the division by the constant a
+    product with its float32 reciprocal (``recip``)."""
+    return torch.round(x * 100.0) * recip(100.0)
 
 
 def int32_of(x: torch.Tensor) -> torch.Tensor:

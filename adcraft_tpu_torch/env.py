@@ -2,13 +2,13 @@
 
 Counterpart of ``adcraft_tpu/env.py``: ``EnvState`` (:36), ``TimeStep``
 (:50), ``zero_observation`` (:66), ``batch_keys`` (:84), ``env_reset``
-(:96), ``env_step`` (:134) vmapped over envs as
-``vector_env_step_xla``, ``env_rollout`` (:196) as ``vector_env_rollout``,
-``env_autoreset_step`` (:247) vmapped over envs as
-``vector_env_autoreset_step``, ``vector_env_step_pallas`` (:287) and ``VectorBiddingEnv`` (:369) with
-``day_kernel="xla"`` (the default) or ``"pallas"``. State carries an
-explicit leading (E,) axis, and every tensor lives on the env's
-``device``.
+(:96), ``env_step`` (:134) vmapped over envs as ``vector_env_step_xla``
+and for one env as ``env_step``, ``env_rollout`` (:196) as
+``vector_env_rollout``, ``env_autoreset_step`` (:247) vmapped over envs
+as ``vector_env_autoreset_step``, ``vector_env_step_pallas`` (:287) and
+``VectorBiddingEnv`` (:369) with ``day_kernel="xla"`` (the default) or
+``"pallas"``. The batched state carries an explicit leading (E,) axis,
+and every tensor lives on the env's ``device``.
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ from typing import Dict, NamedTuple, Optional
 import torch
 
 from adcraft_tpu_torch import distributions as dist
-from adcraft_tpu_torch import prng
+from adcraft_tpu_torch import prng, xla_math
 from adcraft_tpu_torch.config import EnvConfig, KeywordKind, resolve_device
 from adcraft_tpu_torch.day_kernel import UniformSource, pallas_simulate_day
 from adcraft_tpu_torch.keywords import (KeywordState, sample_explicit_keywords,
@@ -135,9 +135,10 @@ def _action(cfg: EnvConfig, state: EnvState, bids, budget):
     return bids, new_budget
 
 
-def _transition(state, kw_next, key_next, new_budget, day: DayOutcomes):
-    """Reward, truncation, termination and the next state after a day."""
-    profits = day.profit.sum(1)
+def _transition(state, kw_next, key_next, new_budget, day: DayOutcomes, xla_sums=False):
+    """Reward, truncation, termination and the next state after a day; the
+    reward summed over keywords in XLA's order with ``xla_sums``."""
+    profits = xla_math.sum(day.profit, 1) if xla_sums else day.profit.sum(1)
     cumulative = state.cumulative_profit + profits
     truncated = cumulative < -state.loss_threshold
     new_day = state.day + 1
@@ -171,6 +172,7 @@ def vector_env_step_xla(
     state: EnvState,
     bids,
     budget=None,
+    xla_sums: bool = False,
 ):
     """Batched day step of the XLA day step; returns (state, TimeStep).
 
@@ -179,11 +181,46 @@ def vector_env_step_xla(
     cents, the optional budget override rounded to cents, the day
     (``step.simulate_day``), reward = total profit, truncation on
     cumulative loss, termination on max days, then the keyword drift.
+    ``xla_sums`` adds the reward over keywords in jitted XLA's order
+    (``xla_math.sum``: one addition a keyword up to 32 keywords), as
+    ``env_step`` does; by default it is one ``sum``, whose order differs
+    in the last bits.
     """
     key_next, k_day, k_upd = prng.split(state.key, 3).unbind(1)
     bids, new_budget = _action(cfg, state, bids, budget)
     day = simulate_day(cfg, k_day, state.kw, bids, new_budget)
-    return _transition(state, update_keywords(cfg, k_upd, state.kw), key_next, new_budget, day)
+    return _transition(state, update_keywords(cfg, k_upd, state.kw), key_next, new_budget, day,
+                       xla_sums)
+
+
+def map_state(fn, state: EnvState) -> EnvState:
+    """``fn`` applied to every tensor of ``state``, its keywords too."""
+    return EnvState(KeywordState(*map(fn, state.kw)), *map(fn, state[1:]))
+
+
+def env_step(cfg: EnvConfig, state: EnvState, bids, budget=None):
+    """One day of one env (the JAX ``env_step`` unbatched): ``state`` has
+    no env axis (keywords ``(K,)``, scalars, key ``(2,)``), ``bids`` are
+    ``(K,)``, ``budget`` a scalar or None. The env runs as a batch of one
+    through ``vector_env_step_xla``; returns (state, TimeStep) without the
+    batch axis. Bids and budget become float32 before their cents are
+    rounded, as at a jitted function's argument boundary; the reward is
+    added in XLA's order, so a day equals jitted JAX's bit for bit."""
+    device = state.day.device
+    bids = torch.as_tensor(bids, dtype=cfg.money_dtype, device=device).reshape(1, -1)
+    if budget is not None:
+        budget = torch.as_tensor(budget, dtype=cfg.money_dtype, device=device).reshape(1)
+    new_state, ts = vector_env_step_xla(cfg, map_state(lambda x: x.unsqueeze(0), state), bids,
+                                        budget, xla_sums=True)
+
+    def first(x):
+        return x[0]
+
+    return map_state(first, new_state), TimeStep(
+        obs={f: first(x) for f, x in ts.obs.items()}, reward=first(ts.reward),
+        terminated=first(ts.terminated), truncated=first(ts.truncated),
+        outcomes=DayOutcomes(*map(first, ts.outcomes)),
+    )
 
 
 def vector_env_rollout(

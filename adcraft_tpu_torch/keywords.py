@@ -2,9 +2,12 @@
 
 Counterpart of ``adcraft_tpu/keywords.py``: ``make_keyword_state``, the
 key-driven ``sample_implicit_keywords`` and ``sample_explicit_keywords``
-(:194), and ``sample_explicit_keywords_numpy`` (:233, the reference's
-``np.random.Generator`` draw order). A campaign of K keywords is one
-``KeywordState`` of ``(K,)`` tensors; the batched env holds ``(E, K)``.
+(:194), the reference's ``np.random.Generator`` draw orders
+``sample_explicit_keywords_numpy`` (:233) and
+``sample_implicit_keywords_numpy`` (:296), and the parameter reprs
+``keyword_param_tuples``, ``repr_params`` and ``repr_all_params``
+(:398-441). A campaign of K keywords is one ``KeywordState`` of ``(K,)``
+tensors; the batched env holds ``(E, K)``.
 """
 
 from __future__ import annotations
@@ -16,7 +19,8 @@ import torch
 
 from adcraft_tpu_torch import distributions as dist
 from adcraft_tpu_torch import prng
-from adcraft_tpu_torch.quantiles import IMPLICIT_PARAMS, QuantileTable, sample_from_quantiles
+from adcraft_tpu_torch.quantiles import (IMPLICIT_PARAMS, QuantileTable, sample_from_quantiles,
+                                         sample_from_quantiles_np)
 
 # Reference default bid distribution and bidder pool.
 DEFAULT_BID_LOC = 0.0
@@ -237,4 +241,83 @@ def sample_explicit_keywords_numpy(rng: np.random.Generator, num_keywords: int,
         imp_slope=imp_slope,
         updater_mask=updater_mask,
         device=device,
+    )
+
+
+def sample_implicit_keywords_numpy(rng: np.random.Generator, num_keywords: int,
+                                   table: QuantileTable, no_vol_prob: float = 0.0,
+                                   updater_mask=None, device=None) -> KeywordState:
+    """Implicit keywords in the reference's draw order
+    (``gymnasium_kw_utils.py:295-349``) from an ``np.random.Generator``:
+    the volume triple first, then per keyword a (keep, branch) pair of
+    draws deciding zero-volume keywords, then each of the six parameters
+    in order, the std ones as ``max(0.01, std_mult * mean)``; float64
+    numpy, then float32 tensors on ``device``."""
+    n = num_keywords
+    raw_vol = sample_from_quantiles_np(n, table.param_triples("vol"), rng)
+    vol_mean = np.empty(n)
+    vol_std = np.empty(n)
+    for i, v in enumerate(raw_vol):
+        keep = rng.random() > no_vol_prob and not np.isnan(v)
+        if keep:
+            vol_mean[i] = int(v)
+            vol_std[i] = int(1 + rng.random() * 0.5 * v)
+        else:
+            vol_mean[i] = 0
+            vol_std[i] = rng.random() * 0.5
+    cols = {}
+    prev = None
+    for p in IMPLICIT_PARAMS:
+        vals = np.asarray(sample_from_quantiles_np(n, table.param_triples(p), rng))
+        if p.startswith("std_"):
+            vals = np.maximum(0.01, vals * cols[prev])
+        cols[p] = vals
+        prev = p
+
+    def t(x):
+        return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+    return _implicit_state_from_params(
+        n, t(vol_mean), t(vol_std), *(t(cols[p]) for p in IMPLICIT_PARAMS), updater_mask
+    )
+
+
+# the reference's parameter names (gymnasium_kw_utils.py:352-380)
+_PARAM_NAMES = (
+    "volume",
+    "imp_intercept",
+    "imp_slope",
+    "bctr",
+    "sctr",
+    "mean revenue",
+    "std revenue",
+)
+
+
+def keyword_param_tuples(kw: KeywordState, implicit: bool) -> list:
+    """The reference's generating-parameter tuples of an unbatched state.
+
+    Explicit: ((vol_mean, vol_std), imp_intercept, imp_slope, bctr, sctr,
+    rev_mean, rev_std). Implicit: ((vol_mean, vol_std), bid_loc,
+    1/bid_scale, bctr, sctr, rev_mean, rev_std): the reference reports the
+    reciprocal of the scale in slot 2 (gymnasium_kw_utils.py:195).
+    """
+    second, third = ("bid_loc", "bid_scale") if implicit else ("imp_intercept", "imp_slope")
+    names = ("vol_mean", "vol_std", second, third, "bctr", "sctr", "rev_mean", "rev_std")
+    cols = [getattr(kw, name).cpu().numpy().astype(np.float32).tolist() for name in names]
+    out = []
+    for vm, vs, a, b, bctr, sctr, rm, rs in zip(*cols):
+        out.append(((vm, vs), a, 1.0 / b if implicit else b, bctr, sctr, rm, rs))
+    return out
+
+
+def repr_params(params) -> str:
+    """Reference ``repr_params`` (gymnasium_kw_utils.py:352-370)."""
+    return ",   ".join(name + f": {value}" for name, value in zip(_PARAM_NAMES, params))
+
+
+def repr_all_params(params_list) -> str:
+    """Reference ``repr_all_params`` (gymnasium_kw_utils.py:373-380)."""
+    return "\n".join(
+        f"kw{n} params:\n {repr_params(params)}" for n, params in enumerate(params_list)
     )

@@ -138,3 +138,14 @@ def normal(key: torch.Tensor, shape: Shape = ()) -> torch.Tensor:
     shape = _shape(shape)
     draws = prng_kernel.threefry_words(_key_rows(key), math.prod(shape), prng_kernel.NORMAL)
     return draws.reshape(key.shape[:-1] + shape)
+
+
+def choice_p(key: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """``jax.random.choice(key, n, p=p)`` of one index per key: ``key`` is
+    ``(..., 2)`` and ``p`` ``(..., n)`` float32 weights. ``r = cumsum(p)[-1]
+    * (1 - uniform)`` on the cumulative sum in XLA's scan order, then the
+    first index whose cumulative weight reaches ``r`` (a left
+    ``searchsorted``), int32 ``(...)``."""
+    p_cuml = xla_math.cumsum(p, dim=-1)
+    r = p_cuml[..., -1] * (1.0 - uniform(key, ()))
+    return torch.searchsorted(p_cuml.contiguous(), r.unsqueeze(-1)).squeeze(-1).to(torch.int32)

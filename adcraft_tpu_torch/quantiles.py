@@ -1,7 +1,9 @@
 """Quantile tables and key-driven quantile sampling.
 
 Counterpart of ``adcraft_tpu/quantiles.py``. ``QuantileTable`` holds numpy
-arrays, so a table built by either package samples the same in both.
+arrays, so a table built by either package samples the same in both. The
+CSV round trip imports pandas inside its functions, as the JAX module
+does, so the rest runs without it.
 """
 
 from __future__ import annotations
@@ -62,6 +64,110 @@ def simple_experiment_table(mean_volume: float, cvr: float) -> QuantileTable:
     d["vol"] = [mean_volume] * 3
     d["sctr"] = [cvr] * 3
     return table_from_dict(d)
+
+
+def bctr_experiment_table(ctr: float, cvr: float) -> QuantileTable:
+    """Singleton table with user-set CTR and CVR (experiment_quantiles.py:45-54)."""
+    d = generic_sparsity_dict()
+    d["bctr"] = [ctr] * 3
+    d["sctr"] = [cvr] * 3
+    return table_from_dict(d)
+
+
+def vol_bctr_experiment_table(mean_volume: float, ctr: float) -> QuantileTable:
+    """Singleton table with user-set volume and CTR (experiment_quantiles.py:56-65)."""
+    d = generic_sparsity_dict()
+    d["vol"] = [mean_volume] * 3
+    d["bctr"] = [ctr] * 3
+    return table_from_dict(d)
+
+
+# ---------------------------------------------------------------------------
+# CSV round trip (file-compatible with the reference's singleton CSVs)
+# ---------------------------------------------------------------------------
+
+
+def table_to_csv(table: QuantileTable, path: str) -> None:
+    """Write a table in the reference's column layout.
+
+    Columns: count_{p}, min_{p}, median_{p}, max_{p} per param
+    (experiment_quantiles.py:7-14).
+    """
+    import pandas as pd
+
+    cols = {}
+    for p in table.triples:
+        cols[f"count_{p}"] = table.counts[p]
+        cols[f"min_{p}"] = table.triples[p][:, 0]
+        cols[f"median_{p}"] = table.triples[p][:, 1]
+        cols[f"max_{p}"] = table.triples[p][:, 2]
+    pd.DataFrame(cols).to_csv(path)
+
+
+def table_from_csv(path: str) -> QuantileTable:
+    """Read a table written by :func:`table_to_csv` (or the reference)."""
+    import pandas as pd
+
+    df = pd.read_csv(path)
+    params = [c[len("count_") :] for c in df.columns if c.startswith("count_")]
+    triples = {}
+    counts = {}
+    for p in params:
+        triples[p] = np.stack(
+            [
+                df[f"min_{p}"].to_numpy(float),
+                df[f"median_{p}"].to_numpy(float),
+                df[f"max_{p}"].to_numpy(float),
+            ],
+            axis=1,
+        )
+        counts[p] = df[f"count_{p}"].to_numpy()
+    return QuantileTable(triples, counts)
+
+
+def make_experiment_quantiles(keyword_config: Dict) -> None:
+    """Write the singleton experiment table CSV for a keyword_config.
+
+    Reference ``make_experiment_quantiles`` (experiment_quantiles.py:68-73).
+    """
+    v = keyword_config["mean_volume"]
+    cvr = keyword_config["conversion_rate"]
+    outer = keyword_config["outer_directory"]
+    table_to_csv(simple_experiment_table(v, cvr), f"{outer}/{v}_{cvr}.csv")
+
+
+def load_experiment_quantiles(keyword_config: Dict) -> QuantileTable:
+    """Load the singleton experiment table CSV for a keyword_config.
+
+    Reference ``load_experiment_quantiles`` (experiment_quantiles.py:76-84).
+    """
+    v = keyword_config["mean_volume"]
+    cvr = keyword_config["conversion_rate"]
+    outer = keyword_config["outer_directory"]
+    return table_from_csv(f"{outer}/{v}_{cvr}.csv")
+
+
+# ---------------------------------------------------------------------------
+# sampling
+# ---------------------------------------------------------------------------
+
+
+def sample_from_quantiles_np(
+    n: int, triples: np.ndarray, rng: np.random.Generator
+) -> np.ndarray:
+    """Numpy quantile sampling, draw-for-draw identical to the reference.
+
+    Reference ``sample_from_quantiles`` (quantiles_to_keywords.py:13-28):
+    bucket ~ integers(num_buckets), q ~ random(), value = piecewise-linear
+    interp of q over [0, .5, 1] -> (min, median, max).
+    """
+    num_buckets = triples.shape[0]
+    buckets = rng.integers(low=0, high=num_buckets, size=(n,))
+    samples = rng.random(size=(n,))
+    out = np.empty(n, dtype=np.float64)
+    for i, (b, q) in enumerate(zip(buckets, samples)):
+        out[i] = np.interp(q, [0.0, 0.5, 1.0], triples[b])
+    return out
 
 
 def sample_from_quantiles(key: torch.Tensor, n: int, triples) -> torch.Tensor:

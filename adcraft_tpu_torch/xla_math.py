@@ -111,6 +111,27 @@ def cumprod(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
     return _scan(x, dim, mul=True)
 
 
+_SUM_WINDOW = 32
+
+
+def sum(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """``jnp.sum`` of a float tensor along ``dim`` as jitted XLA adds it on
+    the CPU: up to 32 elements in sequence; more in windows of 32 (the
+    zero padding split evenly before and after), each window in sequence,
+    then the windows' sums the same way."""
+    x = x.movedim(dim, -1)
+    n = x.shape[-1]
+    if n > _SUM_WINDOW:
+        w = -(-n // _SUM_WINDOW)
+        pad = w * _SUM_WINDOW - n
+        x = torch.nn.functional.pad(x, (pad // 2, pad - pad // 2))
+        return sum(sum(x.unflatten(-1, (w, _SUM_WINDOW)), -1), -1)
+    out = x[..., 0] if n else x.new_zeros(x.shape[:-1])
+    for i in range(1, n):
+        out = out + x[..., i]
+    return out
+
+
 def sqrt(x: torch.Tensor) -> torch.Tensor:
     """float32 square root, correctly rounded as XLA's (and CUDA's
     ``sqrtf``): torch's own on the CPU is not, on about 0.7% of inputs. The

@@ -139,16 +139,32 @@ Phases, each fatal on failure:
    and draws fresh keywords), counts zeroed just before: one launch of
    each kernel per day, outcomes, keys and autoreset days equal to the
    plain versions;
-   CUDA device events, device busy time and idle share per step. With --parent-csrc DIR, then, agg_cells_gate's
-   three instances, agg_outcomes (both revenue modes) and threefry_words
-   at full width in turns with DIR's build, with the count of outputs
-   where the trees differ.
+   CUDA device events, device busy time and idle share per step;
+13. the paper's experiment (adcraft_tpu_torch.experiments): the harness
+   at the dense config's full width (100 keywords, m0 = 47; env seeds
+   5-8 x agent seeds 0-3, 16 episodes), for the zero-margin and the
+   interpolation agent: 5 days through the kernels, counts zeroed just
+   before (one launch of each lanes kernel a day; threefry_words'
+   launches a day), equal to the same days through the plain versions of
+   the lanes kernels and threefry_words (profits, ideal profits, env and
+   agent states, keys), then the full 60 days through the kernels with
+   AKNCP and NCP and harness days/s; two corners of the sweep, vol 1024 /
+   cvr 1.0 (max_volume 4160, m0 = 196) and vol 1 / cvr 0.01, 3 days each
+   against the plain versions; the Gymnasium adapter's two
+   configurations (explicit rust keywords at max_volume 128, implicit ones
+   from simple_experiment_table(128, 0.8)) at one env, 5 days through
+   env.env_step against the plain versions; and timing.time_episode for
+   the three reference timing configs (64 episodes x 100 keywords x 60
+   days), s/episode and episodes/s.
+With --parent-csrc DIR, then, agg_cells_gate's three instances,
+agg_outcomes (both revenue modes) and threefry_words at full width in
+turns with DIR's build, with the count of outputs where the trees differ.
 
 The line before the last is a JSON object with each kernel's launches on
 its path, error, times and bound; the last line is {"ok": true, "device":
 {...}}. Without a CUDA device, or outside the repository, it exits 1 and
-prints no result. Each of phases 3-8, 9, 10, 11 and 12 prints its wall
-time.
+prints no result. Each of phases 3-8, 9, 10, 11, 12 and 13 prints its
+wall time.
 
     python3 chip_smoke.py [--parent-csrc DIR]
 """
@@ -2228,6 +2244,203 @@ def parent_turns_phase(torch, dev, card, table, parent):
               f"{mode}, {E} x {K}")
 
 
+# 13. the paper's experiment: run_sparsity_experiments' seeds, 4 x 4 episodes
+EXP_ENV_SEEDS = (5, 6, 7, 8)
+EXP_AGENT_SEEDS = (0, 1, 2, 3)
+EXP_AGENTS = ("zero_margin", "interpolation")
+EXP_PLAIN_DAYS = 5  # harness days held to the plain versions
+# the sweep's two corners: (mean volume, cvr); at (1024, 1.0) max_volume
+# 4160 gives m0 = 196 cost lanes, past lanes_gate's 32-lane windows
+SWEEP_CORNERS = ((1024.0, 1.0), (1.0, 0.01))
+CORNER_DAYS = 3
+GYM_DAYS = 5
+GYM_SEED = 7
+
+
+def state_leaves(torch, out):
+    """The harness run's final env state, agent state and agent keys, then
+    its profits and ideal profits, as a list of tensors."""
+    leaves = torch.utils._pytree.tree_leaves((out["env_state"], out["agent_state"],
+                                             out["agent_keys"]))
+    return leaves + [torch.from_numpy(out["kw_profits"]), torch.from_numpy(out["ideal_profits"])]
+
+
+def harness_turn(torch, ld, pk, harness, names, label, cfg, table, agent, days, dev):
+    """``days`` of the harness through the kernels (counts zeroed just
+    before, read just after), then through the plain versions of the lanes
+    kernels and of threefry_words; fails unless every profit, ideal
+    profit, state and key is equal. Returns (kernel run, launches, kernel
+    s, plain s)."""
+    kernels = {n: getattr(ld, n) for n in names}
+    torch.cuda.synchronize()
+    for kernel in kernels.values():
+        kernel.launches = 0
+    pk.threefry_words.launches = 0
+    t0 = time.perf_counter()
+    got = harness.run_episode_batch(cfg, table, EXP_ENV_SEEDS, EXP_AGENT_SEEDS, num_days=days,
+                                    agent=agent, device=dev, return_state=True)
+    torch.cuda.synchronize()
+    kernel_s = time.perf_counter() - t0
+    launches = {n: k.launches for n, k in kernels.items()}
+    launches["threefry_words"] = pk.threefry_words.launches
+    if any(launches[n] != days for n in names) or launches["threefry_words"] == 0:
+        fail(f"{label}: launches {launches} in {days} days, want {days} of each lanes kernel")
+    # threefry_words per day: the launches of a one-day run (the keywords'
+    # and the state's set-up and a day) taken from this run's
+    pk.threefry_words.launches = 0
+    harness.run_episode_batch(cfg, table, EXP_ENV_SEEDS, EXP_AGENT_SEEDS, num_days=1,
+                              agent=agent, device=dev)
+    launches["threefry_words per day"] = (launches["threefry_words"]
+                                          - pk.threefry_words.launches) / (days - 1)
+    t0 = time.perf_counter()
+    with lanes_plain(ld), words_replaced(pk, pk.threefry_words_reference):
+        want = harness.run_episode_batch(cfg, table, EXP_ENV_SEEDS, EXP_AGENT_SEEDS,
+                                         num_days=days, agent=agent, device=dev,
+                                         return_state=True)
+        torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    for i, (a, b) in enumerate(zip(state_leaves(torch, got), state_leaves(torch, want))):
+        if not torch.equal(a.cpu(), b.cpu()):
+            fail(f"{label}: output {i} (state, keys, profits) differs between kernels and plain")
+    return got, launches, kernel_s, plain_s
+
+
+def gym_days(torch, env, prng, cfg, kw, dev, rng):
+    """``GYM_DAYS`` days of one env as BiddingSimulation runs them: its
+    reset's key drawn from its generator, then float64 actions, each day
+    through ``env.env_step``; returns the outcomes and the final state."""
+    import numpy as np
+
+    key = prng.PRNGKey(int(rng.integers(0, 2**31 - 1)), device=dev)
+    state, _ = env.env_reset(cfg, key, kw=kw)
+    days = []
+    for _ in range(GYM_DAYS):
+        bids = rng.uniform(0.05, 2.5, cfg.num_keywords)
+        budget = float(np.round(rng.uniform(50.0, 1000.0), 2))
+        state, ts = env.env_step(cfg, state, bids, budget)
+        days.append(ts)
+    return torch.utils._pytree.tree_leaves((days, state))
+
+
+def experiment_phase(torch, dev, card):
+    """Phase 13: the sparsity experiment (harness, metrics, both baseline
+    agents), the gym's two configurations and the timing experiment."""
+    import numpy as np
+
+    from adcraft_tpu_torch import env, keywords, metrics, prng
+    from adcraft_tpu_torch import lanes_day as ld
+    from adcraft_tpu_torch import prng_kernel as pk
+    from adcraft_tpu_torch.config import CompetitorModel, EnvConfig, KeywordKind
+    from adcraft_tpu_torch.experiments import harness, timing
+    from adcraft_tpu_torch.experiments.configs import ENV_CONFIGS, experiment_table
+    from adcraft_tpu_torch.quantiles import simple_experiment_table
+
+    implicit_names = ("lanes_counts", "lanes_gate", "lanes_outcomes")
+    B = len(EXP_ENV_SEEDS) * len(EXP_AGENT_SEEDS)
+
+    def sweep_config(vol, days):
+        # run_sparsity_experiments' EnvConfig for a cell
+        return EnvConfig(num_keywords=100, max_days=days, kind=KeywordKind.IMPLICIT,
+                         max_volume=int(max(32, 4 * vol + 64)))
+
+    # the dense config at full width: kernels vs plain, then 60 days
+    dense = ENV_CONFIGS["dense"]
+    cfg = sweep_config(dense["keyword_config"]["mean_volume"], dense["max_days"])
+    table = experiment_table(dense)
+    for agent in EXP_AGENTS:
+        label = f"harness (dense, {agent})"
+        got, launches, kernel_s, plain_s = harness_turn(
+            torch, ld, pk, harness, implicit_names, label, cfg, table, agent, EXP_PLAIN_DAYS, dev)
+        print(f"{label}: {B} episodes x {cfg.num_keywords} keywords, m0 "
+              f"{cfg.max_clicks_per_cell}, {EXP_PLAIN_DAYS} days == plain (profits, ideal "
+              f"profits, env and agent states, keys); launches {launches}; kernels "
+              f"{EXP_PLAIN_DAYS / kernel_s:.2f} harness days/s ({kernel_s:.3f} s), plain "
+              f"{EXP_PLAIN_DAYS / plain_s:.3f} harness days/s ({plain_s:.3f} s) ({card})")
+        if not (got["kw_profits"] != 0).any():
+            fail(f"{label}: no profit or loss in {EXP_PLAIN_DAYS} days")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = harness.run_episode_batch(cfg, table, EXP_ENV_SEEDS, EXP_AGENT_SEEDS, agent=agent,
+                                        device=dev)
+        torch.cuda.synchronize()
+        full_s = time.perf_counter() - t0
+        profits = torch.from_numpy(out["kw_profits"])
+        ideal = torch.from_numpy(out["ideal_profits"])
+        if profits.shape != (B, cfg.max_days, cfg.num_keywords) or not (
+                torch.isfinite(profits).all() and torch.isfinite(ideal).all()):
+            fail(f"{label}: {cfg.max_days}-day profits not finite or of the wrong shape")
+        if not (profits[:, :EXP_PLAIN_DAYS] == torch.from_numpy(got["kw_profits"])).all():
+            fail(f"{label}: the {cfg.max_days}-day run's first days differ from the short run's")
+        akncp = metrics.compute_AKNCP(profits, ideal)
+        ncp = metrics.compute_NCP(profits, ideal)
+        print(f"{label}: {cfg.max_days} days through the kernels in {full_s:.3f} s "
+              f"({cfg.max_days / full_s:.2f} harness days/s, {B / full_s:.3f} episodes/s); "
+              f"AKNCP {akncp.mean().item():.4f} (episodes {akncp.min().item():.4f} to "
+              f"{akncp.max().item():.4f}), NCP {ncp.mean().item():.4f} (episodes "
+              f"{ncp.min().item():.4f} to {ncp.max().item():.4f}); ideal profit "
+              f"${ideal.sum().item() / B:.2f} per episode ({card})")
+
+    # the sweep's corners, the interpolation agent (its first days bid
+    # across the grid, so that the budget binds)
+    for vol, cvr in SWEEP_CORNERS:
+        ccfg = sweep_config(vol, CORNER_DAYS)
+        label = f"harness corner (vol {vol:g}, cvr {cvr:g})"
+        got, launches, kernel_s, plain_s = harness_turn(
+            torch, ld, pk, harness, implicit_names, label, ccfg, simple_experiment_table(vol, cvr),
+            "interpolation", CORNER_DAYS, dev)
+        profits = got["kw_profits"]
+        print(f"{label}: max_volume {ccfg.max_volume}, m0 {ccfg.max_clicks_per_cell}, "
+              f"{CORNER_DAYS} days == plain; launches {launches}; profit "
+              f"${profits.sum() / B:.2f} per episode; kernels {kernel_s:.3f} s, plain "
+              f"{plain_s:.3f} s ({card})")
+
+    # the gym's two configurations (BiddingSimulation's EnvConfig) at one
+    # env, each day through env.env_step
+    gym = {
+        "explicit (rust)": (EnvConfig(num_keywords=10, kind=KeywordKind.EXPLICIT,
+                                      competitor_model=CompetitorModel.SINGLE_ABS_CENTS,
+                                      max_volume=128),
+                            ("lanes_counts", "lanes_gate_float", "lanes_outcomes")),
+        "implicit (128, 0.8)": (EnvConfig(num_keywords=10, kind=KeywordKind.IMPLICIT,
+                                          competitor_model=CompetitorModel.SINGLE_ABS_CENTS,
+                                          max_volume=576),
+                                implicit_names),
+    }
+    for label, (gcfg, names) in gym.items():
+        def keywords_of(rng):
+            if gcfg.kind is KeywordKind.EXPLICIT:
+                return keywords.sample_explicit_keywords_numpy(rng, 10, device=dev)
+            return keywords.sample_implicit_keywords_numpy(
+                rng, 10, simple_experiment_table(128, 0.8), device=dev)
+
+        kernels = {n: getattr(ld, n) for n in names}
+        torch.cuda.synchronize()
+        for kernel in kernels.values():
+            kernel.launches = 0
+        rng = np.random.default_rng(GYM_SEED)
+        got = gym_days(torch, env, prng, gcfg, keywords_of(rng), dev, rng)
+        torch.cuda.synchronize()
+        launches = {n: k.launches for n, k in kernels.items()}
+        if any(n != GYM_DAYS for n in launches.values()):
+            fail(f"gym {label}: launches {launches} in {GYM_DAYS} days")
+        with lanes_plain(ld), words_replaced(pk, pk.threefry_words_reference):
+            rng = np.random.default_rng(GYM_SEED)
+            want = gym_days(torch, env, prng, gcfg, keywords_of(rng), dev, rng)
+        for i, (a, b) in enumerate(zip(got, want)):
+            if not torch.equal(a, b):
+                fail(f"gym {label}: output {i} differs between kernels and plain")
+        print(f"gym {label}: 1 env x 10 keywords, max_volume {gcfg.max_volume}, {GYM_DAYS} days "
+              f"through env.env_step == plain; launches {launches}")
+
+    # the timing experiment's three reference configs
+    for vol, cvr, ns in timing.REFERENCE_CONFIGS:
+        r = timing.time_episode(vol, cvr, non_stationary=ns, device=dev)
+        print(f"timing (vol {vol}, cvr {cvr}, {'non-stationary' if ns else 'stationary'}): "
+              f"{r['episodes']} episodes x 100 keywords x 60 days in {r['total_s']:.3f} s: "
+              f"{r['s_per_episode']:.5f} s/episode, {r['episodes_per_s']:.2f} episodes/s "
+              f"({card})")
+
+
 def phase_done(name: str, t0: float) -> float:
     """Prints a phase's wall time since ``t0``; returns now."""
     now = time.perf_counter()
@@ -2656,6 +2869,9 @@ def main(argv=None) -> int:
     # 12. explicit keywords on the lanes day (EnvConfig's defaults)
     route_kernels += explicit_lanes_phase(torch, dev, card, *rates, lanes_stats, parent)
     t_phase = phase_done("12", t_phase)
+    # 13. the sparsity experiment, the gym's configurations and the timing
+    experiment_phase(torch, dev, card)
+    t_phase = phase_done("13", t_phase)
     if parent_other is not None:
         print("the agg route's kernels and threefry_words in turns with the parent tree's:")
         parent_turns_phase(torch, dev, card, table, parent_other)

@@ -743,3 +743,40 @@ def test_explicit_lanes_env_step_launches_each_kernel_once(cuda, model, monkeypa
         assert [k.launches - b for k, b in zip(kernels, before)] == ([0] * 3 if plain else [4] * 3)
         runs.append(torch.utils._pytree.tree_leaves((ts, roll, auto, state)))
     assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("agent", ["zero_margin", "interpolation"])
+def test_harness_days_match_plain(cuda, agent, monkeypatch):
+    """Two days of the sparsity-experiment harness on the card (implicit
+    keywords on the lanes day, a baseline agent, the oracle's draws): one
+    launch of each lanes kernel per day, and every profit, ideal profit,
+    env and agent state and key equal to the same days through the plain
+    versions of the lanes kernels and of threefry_words."""
+    from adcraft_tpu_torch import lanes_day
+    from adcraft_tpu_torch.experiments import harness
+
+    cfg = EnvConfig(num_keywords=12, kind=KeywordKind.IMPLICIT, max_volume=96, max_days=2)
+    table = simple_experiment_table(16, 0.6)
+    names = ("lanes_counts", "lanes_gate", "lanes_outcomes")
+    runs = []
+    for plain in (False, True):
+        if plain:
+            for name in names:
+                monkeypatch.setattr(lanes_day, name, getattr(lanes_day, name + "_reference"))
+            monkeypatch.setattr(pk, "threefry_words", pk.threefry_words_reference)
+        kernels = [getattr(lanes_day, n) for n in names] + [pk.threefry_words]
+        before = [getattr(k, "launches", 0) for k in kernels]
+        out = harness.run_episode_batch(cfg, table, (1, 2), (0, 1), agent=agent, device=cuda,
+                                        return_state=True)
+        torch.cuda.synchronize()
+        launched = [getattr(k, "launches", 0) - b for k, b in zip(kernels, before)]
+        if plain:
+            assert launched == [0] * 4
+        else:
+            assert launched[:3] == [2] * 3 and launched[3] > 0
+        assert out["env_state"].key.is_cuda
+        runs.append(torch.utils._pytree.tree_leaves(
+            (out["env_state"], out["agent_state"], out["agent_keys"])))
+        runs[-1] += [torch.from_numpy(out["kw_profits"]), torch.from_numpy(out["ideal_profits"])]
+    assert all(torch.equal(a.cpu(), b.cpu()) for a, b in zip(*runs))
