@@ -140,6 +140,38 @@ def normal(key: torch.Tensor, shape: Shape = ()) -> torch.Tensor:
     return draws.reshape(key.shape[:-1] + shape)
 
 
+def permutation(key: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.permutation(key, n)``: ``(..., 2)`` keys -> ``(..., n)``
+    int64 permutations of ``arange(n)``. JAX's ``_shuffle``: ``ceil(3 ln n /
+    ln(2**32 - 1))`` rounds (1 up to n = 1625, 2 above), each a ``split``
+    and a stable sort of ``arange``'s current order by 32-bit words."""
+    rounds = int(np.ceil(3 * np.log(max(1, n)) / np.log(np.iinfo(np.uint32).max)))
+    x = torch.arange(n, device=key.device).expand(key.shape[:-1] + (n,))
+    for _ in range(rounds):
+        key, sub = split(key).unbind(-2)
+        order = torch.sort(random_bits(sub, (n,)), dim=-1, stable=True).indices
+        x = torch.gather(x, -1, order)
+    return x
+
+
+def truncated_normal(key: torch.Tensor, lower: float, upper: float, shape: Shape) -> torch.Tensor:
+    """``jax.random.truncated_normal`` in float32 for scalar bounds:
+    ``sqrt(2) erf_inv(u)`` of a uniform on [erf(lower / sqrt(2)),
+    erf(upper / sqrt(2))), on XLA's ``erf`` and ``erf_inv``, clipped to
+    the open interval (the bounds' float32 neighbours inside it)."""
+    lo, hi = np.float32(lower), np.float32(upper)
+    # jitted XLA divides by the constant sqrt(2) as a product with its
+    # float32 reciprocal; the erfs of the two bounds are scalars
+    bounds = torch.tensor([lo, hi], dtype=torch.float32) * np.float32(1.0 / np.float32(np.sqrt(2)))
+    a, b = (np.float32(x) for x in xla_math.erf(bounds))
+    # the uniform's scale and shift are one fused multiply-add there
+    floats = prng_kernel.uniform_from_words(random_bits(key, shape), 0.0, 1.0)
+    u = torch.clamp(xla_math.fma32(floats, float(b - a), float(a)), min=float(a))
+    out = xla_math.erfinv(u) * xla_math.SQRT2
+    return torch.clamp(out, float(np.nextafter(lo, np.float32(np.inf))),
+                       float(np.nextafter(hi, np.float32(-np.inf))))
+
+
 def choice_p(key: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     """``jax.random.choice(key, n, p=p)`` of one index per key: ``key`` is
     ``(..., 2)`` and ``p`` ``(..., n)`` float32 weights. ``r = cumsum(p)[-1]

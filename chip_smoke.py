@@ -155,7 +155,25 @@ Phases, each fatal on failure:
    from simple_experiment_table(128, 0.8)) at one env, 5 days through
    env.env_step against the plain versions; and timing.time_episode for
    the three reference timing configs (64 episodes x 100 keywords x 60
-   days), s/episode and episodes/s.
+   days), s/episode and episodes/s;
+14. the RL trainers (adcraft_tpu_torch.agents) at train_rl's defaults
+   (the dense config: 128 envs x 100 keywords, max_volume 576, the fast
+   knobs, so the agg kernels and threefry_words; 16 rollout days, 4
+   epochs x 4 minibatches, [32, 32]): one PPO train step through the
+   kernels, counts zeroed just before (one launch of each agg kernel per
+   env day), equal bit for bit to the same step through the plain
+   versions of the agg kernels and threefry_words (transitions,
+   advantages, parameters, Adam state, env state, key, metrics); 5 train
+   steps timed (train steps/s, training env-steps/s, launches per train
+   step) and one under torch.profiler (device events, busy and idle);
+   2 steps of the lanes route (--exact-env); A2C [256, 256], 10 steps;
+   TD3 [400, 300] (buffer 100,000, batch 256) through its warm-up, one
+   step equal to the plain versions', then 10 more; evaluate (16 envs x
+   60 days, AKNCP and NCP); JAX's learning proof (tests/test_ppo.py:59's
+   configuration and assertions, 150 steps); train_rl's CLI, --steps 3
+   --checkpoint --out then --restore --steps 1, whose step equals the
+   uninterrupted 4th; multi_train over a PPO and a TD3 learner; entry()'s
+   forward on the card within rtol 1e-5 of the CPU's.
 With --parent-csrc DIR, then, agg_cells_gate's three instances,
 agg_outcomes (both revenue modes) and threefry_words at full width in
 turns with DIR's build, with the count of outputs where the trees differ.
@@ -163,7 +181,7 @@ turns with DIR's build, with the count of outputs where the trees differ.
 The line before the last is a JSON object with each kernel's launches on
 its path, error, times and bound; the last line is {"ok": true, "device":
 {...}}. Without a CUDA device, or outside the repository, it exits 1 and
-prints no result. Each of phases 3-8, 9, 10, 11, 12 and 13 prints its
+prints no result. Each of phases 3-8, 9, 10, 11, 12, 13 and 14 prints its
 wall time.
 
     python3 chip_smoke.py [--parent-csrc DIR]
@@ -2441,6 +2459,257 @@ def experiment_phase(torch, dev, card):
               f"({card})")
 
 
+# 14. the RL trainers at train_rl.py's defaults: the dense config (100
+# keywords, max_volume 576), 128 envs, the fast knobs (the agg day route),
+# 16 rollout days, 4 epochs x 4 minibatches, [32, 32]
+TRAIN_TIMED_STEPS = 5
+A2C_STEPS = 10
+TD3_STEPS = 10  # past the warm-up
+EVAL_ENVS = 16
+# JAX's test_ppo_actually_learns (tests/test_ppo.py:59) and its assertions
+LEARN_STEPS, LEARN_EARLY, LEARN_MARGIN = 150, 20, 0.25
+
+
+def tree_leaves(torch, tree):
+    return torch.utils._pytree.tree_leaves(tree)
+
+
+def assert_trees_equal(torch, got, want, label):
+    """Fails unless the two trees' tensors and numbers are equal bit for bit."""
+    a, b = tree_leaves(torch, got), tree_leaves(torch, want)
+    if len(a) != len(b):
+        fail(f"{label}: {len(a)} leaves against {len(b)}")
+    for i, (x, y) in enumerate(zip(a, b)):
+        same = (x.shape == y.shape and x.dtype == y.dtype and torch.equal(x, y)
+                if isinstance(x, torch.Tensor) else x == y)
+        if not same:
+            fail(f"{label}: leaf {i} differs between the kernels and the plain versions")
+
+
+def counted(torch, kernels, run):
+    """``run()`` with every wrapper's count zeroed just before and read just
+    after: (its result, launches by name)."""
+    torch.cuda.synchronize()
+    for kernel in kernels.values():
+        kernel.launches = 0
+    out = run()
+    torch.cuda.synchronize()
+    return out, {name: kernel.launches for name, kernel in kernels.items()}
+
+
+def ppo_parts(trainer, state):
+    """One PPO train step in its parts: the rollout, its advantages and the
+    update."""
+    env_state, last_obs, key, traj = trainer.rollout(state)
+    advs = trainer._gae(traj, trainer.value_apply(state.params["value"], last_obs))
+    new_state, metrics = trainer.update(state, env_state, last_obs, key, traj)
+    return traj, advs, new_state, metrics
+
+
+def training_phase(torch, dev, card):
+    """Phase 14: PPO at train_rl's defaults through the kernels against the
+    plain versions and timed; the lanes route; A2C; TD3 past its warm-up
+    (one step against the plain versions); evaluate; JAX's learning proof;
+    checkpoint and restore through train_rl's CLI; multi_train; entry()."""
+    import tempfile
+
+    import numpy as np
+
+    from adcraft_tpu_torch import agg_day as ad
+    from adcraft_tpu_torch import multi_agent, prng
+    from adcraft_tpu_torch import prng_kernel as pk
+    from adcraft_tpu_torch.agents.a2c import A2CConfig, A2CTrainer
+    from adcraft_tpu_torch.agents.ppo import PPOConfig, PPOTrainer
+    from adcraft_tpu_torch.agents.td3 import TD3Config, TD3Trainer
+    from adcraft_tpu_torch.config import FAST_XLA_KNOBS, EnvConfig, KeywordKind
+    from adcraft_tpu_torch.entry import entry
+    from adcraft_tpu_torch.experiments import train_rl
+    from adcraft_tpu_torch.quantiles import simple_experiment_table
+
+    kernels = {"agg_cells_gate": ad.agg_cells_gate, "agg_outcomes": ad.agg_outcomes,
+               "threefry_words": pk.threefry_words}
+    trainer = train_rl.build(train_rl.parser().parse_args([]))
+    cfg, E, pcfg = trainer.env_cfg, trainer.num_envs, trainer.cfg
+    env_steps = pcfg.rollout_days * E
+    print(f"PPO at train_rl's defaults: {E} envs x {cfg.num_keywords} keywords, max_volume "
+          f"{cfg.max_volume} (m0 {cfg.max_clicks_per_cell}), {pcfg.rollout_days} rollout days, "
+          f"{pcfg.num_epochs} epochs x {pcfg.num_minibatches} minibatches, hidden "
+          f"{list(pcfg.hidden)}; TF32 matmuls "
+          f"{'on' if torch.backends.cuda.matmul.allow_tf32 else 'off'}")
+    state = trainer.init(prng.PRNGKey(0))
+
+    # one train step through the kernels and through the plain versions
+    t0 = time.perf_counter()
+    got, launches = counted(torch, kernels, lambda: ppo_parts(trainer, state))
+    kernel_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with agg_plain(ad), words_replaced(pk, pk.threefry_words_reference):
+        want = ppo_parts(trainer, state)
+        torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    assert_trees_equal(torch, got, want, "PPO train step")
+    if launches["agg_cells_gate"] != pcfg.rollout_days or launches["agg_outcomes"] != \
+            pcfg.rollout_days or launches["threefry_words"] == 0:
+        fail(f"PPO train step: launches {launches}, want {pcfg.rollout_days} of each agg kernel")
+    traj, _, new_state, metrics = got
+    if not all(bool(torch.isfinite(x).all()) for x in tree_leaves(torch, (traj, metrics))):
+        fail("PPO train step: non-finite transitions or metrics")
+    print(f"PPO train step == plain (transitions, advantages, parameters, Adam state, env "
+          f"state, key, metrics); launches per train step {launches}; kernels {kernel_s:.3f} s "
+          f"(first step), plain {plain_s:.3f} s; loss {float(metrics['loss']):.4f}, mean "
+          f"reward {float(metrics['mean_reward']):.4f} ({card})")
+
+    # timing: TRAIN_TIMED_STEPS steps through the kernels, then one profiled
+    def steps(n):
+        s = new_state
+        for _ in range(n):
+            s, m = trainer.train_step(s)
+        return s, m
+
+    steps(1)
+    t0 = time.perf_counter()
+    (_, m), launches = counted(torch, kernels, lambda: steps(TRAIN_TIMED_STEPS))
+    wall = time.perf_counter() - t0
+    events, busy, prof_wall = device_busy(lambda: steps(1), 1)
+    per_step = {n: v / TRAIN_TIMED_STEPS for n, v in launches.items()}
+    step_ms = wall / TRAIN_TIMED_STEPS * 1e3
+    print(f"PPO timing: {TRAIN_TIMED_STEPS} train steps in {wall:.3f} s: "
+          f"{TRAIN_TIMED_STEPS / wall:.3f} train steps/s, {TRAIN_TIMED_STEPS * env_steps / wall:.1f} "
+          f"training env-steps/s; launches per train step {per_step}; one profiled step: "
+          f"{events:.0f} CUDA device events, device busy {busy:.3f} ms of {prof_wall:.3f} ms "
+          f"under the profiler (idle {100 * (1 - busy / prof_wall):.1f}%), of the timed "
+          f"steps' {step_ms:.3f} ms (idle {100 * (1 - busy / step_ms):.1f}%); mean reward "
+          f"{m['mean_reward']:.4f} ({card})")
+
+    # the lanes route (--exact-env)
+    exact = train_rl.build(train_rl.parser().parse_args(["--exact-env"]))
+    t0 = time.perf_counter()
+    _, m = exact.train(exact.init(prng.PRNGKey(0)), 2)
+    if not all(np.isfinite(v) for v in m.values()):
+        fail(f"--exact-env: non-finite metrics {m}")
+    print(f"PPO --exact-env (the lanes day): 2 train steps in {time.perf_counter() - t0:.3f} s; "
+          f"loss {m['loss']:.4f}, mean reward {m['mean_reward']:.4f}")
+
+    # A2C, [256, 256]
+    a2c = A2CTrainer(cfg, E, A2CConfig(), table=trainer.table)
+    a_state = a2c.init(prng.PRNGKey(1))
+    t0 = time.perf_counter()
+    _, m = a2c.train(a_state, A2C_STEPS)
+    a2c_s = time.perf_counter() - t0
+    if not all(np.isfinite(v) for v in m.values()):
+        fail(f"A2C: non-finite metrics {m}")
+    print(f"A2C [256, 256]: {A2C_STEPS} train steps in {a2c_s:.3f} s "
+          f"({A2C_STEPS / a2c_s:.3f} steps/s); loss {m['loss']:.4f}, mean reward "
+          f"{m['mean_reward']:.4f} ({card})")
+
+    # TD3, [400, 300], buffer 100,000, batch 256: through its warm-up, one
+    # step against the plain versions, then TD3_STEPS more
+    tcfg = TD3Config()
+    td3 = TD3Trainer(cfg, E, tcfg, table=trainer.table)
+    warm = -(-tcfg.warmup_steps // E)
+    t_state, _ = td3.train(td3.init(prng.PRNGKey(2)), warm)
+    tkernels = {n: kernels[n] for n in ("agg_cells_gate", "agg_outcomes")}
+    got, launches = counted(torch, tkernels, lambda: td3.train_step(t_state))
+    with agg_plain(ad), words_replaced(pk, pk.threefry_words_reference):
+        want = td3.train_step(t_state)
+    assert_trees_equal(torch, got, want, "TD3 train step")
+    if any(v != 1 for v in launches.values()):
+        fail(f"TD3 train step: launches {launches}, want 1 of each agg kernel")
+    t0 = time.perf_counter()
+    t_state, m = td3.train(got[0], TD3_STEPS)
+    td3_s = time.perf_counter() - t0
+    if not all(np.isfinite(v) for v in m.values()) or t_state.buffer.size != (
+            warm + 1 + TD3_STEPS) * E:
+        fail(f"TD3: metrics {m}, buffer {t_state.buffer.size}")
+    print(f"TD3 [400, 300]: {warm} warm-up steps, step {warm + 1} == plain (parameters, "
+          f"targets, Adam states, buffer, env state, key, metrics); {TD3_STEPS} more in "
+          f"{td3_s:.3f} s ({TD3_STEPS / td3_s:.3f} steps/s); critic loss "
+          f"{m['critic_loss']:.4f}, actor loss {m['actor_loss']:.4f}, buffer "
+          f"{m['buffer_size']:.0f} ({card})")
+
+    # evaluate: 16 envs x 60 greedy days
+    t0 = time.perf_counter()
+    ev = train_rl.evaluate(trainer, new_state.params, prng.PRNGKey(999), num_envs=EVAL_ENVS)
+    if not all(np.isfinite(v) for v in ev.values()):
+        fail(f"evaluate: {ev}")
+    print(f"evaluate: {EVAL_ENVS} envs x {cfg.max_days} days in {time.perf_counter() - t0:.3f} "
+          f"s: AKNCP {ev['AKNCP']:.4f}, NCP {ev['NCP']:.4f}, episode return "
+          f"{ev['episode_return']:.2f} ({card})")
+
+    # the learning proof: JAX's test_ppo_actually_learns, its assertions
+    lcfg = EnvConfig(num_keywords=4, kind=KeywordKind.IMPLICIT, max_volume=64, max_days=100000,
+                     budget=50.0, **FAST_XLA_KNOBS)
+    learner = PPOTrainer(lcfg, 64, PPOConfig(lr=3e-4, rollout_days=8, hidden=(32, 32)),
+                         table=simple_experiment_table(32, 0.8))
+    l_state = learner.init(prng.PRNGKey(0))
+    rewards = []
+    t0 = time.perf_counter()
+    for _ in range(LEARN_STEPS):
+        l_state, m = learner.train_step(l_state)
+        rewards.append(m["mean_reward"])
+    r = torch.stack(rewards).cpu().numpy().astype(np.float64)
+    learn_s = time.perf_counter() - t0
+    early, late = r[:LEARN_EARLY].mean(), r[-LEARN_EARLY:].mean()
+    slope = np.polyfit(np.arange(len(r)), r, 1)[0]
+    print(f"learning proof (4 keywords, 64 envs, budget $50, lr 3e-4, 8 rollout days, "
+          f"{LEARN_STEPS} steps, PRNGKey(0)) in {learn_s:.3f} s: early {early:.4f}, late "
+          f"{late:.4f} (needs > early + {LEARN_MARGIN}), slope {slope:.6f} (needs > 0)")
+    if not (np.isfinite(r).all() and late > early + LEARN_MARGIN and slope > 0.0):
+        fail("the learning proof failed")
+
+    # checkpoint and restore through the CLI; the uninterrupted run in process
+    with tempfile.TemporaryDirectory() as tmp:
+        ck, out = os.path.join(tmp, "ck"), os.path.join(tmp, "run.json")
+
+        def cli(*args):
+            proc = subprocess.run([sys.executable, "-m", "adcraft_tpu_torch.experiments.train_rl",
+                                   *args], capture_output=True, text=True, timeout=600,
+                                  check=False)
+            if proc.returncode != 0:
+                fail(f"train_rl {' '.join(args)}: {proc.stderr[-2000:]}")
+            return [json.loads(line) for line in proc.stdout.splitlines()]
+
+        t0 = time.perf_counter()
+        first = cli("--steps", "3", "--checkpoint", ck, "--out", out)
+        resumed = cli("--restore", ck, "--steps", "1")
+        cli_s = time.perf_counter() - t0
+        artifact = json.load(open(out))
+    s4, m4 = trainer.train(trainer.init(prng.PRNGKey(0)), 3)
+    s4, m4 = trainer.train(s4, 1)
+    line = {k: v for k, v in resumed[-1].items() if k != "step"}
+    if resumed[0] != {"restored": ck} or line != m4:
+        fail(f"restored run {resumed[-1]} != the uninterrupted 4th step {m4}")
+    if artifact["backend"]["name"] != torch.cuda.get_device_name(0) or first[-1] != {
+            "checkpoint": ck}:
+        fail(f"train_rl --out: backend {artifact['backend']}, last line {first[-1]}")
+    print(f"train_rl --steps 3 --checkpoint --out, then --restore --steps 1: the restored step "
+          f"== the uninterrupted 4th (loss {m4['loss']:.6f}); {cli_s:.1f} s for the two runs; "
+          f"artifact: final AKNCP {artifact['final']['AKNCP']:.4f}, NCP "
+          f"{artifact['final']['NCP']:.4f}, zero-margin AKNCP "
+          f"{artifact['baseline_zero_margin']['AKNCP']:.4f}, backend {artifact['backend']}")
+
+    # multi_train over a PPO and a TD3 learner
+    trainers, states = multi_agent.make_multi_trainers(cfg, 2, table=trainer.table,
+                                                       algo_cfgs=["ppo", "td3"])
+    res = multi_agent.multi_train(trainers, states, epochs=2)
+    reward_mean = res["sampler_results"]["policy_reward_mean"]
+    if not all(np.isfinite(v) for v in reward_mean.values()):
+        fail(f"multi_train: {reward_mean}")
+    print(f"multi_train (PPO, TD3 at 8 envs, 2 epochs): policy_reward_mean {reward_mean}")
+
+    # the flagship forward on the card against the CPU's
+    forward, (params, obs) = entry()
+    cpu_forward, (cpu_params, cpu_obs) = entry("cpu")
+    assert_trees_equal(torch, tree_leaves(torch, cpu_params),
+                       [x.cpu() for x in tree_leaves(torch, params)], "entry() parameters")
+    for name, a, b in zip(("mean", "log_std", "value"), forward(params, obs),
+                          cpu_forward(cpu_params, cpu_obs)):
+        if not torch.allclose(a.cpu(), b, rtol=1e-5, atol=1e-6):
+            fail(f"entry(): the card's {name} differs from the CPU's beyond rtol 1e-5")
+    print("entry(): policy and value forward at 100 keywords x 256 on the card within rtol "
+          "1e-5 of the CPU's; parameters equal")
+
+
 def phase_done(name: str, t0: float) -> float:
     """Prints a phase's wall time since ``t0``; returns now."""
     now = time.perf_counter()
@@ -2872,6 +3141,9 @@ def main(argv=None) -> int:
     # 13. the sparsity experiment, the gym's configurations and the timing
     experiment_phase(torch, dev, card)
     t_phase = phase_done("13", t_phase)
+    # 14. the RL trainers, train_rl, checkpoints, multi-agent training, entry
+    training_phase(torch, dev, card)
+    t_phase = phase_done("14", t_phase)
     if parent_other is not None:
         print("the agg route's kernels and threefry_words in turns with the parent tree's:")
         parent_turns_phase(torch, dev, card, table, parent_other)

@@ -10,6 +10,7 @@ fused multiply-adds, tests/test_torch_keywords.py). The day's constants
 are the port's own, on XLA's ``exp``, ``expm1``, ``powf`` and scans.
 """
 
+import functools
 import os
 import subprocess
 import sys
@@ -36,11 +37,22 @@ REPO = Path(__file__).resolve().parents[1]
 JCFG, CFG = configs(16)
 
 
+@functools.lru_cache(maxsize=None)
+def jax_env(drift: bool):
+    """The JAX env of the file, with an all-True updater mask or none.
+    Each instance jits its own reset and steps, so the file keeps one
+    instance per mask; the step's program depends on the config alone (the
+    mask lives in the state), so every test steps through the maskless
+    env's, and each JAX program compiles once for the file."""
+    mask = np.ones(K, bool) if drift else None
+    return jenv.VectorBiddingEnv(JCFG, E, table=j_table(64, 0.5), updater_mask=mask)
+
+
 @pytest.mark.parametrize("seed, drift", [(0, False), (4, True)])
 def test_three_days_match_jax(seed, drift):
     mask = np.ones(K, bool) if drift else None
-    jax_env = jenv.VectorBiddingEnv(JCFG, E, table=j_table(64, 0.5), updater_mask=mask)
-    jstate, _ = jax_env.reset(jax.random.PRNGKey(seed))
+    jstate, _ = jax_env(drift).reset(jax.random.PRNGKey(seed))
+    jax_step = jax_env(False).step
     env = VectorBiddingEnv(CFG, E, t_table(64, 0.5), updater_mask=mask, device="cpu")
     own, _ = env.reset(prng.PRNGKey(seed))
     carried = env_state_from_numpy(jax.tree.map(np.asarray, jstate), device="cpu")
@@ -48,7 +60,7 @@ def test_three_days_match_jax(seed, drift):
     for budget in BUDGETS:
         jbudget = None if budget is None else jnp.full((E,), budget)
         tbudget = None if budget is None else torch.full((E,), budget)
-        jstate, jts = jax_env.step(jstate, jnp.asarray(bids), jbudget)
+        jstate, jts = jax_step(jstate, jnp.asarray(bids), jbudget)
         own, own_ts = env.step(own, torch.from_numpy(bids), tbudget)
         carried, carried_ts = env.step(carried, torch.from_numpy(bids), tbudget)
         for ts in (own_ts, carried_ts):
@@ -84,9 +96,8 @@ def test_rollout_equals_steps_and_jax():
         assert torch.equal(end.key, state.key) and torch.equal(end.day, state.day)
         assert stacked.outcomes.impressions.shape == (n, E, K)
 
-    jax_env = jenv.VectorBiddingEnv(JCFG, E, table=j_table(64, 0.5))
-    jstate, _ = jax_env.reset(jax.random.PRNGKey(9))
-    jend, jts = jax_env.rollout(jstate, jnp.full((E, K), 0.9), n)
+    jstate, _ = jax_env(False).reset(jax.random.PRNGKey(9))
+    jend, jts = jax_env(False).rollout(jstate, jnp.full((E, K), 0.9), n)
     end, stacked = env.rollout(env_state_from_numpy(jax.tree.map(np.asarray, jstate),
                                                     device="cpu"), bids, n)
     for f in jts.outcomes._fields:

@@ -780,3 +780,46 @@ def test_harness_days_match_plain(cuda, agent, monkeypatch):
             (out["env_state"], out["agent_state"], out["agent_keys"])))
         runs[-1] += [torch.from_numpy(out["kw_profits"]), torch.from_numpy(out["ideal_profits"])]
     assert all(torch.equal(a.cpu(), b.cpu()) for a, b in zip(*runs))
+
+
+@pytest.mark.cuda
+def test_trainer_steps_match_plain(cuda, monkeypatch):
+    """One PPO and one TD3 train step on the card at train_rl's fast knobs
+    (the agg day route): one launch of each agg kernel per env day, and
+    every parameter, optimizer moment, env state, buffer, key and metric
+    equal to the same steps through the plain versions of the agg kernels
+    and of threefry_words."""
+    from adcraft_tpu_torch import agg_day
+    from adcraft_tpu_torch.agents.ppo import PPOConfig, PPOTrainer
+    from adcraft_tpu_torch.agents.td3 import TD3Config, TD3Trainer
+    from adcraft_tpu_torch.config import FAST_XLA_KNOBS
+
+    cfg = EnvConfig(num_keywords=6, kind=KeywordKind.IMPLICIT, max_volume=96, max_days=3,
+                    **FAST_XLA_KNOBS)
+    table = simple_experiment_table(16, 0.6)
+    names = ("agg_cells_gate", "agg_outcomes")
+    runs = []
+    for plain in (False, True):
+        if plain:
+            for name in names:
+                monkeypatch.setattr(agg_day, name, getattr(agg_day, name + "_reference"))
+            monkeypatch.setattr(pk, "threefry_words", pk.threefry_words_reference)
+        kernels = [getattr(agg_day, n) for n in names] + [pk.threefry_words]
+        ppo = PPOTrainer(cfg, 8, PPOConfig(rollout_days=4, num_minibatches=2, num_epochs=2,
+                                           hidden=(16, 16)), table=table)
+        td3 = TD3Trainer(cfg, 8, TD3Config(buffer_size=64, batch_size=16, warmup_steps=8,
+                                           hidden=(16, 16)), table=table)
+        states = [ppo.init(prng.PRNGKey(4)), td3.init(prng.PRNGKey(5))]
+        states[1] = td3.train_step(states[1])[0]  # inside the warm-up, then past it
+        before = [getattr(k, "launches", 0) for k in kernels]
+        out = [ppo.train_step(states[0]), td3.train_step(states[1])]
+        torch.cuda.synchronize()
+        launched = [getattr(k, "launches", 0) - b for k, b in zip(kernels, before)]
+        if plain:
+            assert launched == [0] * 3
+        else:
+            assert launched[:2] == [5] * 2 and launched[2] > 0  # 4 PPO days, 1 TD3 day
+        assert out[0][0].env_state.key.is_cuda
+        runs.append(torch.utils._pytree.tree_leaves(out))
+    assert all(torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+               for a, b in zip(*runs))
