@@ -44,15 +44,24 @@ split(k_cost)``, ``k_lite, k_rest = split(k_lanes)``. A draw of shape
 ``(K,)`` takes keyword k's word at counter k, the lite table ``(L, K)``
 lane l's at ``l * K + k``, a deep column lane i's at ``i``.
 
-Explicit keywords (bench.py's ``dense_explicit`` regime) take the same
-two kernels; ``agg_cells_gate`` has one instance per cost model
-(``IMPLICIT``, ``EXPLICIT_RUST``, ``EXPLICIT_PYTHON``; the gate's unit is
+Explicit keywords (bench.py's ``dense_explicit`` regime) and the binomial
+pool (its ``dense_pool`` regime) take the same two kernels;
+``agg_cells_gate`` has one instance per cost model (``IMPLICIT``,
+``EXPLICIT_RUST``, ``EXPLICIT_PYTHON``, ``POOL``; the gate's unit is
 ``AGG_SCALE[model]`` per dollar). An explicit day's win probability is the
 threshold sigmoid and its cost moments the model's (``explicit_moments``,
 computed per (env, keyword) in the kernel's prologue as in the plain
 version), clicks are drawn over
 ``max(impressions, 1)`` candidates (the phantom-click quirk) and lane
 costs are the cost model's normal draws (step.py:868-912, :1126-1128).
+The pool (``pool_cells_reference``, step.py:806-860) splits ``k_auc``
+three ways (``k_bidders, k_imp, k_cost``): per cell a bidder count k from
+the keyword's ladder, the impressions at ``F(bid)**k`` by the walk at
+every t (no day ladder), the spend in decicents from the moments given k
+(``distributions.pool_moment_sums``), clipped to [-n cmax, n cmax] where
+k >= 3, and lite and deep lanes of the pool law; its spends and lanes can
+be negative, and a partial cell stops at its first prefix over the
+budget.
 
 The day's constants (the win probability and its t >= 1 CDF ladder, the
 cost moments, the revenue moments) are computed once per (env, keyword)
@@ -67,36 +76,42 @@ raises. ``launches`` counts the launches.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple, Tuple
 
 import torch
 
 from adcraft_tpu_torch import distributions as dist
 from adcraft_tpu_torch import prng, xla_math
-from adcraft_tpu_torch.auction import implicit_single_win_prob
+from adcraft_tpu_torch.auction import implicit_single_win_prob, pool_win_prob
 from adcraft_tpu_torch.cuda_build import CudaLibrary
 
 # rows of the (NUM_PARAMS, E, K) float32 parameter tensor the kernels read
-BID, BCTR, SCTR, LOC, SCALE, REV_MEAN, REV_STD, IMP_THRESH, IMP_INTERCEPT, IMP_SLOPE = range(10)
-NUM_PARAMS = 10
+(BID, BCTR, SCTR, LOC, SCALE, REV_MEAN, REV_STD, IMP_THRESH, IMP_INTERCEPT, IMP_SLOPE,
+ MAX_BIDDERS, PARTICIPATION) = range(12)
+NUM_PARAMS = 12
 
-# the day's cost model: implicit single-competitor keywords (cents), or
-# explicit keywords with the rust cost_create (decicents) or the python
-# generic_cost (cents); the gate's unit per dollar is AGG_SCALE[model]
-IMPLICIT, EXPLICIT_RUST, EXPLICIT_PYTHON = range(3)
-AGG_SCALE = (100.0, 1000.0, 100.0)
+# the day's cost model: implicit single-competitor keywords (cents), explicit
+# keywords with the rust cost_create (decicents) or the python generic_cost
+# (cents), or implicit keywords against a binomial pool of raw Laplace bids
+# (decicents, signed); the gate's unit per dollar is AGG_SCALE[model]
+IMPLICIT, EXPLICIT_RUST, EXPLICIT_PYTHON, POOL = range(4)
+AGG_SCALE = (100.0, 1000.0, 100.0, 1000.0)
 COST_GRID = 304  # the python model's cent cells, EnvConfig.agg_cost_grid's default
 
 
 class Lanes(NamedTuple):
     """Static lane bounds: sub-timesteps, lanes at t = 0 (``m0``) and after
-    (``m1``), lite lanes, and the lane uniforms' bits."""
+    (``m1``), lite lanes, the lane uniforms' bits, and the binomial pool's
+    bidder bound (``EnvConfig.max_bidders_bound``: its ladder's levels and
+    its moment table's columns)."""
 
     T: int
     m0: int
     m1: int
     L: int
     bits: int
+    kmax: int = 32
 
     def m(self, t: int) -> int:
         return self.m0 if t == 0 else self.m1
@@ -105,7 +120,8 @@ class Lanes(NamedTuple):
 def pack_params(kw, bids: torch.Tensor) -> torch.Tensor:
     """The kernels' (NUM_PARAMS, E, K) float32 rows: bids and keyword params."""
     rows = [bids, kw.bctr, kw.sctr, kw.bid_loc, kw.bid_scale, kw.rev_mean, kw.rev_std,
-            kw.imp_thresh, kw.imp_intercept, kw.imp_slope]
+            kw.imp_thresh, kw.imp_intercept, kw.imp_slope, kw.max_bidders,
+            kw.participation_rate]
     shape = bids.shape
     return torch.stack([r.to(torch.float32).expand(shape) for r in rows]).contiguous()
 
@@ -153,6 +169,36 @@ def cell_constants(params: torch.Tensor, n1: torch.Tensor, m1: int, model: int =
     return (p_win, ladder, *moments)
 
 
+def pool_constants(params: torch.Tensor, kmax: int, cent_bids: bool = False):
+    """The binomial pool's day constants per (env, keyword): ``F(bid)``
+    (``distributions.bid_cdf``: with ``cent_bids``, as the env's program
+    computes it from its rounded bids), the bidder-count ladder
+    ``binomial_cdf(max_bidders, participation, kmax)`` (``(cdf (kmax + 1,
+    E, K), flip, ni)``) and the moments' rows ``g`` (Q, E, K)."""
+    bid, loc, scale = params[BID], params[LOC], params[SCALE]
+    ladder = dist.binomial_cdf(params[MAX_BIDDERS], params[PARTICIPATION], kmax)
+    return (dist.bid_cdf(bid, loc, scale, cent_bids), ladder,
+            dist.pool_g(bid, loc, scale, kmax, cent_bids))
+
+
+def pool_quad_rows(kmax: int, device) -> torch.Tensor:
+    """The pool kernel's quadrature table on ``device``: the 48 nodes, the
+    48 weights, then the node powers ``W`` (48 x kmax), float32, one
+    tensor (``distributions.pool_quad_tensors``, built once)."""
+    return _pool_quad_rows(kmax, torch.device(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _pool_quad_rows(kmax: int, device: torch.device) -> torch.Tensor:
+    return torch.cat([x.reshape(-1) for x in dist.pool_quad_tensors(kmax, device)]).contiguous()
+
+
+def pool_lane_units(u, f_bid, loc, scale, k) -> torch.Tensor:
+    """Pool lane costs in decicents at the uniforms ``u``: ``round(1000
+    pool_cost_u(...))`` as XLA converts it (saturating)."""
+    return dist.int32_of(torch.round(dist.pool_cost_u(u, f_bid, loc, scale, k) * 1000.0))
+
+
 class _TKeys(NamedTuple):
     k_imp: torch.Tensor
     k_click: torch.Tensor
@@ -161,16 +207,23 @@ class _TKeys(NamedTuple):
     k_sfull: torch.Tensor
     k_lite: torch.Tensor
     k_rest: torch.Tensor
+    k_bidders: torch.Tensor = None
 
 
-def t_keys(k_cells: torch.Tensor, t: int) -> _TKeys:
-    """Sub-timestep t's keys (each (E, 2)) from the day's cell keys."""
+def t_keys(k_cells: torch.Tensor, t: int, pool: bool = False) -> _TKeys:
+    """Sub-timestep t's keys (each (E, 2)) from the day's cell keys; the
+    binomial pool splits ``k_auc`` three ways, ``k_bidders, k_imp, k_cost``
+    (``adcraft_tpu/step.py:818``)."""
     kt = prng.fold_in(k_cells, t)
     k_auc, k_click, k_conv, k_rev = prng.split(kt, 4).unbind(-2)
-    k_imp, k_cost = prng.split(k_auc).unbind(-2)
+    k_bidders = None
+    if pool:
+        k_bidders, k_imp, k_cost = prng.split(k_auc, 3).unbind(-2)
+    else:
+        k_imp, k_cost = prng.split(k_auc).unbind(-2)
     k_sfull, k_lanes = prng.split(k_cost).unbind(-2)
     k_lite, k_rest = prng.split(k_lanes).unbind(-2)
-    return _TKeys(k_imp, k_click, k_conv, k_rev, k_sfull, k_lite, k_rest)
+    return _TKeys(k_imp, k_click, k_conv, k_rev, k_sfull, k_lite, k_rest, k_bidders)
 
 
 def _cost_cents(x: torch.Tensor) -> torch.Tensor:
@@ -180,8 +233,48 @@ def _cost_cents(x: torch.Tensor) -> torch.Tensor:
     return dist.int32_of(torch.round(torch.abs(x) * 100.0))
 
 
+def pool_cells_reference(params, n_auc01, k_cells, lanes: Lanes, keep_constants: bool = False,
+                         cent_bids: bool = False):
+    """``agg_cells_reference`` of the binomial pool (``_cell_tables``' pool
+    branch, ``adcraft_tpu/step.py:806-860``): per cell the bidder count k
+    (one ``lanes.bits`` uniform of ``k_bidders`` against the keyword's
+    ladder), the impressions at ``pool_win_prob`` and the clicks by the walk
+    (no day ladder: the win probability varies with k), the aggregate spend
+    in decicents on the moments given k, clipped to [-n cmax, n cmax] where
+    k >= 3, and the lite lanes of the pool law. Returns (imp, n_clicks,
+    s_full, lite, bidders (E, T, K) int32); with ``keep_constants``, also
+    (F(bid), the bidder ladder's kmax levels (E, kmax, K)). ``cent_bids``:
+    F(bid) as the env's program computes it (``distributions.bid_cdf``)."""
+    p = params
+    K = p.shape[2]
+    bits, kmax = lanes.bits, lanes.kmax
+    f_bid, (cdf, flip, ni), g = pool_constants(params, kmax, cent_bids)
+    loc, scale = p[LOC], p[SCALE]
+    out = [[] for _ in range(5)]
+    for t in range(lanes.T):
+        keys = t_keys(k_cells, t, pool=True)
+        m = lanes.m(t)
+        u = dist.lane_uniform(keys.k_bidders, (K,), bits)
+        k = dist.binomial_inv_from_cdf_u(u, cdf[:kmax], flip, ni).to(torch.float32)
+        imp = dist.binomial_inv(keys.k_imp, n_auc01[0] if t == 0 else n_auc01[1],
+                                pool_win_prob(k, f_bid), m, bits)
+        ncl = dist.binomial_inv(keys.k_click, imp, p[BCTR], m, bits)
+        mu, sigma, cmax = dist.pool_deci_moments_of(*dist.pool_moment_sums(g, k, kmax), k, p[BID])
+        s_full = dist.agg_cost_cents(keys.k_sfull, ncl, mu, sigma, cmax,
+                                     cmin=torch.where(k >= 3.0, -cmax, 0.0))
+        u = dist.lane_uniform(keys.k_lite, (lanes.L, K), bits)
+        lite = pool_lane_units(u, f_bid[:, None], loc[:, None], scale[:, None], k[:, None])
+        for x, y in zip(out, (imp, ncl, s_full, lite, k.to(torch.int32))):
+            x.append(y)
+    outs = tuple(torch.stack(x, 1) for x in out)
+    if keep_constants:
+        return (*outs, (f_bid, cdf[:kmax].permute(1, 0, 2).contiguous()))
+    return outs
+
+
 def agg_cells_reference(params, n_auc01, k_cells, lanes: Lanes, keep_constants: bool = False,
-                        model: int = IMPLICIT, cost_grid: int = COST_GRID):
+                        model: int = IMPLICIT, cost_grid: int = COST_GRID,
+                        cent_bids: bool = False):
     """Plain sampling phase: (imp, n_clicks, s_full) (E, T, K) and lite
     costs (E, T, L, K), all int32 (costs in the gate's unit); with
     ``keep_constants``, also the ``cell_constants`` the day used.
@@ -192,7 +285,11 @@ def agg_cells_reference(params, n_auc01, k_cells, lanes: Lanes, keep_constants: 
     without impressions still flips one phantom candidate, whose clicks
     spend nothing (``s_full`` and its lite lanes 0). Their lite lanes are
     the cost model's normal draws at counter ``l * K + k`` of ``k_lite``
-    (32-bit words whatever ``lanes.bits``)."""
+    (32-bit words whatever ``lanes.bits``). The binomial pool (``model``
+    POOL) is ``pool_cells_reference``, which also returns the cells' bidder
+    counts, and takes ``cent_bids``."""
+    if model == POOL:
+        return pool_cells_reference(params, n_auc01, k_cells, lanes, keep_constants, cent_bids)
     p = params
     K = p.shape[2]
     bits = lanes.bits
@@ -231,12 +328,18 @@ def agg_cells_reference(params, n_auc01, k_cells, lanes: Lanes, keep_constants: 
     return (*outs, tuple(consts)) if keep_constants else outs
 
 
-def deep_lane_costs(params, keys, m: int, lanes: Lanes, model: int = IMPLICIT):
+def deep_lane_costs(params, keys, m: int, lanes: Lanes, model: int = IMPLICIT, bidders=None):
     """Deep lane costs, lanes ``L .. m - 1``, of the cells whose parameters
     are ``params`` (P, ...) and whose keys are ``keys`` (..., 2): (..., m -
-    L) int32. An explicit model's take the bid as the JAX resolver rebuilds
-    it, ``(bid - 0.005) + 0.005`` in float32, which is not always the bid."""
+    L) int32. An explicit model's and the pool's (given the cells' bidder
+    counts ``bidders`` (...)) take the bid as the JAX resolver rebuilds it,
+    ``(bid - 0.005) + 0.005`` in float32, which is not always the bid."""
     y0 = y0_of(params)[..., None]
+    if model == POOL:
+        loc, scale = params[LOC][..., None], params[SCALE][..., None]
+        u = dist.lane_uniform(keys, (m - lanes.L,), lanes.bits)
+        return pool_lane_units(u, dist.laplace_cdf(y0 + 0.005, loc, scale), loc, scale,
+                               bidders[..., None].to(torch.float32))
     if model == IMPLICIT:
         loc, scale = params[LOC][..., None], params[SCALE][..., None]
         return _cost_cents(dist.truncated_laplace(keys, loc, scale, -y0, y0, (m - lanes.L,),
@@ -260,11 +363,13 @@ def resolve_cells(lite_col, deep, B, n, m: int, lanes: Lanes):
 
 
 def agg_gate_reference(params, k_cells, s_full, n_clicks, lite, budget_c, lanes: Lanes,
-                       model: int = IMPLICIT):
+                       model: int = IMPLICIT, bidders=None):
     """Plain gate, one cell at a time over all envs: accepted clicks and
     spend (E, T, K) int32 in the gate's unit (``budget_c`` too), and each
     env's simulated cell count ``n_sim`` (E,) int32 (cells ``t * K + k <
-    n_sim`` were simulated)."""
+    n_sim`` were simulated). The pool's signed costs (its cells' bidder
+    counts ``bidders`` (E, T, K)) stop a cell at its first prefix over the
+    budget, as every model's do."""
     E, T, K = s_full.shape
     device = s_full.device
     B = budget_c.to(torch.int64)
@@ -287,8 +392,9 @@ def agg_gate_reference(params, k_cells, s_full, n_clicks, lite, budget_c, lanes:
                 if deep is None and m > lanes.L:
                     # fold_in(k_rest, k) of every k: split hashes the same
                     # counter pairs (0, k)
-                    keys = prng.split(t_keys(k_cells, t).k_rest, K)
-                    deep = deep_lane_costs(params, keys, m, lanes, model)
+                    keys = prng.split(t_keys(k_cells, t, model == POOL).k_rest, K)
+                    deep = deep_lane_costs(params, keys, m, lanes, model,
+                                           None if bidders is None else bidders[:, t])
                 pj, sj = resolve_cells(lite[rows, t, :, k], None if deep is None else deep[rows, k],
                                        B[rows], n[rows], m, lanes)
                 p[rows] = pj
@@ -305,16 +411,19 @@ def agg_gate_reference(params, k_cells, s_full, n_clicks, lite, budget_c, lanes:
 
 def agg_cells_gate_reference(params, n_auc01, k_cells, budget_c, lanes: Lanes,
                              keep_constants: bool = False, model: int = IMPLICIT,
-                             cost_grid: int = COST_GRID):
+                             cost_grid: int = COST_GRID, cent_bids: bool = False):
     """Plain sampling phase and gate: ``agg_cells_reference``, then
     ``agg_gate_reference`` on its tables. Returns (imp, acc, spend) (E, T,
     K) int32 and ``n_sim`` (E,) int32; with ``keep_constants``, also the
     ``cell_constants`` the day used."""
     cells = agg_cells_reference(params, n_auc01, k_cells, lanes, keep_constants, model,
-                                cost_grid)
+                                cost_grid, cent_bids)
+    n_out = 5 if model == POOL else 4
     imp, ncl, s_full, lite = cells[:4]
-    out = (imp, *agg_gate_reference(params, k_cells, s_full, ncl, lite, budget_c, lanes, model))
-    return (*out, cells[4]) if keep_constants else out
+    bidders = cells[4] if model == POOL else None
+    out = (imp, *agg_gate_reference(params, k_cells, s_full, ncl, lite, budget_c, lanes, model,
+                                    bidders))
+    return (*out, cells[n_out]) if keep_constants else out
 
 
 REV_SAMPLING = ("sum", "day")
@@ -372,13 +481,13 @@ def bind(lib: ctypes.CDLL) -> None:
     """The ctypes signatures of ``csrc/agg_day.cu``'s C interface."""
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     pi = ctypes.POINTER(i)
-    lib.agg_cells_gate_launch.argtypes = [p, p, p, ll] + [p] * 6 + [i] * 11 + [p]
+    lib.agg_cells_gate_launch.argtypes = [p, p, p, ll] + [p] * 6 + [i] * 10 + [p, i, i, i, p]
     lib.agg_cells_gate_launch.restype = i
-    lib.agg_cells_gate_occupancy.argtypes = [i] * 7 + [pi]
+    lib.agg_cells_gate_occupancy.argtypes = [i] * 8 + [pi]
     lib.agg_cells_gate_occupancy.restype = i
-    lib.agg_cells_gate_default_chunk_t.argtypes = [i] * 7 + [pi]
+    lib.agg_cells_gate_default_chunk_t.argtypes = [i] * 8 + [pi]
     lib.agg_cells_gate_default_chunk_t.restype = i
-    lib.agg_cells_gate_smem_bytes.argtypes = [i] * 5
+    lib.agg_cells_gate_smem_bytes.argtypes = [i] * 7
     lib.agg_cells_gate_smem_bytes.restype = ll
     lib.agg_cells_gate_smem_limit.argtypes = [i, pi]
     lib.agg_cells_gate_smem_limit.restype = i
@@ -448,10 +557,11 @@ class AggCellsGate(_Kernel):
         self.library.check(fn(*args, ctypes.byref(out)), self.name)
         return out.value
 
-    def smem_bytes(self, chunk_t: int, K: int, lanes: Lanes) -> int:
-        """Dynamic shared memory of one block at ``chunk_t``."""
+    def smem_bytes(self, chunk_t: int, K: int, lanes: Lanes, model: int = IMPLICIT) -> int:
+        """Dynamic shared memory of one block of the cost model's instance
+        at ``chunk_t``."""
         return self.library.get().agg_cells_gate_smem_bytes(chunk_t, K, lanes.m0, lanes.m1,
-                                                            lanes.L)
+                                                            lanes.L, model, lanes.kmax)
 
     def smem_limit(self, device) -> int:
         """The dynamic shared memory a block may take on the card, in bytes."""
@@ -461,13 +571,13 @@ class AggCellsGate(_Kernel):
         """Resident blocks per SM of the cost model's instance at
         ``chunk_t``; 0 if a block does not fit."""
         return self._int_out(self.library.get().agg_cells_gate_occupancy, model, chunk_t, K,
-                             lanes.m0, lanes.m1, lanes.L, _index(device))
+                             lanes.m0, lanes.m1, lanes.L, lanes.kmax, _index(device))
 
-    def _fits(self, chunk_t: int, K: int, lanes: Lanes, device) -> None:
-        key = (_index(device), K, lanes, chunk_t)
+    def _fits(self, chunk_t: int, K: int, lanes: Lanes, device, model: int = IMPLICIT) -> None:
+        key = (_index(device), K, lanes, chunk_t, model)
         if key in self._fitting:
             return
-        need, limit = self.smem_bytes(chunk_t, K, lanes), self.smem_limit(device)
+        need, limit = self.smem_bytes(chunk_t, K, lanes, model), self.smem_limit(device)
         if need > limit:
             raise ValueError(f"{self.name}: K = {K}, chunk_t = {chunk_t} needs {need} B of "
                              f"shared memory per block, above the card's limit of {limit} B")
@@ -480,26 +590,28 @@ class AggCellsGate(_Kernel):
         sub-timestep fits."""
         key = (_index(device), K, lanes, model)
         if key not in self._chunk_t:
-            self._fits(1, K, lanes, device)
+            self._fits(1, K, lanes, device, model)
             self._chunk_t[key] = self._int_out(self.library.get().agg_cells_gate_default_chunk_t,
                                                model, K, lanes.T, lanes.m0, lanes.m1, lanes.L,
-                                               key[0])
+                                               lanes.kmax, key[0])
         return self._chunk_t[key]
 
     def __call__(self, params, n_auc01, k_cells, budget_c, lanes: Lanes,
                  keep_constants: bool = False, *, chunk_t=None, model: int = IMPLICIT,
-                 cost_grid: int = COST_GRID):
+                 cost_grid: int = COST_GRID, cent_bids: bool = False):
         """Outputs as ``agg_cells_gate_reference``, but on the card the cells
         at or past each env's break (``t * K + k >= n_sim``) are not
         written. ``params`` (NUM_PARAMS, E, K) f32, ``n_auc01`` (2, E, K)
         int32 (the auction counts at t = 0 and t >= 1), ``k_cells`` (E, 2)
         int64, ``budget_c`` (E,) int32 in the gate's unit. ``model`` is the
-        cost model (IMPLICIT, EXPLICIT_RUST or EXPLICIT_PYTHON);
-        ``cost_grid`` the python model's cent cells (33 to 1024).
-        ``keep_constants`` appends the constants the day used, (p_win,
-        ladder (E, m1, K), cost mu, sigma, cmax). ``chunk_t``, the kernel's
-        sub-timesteps per chunk, defaults to ``default_chunk_t``; outputs
-        do not depend on it."""
+        cost model (IMPLICIT, EXPLICIT_RUST, EXPLICIT_PYTHON or POOL, whose
+        bidder bound is ``lanes.kmax``); ``cost_grid`` the python model's
+        cent cells (33 to 1024). ``keep_constants`` appends the constants
+        the day used, (p_win, ladder (E, m1, K), cost mu, sigma, cmax), or
+        the pool's (F(bid), bidder ladder (E, kmax, K)). ``chunk_t``, the
+        kernel's sub-timesteps per chunk, defaults to ``default_chunk_t``;
+        outputs do not depend on it. ``cent_bids``: the pool's F(bid) as
+        the env's program computes it from its rounded bids."""
         _, E, K = params.shape
         device = params.device
         _check_lanes(lanes)
@@ -507,7 +619,7 @@ class AggCellsGate(_Kernel):
                ("n_auc01", n_auc01, torch.int32, (2, E, K)),
                ("budget_c", budget_c, torch.int32, (E,)))
         _check_keys(k_cells, E, device)
-        if model not in (IMPLICIT, EXPLICIT_RUST, EXPLICIT_PYTHON):
+        if model not in (IMPLICIT, EXPLICIT_RUST, EXPLICIT_PYTHON, POOL):
             raise ValueError(f"unknown cost model {model}")
         if model == EXPLICIT_PYTHON and not 32 < cost_grid <= 1024:
             raise ValueError(f"cost_grid {cost_grid} outside 33..1024")
@@ -515,28 +627,35 @@ class AggCellsGate(_Kernel):
             raise ValueError("chunk_t must be >= 1")
         if device.type == "cpu":
             return agg_cells_gate_reference(params, n_auc01, k_cells, budget_c, lanes,
-                                            keep_constants, model, cost_grid)
+                                            keep_constants, model, cost_grid, cent_bids)
         lib = self._cuda(device)
         if chunk_t is None:
             chunk_t = self.default_chunk_t(K, lanes, device, model)
         chunk_t = min(chunk_t, lanes.T)
-        self._fits(chunk_t, K, lanes, device)
+        self._fits(chunk_t, K, lanes, device, model)
         T, m1 = lanes.T, lanes.m1
+        pool = model == POOL
         imp, acc, spend = (torch.empty((E, T, K), dtype=torch.int32, device=device)
                            for _ in range(3))
         n_sim = torch.empty((E,), dtype=torch.int32, device=device)
-        kept = (torch.empty((4 + m1, E, K), dtype=torch.float32, device=device)
+        rows = 1 + lanes.kmax if pool else 4 + m1
+        kept = (torch.empty((rows, E, K), dtype=torch.float32, device=device)
                 if keep_constants else None)
+        quad = pool_quad_rows(lanes.kmax, device) if pool else None
         err = lib.agg_cells_gate_launch(
             params.data_ptr(), n_auc01.data_ptr(), k_cells.data_ptr(), k_cells.stride(0),
             budget_c.data_ptr(), imp.data_ptr(), acc.data_ptr(), spend.data_ptr(),
             n_sim.data_ptr(), None if kept is None else kept.data_ptr(), E, K, T, lanes.m0, m1,
-            lanes.L, lanes.bits, chunk_t, model, cost_grid, *_launch_args(device),
+            lanes.L, lanes.bits, chunk_t, model, cost_grid,
+            None if quad is None else quad.data_ptr(), lanes.kmax, int(cent_bids),
+            *_launch_args(device),
         )
         self.library.check(err, self.name)
         self.launches += 1
         if not keep_constants:
             return imp, acc, spend, n_sim
+        if pool:
+            return imp, acc, spend, n_sim, (kept[0], kept[1:].permute(1, 0, 2))
         return (imp, acc, spend, n_sim,
                 (kept[0], kept[4:].permute(1, 0, 2), kept[1], kept[2], kept[3]))
 
@@ -589,13 +708,14 @@ agg_outcomes = AggOutcomes("agg_outcomes")
 
 def simulate_day_agg(lanes: Lanes, k_cells, kw, bids, budget_c, n_auc01,
                      rev_sampling: str = "sum", model: int = IMPLICIT,
-                     cost_grid: int = COST_GRID) -> Tuple[torch.Tensor, ...]:
+                     cost_grid: int = COST_GRID, cent_bids: bool = False
+                     ) -> Tuple[torch.Tensor, ...]:
     """The three phases for one day, in two launches: the six (E, K) int32
     day sums (cost and ``budget_c`` in the gate's unit, ``AGG_SCALE[model]``
     per dollar; revenue in cents by ``rev_sampling``, "sum" or "day"), for
     the cost model ``model`` (``cost_grid`` cent cells for the python
-    one)."""
+    one; ``cent_bids`` for the pool, as ``AggCellsGate``)."""
     params = pack_params(kw, bids)
     imp, acc, spend, n_sim = agg_cells_gate(params, n_auc01, k_cells, budget_c, lanes,
-                                            model=model, cost_grid=cost_grid)
+                                            model=model, cost_grid=cost_grid, cent_bids=cent_bids)
     return agg_outcomes(params, k_cells, imp, acc, spend, n_sim, n_auc01, lanes, rev_sampling)

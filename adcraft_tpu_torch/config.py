@@ -5,20 +5,21 @@ derived shapes and ``__post_init__`` errors are the same, so one set of
 keyword arguments builds either config. This module imports neither
 ``adcraft_tpu`` (whose ``__init__`` pulls in jax) nor jax.
 
-The batched day step runs either the JAX package's default XLA day step
+The batched day step runs either the JAX package's XLA day step
 (``day_kernel="xla"``: ``step.simulate_day`` on the kernels of
-``adcraft_tpu_torch.agg_day``) or the day kernel (``day_kernel="pallas"``,
-``adcraft_tpu_torch.day_kernel``). The XLA step runs bench.py's
-configuration: ``cost_sampling="agg"``, ``conv_sampling="counts"``,
-``rev_sampling="sum"`` or ``"day"`` (the fast mode of
-``experiments/train_rl.py``), ``binomial_sampler="inversion"``,
-``agg_draw_bits=32``, either ``lane_bits`` and any ``agg_lite_lanes``;
-``step.check_xla_config`` refuses the rest, naming its ROADMAP.md item.
-The gate knobs ``gate_mode``, ``gate_scope``, ``gate_chunk_t``,
-``gate_compact*`` and ``gate_scan_unroll`` select TPU schedules of one
-sequential gate and change nothing; ``agg_cost_grid``,
-``max_bidders_bound`` and ``cost_model`` are validated for the unported
-models; ``prng_impl`` must be threefry2x32.
+``adcraft_tpu_torch.lanes_day`` or ``adcraft_tpu_torch.agg_day``) or the
+day kernel (``day_kernel="pallas"``, ``adcraft_tpu_torch.day_kernel``).
+The XLA step runs every keyword kind, cost model and competitor model
+(the binomial pool too, its table width ``max_bidders_bound``) with all
+lanes (the JAX package's defaults) or bench.py's configuration:
+``cost_sampling="agg"``, ``conv_sampling="counts"``, ``rev_sampling="sum"``
+or ``"day"`` (the fast mode of ``experiments/train_rl.py``),
+``binomial_sampler="inversion"``, ``agg_draw_bits=32``, either
+``lane_bits`` and any ``agg_lite_lanes``; ``step.check_xla_config``
+refuses the rest, naming its ROADMAP.md item. The gate knobs
+``gate_mode``, ``gate_scope``, ``gate_chunk_t``, ``gate_compact*`` and
+``gate_scan_unroll`` select TPU schedules of one sequential gate and change
+nothing (but for float lane costs); ``prng_impl`` must be threefry2x32.
 """
 
 from __future__ import annotations

@@ -1,8 +1,9 @@
 // The XLA day step on Hopper (sm_90a): two kernels for the three phases
 // of adcraft_tpu/step.py:simulate_day (:991) in the configuration that
 // bench.py:47-76 times (aggregate costs, conversion counts, revenue sums,
-// inversion binomials; implicit single-competitor keywords, and explicit
-// keywords with either cost model, bench.py's dense_explicit regime). The
+// inversion binomials; implicit single-competitor keywords, explicit
+// keywords with either cost model, bench.py's dense_explicit regime, and
+// the binomial pool, its dense_pool regime). The
 // JAX package left these phases to XLA, so no Pallas kernel constrains
 // them:
 //
@@ -129,8 +130,7 @@ constexpr int kThreads = 128;
 constexpr int kMinBlocks = 8;  // resident blocks per SM agg_cells_gate's registers are capped for
 constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr int kIntMax = 0x7FFFFFFF;
-// agg_cells_gate's keys per sub-timestep: k_imp, k_click, k_sfull, k_lite, k_rest
-constexpr int kChunkKeys = 5;
+constexpr int kQuadNodes = 48;  // the pool moments' Gauss-Legendre nodes
 constexpr int kMaxDevices = 64;  // devices whose agg_cells_gate configuration is remembered
 
 #ifdef AGG_STAGE_CLOCKS
@@ -152,14 +152,53 @@ __device__ unsigned long long g_outcomes_clocks[kOutStages + 1];
 // neither truncation bound.
 enum { kPWin, kFLo, kFHi, kMu, kSigma, kCmax, kLoc, kScale, kBctr, kKwRows };
 enum { kBidLite = kLoc, kBidDeep = kScale };
-// the day's cost model (agg_day.IMPLICIT, EXPLICIT_RUST, EXPLICIT_PYTHON)
-enum { kImplicit, kExplicitRust, kExplicitPython, kModels };
+// The pool keeps F(bid) in kPWin, the deep lanes' F((bid - 0.005) +
+// 0.005) in kFLo, round(1000 bid) in kCmax, and its ladder's n and p
+// (max_bidders and the participation rate) in kMu and kSigma.
+enum { kFBid = kPWin, kFBidDeep = kFLo, kLadderN = kMu, kLadderP = kSigma };
+// the day's cost model (agg_day.IMPLICIT, EXPLICIT_RUST, EXPLICIT_PYTHON, POOL)
+enum { kImplicit, kExplicitRust, kExplicitPython, kPool, kModels };
+// agg_cells_gate's keys per sub-timestep: k_imp, k_click, k_sfull, k_lite,
+// k_rest, and the pool's k_bidders
+__host__ __device__ constexpr int chunk_keys(int model) { return model == kPool ? 6 : 5; }
 
-// distributions.agg_cost_cents_z and rev_sum_cents_z
-__device__ __forceinline__ int agg_cost(int n, float mu, float sigma, float cmax, float z) {
+// distributions.agg_cost_cents_z (the pool's k >= 3 cells floored at n
+// cmin = -n cmax) and rev_sum_cents_z
+__device__ __forceinline__ int agg_cost(int n, float mu, float sigma, float cmax, float z,
+                                        float cmin = 0.0f) {
   const float nf = static_cast<float>(n);
   const float s = rintf(fma32(nf, mu, __fmul_rn(__fmul_rn(sqrtf(nf), sigma), z)));
-  return static_cast<int>(fminf(fmaxf(s, 0.0f), __fmul_rn(nf, cmax)));
+  return static_cast<int>(fminf(fmaxf(s, __fmul_rn(nf, cmin)), __fmul_rn(nf, cmax)));
+}
+
+// A pool lane's cost in decicents: round(1000 pool_cost) as XLA converts it
+__device__ __forceinline__ int pool_units(float u, float f_bid, float loc, float scale, int k) {
+  return xla_int32(rintf(__fmul_rn(pool_cost(u, f_bid, loc, scale, k), 1000.0f)));
+}
+
+// A pool cell's aggregate spend in decicents given its k >= 1 bidders
+// (distributions.pool_deci_moments_of): the moments' 48-node chains of
+// fused multiply-adds in node order at column k - 1 (the last column for a
+// k past kmax), g floored at 0 where k < 3, read from the prologue's rows
+// g (row q at g[q * K]); quad holds the nodes, the weights omega and the
+// node powers W (Q x kmax).
+__device__ int pool_spend(int n, int kb, const float* g, int K, const float* __restrict__ quad,
+                          int kmax, float cmax, float z) {
+  const float* omega = quad + kQuadNodes;
+  const float* W = omega + kQuadNodes + min(kb, kmax) - 1;
+  float a1 = 0.0f, a2 = 0.0f;
+#pragma unroll 8
+  for (int q = 0; q < kQuadNodes; ++q) {
+    const float gq = kb < 3 ? fmaxf(g[q * K], 0.0f) : g[q * K];
+    const float w = __ldg(W + q * kmax), o = __ldg(omega + q);
+    a1 = fma32(w, __fmul_rn(o, gq), a1);
+    a2 = fma32(w, __fmul_rn(o, __fmul_rn(gq, gq)), a2);
+  }
+  const float kf = static_cast<float>(kb);
+  const float mu = __fmul_rn(kf, a1);
+  const float var = fmaxf(fma32(-mu, mu, __fmul_rn(kf, a2)), 0.0f);
+  const float sig = sqrtf(fma32(1e6f, var, static_cast<float>(1.0 / 12.0)));
+  return agg_cost(n, __fmul_rn(1000.0f, mu), sig, cmax, z, kb >= 3 ? -cmax : 0.0f);
 }
 
 __device__ __forceinline__ int rev_sum(int n, float mean_c, float std_c, float rev_std, float z) {
@@ -258,28 +297,11 @@ __device__ CostMoments cost_moments(float bid, float loc, float scale) {
   return CostMoments{mu, sqrtf(var), fmaxf(__fsub_rn(bc, 1.0f), 0.0f)};
 }
 
-// the t >= 1 impression ladder of distributions.binomial_cdf: level 0 is
-// pmf0 = (1 - q)^n (XLA's powf), level j the XLA scan (blocks of 16) of
-// the pmfs up to j, pmf j being pmf0 times the XLA scan of the factors
-// (n - j + 1) / j r up to j
-struct Ladder {
-  float nf, r, pmf0;
-  __device__ float factor(int j) const {
-    return fmaxf(__fmul_rn(__fdiv_rn(__fsub_rn(nf, static_cast<float>(j - 1)),
-                                     static_cast<float>(j)), r), 0.0f);
-  }
-};
-
-__device__ Ladder make_ladder(int n, float p) {
-  p = fminf(fmaxf(p, 0.0f), 1.0f);
-  const float q = p > 0.5f ? __fsub_rn(1.0f, p) : p;
-  const float nf = static_cast<float>(n);
-  return Ladder{nf, __fdiv_rn(q, __fsub_rn(1.0f, q)), xla_pow(__fsub_rn(1.0f, q), nf)};
-}
-
 // The ladder's levels below u, by bisection over its m1 levels (level j
-// at ladder[j * stride]): each level adds a non-negative float, so the
-// ladder never falls and this is the count binomial_inv_from_cdf_u takes.
+// at ladder[j * stride]; Ladder, xla_math.cuh: the t >= 1 impression
+// ladder, or the pool's bidder ladder): each level adds a non-negative
+// float, so the ladder never falls and this is the count
+// binomial_inv_from_cdf_u takes.
 __device__ __forceinline__ int ladder_count(const float* ladder, int stride, int m1, float u) {
   int lo = 0, hi = m1;
   while (lo < hi) {
@@ -338,13 +360,14 @@ __device__ __forceinline__ int warp_saturating_sum(int v, int lane) {
 // _resolve_cell on one warp: lanes < L from the cell's lite costs (lane l
 // at lite_c[l * lite_stride]), the rest drawn from fold_in(k_rest, k),
 // whose key and truncation bounds are derived only if a deep lane is
-// reached; the first prefix over B (or lane min(n, m)) stops it. An
+// reached; the first prefix over B (or lane min(n, m)) stops it, which for
+// the pool's signed costs need not be the last prefix within B. An
 // explicit model's deep lane is its cost model's draw at the normal's
-// counter idx - L. Returns the accepted clicks, and their spend in *spend
-// (warp-uniform).
+// counter idx - L, the pool's its law for the cell's kb bidders. Returns
+// the accepted clicks, and their spend in *spend (warp-uniform).
 template <int kModel>
 __device__ int resolve_cell(const int* lite_c, int lite_stride, const float* kw, int K, Key k_rest,
-                            int k, int n, long long B, int m, int L, int bits, int lane,
+                            int k, int kb, int n, long long B, int m, int L, int bits, int lane,
                             long long* spend) {
   const int lanes = min(n, m);
   if (lanes <= L) {
@@ -367,10 +390,10 @@ __device__ int resolve_cell(const int* lite_c, int lite_stride, const float* kw,
   int accepted = 0;
   for (int base = 0; base < lanes; base += 32) {
     if (!have_deep && lanes > L && base + 31 >= L) {
-      if (kModel == kImplicit) {
+      if (kModel == kImplicit || kModel == kPool) {
         loc = kw[kLoc * K + k];
         scale = kw[kScale * K + k];
-        f_lo = kw[kFLo * K + k];
+        f_lo = kw[kFLo * K + k];  // the pool's F((bid - 0.005) + 0.005)
         f_hi = kw[kFHi * K + k];
       } else {
         bid_deep = kw[kBidDeep * K + k];
@@ -386,6 +409,9 @@ __device__ int resolve_cell(const int* lite_c, int lite_stride, const float* kw,
     } else if (in && kModel == kImplicit) {
       c = lane_cost(lane_uniform(k_col, static_cast<uint32_t>(idx - L), bits), loc, scale, f_lo,
                     f_hi);
+    } else if (in && kModel == kPool) {
+      c = pool_units(lane_uniform(k_col, static_cast<uint32_t>(idx - L), bits), f_lo, loc, scale,
+                     kb);
     } else if (in) {
       c = explicit_cost(kModel == kExplicitRust,
                         xla_normal_erfinv(k_col, static_cast<uint32_t>(idx - L)), bid_deep);
@@ -409,15 +435,19 @@ __device__ int resolve_cell(const int* lite_c, int lite_stride, const float* kw,
 
 // Shared memory of one agg_cells_gate block, in bytes: the chunk's keys
 // (8-byte aligned, first), then per keyword kKwRows floats and the two
-// auction counts, the ladder (m1 x K), the walk's table of 1/j (max(m0,
-// m1)), then per cell of a chunk the aggregate
-// spend, the clicks, the impressions and the L lite costs.
-__host__ __device__ inline size_t cells_gate_smem(int chunk_t, int K, int m0, int m1, int L) {
+// auction counts, the ladder (m1 x K; the pool's bidder ladder, kmax x K),
+// the walk's table of 1/j (max(m0, m1)), the pool's moment rows g (48 x
+// K), then per cell of a chunk the aggregate spend, the clicks, the
+// impressions, the L lite costs and the pool's bidder count.
+__host__ __device__ inline size_t cells_gate_smem(int chunk_t, int K, int m0, int m1, int L,
+                                                  int model, int kmax) {
+  const bool pool = model == kPool;
   const size_t cells = static_cast<size_t>(chunk_t) * K;
   const size_t nmax = static_cast<size_t>(m0 > m1 ? m0 : m1);
-  return static_cast<size_t>(chunk_t) * kChunkKeys * sizeof(Key) +
-         sizeof(int) * ((kKwRows + 2 + static_cast<size_t>(m1)) * K + nmax +
-                        (3 + static_cast<size_t>(L)) * cells);
+  const size_t ladder = static_cast<size_t>(pool ? kmax : m1);
+  return static_cast<size_t>(chunk_t) * chunk_keys(model) * sizeof(Key) +
+         sizeof(int) * ((kKwRows + 2 + ladder + (pool ? kQuadNodes : 0)) * K + nmax +
+                        (3 + static_cast<size_t>(L) + (pool ? 1 : 0)) * cells);
 }
 
 // Stage B of agg_cells_gate on warp 0: the gate over a chunk's `cells`
@@ -426,11 +456,14 @@ __host__ __device__ inline size_t cells_gate_smem(int chunk_t, int K, int m0, in
 // and aggregate spend; B, the budget left, carries across chunks. Returns
 // the cells simulated: all of them, or those up to and including the one
 // that breaks the day. An explicit model's phantom cells (no impression,
-// clicks that spend nothing) have s = 0 and take the passive run.
+// clicks that spend nothing) have s = 0 and take the passive run. The
+// pool's spends can be negative: its scan is exact in 64 bits, and a cell
+// is whole where its own inclusive sum is below B, as for the others; kb
+// holds its cells' bidder counts.
 template <int kModel>
-__device__ int gate_chunk(int* sfull, int* ncl, const int* lite, int lite_stride, const float* kw,
-                          const Key* tkeys, int cells, int t0, int K, int m0, int m1, int L,
-                          int bits, int lane, long long& B, bool& broken) {
+__device__ int gate_chunk(int* sfull, int* ncl, const int* lite, int lite_stride, const int* kb,
+                          const float* kw, const Key* tkeys, int cells, int t0, int K, int m0,
+                          int m1, int L, int bits, int lane, long long& B, bool& broken) {
   for (int p = 0; p < cells;) {
     const int c = p + lane;
     const bool in = c < cells;
@@ -442,7 +475,8 @@ __device__ int gate_chunk(int* sfull, int* ncl, const int* lite, int lite_stride
     // positive budget as it is, being full at no cost or accepting nothing
     // (not full, and no click or a first lite lane above the budget: the
     // budget-decay tail of a day)
-    const int S = warp_saturating_sum(s, lane);
+    const long long S = kModel == kPool ? warp_inclusive_sum(s, lane)
+                                        : static_cast<long long>(warp_saturating_sum(s, lane));
     const unsigned whole = __ballot_sync(kFull, in && S < B);
     const unsigned passive =
         __ballot_sync(kFull, in && B > 0 && (s == 0 || (s > B && (n == 0 || c0 > B))));
@@ -470,8 +504,9 @@ __device__ int gate_chunk(int* sfull, int* ncl, const int* lite, int lite_stride
     } else if (s_p > B) {
       const int tt = p / K;
       const int k = p - tt * K;
-      accepted = resolve_cell<kModel>(lite + p, lite_stride, kw, K, tkeys[kChunkKeys * tt + 4], k,
-                                      n_p, B, t0 + tt == 0 ? m0 : m1, L, bits, lane, &spend);
+      accepted = resolve_cell<kModel>(lite + p, lite_stride, kw, K, tkeys[chunk_keys(kModel) * tt + 4], k,
+                                      kModel == kPool ? kb[p] : 0, n_p, B,
+                                      t0 + tt == 0 ? m0 : m1, L, bits, lane, &spend);
     }
     if (lane == 0) {
       ncl[p] = accepted;
@@ -487,6 +522,73 @@ __device__ int gate_chunk(int* sfull, int* ncl, const int* lite, int lite_stride
   return cells;
 }
 
+// The pool's prologue for keyword k (agg_day.pool_constants): F(bid)
+// (bid_cdf, with cent_bids as the env's program computes it) and the deep
+// lanes' F((bid - 0.005) + 0.005), round(1000 bid), the moment
+// rows g_q = F^-1(F(bid) w_q) (row q at g[q * K + k]) and the bidder
+// ladder's kmax levels (level j at ladder[j * K + k]; with consts_out,
+// also there: F(bid) in row 0, the levels in rows 1 to kmax).
+__device__ void pool_prologue(const float* __restrict__ params, long long EK, long long ek, int k,
+                              int K, const float* __restrict__ quad, int kmax, bool cent_bids,
+                              float* kw, float* ladder, float* g,
+                              float* __restrict__ consts_out) {
+  const float bid = params[BID * EK + ek];
+  const float loc = params[LOC * EK + ek], scale = params[SCALE * EK + ek];
+  const float f_bid = bid_cdf(bid, loc, scale, cent_bids);
+  const float mb = params[MAX_BIDDERS * EK + ek], part = params[PARTICIPATION * EK + ek];
+  kw[kFBid * K + k] = f_bid;
+  kw[kFBidDeep * K + k] = laplace_cdf(__fadd_rn(__fsub_rn(bid, 0.005f), 0.005f), loc, scale);
+  kw[kCmax * K + k] = rintf(__fmul_rn(1000.0f, bid));
+  kw[kLoc * K + k] = loc;
+  kw[kScale * K + k] = scale;
+  kw[kLadderN * K + k] = mb;
+  kw[kLadderP * K + k] = part;
+  for (int q = 0; q < kQuadNodes; ++q) {
+    const float a = xla_ftz(fminf(fmaxf(__fmul_rn(f_bid, __ldg(quad + q)), 1e-38f), 1.0f));
+    g[q * K + k] = laplace_icdf(a, loc, scale);
+  }
+  const Ladder lad = make_ladder(mb, part);
+  XlaScan<true> cp;
+  XlaScan<false> cdf;
+  for (int j = 0; j < kmax; ++j) {
+    const float pmf = j == 0 ? lad.pmf0 : xla_ftz(__fmul_rn(lad.pmf0, cp.push(lad.factor(j))));
+    const float level = cdf.push(pmf);
+    ladder[j * K + k] = level;
+    if (consts_out != nullptr) consts_out[(1 + j) * EK + ek] = level;
+  }
+  if (consts_out != nullptr) consts_out[ek] = f_bid;
+}
+
+// One pool cell of stage A (agg_day.pool_cells_reference) for keyword k
+// with n auctions and keys tk: its bidder count by the ladder (only where
+// there are auctions: a cell without them wins no impression, whatever
+// its k), its impressions and clicks by the walk, its spend (0 at k = 0)
+// and lite lanes where it has clicks. Writes kb; returns in im, nc, s.
+template <class Recip>
+__device__ void pool_cell(const float* kw, const float* ladder, const float* g, int K, int k,
+                          int n, const Key* tk, int m, int L, int bits, int kmax,
+                          const float* __restrict__ quad, Recip table, int* lite_c,
+                          int lite_stride, int& kb, int& im, int& nc, int& s) {
+  kb = im = nc = s = 0;
+  if (n == 0) return;
+  const float mb = kw[kLadderN * K + k], part = kw[kLadderP * K + k];
+  const int ni = static_cast<int>(rintf(mb));
+  const int cnt = min(ladder_count(ladder + k, K, kmax, lane_uniform(tk[5], k, bits)), ni);
+  kb = part > 0.5f ? ni - cnt : cnt;
+  const float f_bid = kw[kFBid * K + k];
+  const float p_win = kb > 0 ? xla_pow(f_bid, static_cast<float>(kb)) : 1.0f;
+  im = binomial_walk(lane_uniform(tk[0], k, bits), n, p_win, m, table);
+  if (im != 0) nc = binomial_walk(lane_uniform(tk[1], k, bits), im, kw[kBctr * K + k], m, table);
+  if (nc == 0) return;
+  const float loc = kw[kLoc * K + k], scale = kw[kScale * K + k];
+  if (kb > 0) s = pool_spend(nc, kb, g + k, K, quad, kmax, kw[kCmax * K + k], xla_normal(tk[2], k));
+  for (int l = 0; l < L; ++l) {
+    lite_c[l * lite_stride] =
+        pool_units(lane_uniform(tk[3], static_cast<uint32_t>(l * K + k), bits), f_bid, loc, scale,
+                   kb);
+  }
+}
+
 // ---- agg_cells_gate: one block per env, the sub-timesteps in chunks ----
 // One instance per cost model. The explicit ones (explicit keywords, the
 // rust or python cost model) differ in three places: the prologue's win
@@ -495,7 +597,13 @@ __device__ int gate_chunk(int* sfull, int* ncl, const int* lite, int lite_stride
 // cost_grid-cell Abel sums, by each keyword's thread); stage A draws
 // clicks over max(impressions, 1) candidates, a phantom cell (no
 // impression) spending nothing, and the lite lanes from the cost model's
-// normals at counter l * K + k; and resolve_cell's deep lanes.
+// normals at counter l * K + k; and resolve_cell's deep lanes. The pool's
+// (the binomial pool: k_auc split three ways, k_bidders first) has no day
+// ladder of impressions, its win probability varying with each cell's
+// bidder count: its prologue builds the bidder ladder and the moments'
+// rows (pool_prologue), stage A draws each cell's bidder count, its
+// impressions and clicks by the walk and its spend from the 48-node
+// chains for its own k (pool_cell), and the gate runs on signed spends.
 template <int kModel>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
     agg_cells_gate_kernel(const float* __restrict__ params, const int* __restrict__ n_auc01,
@@ -503,19 +611,25 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
                           const int* __restrict__ budget_c, int* __restrict__ imp_out,
                           int* __restrict__ acc_out, int* __restrict__ spend_out,
                           int* __restrict__ n_sim, float* __restrict__ consts_out, int E, int K,
-                          int T, int m0, int m1, int L, int bits, int chunk_t, int cost_grid) {
+                          int T, int m0, int m1, int L, int bits, int chunk_t, int cost_grid,
+                          const float* __restrict__ quad, int kmax, int cent_bids) {
   extern __shared__ unsigned long long smem[];
+  constexpr bool kIsPool = kModel == kPool;
+  constexpr int kKeys = chunk_keys(kModel);
   const int max_cells = chunk_t * K;
   const int nmax = max(m0, m1);
-  Key* tkeys = reinterpret_cast<Key*>(smem);  // [chunk_t][kChunkKeys]
-  float* kw = reinterpret_cast<float*>(tkeys + kChunkKeys * chunk_t);  // [kKwRows][K]
-  int* n01 = reinterpret_cast<int*>(kw + kKwRows * K);                 // [2][K]
-  float* ladder = reinterpret_cast<float*>(n01 + 2 * K);                // [m1][K]
-  float* walk_recip = ladder + m1 * K;  // [j]: __fdiv_rn(1, j)
-  int* sfull = reinterpret_cast<int*>(walk_recip + nmax);  // spend after the gate
-  int* ncl = sfull + max_cells;                            // accepted clicks after the gate
+  const int ladder_rows = kIsPool ? kmax : m1;
+  Key* tkeys = reinterpret_cast<Key*>(smem);  // [chunk_t][kKeys]
+  float* kw = reinterpret_cast<float*>(tkeys + kKeys * chunk_t);  // [kKwRows][K]
+  int* n01 = reinterpret_cast<int*>(kw + kKwRows * K);            // [2][K]
+  float* ladder = reinterpret_cast<float*>(n01 + 2 * K);           // [ladder_rows][K]
+  float* walk_recip = ladder + ladder_rows * K;                    // [j]: __fdiv_rn(1, j)
+  float* g = walk_recip + nmax;                                    // the pool's [48][K]
+  int* sfull = reinterpret_cast<int*>(g + (kIsPool ? kQuadNodes * K : 0));  // spend after the gate
+  int* ncl = sfull + max_cells;  // accepted clicks after the gate
   int* imp = ncl + max_cells;
-  int* lite = imp + max_cells;  // [L][max_cells]
+  int* lite = imp + max_cells;            // [L][max_cells]
+  int* kcell = lite + L * max_cells;      // the pool's bidder counts
   __shared__ int s_end, s_broken;
 
   const int e = blockIdx.x;
@@ -545,6 +659,13 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   // the prologue: each keyword's constants for the day
   for (int k = tid; k < K; k += kThreads) {
     const long long ek = eK + k;
+    n01[k] = n_auc01[ek];
+    n01[K + k] = n_auc01[EK + ek];
+    kw[kBctr * K + k] = params[BCTR * EK + ek];
+    if (kIsPool) {
+      pool_prologue(params, EK, ek, k, K, quad, kmax, cent_bids != 0, kw, ladder, g, consts_out);
+      continue;
+    }
     const float bid = params[BID * EK + ek];
     const float loc = params[LOC * EK + ek], scale = params[SCALE * EK + ek];
     const int n1 = n_auc01[EK + ek];
@@ -573,10 +694,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     kw[kMu * K + k] = cm.mu;
     kw[kSigma * K + k] = cm.sigma;
     kw[kCmax * K + k] = cm.cmax;
-    kw[kBctr * K + k] = params[BCTR * EK + ek];
-    n01[k] = n_auc01[ek];
-    n01[K + k] = n1;
-    const Ladder lad = make_ladder(n1, p_win);
+    const Ladder lad = make_ladder(static_cast<float>(n1), p_win);
     XlaScan<true> cp;
     XlaScan<false> cdf;
     for (int j = 0; j < m1; ++j) {
@@ -603,14 +721,16 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     for (int tt = tid; tt < nt; tt += kThreads) {
       const Key kt = child(kc, static_cast<uint32_t>(t0 + tt));
       const Key k_auc = child(kt, 0);
-      const Key k_cost = child(k_auc, 1);
+      // the pool: k_bidders, k_imp, k_cost = split(k_auc, 3)
+      const Key k_cost = child(k_auc, kIsPool ? 2 : 1);
       const Key k_lanes = child(k_cost, 1);
-      Key* tk = tkeys + kChunkKeys * tt;
-      tk[0] = child(k_auc, 0);    // k_imp
-      tk[1] = child(kt, 1);       // k_click
-      tk[2] = child(k_cost, 0);   // k_sfull
-      tk[3] = child(k_lanes, 0);  // k_lite
-      tk[4] = child(k_lanes, 1);  // k_rest
+      Key* tk = tkeys + kKeys * tt;
+      tk[0] = child(k_auc, kIsPool ? 1 : 0);  // k_imp
+      tk[1] = child(kt, 1);                   // k_click
+      tk[2] = child(k_cost, 0);               // k_sfull
+      tk[3] = child(k_lanes, 0);              // k_lite
+      tk[4] = child(k_lanes, 1);              // k_rest
+      if (kIsPool) tk[kKeys - 1] = child(k_auc, 0);  // k_bidders
     }
     __syncthreads();
     lap(0);
@@ -623,7 +743,17 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
         ++tt;
       }
       const bool first_t = t0 + tt == 0;
-      const Key* tk = tkeys + kChunkKeys * tt;
+      const Key* tk = tkeys + kKeys * tt;
+      if (kIsPool) {
+        int kb, im, nc, s;
+        pool_cell(kw, ladder, g, K, k, n01[first_t ? k : K + k], tk, first_t ? m0 : m1, L, bits,
+                  kmax, quad, table, lite + c, max_cells, kb, im, nc, s);
+        kcell[c] = kb;
+        imp[c] = im;
+        ncl[c] = nc;
+        sfull[c] = s;
+        continue;
+      }
       const float p_win = kw[kPWin * K + k];
       int im = 0;
       if (first_t) {
@@ -674,8 +804,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 
     // Stage B: the gate
     if (tid < 32) {
-      const int end = gate_chunk<kModel>(sfull, ncl, lite, max_cells, kw, tkeys, cells, t0, K, m0,
-                                         m1, L, bits, tid, B, broken);
+      const int end = gate_chunk<kModel>(sfull, ncl, lite, max_cells, kcell, kw, tkeys, cells, t0,
+                                         K, m0, m1, L, bits, tid, B, broken);
       if (tid == 0) {
         s_end = end;
         s_broken = broken;
@@ -954,6 +1084,8 @@ const void* cells_gate_kernel(int model) {
       return reinterpret_cast<const void*>(agg_cells_gate_kernel<kExplicitRust>);
     case kExplicitPython:
       return reinterpret_cast<const void*>(agg_cells_gate_kernel<kExplicitPython>);
+    case kPool:
+      return reinterpret_cast<const void*>(agg_cells_gate_kernel<kPool>);
     default:
       return reinterpret_cast<const void*>(agg_cells_gate_kernel<kImplicit>);
   }
@@ -1003,12 +1135,12 @@ cudaError_t cells_gate_configure(int device) {
 // Resident blocks per SM of the cost model's agg_cells_gate instance (the
 // instances share their shared memory but not their registers); 0 when a
 // block needs more shared memory than the device gives one.
-cudaError_t cells_gate_occupancy(int model, int chunk_t, int K, int m0, int m1, int L, int device,
-                                 int* blocks_per_sm) {
+cudaError_t cells_gate_occupancy(int model, int chunk_t, int K, int m0, int m1, int L, int kmax,
+                                 int device, int* blocks_per_sm) {
   int limit = 0;
   cudaError_t err = smem_limit(device, &limit);
   if (err != cudaSuccess) return err;
-  const size_t smem = cells_gate_smem(chunk_t, K, m0, m1, L);
+  const size_t smem = cells_gate_smem(chunk_t, K, m0, m1, L, model, kmax);
   *blocks_per_sm = 0;
   if (smem > static_cast<size_t>(limit)) return cudaSuccess;
   err = cells_gate_configure(device);
@@ -1035,70 +1167,79 @@ extern "C" {
 // agg_cells_gate: imp, acc, spend (E, T, K) of the simulated cells (those
 // with t * K + k < n_sim[e]; the others are not written) and n_sim (E,),
 // for the cost model `model` (0 implicit, 1 explicit rust, 2 explicit
-// python, whose moments sum cost_grid cent cells). consts_out,
-// if not null, receives the (4 + m1, E, K) constants the day used: p_win,
-// cost mu, sigma, cmax, then the ladder's m1 levels.
+// python, whose moments sum cost_grid cent cells, 3 the binomial pool,
+// whose quadrature `quad` (agg_day.pool_quad_rows: the 48 nodes and
+// weights, then the node powers, 48 x kmax) and bidder bound kmax the
+// others ignore). consts_out, if not null, receives the (4 + m1, E, K)
+// constants the day used: p_win, cost mu, sigma, cmax, then the ladder's m1
+// levels; for the pool (1 + kmax, E, K): F(bid), then the bidder ladder's
+// kmax levels. cent_bids (the pool's): F(bid) as the env's program
+// computes it from its rounded bids (bid_cdf).
 int agg_cells_gate_launch(const float* params, const int* n_auc01, const long long* keys,
                           long long key_stride, const int* budget_c, int* imp, int* acc,
                           int* spend, int* n_sim, float* consts_out, int E, int K, int T, int m0,
                           int m1, int L, int bits, int chunk_t, int model, int cost_grid,
-                          int device, void* stream) {
+                          const float* quad, int kmax, int cent_bids, int device, void* stream) {
   if (E <= 0) return static_cast<int>(cudaSuccess);
   if (K < 1 || T < 1 || m0 < 1 || m1 < 1 || L < 1 || L > m1 || chunk_t < 1 || model < 0 ||
-      model >= kModels || (model == kExplicitPython && (cost_grid <= 32 || cost_grid > 1024))) {
+      model >= kModels || (model == kExplicitPython && (cost_grid <= 32 || cost_grid > 1024)) ||
+      (model == kPool && (kmax < 1 || quad == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   chunk_t = chunk_t < T ? chunk_t : T;
-  const size_t smem = cells_gate_smem(chunk_t, K, m0, m1, L);
+  const size_t smem = cells_gate_smem(chunk_t, K, m0, m1, L, model, kmax);
   err = cells_gate_configure(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   decltype(&agg_cells_gate_kernel<kImplicit>) kernel = agg_cells_gate_kernel<kImplicit>;
   if (model == kExplicitRust) kernel = agg_cells_gate_kernel<kExplicitRust>;
   if (model == kExplicitPython) kernel = agg_cells_gate_kernel<kExplicitPython>;
+  if (model == kPool) kernel = agg_cells_gate_kernel<kPool>;
   kernel<<<E, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       params, n_auc01, keys, key_stride, budget_c, imp, acc, spend, n_sim, consts_out, E, K, T,
-      m0, m1, L, bits, chunk_t, cost_grid);
+      m0, m1, L, bits, chunk_t, cost_grid, quad, kmax, cent_bids);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Resident blocks per SM of the cost model's agg_cells_gate at chunk_t into
 // *blocks_per_sm; 0 when a block needs more shared memory than the device
 // gives one.
-int agg_cells_gate_occupancy(int model, int chunk_t, int K, int m0, int m1, int L, int device,
-                             int* blocks_per_sm) {
+int agg_cells_gate_occupancy(int model, int chunk_t, int K, int m0, int m1, int L, int kmax,
+                             int device, int* blocks_per_sm) {
   if (model < 0 || model >= kModels) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(
-      cells_gate_occupancy(model, chunk_t, K, m0, m1, L, device, blocks_per_sm));
+      cells_gate_occupancy(model, chunk_t, K, m0, m1, L, kmax, device, blocks_per_sm));
 }
 
 // The largest chunk_t <= T that keeps kMinBlocks blocks of the cost model's
 // instance resident per SM (or as many as chunk_t = 1 keeps) into
 // *chunk_t; 0 if not even chunk_t = 1 fits the device's shared memory per
 // block.
-int agg_cells_gate_default_chunk_t(int model, int K, int T, int m0, int m1, int L, int device,
-                                   int* chunk_t) {
+int agg_cells_gate_default_chunk_t(int model, int K, int T, int m0, int m1, int L, int kmax,
+                                   int device, int* chunk_t) {
   if (model < 0 || model >= kModels) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   int target = 0, blocks = 0;
-  err = cells_gate_occupancy(model, 1, K, m0, m1, L, device, &target);
+  err = cells_gate_occupancy(model, 1, K, m0, m1, L, kmax, device, &target);
   *chunk_t = 0;
   if (err != cudaSuccess || target == 0) return static_cast<int>(err);
   if (target > kMinBlocks) target = kMinBlocks;
   for (*chunk_t = 1; err == cudaSuccess && *chunk_t < T; ++*chunk_t) {
-    err = cells_gate_occupancy(model, *chunk_t + 1, K, m0, m1, L, device, &blocks);
+    err = cells_gate_occupancy(model, *chunk_t + 1, K, m0, m1, L, kmax, device, &blocks);
     if (blocks < target) break;
   }
   return static_cast<int>(err);
 }
 
-// Bytes of dynamic shared memory an agg_cells_gate block takes at chunk_t.
-long long agg_cells_gate_smem_bytes(int chunk_t, int K, int m0, int m1, int L) {
-  return static_cast<long long>(cells_gate_smem(chunk_t, K, m0, m1, L));
+// Bytes of dynamic shared memory a block of the cost model's agg_cells_gate
+// takes at chunk_t.
+long long agg_cells_gate_smem_bytes(int chunk_t, int K, int m0, int m1, int L, int model,
+                                    int kmax) {
+  return static_cast<long long>(cells_gate_smem(chunk_t, K, m0, m1, L, model, kmax));
 }
 
 // The dynamic shared memory an agg_cells_gate block may take into *bytes.

@@ -18,7 +18,10 @@
 namespace {
 
 // rows of the (kNumParams, E, K) parameter tensor (agg_day.py)
-enum { BID, BCTR, SCTR, LOC, SCALE, REV_MEAN, REV_STD, IMP_THRESH, IMP_INTERCEPT, IMP_SLOPE, kNumParams };
+enum {
+  BID, BCTR, SCTR, LOC, SCALE, REV_MEAN, REV_STD, IMP_THRESH, IMP_INTERCEPT, IMP_SLOPE,
+  MAX_BIDDERS, PARTICIPATION, kNumParams
+};
 
 struct Key {
   uint32_t k0, k1;

@@ -1,10 +1,12 @@
 // The lanes day on Hopper (sm_90a): kernels for the three phases of
 // adcraft_tpu/step.py:simulate_day (:991) in the JAX package's default
 // configuration (cost, conversion and revenue lanes, jax.random.binomial),
-// for implicit single-competitor keywords and for explicit ones (kind
-// EXPLICIT, EnvConfig's default) with either cost model. The JAX package
-// left these phases to XLA, so no Pallas kernel constrains them. CUDA C++
-// rather than Triton: the gates are sequential walks of one warp per env
+// for implicit single-competitor keywords, for explicit ones (kind
+// EXPLICIT, EnvConfig's default) with either cost model, and for the
+// binomial pool (lanes_counts' pool instance, lanes_gate_float's pool
+// mode). The JAX package left these phases to XLA, so no Pallas kernel
+// constrains them. CUDA C++ rather than Triton: the gates are sequential
+// walks of one warp per env
 // and the binomials warp-wide lockstep loops, both built on shuffles,
 // ballots and per-warp shared buffers, not elementwise passes:
 //
@@ -237,17 +239,28 @@ __device__ __forceinline__ void count_passes(Stats& st, const BinomialPasses& p)
   }
 }
 
+// lanes_counts' instances: implicit single-competitor keywords, explicit
+// ones, the binomial pool
+enum { kCountsImplicit, kCountsExplicit, kCountsPool };
+
 // One warp per (env, sub-timestep): the impressions' call, then the clicks'
 // on those impressions. R slots a lane; a call of more than 32 R keywords
-// runs in groups (binomial.cuh). The explicit instance (kExplicit) takes the
+// runs in groups (binomial.cuh). The explicit instance takes the
 // impression rate from the threshold sigmoid of the bid and draws the
-// clicks over max(impressions, 1) candidates (the phantom click).
-template <int R, bool kExplicit>
+// clicks over max(impressions, 1) candidates (the phantom click). The
+// pool's (implicit_pool_auction: k_bidders, k_imp, k_cost = split(k_auc,
+// 3)) first draws each keyword's bidder count into kout, by a call of its
+// own (exact) or one uniform against its ladder of kmax levels (the
+// walk), then the impressions at F(bid)^k (1 at k = 0).
+template <int R, int kMode>
 __global__ void __launch_bounds__(32 * kCountsWarps, kCountsBlocks)
     lanes_counts_kernel(const float* __restrict__ params, const int* __restrict__ n_auc01,
                         const long long* __restrict__ keys, long long key_stride,
-                        int* __restrict__ imp, int* __restrict__ ncl, int E, int K, int T, int m0,
-                        int m1, int bits, int exact) {
+                        int* __restrict__ imp, int* __restrict__ ncl, int* __restrict__ kout,
+                        int E, int K, int T, int m0, int m1, int bits, int exact, int kmax,
+                        int cent_bids) {
+  constexpr bool kExplicit = kMode == kCountsExplicit;
+  constexpr bool kPool = kMode == kCountsPool;
   const int lane = threadIdx.x % 32;
   const long long call = static_cast<long long>(blockIdx.x) * kCountsWarps + threadIdx.x / 32;
   if (call >= static_cast<long long>(E) * T) return;
@@ -258,7 +271,8 @@ __global__ void __launch_bounds__(32 * kCountsWarps, kCountsBlocks)
   const long long eK = static_cast<long long>(e) * K;
   const Key kt = child(load_key(keys, key_stride, e), static_cast<uint32_t>(t));
   const Key k_auc = child(kt, 0), k_click = child(kt, 1);
-  const Key k_imp = child(k_auc, 0);
+  const Key k_imp = child(k_auc, kPool ? 1 : 0);
+  const Key k_bidders = child(k_auc, 0);  // the pool's
   const float* bid = params + BID * EK + eK;
   const float* loc = params + LOC * EK + eK;
   const float* scale = params + SCALE * EK + eK;
@@ -266,6 +280,14 @@ __global__ void __launch_bounds__(32 * kCountsWarps, kCountsBlocks)
   const float* thresh = params + IMP_THRESH * EK + eK;
   const float* intercept = params + IMP_INTERCEPT * EK + eK;
   const float* slope = params + IMP_SLOPE * EK + eK;
+  const float* max_bidders = params + MAX_BIDDERS * EK + eK;
+  const float* participation = params + PARTICIPATION * EK + eK;
+  // the pool's win probability at kb bidders: F(bid)^k (XLA's powf), 1 at k = 0
+  const auto pool_rate = [&](int k, int kb) {
+    return kb > 0 ? xla_pow(bid_cdf(bid[k], loc[k], scale[k], cent_bids != 0),
+                            static_cast<float>(kb))
+                  : 1.0f;
+  };
   const auto rate = [&](int k) {
     return kExplicit ? threshold_sigmoid(bid[k], thresh[k], intercept[k], slope[k])
                      : win_prob(bid[k], loc[k], scale[k]);
@@ -274,27 +296,33 @@ __global__ void __launch_bounds__(32 * kCountsWarps, kCountsBlocks)
   const int* n_row = n_auc01 + (t == 0 ? 0 : EK) + eK;
   int* imp_row = imp + call * K;
   int* ncl_row = ncl + call * K;
+  int* k_row = kPool ? kout + call * K : nullptr;
   if (exact) {
-    // the impressions' call, then the clicks' on them, through one copy of
-    // the binomial's code; a lane reads back only the impressions it wrote
+    // the pool's bidders' call, the impressions' call, then the clicks' on
+    // them, through one copy of the binomial's code; a lane reads back
+    // only the draws it wrote: each call's from its registers (prev, its
+    // slots' loads all come before their stores) or, past one group, from
+    // the row
     __shared__ float loop_state[kCountsWarps][kBtFields * R * 32];
-    int im[R];
+    int prev[R];
     const bool one_group = K <= 32 * R;
 #pragma unroll 1
-    for (int which = 0; which < 2; ++which) {
-      const bool clicks = which == 1;
-      int* row = clicks ? ncl_row : imp_row;
+    for (int which = kPool ? 0 : 1; which < 3; ++which) {
+      int* row = which == 0 ? k_row : which == 1 ? imp_row : ncl_row;
+      const Key key = which == 0 ? k_bidders : which == 1 ? k_imp : k_click;
       count_passes(st, binomial_warp<R>(
-          clicks ? k_click : k_imp, K,
+          key, K,
           [&](int k, int r) {
-            if (clicks) {
-              return make_float2(static_cast<float>(candidates(one_group ? im[r] : imp_row[k])),
+            if (which == 0) return make_float2(max_bidders[k], participation[k]);
+            if (which == 2) {
+              return make_float2(static_cast<float>(candidates(one_group ? prev[r] : imp_row[k])),
                                  bctr[k]);
             }
-            return make_float2(static_cast<float>(n_row[k]), rate(k));
+            const float p = kPool ? pool_rate(k, one_group ? prev[r] : k_row[k]) : rate(k);
+            return make_float2(static_cast<float>(n_row[k]), p);
           },
           [&](int k, int r, int x) {
-            im[r] = x;
+            prev[r] = x;
             row[k] = x;
           },
           loop_state[threadIdx.x / 32]));
@@ -303,7 +331,16 @@ __global__ void __launch_bounds__(32 * kCountsWarps, kCountsBlocks)
     const int m = t == 0 ? m0 : m1;
     auto recip = [](int j) { return __fdiv_rn(1.0f, static_cast<float>(j)); };
     for (int k = lane; k < K; k += 32) {
-      const int i = binomial_walk(lane_uniform(k_imp, k, bits), n_row[k], rate(k), m, recip);
+      float p;
+      if (kPool) {
+        const int kb = ladder_draw(max_bidders[k], participation[k], kmax,
+                                   lane_uniform(k_bidders, k, bits));
+        k_row[k] = kb;
+        p = pool_rate(k, kb);
+      } else {
+        p = rate(k);
+      }
+      const int i = binomial_walk(lane_uniform(k_imp, k, bits), n_row[k], p, m, recip);
       imp_row[k] = i;
       ncl_row[k] = binomial_walk(lane_uniform(k_click, k, bits), candidates(i), bctr[k], m, recip);
     }
@@ -664,10 +701,12 @@ constexpr int kScanFixed = 256;   // a sub-timestep's spends before the first wh
 
 // A float gate warp's window: its cells' lanes after the first, drawn
 // densely, then each cell's prefixes of them in XLA's order, in place;
-// and each window cell's lanes, first lane, total and offset in pre.
+// and each window cell's lanes, first lane, total, largest prefix (the
+// pool's, whose lanes can be negative; the rust model's is its total) and
+// offset in pre.
 struct FloatWindow {
   float pre[kFloatCap];  // prefix j + 1 of a cell's lanes at off + j - 1, j >= 1
-  float first[32], total[32];
+  float first[32], total[32], peak[32];
   int n[32], off[32];
 };
 
@@ -675,25 +714,42 @@ size_t gate_float_smem(int T) {
   return kGateWarps * (static_cast<size_t>(T) * sizeof(Key) + sizeof(FloatWindow));
 }
 
+// A float gate cell's lane law: the rust model's bid (a) and whether it
+// is a phantom cell (d != 0), or the pool's F(bid), loc, scale (a, b, c)
+// and bidder count (d).
+struct FloatCost {
+  float a, b, c;
+  int d;
+};
+
+__device__ __forceinline__ FloatCost shfl_float_cost(const FloatCost& c, int src) {
+  return FloatCost{__shfl_sync(kFull, c.a, src), __shfl_sync(kFull, c.b, src),
+                   __shfl_sync(kFull, c.c, src), __shfl_sync(kFull, c.d, src)};
+}
+
 // lanes_day.cost_dollars: one rust lane cost, cost_create at the lane's
-// normal, 0 for a phantom cell
-__device__ __forceinline__ float rust_lane(Key key, uint32_t ctr, float bid, bool phantom) {
-  return phantom ? 0.0f : cost_create_e(xla_normal_erfinv(key, ctr), bid);
+// normal, 0 for a phantom cell; or lanes_day.cost_pool_dollars: one pool
+// lane cost at the lane's 32-bit uniform
+template <bool kPool>
+__device__ __forceinline__ float float_lane(Key key, uint32_t ctr, const FloatCost& c) {
+  if (kPool) return pool_cost(lane_uniform(key, ctr, 32), c.a, c.b, c.c, c.d);
+  return c.d != 0 ? 0.0f : cost_create_e(xla_normal_erfinv(key, ctr), c.a);
 }
 
 // One cell's accepted clicks p and spend s at budget B from its lanes
 // drawn 32 at a time, their prefixes scanned in XLA's order by every lane
-// alike: a cell too deep for the window's buffer, or one whose lanes
-// stage A skipped.
-__device__ void walk_cell_float(Key key, int n, int k, int K, float bid, bool phantom, float B,
+// alike, up to the first prefix over B: a cell too deep for the window's
+// buffer, or one whose lanes stage A skipped.
+template <bool kPool>
+__device__ void walk_cell_float(Key key, int n, int k, int K, const FloatCost& cc, float B,
                                 int lane, int& p, float& s) {
   XlaScan<false> scan;
   p = n;
   s = 0.0f;
   for (int j0 = 0; j0 < n; j0 += 32) {
-    const float x = j0 + lane < n ? rust_lane(key, static_cast<uint32_t>(j0 + lane) * K + k, bid,
-                                              phantom)
-                                  : 0.0f;
+    const float x = j0 + lane < n
+                        ? float_lane<kPool>(key, static_cast<uint32_t>(j0 + lane) * K + k, cc)
+                        : 0.0f;
     const int live = min(n - j0, 32);
     for (int i = 0; i < live; ++i) {
       const float pre = scan.push(__shfl_sync(kFull, x, i));
@@ -750,12 +806,23 @@ __device__ void walk_cell_float(Key key, int n, int k, int K, float bid, bool ph
 // measured 0.99 against the first version's 1.04 ms (chip_smoke.py phase
 // 12's stage clocks: stage B 1.29M SM clocks per warp against 1.40M, for
 // 2.98M whole cells alone), so the runs take whole cells too.
+//
+// The pool mode (kPool, the binomial pool: aux is its cells' bidder
+// counts, not the impressions) draws the pool's lanes from k_cost =
+// split(k_auc, 3)[2], F(bid) with cent_bids as the env's program computes
+// it. Its lanes can be negative, so a cell's prefixes can
+// fall after one over the budget, and the budget can grow: a cell is
+// whole where its largest prefix, not its total, is within B_k, and a
+// cell that stage A skipped (first lane over the budget then) is drawn
+// alone if a grown budget admits its first lane.
+template <bool kPool>
 __global__ void __launch_bounds__(32 * kGateWarps, kFloatBlocks)
     lanes_gate_float_kernel(const float* __restrict__ params, const long long* __restrict__ keys,
                             long long key_stride, const int* __restrict__ ncl,
-                            const int* __restrict__ imp, const float* __restrict__ budget,
+                            const int* __restrict__ aux, const float* __restrict__ budget,
                             int* __restrict__ acc, float* __restrict__ spend,
-                            int* __restrict__ n_sim, int E, int K, int T, int m0, int m1) {
+                            int* __restrict__ n_sim, int E, int K, int T, int m0, int m1,
+                            int cent_bids) {
   extern __shared__ unsigned long long gate_smem_raw[];
   const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int e = blockIdx.x * kGateWarps + w;
@@ -774,12 +841,12 @@ __global__ void __launch_bounds__(32 * kGateWarps, kFloatBlocks)
   const long long eK = static_cast<long long>(e) * K;
   const int TK = T * K;
   const int* ncl_e = ncl + static_cast<long long>(e) * TK;
-  const int* imp_e = imp + static_cast<long long>(e) * TK;
+  const int* aux_e = aux + static_cast<long long>(e) * TK;
   int* acc_e = acc + static_cast<long long>(e) * TK;
   float* spend_e = spend + static_cast<long long>(e) * TK;
   const Key kc = load_key(keys, key_stride, e);
-  for (int t = lane; t < T; t += 32) {
-    tkeys[t] = child(child(child(kc, static_cast<uint32_t>(t)), 0), 1);
+  for (int t = lane; t < T; t += 32) {  // k_cost
+    tkeys[t] = child(child(child(kc, static_cast<uint32_t>(t)), 0), kPool ? 2 : 1);
   }
   __syncwarp();
 
@@ -809,9 +876,13 @@ __global__ void __launch_bounds__(32 * kGateWarps, kFloatBlocks)
     if (!in) t = k = 0;
     const int n = in ? min(max(ncl_e[c], 0), t == 0 ? m0 : m1) : 0;
     const float bid = params[BID * EK + eK + k];
-    const bool phantom = in && imp_e[c] == 0;
+    FloatCost cost{bid, 0.0f, 0.0f, in && aux_e[c] == 0};
+    if (kPool) {
+      const float loc = params[LOC * EK + eK + k], scale = params[SCALE * EK + eK + k];
+      cost = FloatCost{bid_cdf(bid, loc, scale, cent_bids != 0), loc, scale, in ? aux_e[c] : 0};
+    }
     const Key key = tkeys[t];
-    const float first = n > 0 ? rust_lane(key, static_cast<uint32_t>(k), bid, phantom) : 0.0f;
+    const float first = n > 0 ? float_lane<kPool>(key, static_cast<uint32_t>(k), cost) : 0.0f;
     const int rest = n > 1 && first <= B ? n - 1 : 0;  // first > B: accepts nothing from here on
     int end = min(rest, kFloatCap + 1);
 #pragma unroll
@@ -825,7 +896,7 @@ __global__ void __launch_bounds__(32 * kGateWarps, kFloatBlocks)
     // whose lanes stage B draws
     const bool deep = fits == 0u;
     const int nc = deep ? 1 : fits == kFull ? 32 : __ffs(~fits) - 1;
-    float total = first;
+    float total = first, peak = first;
     if (!deep) {
       // the window's lanes after the first, drawn 32 a step (buffer lane
       // g belongs to the last cell whose offset is <= g), then each
@@ -843,10 +914,9 @@ __global__ void __launch_bounds__(32 * kGateWarps, kFloatBlocks)
         const int j = g - __shfl_sync(kFull, off, i) + 1;  // the cell's lane, from 1
         const int ki = __shfl_sync(kFull, k, i);
         const Key key_i = shfl_key(key, i);
-        const float bid_i = __shfl_sync(kFull, bid, i);
-        const bool phantom_i = __shfl_sync(kFull, phantom, i);
-        if (g < lanes) win.pre[g] = rust_lane(key_i, static_cast<uint32_t>(j) * K + ki, bid_i,
-                                              phantom_i);
+        const FloatCost cost_i = shfl_float_cost(cost, i);
+        if (g < lanes) win.pre[g] = float_lane<kPool>(key_i, static_cast<uint32_t>(j) * K + ki,
+                                                      cost_i);
       }
       __syncwarp();
       if (lane < nc && rest > 0) {
@@ -855,6 +925,7 @@ __global__ void __launch_bounds__(32 * kGateWarps, kFloatBlocks)
         for (int j = 1; j < n; ++j) {
           total = scan.push(win.pre[off + j - 1]);
           win.pre[off + j - 1] = total;
+          if (kPool) peak = fmaxf(peak, total);
         }
       }
     }
@@ -865,6 +936,7 @@ __global__ void __launch_bounds__(32 * kGateWarps, kFloatBlocks)
       win.n[lane] = n;
       win.first[lane] = first;
       win.total[lane] = total;
+      if (kPool) win.peak[lane] = peak;
       win.off[lane] = off;
     }
     __syncwarp();
@@ -923,7 +995,8 @@ __global__ void __launch_bounds__(32 * kGateWarps, kFloatBlocks)
         const bool passive = n == 0 || first > Bk;
         const bool ok = mine && Bk > 0.0f &&
                         (passive ? guess_passive
-                                 : !guess_passive && !((walk >> lane) & 1u) && total <= Bk &&
+                                 : !guess_passive && !((walk >> lane) & 1u) &&
+                                       (kPool ? peak : total) <= Bk &&
                                        __fsub_rn(Bk, total) > 0.0f);
         const unsigned fine = __ballot_sync(kFull, ok) >> q;
         run = min(fine == kFull ? 32 : __ffs(~fine) - 1, room);
@@ -962,10 +1035,10 @@ __global__ void __launch_bounds__(32 * kGateWarps, kFloatBlocks)
         if (n_q == 0 || first_q > B) {  // accepts nothing (B <= 0 here)
           st.add(n_q == 0 ? kFloatNoClick : kFloatOver, 1);
         } else if ((walk >> q) & 1u) {
-          walk_cell_float(shfl_key(key, q), n_q, kq, K, __shfl_sync(kFull, bid, q),
-                          __shfl_sync(kFull, phantom, q), B, lane, p, s);
+          walk_cell_float<kPool>(shfl_key(key, q), n_q, kq, K, shfl_float_cost(cost, q), B, lane,
+                                 p, s);
           st.add(deep ? kFloatDeep : kFloatRedrawn, 1);
-        } else if (win.total[q] <= B) {  // whole, but B - total <= 0
+        } else if ((kPool ? win.peak[q] : win.total[q]) <= B) {  // whole, but B - total <= 0
           p = n_q;
           s = win.total[q];
           st.add(kFloatWhole, 1);
@@ -1465,13 +1538,18 @@ cudaError_t outcomes_plan(int K, int T, int device, bool* tables, size_t* smem) 
 
 // lanes_counts: imp and ncl (E, T, K); exact 1 for jax.random.binomial, 0
 // for the inverse-CDF walk on `bits`-bit uniforms. lanes_counts_explicit_launch
-// runs the explicit instance, with the same arguments.
-template <bool kExplicit>
+// runs the explicit instance, with the same arguments; lanes_counts_pool_launch
+// the pool's, which also writes the bidder counts kout (E, T, K), its ladder
+// kmax levels, F(bid) with cent_bids as the env's program computes it.
+template <int kMode>
 int counts_launch(const float* params, const int* n_auc01, const long long* keys,
-                  long long key_stride, int* imp, int* ncl, int E, int K, int T, int m0, int m1,
-                  int bits, int exact, int device, void* stream) {
+                  long long key_stride, int* imp, int* ncl, int* kout, int E, int K, int T,
+                  int m0, int m1, int bits, int exact, int kmax, int cent_bids, int device,
+                  void* stream) {
   if (E <= 0) return static_cast<int>(cudaSuccess);
-  if (K < 1 || T < 1 || m0 < 1 || m1 < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (K < 1 || T < 1 || m0 < 1 || m1 < 1 || (kMode == kCountsPool && (kmax < 1 || !kout))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long calls = static_cast<long long>(E) * T;
@@ -1481,20 +1559,24 @@ int counts_launch(const float* params, const int* n_auc01, const long long* keys
   static_assert(kMaxSlots == 4, "one instance per slot count");
   switch (slots) {
     case 1:
-      lanes_counts_kernel<1, kExplicit><<<blocks, 32 * kCountsWarps, 0, s>>>(
-          params, n_auc01, keys, key_stride, imp, ncl, E, K, T, m0, m1, bits, exact);
+      lanes_counts_kernel<1, kMode><<<blocks, 32 * kCountsWarps, 0, s>>>(
+          params, n_auc01, keys, key_stride, imp, ncl, kout, E, K, T, m0, m1, bits, exact, kmax,
+          cent_bids);
       break;
     case 2:
-      lanes_counts_kernel<2, kExplicit><<<blocks, 32 * kCountsWarps, 0, s>>>(
-          params, n_auc01, keys, key_stride, imp, ncl, E, K, T, m0, m1, bits, exact);
+      lanes_counts_kernel<2, kMode><<<blocks, 32 * kCountsWarps, 0, s>>>(
+          params, n_auc01, keys, key_stride, imp, ncl, kout, E, K, T, m0, m1, bits, exact, kmax,
+          cent_bids);
       break;
     case 3:
-      lanes_counts_kernel<3, kExplicit><<<blocks, 32 * kCountsWarps, 0, s>>>(
-          params, n_auc01, keys, key_stride, imp, ncl, E, K, T, m0, m1, bits, exact);
+      lanes_counts_kernel<3, kMode><<<blocks, 32 * kCountsWarps, 0, s>>>(
+          params, n_auc01, keys, key_stride, imp, ncl, kout, E, K, T, m0, m1, bits, exact, kmax,
+          cent_bids);
       break;
     default:
-      lanes_counts_kernel<4, kExplicit><<<blocks, 32 * kCountsWarps, 0, s>>>(
-          params, n_auc01, keys, key_stride, imp, ncl, E, K, T, m0, m1, bits, exact);
+      lanes_counts_kernel<4, kMode><<<blocks, 32 * kCountsWarps, 0, s>>>(
+          params, n_auc01, keys, key_stride, imp, ncl, kout, E, K, T, m0, m1, bits, exact, kmax,
+          cent_bids);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -1532,6 +1614,24 @@ int gate_launch(const float* params, const long long* keys, long long key_stride
   return static_cast<int>(cudaGetLastError());
 }
 
+template <bool kPool>
+int gate_float_launch(const float* params, const long long* keys, long long key_stride,
+                      const int* ncl, const int* aux, const float* budget, int* acc, float* spend,
+                      int* n_sim, int E, int K, int T, int m0, int m1, int cent_bids, int device,
+                      void* stream) {
+  if (E <= 0) return static_cast<int>(cudaSuccess);
+  const size_t smem = gate_float_smem(T);
+  const cudaError_t err = gate_prepare(
+      reinterpret_cast<const void*>(lanes_gate_float_kernel<kPool>), K, T, m0, m1, smem, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = (E + kGateWarps - 1) / kGateWarps;
+  lanes_gate_float_kernel<kPool>
+      <<<blocks, 32 * kGateWarps, smem, static_cast<cudaStream_t>(stream)>>>(
+          params, keys, key_stride, ncl, aux, budget, acc, spend, n_sim, E, K, T, m0, m1,
+          cent_bids);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -1542,15 +1642,23 @@ extern "C" {
 int lanes_counts_launch(const float* params, const int* n_auc01, const long long* keys,
                         long long key_stride, int* imp, int* ncl, int E, int K, int T, int m0,
                         int m1, int bits, int exact, int device, void* stream) {
-  return counts_launch<false>(params, n_auc01, keys, key_stride, imp, ncl, E, K, T, m0, m1, bits,
-                              exact, device, stream);
+  return counts_launch<kCountsImplicit>(params, n_auc01, keys, key_stride, imp, ncl, nullptr, E,
+                                        K, T, m0, m1, bits, exact, 0, 0, device, stream);
 }
 
 int lanes_counts_explicit_launch(const float* params, const int* n_auc01, const long long* keys,
                                  long long key_stride, int* imp, int* ncl, int E, int K, int T,
                                  int m0, int m1, int bits, int exact, int device, void* stream) {
-  return counts_launch<true>(params, n_auc01, keys, key_stride, imp, ncl, E, K, T, m0, m1, bits,
-                             exact, device, stream);
+  return counts_launch<kCountsExplicit>(params, n_auc01, keys, key_stride, imp, ncl, nullptr, E,
+                                        K, T, m0, m1, bits, exact, 0, 0, device, stream);
+}
+
+int lanes_counts_pool_launch(const float* params, const int* n_auc01, const long long* keys,
+                             long long key_stride, int* imp, int* ncl, int* kout, int E, int K,
+                             int T, int m0, int m1, int bits, int exact, int kmax, int cent_bids,
+                             int device, void* stream) {
+  return counts_launch<kCountsPool>(params, n_auc01, keys, key_stride, imp, ncl, kout, E, K, T,
+                                    m0, m1, bits, exact, kmax, cent_bids, device, stream);
 }
 
 int lanes_gate_launch(const float* params, const long long* keys, long long key_stride,
@@ -1571,25 +1679,29 @@ int lanes_gate_python_launch(const float* params, const long long* keys, long lo
 // lanes_gate_float: acc (-1 in a cell not simulated) and spend (E, T, K)
 // float32 of the cells in the sub-timesteps up to that of cell n_sim[e] - 1
 // (the others are not written), n_sim (E,), one past the last simulated
-// cell, from budget (E,) float32 dollars.
+// cell, from budget (E,) float32 dollars; imp (E, T, K) for the rust
+// model's phantom cells. lanes_gate_float_pool_launch runs the pool mode,
+// which reads the cells' bidder counts (E, T, K) in imp's place.
 int lanes_gate_float_launch(const float* params, const long long* keys, long long key_stride,
                             const int* ncl, const int* imp, const float* budget, int* acc,
                             float* spend, int* n_sim, int E, int K, int T, int m0, int m1,
                             int device, void* stream) {
-  if (E <= 0) return static_cast<int>(cudaSuccess);
-  const size_t smem = gate_float_smem(T);
-  const cudaError_t err = gate_prepare(reinterpret_cast<const void*>(lanes_gate_float_kernel), K,
-                                       T, m0, m1, smem, device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (E + kGateWarps - 1) / kGateWarps;
-  lanes_gate_float_kernel<<<blocks, 32 * kGateWarps, smem, static_cast<cudaStream_t>(stream)>>>(
-      params, keys, key_stride, ncl, imp, budget, acc, spend, n_sim, E, K, T, m0, m1);
-  return static_cast<int>(cudaGetLastError());
+  return gate_float_launch<false>(params, keys, key_stride, ncl, imp, budget, acc, spend, n_sim,
+                                  E, K, T, m0, m1, 0, device, stream);
+}
+
+int lanes_gate_float_pool_launch(const float* params, const long long* keys, long long key_stride,
+                                 const int* ncl, const int* bidders, const float* budget,
+                                 int* acc, float* spend, int* n_sim, int E, int K, int T, int m0,
+                                 int m1, int cent_bids, int device, void* stream) {
+  return gate_float_launch<true>(params, keys, key_stride, ncl, bidders, budget, acc, spend,
+                                 n_sim, E, K, T, m0, m1, cent_bids, device, stream);
 }
 
 // Resident blocks per SM of the cost model's (0 implicit, 1 rust, 2
-// python) lanes_counts instance (at K keywords), its gate (lanes_gate's
-// instance, or for the rust model lanes_gate_float, at T sub-timesteps)
+// python, 3 the pool) lanes_counts instance (at K keywords), its gate
+// (lanes_gate's instance, or for the rust model and the pool
+// lanes_gate_float's, at T sub-timesteps)
 // and lanes_outcomes (at K and T), and the gate's and lanes_outcomes'
 // dynamic shared memory per block; *out_tables is 1 where lanes_outcomes
 // keeps its tables in shared memory.
@@ -1599,22 +1711,30 @@ int lanes_day_occupancy(int model, int K, int T, int device, int* counts_blocks,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int slots = K < 32 * kMaxSlots ? (K + 31) / 32 : kMaxSlots;
-  const void* counts[2][4] = {
-      {reinterpret_cast<const void*>(lanes_counts_kernel<1, false>),
-       reinterpret_cast<const void*>(lanes_counts_kernel<2, false>),
-       reinterpret_cast<const void*>(lanes_counts_kernel<3, false>),
-       reinterpret_cast<const void*>(lanes_counts_kernel<4, false>)},
-      {reinterpret_cast<const void*>(lanes_counts_kernel<1, true>),
-       reinterpret_cast<const void*>(lanes_counts_kernel<2, true>),
-       reinterpret_cast<const void*>(lanes_counts_kernel<3, true>),
-       reinterpret_cast<const void*>(lanes_counts_kernel<4, true>)}};
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(counts_blocks, counts[model != 0][slots - 1],
+  if (model < 0 || model > 3) return static_cast<int>(cudaErrorInvalidValue);
+  const void* counts[3][4] = {
+      {reinterpret_cast<const void*>(lanes_counts_kernel<1, kCountsImplicit>),
+       reinterpret_cast<const void*>(lanes_counts_kernel<2, kCountsImplicit>),
+       reinterpret_cast<const void*>(lanes_counts_kernel<3, kCountsImplicit>),
+       reinterpret_cast<const void*>(lanes_counts_kernel<4, kCountsImplicit>)},
+      {reinterpret_cast<const void*>(lanes_counts_kernel<1, kCountsExplicit>),
+       reinterpret_cast<const void*>(lanes_counts_kernel<2, kCountsExplicit>),
+       reinterpret_cast<const void*>(lanes_counts_kernel<3, kCountsExplicit>),
+       reinterpret_cast<const void*>(lanes_counts_kernel<4, kCountsExplicit>)},
+      {reinterpret_cast<const void*>(lanes_counts_kernel<1, kCountsPool>),
+       reinterpret_cast<const void*>(lanes_counts_kernel<2, kCountsPool>),
+       reinterpret_cast<const void*>(lanes_counts_kernel<3, kCountsPool>),
+       reinterpret_cast<const void*>(lanes_counts_kernel<4, kCountsPool>)}};
+  const int counts_mode = model == 0 ? kCountsImplicit : model == 3 ? kCountsPool : kCountsExplicit;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(counts_blocks, counts[counts_mode][slots - 1],
                                                       32 * kCountsWarps, 0);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const void* gate = model == 1   ? reinterpret_cast<const void*>(lanes_gate_float_kernel)
+  const bool float_gate = model == 1 || model == 3;
+  const void* gate = model == 1   ? reinterpret_cast<const void*>(lanes_gate_float_kernel<false>)
+                     : model == 3 ? reinterpret_cast<const void*>(lanes_gate_float_kernel<true>)
                      : model == 2 ? reinterpret_cast<const void*>(lanes_gate_kernel<true>)
                                   : reinterpret_cast<const void*>(lanes_gate_kernel<false>);
-  const size_t smem = model == 1 ? gate_float_smem(T) : gate_smem(T);
+  const size_t smem = float_gate ? gate_float_smem(T) : gate_smem(T);
   *gate_smem_bytes = static_cast<long long>(smem);
   err = gate_prepare(gate, 1, T, 1, 1, smem, device);
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -153,10 +153,13 @@ __device__ __forceinline__ float xla_horner(float x, const uint32_t (&c)[N]) {
   return p;
 }
 
-// distributions.laplace_cdf on XLA's exp
-__device__ __forceinline__ float laplace_cdf(float x, float loc, float scale) {
-  const float z = __fdiv_rn(__fsub_rn(x, loc), scale);
+// distributions.laplace_cdf on XLA's exp, at z = (x - loc) / scale
+__device__ __forceinline__ float laplace_cdf_z(float z) {
   return z < 0.0f ? __fmul_rn(0.5f, xla_exp(z)) : __fsub_rn(1.0f, __fmul_rn(0.5f, xla_exp(-z)));
+}
+
+__device__ __forceinline__ float laplace_cdf(float x, float loc, float scale) {
+  return laplace_cdf_z(__fdiv_rn(__fsub_rn(x, loc), scale));
 }
 
 // distributions.laplace_icdf on XLA's log: the plain version computes both
@@ -210,7 +213,7 @@ __device__ float xla_expm1(float x) {
 }
 
 // xla_math.pow: the C library's powf, as XLA's CPU code calls it, for
-// normal x > 0 (or y 0, or x 1): log2 and exp2 in double precision on its
+// normal x > 0 or 0 (or y 0, or x 1): log2 and exp2 in double precision on its
 // tables, each double operation as the plain version's tensor op
 __constant__ double kPowInvc[16] = {
     0x1.661ec79f8f3bep+0, 0x1.571ed4aaf883dp+0, 0x1.49539f0f010b0p+0, 0x1.3c995b0b80385p+0,
@@ -234,6 +237,7 @@ __constant__ unsigned long long kExp2T[32] = {
 
 __device__ float xla_pow(float x, float y) {
   if (y == 0.0f || x == 1.0f) return 1.0f;
+  if (x == 0.0f) return 0.0f;  // y > 0
   const int ix = __float_as_int(x);
   const int tmp = ix - 0x3F330000;
   const int i = (tmp >> 19) & 15;
@@ -301,6 +305,44 @@ __device__ int walk_count(float u, int n, const WalkConsts& w, int nmax, Recip r
 template <class Recip>
 __device__ __forceinline__ int binomial_walk(float u, int n, float p, int nmax, Recip recip) {
   return walk_count(u, n, walk_consts(p), nmax, recip);
+}
+
+// the CDF ladder of distributions.binomial_cdf for fixed (n, p): level 0
+// is pmf0 = (1 - q)^n (XLA's powf), level j the XLA scan (blocks of 16) of
+// the pmfs up to j, pmf j being pmf0 times the XLA scan of the factors
+// (n - j + 1) / j r up to j
+struct Ladder {
+  float nf, r, pmf0;
+  __device__ float factor(int j) const {
+    return fmaxf(__fmul_rn(__fdiv_rn(__fsub_rn(nf, static_cast<float>(j - 1)),
+                                     static_cast<float>(j)), r), 0.0f);
+  }
+};
+
+__device__ __forceinline__ Ladder make_ladder(float nf, float p) {
+  p = fminf(fmaxf(p, 0.0f), 1.0f);
+  const float q = p > 0.5f ? __fsub_rn(1.0f, p) : p;
+  return Ladder{nf, __fdiv_rn(q, __fsub_rn(1.0f, q)), xla_pow(__fsub_rn(1.0f, q), nf)};
+}
+
+// distributions.bid_cdf: F(bid) of Laplace(loc, scale); with cent_bids
+// the bid is the env's round(100 b) * 0.01, whose product the env's
+// program contracts into bid - loc (one fused multiply-add of the cents)
+__device__ __forceinline__ float bid_cdf(float bid, float loc, float scale, bool cent_bids) {
+  if (!cent_bids) return laplace_cdf(bid, loc, scale);
+  return laplace_cdf_z(__fdiv_rn(fma32(rintf(__fmul_rn(bid, 100.0f)), 0.01f, -loc), scale));
+}
+
+// the binomial pool's click cost in dollars at the uniform u
+// (distributions.pool_cost_u): F^-1(F(bid) u^(1/k)) for f_bid = F(bid),
+// the argument clipped to [1e-38, 1] as XLA's CPU code clips it (the
+// subnormal bound reads as 0), floored at 0 where k < 3, 0 where k = 0
+__device__ __forceinline__ float pool_cost(float u, float f_bid, float loc, float scale, int k) {
+  if (k <= 0) return 0.0f;
+  const float x = xla_pow(u, __fdiv_rn(1.0f, static_cast<float>(k)));
+  const float a = xla_ftz(fminf(fmaxf(__fmul_rn(f_bid, x), 1e-38f), 1.0f));
+  const float m = laplace_icdf(a, loc, scale);
+  return k < 3 ? fmaxf(m, 0.0f) : m;
 }
 
 // xla_math.cumsum / cumprod, one element at a time: XLA's CPU float scan
@@ -372,6 +414,25 @@ struct XlaScan {
     return out;
   }
 };
+
+// binomial_inv_from_cdf's draw at the uniform u against the ladder of (n,
+// p) over `levels` levels, the levels computed in order up to the first
+// not below u (the ladder never falls): the count clipped to round(n) and
+// flipped where p > 1/2
+__device__ int ladder_draw(float nf, float p, int levels, float u) {
+  const Ladder lad = make_ladder(nf, p);
+  XlaScan<true> cp;
+  XlaScan<false> cdf;
+  int cnt = 0;
+  for (int j = 0; j < levels; ++j) {
+    const float pmf = j == 0 ? lad.pmf0 : xla_ftz(__fmul_rn(lad.pmf0, cp.push(lad.factor(j))));
+    if (!(cdf.push(pmf) < u)) break;
+    ++cnt;
+  }
+  const int ni = static_cast<int>(rintf(nf));
+  cnt = min(cnt, ni);
+  return p > 0.5f ? ni - cnt : cnt;
+}
 
 // xla_math.erfc: 1 - x P(x^2) below 1, else exp(-x^2) / |x| times a
 // polynomial in 1 / x^2 (one below 2, one above), 0 past x^2 = 88.72

@@ -9,9 +9,11 @@ and moments: ``binomial_inv`` (:102),
 ``binomial_cdf`` (:192), ``binomial_inv_from_cdf`` (:230), ``uniform16``
 (:358), ``censored_normal_moments`` (:387), ``rev_sum_cents`` (:519),
 ``single_cost_cent_moments_closed`` (:589), ``agg_cost_cents`` (:704,
-32-bit draws), ``laplace_cdf`` (:874), ``laplace_icdf`` (:880) and
-``truncated_laplace`` (:888), and the oracle's competitor bids
-``abs_laplace_cents`` (:258). ``torch.round`` rounds half to even, as
+32-bit draws, with the pool's ``cmin``), the binomial pool's
+``pool_cost_deci_moments`` (:746, its table ``max_bidders_bound`` columns
+wide) and ``pool_cost_lane_draws`` (:847), ``laplace_cdf`` (:874),
+``laplace_icdf`` (:880) and ``truncated_laplace`` (:888), and the
+oracle's competitor bids ``abs_laplace_cents`` (:258). ``torch.round`` rounds half to even, as
 ``jnp.round`` does.
 
 Float arithmetic follows what jitted XLA computes on the CPU, where that
@@ -34,6 +36,7 @@ functions agree exactly on the card.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -76,8 +79,21 @@ def lane_uniform(key: torch.Tensor, shape, bits: int) -> torch.Tensor:
 
 def laplace_cdf(x, loc, scale) -> torch.Tensor:
     """CDF of Laplace(loc, scale)."""
-    z = (x - loc) / scale
+    return _laplace_cdf_z((x - loc) / scale)
+
+
+def _laplace_cdf_z(z: torch.Tensor) -> torch.Tensor:
     return torch.where(z < 0, 0.5 * xla_math.exp(z), 1.0 - 0.5 * xla_math.exp(-z))
+
+
+def bid_cdf(bid, loc, scale, cent_bids: bool = False) -> torch.Tensor:
+    """``laplace_cdf(bid, loc, scale)``. With ``cent_bids`` the bid is the
+    env's ``round_cents`` output, ``round(100 b) * 0.01``: in the env's
+    program jitted XLA contracts that product into the CDF's ``bid - loc``
+    (one fused multiply-add of the cents), which this follows."""
+    if not cent_bids:
+        return laplace_cdf(bid, loc, scale)
+    return _laplace_cdf_z(fma32(torch.round(bid * 100.0), recip(100.0), -loc) / scale)
 
 
 def laplace_icdf(u: torch.Tensor, loc, scale) -> torch.Tensor:
@@ -673,21 +689,131 @@ def generic_cost_cent_moments(bid, grid: int):
     return mu, xla_math.sqrt(var), torch.round(bid * 100.0)
 
 
-def agg_cost_cents_z(z, n_clicks, mu, sigma, cmax) -> torch.Tensor:
-    """``agg_cost_cents`` at the standard normal ``z``, int32 cents."""
+def agg_cost_cents_z(z, n_clicks, mu, sigma, cmax, cmin=None) -> torch.Tensor:
+    """``agg_cost_cents`` at the standard normal ``z``, int32 units."""
     n = n_clicks.to(torch.float32)
     s = torch.round(fma32(n, mu, torch.sqrt(n) * sigma * z))
-    return torch.minimum(torch.clamp(s, min=0.0), n * cmax).to(torch.int32)
+    s = torch.clamp(s, min=0.0) if cmin is None else torch.maximum(s, n * cmin)
+    return torch.minimum(s, n * cmax).to(torch.int32)
 
 
-def agg_cost_cents(key, n_clicks, mu, sigma, cmax, bits: int = 32) -> torch.Tensor:
-    """One aggregate spend draw per cell in int32 cents: ``N(n mu, n
-    sigma**2)`` rounded and clipped to [0, n cmax]. 16-bit normals
-    (``agg_draw_bits=16``) are not ported (ROADMAP.md item 2)."""
+def agg_cost_cents(key, n_clicks, mu, sigma, cmax, cmin=None, bits: int = 32) -> torch.Tensor:
+    """One aggregate spend draw per cell in int32 units (cents, or the
+    pool's decicents): ``N(n mu, n sigma**2)`` rounded and clipped to [n
+    cmin, n cmax], ``cmin`` 0 by default (the binomial pool's k >= 3 cells
+    pass ``-cmax``: a losing pool's maximum bid can be negative). 16-bit
+    normals (``agg_draw_bits=16``) are not ported (ROADMAP.md item 2)."""
     if bits != 32:
         raise NotImplementedError("agg_cost_cents: 16-bit normals are not ported (ROADMAP.md)")
     z = prng.normal(key, tuple(n_clicks.shape[key.dim() - 1:]))
-    return agg_cost_cents_z(z, n_clicks, mu, sigma, cmax)
+    return agg_cost_cents_z(z, n_clicks, mu, sigma, cmax, cmin)
+
+
+# ---- the binomial pool (adcraft_tpu/distributions.py:732-868): a cell's
+# k ~ Binomial(max_bidders, participation) competitors, each bidding a raw
+# Laplace(loc, scale); a won click costs the maximum of the k bids given
+# that it is below ours, M = F^-1(F(bid) u^(1/k)), floored at 0 where k <
+# 3 and 0 where k = 0 ----
+
+POOL_QUAD_NODES = 48
+
+
+@functools.lru_cache(maxsize=None)
+def pool_quad(kmax: int):
+    """The pool moments' Gauss-Legendre rule on (0, 1), from numpy's
+    ``leggauss`` as the JAX package builds it: float32 nodes w_q and
+    weights omega_q (Q,), and the node powers ``W[q, j] = w_q ** j``, j =
+    k - 1 < ``kmax``, raised in float64 then rounded (Q, kmax)."""
+    x, w = np.polynomial.legendre.leggauss(POOL_QUAD_NODES)
+    nodes = 0.5 * (x + 1.0)
+    powers = nodes[:, None] ** np.arange(kmax)[None, :]
+    return nodes.astype(np.float32), (0.5 * w).astype(np.float32), powers.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def pool_quad_tensors(kmax: int, device: torch.device):
+    """``pool_quad(kmax)`` as float32 tensors on ``device``, built once."""
+    return tuple(torch.from_numpy(a).to(device) for a in pool_quad(kmax))
+
+
+def pool_icdf_arg(x: torch.Tensor) -> torch.Tensor:
+    """``clip(x, 1e-38, 1 - 1e-12)`` as XLA's CPU computes it: the bound
+    1e-38 is subnormal, which XLA's code reads as 0 (a result below
+    float32's normal range is 0), and 1 - 1e-12 is 1 in float32."""
+    return xla_math.ftz(torch.clamp(x, 1e-38, 1.0))
+
+
+def pool_g(bid, loc, scale, kmax: int = 32, cent_bids: bool = False) -> torch.Tensor:
+    """The pool moments' k-independent rows ``g_q = F^-1(F(bid) w_q)``,
+    (Q, ...) float32, one per quadrature node (F(bid) as ``bid_cdf``)."""
+    bid, loc, scale = (torch.as_tensor(x).to(torch.float32) for x in (bid, loc, scale))
+    nodes = pool_quad_tensors(kmax, bid.device)[0]
+    wq = nodes.reshape((POOL_QUAD_NODES,) + (1,) * bid.dim())
+    f_bid = bid_cdf(bid, loc, scale, cent_bids)
+    return laplace_icdf(pool_icdf_arg(f_bid[None] * wq), loc[None], scale[None])
+
+
+def pool_moment_sums(g: torch.Tensor, k: torch.Tensor, kmax: int):
+    """``(A1, A2)`` at each cell's column j = k - 1 (k in 1..kmax): the
+    48-node contractions ``sum_q W[q, j] omega_q g_q^r`` (r = 1, 2), with g
+    floored at 0 where k < 3, each one chain of fused multiply-adds in node
+    order as jitted XLA contracts ``tensordot(W, omega g^r)``. ``g`` (Q,
+    ...), ``k`` (...) float32."""
+    _, omega, W = pool_quad_tensors(kmax, g.device)
+    j = torch.clamp(k - 1.0, 0.0, kmax - 1.0).to(torch.int64)
+    gr = torch.where(k < 3.0, torch.clamp(g, min=0.0), g)
+    a1 = torch.zeros_like(k)
+    a2 = torch.zeros_like(k)
+    for q in range(POOL_QUAD_NODES):
+        wq = W[q][j]
+        a1 = fma32(wq, omega[q] * gr[q], a1)
+        a2 = fma32(wq, omega[q] * (gr[q] * gr[q]), a2)
+    return a1, a2
+
+
+def pool_cost_deci_moments(bid, loc, scale, k, kmax: int = 32):
+    """Per-click cost moments of the binomial pool in decicents given the
+    cell's bidder count ``k`` (1 <= k <= ``kmax``, the table width
+    ``EnvConfig.max_bidders_bound``): (mu, sigma, cmax), sigma with the
+    1/12 quantization variance, cmax ``round(1000 bid)``; all 0 where k =
+    0. ``E[M^r | k] = k sum_q omega_q g_q^r w_q^(k-1)`` (Gauss-Legendre over
+    u = w^k). For every k both packages share a column, it equals the JAX
+    function bit for bit; JAX's table has 33 columns and its one-hot reads
+    a k above 33 at column 33, where this reads column k."""
+    bid, loc, scale, k = (torch.as_tensor(x).to(torch.float32) for x in (bid, loc, scale, k))
+    bid, loc, scale, k = torch.broadcast_tensors(bid, loc, scale, k)
+    return pool_deci_moments_of(*pool_moment_sums(pool_g(bid, loc, scale, kmax), k, kmax), k, bid)
+
+
+def pool_deci_moments_of(a1, a2, k, bid):
+    """``pool_cost_deci_moments`` from a cell's sums ``pool_moment_sums``:
+    mu = 1000 (k A1), var = max(m2 - mu^2, 0) for m2 = k A2 (one fused
+    multiply-add), sigma = sqrt(1e6 var + 1/12) (another)."""
+    zero_k = k <= 0.0
+    mu = torch.where(zero_k, 0.0, k * a1)
+    m2 = torch.where(zero_k, 0.0, k * a2)
+    var = torch.clamp(fma32(-mu, mu, m2), min=0.0)
+    sig = xla_math.sqrt(fma32(1e6, var, torch.where(zero_k, 0.0, _c(1.0 / 12.0))))
+    cmax = torch.round(1000.0 * bid) * torch.where(zero_k, 0.0, 1.0)
+    return 1000.0 * mu, sig, cmax
+
+
+def pool_cost_u(u: torch.Tensor, f_bid, loc, scale, k) -> torch.Tensor:
+    """A pool click's cost in dollars at the uniform ``u``, given ``f_bid =
+    F(bid)`` and the cell's bidder count ``k``: ``F^-1(F(bid) u^(1/k))``
+    (``u ** (1 / k)`` XLA's ``powf``, ``1 / k`` a true division), floored
+    at 0 where k < 3, 0 where k = 0."""
+    ksafe = torch.clamp(k, min=1.0)
+    m = laplace_icdf(pool_icdf_arg(f_bid * xla_math.pow(u, 1.0 / ksafe)), loc, scale)
+    m = torch.where(k < 3.0, torch.clamp(m, min=0.0), m)
+    return torch.where(k <= 0.0, 0.0, m)
+
+
+def pool_cost_lane_draws(key, bid, loc, scale, k, shape, bits: int = 32) -> torch.Tensor:
+    """Per-click pool cost draws in dollars (the agg route's lite and deep
+    lanes), ``pool_cost_u`` at ``bits``-bit lane uniforms."""
+    u = lane_uniform(key, shape, bits)
+    return pool_cost_u(u, laplace_cdf(bid, loc, scale), loc, scale, k)
 
 
 def probify(x: torch.Tensor) -> torch.Tensor:

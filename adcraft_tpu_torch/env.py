@@ -188,7 +188,7 @@ def vector_env_step_xla(
     """
     key_next, k_day, k_upd = prng.split(state.key, 3).unbind(1)
     bids, new_budget = _action(cfg, state, bids, budget)
-    day = simulate_day(cfg, k_day, state.kw, bids, new_budget)
+    day = simulate_day(cfg, k_day, state.kw, bids, new_budget, cent_bids=True)
     return _transition(state, update_keywords(cfg, k_upd, state.kw), key_next, new_budget, day,
                        xla_sums)
 

@@ -25,7 +25,10 @@ three a day:
   to four keywords a lane, any K. For explicit keywords (its explicit
   instance) the impression rate is the threshold sigmoid of the bid and
   the clicks are drawn over ``max(impressions, 1)`` candidates (the
-  phantom click);
+  phantom click); for the binomial pool (its pool instance,
+  ``implicit_pool_auction``) a bidder-count call comes first (or one
+  uniform against the keyword's ladder) and the impressions' rate is
+  ``F(bid)**k``;
 * ``lanes_gate`` (plain: ``lanes_gate_reference``): the cost lanes (in
   cents) of each cell and the sequential gate (``gate_keywords``): accepted
   clicks, spend cents and the simulated cell count ``n_sim``; on the card
@@ -34,11 +37,13 @@ three a day:
   models the walk); its python instance draws ``generic_cost``'s cents, 0
   in a phantom cell;
 * ``lanes_gate_float`` (plain: ``lanes_gate_float_reference``), for the
-  rust model: the float32 cost lanes, their prefixes in XLA's scan order
-  (``xla_math.cumsum``, blocks of 16) and the Jacobi gate's fixed point
-  (``gate_keywords_float``): accepted clicks (-1 in a cell not simulated
-  before a simulated one), float spends and ``n_sim`` (the plain version
-  also the carried budget); on the card one warp per env, windows of up
+  rust model and, in its pool mode, the binomial pool (the pool's signed
+  lanes: a cell stops at its first prefix over the budget, and is whole
+  only where its largest prefix is within it): the float32 cost lanes,
+  their prefixes in XLA's scan order (``xla_math.cumsum``, blocks of 16)
+  and the Jacobi gate's fixed point (``gate_keywords_float``): accepted
+  clicks (-1 in a cell not simulated before a simulated one), float
+  spends and ``n_sim`` (the plain version also the carried budget); on the card one warp per env, windows of up
   to 32 cells decided in runs by a scan of guessed spends and a ballot
   (``tests/test_torch_lanes_gate_float_walk.py`` models the walk);
 * ``lanes_outcomes`` (plain: ``lanes_outcomes_reference``): conversions
@@ -74,11 +79,12 @@ import torch
 from adcraft_tpu_torch import distributions as dist
 from adcraft_tpu_torch import prng, xla_math
 from adcraft_tpu_torch.agg_day import (BCTR, BID, EXPLICIT_PYTHON, EXPLICIT_RUST, IMP_INTERCEPT,
-                                       IMP_SLOPE, IMP_THRESH, IMPLICIT, LOC, NUM_PARAMS,
-                                       REV_MEAN, REV_STD, SCALE, SCTR, Lanes, _check, _check_keys,
-                                       _check_lanes, _cost_cents, _index, _Kernel, _launch_args,
-                                       explicit_costs, pack_params, y0_of)
-from adcraft_tpu_torch.auction import implicit_single_win_prob
+                                       IMP_SLOPE, IMP_THRESH, IMPLICIT, LOC, MAX_BIDDERS,
+                                       NUM_PARAMS, PARTICIPATION, POOL, REV_MEAN, REV_STD, SCALE,
+                                       SCTR, Lanes, _check, _check_keys, _check_lanes, _cost_cents,
+                                       _index, _Kernel, _launch_args, explicit_costs, pack_params,
+                                       y0_of)
+from adcraft_tpu_torch.auction import implicit_single_win_prob, pool_win_prob
 from adcraft_tpu_torch.cuda_build import CudaLibrary
 
 SAMPLERS = ("exact", "inversion")
@@ -90,10 +96,15 @@ def wrap32(x: torch.Tensor) -> torch.Tensor:
     return ((x + 2**31) % _INT32 - 2**31).to(torch.int32)
 
 
-def lanes_keys(k_cells: torch.Tensor, t: int):
-    """Sub-timestep t's (k_imp, k_cost, k_click, k_conv, k_rev), each (E, 2)."""
+def lanes_keys(k_cells: torch.Tensor, t: int, pool: bool = False):
+    """Sub-timestep t's (k_imp, k_cost, k_click, k_conv, k_rev), each (E, 2);
+    with ``pool``, the binomial pool's ``k_bidders`` after them (its
+    ``k_auc`` splits three ways: ``k_bidders, k_imp, k_cost``)."""
     kt = prng.fold_in(k_cells, t)
     k_auc, k_click, k_conv, k_rev = prng.split(kt, 4).unbind(-2)
+    if pool:
+        k_bidders, k_imp, k_cost = prng.split(k_auc, 3).unbind(-2)
+        return k_imp, k_cost, k_click, k_conv, k_rev, k_bidders
     k_imp, k_cost = prng.split(k_auc).unbind(-2)
     return k_imp, k_cost, k_click, k_conv, k_rev
 
@@ -103,7 +114,7 @@ def _check_sampler(sampler: str) -> None:
         raise ValueError(f"sampler must be one of {SAMPLERS}, got {sampler!r}")
 
 
-MODELS = (IMPLICIT, EXPLICIT_RUST, EXPLICIT_PYTHON)
+MODELS = (IMPLICIT, EXPLICIT_RUST, EXPLICIT_PYTHON, POOL)
 
 
 def _check_model(model: int) -> None:
@@ -121,19 +132,31 @@ def win_rate(params, model: int = IMPLICIT) -> torch.Tensor:
 
 
 def lanes_counts_reference(params, n_auc01, k_cells, lanes: Lanes, sampler: str = "exact",
-                           model: int = IMPLICIT):
+                           model: int = IMPLICIT, cent_bids: bool = False):
     """Plain impressions and clicks, (E, T, K) int32 each: per (env,
     sub-timestep) ``bfn(k_imp, n_auc, p_win)`` then ``bfn(k_click,
     candidates, bctr)``, ``bfn`` the sampler's binomial. The candidates are
     the impressions, or for explicit keywords (``model`` EXPLICIT_*) at
-    least one, the phantom click (``explicit_auction``)."""
+    least one, the phantom click (``explicit_auction``). The binomial pool
+    (``model`` POOL) first draws each cell's bidder count k, by the
+    sampler's binomial or, under "inversion", one ``lanes.bits`` uniform
+    against the keyword's ladder over ``lanes.kmax`` levels
+    (``bidder_binomial_fn``), its impressions at ``pool_win_prob`` (F(bid)
+    as ``distributions.bid_cdf`` with ``cent_bids``), and returns k (E, T,
+    K) int32 third."""
     _check_sampler(sampler)
     _check_model(model)
     p = params
-    p_win = win_rate(params, model)
-    imp_t, ncl_t = [], []
+    pool = model == POOL
+    if pool:
+        f_bid = dist.bid_cdf(p[BID], p[LOC], p[SCALE], cent_bids)
+        cdf, flip, ni = dist.binomial_cdf(p[MAX_BIDDERS], p[PARTICIPATION], lanes.kmax)
+    else:
+        p_win = win_rate(params, model)
+    out = ([], [], [])
     for t in range(lanes.T):
-        k_imp, _, k_click, _, _ = lanes_keys(k_cells, t)
+        keys = lanes_keys(k_cells, t, pool)
+        k_imp, k_click = keys[0], keys[2]
         n = n_auc01[0] if t == 0 else n_auc01[1]
 
         def bfn(key, count, prob, m=lanes.m(t)):
@@ -141,11 +164,19 @@ def lanes_counts_reference(params, n_auc01, k_cells, lanes: Lanes, sampler: str 
                 return dist.binomial(key, count, prob)
             return dist.binomial_inv(key, count, prob, m, lanes.bits)
 
+        if pool:
+            if sampler == "exact":
+                k = dist.binomial(keys[5], p[MAX_BIDDERS], p[PARTICIPATION])
+            else:
+                u = dist.lane_uniform(keys[5], (p.shape[2],), lanes.bits)
+                k = dist.binomial_inv_from_cdf_u(u, cdf[:lanes.kmax], flip, ni)
+            p_win = pool_win_prob(k.to(torch.float32), f_bid)
+            out[2].append(k)
         imp = bfn(k_imp, n, p_win)
-        ncl = bfn(k_click, imp if model == IMPLICIT else torch.clamp(imp, min=1), p[BCTR])
-        imp_t.append(imp)
-        ncl_t.append(ncl)
-    return torch.stack(imp_t, 1), torch.stack(ncl_t, 1)
+        ncl = bfn(k_click, imp if model in (IMPLICIT, POOL) else torch.clamp(imp, min=1), p[BCTR])
+        out[0].append(imp)
+        out[1].append(ncl)
+    return tuple(torch.stack(x, 1) for x in out if x)
 
 
 def cost_cents(params, k_cost, m: int, bits: int, model: int = IMPLICIT,
@@ -161,6 +192,18 @@ def cost_cents(params, k_cost, m: int, bits: int, model: int = IMPLICIT,
     loc, scale, y0 = (x[:, None, :] for x in (params[LOC], params[SCALE], y0_of(params)))
     trunc = dist.truncated_laplace(k_cost, loc, scale, -y0, y0, (m, params.shape[2]), bits)
     return _cost_cents(trunc)
+
+
+def cost_pool_dollars(params, k_cost, m: int, bidders, cent_bids: bool = False) -> torch.Tensor:
+    """A sub-timestep's (E, m, K) float32 lane costs of the binomial pool
+    given its cells' bidder counts ``bidders`` (E, K): ``pool_cost_u`` at
+    32-bit uniforms of ``k_cost``, lane j at counter j K + k
+    (``implicit_pool_auction``; F(bid) as ``distributions.bid_cdf``)."""
+    u = prng.uniform(k_cost, (m, params.shape[2]))
+    f_bid = dist.bid_cdf(params[BID], params[LOC], params[SCALE], cent_bids)
+    col = [x[:, None, :] for x in (f_bid,
+                                   params[LOC], params[SCALE], bidders.to(torch.float32))]
+    return dist.pool_cost_u(u, *col)
 
 
 def cost_dollars(params, k_cost, m: int, imp) -> torch.Tensor:
@@ -269,9 +312,13 @@ def gate_keywords_float(b, broken, prefix, n_clicks):
     return (b_path[:, -1], broken | (b_path <= 0).any(1)), (p, s, sim)
 
 
-def lanes_gate_float_reference(params, k_cells, n_clicks, imp, budget, lanes: Lanes):
-    """Plain float32 gate of the rust cost model (continuous costs, gated
-    in dollars as JAX gates them): ``cost_dollars`` lanes, their XLA
+def lanes_gate_float_reference(params, k_cells, n_clicks, imp, budget, lanes: Lanes,
+                               bidders=None, cent_bids: bool = False):
+    """Plain float32 gate of the rust cost model or, given the cells'
+    bidder counts ``bidders`` (E, T, K), the binomial pool (continuous
+    costs, gated in dollars as JAX gates them; the pool's can be
+    negative; ``cent_bids`` as ``cost_pool_dollars``): ``cost_dollars`` or
+    ``cost_pool_dollars`` lanes, their XLA
     cumsum, and ``gate_keywords_float`` per sub-timestep. Returns accepted
     clicks (E, T, K) int32, -1 in a cell not simulated; spend (E, T, K)
     float32; ``n_sim`` (E,) int32, one past the last simulated cell; and
@@ -280,8 +327,13 @@ def lanes_gate_float_reference(params, k_cells, n_clicks, imp, budget, lanes: La
     b = budget
     broken = torch.zeros(E, dtype=torch.bool, device=params.device)
     acc_t, spend_t, sim_t = [], [], []
+    pool = bidders is not None
     for t in range(lanes.T):
-        costs = cost_dollars(params, lanes_keys(k_cells, t)[1], lanes.m(t), imp[:, t])
+        k_cost = lanes_keys(k_cells, t, pool)[1]
+        if pool:
+            costs = cost_pool_dollars(params, k_cost, lanes.m(t), bidders[:, t], cent_bids)
+        else:
+            costs = cost_dollars(params, k_cost, lanes.m(t), imp[:, t])
         prefix = torch.cat([torch.zeros_like(costs[:, :1]), xla_math.cumsum(costs, 1)], 1)
         (b, broken), (acc, spend, sim) = gate_keywords_float(b, broken, prefix, n_clicks[:, t])
         acc_t.append(torch.where(sim, acc, -1))
@@ -355,6 +407,10 @@ def bind(lib: ctypes.CDLL) -> None:
     lib.lanes_gate_python_launch.restype = i
     lib.lanes_gate_float_launch.argtypes = [p, p, ll, p, p, p, p, p, p] + [i] * 6 + [p]
     lib.lanes_gate_float_launch.restype = i
+    lib.lanes_gate_float_pool_launch.argtypes = [p, p, ll, p, p, p, p, p, p] + [i] * 7 + [p]
+    lib.lanes_gate_float_pool_launch.restype = i
+    lib.lanes_counts_pool_launch.argtypes = [p, p, p, ll, p, p, p] + [i] * 10 + [p]
+    lib.lanes_counts_pool_launch.restype = i
     lib.lanes_outcomes_float_launch.argtypes = [p, p, ll, p, p, p, p, p, p, p] + [i] * 6 + [p]
     lib.lanes_outcomes_float_launch.restype = i
     lib.lanes_day_occupancy.argtypes = [i, i, i, i, p, p, p, p, p, p]
@@ -368,11 +424,13 @@ class LanesCounts(_Kernel):
     """The ``lanes_counts`` kernel's wrapper."""
 
     def __call__(self, params, n_auc01, k_cells, lanes: Lanes, sampler: str = "exact",
-                 model: int = IMPLICIT):
+                 model: int = IMPLICIT, cent_bids: bool = False):
         """Outputs as ``lanes_counts_reference``: ``params`` (NUM_PARAMS, E,
         K) f32, ``n_auc01`` (2, E, K) int32 (the auction counts at t = 0 and
-        t >= 1), ``k_cells`` (E, 2) int64; ``model`` IMPLICIT or an explicit
-        cost model (the kernel's explicit instance)."""
+        t >= 1), ``k_cells`` (E, 2) int64; ``model`` IMPLICIT, an explicit
+        cost model (the kernel's explicit instance) or POOL (its pool
+        instance, which also returns the bidder counts; ``cent_bids`` as
+        ``lanes_counts_reference``)."""
         _, E, K = params.shape
         device = params.device
         _check_sampler(sampler)
@@ -382,19 +440,25 @@ class LanesCounts(_Kernel):
                ("n_auc01", n_auc01, torch.int32, (2, E, K)))
         _check_keys(k_cells, E, device)
         if device.type == "cpu":
-            return lanes_counts_reference(params, n_auc01, k_cells, lanes, sampler, model)
+            return lanes_counts_reference(params, n_auc01, k_cells, lanes, sampler, model,
+                                          cent_bids)
         lib = self._cuda(device)
-        imp, ncl = (torch.empty((E, lanes.T, K), dtype=torch.int32, device=device)
-                    for _ in range(2))
-        launch = lib.lanes_counts_launch if model == IMPLICIT else lib.lanes_counts_explicit_launch
-        err = launch(
-            params.data_ptr(), n_auc01.data_ptr(), k_cells.data_ptr(), k_cells.stride(0),
-            imp.data_ptr(), ncl.data_ptr(), E, K, lanes.T, lanes.m0, lanes.m1, lanes.bits,
-            int(sampler == "exact"), *_launch_args(device),
-        )
+        pool = model == POOL
+        out = tuple(torch.empty((E, lanes.T, K), dtype=torch.int32, device=device)
+                    for _ in range(3 if pool else 2))
+        head = (params.data_ptr(), n_auc01.data_ptr(), k_cells.data_ptr(), k_cells.stride(0),
+                *(x.data_ptr() for x in out))
+        tail = (E, K, lanes.T, lanes.m0, lanes.m1, lanes.bits, int(sampler == "exact"))
+        if pool:
+            err = lib.lanes_counts_pool_launch(*head, *tail, lanes.kmax, int(cent_bids),
+                                               *_launch_args(device))
+        else:
+            launch = (lib.lanes_counts_launch if model == IMPLICIT
+                      else lib.lanes_counts_explicit_launch)
+            err = launch(*head, *tail, *_launch_args(device))
         self.library.check(err, self.name)
         self.launches += 1
-        return imp, ncl
+        return out
 
 
 class LanesGate(_Kernel):
@@ -437,33 +501,42 @@ class LanesGate(_Kernel):
 
 
 class LanesGateFloat(_Kernel):
-    """The ``lanes_gate_float`` kernel's wrapper (the rust cost model)."""
+    """The ``lanes_gate_float`` kernel's wrapper (the rust cost model, and
+    in its pool mode the binomial pool)."""
 
-    def __call__(self, params, k_cells, n_clicks, imp, budget, lanes: Lanes):
+    def __call__(self, params, k_cells, n_clicks, imp, budget, lanes: Lanes, bidders=None,
+                 cent_bids: bool = False):
         """``acc``, ``spend`` and ``n_sim`` as ``lanes_gate_float_reference``
         (not the carried budget), but on the card only the sub-timesteps up
         to that of cell ``n_sim - 1`` are written. ``budget`` (E,) float32
         dollars, ``imp`` (E, T, K) int32 (cells without impressions cost
-        nothing)."""
+        nothing); with the cells' bidder counts ``bidders`` (E, T, K) int32,
+        the pool's lanes (the kernel's pool mode; ``cent_bids`` as
+        ``cost_pool_dollars``)."""
         _, E, K = params.shape
         device = params.device
         _check_lanes(lanes)
+        pool = bidders is not None
         _check(device, ("params", params, torch.float32, (NUM_PARAMS, E, K)),
                ("n_clicks", n_clicks, torch.int32, (E, lanes.T, K)),
                ("imp", imp, torch.int32, (E, lanes.T, K)),
-               ("budget", budget, torch.float32, (E,)))
+               ("budget", budget, torch.float32, (E,)),
+               *((("bidders", bidders, torch.int32, (E, lanes.T, K)),) if pool else ()))
         _check_keys(k_cells, E, device)
         if device.type == "cpu":
-            return lanes_gate_float_reference(params, k_cells, n_clicks, imp, budget, lanes)[:3]
+            return lanes_gate_float_reference(params, k_cells, n_clicks, imp, budget, lanes,
+                                              bidders, cent_bids)[:3]
         lib = self._cuda(device)
         acc = torch.empty((E, lanes.T, K), dtype=torch.int32, device=device)
         spend = torch.empty((E, lanes.T, K), dtype=torch.float32, device=device)
         n_sim = torch.empty((E,), dtype=torch.int32, device=device)
-        err = lib.lanes_gate_float_launch(
-            params.data_ptr(), k_cells.data_ptr(), k_cells.stride(0), n_clicks.data_ptr(),
-            imp.data_ptr(), budget.data_ptr(), acc.data_ptr(), spend.data_ptr(), n_sim.data_ptr(),
-            E, K, lanes.T, lanes.m0, lanes.m1, *_launch_args(device),
-        )
+        head = (params.data_ptr(), k_cells.data_ptr(), k_cells.stride(0), n_clicks.data_ptr(),
+                (bidders if pool else imp).data_ptr(), budget.data_ptr(), acc.data_ptr(),
+                spend.data_ptr(), n_sim.data_ptr(), E, K, lanes.T, lanes.m0, lanes.m1)
+        if pool:
+            err = lib.lanes_gate_float_pool_launch(*head, int(cent_bids), *_launch_args(device))
+        else:
+            err = lib.lanes_gate_float_launch(*head, *_launch_args(device))
         self.library.check(err, self.name)
         self.launches += 1
         return acc, spend, n_sim
@@ -542,16 +615,21 @@ lanes_outcomes = LanesOutcomes("lanes_outcomes", library)
 
 
 def simulate_day_lanes(lanes: Lanes, k_cells, kw, bids, budget, n_auc01,
-                       sampler: str = "exact", model: int = IMPLICIT) -> Tuple[torch.Tensor, ...]:
+                       sampler: str = "exact", model: int = IMPLICIT,
+                       cent_bids: bool = False) -> Tuple[torch.Tensor, ...]:
     """The lanes day's three phases, one launch each: the six (E, K) day
-    sums, int32 but for the rust model's cost (float32 dollars). ``budget``
-    is int32 cents, or float32 dollars for the rust model (``model``
-    EXPLICIT_RUST), whose gate is ``lanes_gate_float``."""
+    sums, int32 but for the float cost (float32 dollars) of the rust model
+    and the binomial pool. ``budget`` is int32 cents, or float32 dollars
+    for those two (``model`` EXPLICIT_RUST or POOL), whose gate is
+    ``lanes_gate_float``; ``cent_bids`` for the pool, as
+    ``lanes_counts_reference``."""
     params = pack_params(kw, bids)
-    imp, ncl = lanes_counts(params, n_auc01, k_cells, lanes, sampler, model)
-    if model == EXPLICIT_RUST:
+    counts = lanes_counts(params, n_auc01, k_cells, lanes, sampler, model, cent_bids)
+    imp, ncl = counts[:2]
+    if model in (EXPLICIT_RUST, POOL):
         # [:3]: the plain version also returns the carried budget
-        acc, spend, n_sim = lanes_gate_float(params, k_cells, ncl, imp, budget, lanes)[:3]
+        acc, spend, n_sim = lanes_gate_float(params, k_cells, ncl, imp, budget, lanes,
+                                             *counts[2:], cent_bids=cent_bids)[:3]
     else:
         acc, spend, n_sim = lanes_gate(params, k_cells, ncl, budget, lanes, model,
                                        imp if model == EXPLICIT_PYTHON else None)

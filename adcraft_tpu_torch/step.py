@@ -9,17 +9,19 @@ keywords. ``simulate_day`` runs two families of the XLA day step
 * ``"lanes"``, the JAX package's ``EnvConfig`` defaults: cost, conversion
   and revenue lanes, ``jax.random.binomial`` (``binomial_sampler="exact"``)
   or the inverse-CDF walk, 32- or 16-bit lane uniforms, on the three
-  kernels of ``adcraft_tpu_torch.lanes_day``, for implicit keywords and
-  explicit ones with either cost model; the budget gate is
-  ``_gate_keywords``' sequential rule in cents (``lanes_day.gate_keywords``)
-  or, for the rust model's continuous costs, the float32 Jacobi gate
+  kernels of ``adcraft_tpu_torch.lanes_day``, for implicit keywords (either
+  competitor model) and explicit ones with either cost model; the budget
+  gate is ``_gate_keywords``' sequential rule in cents
+  (``lanes_day.gate_keywords``) or, for the continuous costs of the rust
+  model and the binomial pool, the float32 Jacobi gate
   (``lanes_day.gate_keywords_float``);
 * ``"agg"``, the configuration that ``bench.py:47-76`` times (aggregate
   costs, conversion counts, revenue sums, inversion binomials), and the
   same with one revenue draw per keyword and day (``rev_sampling="day"``,
   ``train_rl.py``'s fast mode), on the two kernels of
-  ``adcraft_tpu_torch.agg_day``, for implicit keywords and for explicit
-  ones with either cost model (bench.py's ``dense_explicit`` regime).
+  ``adcraft_tpu_torch.agg_day``, for implicit keywords (bench.py's
+  ``dense_pool`` regime with the binomial pool) and for explicit ones with
+  either cost model (bench.py's ``dense_explicit`` regime).
 
 Every other XLA-path configuration raises ``NotImplementedError``
 (``check_xla_config``). The day-kernel path (``day_kernel="pallas"``) runs
@@ -79,29 +81,27 @@ def check_xla_config(cfg: EnvConfig) -> None:
     binomial sampler) or bench.py's aggregate knobs (``conv_sampling=
     "counts"``, ``rev_sampling`` "sum" or "day", the inversion sampler),
     with either ``lane_bits``, for implicit keywords and explicit ones with
-    either cost model. The gate knobs (``gate_mode``, ``gate_scope``,
+    either cost model, and the binomial pool. The gate knobs (``gate_mode``, ``gate_scope``,
     ``gate_chunk_t``, ``gate_compact*``, ``gate_scan_unroll``) select TPU
     schedules that are bit-identical to one sequential gate in integer
     units, which is the port's, so they are accepted and change nothing.
-    The rust model's lanes gate in float32 dollars, where the schedule sets
-    the order of the sums: the port runs the default, ``gate_mode="auto"``'s
-    Jacobi gate per sub-timestep, and refuses ``gate_mode="scan"`` and
-    ``gate_scope="global"`` there.
+    The rust model and the binomial pool gate lanes in float32 dollars,
+    where the schedule sets the order of the sums: the port runs the
+    default, ``gate_mode="auto"``'s Jacobi gate per sub-timestep, and
+    refuses ``gate_mode="scan"`` and ``gate_scope="global"`` there.
     """
     lanes = cfg.cost_sampling == "lanes"
     mixed = "mixed sampling knobs (ROADMAP.md item 2)"
     explicit = cfg.kind is KeywordKind.EXPLICIT
-    float_gate = explicit and lanes and cfg.cost_model is CostModel.RUST_QUIRK
+    float_gate = lanes and agg_model(cfg) in (agg_day.EXPLICIT_RUST, agg_day.POOL)
     unported = [
         (float_gate and cfg.gate_mode == "scan",
-         "gate_mode='scan' with the rust model's float lane costs (ROADMAP.md item 3b)"),
+         "gate_mode='scan' with float lane costs (ROADMAP.md item 3b)"),
         (float_gate and cfg.gate_scope == "global",
-         "gate_scope='global' with the rust model's float lane costs (ROADMAP.md item 3b)"),
+         "gate_scope='global' with float lane costs (ROADMAP.md item 3b)"),
         (explicit and not lanes and cfg.cost_model is CostModel.PYTHON
          and not 32 < cfg.agg_cost_grid <= 1024,
          "agg_cost_grid outside 33..1024 with the python cost model (ROADMAP.md item 3b)"),
-        (not explicit and cfg.competitor_model is not CompetitorModel.SINGLE_ABS_CENTS,
-         "the binomial pool (ROADMAP.md item 4)"),
         (lanes and cfg.conv_sampling != "lanes", f"conv_sampling='counts' with lane costs: {mixed}"),
         (lanes and cfg.rev_sampling != "lanes",
          f"rev_sampling={cfg.rev_sampling!r} with lane costs: {mixed}"),
@@ -123,7 +123,7 @@ def xla_lanes(cfg: EnvConfig) -> agg_day.Lanes:
     m1 = cfg.max_clicks_rest
     return agg_day.Lanes(
         T=cfg.timesteps_per_day, m0=cfg.max_clicks_per_cell, m1=m1,
-        L=min(cfg.agg_lite_lanes, m1), bits=cfg.lane_bits,
+        L=min(cfg.agg_lite_lanes, m1), bits=cfg.lane_bits, kmax=cfg.max_bidders_bound,
     )
 
 
@@ -135,12 +135,14 @@ def budget_cents(budget: torch.Tensor, scale: float = 100.0) -> torch.Tensor:
 
 
 def agg_model(cfg: EnvConfig) -> int:
-    """The day's cost model (``agg_day.IMPLICIT``, ``EXPLICIT_RUST`` or
-    ``EXPLICIT_PYTHON``). On the aggregate route its gate unit is
-    ``agg_day.AGG_SCALE[model]`` per dollar (decicents for the rust model,
-    ``adcraft_tpu/step.py:1056-1066``); on the lanes route cents, or for
-    the rust model float32 dollars."""
+    """The day's cost model (``agg_day.IMPLICIT``, ``EXPLICIT_RUST``,
+    ``EXPLICIT_PYTHON`` or ``POOL``). On the aggregate route its gate unit
+    is ``agg_day.AGG_SCALE[model]`` per dollar (decicents for the rust
+    model and the pool, ``adcraft_tpu/step.py:1047-1066``); on the lanes
+    route cents, or for the rust model and the pool float32 dollars."""
     if cfg.kind is KeywordKind.IMPLICIT:
+        if cfg.competitor_model is CompetitorModel.BINOMIAL_POOL:
+            return agg_day.POOL
         return agg_day.IMPLICIT
     if cfg.cost_model is CostModel.RUST_QUIRK:
         return agg_day.EXPLICIT_RUST
@@ -153,6 +155,7 @@ def simulate_day(
     kw: KeywordState,
     bids: torch.Tensor,
     budget: torch.Tensor,
+    cent_bids: bool = False,
 ) -> DayOutcomes:
     """One day for a batch of E envs: ``key`` (E, 2), ``kw`` and ``bids``
     (E, K), ``budget`` (E,). The JAX function vmapped over envs.
@@ -161,7 +164,10 @@ def simulate_day(
     ``min(round(max(N(mean, std), 0)), max_volume)``; the three phases run
     in ``lanes_day`` (``cost_sampling="lanes"``) or ``agg_day`` (``"agg"``,
     with revenue per cell, ``rev_sampling="sum"``, or per keyword and day,
-    ``"day"``).
+    ``"day"``). ``cent_bids``: the bids are the env's ``round_cents`` output,
+    whose product the env's program contracts into the binomial pool's
+    F(bid) (``distributions.bid_cdf``); JAX's ``simulate_day`` on its own
+    does not.
     """
     check_xla_config(cfg)
     lanes = xla_lanes(cfg)
@@ -173,20 +179,20 @@ def simulate_day(
     model = agg_model(cfg)
     if cfg.cost_sampling == "lanes":
         unit = 100.0
-        # the rust model's costs are continuous: JAX gates them in float32
-        # dollars, the budget as given (step.py:1223-1224)
-        rust = model == agg_day.EXPLICIT_RUST
+        # the rust model's and the pool's costs are continuous: JAX gates
+        # them in float32 dollars, the budget as given (step.py:1223-1224)
+        dollars = model in (agg_day.EXPLICIT_RUST, agg_day.POOL)
         imp, clicks, cost_c, convs, rev_c, elig = lanes_day.simulate_day_lanes(
             lanes, k_cells, kw, bids,
-            budget.to(torch.float32) if rust else budget_cents(budget), n_auc01,
-            cfg.binomial_sampler, model
+            budget.to(torch.float32) if dollars else budget_cents(budget), n_auc01,
+            cfg.binomial_sampler, model, cent_bids
         )
     else:
-        rust = False
+        dollars = False
         unit = agg_day.AGG_SCALE[model]
         imp, clicks, cost_c, convs, rev_c, elig = agg_day.simulate_day_agg(
             lanes, k_cells, kw, bids, budget_cents(budget, unit), n_auc01, cfg.rev_sampling,
-            model, cfg.agg_cost_grid
+            model, cfg.agg_cost_grid, cent_bids
         )
     # jitted XLA divides by the constant as a product with its reciprocal
     # (for 1000 as for 100), and fuses one of the two products into the
@@ -194,7 +200,7 @@ def simulate_day(
     # cost's where the revenue is the day's one draw
     cents = dist.recip(100.0)
     per_unit = dist.recip(unit)
-    cost = cost_c if rust else cost_c.to(torch.float32) * per_unit  # rust: float32 dollars
+    cost = cost_c if dollars else cost_c.to(torch.float32) * per_unit
     revenue = rev_c.to(torch.float32) * cents
     if cfg.rev_sampling == "day":
         profit = dist.fma32(cost_c.to(torch.float32), -per_unit, revenue)

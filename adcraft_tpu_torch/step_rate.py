@@ -24,7 +24,14 @@ default rust cost model, on agg_cells_gate's explicit mode and
 agg_outcomes), ``explicit_lanes`` is ``EnvConfig``'s own defaults (the
 lanes knobs with explicit keywords and the rust cost model, on
 lanes_counts' explicit instance, lanes_gate_float and lanes_outcomes'
-float mode). ``--routes`` picks them; each env count runs them
+float mode), ``pool`` is bench.py's ``dense_pool`` regime
+(``bench.py:220-233``: the ``xla`` route's knobs with the binomial pool, on
+agg_cells_gate's pool instance and agg_outcomes) and ``pool_lanes`` the
+lanes knobs with the binomial pool (lanes_counts' pool instance,
+lanes_gate_float's pool mode, lanes_outcomes' float mode); on both pool
+routes every keyword has the reference's default pool, 30 bidders at
+participation 0.6 (``pool_keywords``; the table's keywords have one).
+``--routes`` picks them; each env count runs them
 in turns in one process, forward then backward (pallas, xla, xla,
 pallas by default). With ``--parent-csrc DIR``, each lanes route asked
 for (``lanes``, ``explicit_lanes``) also runs, in its own turn after the
@@ -33,7 +40,8 @@ route's, on the lanes_day kernels built from DIR (another tree's
 versions of those kernels in turns.
 
     python3 -m adcraft_tpu_torch.step_rate [--envs 1024 4096 8192]
-        [--routes pallas xla lanes explicit explicit_lanes] [--parent-csrc DIR]
+        [--routes pallas xla lanes explicit explicit_lanes pool pool_lanes]
+        [--parent-csrc DIR]
         [--json PATH]
 
 It runs on the card only.
@@ -56,14 +64,22 @@ from torch.profiler import ProfilerActivity, profile
 from adcraft_tpu_torch import EnvConfig, KeywordKind, VectorBiddingEnv, agg_day, lanes_day, prng
 from adcraft_tpu_torch import day_kernel as dk
 from adcraft_tpu_torch import prng_kernel as pk
-from adcraft_tpu_torch.config import BENCH_XLA_KNOBS
+from adcraft_tpu_torch.config import BENCH_XLA_KNOBS, CompetitorModel
 from adcraft_tpu_torch.quantiles import simple_experiment_table
 
 K, MAX_VOLUME, BID = 100, 576, 1.00
 WARMUP, RUNS, STEPS = 3, 5, 10
+POOL = {"competitor_model": CompetitorModel.BINOMIAL_POOL}
 ROUTE_KNOBS = {"pallas": {"day_kernel": "pallas"}, "xla": BENCH_XLA_KNOBS, "lanes": {},
-               "explicit": BENCH_XLA_KNOBS, "explicit_lanes": {}}
+               "explicit": BENCH_XLA_KNOBS, "explicit_lanes": {},
+               "pool": dict(BENCH_XLA_KNOBS, **POOL), "pool_lanes": POOL}
 EXPLICIT_ROUTES = ("explicit", "explicit_lanes")
+POOL_ROUTES = ("pool", "pool_lanes")
+# the reference's default ImplicitKeyword pool (adcraft_tpu/keywords.py:104-105)
+POOL_MAX_BIDDERS, POOL_PARTICIPATION = 30.0, 0.6
+# competitors that bid Laplace(-0.3, 0.1): most pools' maximum bid is below
+# zero, so clicks cost negative amounts and budgets grow within a day
+SIGNED_LOC, SIGNED_SCALE = -0.3, 0.1
 LANES_ROUTES = ("lanes", "explicit_lanes")
 LANES_KERNELS = ("lanes_counts", "lanes_gate", "lanes_gate_float", "lanes_outcomes")
 KERNELS = {"day_kernel": dk.day_kernel, "threefry_words": pk.threefry_words,
@@ -74,6 +90,18 @@ def counted_kernels() -> dict:
     """The kernels whose launches a step counts, the lanes day's as the step
     calls them."""
     return dict(KERNELS, **{name: getattr(lanes_day, name) for name in LANES_KERNELS})
+
+
+def pool_keywords(kw, signed: bool = False):
+    """``kw`` with the reference's default bidder pool (30 bidders at
+    participation 0.6) for every keyword and, with ``signed``, competitors
+    bidding Laplace(-0.3, 0.1)."""
+    kw = kw._replace(max_bidders=torch.full_like(kw.max_bidders, POOL_MAX_BIDDERS),
+                     participation_rate=torch.full_like(kw.participation_rate, POOL_PARTICIPATION))
+    if signed:
+        kw = kw._replace(bid_loc=torch.full_like(kw.bid_loc, SIGNED_LOC),
+                         bid_scale=torch.full_like(kw.bid_scale, SIGNED_SCALE))
+    return kw
 
 
 def route_config(route: str) -> EnvConfig:
@@ -118,6 +146,8 @@ def _measure(num_envs: int, route: str, device: torch.device) -> dict:
                            device=device)
     bids = torch.full((num_envs, K), BID, device=device)
     state, _ = env.reset(prng.PRNGKey(0))
+    if route in POOL_ROUTES:
+        state = state._replace(kw=pool_keywords(state.kw))
     for _ in range(WARMUP):
         state, _ = env.step(state, bids)
     torch.cuda.synchronize(device)

@@ -178,7 +178,7 @@ _EXP2_SHIFT_BITS = 0x42E8000000000000
 
 
 def pow(x: torch.Tensor, y) -> torch.Tensor:
-    """float32 ``x ** y`` for normal ``x > 0`` (or ``y`` 0, or ``x`` 1) as
+    """float32 ``x ** y`` for normal ``x > 0`` or 0 (or ``y`` 0, or ``x`` 1) as
     XLA's CPU code computes it: by the C library's ``powf``, whose log2
     and exp2 run in float64 on tables (read off glibc's); a result below
     float32's normal range is flushed to zero, as XLA's CPU code runs."""
@@ -204,7 +204,8 @@ def pow(x: torch.Tensor, y) -> torch.Tensor:
     c = _EXP2_C
     out = ((c[0] * r + c[1]) * (r * r) + (c[2] * r + 1.0)) * s
     out = torch.where(ylogx <= -150.0, 0.0, out).float()
-    return torch.where((y == 0) | (x == 1.0), 1.0, ftz(out))
+    out = torch.where(x == 0.0, 0.0, ftz(out))  # 0 ** y, y > 0
+    return torch.where((y == 0) | (x == 1.0), 1.0, out)
 
 
 def f32(bits: int) -> float:

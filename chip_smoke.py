@@ -95,10 +95,10 @@ Phases, each fatal on failure:
    at K = 2100 keywords and 3 envs, past lanes_outcomes' old limit, equal
    to their plain versions; then the slice, 5 steps, rollout(5) and 4 days of
    autoreset_step at max_days 3 (every episode ends and restarts), counts
-   zeroed just before: one launch of each kernel per day, and steps,
-   keys and autoreset states equal to the same days through the plain
-   versions; CUDA device events, device busy time and idle share per
-   step;
+   zeroed just before: one launch of each kernel per day, and the first 2
+   steps, their keys and the autoreset states equal to the same days
+   through the plain versions (the other steps equal to the rollout's);
+   CUDA device events, device busy time and idle share per step;
 11. explicit keywords on the XLA day step (bench.py's dense_explicit
    regime: its knobs with kind=EXPLICIT) at 4096 envs x 100 keywords x 24
    sub-timesteps, for the rust and the python cost model, at $1000 and at
@@ -137,19 +137,20 @@ Phases, each fatal on failure:
    the slice per cost model: reset, 5 steps, rollout(5) and
    4 autoreset_step(reset_kw=True) days at max_days 3 (every episode ends
    and draws fresh keywords), counts zeroed just before: one launch of
-   each kernel per day, outcomes, keys and autoreset days equal to the
-   plain versions;
+   each kernel per day, the first 2 steps' outcomes and keys and the
+   autoreset days equal to the plain versions (the other steps equal to
+   the rollout's);
    CUDA device events, device busy time and idle share per step;
 13. the paper's experiment (adcraft_tpu_torch.experiments): the harness
    at the dense config's full width (100 keywords, m0 = 47; env seeds
    5-8 x agent seeds 0-3, 16 episodes), for the zero-margin and the
-   interpolation agent: 5 days through the kernels, counts zeroed just
+   interpolation agent: 2 days through the kernels, counts zeroed just
    before (one launch of each lanes kernel a day; threefry_words'
    launches a day), equal to the same days through the plain versions of
    the lanes kernels and threefry_words (profits, ideal profits, env and
    agent states, keys), then the full 60 days through the kernels with
    AKNCP and NCP and harness days/s; two corners of the sweep, vol 1024 /
-   cvr 1.0 (max_volume 4160, m0 = 196) and vol 1 / cvr 0.01, 3 days each
+   cvr 1.0 (max_volume 4160, m0 = 196) and vol 1 / cvr 0.01, 2 days each
    against the plain versions; the Gymnasium adapter's two
    configurations (explicit rust keywords at max_volume 128, implicit ones
    from simple_experiment_table(128, 0.8)) at one env, 5 days through
@@ -173,7 +174,26 @@ Phases, each fatal on failure:
    configuration and assertions, 150 steps); train_rl's CLI, --steps 3
    --checkpoint --out then --restore --steps 1, whose step equals the
    uninterrupted 4th; multi_train over a PPO and a TD3 learner; entry()'s
-   forward on the card within rtol 1e-5 of the CPU's.
+   forward on the card within rtol 1e-5 of the CPU's;
+15. the binomial pool (competitor_model=BINOMIAL_POOL, every keyword 30
+   bidders at participation 0.6): agg_cells_gate's pool instance on
+   bench.py's dense_pool knobs, lanes_counts' pool instance and
+   lanes_gate_float's pool mode on the sampling defaults, at 4096 envs x
+   100 keywords x 24 sub-timesteps, unbound and $1000: each equal to its
+   plain version bit for bit (every simulated cell, n_sim, the pool's
+   day constants; lanes_outcomes' float mode on the gate's output), timed
+   beside its bound and plain version, with ptxas' registers and spills,
+   blocks per SM and shared memory; a slice of 256 envs x 2 days held to
+   the plain versions at $1000 and $2 on the default keywords and on
+   competitors bidding Laplace(-0.3, 0.1), F(bid) on the env's rounded
+   bids on day 1, its partial cells, deep resolutions and negative-spend
+   cells counted (it fails if the signed-cost slice spent nothing
+   negative); then each route's slice through the env: 2 steps,
+   rollout(2) and an autoreset day that ends every episode, counts zeroed
+   just before, one launch of each kernel per day, the agg route's step 0
+   equal to the plain versions', envs whose day drew a -inf click cost
+   counted (the JAX package's quirk at a 32-bit uniform of 0), CUDA device
+   events, device busy time and idle share per step.
 With --parent-csrc DIR, then, agg_cells_gate's three instances,
 agg_outcomes (both revenue modes) and threefry_words at full width in
 turns with DIR's build, with the count of outputs where the trees differ.
@@ -181,8 +201,8 @@ turns with DIR's build, with the count of outputs where the trees differ.
 The line before the last is a JSON object with each kernel's launches on
 its path, error, times and bound; the last line is {"ok": true, "device":
 {...}}. Without a CUDA device, or outside the repository, it exits 1 and
-prints no result. Each of phases 3-8, 9, 10, 11, 12, 13 and 14 prints its
-wall time.
+prints no result. Each of phases 3-8, 9, 10, 11, 12, 13, 14 and 15 prints
+its wall time.
 
     python3 chip_smoke.py [--parent-csrc DIR]
 """
@@ -1190,6 +1210,10 @@ def budget_cast_phase(torch, dev, card, table, pallas_env):
 
 LANES_BUDGET = 1000.0
 AUTORESET_DAYS = 3  # max_days of the autoreset run, which steps one more day
+# the lanes slices' steps held to the plain versions in phases 10 and 12
+# (the rest to the rollout's days): a plain lanes day takes 8-17 s at full
+# width, and the script must end within 1200 s on slow hosts
+PLAIN_STEPS = 2
 LANES_VARIANT_ENVS = 1024
 WIDE_K, WIDE_ENVS = 2100, 3  # past lanes_outcomes' old limit of 48 KB of keyword tables
 PARENT_OUTCOMES_MAX_K = 2032  # that limit at T = 24: a parent tree may refuse more keywords
@@ -1675,7 +1699,8 @@ def lanes_phase(torch, dev, card, table, ops_per_word, int_ops_per_s, fp_ops_per
 
     # the slice: 5 steps, rollout(5) and an autoreset run whose episodes end
     # (max_days 3, 4 days), counts zeroed just before and read just after;
-    # then the same days through the plain versions
+    # then the first PLAIN_STEPS steps and the autoreset days through the
+    # plain versions
     env = VectorBiddingEnv(cfg, E, table, device=dev)
     reset_env = VectorBiddingEnv(cfg.replace(max_days=AUTORESET_DAYS), E, table, device=dev)
     state_a, _ = env.reset(prng.PRNGKey(21))
@@ -1686,10 +1711,11 @@ def lanes_phase(torch, dev, card, table, ops_per_word, int_ops_per_s, fp_ops_per
         kernel.launches = 0
     pk.threefry_words.launches = 0
     t0 = time.perf_counter()
-    state, steps = state_a, []
+    state, steps, states = state_a, [], []
     for _ in range(STEPS):
         state, ts = env.step(state, bids)
         steps.append(ts)
+        states.append(state)
     torch.cuda.synchronize()
     step_s = time.perf_counter() - t0
     end_step = state
@@ -1732,7 +1758,7 @@ def lanes_phase(torch, dev, card, table, ops_per_word, int_ops_per_s, fp_ops_per
     t0 = time.perf_counter()
     with lanes_plain(ld), words_replaced(pk, pk.threefry_words_reference):
         state = state_a
-        for i in range(STEPS):
+        for i in range(PLAIN_STEPS):
             state, ts = env.step(state, bids)
             want = steps[i]
             pairs = [("reward", ts.reward, want.reward)]
@@ -1742,7 +1768,7 @@ def lanes_phase(torch, dev, card, table, ops_per_word, int_ops_per_s, fp_ops_per
             for name, a, b in pairs:
                 if not torch.equal(a, b):
                     fail(f"lanes slice step {i}: {name} differs between kernels and plain")
-        if not torch.equal(state.key, end_step.key):
+        if not torch.equal(state.key, states[PLAIN_STEPS - 1].key):
             fail("lanes slice: the state key differs between kernels and plain")
         torch.cuda.synchronize()
         plain_s = time.perf_counter() - t0
@@ -1770,9 +1796,9 @@ def lanes_phase(torch, dev, card, table, ops_per_word, int_ops_per_s, fp_ops_per
     print(f"lanes slice: {STEPS} steps, rollout({STEPS}) and {AUTORESET_DAYS + 1} autoreset days "
           f"(max_days {AUTORESET_DAYS}) x {E} envs x {K} keywords, bids ${BID:.2f}, budget "
           f"${LANES_BUDGET:g}: {imps} impressions, ${cost:.2f} spent; launches {launches}, "
-          f"threefry_words {words_launches / days:g} per day; == plain (steps, keys, autoreset "
-          f"states); kernels {STEPS * E / step_s:.1f} env-steps/s ({step_s:.3f} s), plain "
-          f"{STEPS * E / plain_s:.1f} env-steps/s; per step "
+          f"threefry_words {words_launches / days:g} per day; == plain (the first {PLAIN_STEPS} "
+          f"steps, keys, autoreset states); kernels {STEPS * E / step_s:.1f} env-steps/s "
+          f"({step_s:.3f} s), plain {PLAIN_STEPS * E / plain_s:.1f} env-steps/s; per step "
           f"under the profiler: {events:.1f} CUDA "
           f"device events, device busy {busy_ms:.3f} ms of {wall_ms:.3f} ms, idle "
           f"{100 * (1 - busy_ms / wall_ms):.1f}% ({card})")
@@ -2073,10 +2099,11 @@ def explicit_lanes_phase(torch, dev, card, ops_per_word, int_ops_per_s, fp_ops_p
         for kernel in kernels.values():
             kernel.launches = 0
         t0 = time.perf_counter()
-        state, steps = state0, []
+        state, steps, states = state0, [], []
         for _ in range(n_steps):
             state, ts = env.step(state, bids)
             steps.append(ts)
+            states.append(state)
         torch.cuda.synchronize()
         step_s = time.perf_counter() - t0
         end_roll, roll = env.rollout(state0, bids, n_steps)
@@ -2106,13 +2133,13 @@ def explicit_lanes_phase(torch, dev, card, ops_per_word, int_ops_per_s, fp_ops_p
             fail(f"explicit lanes autoreset ({model_name}): the episodes did not end at max_days")
         with lanes_plain(ld), words_replaced(pk, pk.threefry_words_reference):
             plain_state = state0
-            for i in range(n_steps):
+            for i in range(PLAIN_STEPS):
                 plain_state, ts = env.step(plain_state, bids)
                 for f in ts.outcomes._fields:
                     if not torch.equal(getattr(ts.outcomes, f), getattr(steps[i].outcomes, f)):
                         fail(f"explicit lanes step {i} ({model_name}): {f} differs between the "
                              f"kernels and plain")
-            if not torch.equal(plain_state.key, state.key):
+            if not torch.equal(plain_state.key, states[PLAIN_STEPS - 1].key):
                 fail(f"explicit lanes ({model_name}): the key differs between kernels and plain")
             plain_r = state0
             for i, (want_state, want_ts) in enumerate(resets):
@@ -2136,7 +2163,8 @@ def explicit_lanes_phase(torch, dev, card, ops_per_word, int_ops_per_s, fp_ops_p
               f"{sum(x.impressions.sum().item() for x in o)} impressions, "
               f"{sum(x.buyside_clicks.sum().item() for x in o)} clicks, "
               f"${sum(x.cost.sum().item() for x in o):.2f} spent; launches {launches}; "
-              f"{n_steps * E / step_s:.1f} env-steps/s; == plain (steps, keys, autoreset days); "
+              f"{n_steps * E / step_s:.1f} env-steps/s; == plain (the first {PLAIN_STEPS} steps, "
+              f"keys, autoreset days); "
               f"per step under the profiler: {events:.1f} CUDA device events, device busy "
               f"{busy:.3f} ms of {wall:.3f} ms, idle {100 * (1 - busy / wall):.1f}% ({card})",
               flush=True)
@@ -2173,6 +2201,397 @@ def explicit_lanes_phase(torch, dev, card, ops_per_word, int_ops_per_s, fp_ops_p
             "library_ms": None,
         }
         for name, (launches_n, t) in entries.items()
+    ]
+
+
+# ---- phase 15: the binomial pool on both routes ----
+
+POOL_BUDGETS = (("unbound", 1e9), ("$1000", XLA_BUDGET), ("tight", 2.0))
+POOL_CHECK_ENVS, POOL_CHECK_DAYS = 256, 2
+POOL_STEPS = 2
+POOL_MAX_DAYS = POOL_STEPS + 1  # the slice's autoreset day ends every episode
+# float instructions as written, used only for the bounds: a cell's moments
+# (two 48-node chains of a fused multiply-add and two products a node, then
+# k mu, the variance and sigma), a pool lane (XLA's powf on its float64
+# tables, the product and clip, XLA's log, the fused loc + scale l), one
+# moment row of the prologue (a node's product, clip and log), a level of a
+# ladder (the factor's division and product, two XLA scan steps), and the
+# win probability's powf
+POOL_MOMENT_OPS = 48 * 3 + 12
+POOL_LANE_OPS = 70
+POOL_ROW_OPS = 30
+LADDER_LEVEL_OPS = 12
+POW_OPS = 40
+# key blocks agg_cells_gate's pool instance needs per (env, simulated
+# sub-timestep): kt, k_auc, k_bidders, k_imp, k_click, k_cost, k_sfull; the
+# lanes route's lanes_counts per (env, t) kt, k_auc, k_bidders, k_imp, k_click
+POOL_CELL_KEY_BLOCKS, POOL_COUNTS_KEY_BLOCKS = 7, 5
+
+
+def pool_phase(torch, dev, card, table, ops_per_word, int_ops_per_s, fp_ops_per_s):
+    """Phase 15: the binomial pool (competitor_model=BINOMIAL_POOL, 30
+    bidders at participation 0.6) on both routes: agg_cells_gate's pool
+    instance (bench.py's dense_pool knobs), lanes_counts' pool instance and
+    lanes_gate_float's pool mode (the sampling defaults), each against its
+    plain version bit for bit at full width and on a 256-env slice of days
+    on the default and the signed-cost keywords, timed unbound and at $1000
+    beside its bound; then each route's slice through the env. Returns the
+    three instances' JSON entries."""
+    from adcraft_tpu_torch import EnvConfig, KeywordKind, VectorBiddingEnv
+    from adcraft_tpu_torch import agg_day as ad
+    from adcraft_tpu_torch import distributions as dist
+    from adcraft_tpu_torch import lanes_day as ld
+    from adcraft_tpu_torch import prng
+    from adcraft_tpu_torch import prng_kernel as pk
+    from adcraft_tpu_torch.config import BENCH_XLA_KNOBS, CompetitorModel
+    from adcraft_tpu_torch.step import budget_cents, split_volume, xla_lanes
+    from adcraft_tpu_torch.step_rate import pool_keywords
+
+    t_start = time.perf_counter()
+    agg_name, counts_name, gate_name = ("agg_cells_gate (pool)", "lanes_counts (pool)",
+                                        "lanes_gate_float (pool)")
+    print(f"{agg_name}: ptxas {kernel_ptxas(ad.library.build_log, 'agg_cells_gate_kernelILi3E')}")
+    print(f"{counts_name}: ptxas "
+          f"{kernel_ptxas(ld.library.build_log, 'lanes_counts_kernelILi4ELi2E')}")
+    print(f"{gate_name}: ptxas "
+          f"{kernel_ptxas(ld.library.build_log, 'lanes_gate_float_kernelILb1E')}")
+    max_err = collections.defaultdict(int)
+
+    def compare(name, pairs, label):
+        for what, g, w in pairs:
+            if g.dtype == torch.float32:  # bit for bit
+                g, w = g.view(torch.int32), w.view(torch.int32)
+            err = (g.long() - w.long()).abs().max().item() if g.numel() else 0
+            max_err[name] = max(max_err[name], err)
+            if err:
+                fail(f"{name} vs plain ({label}): {what} differs, max error {err}")
+
+    def day_inputs(cfg, kw, envs, seed):
+        k_vol, k_cells = prng.split(prng.split(prng.PRNGKey(seed, dev), envs)).unbind(-2)
+        volume = torch.clamp(dist.nonneg_int_normal(k_vol, kw.vol_mean, kw.vol_std),
+                             max=cfg.max_volume)
+        n_auc = split_volume(cfg, volume)
+        bids = torch.full((envs, K), BID, device=dev)
+        return ad.pack_params(kw, bids), torch.stack([n_auc[0], n_auc[1]]).contiguous(), k_cells
+
+    def agg_day_check(cfg, params, n_auc01, k_cells, budget, label, cent_bids=False):
+        """agg_cells_gate's pool instance against its plain version on one
+        day: its outputs on every simulated cell, n_sim and the day's
+        constants; returns the plain cells and gate, the plain time and the
+        counts of partial, deep and negative-spend cells."""
+        lanes = xla_lanes(cfg)
+        envs = params.shape[1]
+        budget_c = budget_cents(torch.full((envs,), budget, device=dev), 1000.0)
+        got = ad.agg_cells_gate(params, n_auc01, k_cells, budget_c, lanes, True, model=ad.POOL,
+                                cent_bids=cent_bids)
+        torch.cuda.synchronize()
+        with words_replaced(pk, pk.threefry_words_reference):
+            cells, cells_ms = once_ms(lambda: ad.agg_cells_reference(
+                params, n_auc01, k_cells, lanes, True, ad.POOL, cent_bids=cent_bids))
+            imp, ncl, s_full, lite, kb, consts = cells
+            (acc, spend, n_sim), gate_ms = once_ms(lambda: ad.agg_gate_reference(
+                params, k_cells, s_full, ncl, lite, budget_c, lanes, ad.POOL, kb))
+        plain_ms = cells_ms + gate_ms
+        sim = torch.arange(T * K, device=dev).view(1, T, K) < n_sim.view(-1, 1, 1)
+        compare(agg_name, [("n_sim", got[3], n_sim)] + [
+            (what, g[sim], w[sim]) for what, g, w in zip(("imp", "acc", "spend"), got, (imp, acc,
+                                                                                       spend))] +
+                [(f"constant {i}", g, w) for i, (g, w) in enumerate(zip(got[4], consts))], label)
+        flat = spend.view(envs, T * K).long()
+        b_before = budget_c.view(envs, 1).long() - (torch.cumsum(flat, 1) - flat)
+        simf = sim.view(envs, T * K)
+        partial = simf & (s_full.view(envs, T * K).long() > b_before)
+        m_cell = torch.where(torch.arange(T * K, device=dev).view(1, -1) < K, lanes.m0, lanes.m1)
+        looked = torch.minimum(torch.minimum(acc.view(envs, -1) + 1, ncl.view(envs, -1)),
+                               m_cell) * partial
+        counts = {"partial": partial.sum().item(), "deep": (looked > lanes.L).sum().item(),
+                  "negative": (sim & (spend < 0)).sum().item(), "simulated": sim.sum().item()}
+        return (imp, ncl, kb, acc, spend, sim, partial, looked), plain_ms, counts
+
+    def lanes_day_check(cfg, params, n_auc01, k_cells, counts, budget, label, cent_bids=False):
+        """lanes_gate_float's pool mode (and lanes_outcomes' float mode on
+        its output) against the plain versions on one day; returns the
+        gate's plain outputs, its plain time and the cell counts."""
+        lanes = xla_lanes(cfg)
+        envs = params.shape[1]
+        imp, ncl, kb = counts
+        b = torch.full((envs,), budget, device=dev)
+        gate = ld.lanes_gate_float(params, k_cells, ncl, imp, b, lanes, kb, cent_bids)
+        torch.cuda.synchronize()
+        with words_replaced(pk, pk.threefry_words_reference):
+            want, plain_ms = once_ms(lambda: ld.lanes_gate_float_reference(
+                params, k_cells, ncl, imp, b, lanes, kb, cent_bids))
+        n_sim = want[2]
+        cell = torch.arange(T * K, device=dev).view(1, T, K)
+        walked = cell < ((n_sim + K - 1) // K * K).view(-1, 1, 1)
+        compare(gate_name, [("n_sim", gate[2], n_sim)] + [
+            (what, g[walked], w[walked]) for what, g, w in zip(("acc", "spend"), gate, want)],
+                label)
+        out = ld.lanes_outcomes(params, k_cells, imp, gate[0], gate[1], n_sim, n_auc01, lanes)
+        with words_replaced(pk, pk.threefry_words_reference):
+            want_out = ld.lanes_outcomes_reference(params, k_cells, imp, *want[:3], n_auc01, lanes)
+        compare("lanes_outcomes (float)", [(f"day sum {i}", g, w)
+                                           for i, (g, w) in enumerate(zip(out, want_out))], label)
+        acc, spend = want[0], want[1]
+        sim = (cell < n_sim.view(-1, 1, 1)) & (acc >= 0)
+        partial = sim & (acc > 0) & (acc < ncl)
+        stats = {"partial": partial.sum().item(), "deep": 0,
+                 "negative": (sim & (spend < 0)).sum().item(), "simulated": sim.sum().item()}
+        return (acc, spend, sim), plain_ms, stats
+
+    entries, timed = {}, {}
+    for route in ("agg", "lanes"):
+        knobs = BENCH_XLA_KNOBS if route == "agg" else {}
+        cfg = EnvConfig(num_keywords=K, kind=KeywordKind.IMPLICIT,
+                        competitor_model=CompetitorModel.BINOMIAL_POOL, max_volume=MAX_VOLUME,
+                        budget=XLA_BUDGET, max_days=POOL_MAX_DAYS, **knobs)
+        lanes = xla_lanes(cfg)
+        env = VectorBiddingEnv(cfg, E, table, device=dev)
+        state0, _ = env.reset(prng.PRNGKey(80))
+        state0 = state0._replace(kw=pool_keywords(state0.kw))
+        if route == "agg":
+            chunk_t = ad.agg_cells_gate.default_chunk_t(K, lanes, dev, ad.POOL)
+            print(f"{agg_name}: chunk_t {chunk_t}, "
+                  f"{ad.agg_cells_gate.smem_bytes(chunk_t, K, lanes, ad.POOL)} B shared memory, "
+                  f"{ad.agg_cells_gate.occupancy(chunk_t, K, lanes, dev, ad.POOL)} blocks per SM")
+        else:
+            occ = ld.occupancy(K, lanes, dev, ad.POOL)
+            print(f"{counts_name}: {occ['counts_blocks']} blocks per SM; {gate_name}: "
+                  f"{occ['gate_blocks']} blocks per SM, {occ['gate_smem']} B shared memory")
+
+        # the slice of days: 256 envs, default and signed-cost keywords,
+        # kernels against plain bit for bit at each budget; on day 1 F(bid)
+        # as the env computes it from its rounded bids (cent_bids)
+        totals = collections.defaultdict(int)
+        for signed in (False, True):
+            kw = pool_keywords(state0.kw, signed)
+            kw = kw._replace(**{f: getattr(kw, f)[:POOL_CHECK_ENVS] for f in kw._fields})
+            for day in range(POOL_CHECK_DAYS):
+                params, n_auc01, k_cells = day_inputs(cfg, kw, POOL_CHECK_ENVS, 90 + day)
+                keyset = "signed" if signed else "default"
+                cent = day == 1
+                if route == "lanes":
+                    # the counts' plain version is the slowest (its lockstep
+                    # loops, a launch per operation): held to it on one day
+                    # of each keyword set, the gates on the kernel's counts
+                    want = ld.lanes_counts(params, n_auc01, k_cells, lanes, "exact", ad.POOL, cent)
+                    if day == int(signed):  # default keywords on day 0, signed on day 1
+                        with words_replaced(pk, pk.threefry_words_reference):
+                            plain = ld.lanes_counts_reference(params, n_auc01, k_cells, lanes,
+                                                              "exact", ad.POOL, cent)
+                        compare(counts_name, zip(("imp", "ncl", "bidders"), want, plain),
+                                f"{keyset} day {day}")
+                for label, budget in POOL_BUDGETS[1:]:
+                    tag = f"{keyset} day {day} {label}"
+                    if route == "agg":
+                        _, _, c = agg_day_check(cfg, params, n_auc01, k_cells, budget, tag, cent)
+                    else:
+                        _, _, c = lanes_day_check(cfg, params, n_auc01, k_cells, want, budget, tag,
+                                                  cent)
+                    for key, v in c.items():
+                        totals[(keyset, key)] += v
+        print(f"pool ({route}) == plain on {POOL_CHECK_ENVS} envs x {K} keywords x "
+              f"{POOL_CHECK_DAYS} days at $1000 and ${POOL_BUDGETS[2][1]:g} "
+              f"({time.perf_counter() - t_start:.1f} s into the phase): "
+              + "; ".join(f"{keyset}: {totals[(keyset, 'simulated')]} simulated cells, "
+                          f"{totals[(keyset, 'partial')]} partial, {totals[(keyset, 'deep')]} "
+                          f"deep resolutions, {totals[(keyset, 'negative')]} with negative spend"
+                          for keyset in ("default", "signed")), flush=True)
+        if totals[("signed", "negative")] == 0:
+            fail(f"pool ({route}): the signed-cost slice spent nothing negative")
+        if totals[("default", "partial")] + totals[("signed", "partial")] == 0:
+            fail(f"pool ({route}): no partial cell at the tight budget")
+
+        # full width (4096 envs), default keywords: kernels against plain
+        # and timed, unbound and at $1000, beside the bound this run's
+        # cells need
+        params, n_auc01, k_cells = day_inputs(cfg, state0.kw, E, 95)
+        n_t = torch.stack([n_auc01[0]] + [n_auc01[1]] * (T - 1), 1)
+        if route == "lanes":
+            counts = ld.lanes_counts(params, n_auc01, k_cells, lanes, "exact", ad.POOL)
+            torch.cuda.synchronize()
+            with words_replaced(pk, pk.threefry_words_reference):
+                want, counts_plain = once_ms(lambda: ld.lanes_counts_reference(
+                    params, n_auc01, k_cells, lanes, "exact", ad.POOL))
+            compare(counts_name, zip(("imp", "ncl", "bidders"), counts, want), "full width")
+            imp, ncl, kb = want
+            f_bid = dist.laplace_cdf(params[ad.BID], params[ad.LOC], params[ad.SCALE])
+            p_win = torch.where(kb > 0, f_bid[:, None].pow(kb.clamp(min=1).float()), 1.0)
+            words = POOL_COUNTS_KEY_BLOCKS * E * T
+            fp = (POW_OPS * E * T * K) + 0.0
+            for n, p, x in ((params[ad.MAX_BIDDERS][:, None].expand(E, T, K),
+                             params[ad.PARTICIPATION][:, None].expand(E, T, K), kb),
+                            (n_t, p_win, imp),
+                            (imp, params[ad.BCTR][:, None].expand(E, T, K), ncl)):
+                passes, inv = inversion_passes(n, p, x)
+                btrs = (~inv).any(-1).float()
+                words += (passes * (K + 2) + btrs * (2 * K + 3)).sum().item()
+                fp += (K * (passes * INVERSION_PASS_FP + btrs * BTRS_PASS_FP)).sum().item()
+            nbytes = 4 * (7 * E * K + 2 * E * K) + 16 * E + 12 * E * T * K
+            kbound = max(bound(nbytes, words * ops_per_word, int_ops_per_s),
+                         bound(nbytes, fp, fp_ops_per_s))
+            ms = cuda_ms(lambda: ld.lanes_counts(params, n_auc01, k_cells, lanes, "exact",
+                                                 ad.POOL), reps=10)
+            for label, _ in POOL_BUDGETS[:2]:
+                timed[(counts_name, label)] = (ms, counts_plain, kbound)
+            print(f"  {counts_name}: kernel {ms:.4f} ms, plain {counts_plain:.1f} ms; "
+                  f"{words:.0f} threefry words, {fp:.4g} float ops, {nbytes / 1e6:.1f} MB; bound "
+                  f"{kbound[0]:.4f} ms ({kbound[1]}), {100 * kbound[0] / ms:.1f}% of it reached "
+                  f"({card})", flush=True)
+        for label, budget in POOL_BUDGETS[:2]:
+            if route == "agg":
+                (imp, ncl, kb, acc, spend, sim, partial, looked), plain_ms, c = agg_day_check(
+                    cfg, params, n_auc01, k_cells, budget, f"full width {label}")
+                budget_c = budget_cents(torch.full((E,), budget, device=dev), 1000.0)
+                call = lambda b=budget_c: ad.agg_cells_gate(  # noqa: E731
+                    params, n_auc01, k_cells, b, lanes, model=ad.POOL)
+                name = agg_name
+                # per simulated cell: the bidder and impression words where
+                # it has auctions, a click word where it has impressions,
+                # the spend normal where it has clicks and bidders, L lite
+                # lanes where it has clicks; the keys; the partial cells'
+                # lanes past the lite ones. Float: the walks' levels, a
+                # ladder bisection and a powf where there are auctions, the
+                # moments where there are clicks and bidders, each lane's
+                # law; the prologue's moment rows and bidder ladder
+                has_n = (n_t > 0) & sim
+                clicks = (ncl > 0) & sim
+                deep = (looked - lanes.L).clamp(min=0).sum().item()
+                words = (2 * has_n.sum() + ((imp > 0) & sim).sum() + (clicks & (kb > 0)).sum()
+                         + lanes.L * clicks.sum()).item() + deep
+                words += POOL_CELL_KEY_BLOCKS * sim.any(2).sum().item()
+                words += PARTIAL_KEY_BLOCKS * partial.view(E, T, K).any(2).sum().item()
+                fp = (WALK_OPS * (walk_levels(imp * sim, n_t * sim) + walk_levels(ncl * sim,
+                                                                                imp * sim))
+                      + (POW_OPS + 5) * has_n.sum() + POOL_MOMENT_OPS * (clicks & (kb > 0)).sum()
+                      + NORMAL_OPS * clicks.sum() + POOL_LANE_OPS * lanes.L * clicks.sum()).item()
+                fp += POOL_LANE_OPS * deep + E * K * (48 * POOL_ROW_OPS
+                                                     + lanes.kmax * LADDER_LEVEL_OPS)
+                nbytes = 4 * (7 * E * K + 2 * E * K + E) + 16 * E + 12 * sim.sum().item() + 4 * E
+            else:
+                (acc, spend, sim), plain_ms, c = lanes_day_check(
+                    cfg, params, n_auc01, k_cells, want, budget, f"full width {label}")
+                b = torch.full((E,), budget, device=dev)
+                call = lambda b=b: ld.lanes_gate_float(  # noqa: E731
+                    params, k_cells, ncl, imp, b, lanes, kb)
+                name = gate_name
+                # each simulated cell's lanes up to the first prefix over
+                # its budget or its last click: a 32-bit word, the pool law
+                # and a scan step each; the keys of each walked (env, t)
+                looked = (torch.minimum(acc.clamp(min=0) + 1, ncl) * sim).sum().item()
+                words = looked + GATE_KEY_BLOCKS * sim.any(2).sum().item()
+                fp = (POOL_LANE_OPS + SCAN_OPS) * looked
+                nbytes = (4 * (3 * E * K + 2 * E * T * K + E) + 16 * E + 8 * sim.sum().item()
+                          + 4 * E)
+            kbound = max(bound(nbytes, words * ops_per_word, int_ops_per_s),
+                         bound(nbytes, fp, fp_ops_per_s))
+            ms = cuda_ms(call, reps=10)
+            timed[(name, label)] = (ms, plain_ms, kbound)
+            print(f"  {name} ({label}): {c['simulated']} simulated cells, {c['partial']} partial, "
+                  f"{c['negative']} with negative spend; kernel {ms:.4f} ms, plain {plain_ms:.1f} "
+                  f"ms; {words:.0f} threefry words, {fp:.4g} float ops, {nbytes / 1e6:.1f} MB; "
+                  f"bound {kbound[0]:.4f} ms ({kbound[1]}), {100 * kbound[0] / ms:.1f}% of it "
+                  f"reached ({card})", flush=True)
+
+        # the slice through the env: counts zeroed just before, read just after
+        kernels = ({agg_name: ad.agg_cells_gate, "agg_outcomes": ad.agg_outcomes}
+                   if route == "agg" else
+                   {counts_name: ld.lanes_counts, gate_name: ld.lanes_gate_float,
+                    "lanes_outcomes (float)": ld.lanes_outcomes})
+        bids = torch.full((E, K), BID, device=dev)
+        torch.cuda.synchronize()
+        for kernel in kernels.values():
+            kernel.launches = 0
+        t0 = time.perf_counter()
+        state, steps = state0, []
+        for _ in range(POOL_STEPS):
+            state, ts = env.step(state, bids)
+            steps.append(ts)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        end_roll, roll = env.rollout(state0, bids, POOL_STEPS)
+        reset_state, reset_ts = env.autoreset_step(state, bids)
+        torch.cuda.synchronize()
+        launches = {n: k.launches for n, k in kernels.items()}
+        days = 2 * POOL_STEPS + 1
+        if any(n != days for n in launches.values()):
+            fail(f"pool ({route}) slice: launches {launches}, want {days} of each")
+        if not (torch.equal(end_roll.key, state.key) and bool(reset_ts.terminated.all())
+                and bool((reset_state.day == 0).all())):
+            fail(f"pool ({route}) slice: rollout or autoreset state wrong")
+        infinite = []
+        for i, ts in enumerate(steps):
+            o = ts.outcomes
+            # a 32-bit cost uniform of exactly 0 (one lane in 2**23) costs
+            # -inf where k >= 3, as in the JAX package (ROADMAP.md section
+            # 3): such an env's day costs -inf and its reward is +inf;
+            # every other env's reward is finite
+            minus_inf = (o.cost == float("-inf")).any(1)
+            infinite.append(minus_inf.sum().item())
+            if not ((o.sellside_conversions <= o.buyside_clicks).all()
+                    and torch.isfinite(ts.reward[~minus_inf]).all()
+                    and (ts.reward[minus_inf] == float("inf")).all()
+                    and (o.cost.sum(1) <= XLA_BUDGET + 1e-3).all()):
+                fail(f"pool ({route}) slice step {i}: invariants violated")
+            for f in o._fields:
+                if not torch.equal(getattr(o, f), getattr(roll.outcomes, f)[i]):
+                    fail(f"pool ({route}) rollout day {i}: {f} differs from step {i}")
+        if route == "agg":  # (the lanes day's plain counts take 12 s at this width)
+            with agg_plain(ad), words_replaced(pk, pk.threefry_words_reference):
+                _, plain_ts = env.step(state0, bids)
+            for f in plain_ts.outcomes._fields:
+                if not torch.equal(getattr(plain_ts.outcomes, f), getattr(steps[0].outcomes, f)):
+                    fail(f"pool ({route}) slice step 0: {f} differs between the kernels and plain")
+
+        def run_steps():
+            st = state0
+            for _ in range(POOL_STEPS):
+                st, _ts = env.step(st, bids)
+
+        events, busy, wall = device_busy(run_steps, POOL_STEPS)
+        o = [ts.outcomes for ts in steps]
+        print(f"pool ({route}) slice: {POOL_STEPS} steps, rollout({POOL_STEPS}) and an autoreset "
+              f"day x {E} envs x {K} keywords, bids ${BID:.2f}, budget ${XLA_BUDGET:g}: "
+              f"{sum(x.impressions.sum().item() for x in o)} impressions, "
+              f"{sum(x.buyside_clicks.sum().item() for x in o)} clicks, "
+              f"${sum(x.cost.sum().item() for x in o):.2f} spent; envs with a -inf click cost "
+              f"per step {infinite}; launches {launches}; "
+              f"{POOL_STEPS * E / step_s:.1f} env-steps/s; "
+              f"{'step 0 == plain ' if route == 'agg' else ''}"
+              f"({time.perf_counter() - t_start:.1f} s into the phase); per step under the "
+              f"profiler: {events:.1f} CUDA device events, device busy {busy:.3f} ms of "
+              f"{wall:.3f} ms, idle {100 * (1 - busy / wall):.1f}% ({card})", flush=True)
+        for name in ((agg_name,) if route == "agg" else (counts_name, gate_name)):
+            entries[name] = (launches[name], timed[(name, "$1000")], timed[(name, "unbound")])
+    replaces = {
+        agg_name: "adcraft_tpu/step.py:806-860 (_cell_tables' pool branch), :740 "
+                  "(_gate_keywords_scan_agg) and :1087 (_resolve_cell's pool lanes); no TPU "
+                  "kernel",
+        counts_name: "adcraft_tpu/auction.py:164 (implicit_pool_auction's bidders and "
+                     "impressions) and step.py:934 (the clicks); no TPU kernel",
+        gate_name: "adcraft_tpu/step.py:152 (_gate_keywords_jacobi in float32; auction.py:187-197 "
+                   "the pool's cost lanes); no TPU kernel",
+    }
+    for name, (n, t, unbound) in entries.items():
+        print(f"{name}: $1000 {t[0]:.4f} ms, unbound {unbound[0]:.4f} ms; {n} launches in the "
+              f"slice ({card})")
+    print(f"phase 15 wall time {time.perf_counter() - t_start:.1f} s", flush=True)
+    return [
+        {
+            "name": name,
+            "route": "cuda",
+            "source": "adcraft_tpu_torch/csrc/" + ("agg_day.cu" if name == agg_name
+                                                   else "lanes_day.cu"),
+            "replaces": replaces[name],
+            "launches": n,
+            "max_abs_err": max_err[name],
+            "ms": t[0],
+            "plain_ms": t[1],
+            "bound_ms": t[2][0],
+            "bound_by": t[2][1],
+            "library_ms": None,
+        }
+        for name, (n, t, _unbound) in entries.items()
     ]
 
 
@@ -2266,11 +2685,11 @@ def parent_turns_phase(torch, dev, card, table, parent):
 EXP_ENV_SEEDS = (5, 6, 7, 8)
 EXP_AGENT_SEEDS = (0, 1, 2, 3)
 EXP_AGENTS = ("zero_margin", "interpolation")
-EXP_PLAIN_DAYS = 5  # harness days held to the plain versions
+EXP_PLAIN_DAYS = 2  # harness days held to the plain versions
 # the sweep's two corners: (mean volume, cvr); at (1024, 1.0) max_volume
 # 4160 gives m0 = 196 cost lanes, past lanes_gate's 32-lane windows
 SWEEP_CORNERS = ((1024.0, 1.0), (1.0, 0.01))
-CORNER_DAYS = 3
+CORNER_DAYS = 2
 GYM_DAYS = 5
 GYM_SEED = 7
 
@@ -3144,6 +3563,9 @@ def main(argv=None) -> int:
     # 14. the RL trainers, train_rl, checkpoints, multi-agent training, entry
     training_phase(torch, dev, card)
     t_phase = phase_done("14", t_phase)
+    # 15. the binomial pool on both routes
+    route_kernels += pool_phase(torch, dev, card, table, *rates)
+    t_phase = phase_done("15", t_phase)
     if parent_other is not None:
         print("the agg route's kernels and threefry_words in turns with the parent tree's:")
         parent_turns_phase(torch, dev, card, table, parent_other)

@@ -117,14 +117,15 @@ def test_rollout_equals_steps_and_jax():
     {"kind": KeywordKind.EXPLICIT, "cost_sampling": "lanes", "conv_sampling": "lanes",
      "rev_sampling": "lanes", "binomial_sampler": "exact", "gate_scope": "per_t",
      "gate_mode": "scan"},
-    {"competitor_model": "binomial_pool"},
+    # the binomial pool runs on both routes; its knob mixes of item 2 refuse
+    {"competitor_model": "binomial_pool", "agg_draw_bits": 16},
     {"use_x64": True},
 ])
 def test_unported_xla_configurations_raise(knobs):
     from adcraft_tpu_torch.config import CompetitorModel
 
     if knobs.get("competitor_model"):
-        knobs = {"competitor_model": CompetitorModel.BINOMIAL_POOL}
+        knobs = {**knobs, "competitor_model": CompetitorModel.BINOMIAL_POOL}
     cfg = CFG.replace(**knobs)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         VectorBiddingEnv(cfg, E, t_table(64, 0.5), device="cpu")

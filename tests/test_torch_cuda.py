@@ -823,3 +823,135 @@ def test_trainer_steps_match_plain(cuda, monkeypatch):
         runs.append(torch.utils._pytree.tree_leaves(out))
     assert all(torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
                for a, b in zip(*runs))
+
+
+def pool_inputs(cfg, E, K, seed, dev, signed=False):
+    """A day's inputs for the binomial pool: pools of 30 bidders at 0.6
+    and smaller ones, keywords whose competitors bid about -$0.30 where
+    ``signed``."""
+    from adcraft_tpu_torch import agg_day
+    from adcraft_tpu_torch.step import xla_lanes
+
+    gen = torch.Generator().manual_seed(seed)
+    u = torch.rand((8, E, K), generator=gen)
+    vol = torch.randint(0, cfg.max_volume + 1, (E, K), generator=gen, dtype=torch.int32)
+    n_auc = split_volume(cfg, vol)
+    params = torch.zeros((agg_day.NUM_PARAMS, E, K))
+    params[agg_day.BID] = torch.round((0.3 + 1.3 * u[0]) * 100) / 100
+    params[agg_day.BCTR] = 0.2 + 0.7 * u[1]
+    params[agg_day.SCTR] = 0.1 + 0.8 * u[2]
+    params[agg_day.LOC] = -0.3 if signed else 0.2 + 0.7 * u[3]
+    params[agg_day.SCALE] = 0.1 if signed else 0.05 + 0.35 * u[4]
+    params[agg_day.REV_MEAN] = 0.3 + 2.7 * u[5]
+    params[agg_day.REV_STD] = 0.8 * u[6]
+    params[agg_day.MAX_BIDDERS] = torch.tensor([30.0, 30.0, 5.0, 2.0])[(4 * u[7]).long()]
+    params[agg_day.PARTICIPATION] = torch.where(params[agg_day.MAX_BIDDERS] == 30.0, 0.6, u[7])
+    keys = prng.split(prng.PRNGKey(seed), E)
+    return (xla_lanes(cfg), params.contiguous().to(dev),
+            torch.stack([n_auc[0], n_auc[1]]).contiguous().to(dev), keys.to(dev))
+
+
+# K = 7, 100 and 300 (past lanes_counts' 128-keyword group and element 256
+# of a sub-timestep's spends); max_bidders_bound 32 and 40; either sampler
+# on the lanes route; F(bid) of the env's rounded bids (cent_bids) or not
+@pytest.mark.cuda
+@pytest.mark.parametrize("K, bound, sampler, cent_bids", [(7, 32, "exact", False),
+                                                          (100, 32, "inversion", True),
+                                                          (300, 40, "exact", False)])
+@pytest.mark.parametrize("signed", [False, True])
+def test_pool_kernels_match_reference(cuda, K, bound, sampler, cent_bids, signed):
+    """agg_cells_gate's pool instance (bench.py's knobs), lanes_counts'
+    pool instance and lanes_gate_float's pool mode (with lanes_outcomes'
+    float mode on it) each equal their plain versions at budgets unbound,
+    binding and tight, on default and signed-cost keywords: every simulated
+    cell (every cell the float gate walks), n_sim, the pool's constants
+    and the day sums exactly."""
+    from adcraft_tpu_torch import agg_day, lanes_day
+    from adcraft_tpu_torch.config import BENCH_XLA_KNOBS, CompetitorModel
+    from adcraft_tpu_torch.step import budget_cents
+
+    E = 61
+    pool = {"competitor_model": CompetitorModel.BINOMIAL_POOL, "max_bidders_bound": bound}
+    agg = EnvConfig(num_keywords=K, max_volume=576, kind=KeywordKind.IMPLICIT, **pool,
+                    **BENCH_XLA_KNOBS)
+    lanes_cfg = EnvConfig(num_keywords=K, max_volume=576, kind=KeywordKind.IMPLICIT, **pool,
+                          binomial_sampler=sampler)
+    cell = None
+    for budget in (1e6, 1000.0, 2.0):
+        lanes, params, n_auc01, keys = pool_inputs(agg, E, K, K + bound, cuda, signed)
+        cell = torch.arange(lanes.T * K, device=cuda).view(1, lanes.T, K)
+        b = budget_cents(torch.full((E,), budget, device=cuda), 1000.0)
+        got = agg_day.agg_cells_gate(params, n_auc01, keys, b, lanes, True, model=agg_day.POOL,
+                                     cent_bids=cent_bids)
+        want = agg_day.agg_cells_gate_reference(params, n_auc01, keys, b, lanes, True,
+                                                agg_day.POOL, cent_bids=cent_bids)
+        torch.cuda.synchronize()
+        sim = cell < want[3].view(E, 1, 1)
+        torch.testing.assert_close(got[3], want[3], rtol=0, atol=0)
+        for g, w in zip(got[:3], want[:3]):
+            torch.testing.assert_close(g[sim], w[sim], rtol=0, atol=0)
+        for g, w in zip(got[4], want[4]):
+            assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+
+        lanes, params, n_auc01, keys = pool_inputs(lanes_cfg, E, K, K + bound, cuda, signed)
+        counts = lanes_day.lanes_counts(params, n_auc01, keys, lanes, sampler, agg_day.POOL,
+                                        cent_bids)
+        want_counts = lanes_day.lanes_counts_reference(params, n_auc01, keys, lanes, sampler,
+                                                       agg_day.POOL, cent_bids)
+        for g, w in zip(counts, want_counts):
+            torch.testing.assert_close(g, w, rtol=0, atol=0)
+        imp, ncl, kb = want_counts
+        dollars = torch.full((E,), budget, device=cuda)
+        got = lanes_day.lanes_gate_float(params, keys, ncl, imp, dollars, lanes, kb, cent_bids)
+        want = lanes_day.lanes_gate_float_reference(params, keys, ncl, imp, dollars, lanes, kb,
+                                                    cent_bids)
+        torch.cuda.synchronize()
+        walked = cell < ((want[2] + K - 1) // K * K).view(E, 1, 1)
+        torch.testing.assert_close(got[2], want[2], rtol=0, atol=0)
+        for g, w in zip(got[:2], want[:2]):
+            assert torch.equal(g[walked], w[walked])
+        out = lanes_day.lanes_outcomes(params, keys, imp, *got[:3], n_auc01, lanes)
+        want_out = lanes_day.lanes_outcomes_reference(params, keys, imp, *want[:3], n_auc01,
+                                                      lanes)
+        for g, w in zip(out, want_out):
+            assert torch.equal(g, w)
+        if signed:
+            assert (want[1][walked & (want[0] >= 0)] < 0).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("agg", [True, False])
+def test_pool_env_step_launches_each_kernel_once(cuda, agg, monkeypatch):
+    """The binomial pool on the card, on either route: one launch of each
+    of the day's kernels per day through step, rollout and autoreset_step,
+    equal to the same env with the kernels' plain versions."""
+    from adcraft_tpu_torch import agg_day, lanes_day
+    from adcraft_tpu_torch.config import BENCH_XLA_KNOBS, CompetitorModel
+    from adcraft_tpu_torch.step_rate import pool_keywords
+
+    knobs = BENCH_XLA_KNOBS if agg else {}
+    cfg = EnvConfig(num_keywords=8, max_volume=96, timesteps_per_day=6, max_days=2,
+                    kind=KeywordKind.IMPLICIT, competitor_model=CompetitorModel.BINOMIAL_POOL,
+                    **knobs)
+    module = agg_day if agg else lanes_day
+    names = (("agg_cells_gate", "agg_outcomes") if agg
+             else ("lanes_counts", "lanes_gate_float", "lanes_outcomes"))
+    kernels = [getattr(module, n) for n in names]
+    bids = torch.full((16, 8), 1.5, device=cuda)
+    runs = []
+    for plain in (False, True):
+        if plain:
+            for name in names:
+                monkeypatch.setattr(module, name, getattr(module, name + "_reference"))
+        env = VectorBiddingEnv(cfg, 16, simple_experiment_table(64, 0.5))
+        state, _ = env.reset(prng.PRNGKey(3))
+        state = state._replace(kw=pool_keywords(state.kw))
+        before = [k.launches for k in kernels]
+        state, ts = env.step(state, bids, torch.full((16,), 20.0, device=cuda))
+        state, roll = env.rollout(state, bids, 2)
+        state, auto = env.autoreset_step(state, bids)
+        torch.cuda.synchronize()
+        n = len(names)
+        assert [k.launches - b for k, b in zip(kernels, before)] == ([0] * n if plain else [4] * n)
+        runs.append(torch.utils._pytree.tree_leaves((ts, roll, auto, state)))
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
