@@ -499,6 +499,36 @@ def bind(lib: ctypes.CDLL) -> None:
 
 library = CudaLibrary("agg_day", bind)
 
+# agg_cells_gate's stages, and the pool instance's parts of stage A, as a
+# build with -DAGG_STAGE_CLOCKS counts them (thread 0's SM clocks, summed
+# over blocks; the stages' then the block count)
+STAGES = ("prologue and keys", "stage A", "stage B", "stage C")
+POOL_PARTS = ("bidders and F(bid)^k", "walks", "spend moments", "lite lanes")
+
+
+def clocks_library() -> CudaLibrary:
+    """A second build of ``csrc/agg_day.cu`` whose kernels also count their
+    stages' SM clocks (``read_clocks``)."""
+
+    def bind_clocks(lib):
+        bind(lib)
+        for fn in (lib.agg_cells_gate_stage_clocks, lib.agg_outcomes_stage_clocks,
+                   lib.agg_cells_gate_pool_clocks):
+            fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+
+    return CudaLibrary("agg_day", bind_clocks, flags=("-DAGG_STAGE_CLOCKS",))
+
+
+def read_clocks(clocks_lib: CudaLibrary, reader: str, n: int, device_index: int) -> list:
+    """``n`` counters of a ``clocks_library`` build summed since the last
+    read by ``reader`` (``agg_cells_gate_stage_clocks``,
+    ``agg_outcomes_stage_clocks`` or ``agg_cells_gate_pool_clocks``);
+    zeroes them."""
+    out = (ctypes.c_ulonglong * n)()
+    clocks_lib.check(getattr(clocks_lib.get(), reader)(device_index, out), reader)
+    return list(out)
+
 
 def _check(device, *specs) -> None:
     for name, x, dtype, shape in specs:

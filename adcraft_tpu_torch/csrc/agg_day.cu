@@ -80,13 +80,16 @@
 // sampled for nothing, and shared memory grows by (3 + L) * 4 bytes per
 // cell and 40 bytes of keys per sub-timestep, which bounds the blocks per
 // SM. The wrapper takes the largest chunk_t that keeps kMinBlocks resident
-// blocks per SM (agg_cells_gate_default_chunk_t). Outputs do not depend on
-// it. Stage B is a chain of dependent warp operations that runs while the
-// block's other warps wait at the barrier; sampling the next chunk during
-// stage B, with two buffers and so half the chunk, was tried and measured
-// slower. Built with -DAGG_STAGE_CLOCKS (chip_smoke.py builds it so beside
-// the plain build), thread 0 also counts its SM clocks in each stage, read
-// with agg_cells_gate_stage_clocks.
+// blocks per SM, or as many as a chunk of one sub-timestep keeps
+// (agg_cells_gate_default_chunk_t; the pool's blocks of 8 warps keep 4 at
+// chunk_t 8 for K = 100). Outputs do not depend on it. Stage B is a chain
+// of dependent warp operations that runs while the block's other warps
+// wait at the barrier; sampling the next chunk during stage B, with two
+// buffers and so half the chunk, was tried and measured slower. Built
+// with -DAGG_STAGE_CLOCKS (chip_smoke.py builds it so beside the plain
+// build), thread 0 also counts its SM clocks in each stage, read with
+// agg_cells_gate_stage_clocks, and the pool's by part of stage A
+// (agg_cells_gate_pool_clocks).
 //
 // agg_outcomes runs one block per env over its simulated cells, never
 // past n_sim. Its prologue, by all threads, derives the keys (k_conv per
@@ -128,6 +131,11 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kMinBlocks = 8;  // resident blocks per SM agg_cells_gate's registers are capped for
+// the pool's instance: blocks of 8 warps, 4 resident (its per-env tables
+// hold 5 blocks of 4 warps per SM at most: its stage A waits on its long
+// chains' latency, and twice the warps a block hide more of it)
+constexpr int kPoolThreads = 256;
+constexpr int kPoolMinBlocks = 4;
 constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr int kIntMax = 0x7FFFFFFF;
 constexpr int kQuadNodes = 48;  // the pool moments' Gauss-Legendre nodes
@@ -144,7 +152,29 @@ __device__ unsigned long long g_stage_clocks[kStages + 1];
 // queues' draws, the barrier, the day draws and the writes)
 constexpr int kOutStages = 4;
 __device__ unsigned long long g_outcomes_clocks[kOutStages + 1];
+// the pool's stage A by part, thread 0's SM clocks summed over blocks: the
+// bidder count and F(bid)^k, the impression and click walks, the spend's
+// moments, the lite lanes
+constexpr int kPoolParts = 4;
+__device__ unsigned long long g_pool_clocks[kPoolParts];
 #endif
+
+// thread 0's SM clocks by part of a pool cell (a build with
+// -DAGG_STAGE_CLOCKS; else nothing)
+struct PoolClocks {
+#ifdef AGG_STAGE_CLOCKS
+  unsigned long long v[kPoolParts] = {}, mark = 0;
+  __device__ void start() { mark = clock64(); }
+  __device__ void lap(int part) {
+    const unsigned long long now = clock64();
+    v[part] += now - mark;
+    mark = now;
+  }
+#else
+  __device__ void start() {}
+  __device__ void lap(int) {}
+#endif
+};
 
 // agg_cells_gate's per-keyword float rows in shared memory. An explicit
 // model keeps the lite lanes' bid in kLoc and the deep lanes' bid, (bid -
@@ -161,6 +191,10 @@ enum { kImplicit, kExplicitRust, kExplicitPython, kPool, kModels };
 // agg_cells_gate's keys per sub-timestep: k_imp, k_click, k_sfull, k_lite,
 // k_rest, and the pool's k_bidders
 __host__ __device__ constexpr int chunk_keys(int model) { return model == kPool ? 6 : 5; }
+// agg_cells_gate's threads per block
+__host__ __device__ constexpr int cells_gate_threads(int model) {
+  return model == kPool ? kPoolThreads : kThreads;
+}
 
 // distributions.agg_cost_cents_z (the pool's k >= 3 cells floored at n
 // cmin = -n cmax) and rev_sum_cents_z
@@ -438,7 +472,8 @@ __device__ int resolve_cell(const int* lite_c, int lite_stride, const float* kw,
 // auction counts, the ladder (m1 x K; the pool's bidder ladder, kmax x K),
 // the walk's table of 1/j (max(m0, m1)), the pool's moment rows g (48 x
 // K), then per cell of a chunk the aggregate spend, the clicks, the
-// impressions, the L lite costs and the pool's bidder count.
+// impressions, the L lite costs and the pool's bidder count and list of
+// cells to cost (stage A's second part).
 __host__ __device__ inline size_t cells_gate_smem(int chunk_t, int K, int m0, int m1, int L,
                                                   int model, int kmax) {
   const bool pool = model == kPool;
@@ -447,7 +482,7 @@ __host__ __device__ inline size_t cells_gate_smem(int chunk_t, int K, int m0, in
   const size_t ladder = static_cast<size_t>(pool ? kmax : m1);
   return static_cast<size_t>(chunk_t) * chunk_keys(model) * sizeof(Key) +
          sizeof(int) * ((kKwRows + 2 + ladder + (pool ? kQuadNodes : 0)) * K + nmax +
-                        (3 + static_cast<size_t>(L) + (pool ? 1 : 0)) * cells);
+                        (3 + static_cast<size_t>(L) + (pool ? 2 : 0)) * cells);
 }
 
 // Stage B of agg_cells_gate on warp 0: the gate over a chunk's `cells`
@@ -475,11 +510,22 @@ __device__ int gate_chunk(int* sfull, int* ncl, const int* lite, int lite_stride
     // positive budget as it is, being full at no cost or accepting nothing
     // (not full, and no click or a first lite lane above the budget: the
     // budget-decay tail of a day)
+    const unsigned passive =
+        __ballot_sync(kFull, in && B > 0 && (s == 0 || (s > B && (n == 0 || c0 > B))));
+    // the pool's 64-bit scan is the window's longest chain; a window of
+    // passive cells without a negative spend needs none (it is whole only
+    // if its spends are all 0, which leaves it as the passive run does)
+    if (kModel == kPool && passive == kFull && __ballot_sync(kFull, s < 0) == 0) {
+      if (s != 0) {
+        ncl[c] = 0;
+        sfull[c] = 0;
+      }
+      p += 32;
+      continue;
+    }
     const long long S = kModel == kPool ? warp_inclusive_sum(s, lane)
                                         : static_cast<long long>(warp_saturating_sum(s, lane));
     const unsigned whole = __ballot_sync(kFull, in && S < B);
-    const unsigned passive =
-        __ballot_sync(kFull, in && B > 0 && (s == 0 || (s > B && (n == 0 || c0 > B))));
     const int n_whole = whole == kFull ? 32 : __ffs(~whole) - 1;
     const int n_passive = passive == kFull ? 32 : __ffs(~passive) - 1;
     const int run = max(n_whole, n_passive);
@@ -524,13 +570,12 @@ __device__ int gate_chunk(int* sfull, int* ncl, const int* lite, int lite_stride
 
 // The pool's prologue for keyword k (agg_day.pool_constants): F(bid)
 // (bid_cdf, with cent_bids as the env's program computes it) and the deep
-// lanes' F((bid - 0.005) + 0.005), round(1000 bid), the moment
-// rows g_q = F^-1(F(bid) w_q) (row q at g[q * K + k]) and the bidder
+// lanes' F((bid - 0.005) + 0.005), round(1000 bid) and the bidder
 // ladder's kmax levels (level j at ladder[j * K + k]; with consts_out,
-// also there: F(bid) in row 0, the levels in rows 1 to kmax).
+// also there: F(bid) in row 0, the levels in rows 1 to kmax). The moment
+// rows follow (pool_moment_rows).
 __device__ void pool_prologue(const float* __restrict__ params, long long EK, long long ek, int k,
-                              int K, const float* __restrict__ quad, int kmax, bool cent_bids,
-                              float* kw, float* ladder, float* g,
+                              int K, int kmax, bool cent_bids, float* kw, float* ladder,
                               float* __restrict__ consts_out) {
   const float bid = params[BID * EK + ek];
   const float loc = params[LOC * EK + ek], scale = params[SCALE * EK + ek];
@@ -543,10 +588,6 @@ __device__ void pool_prologue(const float* __restrict__ params, long long EK, lo
   kw[kScale * K + k] = scale;
   kw[kLadderN * K + k] = mb;
   kw[kLadderP * K + k] = part;
-  for (int q = 0; q < kQuadNodes; ++q) {
-    const float a = xla_ftz(fminf(fmaxf(__fmul_rn(f_bid, __ldg(quad + q)), 1e-38f), 1.0f));
-    g[q * K + k] = laplace_icdf(a, loc, scale);
-  }
   const Ladder lad = make_ladder(mb, part);
   XlaScan<true> cp;
   XlaScan<false> cdf;
@@ -559,34 +600,57 @@ __device__ void pool_prologue(const float* __restrict__ params, long long EK, lo
   if (consts_out != nullptr) consts_out[ek] = f_bid;
 }
 
+// The moment rows g_q = F^-1(F(bid) w_q) (row q at g[q * K + k]) from the
+// prologue's rows, the block's threads over all (q, k)
+__device__ void pool_moment_rows(const float* kw, int K, const float* __restrict__ quad,
+                                 float* g) {
+  for (int i = threadIdx.x; i < kQuadNodes * K; i += blockDim.x) {
+    const int q = i / K, k = i - q * K;
+    const float a =
+        xla_ftz(fminf(fmaxf(__fmul_rn(kw[kFBid * K + k], __ldg(quad + q)), 1e-38f), 1.0f));
+    g[i] = laplace_icdf(a, kw[kLoc * K + k], kw[kScale * K + k]);
+  }
+}
+
 // One pool cell of stage A (agg_day.pool_cells_reference) for keyword k
-// with n auctions and keys tk: its bidder count by the ladder (only where
-// there are auctions: a cell without them wins no impression, whatever
-// its k), its impressions and clicks by the walk, its spend (0 at k = 0)
-// and lite lanes where it has clicks. Writes kb; returns in im, nc, s.
+// with n auctions and keys tk, its first part: its bidder count by the
+// ladder (only where there are auctions: a cell without them wins no
+// impression, whatever its k), its impressions and clicks by the walk.
 template <class Recip>
-__device__ void pool_cell(const float* kw, const float* ladder, const float* g, int K, int k,
-                          int n, const Key* tk, int m, int L, int bits, int kmax,
-                          const float* __restrict__ quad, Recip table, int* lite_c,
-                          int lite_stride, int& kb, int& im, int& nc, int& s) {
-  kb = im = nc = s = 0;
+__device__ void pool_counts(const float* kw, const float* ladder, int K, int k, int n,
+                            const Key* tk, int m, int bits, int kmax, Recip table, int& kb,
+                            int& im, int& nc, PoolClocks& pc) {
+  kb = im = nc = 0;
   if (n == 0) return;
+  pc.start();
   const float mb = kw[kLadderN * K + k], part = kw[kLadderP * K + k];
   const int ni = static_cast<int>(rintf(mb));
   const int cnt = min(ladder_count(ladder + k, K, kmax, lane_uniform(tk[5], k, bits)), ni);
   kb = part > 0.5f ? ni - cnt : cnt;
-  const float f_bid = kw[kFBid * K + k];
-  const float p_win = kb > 0 ? xla_pow(f_bid, static_cast<float>(kb)) : 1.0f;
+  const float p_win = kb > 0 ? xla_pow(kw[kFBid * K + k], static_cast<float>(kb)) : 1.0f;
+  pc.lap(0);
   im = binomial_walk(lane_uniform(tk[0], k, bits), n, p_win, m, table);
   if (im != 0) nc = binomial_walk(lane_uniform(tk[1], k, bits), im, kw[kBctr * K + k], m, table);
-  if (nc == 0) return;
-  const float loc = kw[kLoc * K + k], scale = kw[kScale * K + k];
-  if (kb > 0) s = pool_spend(nc, kb, g + k, K, quad, kmax, kw[kCmax * K + k], xla_normal(tk[2], k));
+  pc.lap(1);
+}
+
+// Its second part, for a cell with nc > 0 clicks and kb > 0 bidders (one
+// with kb = 0 spends 0 and its lanes cost 0): its spend from the moments
+// and its lite lanes.
+__device__ void pool_costs(const float* kw, const float* g, int K, int k, int nc, int kb,
+                           const Key* tk, int L, int bits, int kmax,
+                           const float* __restrict__ quad, int* lite_c, int lite_stride, int& s,
+                           PoolClocks& pc) {
+  pc.start();
+  const float f_bid = kw[kFBid * K + k], loc = kw[kLoc * K + k], scale = kw[kScale * K + k];
+  s = pool_spend(nc, kb, g + k, K, quad, kmax, kw[kCmax * K + k], xla_normal(tk[2], k));
+  pc.lap(2);
   for (int l = 0; l < L; ++l) {
     lite_c[l * lite_stride] =
         pool_units(lane_uniform(tk[3], static_cast<uint32_t>(l * K + k), bits), f_bid, loc, scale,
                    kb);
   }
+  pc.lap(3);
 }
 
 // ---- agg_cells_gate: one block per env, the sub-timesteps in chunks ----
@@ -601,11 +665,16 @@ __device__ void pool_cell(const float* kw, const float* ladder, const float* g, 
 // (the binomial pool: k_auc split three ways, k_bidders first) has no day
 // ladder of impressions, its win probability varying with each cell's
 // bidder count: its prologue builds the bidder ladder and the moments'
-// rows (pool_prologue), stage A draws each cell's bidder count, its
-// impressions and clicks by the walk and its spend from the 48-node
-// chains for its own k (pool_cell), and the gate runs on signed spends.
+// rows (pool_prologue, pool_moment_rows), stage A draws each cell's bidder
+// count and its impressions and clicks by the walk (pool_counts), then,
+// after a barrier, the spends from the 48-node chains for their own k and
+// the lite lanes of the cells with clicks and bidders only, listed by the
+// first part (pool_costs: the chains are the longest part of a cell, and
+// a warp of cells of which some have clicks ran them for all), and the
+// gate runs on signed spends.
 template <int kModel>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
+__global__ void __launch_bounds__(cells_gate_threads(kModel),
+                                  kModel == kPool ? kPoolMinBlocks : kMinBlocks)
     agg_cells_gate_kernel(const float* __restrict__ params, const int* __restrict__ n_auc01,
                           const long long* __restrict__ keys, long long key_stride,
                           const int* __restrict__ budget_c, int* __restrict__ imp_out,
@@ -615,6 +684,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
                           const float* __restrict__ quad, int kmax, int cent_bids) {
   extern __shared__ unsigned long long smem[];
   constexpr bool kIsPool = kModel == kPool;
+  constexpr int kBlock = cells_gate_threads(kModel);
   constexpr int kKeys = chunk_keys(kModel);
   const int max_cells = chunk_t * K;
   const int nmax = max(m0, m1);
@@ -630,14 +700,16 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   int* imp = ncl + max_cells;
   int* lite = imp + max_cells;            // [L][max_cells]
   int* kcell = lite + L * max_cells;      // the pool's bidder counts
-  __shared__ int s_end, s_broken;
+  int* listed = kcell + max_cells;        // the pool's cells to cost
+  __shared__ int s_end, s_broken, s_listed;
 
   const int e = blockIdx.x;
   const int tid = threadIdx.x;
   const long long EK = static_cast<long long>(E) * K;
   const long long eK = static_cast<long long>(e) * K;
   const auto table = [walk_recip](int j) { return walk_recip[j]; };
-  const int step_t = kThreads / K, step_k = kThreads % K;  // a stride of cells as (t, k)
+  const int step_t = kBlock / K, step_k = kBlock % K;  // a stride of cells as (t, k)
+  PoolClocks pc;
 #ifdef AGG_STAGE_CLOCKS
   unsigned long long mark = clock64(), spent[kStages] = {};
   const auto lap = [&](int stage) {
@@ -651,19 +723,19 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   const auto lap = [](int) {};
 #endif
 
-  for (int j = tid; j < nmax; j += kThreads) {
+  for (int j = tid; j < nmax; j += kBlock) {
     walk_recip[j] = __fdiv_rn(1.0f, static_cast<float>(j));
   }
   __syncthreads();
 
   // the prologue: each keyword's constants for the day
-  for (int k = tid; k < K; k += kThreads) {
+  for (int k = tid; k < K; k += kBlock) {
     const long long ek = eK + k;
     n01[k] = n_auc01[ek];
     n01[K + k] = n_auc01[EK + ek];
     kw[kBctr * K + k] = params[BCTR * EK + ek];
     if (kIsPool) {
-      pool_prologue(params, EK, ek, k, K, quad, kmax, cent_bids != 0, kw, ladder, g, consts_out);
+      pool_prologue(params, EK, ek, k, K, kmax, cent_bids != 0, kw, ladder, consts_out);
       continue;
     }
     const float bid = params[BID * EK + ek];
@@ -711,6 +783,11 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     }
   }
 
+  if (kIsPool) {
+    __syncthreads();
+    pool_moment_rows(kw, K, quad, g);
+  }
+
   const Key kc = load_key(keys, key_stride, e);
   long long B = budget_c[e];  // warp 0's
   bool broken = false;
@@ -718,7 +795,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   for (int t0 = 0; t0 < T; t0 += chunk_t) {
     const int nt = min(chunk_t, T - t0);
     const int cells = nt * K;
-    for (int tt = tid; tt < nt; tt += kThreads) {
+    for (int tt = tid; tt < nt; tt += kBlock) {
       const Key kt = child(kc, static_cast<uint32_t>(t0 + tt));
       const Key k_auc = child(kt, 0);
       // the pool: k_bidders, k_imp, k_cost = split(k_auc, 3)
@@ -732,72 +809,102 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
       tk[4] = child(k_lanes, 1);              // k_rest
       if (kIsPool) tk[kKeys - 1] = child(k_auc, 0);  // k_bidders
     }
+    if (kIsPool && tid == 0) s_listed = 0;
     __syncthreads();
     lap(0);
 
     // Stage A: the chunk's cell tables; cell c is (tt, k) = divmod(c, K)
-    for (int c = tid, tt = tid / K, k = tid % K; c < cells;
-         c += kThreads, tt += step_t, k += step_k) {
-      if (k >= K) {
-        k -= K;
-        ++tt;
+    if constexpr (kIsPool) {
+      const int lane = tid % 32;
+      for (int c = tid, tt = tid / K, k = tid % K; c - lane < cells;
+           c += kBlock, tt += step_t, k += step_k) {
+        if (k >= K) {
+          k -= K;
+          ++tt;
+        }
+        int kb = 0, im = 0, nc = 0;
+        if (c < cells) {
+          const bool first_t = t0 + tt == 0;
+          pool_counts(kw, ladder, K, k, n01[first_t ? k : K + k], tkeys + kKeys * tt,
+                      first_t ? m0 : m1, bits, kmax, table, kb, im, nc, pc);
+          kcell[c] = kb;
+          imp[c] = im;
+          ncl[c] = nc;
+          sfull[c] = 0;
+          if (nc != 0 && kb == 0) {  // no bidder: no spend, lite lanes 0
+            for (int l = 0; l < L; ++l) lite[l * max_cells + c] = 0;
+          }
+        }
+        const bool costed = nc != 0 && kb > 0;
+        const unsigned m = __ballot_sync(kFull, costed);
+        int base = 0;
+        if (lane == 0 && m != 0) base = atomicAdd(&s_listed, __popc(m));
+        base = __shfl_sync(kFull, base, 0);
+        if (costed) listed[base + __popc(m & ((1u << lane) - 1u))] = c;
       }
-      const bool first_t = t0 + tt == 0;
-      const Key* tk = tkeys + kKeys * tt;
-      if (kIsPool) {
-        int kb, im, nc, s;
-        pool_cell(kw, ladder, g, K, k, n01[first_t ? k : K + k], tk, first_t ? m0 : m1, L, bits,
-                  kmax, quad, table, lite + c, max_cells, kb, im, nc, s);
-        kcell[c] = kb;
+      __syncthreads();
+      const int n_listed = s_listed;
+      for (int i = tid; i < n_listed; i += kBlock) {
+        const int c = listed[i], tt = c / K, k = c - tt * K;
+        int s;
+        pool_costs(kw, g, K, k, ncl[c], kcell[c], tkeys + kKeys * tt, L, bits, kmax, quad,
+                   lite + c, max_cells, s, pc);
+        sfull[c] = s;
+      }
+    } else {
+      for (int c = tid, tt = tid / K, k = tid % K; c < cells;
+           c += kBlock, tt += step_t, k += step_k) {
+        if (k >= K) {
+          k -= K;
+          ++tt;
+        }
+        const bool first_t = t0 + tt == 0;
+        const Key* tk = tkeys + kKeys * tt;
+        const float p_win = kw[kPWin * K + k];
+        int im = 0;
+        if (first_t) {
+          const int n0 = n01[k];
+          if (n0 != 0) im = binomial_walk(lane_uniform(tk[0], k, bits), n0, p_win, m0, table);
+        } else {
+          const int n1 = n01[K + k];
+          if (n1 != 0) {
+            const int cnt = min(ladder_count(ladder + k, K, m1, lane_uniform(tk[0], k, bits)), n1);
+            im = p_win > 0.5f ? n1 - cnt : cnt;
+          }
+        }
+        // an explicit cell without impressions still flips one phantom
+        // candidate
+        const int candidates = kModel == kImplicit ? im : max(im, 1);
+        int nc = 0, s = 0;
+        if (candidates != 0) {
+          nc = binomial_walk(lane_uniform(tk[1], k, bits), candidates, kw[kBctr * K + k],
+                             first_t ? m0 : m1, table);
+        }
+        if (nc != 0 && im == 0) {  // phantom clicks: no spend, lite lanes 0
+          for (int l = 0; l < L; ++l) lite[l * max_cells + c] = 0;
+        } else if (nc != 0) {
+          s = agg_cost(nc, kw[kMu * K + k], kw[kSigma * K + k], kw[kCmax * K + k],
+                       xla_normal(tk[2], k));
+          if (kModel == kImplicit) {
+            const float loc = kw[kLoc * K + k], scale = kw[kScale * K + k];
+            const float f_lo = kw[kFLo * K + k], f_hi = kw[kFHi * K + k];
+            for (int l = 0; l < L; ++l) {
+              const float u = lane_uniform(tk[3], static_cast<uint32_t>(l * K + k), bits);
+              lite[l * max_cells + c] = lane_cost(u, loc, scale, f_lo, f_hi);
+            }
+          } else {
+            const float bid = kw[kBidLite * K + k];
+            for (int l = 0; l < L; ++l) {
+              lite[l * max_cells + c] = explicit_cost(
+                  kModel == kExplicitRust,
+                  xla_normal_erfinv(tk[3], static_cast<uint32_t>(l * K + k)), bid);
+            }
+          }
+        }
         imp[c] = im;
         ncl[c] = nc;
         sfull[c] = s;
-        continue;
       }
-      const float p_win = kw[kPWin * K + k];
-      int im = 0;
-      if (first_t) {
-        const int n0 = n01[k];
-        if (n0 != 0) im = binomial_walk(lane_uniform(tk[0], k, bits), n0, p_win, m0, table);
-      } else {
-        const int n1 = n01[K + k];
-        if (n1 != 0) {
-          const int cnt = min(ladder_count(ladder + k, K, m1, lane_uniform(tk[0], k, bits)), n1);
-          im = p_win > 0.5f ? n1 - cnt : cnt;
-        }
-      }
-      // an explicit cell without impressions still flips one phantom
-      // candidate
-      const int candidates = kModel == kImplicit ? im : max(im, 1);
-      int nc = 0, s = 0;
-      if (candidates != 0) {
-        nc = binomial_walk(lane_uniform(tk[1], k, bits), candidates, kw[kBctr * K + k],
-                           first_t ? m0 : m1, table);
-      }
-      if (nc != 0 && im == 0) {  // phantom clicks: no spend, lite lanes 0
-        for (int l = 0; l < L; ++l) lite[l * max_cells + c] = 0;
-      } else if (nc != 0) {
-        s = agg_cost(nc, kw[kMu * K + k], kw[kSigma * K + k], kw[kCmax * K + k],
-                     xla_normal(tk[2], k));
-        if (kModel == kImplicit) {
-          const float loc = kw[kLoc * K + k], scale = kw[kScale * K + k];
-          const float f_lo = kw[kFLo * K + k], f_hi = kw[kFHi * K + k];
-          for (int l = 0; l < L; ++l) {
-            const float u = lane_uniform(tk[3], static_cast<uint32_t>(l * K + k), bits);
-            lite[l * max_cells + c] = lane_cost(u, loc, scale, f_lo, f_hi);
-          }
-        } else {
-          const float bid = kw[kBidLite * K + k];
-          for (int l = 0; l < L; ++l) {
-            lite[l * max_cells + c] = explicit_cost(
-                kModel == kExplicitRust,
-                xla_normal_erfinv(tk[3], static_cast<uint32_t>(l * K + k)), bid);
-          }
-        }
-      }
-      imp[c] = im;
-      ncl[c] = nc;
-      sfull[c] = s;
     }
     __syncthreads();
     lap(1);
@@ -818,7 +925,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     // nothing read here, and its tables wait for the barrier after them
     const int end = s_end;
     const long long row = (static_cast<long long>(e) * T + t0) * K;
-    for (int c = tid; c < end; c += kThreads) {
+    for (int c = tid; c < end; c += kBlock) {
       imp_out[row + c] = imp[c];
       acc_out[row + c] = ncl[c];
       spend_out[row + c] = sfull[c];
@@ -834,6 +941,9 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 #ifdef AGG_STAGE_CLOCKS
     for (int i = 0; i < kStages; ++i) atomicAdd(&g_stage_clocks[i], spent[i]);
     atomicAdd(&g_stage_clocks[kStages], 1ull);
+    if (kIsPool) {
+      for (int i = 0; i < kPoolParts; ++i) atomicAdd(&g_pool_clocks[i], pc.v[i]);
+    }
 #endif
   }
 }
@@ -1146,7 +1256,7 @@ cudaError_t cells_gate_occupancy(int model, int chunk_t, int K, int m0, int m1, 
   err = cells_gate_configure(device);
   if (err != cudaSuccess) return err;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, cells_gate_kernel(model), kThreads, smem);
+      blocks_per_sm, cells_gate_kernel(model), cells_gate_threads(model), smem);
 }
 
 // Lets agg_outcomes blocks take `smem` bytes of dynamic shared memory: past
@@ -1196,7 +1306,7 @@ int agg_cells_gate_launch(const float* params, const int* n_auc01, const long lo
   if (model == kExplicitRust) kernel = agg_cells_gate_kernel<kExplicitRust>;
   if (model == kExplicitPython) kernel = agg_cells_gate_kernel<kExplicitPython>;
   if (model == kPool) kernel = agg_cells_gate_kernel<kPool>;
-  kernel<<<E, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<E, cells_gate_threads(model), smem, static_cast<cudaStream_t>(stream)>>>(
       params, n_auc01, keys, key_stride, budget_c, imp, acc, spend, n_sim, consts_out, E, K, T,
       m0, m1, L, bits, chunk_t, cost_grid, quad, kmax, cent_bids);
   return static_cast<int>(cudaGetLastError());
@@ -1266,6 +1376,11 @@ int agg_cells_gate_stage_clocks(int device, unsigned long long* out) {
 
 int agg_outcomes_stage_clocks(int device, unsigned long long* out) {
   return take_clocks(device, g_outcomes_clocks, sizeof(g_outcomes_clocks), out);
+}
+
+// The pool instance's stage A clocks by part (g_pool_clocks), as above.
+int agg_cells_gate_pool_clocks(int device, unsigned long long* out) {
+  return take_clocks(device, g_pool_clocks, sizeof(g_pool_clocks), out);
 }
 #endif
 

@@ -222,6 +222,65 @@ __device__ int binomial_inversion(Key key, const BinomialElem (&el)[R], const ui
   return passes;
 }
 
+// BTRS's constants of an element with count `count` and q (both loops'
+// own: the bound's first term is loop-invariant, hoisted by XLA and
+// rounded)
+struct BtrsConsts {
+  float count, b, a, c, vr, r, alpha, cm1, t1, sm, scm;
+};
+
+__device__ __forceinline__ BtrsConsts btrs_consts(float count, float q) {
+  BtrsConsts k;
+  const float omq = __fsub_rn(1.0f, q);
+  const float stddev = sqrtf(__fmul_rn(__fmul_rn(count, q), omq));
+  const float b = fma32(stddev, F32(2.53), F32(1.15));
+  const float r = __fdiv_rn(q, omq);
+  const float m = floorf(__fmul_rn(__fadd_rn(count, 1.0f), q));
+  const float cm1 = __fadd_rn(__fsub_rn(count, m), 1.0f);  // count - m + 1
+  k.count = count;
+  k.b = b;
+  k.a = fma32(q, F32(0.01), fma32(b, F32(0.0248), F32(-0.0873)));
+  k.c = fma32(count, q, 0.5f);
+  k.vr = __fsub_rn(F32(0.92), __fdiv_rn(F32(4.2), b));
+  k.r = r;
+  k.alpha = __fmul_rn(__fadd_rn(F32(2.83), __fdiv_rn(F32(5.1), b)), stddev);
+  k.cm1 = cm1;
+  k.t1 = __fmul_rn(__fadd_rn(m, 0.5f), xla_log(__fdiv_rn(__fadd_rn(m, 1.0f), __fmul_rn(r, cm1))));
+  k.sm = stirling_tail(m);
+  k.scm = stirling_tail(__fsub_rn(count, m));
+  return k;
+}
+
+// The same constants where binomial_btrs keeps them, a slot's fields in
+// the warp's shared memory, each read where the test uses it
+struct BtrsSlot {
+  const float &count, &b, &a, &c, &vr, &r, &alpha, &cm1, &t1, &sm, &scm;
+};
+
+// One BTRS pass of an element with constants e (BtrsConsts or BtrsSlot):
+// its draw k from the pass's subkeys (s0, s1) at counter ctr, and whether
+// it accepts
+template <class Consts>
+__device__ __forceinline__ bool btrs_accept(const Consts& e, Key s0, Key s1, uint32_t ctr,
+                                            float& k) {
+  const float u = __fsub_rn(uniform32(bits32(s0, ctr)), 0.5f);
+  const float v = uniform32(bits32(s1, ctr));
+  const float us = __fsub_rn(0.5f, fabsf(u));
+  const bool accept1 = us >= F32(0.07) && v <= e.vr;
+  k = floorf(fma32(__fadd_rn(__fdiv_rn(__fmul_rn(2.0f, e.a), us), e.b), u, e.c));
+  const bool reject = k < 0.0f || k > e.count;
+  const float vl = xla_log(__fdiv_rn(__fmul_rn(v, e.alpha),
+                                     __fadd_rn(__fdiv_rn(e.a, __fmul_rn(us, us)), e.b)));
+  const float ck1 = __fadd_rn(__fsub_rn(e.count, k), 1.0f);  // count - k + 1
+  float ub = fma32(__fadd_rn(k, 0.5f), xla_log(__fdiv_rn(__fmul_rn(e.r, ck1), __fadd_rn(k, 1.0f))),
+                   fma32(__fadd_rn(e.count, 1.0f), xla_log(__fdiv_rn(e.cm1, ck1)), e.t1));
+  ub = __fadd_rn(ub, e.sm);
+  ub = __fadd_rn(ub, e.scm);
+  ub = __fsub_rn(ub, stirling_tail(k));
+  ub = __fsub_rn(ub, stirling_tail(__fsub_rn(e.count, k)));
+  return accept1 || (!reject && vl <= ub);
+}
+
 // BTRS's per-slot state in a warp's shared memory: field f of slot r of
 // lane l at (f R + r) 32 + l
 enum {
@@ -250,25 +309,17 @@ __device__ int binomial_btrs(Key key, const BinomialElem (&el)[R], const uint32_
   }
 #pragma unroll 1
   for (int r = 0; r < R; ++r) {
-    const float count = at(kBtCount, r), q = at(kBtR, r);
-    const float omq = __fsub_rn(1.0f, q);
-    const float stddev = sqrtf(__fmul_rn(__fmul_rn(count, q), omq));
-    const float b = fma32(stddev, F32(2.53), F32(1.15));
-    const float r_ = __fdiv_rn(q, omq);
-    const float m = floorf(__fmul_rn(__fadd_rn(count, 1.0f), q));
-    const float cm1 = __fadd_rn(__fsub_rn(count, m), 1.0f);  // count - m + 1
-    at(kBtB, r) = b;
-    at(kBtA, r) = fma32(q, F32(0.01), fma32(b, F32(0.0248), F32(-0.0873)));
-    at(kBtC, r) = fma32(count, q, 0.5f);
-    at(kBtVr, r) = __fsub_rn(F32(0.92), __fdiv_rn(F32(4.2), b));
-    at(kBtR, r) = r_;
-    at(kBtAlpha, r) = __fmul_rn(__fadd_rn(F32(2.83), __fdiv_rn(F32(5.1), b)), stddev);
-    at(kBtCm1, r) = cm1;
-    // the bound's first term: loop-invariant, hoisted by XLA and rounded
-    at(kBtT1, r) = __fmul_rn(__fadd_rn(m, 0.5f),
-                             xla_log(__fdiv_rn(__fadd_rn(m, 1.0f), __fmul_rn(r_, cm1))));
-    at(kBtSm, r) = stirling_tail(m);
-    at(kBtScm, r) = stirling_tail(__fsub_rn(count, m));
+    const BtrsConsts e = btrs_consts(at(kBtCount, r), at(kBtR, r));
+    at(kBtB, r) = e.b;
+    at(kBtA, r) = e.a;
+    at(kBtC, r) = e.c;
+    at(kBtVr, r) = e.vr;
+    at(kBtR, r) = e.r;
+    at(kBtAlpha, r) = e.alpha;
+    at(kBtCm1, r) = e.cm1;
+    at(kBtT1, r) = e.t1;
+    at(kBtSm, r) = e.sm;
+    at(kBtScm, r) = e.scm;
     at(kBtOut, r) = -1.0f;
     at(kBtAccepted, r) = at(kBtInCall, r) != 0.0f ? 0.0f : 1.0f;
   }
@@ -286,28 +337,12 @@ __device__ int binomial_btrs(Key key, const BinomialElem (&el)[R], const uint32_
     key = child(key, 0);
 #pragma unroll 1
     for (int r = 0; r < R; ++r) {
-      const uint32_t c = __float_as_uint(at(kBtCtr, r));
-      const float count = at(kBtCount, r), a = at(kBtA, r), b = at(kBtB, r);
-      const float u = __fsub_rn(uniform32(bits32(s0, c)), 0.5f);
-      const float v = uniform32(bits32(s1, c));
-      const float us = __fsub_rn(0.5f, fabsf(u));
-      const bool accept1 = us >= F32(0.07) && v <= at(kBtVr, r);
-      const float k =
-          floorf(fma32(__fadd_rn(__fdiv_rn(__fmul_rn(2.0f, a), us), b), u, at(kBtC, r)));
-      const bool reject = k < 0.0f || k > count;
-      const float vl = xla_log(__fdiv_rn(__fmul_rn(v, at(kBtAlpha, r)),
-                                         __fadd_rn(__fdiv_rn(a, __fmul_rn(us, us)), b)));
-      const float ck1 = __fadd_rn(__fsub_rn(count, k), 1.0f);  // count - k + 1
-      float ub = fma32(__fadd_rn(k, 0.5f),
-                       xla_log(__fdiv_rn(__fmul_rn(at(kBtR, r), ck1), __fadd_rn(k, 1.0f))),
-                       fma32(__fadd_rn(count, 1.0f), xla_log(__fdiv_rn(at(kBtCm1, r), ck1)),
-                             at(kBtT1, r)));
-      ub = __fadd_rn(ub, at(kBtSm, r));
-      ub = __fadd_rn(ub, at(kBtScm, r));
-      ub = __fsub_rn(ub, stirling_tail(k));
-      ub = __fsub_rn(ub, stirling_tail(__fsub_rn(count, k)));
-      const bool accept = at(kBtInCall, r) != 0.0f && (accept1 || (!reject && vl <= ub));
-      if (accept) {
+      const BtrsSlot e{at(kBtCount, r), at(kBtB, r),     at(kBtA, r),   at(kBtC, r),
+                       at(kBtVr, r),    at(kBtR, r),     at(kBtAlpha, r), at(kBtCm1, r),
+                       at(kBtT1, r),    at(kBtSm, r),    at(kBtScm, r)};
+      float k;
+      const bool accept = btrs_accept(e, s0, s1, __float_as_uint(at(kBtCtr, r)), k);
+      if (at(kBtInCall, r) != 0.0f && accept) {
         at(kBtOut, r) = k;
         at(kBtAccepted, r) = 1.0f;
       }
@@ -403,6 +438,149 @@ __device__ BinomialPasses binomial_warp(Key key, int K, Load load, Store store,
       }
     }
   }
+  return out;
+}
+
+// The subkeys of one lane's BTRS passes, pass p's (s0, s1) being split(key_p,
+// 3)[1:] and key_{p + 1} split(key_p, 3)[0]: the first kLanePassCap passes'
+// in the lane's table in shared memory (entry i at table[i * 32], so that
+// the lanes of a warp read neighbouring words), a later pass's walked from
+// the chain (a test builds a cap of 1, -DLANE_PASS_CAP=1, to reach the walk)
+#ifndef LANE_PASS_CAP
+#define LANE_PASS_CAP 8
+#endif
+constexpr int kLanePassCap = LANE_PASS_CAP;
+
+struct LanePassKeys {
+  Key* table;  // this lane's 2 kLanePassCap entries
+  Key tail;    // key_{kLanePassCap}
+
+  __device__ void fill(Key key) {
+    for (int p = 0; p < kLanePassCap; ++p) {
+      table[2 * p * 32] = child(key, 1);
+      table[(2 * p + 1) * 32] = child(key, 2);
+      key = child(key, 0);
+    }
+    tail = key;
+  }
+
+  __device__ void get(int p, Key& s0, Key& s1) const {
+    if (p < kLanePassCap) {
+      s0 = table[2 * p * 32];
+      s1 = table[(2 * p + 1) * 32];
+      return;
+    }
+    Key key = tail;
+    for (int i = kLanePassCap; i < p; ++i) key = child(key, 0);
+    s0 = child(key, 1);
+    s1 = child(key, 2);
+  }
+};
+
+// One jax.random.binomial call of K elements keyed by `key` on the calling
+// lane alone: binomial_warp's draws in another order, for calls too many
+// and too alike to give a warp each (lanes_counts' pool instance runs its
+// bidders' calls so, one lane per (env, t)). load(j) gives element j's (n,
+// p), store(j, x) takes its draw; `keys` holds the lane's pass subkeys.
+//
+// An inversion element's draw depends on its own words alone, so each
+// walks its own passes (key_{i + 1}, sub = split(key_i)). A BTRS element's
+// draw is its k at the last pass below the call's pass count P in which it
+// accepts, and P is one past the latest pass at which an element of the
+// call (an inversion one as a dummy) first accepts. So BTRS is two sweeps
+// of the elements, each element tried only until an accept: forward from
+// pass 0 to its first accept, whose latest gives P; then backward from
+// pass P - 1 to its first accept from the top (one exists: its forward
+// accept). An element is tried about 2 / (acceptance rate) times, not P
+// times, and a lane idles on no other element. The sweeps are flat loops
+// (one try an iteration, element and pass in registers), so the lanes of
+// a warp stay busy until each has tried its own call's elements; the BTRS
+// constants are recomputed only where an element's (count, q) differs from
+// the one before it (the pool's keywords share theirs).
+template <class Load, class Store>
+__device__ BinomialPasses binomial_lane(Key key, int K, Load load, Store store,
+                                        LanePassKeys& keys) {
+  BinomialPasses out;
+  const auto elem = [&](int j) {
+    const float2 np = load(j);
+    return binomial_elem(np.x, np.y, true);
+  };
+  unsigned long long t0 = stage_clock();
+  bool any_btrs = false;
+#pragma unroll 1
+  for (int j = 0; j < K; ++j) {
+    const BinomialElem el = elem(j);
+    if (!el.use_inversion) {
+      any_btrs = true;
+      continue;
+    }
+    float draw = -1.0f;  // num_geom - 1 of an element that never draws
+    if (0.0f <= el.count) {
+      const float log1mq = xla_log1p(-el.q);
+      Key chain = key;
+      float sum = 0.0f, num = 0.0f;
+      do {
+        const Key sub = child(chain, 0);
+        chain = child(chain, 1);
+        sum = __fadd_rn(sum, ceilf(__fdiv_rn(xla_log(uniform32(bits32(sub, j))), log1mq)));
+        num = __fadd_rn(num, 1.0f);
+      } while (sum <= el.count);
+      draw = __fsub_rn(num, 1.0f);
+      out.inversion = max(out.inversion, static_cast<int>(num));
+    }
+    store(j, binomial_finish(el, draw, 0.0f));
+  }
+  out.inversion_clocks = stage_clock() - t0;
+  if (!any_btrs) return out;
+  t0 = stage_clock();
+  keys.fill(key);
+  BtrsConsts c;
+  float c_count = -1.0f, c_q = -1.0f;
+  const auto consts_of = [&](const BinomialElem& el) {
+    const float count = el.use_inversion ? 1e4f : el.count;
+    const float q = el.use_inversion ? 0.5f : el.q;
+    if (count != c_count || q != c_q) {
+      c = btrs_consts(count, q);
+      c_count = count;
+      c_q = q;
+    }
+  };
+  int P = 0;
+#pragma unroll 1
+  for (int j = 0, p = 0; j < K;) {
+    consts_of(elem(j));
+    Key s0, s1;
+    keys.get(p, s0, s1);
+    float k;
+    if (btrs_accept(c, s0, s1, static_cast<uint32_t>(j), k)) {
+      P = max(P, p + 1);
+      ++j;
+      p = 0;
+    } else {
+      ++p;
+    }
+  }
+#pragma unroll 1
+  for (int j = 0, p = P - 1; j < K;) {
+    const BinomialElem el = elem(j);
+    if (el.use_inversion) {  // its draw is the inversion walk's
+      ++j;
+      continue;
+    }
+    consts_of(el);
+    Key s0, s1;
+    keys.get(p, s0, s1);
+    float k;
+    if (btrs_accept(c, s0, s1, static_cast<uint32_t>(j), k)) {
+      store(j, binomial_finish(el, 0.0f, k));
+      ++j;
+      p = P - 1;
+    } else {
+      --p;
+    }
+  }
+  out.btrs = P;
+  out.btrs_clocks = stage_clock() - t0;
   return out;
 }
 

@@ -18,7 +18,9 @@
 //   (binomial.cuh), or the inverse-CDF walk (sampler "inversion"); its
 //   explicit instance replaces explicit_auction's impressions (auction.py:
 //   209, the threshold sigmoid's rate) and draws the clicks over max(imp,
-//   1) candidates (the phantom click);
+//   1) candidates (the phantom click); its pool instance's bidders' calls
+//   (implicit_pool_auction, auction.py:164) run before it in a kernel of
+//   their own, one lane per call (lanes_bidders_kernel);
 // * lanes_gate replaces the cost lanes (implicit_single_auction's truncated
 //   Laplace, in cents) and the budget gate over the T K cells in (t, k)
 //   order (_gate_keywords, step.py:115; the lazy and Jacobi TPU schedules
@@ -110,6 +112,8 @@ constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr int kCountsWarps = 4;       // (env, t) calls per lanes_counts block, one warp each
 constexpr int kMaxSlots = 4;          // R, the slots a lane holds of a group of 32 R elements
 constexpr int kCountsBlocks = 5;      // lanes_counts blocks per SM its registers are capped for
+constexpr int kBiddersWarps = 4;      // warps of a lanes_bidders block, each 32 (env, t) calls
+constexpr int kBiddersBlocks = 6;     // lanes_bidders blocks per SM its registers are capped for
 constexpr int kGateWarps = 4;         // envs per lanes_gate block, one warp each
 constexpr int kGateCap = 256;         // cost lanes of a window, a warp's shared buffer
 constexpr int kOutWarps = 4;          // warps of a lanes_outcomes block, one env
@@ -177,7 +181,14 @@ enum {
   kFloatBroken,         // days broken
   kFloatRuns,           // runs of cells decided by one ballot
   kFloatRedrawn,        // cells whose lanes were drawn alone, the budget having grown
-  kNumStats
+  // lanes_counts per call, three each (the bidders', the impressions' and
+  // the clicks' call): SM clocks of the whole call, its inversion loop's
+  // passes, its BTRS loop's passes and clocks
+  kCallClocks,
+  kCallInvPasses = kCallClocks + 3,
+  kCallBtrsPasses = kCallInvPasses + 3,
+  kCallBtrsClocks = kCallBtrsPasses + 3,
+  kNumStats = kCallBtrsClocks + 3
 };
 
 #ifdef LANES_STAGE_CLOCKS
@@ -223,7 +234,14 @@ __device__ __forceinline__ float win_prob(float bid, float loc, float scale) {
                1.0f);
 }
 
-__device__ __forceinline__ void count_passes(Stats& st, const BinomialPasses& p) {
+// a call's passes and clocks; `which` 0 the bidders' call, 1 the
+// impressions', 2 the clicks'
+__device__ __forceinline__ void count_passes(Stats& st, const BinomialPasses& p, int which,
+                                             unsigned long long clocks) {
+  st.add(kCallClocks + which, clocks);
+  st.add(kCallInvPasses + which, p.inversion);
+  st.add(kCallBtrsPasses + which, p.btrs);
+  st.add(kCallBtrsClocks + which, p.btrs_clocks);
   st.add(kCountsCalls, 1);
   st.add(kCountsInvClocks, p.inversion_clocks);
   st.add(kCountsBtrsClocks, p.btrs_clocks);
@@ -249,9 +267,10 @@ enum { kCountsImplicit, kCountsExplicit, kCountsPool };
 // impression rate from the threshold sigmoid of the bid and draws the
 // clicks over max(impressions, 1) candidates (the phantom click). The
 // pool's (implicit_pool_auction: k_bidders, k_imp, k_cost = split(k_auc,
-// 3)) first draws each keyword's bidder count into kout, by a call of its
-// own (exact) or one uniform against its ladder of kmax levels (the
-// walk), then the impressions at F(bid)^k (1 at k = 0).
+// 3)) draws its impressions at F(bid)^k (1 at k = 0) for each keyword's
+// bidder count k in kout: under the exact sampler the bidders' calls ran
+// before, in lanes_bidders_kernel; under "inversion" it draws them here,
+// one uniform against the keyword's ladder of kmax levels (the walk).
 template <int R, int kMode>
 __global__ void __launch_bounds__(32 * kCountsWarps, kCountsBlocks)
     lanes_counts_kernel(const float* __restrict__ params, const int* __restrict__ n_auc01,
@@ -298,34 +317,34 @@ __global__ void __launch_bounds__(32 * kCountsWarps, kCountsBlocks)
   int* ncl_row = ncl + call * K;
   int* k_row = kPool ? kout + call * K : nullptr;
   if (exact) {
-    // the pool's bidders' call, the impressions' call, then the clicks' on
-    // them, through one copy of the binomial's code; a lane reads back
-    // only the draws it wrote: each call's from its registers (prev, its
-    // slots' loads all come before their stores) or, past one group, from
-    // the row
+    // the impressions' call, then the clicks' on them, through one copy of
+    // the binomial's code; a lane reads back only the draws it wrote: the
+    // impressions from its registers (prev, its slots' loads all come
+    // before their stores) or, past one group, from the row
     __shared__ float loop_state[kCountsWarps][kBtFields * R * 32];
     int prev[R];
     const bool one_group = K <= 32 * R;
 #pragma unroll 1
-    for (int which = kPool ? 0 : 1; which < 3; ++which) {
-      int* row = which == 0 ? k_row : which == 1 ? imp_row : ncl_row;
-      const Key key = which == 0 ? k_bidders : which == 1 ? k_imp : k_click;
-      count_passes(st, binomial_warp<R>(
+    for (int which = 1; which < 3; ++which) {
+      int* row = which == 1 ? imp_row : ncl_row;
+      const Key key = which == 1 ? k_imp : k_click;
+      const unsigned long long call_start = stage_clock();
+      const BinomialPasses passes = binomial_warp<R>(
           key, K,
           [&](int k, int r) {
-            if (which == 0) return make_float2(max_bidders[k], participation[k]);
             if (which == 2) {
               return make_float2(static_cast<float>(candidates(one_group ? prev[r] : imp_row[k])),
                                  bctr[k]);
             }
-            const float p = kPool ? pool_rate(k, one_group ? prev[r] : k_row[k]) : rate(k);
+            const float p = kPool ? pool_rate(k, k_row[k]) : rate(k);
             return make_float2(static_cast<float>(n_row[k]), p);
           },
           [&](int k, int r, int x) {
             prev[r] = x;
             row[k] = x;
           },
-          loop_state[threadIdx.x / 32]));
+          loop_state[threadIdx.x / 32]);
+      count_passes(st, passes, which, stage_clock() - call_start);
     }
   } else {
     const int m = t == 0 ? m0 : m1;
@@ -347,6 +366,38 @@ __global__ void __launch_bounds__(32 * kCountsWarps, kCountsBlocks)
   }
   st.add(kCountsClocks, stage_clock() - start);
   st.flush(lane);
+}
+
+// The pool instance's bidders' calls under the exact sampler
+// (implicit_pool_auction's Binomial(max_bidders, participation) per (env,
+// t), keyed by k_bidders): one lane per call, each call whole on its lane
+// (binomial_lane), the counts into kout for lanes_counts_kernel. A
+// warp's lockstep call ran every element through each of the call's P
+// BTRS passes, over 32 ceil(K / 32) slots (at the pool's default, n q = 12
+// puts every element in BTRS: 4.5 passes of 128 slots at K = 100); here an
+// element is tried about 2.4 times, and 32 calls fill a warp.
+__global__ void __launch_bounds__(32 * kBiddersWarps, kBiddersBlocks)
+    lanes_bidders_kernel(const float* __restrict__ params, const long long* __restrict__ keys,
+                         long long key_stride, int* __restrict__ kout, int E, int K, int T) {
+  __shared__ Key pass_keys[kBiddersWarps][2 * kLanePassCap][32];
+  const long long call = static_cast<long long>(blockIdx.x) * (32 * kBiddersWarps) + threadIdx.x;
+  if (call >= static_cast<long long>(E) * T) return;
+  const unsigned long long start = stage_clock();
+  Stats st;
+  const int e = static_cast<int>(call / T), t = static_cast<int>(call % T);
+  const long long EK = static_cast<long long>(E) * K;
+  const long long eK = static_cast<long long>(e) * K;
+  const Key kt = child(load_key(keys, key_stride, e), static_cast<uint32_t>(t));
+  const Key k_bidders = child(child(kt, 0), 0);
+  const float* max_bidders = params + MAX_BIDDERS * EK + eK;
+  const float* participation = params + PARTICIPATION * EK + eK;
+  int* k_row = kout + call * K;
+  LanePassKeys pass{&pass_keys[threadIdx.x / 32][0][threadIdx.x % 32], Key{0u, 0u}};
+  const BinomialPasses passes = binomial_lane(
+      k_bidders, K, [&](int k) { return make_float2(max_bidders[k], participation[k]); },
+      [&](int k, int x) { k_row[k] = x; }, pass);
+  count_passes(st, passes, 0, stage_clock() - start);
+  st.flush(0);  // every lane its own call's
 }
 
 // Dynamic shared memory of a lanes_gate block: per warp the T cost keys
@@ -1540,7 +1591,9 @@ cudaError_t outcomes_plan(int K, int T, int device, bool* tables, size_t* smem) 
 // for the inverse-CDF walk on `bits`-bit uniforms. lanes_counts_explicit_launch
 // runs the explicit instance, with the same arguments; lanes_counts_pool_launch
 // the pool's, which also writes the bidder counts kout (E, T, K), its ladder
-// kmax levels, F(bid) with cent_bids as the env's program computes it.
+// kmax levels, F(bid) with cent_bids as the env's program computes it;
+// under the exact sampler it is two launches, lanes_bidders_kernel's
+// bidders' calls, then lanes_counts_kernel's impressions and clicks.
 template <int kMode>
 int counts_launch(const float* params, const int* n_auc01, const long long* keys,
                   long long key_stride, int* imp, int* ncl, int* kout, int E, int K, int T,
@@ -1555,6 +1608,14 @@ int counts_launch(const float* params, const int* n_auc01, const long long* keys
   const long long calls = static_cast<long long>(E) * T;
   const unsigned blocks = static_cast<unsigned>((calls + kCountsWarps - 1) / kCountsWarps);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kMode == kCountsPool && exact) {
+    constexpr int threads = 32 * kBiddersWarps;
+    const unsigned bidder_blocks = static_cast<unsigned>((calls + threads - 1) / threads);
+    lanes_bidders_kernel<<<bidder_blocks, threads, 0, s>>>(params, keys, key_stride, kout, E, K,
+                                                            T);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   const int slots = K < 32 * kMaxSlots ? (K + 31) / 32 : kMaxSlots;
   static_assert(kMaxSlots == 4, "one instance per slot count");
   switch (slots) {
@@ -1699,15 +1760,16 @@ int lanes_gate_float_pool_launch(const float* params, const long long* keys, lon
 }
 
 // Resident blocks per SM of the cost model's (0 implicit, 1 rust, 2
-// python, 3 the pool) lanes_counts instance (at K keywords), its gate
+// python, 3 the pool) lanes_counts instance (at K keywords; the pool's
+// lanes_bidders_kernel too, else 0), its gate
 // (lanes_gate's instance, or for the rust model and the pool
 // lanes_gate_float's, at T sub-timesteps)
 // and lanes_outcomes (at K and T), and the gate's and lanes_outcomes'
 // dynamic shared memory per block; *out_tables is 1 where lanes_outcomes
 // keeps its tables in shared memory.
-int lanes_day_occupancy(int model, int K, int T, int device, int* counts_blocks, int* gate_blocks,
-                        long long* gate_smem_bytes, int* out_blocks, long long* out_smem_bytes,
-                        int* out_tables) {
+int lanes_day_occupancy(int model, int K, int T, int device, int* counts_blocks,
+                        int* bidders_blocks, int* gate_blocks, long long* gate_smem_bytes,
+                        int* out_blocks, long long* out_smem_bytes, int* out_tables) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int slots = K < 32 * kMaxSlots ? (K + 31) / 32 : kMaxSlots;
@@ -1729,6 +1791,12 @@ int lanes_day_occupancy(int model, int K, int T, int device, int* counts_blocks,
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(counts_blocks, counts[counts_mode][slots - 1],
                                                       32 * kCountsWarps, 0);
   if (err != cudaSuccess) return static_cast<int>(err);
+  *bidders_blocks = 0;
+  if (model == 3) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(bidders_blocks, lanes_bidders_kernel,
+                                                        32 * kBiddersWarps, 0);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   const bool float_gate = model == 1 || model == 3;
   const void* gate = model == 1   ? reinterpret_cast<const void*>(lanes_gate_float_kernel<false>)
                      : model == 3 ? reinterpret_cast<const void*>(lanes_gate_float_kernel<true>)

@@ -214,18 +214,21 @@ __device__ float xla_expm1(float x) {
 
 // xla_math.pow: the C library's powf, as XLA's CPU code calls it, for
 // normal x > 0 or 0 (or y 0, or x 1): log2 and exp2 in double precision on its
-// tables, each double operation as the plain version's tensor op
-__constant__ double kPowInvc[16] = {
+// tables, each double operation as the plain version's tensor op. The
+// tables sit in device memory and are read through the L1 (__ldg), a line
+// each (kExp2T two): a warp's lanes index them by their own x and y, and
+// the constant cache serves a warp's differing addresses one at a time.
+__device__ __align__(128) double kPowInvc[16] = {
     0x1.661ec79f8f3bep+0, 0x1.571ed4aaf883dp+0, 0x1.49539f0f010b0p+0, 0x1.3c995b0b80385p+0,
     0x1.30d190c8864a5p+0, 0x1.25e227b0b8ea0p+0, 0x1.1bb4a4a1a343fp+0, 0x1.12358f08ae5bap+0,
     0x1.0953f419900a7p+0, 0x1p+0, 0x1.e608cfd9a47acp-1, 0x1.ca4b31f026aa0p-1,
     0x1.b2036576afce6p-1, 0x1.9c2d163a1aa2dp-1, 0x1.886e6037841edp-1, 0x1.767dcf5534862p-1};
-__constant__ double kPowLogc[16] = {
+__device__ __align__(128) double kPowLogc[16] = {
     -0x1.efec65b963019p-2, -0x1.b0b6832d4fca4p-2, -0x1.7418b0a1fb77bp-2, -0x1.39de91a6dcf7bp-2,
     -0x1.01d9bf3f2b631p-2, -0x1.97c1d1b3b7af0p-3, -0x1.2f9e393af3c9fp-3, -0x1.960cbbf788d5cp-4,
     -0x1.a6f9db6475fcep-5, 0x0p+0, 0x1.338ca9f24f53dp-4, 0x1.476a9543891bap-3,
     0x1.e840b4ac4e4d2p-3, 0x1.40645f0c6651cp-2, 0x1.88e9c2c1b9ff8p-2, 0x1.ce0a44eb17bccp-2};
-__constant__ unsigned long long kExp2T[32] = {
+__device__ __align__(128) unsigned long long kExp2T[32] = {
     0x3FF0000000000000ull, 0x3FEFD9B0D3158574ull, 0x3FEFB5586CF9890Full, 0x3FEF9301D0125B51ull,
     0x3FEF72B83C7D517Bull, 0x3FEF54873168B9AAull, 0x3FEF387A6E756238ull, 0x3FEF1E9DF51FDEE1ull,
     0x3FEF06FE0A31B715ull, 0x3FEEF1A7373AA9CBull, 0x3FEEDEA64C123422ull, 0x3FEECE086061892Dull,
@@ -243,8 +246,8 @@ __device__ float xla_pow(float x, float y) {
   const int i = (tmp >> 19) & 15;
   const int top = tmp & -0x800000;
   const double z = static_cast<double>(__int_as_float(ix - top));
-  const double r = __dadd_rn(__dmul_rn(z, kPowInvc[i]), -1.0);
-  const double y0 = __dadd_rn(kPowLogc[i], static_cast<double>(top >> 23));
+  const double r = __dadd_rn(__dmul_rn(z, __ldg(kPowInvc + i)), -1.0);
+  const double y0 = __dadd_rn(__ldg(kPowLogc + i), static_cast<double>(top >> 23));
   const double r2 = __dmul_rn(r, r);
   const double lo = __dadd_rn(__dmul_rn(0x1.27616c9496e0bp-2, r), -0x1.71969a075c67ap-2);
   const double mid = __dadd_rn(__dmul_rn(0x1.ec70a6ca7baddp-2, r), -0x1.7154748bef6c8p-1);
@@ -256,7 +259,7 @@ __device__ float xla_pow(float x, float y) {
   const long long ki = __double_as_longlong(kd);
   kd = __dsub_rn(kd, shift);
   const double rr = __dsub_rn(ylogx, kd);
-  const double s = __longlong_as_double(static_cast<long long>(kExp2T[ki & 31]) +
+  const double s = __longlong_as_double(static_cast<long long>(__ldg(kExp2T + (ki & 31))) +
                                         ((ki - 0x42E8000000000000ll) << 47));
   const double p = __dadd_rn(__dmul_rn(0x1.c6af84b912394p-5, rr), 0x1.ebfce50fac4f3p-3);
   const double q = __dadd_rn(__dmul_rn(0x1.62e42ff0c52d6p-1, rr), 1.0);

@@ -177,16 +177,11 @@ def _binomial_inversion(keys: torch.Tensor, count: torch.Tensor, q: torch.Tensor
         geom_sum[rows] = g + torch.ceil(xla_math.log(u) / log1mq[rows])
 
 
-def _btrs(keys: torch.Tensor, count: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
-    """``jax.random``'s transformed-rejection sampler (BTRS) for a batch of
-    calls, as ``_binomial_inversion``: a call loops while any element has
-    not accepted, and every pass overwrites the draw of each element that
-    accepts in it (the last accepted pass wins). Each pass: ``key, s0, s1
-    = split(key, 3)``. XLA contracts ``1.15 + 2.53 s``, both products of
-    ``a``, ``count q + 0.5``, ``k``'s ``(...) u + c`` and the bound's
-    second and third log terms into fused multiply-adds (``fma32``), and
-    computes the bound's first term once, before the loop."""
-    K = count.shape[1]
+def _btrs_consts(count: torch.Tensor, q: torch.Tensor) -> tuple:
+    """BTRS's per-element constants (count, b, a, c, v_r, r, alpha, m, t1)
+    for (C, K) counts and q. XLA contracts ``1.15 + 2.53 s``, both products
+    of ``a`` and ``count q + 0.5`` into fused multiply-adds (``fma32``), and
+    computes the bound's first term ``t1`` once, before the loop."""
     stddev = xla_math.sqrt(count * q * (1.0 - q))
     b = fma32(stddev, _c(2.53), _c(1.15))
     a = fma32(q, _c(0.01), fma32(b, _c(0.0248), _c(-0.0873)))
@@ -197,6 +192,38 @@ def _btrs(keys: torch.Tensor, count: torch.Tensor, q: torch.Tensor) -> torch.Ten
     m = torch.floor((count + 1.0) * q)
     # the bound's first term is loop-invariant: XLA hoists it, rounded
     t1 = (m + 0.5) * xla_math.log((m + 1.0) / (r * (count - m + 1.0)))
+    return count, b, a, c, v_r, r, alpha, m, t1
+
+
+def _btrs_pass(consts: tuple, s0: torch.Tensor, s1: torch.Tensor) -> tuple:
+    """One BTRS pass over (C, K) elements with constants ``consts`` (rows
+    of ``_btrs_consts``) and the pass's subkeys s0, s1 (C, 2): each
+    element's draw k and whether it accepts. XLA contracts ``k``'s ``(...)
+    u + c`` and the bound's second and third log terms into fused
+    multiply-adds."""
+    n_, b_, a_, c_, v_r, r_, alpha, m_, t1 = consts
+    K = n_.shape[1]
+    u = prng.uniform(s0, (K,)) - 0.5
+    v = prng.uniform(s1, (K,))
+    us = 0.5 - torch.abs(u)
+    accept1 = (us >= _c(0.07)) & (v <= v_r)
+    k = torch.floor(fma32(2.0 * a_ / us + b_, u, c_))
+    reject = (k < 0) | (k > n_)
+    v = xla_math.log(v * alpha / (a_ / (us * us) + b_))
+    ub = fma32(k + 0.5, xla_math.log(r_ * (n_ - k + 1.0) / (k + 1.0)),
+               fma32(n_ + 1.0, xla_math.log((n_ - m_ + 1.0) / (n_ - k + 1.0)), t1))
+    ub = (ub + _stirling_approx_tail(m_) + _stirling_approx_tail(n_ - m_)
+          - _stirling_approx_tail(k) - _stirling_approx_tail(n_ - k))
+    return k, accept1 | (~reject & (v <= ub))
+
+
+def _btrs(keys: torch.Tensor, count: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """``jax.random``'s transformed-rejection sampler (BTRS) for a batch of
+    calls, as ``_binomial_inversion``: a call loops while any element has
+    not accepted, and every pass overwrites the draw of each element that
+    accepts in it (the last accepted pass wins). Each pass: ``key, s0, s1
+    = split(key, 3)``, then ``_btrs_pass``."""
+    consts = _btrs_consts(count, q)
     k_out = torch.full_like(q, -1.0)
     accepted = torch.zeros_like(q, dtype=torch.bool)
     key = keys.clone()
@@ -205,19 +232,7 @@ def _btrs(keys: torch.Tensor, count: torch.Tensor, q: torch.Tensor) -> torch.Ten
         if rows.numel() == 0:
             return k_out
         key[rows], s0, s1 = prng.split(key[rows], 3).unbind(-2)
-        a_, b_, c_, n_, m_, r_ = (x[rows] for x in (a, b, c, count, m, r))
-        u = prng.uniform(s0, (K,)) - 0.5
-        v = prng.uniform(s1, (K,))
-        us = 0.5 - torch.abs(u)
-        accept1 = (us >= _c(0.07)) & (v <= v_r[rows])
-        k = torch.floor(fma32(2.0 * a_ / us + b_, u, c_))
-        reject = (k < 0) | (k > n_)
-        v = xla_math.log(v * alpha[rows] / (a_ / (us * us) + b_))
-        ub = fma32(k + 0.5, xla_math.log(r_ * (n_ - k + 1.0) / (k + 1.0)),
-                   fma32(n_ + 1.0, xla_math.log((n_ - m_ + 1.0) / (n_ - k + 1.0)), t1[rows]))
-        ub = (ub + _stirling_approx_tail(m_) + _stirling_approx_tail(n_ - m_)
-              - _stirling_approx_tail(k) - _stirling_approx_tail(n_ - k))
-        accept = accept1 | (~reject & (v <= ub))
+        k, accept = _btrs_pass(tuple(x[rows] for x in consts), s0, s1)
         k_out[rows] = torch.where(accept, k, k_out[rows])
         accepted[rows] = accepted[rows] | accept
 

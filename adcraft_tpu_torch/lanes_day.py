@@ -28,7 +28,8 @@ three a day:
   phantom click); for the binomial pool (its pool instance,
   ``implicit_pool_auction``) a bidder-count call comes first (or one
   uniform against the keyword's ladder) and the impressions' rate is
-  ``F(bid)**k``;
+  ``F(bid)**k``; on the card the bidders' calls run first, one lane each,
+  in a kernel of their own (``lanes_bidders_kernel``, from the same call);
 * ``lanes_gate`` (plain: ``lanes_gate_reference``): the cost lanes (in
   cents) of each cell and the sequential gate (``gate_keywords``): accepted
   clicks, spend cents and the simulated cell count ``n_sim``; on the card
@@ -413,11 +414,53 @@ def bind(lib: ctypes.CDLL) -> None:
     lib.lanes_counts_pool_launch.restype = i
     lib.lanes_outcomes_float_launch.argtypes = [p, p, ll, p, p, p, p, p, p, p] + [i] * 6 + [p]
     lib.lanes_outcomes_float_launch.restype = i
-    lib.lanes_day_occupancy.argtypes = [i, i, i, i, p, p, p, p, p, p]
+    lib.lanes_day_occupancy.argtypes = [i, i, i, i, p, p, p, p, p, p, p]
     lib.lanes_day_occupancy.restype = i
 
 
 library = CudaLibrary("lanes_day", bind)
+
+# the counters of lanes_day.cu's build with -DLANES_STAGE_CLOCKS, in its
+# order (g_lanes_stats): lane 0's SM clocks per stage of each warp, the gate
+# walk's cells and windows, the binomial loops' calls and passes, and per
+# lanes_counts call (the bidders', impressions' and clicks') its clocks and
+# its loops' passes
+CALLS = ("bidders", "impressions", "clicks")
+STATS = (
+    "gate keys clocks", "gate stage A clocks", "gate stage B clocks", "gate warps", "windows",
+    "cut windows", "deep cells", "skipped", "redrawn", "cost lanes", "simulated cells", "whole",
+    "passive", "alone whole", "alone passive", "lane-resolved", "inversion clocks",
+    "BTRS clocks", "counts clocks", "calls", "inversion calls", "inversion passes",
+    "inversion max", "BTRS calls", "BTRS passes", "BTRS max", "outcomes prologue clocks",
+    "outcomes tile clocks", "flag step clocks", "revenue step clocks", "erf step clocks",
+    "outcomes write clocks", "outcomes warps", "flag lanes", "revenue lanes", "flag steps",
+    "revenue steps", "partial flag steps", "partial revenue steps", "erf steps", "erf log steps",
+    "partial erf steps", "float stage A clocks", "float stage B clocks", "float warps",
+    "float windows", "float lanes", "float dead", "float no click", "float over", "float whole",
+    "float partial", "float deep", "float broken", "float runs", "float redrawn",
+) + tuple(f"{call} {what}" for what in ("clocks", "inversion passes", "BTRS passes",
+                                        "BTRS clocks") for call in CALLS)
+
+
+def stats_library() -> CudaLibrary:
+    """A second build of ``csrc/lanes_day.cu`` whose kernels also count
+    their stages' clocks, cells, passes, lanes and draw steps
+    (``read_stats``)."""
+
+    def bind_stats(lib):
+        bind(lib)
+        lib.lanes_day_stats.argtypes = [ctypes.c_int, ctypes.c_void_p]
+        lib.lanes_day_stats.restype = ctypes.c_int
+
+    return CudaLibrary("lanes_day", bind_stats, flags=("-DLANES_STAGE_CLOCKS",))
+
+
+def read_stats(stats_lib: CudaLibrary, device_index: int) -> dict:
+    """A ``stats_library`` build's counters summed since the last read, by
+    name (``STATS``); zeroes them."""
+    out = (ctypes.c_ulonglong * len(STATS))()
+    stats_lib.check(stats_lib.get().lanes_day_stats(device_index, out), "lanes_day_stats")
+    return dict(zip(STATS, out))
 
 
 class LanesCounts(_Kernel):
@@ -583,16 +626,19 @@ class LanesOutcomes(_Kernel):
 def occupancy(K: int, lanes: Lanes, device, model: int = IMPLICIT) -> dict:
     """Resident blocks per SM of the cost model's three kernels at K
     keywords and ``lanes.T`` sub-timesteps (its gate ``lanes_gate`` or, for
-    the rust model, ``lanes_gate_float``), the gate's and ``lanes_outcomes``'
-    dynamic shared memory per block in bytes, and whether ``lanes_outcomes``
-    keeps its keyword tables in shared memory (else in device memory)."""
-    counts, gate, out, tables = (ctypes.c_int(0) for _ in range(4))
+    the rust model, ``lanes_gate_float``; for the pool also its bidders'
+    kernel, else 0), the gate's and ``lanes_outcomes``' dynamic shared
+    memory per block in bytes, and whether ``lanes_outcomes`` keeps its
+    keyword tables in shared memory (else in device memory)."""
+    counts, bidders, gate, out, tables = (ctypes.c_int(0) for _ in range(5))
     gate_smem, out_smem = ctypes.c_longlong(0), ctypes.c_longlong(0)
     err = library.get().lanes_day_occupancy(
-        model, K, lanes.T, _index(device), ctypes.byref(counts), ctypes.byref(gate),
-        ctypes.byref(gate_smem), ctypes.byref(out), ctypes.byref(out_smem), ctypes.byref(tables))
+        model, K, lanes.T, _index(device), ctypes.byref(counts), ctypes.byref(bidders),
+        ctypes.byref(gate), ctypes.byref(gate_smem), ctypes.byref(out), ctypes.byref(out_smem),
+        ctypes.byref(tables))
     library.check(err, "lanes_day_occupancy")
-    return {"counts_blocks": counts.value, "gate_blocks": gate.value, "gate_smem": gate_smem.value,
+    return {"counts_blocks": counts.value, "bidders_blocks": bidders.value,
+            "gate_blocks": gate.value, "gate_smem": gate_smem.value,
             "outcomes_blocks": out.value, "outcomes_smem": out_smem.value,
             "outcomes_tables_in_smem": bool(tables.value)}
 

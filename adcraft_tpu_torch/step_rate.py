@@ -34,10 +34,10 @@ participation 0.6 (``pool_keywords``; the table's keywords have one).
 ``--routes`` picks them; each env count runs them
 in turns in one process, forward then backward (pallas, xla, xla,
 pallas by default). With ``--parent-csrc DIR``, each lanes route asked
-for (``lanes``, ``explicit_lanes``) also runs, in its own turn after the
-route's, on the lanes_day kernels built from DIR (another tree's
-``adcraft_tpu_torch/csrc``, such as the parent commit's), to time two
-versions of those kernels in turns.
+for (``lanes``, ``explicit_lanes``, ``pool_lanes``) also runs, in its
+own turn after the route's, on the lanes_day kernels built from DIR
+(another tree's ``adcraft_tpu_torch/csrc``, such as the parent
+commit's), to time two versions of those kernels in turns.
 
     python3 -m adcraft_tpu_torch.step_rate [--envs 1024 4096 8192]
         [--routes pallas xla lanes explicit explicit_lanes pool pool_lanes]
@@ -80,7 +80,7 @@ POOL_MAX_BIDDERS, POOL_PARTICIPATION = 30.0, 0.6
 # competitors that bid Laplace(-0.3, 0.1): most pools' maximum bid is below
 # zero, so clicks cost negative amounts and budgets grow within a day
 SIGNED_LOC, SIGNED_SCALE = -0.3, 0.1
-LANES_ROUTES = ("lanes", "explicit_lanes")
+LANES_ROUTES = ("lanes", "explicit_lanes", "pool_lanes")
 LANES_KERNELS = ("lanes_counts", "lanes_gate", "lanes_gate_float", "lanes_outcomes")
 KERNELS = {"day_kernel": dk.day_kernel, "threefry_words": pk.threefry_words,
            "agg_cells_gate": agg_day.agg_cells_gate, "agg_outcomes": agg_day.agg_outcomes}

@@ -193,7 +193,12 @@ Phases, each fatal on failure:
    just before, one launch of each kernel per day, the agg route's step 0
    equal to the plain versions', envs whose day drew a -inf click cost
    counted (the JAX package's quirk at a 32-bit uniform of 0), CUDA device
-   events, device busy time and idle share per step.
+   events, device busy time and idle share per step; last, the two
+   redesigned pool instances (lanes_counts', agg_cells_gate's) through
+   adcraft_tpu_torch.kernel_turns: blocks per SM, SM clocks per stage and
+   per binomial call from the clocked builds, the agg instance's time by
+   chunk, and with --parent-csrc their times in turns with DIR's build
+   ($1000 and unbound) and the outputs where the two differ.
 With --parent-csrc DIR, then, agg_cells_gate's three instances,
 agg_outcomes (both revenue modes) and threefry_words at full width in
 turns with DIR's build, with the count of outputs where the trees differ.
@@ -463,34 +468,24 @@ THREEFRY_WORDS_PER_STEP_XLA = 4  # split 3, split 2, the volume normal, the drif
 CELL_KEY_BLOCKS = 6
 # ... and per (env, sub-timestep) with a partial cell: k_lanes, k_lite
 PARTIAL_KEY_BLOCKS = 2
-# agg_cells_gate's and agg_outcomes' stages, as their build with
-# -DAGG_STAGE_CLOCKS counts them
-AGG_STAGES = ("prologue and keys", "stage A", "stage B", "stage C")
+# agg_outcomes' stages, as its build with -DAGG_STAGE_CLOCKS counts them
+# (agg_cells_gate's: agg_day.STAGES)
 OUT_STAGES = ("prologue and keys", "cell tiles", "full-queue draws", "tail and writes")
 
 
-def stage_clocked(ad, cuda_build):
+def stage_clocked(ad):
     """A wrapper of agg_cells_gate built with -DAGG_STAGE_CLOCKS: the same
     kernel, whose thread 0 also adds up its SM clocks in each stage."""
-
-    def bind(lib):
-        ad.bind(lib)
-        for fn in (lib.agg_cells_gate_stage_clocks, lib.agg_outcomes_stage_clocks):
-            fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-
-    library = cuda_build.CudaLibrary("agg_day", bind, flags=("-DAGG_STAGE_CLOCKS",))
-    return ad.AggCellsGate("agg_cells_gate (stage clocks)", library)
+    return ad.AggCellsGate("agg_cells_gate (stage clocks)", ad.clocks_library())
 
 
-def read_stage_clocks(clocked, device_index: int, stages=AGG_STAGES):
+def read_stage_clocks(clocked, device_index: int, stages):
     """The stage clocks of ``clocked``'s kernel summed since the last read,
     then the block count."""
-    out = (ctypes.c_ulonglong * (len(stages) + 1))()
-    lib = clocked.library
-    reader = getattr(lib.get(), clocked.name.split()[0] + "_stage_clocks")
-    lib.check(reader(device_index, out), "stage clocks")
-    return list(out)
+    from adcraft_tpu_torch.agg_day import read_clocks
+
+    return read_clocks(clocked.library, clocked.name.split()[0] + "_stage_clocks",
+                       len(stages) + 1, device_index)
 
 
 @contextlib.contextmanager
@@ -678,14 +673,14 @@ def xla_phase(torch, dev, card, table, ops_per_word, int_ops_per_s, fp_ops_per_s
         def clocked_call():
             return clocked(params, n_auc01, k_cells, budget_c, lanes, chunk_t=chunk_t)
 
-        read_stage_clocks(clocked, dev.index)
+        read_stage_clocks(clocked, dev.index, ad.STAGES)
         compare_cells(clocked_call(), want, sim, f"{label}, stage clocks")
-        counts = read_stage_clocks(clocked, dev.index)
+        counts = read_stage_clocks(clocked, dev.index, ad.STAGES)
         per_block = [c / counts[-1] for c in counts[:-1]]
         clocked_ms = cuda_ms(clocked_call, reps=20)
         print(f"  agg_cells_gate stage clocks per block ({label}, -DAGG_STAGE_CLOCKS): "
               + ", ".join(f"{name} {c:.0f} ({100 * c / sum(per_block):.1f}%)"
-                          for name, c in zip(AGG_STAGES, per_block))
+                          for name, c in zip(ad.STAGES, per_block))
               + f"; {clocked_ms:.4f} ms in that build ({card})")
         clocked_out = ad.AggOutcomes("agg_outcomes (stage clocks)", clocked.library)
         for mode in ad.REV_SAMPLING:
@@ -1232,37 +1227,15 @@ REVENUE_LANE_FP = 80
 COUNTS_KEY_BLOCKS, GATE_KEY_BLOCKS, OUTCOME_KEY_BLOCKS = 4, 3, 3
 
 
-# the counters of lanes_day.cu's build with -DLANES_STAGE_CLOCKS, in its
-# order (g_lanes_stats): lane 0's SM clocks per stage of each warp, the gate
-# walk's cells and windows, the binomial loops' calls and passes
-LANES_STATS = (
-    "gate keys clocks", "gate stage A clocks", "gate stage B clocks", "gate warps", "windows",
-    "cut windows", "deep cells", "skipped", "redrawn", "cost lanes", "simulated cells", "whole",
-    "passive", "alone whole", "alone passive", "lane-resolved", "inversion clocks",
-    "BTRS clocks", "counts clocks", "calls", "inversion calls", "inversion passes",
-    "inversion max", "BTRS calls", "BTRS passes", "BTRS max", "outcomes prologue clocks",
-    "outcomes tile clocks", "flag step clocks", "revenue step clocks", "erf step clocks",
-    "outcomes write clocks", "outcomes warps", "flag lanes", "revenue lanes", "flag steps",
-    "revenue steps", "partial flag steps", "partial revenue steps", "erf steps", "erf log steps",
-    "partial erf steps", "float stage A clocks", "float stage B clocks", "float warps",
-    "float windows", "float lanes", "float dead", "float no click", "float over", "float whole",
-    "float partial", "float deep", "float broken", "float runs", "float redrawn",
-)
 FLOAT_KINDS = ("float dead", "float no click", "float over", "float whole", "float partial",
                "float deep")
 
 
-def lanes_stats_build(ld, cuda_build):
+def lanes_stats_build(ld):
     """The three lanes kernels built with -DLANES_STAGE_CLOCKS: the same
     kernels, whose warps also count their stages' clocks, cells, passes,
     lanes and draw steps."""
-
-    def bind(lib):
-        ld.bind(lib)
-        lib.lanes_day_stats.argtypes = [ctypes.c_int, ctypes.c_void_p]
-        lib.lanes_day_stats.restype = ctypes.c_int
-
-    library = cuda_build.CudaLibrary("lanes_day", bind, flags=("-DLANES_STAGE_CLOCKS",))
+    library = ld.stats_library()
     return {"lanes_counts": ld.LanesCounts("lanes_counts (stats)", library),
             "lanes_gate": ld.LanesGate("lanes_gate (stats)", library),
             "lanes_gate_float": ld.LanesGateFloat("lanes_gate_float (stats)", library),
@@ -1271,9 +1244,9 @@ def lanes_stats_build(ld, cuda_build):
 
 def read_lanes_stats(library, device_index: int) -> dict:
     """The counters summed since the last read, by name; zeroes them."""
-    out = (ctypes.c_ulonglong * len(LANES_STATS))()
-    library.check(library.get().lanes_day_stats(device_index, out), "lanes_day_stats")
-    return dict(zip(LANES_STATS, out))
+    from adcraft_tpu_torch.lanes_day import read_stats
+
+    return read_stats(library, device_index)
 
 
 @contextlib.contextmanager
@@ -2252,7 +2225,8 @@ def pool_phase(torch, dev, card, table, ops_per_word, int_ops_per_s, fp_ops_per_
                                         "lanes_gate_float (pool)")
     print(f"{agg_name}: ptxas {kernel_ptxas(ad.library.build_log, 'agg_cells_gate_kernelILi3E')}")
     print(f"{counts_name}: ptxas "
-          f"{kernel_ptxas(ld.library.build_log, 'lanes_counts_kernelILi4ELi2E')}")
+          f"{kernel_ptxas(ld.library.build_log, 'lanes_counts_kernelILi4ELi2E')}; its bidders' "
+          f"kernel {kernel_ptxas(ld.library.build_log, 'lanes_bidders_kernel')}")
     print(f"{gate_name}: ptxas "
           f"{kernel_ptxas(ld.library.build_log, 'lanes_gate_float_kernelILb1E')}")
     max_err = collections.defaultdict(int)
@@ -2356,7 +2330,8 @@ def pool_phase(torch, dev, card, table, ops_per_word, int_ops_per_s, fp_ops_per_
                   f"{ad.agg_cells_gate.occupancy(chunk_t, K, lanes, dev, ad.POOL)} blocks per SM")
         else:
             occ = ld.occupancy(K, lanes, dev, ad.POOL)
-            print(f"{counts_name}: {occ['counts_blocks']} blocks per SM; {gate_name}: "
+            print(f"{counts_name}: {occ['counts_blocks']} blocks per SM, its bidders' kernel "
+                  f"{occ['bidders_blocks']}; {gate_name}: "
                   f"{occ['gate_blocks']} blocks per SM, {occ['gate_smem']} B shared memory")
 
         # the slice of days: 256 envs, default and signed-cost keywords,
@@ -3158,6 +3133,7 @@ def main(argv=None) -> int:
         from adcraft_tpu_torch import cuda_build
         from adcraft_tpu_torch import day_kernel as dk
         from adcraft_tpu_torch import distributions as dist
+        from adcraft_tpu_torch import kernel_turns
         from adcraft_tpu_torch import lanes_day as ld
         from adcraft_tpu_torch import prng
         from adcraft_tpu_torch import prng_kernel as pk
@@ -3182,8 +3158,8 @@ def main(argv=None) -> int:
           f"{fp_ops_per_s / 1e12:.3f} T instructions/s; HBM {HBM_BYTES_PER_S / 1e12:g} TB/s")
 
     # 2. build, one nvcc per source, all started together
-    clocked = stage_clocked(ad, cuda_build)
-    lanes_stats = lanes_stats_build(ld, cuda_build)
+    clocked = stage_clocked(ad)
+    lanes_stats = lanes_stats_build(ld)
     parent = None if parent_csrc is None else ld.kernels_built_from(parent_csrc)
     parent_other = None
     libraries = (dk.day_kernel.library, pk.library, ad.library, clocked.library, ld.library,
@@ -3563,8 +3539,16 @@ def main(argv=None) -> int:
     # 14. the RL trainers, train_rl, checkpoints, multi-agent training, entry
     training_phase(torch, dev, card)
     t_phase = phase_done("14", t_phase)
-    # 15. the binomial pool on both routes
+    # 15. the binomial pool on both routes; the pool instances' stage clocks
+    # and, with --parent-csrc, their times in turns with the parent's
     route_kernels += pool_phase(torch, dev, card, table, *rates)
+    kernel_turns.report(
+        kernel_turns.POOL_INSTANCES,
+        {"lanes_counts": ld.lanes_counts, "agg_cells_gate": ad.agg_cells_gate},
+        {"lanes_counts": lanes_stats["lanes_counts"], "agg_cells_gate": clocked},
+        None if parent is None else {"lanes_counts": parent["lanes_counts"],
+                                     "agg_cells_gate": parent_other["agg_cells_gate"]},
+        card, dev)
     t_phase = phase_done("15", t_phase)
     if parent_other is not None:
         print("the agg route's kernels and threefry_words in turns with the parent tree's:")

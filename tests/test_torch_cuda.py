@@ -851,21 +851,24 @@ def pool_inputs(cfg, E, K, seed, dev, signed=False):
             torch.stack([n_auc[0], n_auc[1]]).contiguous().to(dev), keys.to(dev))
 
 
-# K = 7, 100 and 300 (past lanes_counts' 128-keyword group and element 256
-# of a sub-timestep's spends); max_bidders_bound 32 and 40; either sampler
-# on the lanes route; F(bid) of the env's rounded bids (cent_bids) or not
+# K = 7, 100, 130 and 300 (past lanes_counts' 128-keyword group, by a few
+# keywords and by more than one group, and past element 256 of a
+# sub-timestep's spends); max_bidders_bound 32 and 40; either sampler on
+# the lanes route; F(bid) of the env's rounded bids (cent_bids) or not
 @pytest.mark.cuda
 @pytest.mark.parametrize("K, bound, sampler, cent_bids", [(7, 32, "exact", False),
                                                           (100, 32, "inversion", True),
+                                                          (130, 32, "exact", True),
                                                           (300, 40, "exact", False)])
 @pytest.mark.parametrize("signed", [False, True])
 def test_pool_kernels_match_reference(cuda, K, bound, sampler, cent_bids, signed):
     """agg_cells_gate's pool instance (bench.py's knobs), lanes_counts'
     pool instance and lanes_gate_float's pool mode (with lanes_outcomes'
-    float mode on it) each equal their plain versions at budgets unbound,
-    binding and tight, on default and signed-cost keywords: every simulated
-    cell (every cell the float gate walks), n_sim, the pool's constants
-    and the day sums exactly."""
+    float mode on it) each equal their plain versions at budgets unbound
+    (one the day's decicents saturate at INT32_MAX, which negative spends
+    then raise past it, and $1e6), binding and tight, on default and
+    signed-cost keywords: every simulated cell (every cell the float gate
+    walks), n_sim, the pool's constants and the day sums exactly."""
     from adcraft_tpu_torch import agg_day, lanes_day
     from adcraft_tpu_torch.config import BENCH_XLA_KNOBS, CompetitorModel
     from adcraft_tpu_torch.step import budget_cents
@@ -877,7 +880,7 @@ def test_pool_kernels_match_reference(cuda, K, bound, sampler, cent_bids, signed
     lanes_cfg = EnvConfig(num_keywords=K, max_volume=576, kind=KeywordKind.IMPLICIT, **pool,
                           binomial_sampler=sampler)
     cell = None
-    for budget in (1e6, 1000.0, 2.0):
+    for budget in (1e9, 1e6, 1000.0, 2.0):
         lanes, params, n_auc01, keys = pool_inputs(agg, E, K, K + bound, cuda, signed)
         cell = torch.arange(lanes.T * K, device=cuda).view(1, lanes.T, K)
         b = budget_cents(torch.full((E,), budget, device=cuda), 1000.0)
@@ -917,6 +920,27 @@ def test_pool_kernels_match_reference(cuda, K, bound, sampler, cent_bids, signed
             assert torch.equal(g, w)
         if signed:
             assert (want[1][walked & (want[0] >= 0)] < 0).any()
+
+
+@pytest.mark.cuda
+def test_pool_bidders_past_the_pass_key_table(cuda):
+    """lanes_counts' pool instance built with a table of one BTRS pass's
+    subkeys a lane (-DLANE_PASS_CAP=1), so that every later pass's are
+    walked from the chain, equals its plain version."""
+    from adcraft_tpu_torch import agg_day, lanes_day
+    from adcraft_tpu_torch.config import CompetitorModel
+    from adcraft_tpu_torch.cuda_build import CudaLibrary
+
+    cfg = EnvConfig(num_keywords=100, max_volume=576, kind=KeywordKind.IMPLICIT,
+                    competitor_model=CompetitorModel.BINOMIAL_POOL)
+    capped = lanes_day.LanesCounts(
+        "lanes_counts (cap 1)", CudaLibrary("lanes_day", lanes_day.bind,
+                                            flags=("-DLANE_PASS_CAP=1",)))
+    lanes, params, n_auc01, keys = pool_inputs(cfg, 33, 100, 5, cuda)
+    got = capped(params, n_auc01, keys, lanes, "exact", agg_day.POOL)
+    want = lanes_day.lanes_counts_reference(params, n_auc01, keys, lanes, "exact", agg_day.POOL)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
 
 
 @pytest.mark.cuda
