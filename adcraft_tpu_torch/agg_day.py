@@ -499,11 +499,18 @@ def bind(lib: ctypes.CDLL) -> None:
 
 library = CudaLibrary("agg_day", bind)
 
-# agg_cells_gate's stages, and the pool instance's parts of stage A, as a
+# agg_cells_gate's stages, and its parts of the prologue and stage A, as a
 # build with -DAGG_STAGE_CLOCKS counts them (thread 0's SM clocks, summed
-# over blocks; the stages' then the block count)
+# over blocks; the stages' then the block count): the pool's parts of
+# stage A, the other models' of the prologue and stage A
 STAGES = ("prologue and keys", "stage A", "stage B", "stage C")
 POOL_PARTS = ("bidders and F(bid)^k", "walks", "spend moments", "lite lanes")
+PARTS = ("prologue's cost moments", "prologue's win probability and ladder",
+         "stage A's impressions and clicks", "stage A's spends and lite lanes")
+# the cells that build counts over all blocks: sampled cells whose spend and
+# lite lanes are drawn (clicks and impressions; the pool's clicks and
+# bidders), cells with phantom clicks, and cells the gate resolves by lanes
+CELL_KINDS = ("with clicks and impressions", "phantom", "resolved by lanes")
 
 
 def clocks_library() -> CudaLibrary:
@@ -513,7 +520,7 @@ def clocks_library() -> CudaLibrary:
     def bind_clocks(lib):
         bind(lib)
         for fn in (lib.agg_cells_gate_stage_clocks, lib.agg_outcomes_stage_clocks,
-                   lib.agg_cells_gate_pool_clocks):
+                   lib.agg_cells_gate_part_clocks, lib.agg_cells_gate_cell_counts):
             fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
             fn.restype = ctypes.c_int
 
@@ -523,8 +530,8 @@ def clocks_library() -> CudaLibrary:
 def read_clocks(clocks_lib: CudaLibrary, reader: str, n: int, device_index: int) -> list:
     """``n`` counters of a ``clocks_library`` build summed since the last
     read by ``reader`` (``agg_cells_gate_stage_clocks``,
-    ``agg_outcomes_stage_clocks`` or ``agg_cells_gate_pool_clocks``);
-    zeroes them."""
+    ``agg_outcomes_stage_clocks``, ``agg_cells_gate_part_clocks`` or
+    ``agg_cells_gate_cell_counts``); zeroes them."""
     out = (ctypes.c_ulonglong * n)()
     clocks_lib.check(getattr(clocks_lib.get(), reader)(device_index, out), reader)
     return list(out)
@@ -730,6 +737,15 @@ class AggOutcomes(_Kernel):
         self.library.check(err, self.name)
         self.launches += 1
         return tuple(out.unbind(0))
+
+
+def kernels_built_from(csrc) -> dict:
+    """The agg kernels' wrappers on a build of another tree's ``csrc``
+    (such as the parent commit's, which exports this tree's C interface),
+    to time two versions of them in turns."""
+    other = CudaLibrary("agg_day", bind, csrc=csrc)
+    return {"agg_cells_gate": AggCellsGate("agg_cells_gate (parent)", other),
+            "agg_outcomes": AggOutcomes("agg_outcomes (parent)", other)}
 
 
 agg_cells_gate = AggCellsGate("agg_cells_gate")

@@ -88,8 +88,9 @@
 // buffers and so half the chunk, was tried and measured slower. Built
 // with -DAGG_STAGE_CLOCKS (chip_smoke.py builds it so beside the plain
 // build), thread 0 also counts its SM clocks in each stage, read with
-// agg_cells_gate_stage_clocks, and the pool's by part of stage A
-// (agg_cells_gate_pool_clocks).
+// agg_cells_gate_stage_clocks, and by part of the prologue and stage A
+// (agg_cells_gate_part_clocks), and the block its cells by kind
+// (agg_cells_gate_cell_counts).
 //
 // agg_outcomes runs one block per env over its simulated cells, never
 // past n_sim. Its prologue, by all threads, derives the keys (k_conv per
@@ -152,18 +153,28 @@ __device__ unsigned long long g_stage_clocks[kStages + 1];
 // queues' draws, the barrier, the day draws and the writes)
 constexpr int kOutStages = 4;
 __device__ unsigned long long g_outcomes_clocks[kOutStages + 1];
-// the pool's stage A by part, thread 0's SM clocks summed over blocks: the
-// bidder count and F(bid)^k, the impression and click walks, the spend's
-// moments, the lite lanes
-constexpr int kPoolParts = 4;
-__device__ unsigned long long g_pool_clocks[kPoolParts];
+// the prologue and stage A by part, thread 0's SM clocks summed over
+// blocks: the pool's stage A (the bidder count and F(bid)^k, the impression
+// and click walks, the spend's moments, the lite lanes); the other models'
+// prologue (the cost moments; the win probability and the ladder) and
+// stage A (the impressions and the click walk; the spend normal and the
+// lite lanes)
+constexpr int kParts = 4;
+__device__ unsigned long long g_part_clocks[kParts];
+// cells counted over all blocks: sampled cells whose spend and lite lanes
+// are drawn (clicks and impressions; the pool's clicks and bidders), cells
+// with phantom clicks (clicks without impressions), and cells the gate
+// resolves lane by lane
+constexpr int kCellKinds = 3;
+__device__ unsigned long long g_cell_counts[kCellKinds];
 #endif
+enum { kCosted, kPhantom, kPartial };
 
-// thread 0's SM clocks by part of a pool cell (a build with
-// -DAGG_STAGE_CLOCKS; else nothing)
-struct PoolClocks {
+// thread 0's SM clocks by part (a build with -DAGG_STAGE_CLOCKS; else
+// nothing)
+struct PartClocks {
 #ifdef AGG_STAGE_CLOCKS
-  unsigned long long v[kPoolParts] = {}, mark = 0;
+  unsigned long long v[kParts] = {}, mark = 0;
   __device__ void start() { mark = clock64(); }
   __device__ void lap(int part) {
     const unsigned long long now = clock64();
@@ -176,10 +187,29 @@ struct PoolClocks {
 #endif
 };
 
+// a thread's count of cells by kind (a build with -DAGG_STAGE_CLOCKS; else
+// nothing)
+struct CellCounts {
+#ifdef AGG_STAGE_CLOCKS
+  unsigned v[kCellKinds] = {};
+  __device__ void add(int kind) { ++v[kind]; }
+  // the block's counts into g_cell_counts, by every thread
+  __device__ void flush() {
+    for (int i = 0; i < kCellKinds; ++i) {
+      const unsigned sum = __reduce_add_sync(kFull, v[i]);
+      if (threadIdx.x % 32 == 0 && sum != 0) atomicAdd(&g_cell_counts[i], sum);
+    }
+  }
+#else
+  __device__ void add(int) {}
+  __device__ void flush() {}
+#endif
+};
+
 // agg_cells_gate's per-keyword float rows in shared memory. An explicit
 // model keeps the lite lanes' bid in kLoc and the deep lanes' bid, (bid -
-// 0.005) + 0.005 as the JAX resolver rebuilds it, in kScale; it reads
-// neither truncation bound.
+// 0.005) + 0.005 as the JAX resolver rebuilds it, in kScale, and its click
+// walk's constants in the truncation bounds' rows (kClickR, kClickPmf1).
 enum { kPWin, kFLo, kFHi, kMu, kSigma, kCmax, kLoc, kScale, kBctr, kKwRows };
 enum { kBidLite = kLoc, kBidDeep = kScale };
 // The pool keeps F(bid) in kPWin, the deep lanes' F((bid - 0.005) +
@@ -485,6 +515,30 @@ __host__ __device__ inline size_t cells_gate_smem(int chunk_t, int K, int m0, in
                         (3 + static_cast<size_t>(L) + (pool ? 2 : 0)) * cells);
 }
 
+// The explicit gate's first step on warp 0: the chunk's groups of 32
+// cells from its start, each taken whole while its total spend is below B
+// (so is every prefix of it: the spends are not negative), the budget left
+// by it in B. Each group's total is the exact sum of its cells' low and
+// high 16 bits, one warp reduction each; the next group's spends load
+// while one is summed. Returns the cells taken; the window walk goes on
+// from there, where it would have taken the same cells whole.
+__device__ __forceinline__ int whole_groups(const int* sfull, int cells, int lane,
+                                            long long& B) {
+  int p = 0;
+  int s = cells >= 32 ? sfull[lane] : 0;
+  while (p + 32 <= cells) {
+    const unsigned u = static_cast<unsigned>(s);
+    const long long total =
+        (static_cast<long long>(__reduce_add_sync(kFull, u >> 16)) << 16) +
+        __reduce_add_sync(kFull, u & 0xFFFFu);
+    if (p + 64 <= cells) s = sfull[p + 32 + lane];
+    if (total >= B) break;
+    B -= total;
+    p += 32;
+  }
+  return p;
+}
+
 // Stage B of agg_cells_gate on warp 0: the gate over a chunk's `cells`
 // cells in (t, k) order from the shared tables, through a window of the
 // next 32 cells. Each cell's accepted clicks and spend replace its clicks
@@ -494,12 +548,20 @@ __host__ __device__ inline size_t cells_gate_smem(int chunk_t, int K, int m0, in
 // clicks that spend nothing) have s = 0 and take the passive run. The
 // pool's spends can be negative: its scan is exact in 64 bits, and a cell
 // is whole where its own inclusive sum is below B, as for the others; kb
-// holds its cells' bidder counts.
+// holds its cells' bidder counts. The explicit models first take the
+// chunk's groups of 32 cells from its start while each group's total is
+// below B (whole_groups), since most chunks of a day whose budget binds
+// late are whole.
 template <int kModel>
 __device__ int gate_chunk(int* sfull, int* ncl, const int* lite, int lite_stride, const int* kb,
                           const float* kw, const Key* tkeys, int cells, int t0, int K, int m0,
-                          int m1, int L, int bits, int lane, long long& B, bool& broken) {
-  for (int p = 0; p < cells;) {
+                          int m1, int L, int bits, int lane, long long& B, bool& broken,
+                          CellCounts& cc) {
+  int p = 0;
+  if constexpr (kModel == kExplicitRust || kModel == kExplicitPython) {
+    p = whole_groups(sfull, cells, lane, B);
+  }
+  while (p < cells) {
     const int c = p + lane;
     const bool in = c < cells;
     const int s = in ? sfull[c] : 0;
@@ -548,6 +610,7 @@ __device__ int gate_chunk(int* sfull, int* ncl, const int* lite, int lite_stride
       spend = 0;
       accepted = 0;
     } else if (s_p > B) {
+      if (lane == 0) cc.add(kPartial);
       const int tt = p / K;
       const int k = p - tt * K;
       accepted = resolve_cell<kModel>(lite + p, lite_stride, kw, K, tkeys[chunk_keys(kModel) * tt + 4], k,
@@ -619,7 +682,7 @@ __device__ void pool_moment_rows(const float* kw, int K, const float* __restrict
 template <class Recip>
 __device__ void pool_counts(const float* kw, const float* ladder, int K, int k, int n,
                             const Key* tk, int m, int bits, int kmax, Recip table, int& kb,
-                            int& im, int& nc, PoolClocks& pc) {
+                            int& im, int& nc, PartClocks& pc) {
   kb = im = nc = 0;
   if (n == 0) return;
   pc.start();
@@ -640,7 +703,7 @@ __device__ void pool_counts(const float* kw, const float* ladder, int K, int k, 
 __device__ void pool_costs(const float* kw, const float* g, int K, int k, int nc, int kb,
                            const Key* tk, int L, int bits, int kmax,
                            const float* __restrict__ quad, int* lite_c, int lite_stride, int& s,
-                           PoolClocks& pc) {
+                           PartClocks& pc) {
   pc.start();
   const float f_bid = kw[kFBid * K + k], loc = kw[kLoc * K + k], scale = kw[kScale * K + k];
   s = pool_spend(nc, kb, g + k, K, quad, kmax, kw[kCmax * K + k], xla_normal(tk[2], k));
@@ -653,15 +716,111 @@ __device__ void pool_costs(const float* kw, const float* g, int K, int k, int nc
   pc.lap(3);
 }
 
+// The click walk's constants of keyword k for the explicit models, kept in
+// rows their cells do not read (kClickR, kClickPmf1): q / (1 - q) and the
+// walk's pmf0 of one candidate, (1 - q)^1 by XLA's powf, so that no cell
+// divides and the cells of one candidate (the phantom one, or one
+// impression) take no pow.
+enum { kClickR = kFLo, kClickPmf1 = kFHi };
+
+__device__ __forceinline__ void click_walk_consts(float* kw, int K, int k) {
+  const WalkConsts w = walk_consts(kw[kBctr * K + k]);
+  kw[kClickR * K + k] = w.r;
+  kw[kClickPmf1 * K + k] = xla_pow(w.omq, 1.0f);
+}
+
+// A warp's queue of up to 63 cells in registers: slot s lies in lane s % 32's
+// q0 (s < 32) or q1; n cells wait.
+struct WarpQueue {
+  int q0 = 0, q1 = 0, n = 0;
+  // appends the cell c of each lane that takes one, in lane order: lane j
+  // receives the entry of rank (j - n) mod 32 in slot j (j >= n) or j + 32
+  __device__ __forceinline__ void push(bool take, int c, int lane) {
+    const unsigned mask = __ballot_sync(kFull, take);
+    int rank = (lane - n) & 31, src = 0;
+    const bool mine = rank < __popc(mask);
+#pragma unroll
+    for (int w = 16; w > 0; w >>= 1) {  // src: the lane of the rank-th set bit
+      const int below = __popc((mask >> src) & ((1u << w) - 1u));
+      if (below <= rank) {
+        src += w;
+        rank -= below;
+      }
+    }
+    const int v = __shfl_sync(kFull, c, src);
+    if (mine && lane >= n) q0 = v;
+    if (mine && lane < n) q1 = v;
+    n += __popc(mask);
+  }
+  // after the first 32 were taken (one per lane, q0)
+  __device__ __forceinline__ void pop32() {
+    q0 = q1;
+    n -= 32;
+  }
+};
+
+// An explicit cell's first part of stage A: its impressions (the walk at t
+// = 0, else the day's ladder) and its clicks over max(im, 1) candidates,
+// the phantom one of a cell without impressions included, by the walk
+// from the keyword's click constants (walk_consts' omq and flip recomputed
+// from the rate, as it computes them).
+template <class Recip>
+__device__ __forceinline__ void explicit_counts(const float* kw, const int* n01,
+                                                const float* ladder, int K, int k, bool first_t,
+                                                const Key* tk, int m0, int m1, int bits,
+                                                Recip table, int& im, int& nc) {
+  const float p_win = kw[kPWin * K + k];
+  im = 0;
+  if (first_t) {
+    const int n0 = n01[k];
+    if (n0 != 0) im = binomial_walk(lane_uniform(tk[0], k, bits), n0, p_win, m0, table);
+  } else {
+    const int n1 = n01[K + k];
+    if (n1 != 0) {
+      const int cnt = min(ladder_count(ladder + k, K, m1, lane_uniform(tk[0], k, bits)), n1);
+      im = p_win > 0.5f ? n1 - cnt : cnt;
+    }
+  }
+  const float p = fminf(fmaxf(kw[kBctr * K + k], 0.0f), 1.0f);
+  const bool flip = p > 0.5f;
+  const float omq = __fsub_rn(1.0f, flip ? __fsub_rn(1.0f, p) : p);
+  const WalkConsts w{omq, kw[kClickR * K + k], flip};
+  const int n = max(im, 1);
+  const float pmf0 = n == 1 ? kw[kClickPmf1 * K + k] : xla_pow(omq, static_cast<float>(n));
+  nc = walk_count_from(pmf0, lane_uniform(tk[1], k, bits), n, w, first_t ? m0 : m1, table);
+}
+
+// Its second part, for a cell c = tt K + k with clicks and impressions: its
+// spend from the model's moments and its L lite lanes.
+template <int kModel>
+__device__ __forceinline__ void explicit_costs(const float* kw, const Key* tkeys, int K, int c,
+                                               int L, const int* ncl, int* sfull, int* lite,
+                                               int lite_stride) {
+  const int tt = c / K, k = c - tt * K;
+  const Key* tk = tkeys + chunk_keys(kModel) * tt;
+  sfull[c] = agg_cost(ncl[c], kw[kMu * K + k], kw[kSigma * K + k], kw[kCmax * K + k],
+                      xla_normal(tk[2], k));
+  const float bid = kw[kBidLite * K + k];
+  for (int l = 0; l < L; ++l) {
+    lite[l * lite_stride + c] = explicit_cost(
+        kModel == kExplicitRust, xla_normal_erfinv(tk[3], static_cast<uint32_t>(l * K + k)), bid);
+  }
+}
+
 // ---- agg_cells_gate: one block per env, the sub-timesteps in chunks ----
 // One instance per cost model. The explicit ones (explicit keywords, the
-// rust or python cost model) differ in three places: the prologue's win
-// probability is the threshold sigmoid and its cost moments are the
-// model's (xla_math.cuh: the clipped normal's, or the python model's
-// cost_grid-cell Abel sums, by each keyword's thread); stage A draws
-// clicks over max(impressions, 1) candidates, a phantom cell (no
-// impression) spending nothing, and the lite lanes from the cost model's
-// normals at counter l * K + k; and resolve_cell's deep lanes. The pool's
+// rust or python cost model) differ in four places: the prologue's win
+// probability is the threshold sigmoid, its cost moments are the model's
+// (xla_math.cuh: the clipped normal's, or the python model's cost_grid-cell
+// Abel sums, by each keyword's thread) and it keeps the click walk's
+// constants (click_walk_consts); stage A draws every cell's impressions
+// and clicks over max(impressions, 1) candidates, a phantom cell (no
+// impression) spending nothing, and queues the cells with clicks and
+// impressions in their warp's registers (WarpQueue), whose spends and lite
+// lanes, the cost model's normals at counter l * K + k, are drawn 32 at a
+// time, one per lane (a warp ran them for all its cells if one had
+// clicks); the gate takes a chunk's whole 32-cell groups first
+// (whole_groups); and resolve_cell's deep lanes. The pool's
 // (the binomial pool: k_auc split three ways, k_bidders first) has no day
 // ladder of impressions, its win probability varying with each cell's
 // bidder count: its prologue builds the bidder ladder and the moments'
@@ -709,7 +868,8 @@ __global__ void __launch_bounds__(cells_gate_threads(kModel),
   const long long eK = static_cast<long long>(e) * K;
   const auto table = [walk_recip](int j) { return walk_recip[j]; };
   const int step_t = kBlock / K, step_k = kBlock % K;  // a stride of cells as (t, k)
-  PoolClocks pc;
+  PartClocks pc;
+  CellCounts cc;
 #ifdef AGG_STAGE_CLOCKS
   unsigned long long mark = clock64(), spent[kStages] = {};
   const auto lap = [&](int stage) {
@@ -738,6 +898,7 @@ __global__ void __launch_bounds__(cells_gate_threads(kModel),
       pool_prologue(params, EK, ek, k, K, kmax, cent_bids != 0, kw, ladder, consts_out);
       continue;
     }
+    pc.start();
     const float bid = params[BID * EK + ek];
     const float loc = params[LOC * EK + ek], scale = params[SCALE * EK + ek];
     const int n1 = n_auc01[EK + ek];
@@ -747,7 +908,9 @@ __global__ void __launch_bounds__(cells_gate_threads(kModel),
     if (kModel == kImplicit) {
       const float f_lo = laplace_cdf(-y0, loc, scale), f_hi = laplace_cdf(y0, loc, scale);
       p_win = fminf(fmaxf(__fsub_rn(f_hi, f_lo), 0.0f), 1.0f);
+      pc.lap(1);
       cm = cost_moments(bid, loc, scale);
+      pc.lap(0);
       kw[kFLo * K + k] = f_lo;
       kw[kFHi * K + k] = f_hi;
       kw[kLoc * K + k] = loc;
@@ -755,10 +918,16 @@ __global__ void __launch_bounds__(cells_gate_threads(kModel),
     } else {
       p_win = threshold_sigmoid(bid, params[IMP_THRESH * EK + ek], params[IMP_INTERCEPT * EK + ek],
                                 params[IMP_SLOPE * EK + ek]);
+      pc.lap(1);
+      // the python model's walk, one thread per keyword (spread over all
+      // threads, its tails computed in rounds and added in the walk's
+      // order, it was measured slower)
       const ExplicitMoments em = kModel == kExplicitRust
                                      ? cost_create_deci_moments(bid)
                                      : generic_cost_cent_moments(bid, cost_grid);
       cm = CostMoments{em.mu, em.sigma, em.cmax};
+      pc.lap(0);
+      click_walk_consts(kw, K, k);
       kw[kBidLite * K + k] = bid;
       kw[kBidDeep * K + k] = __fadd_rn(y0, 0.005f);
     }
@@ -781,6 +950,7 @@ __global__ void __launch_bounds__(cells_gate_threads(kModel),
       consts_out[2 * EK + ek] = cm.sigma;
       consts_out[3 * EK + ek] = cm.cmax;
     }
+    pc.lap(1);
   }
 
   if (kIsPool) {
@@ -836,6 +1006,7 @@ __global__ void __launch_bounds__(cells_gate_threads(kModel),
           }
         }
         const bool costed = nc != 0 && kb > 0;
+        if (costed) cc.add(kCosted);
         const unsigned m = __ballot_sync(kFull, costed);
         int base = 0;
         if (lane == 0 && m != 0) base = atomicAdd(&s_listed, __popc(m));
@@ -851,6 +1022,46 @@ __global__ void __launch_bounds__(cells_gate_threads(kModel),
                    lite + c, max_cells, s, pc);
         sfull[c] = s;
       }
+    } else if constexpr (kModel != kImplicit) {
+      // every cell's impressions and clicks; the cells with both queue in
+      // their warp's registers, and each time 32 wait, every lane draws one
+      // cell's spend and lite lanes
+      const int lane = tid % 32;
+      WarpQueue queue;
+      for (int c = tid, tt = tid / K, k = tid % K; c - lane < cells;
+           c += kBlock, tt += step_t, k += step_k) {
+        if (k >= K) {
+          k -= K;
+          ++tt;
+        }
+        pc.start();
+        int im = 0, nc = 0;
+        if (c < cells) {
+          explicit_counts(kw, n01, ladder, K, k, t0 + tt == 0, tkeys + kKeys * tt, m0, m1, bits,
+                          table, im, nc);
+          imp[c] = im;
+          ncl[c] = nc;
+          if (nc == 0 || im == 0) sfull[c] = 0;
+          if (nc != 0 && im == 0) {  // phantom clicks: no spend, lite lanes 0
+            for (int l = 0; l < L; ++l) lite[l * max_cells + c] = 0;
+          }
+          if (nc != 0) cc.add(im == 0 ? kPhantom : kCosted);
+        }
+        queue.push(nc != 0 && im != 0, c, lane);
+        pc.lap(2);
+        if (queue.n >= 32) {
+          __syncwarp();
+          explicit_costs<kModel>(kw, tkeys, K, queue.q0, L, ncl, sfull, lite, max_cells);
+          queue.pop32();
+          pc.lap(3);
+        }
+      }
+      pc.start();
+      __syncwarp();
+      if (lane < queue.n) {
+        explicit_costs<kModel>(kw, tkeys, K, queue.q0, L, ncl, sfull, lite, max_cells);
+      }
+      pc.lap(3);
     } else {
       for (int c = tid, tt = tid / K, k = tid % K; c < cells;
            c += kBlock, tt += step_t, k += step_k) {
@@ -858,6 +1069,7 @@ __global__ void __launch_bounds__(cells_gate_threads(kModel),
           k -= K;
           ++tt;
         }
+        pc.start();
         const bool first_t = t0 + tt == 0;
         const Key* tk = tkeys + kKeys * tt;
         const float p_win = kw[kPWin * K + k];
@@ -872,35 +1084,24 @@ __global__ void __launch_bounds__(cells_gate_threads(kModel),
             im = p_win > 0.5f ? n1 - cnt : cnt;
           }
         }
-        // an explicit cell without impressions still flips one phantom
-        // candidate
-        const int candidates = kModel == kImplicit ? im : max(im, 1);
         int nc = 0, s = 0;
-        if (candidates != 0) {
-          nc = binomial_walk(lane_uniform(tk[1], k, bits), candidates, kw[kBctr * K + k],
+        if (im != 0) {
+          nc = binomial_walk(lane_uniform(tk[1], k, bits), im, kw[kBctr * K + k],
                              first_t ? m0 : m1, table);
         }
-        if (nc != 0 && im == 0) {  // phantom clicks: no spend, lite lanes 0
-          for (int l = 0; l < L; ++l) lite[l * max_cells + c] = 0;
-        } else if (nc != 0) {
+        pc.lap(2);
+        if (nc != 0) {
+          cc.add(kCosted);
           s = agg_cost(nc, kw[kMu * K + k], kw[kSigma * K + k], kw[kCmax * K + k],
                        xla_normal(tk[2], k));
-          if (kModel == kImplicit) {
-            const float loc = kw[kLoc * K + k], scale = kw[kScale * K + k];
-            const float f_lo = kw[kFLo * K + k], f_hi = kw[kFHi * K + k];
-            for (int l = 0; l < L; ++l) {
-              const float u = lane_uniform(tk[3], static_cast<uint32_t>(l * K + k), bits);
-              lite[l * max_cells + c] = lane_cost(u, loc, scale, f_lo, f_hi);
-            }
-          } else {
-            const float bid = kw[kBidLite * K + k];
-            for (int l = 0; l < L; ++l) {
-              lite[l * max_cells + c] = explicit_cost(
-                  kModel == kExplicitRust,
-                  xla_normal_erfinv(tk[3], static_cast<uint32_t>(l * K + k)), bid);
-            }
+          const float loc = kw[kLoc * K + k], scale = kw[kScale * K + k];
+          const float f_lo = kw[kFLo * K + k], f_hi = kw[kFHi * K + k];
+          for (int l = 0; l < L; ++l) {
+            const float u = lane_uniform(tk[3], static_cast<uint32_t>(l * K + k), bits);
+            lite[l * max_cells + c] = lane_cost(u, loc, scale, f_lo, f_hi);
           }
         }
+        pc.lap(3);
         imp[c] = im;
         ncl[c] = nc;
         sfull[c] = s;
@@ -912,7 +1113,7 @@ __global__ void __launch_bounds__(cells_gate_threads(kModel),
     // Stage B: the gate
     if (tid < 32) {
       const int end = gate_chunk<kModel>(sfull, ncl, lite, max_cells, kcell, kw, tkeys, cells, t0,
-                                         K, m0, m1, L, bits, tid, B, broken);
+                                         K, m0, m1, L, bits, tid, B, broken, cc);
       if (tid == 0) {
         s_end = end;
         s_broken = broken;
@@ -936,14 +1137,13 @@ __global__ void __launch_bounds__(cells_gate_threads(kModel),
       break;
     }
   }
+  cc.flush();
   if (tid == 0) {
     n_sim[e] = nsim;
 #ifdef AGG_STAGE_CLOCKS
     for (int i = 0; i < kStages; ++i) atomicAdd(&g_stage_clocks[i], spent[i]);
     atomicAdd(&g_stage_clocks[kStages], 1ull);
-    if (kIsPool) {
-      for (int i = 0; i < kPoolParts; ++i) atomicAdd(&g_pool_clocks[i], pc.v[i]);
-    }
+    for (int i = 0; i < kParts; ++i) atomicAdd(&g_part_clocks[i], pc.v[i]);
 #endif
   }
 }
@@ -1378,9 +1578,14 @@ int agg_outcomes_stage_clocks(int device, unsigned long long* out) {
   return take_clocks(device, g_outcomes_clocks, sizeof(g_outcomes_clocks), out);
 }
 
-// The pool instance's stage A clocks by part (g_pool_clocks), as above.
-int agg_cells_gate_pool_clocks(int device, unsigned long long* out) {
-  return take_clocks(device, g_pool_clocks, sizeof(g_pool_clocks), out);
+// agg_cells_gate's clocks by part (g_part_clocks), as above.
+int agg_cells_gate_part_clocks(int device, unsigned long long* out) {
+  return take_clocks(device, g_part_clocks, sizeof(g_part_clocks), out);
+}
+
+// agg_cells_gate's cells by kind (g_cell_counts), as above.
+int agg_cells_gate_cell_counts(int device, unsigned long long* out) {
+  return take_clocks(device, g_cell_counts, sizeof(g_cell_counts), out);
 }
 #endif
 

@@ -286,11 +286,12 @@ __device__ __forceinline__ WalkConsts walk_consts(float p) {
 }
 
 // distributions.binomial_inv_u: the inverse-CDF walk over nmax levels from
-// the constants w, pmf0 = (1 - q)^n XLA's powf; recip(j) is the float32 1/j
+// the constants w and pmf0 = (1 - q)^n, XLA's powf (walk_count); recip(j)
+// is the float32 1/j
 template <class Recip>
-__device__ int walk_count(float u, int n, const WalkConsts& w, int nmax, Recip recip) {
+__device__ __forceinline__ int walk_count_from(float pmf, float u, int n, const WalkConsts& w,
+                                               int nmax, Recip recip) {
   const float nf = static_cast<float>(n);
-  float pmf = xla_pow(w.omq, nf);  // 1 - q >= 1/2: in xla_pow's domain
   float cdf = pmf;
   int cnt = 0;
   // the CDF never falls, so the count stops at its first level >= u
@@ -303,6 +304,12 @@ __device__ int walk_count(float u, int n, const WalkConsts& w, int nmax, Recip r
   }
   cnt = min(max(cnt, 0), n);
   return w.flip ? n - cnt : cnt;
+}
+
+template <class Recip>
+__device__ int walk_count(float u, int n, const WalkConsts& w, int nmax, Recip recip) {
+  // 1 - q >= 1/2: in xla_pow's domain
+  return walk_count_from(xla_pow(w.omq, static_cast<float>(n)), u, n, w, nmax, recip);
 }
 
 template <class Recip>

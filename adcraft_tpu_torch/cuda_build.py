@@ -105,7 +105,9 @@ class CudaLibrary:
         for path in source_files(self.source):
             digest.update(path.name.encode() + b"\0" + path.read_bytes())
         out = BUILD_DIR / f"lib{self.name}_{digest.hexdigest()[:16]}.so"
+        log = out.with_suffix(".log")  # nvcc's output, kept for ptxas' report
         if out.exists():
+            self.build_log = log.read_text() if log.exists() else ""
             return out
         nvcc = find_nvcc()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -122,6 +124,7 @@ class CudaLibrary:
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed on {self.source.name} "
                                    f"({proc.returncode}):\n{self.build_log}")
+            log.write_text(self.build_log)
             os.replace(tmp, out)
         finally:
             if os.path.exists(tmp):

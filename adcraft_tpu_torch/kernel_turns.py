@@ -12,7 +12,8 @@ bidders at participation 0.6, ``step_rate.pool_keywords``):
 * ``agg_cells_gate``: its implicit, explicit (rust and python) and pool
   instances (bench.py's agg knobs) at $1000, the pool's also unbound.
 
-For each instance: ptxas' registers and spills, resident blocks per SM
+For each instance: ptxas' registers and spills (and ``agg_cells_gate``'s
+SASS: instructions, calls, local-memory traffic), resident blocks per SM
 (and ``agg_cells_gate``'s chunk and shared memory); its time (CUDA events,
 10 calls after a warm-up) and, with ``--parent-csrc DIR`` (another tree's
 ``adcraft_tpu_torch/csrc``, such as the parent commit's), the count of
@@ -20,18 +21,24 @@ outputs where DIR's build differs from this tree's and both times in
 turns (parent, this, this, parent); then its stage clocks from this tree's
 second builds (``-DLANES_STAGE_CLOCKS``: per warp each binomial call's SM
 clocks and its loops' passes; ``-DAGG_STAGE_CLOCKS``: per block each
-stage's, and the pool's stage A by part).
+stage's, the pool's stage A by part, the other models' prologue and stage
+A by part, and the cells with clicks and impressions (the pool's: with
+clicks and bidders), with phantom clicks and resolved by lanes). The
+explicit and pool instances of ``agg_cells_gate`` are also timed at every
+chunk of sub-timesteps that fits ($1000).
 
     python3 -m adcraft_tpu_torch.kernel_turns [--parent-csrc DIR]
         [--instances NAME ...]
 
-It runs on the card only. ``chip_smoke.py`` calls ``report`` for the pool
-instances in its phase 15.
+It runs on the card only. ``chip_smoke.py`` calls ``report`` for the
+explicit instances in its phase 11 and for the pool instances in its phase
+15.
 """
 
 from __future__ import annotations
 
 import argparse
+import re
 import subprocess
 from pathlib import Path
 
@@ -50,6 +57,8 @@ E = 4096
 BUDGET, UNBOUND = 1000.0, 1e9
 REPS = 10
 BACKLOG_CYCLES = 20_000_000  # SM clock cycles the spin kernel holds the stream
+SASS_INSN = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)[^;]*;")
+SASS_OPS = ("CALL", "LDL", "STL", "BSSY", "BAR", "MUFU", "DADD", "DMUL", "DFMA")
 # instance -> (kernel, the configuration's knobs, budgets timed)
 INSTANCES = {
     "lanes_counts": ("lanes_counts", {}, ()),
@@ -64,6 +73,9 @@ INSTANCES = {
                               (BUDGET, UNBOUND)),
 }
 POOL_INSTANCES = ("lanes_counts (pool)", "agg_cells_gate (pool)")
+EXPLICIT_INSTANCES = ("agg_cells_gate (explicit, rust)", "agg_cells_gate (explicit, python)")
+# the instances timed at every chunk that fits ($1000)
+SWEPT = EXPLICIT_INSTANCES + ("agg_cells_gate (pool)",)
 
 
 def cuda_ms(fn, reps: int = REPS) -> float:
@@ -94,6 +106,25 @@ def ptxas_lines(build_log: str, stem: str) -> list:
             current, parts = (name if stem in name else None), []
         elif current is not None and ("registers" in line or "spill" in line):
             parts.append(line.replace("ptxas info    :", "").strip())
+    return out
+
+
+def sass_counts(library_path, stem: str) -> list:
+    """For each kernel of the library whose mangled name contains ``stem``:
+    its SASS instructions (``cuobjdump -sass``) and those of ``SASS_OPS``
+    among them (calls, local-memory traffic, divergence points, barriers,
+    special-function and float64 instructions), one line per instance."""
+    cuobjdump = Path(cuda_build.find_nvcc()).parent / "cuobjdump"
+    proc = subprocess.run([str(cuobjdump), "-sass", str(library_path)], capture_output=True,
+                          text=True, timeout=300, check=False)
+    out = []
+    for section in proc.stdout.split("Function : ")[1:]:
+        name = section.splitlines()[0].strip()
+        if stem not in name:
+            continue
+        ops = [m.group(1).split(".")[0] for m in SASS_INSN.finditer(section)]
+        counts = ", ".join(f"{op} {ops.count(op)}" for op in SASS_OPS)
+        out.append(f"{name}: {len(ops)} instructions; {counts}")
     return out
 
 
@@ -179,8 +210,8 @@ def report(names, kernels: dict, stats: dict, parent: dict = None, card: str = "
                 ms = [cuda_ms(call(this))]
                 print(f"  {label}: {ms[0]:.4f} ms ({card})", flush=True)
             times[(name, budget)] = ms
-            clock_report(kernel_name, label, call(clocked), clocked, got, lanes, dev)
-            if name == "agg_cells_gate (pool)" and budget == BUDGET:
+            clock_report(kernel_name, label, call(clocked), clocked, got, lanes, dev, model)
+            if name in SWEPT and budget == BUDGET:
                 # how the time follows the resident blocks: every chunk that fits
                 budget_c = budget_cents(torch.full((E,), budget, device=dev), ad.AGG_SCALE[model])
                 sweep = []
@@ -195,9 +226,10 @@ def report(names, kernels: dict, stats: dict, parent: dict = None, card: str = "
     return times
 
 
-def clock_report(kernel_name, label, run, clocked, want, lanes, dev) -> None:
+def clock_report(kernel_name, label, run, clocked, want, lanes, dev, model) -> None:
     """One call of the clocked build (its outputs equal to ``want``), and
-    its counters per warp (lanes_counts) or per block (agg_cells_gate)."""
+    its counters per warp (lanes_counts) or per block (agg_cells_gate, the
+    cost model ``model``'s parts and its cells by kind)."""
     index = dev.index or 0
     if kernel_name == "lanes_counts":
         ld.read_stats(clocked.library, index)  # zero the counters
@@ -214,23 +246,25 @@ def clock_report(kernel_name, label, run, clocked, want, lanes, dev) -> None:
                         f"{st[f'{call} BTRS passes'] / calls:.2f}"
                         for call in ld.CALLS if st[f"{call} clocks"]))
         return
-    n = len(ad.STAGES) + 1
-    ad.read_clocks(clocked.library, "agg_cells_gate_stage_clocks", n, index)
-    ad.read_clocks(clocked.library, "agg_cells_gate_pool_clocks", len(ad.POOL_PARTS), index)
+    readers = (("agg_cells_gate_stage_clocks", len(ad.STAGES) + 1),
+               ("agg_cells_gate_part_clocks", len(ad.PARTS)),
+               ("agg_cells_gate_cell_counts", len(ad.CELL_KINDS)))
+    for reader, n in readers:  # zero the counters
+        ad.read_clocks(clocked.library, reader, n, index)
     got = run()
-    stages = ad.read_clocks(clocked.library, "agg_cells_gate_stage_clocks", n, index)
-    parts = ad.read_clocks(clocked.library, "agg_cells_gate_pool_clocks", len(ad.POOL_PARTS),
-                           index)
+    stages, parts, cells = (ad.read_clocks(clocked.library, reader, n, index)
+                            for reader, n in readers)
     sim = torch.arange(lanes.T * K, device=dev).view(1, lanes.T, K) < got[3].view(-1, 1, 1)
     if not (torch.equal(got[3], want[3])
             and all(torch.equal(g[sim], w[sim]) for g, w in zip(got[:3], want[:3]))):
         raise SystemExit(f"{label}: the -DAGG_STAGE_CLOCKS build's outputs differ")
     blocks = max(stages[-1], 1)
     line = ", ".join(f"{s} {c / blocks:.0f}" for s, c in zip(ad.STAGES, stages))
-    if any(parts):
-        line += "; stage A's pool cells, thread 0: " + ", ".join(
-            f"{p} {c / blocks:.0f}" for p, c in zip(ad.POOL_PARTS, parts))
+    line += "; by part: " + ", ".join(f"{p} {c / blocks:.0f}" for p, c in zip(
+        ad.POOL_PARTS if model == ad.POOL else ad.PARTS, parts))
     print(f"  {label} SM clocks per block (thread 0): {line}", flush=True)
+    print(f"  {label} cells: {sim.sum().item()} simulated of {E * lanes.T * K}; sampled "
+          + ", ".join(f"{c} {kind}" for kind, c in zip(ad.CELL_KINDS, cells)), flush=True)
 
 
 def main(argv=None) -> int:
@@ -254,16 +288,20 @@ def main(argv=None) -> int:
     parent = None
     if args.parent_csrc is not None:
         parent = {"lanes_counts": ld.kernels_built_from(args.parent_csrc)["lanes_counts"],
-                  "agg_cells_gate": ad.AggCellsGate(
-                      "agg_cells_gate (parent)",
-                      cuda_build.CudaLibrary("agg_day", ad.bind, csrc=args.parent_csrc))}
-    libraries = {k.library for k in list(kernels.values()) + list(stats.values())
-                 + list((parent or {}).values())}
+                  "agg_cells_gate": ad.kernels_built_from(args.parent_csrc)["agg_cells_gate"]}
+    used = {INSTANCES[name][0] for name in args.instances}
+    libraries = {d[k].library for d in (kernels, stats, parent or {}) for k in used if k in d}
     cuda_build.build_all(libraries)
     for lib, stem in ((ld.library, "lanes_counts"), (ld.library, "lanes_bidders"),
                       (ad.library, "agg_cells_gate")):
         for line in ptxas_lines(lib.build_log, stem):
             print(f"ptxas {line}")
+        if lib in libraries and stem == "agg_cells_gate":
+            for line in sass_counts(lib.path, stem):
+                print(f"sass {line}")
+    if parent is not None and parent["agg_cells_gate"].library in libraries:
+        for line in sass_counts(parent["agg_cells_gate"].library.path, "agg_cells_gate"):
+            print(f"sass (parent) {line}")
     report(args.instances, kernels, stats, parent, card)
     return 0
 

@@ -37,7 +37,9 @@ pallas by default). With ``--parent-csrc DIR``, each lanes route asked
 for (``lanes``, ``explicit_lanes``, ``pool_lanes``) also runs, in its
 own turn after the route's, on the lanes_day kernels built from DIR
 (another tree's ``adcraft_tpu_torch/csrc``, such as the parent
-commit's), to time two versions of those kernels in turns.
+commit's), and each agg route (``xla``, ``explicit``, ``pool``) on the
+agg_day kernels built from DIR, to time two versions of those kernels in
+turns.
 
     python3 -m adcraft_tpu_torch.step_rate [--envs 1024 4096 8192]
         [--routes pallas xla lanes explicit explicit_lanes pool pool_lanes]
@@ -82,14 +84,20 @@ POOL_MAX_BIDDERS, POOL_PARTICIPATION = 30.0, 0.6
 SIGNED_LOC, SIGNED_SCALE = -0.3, 0.1
 LANES_ROUTES = ("lanes", "explicit_lanes", "pool_lanes")
 LANES_KERNELS = ("lanes_counts", "lanes_gate", "lanes_gate_float", "lanes_outcomes")
-KERNELS = {"day_kernel": dk.day_kernel, "threefry_words": pk.threefry_words,
-           "agg_cells_gate": agg_day.agg_cells_gate, "agg_outcomes": agg_day.agg_outcomes}
+AGG_ROUTES = ("xla", "explicit", "pool")
+AGG_KERNELS = ("agg_cells_gate", "agg_outcomes")
+# the routes that run on another tree's kernels too, with --parent-csrc
+SWAPPED = {**{route: (lanes_day, LANES_KERNELS) for route in LANES_ROUTES},
+           **{route: (agg_day, AGG_KERNELS) for route in AGG_ROUTES}}
+KERNELS = {"day_kernel": dk.day_kernel, "threefry_words": pk.threefry_words}
 
 
 def counted_kernels() -> dict:
-    """The kernels whose launches a step counts, the lanes day's as the step
-    calls them."""
-    return dict(KERNELS, **{name: getattr(lanes_day, name) for name in LANES_KERNELS})
+    """The kernels whose launches a step counts, the lanes and agg days' as
+    the step calls them."""
+    return dict(KERNELS, **{name: getattr(module, name)
+                            for module, names in ((lanes_day, LANES_KERNELS),
+                                                  (agg_day, AGG_KERNELS)) for name in names})
 
 
 def pool_keywords(kw, signed: bool = False):
@@ -121,23 +129,25 @@ def busy_ms(events) -> float:
 
 
 @contextlib.contextmanager
-def lanes_kernels(kernels):
-    """Route the lanes day through ``kernels`` (name -> wrapper), if given."""
+def route_kernels(route: str, kernels):
+    """Route the route's day (the lanes or the agg day) through ``kernels``
+    (name -> wrapper), if given."""
     if kernels is None:
         yield
         return
-    own = {name: getattr(lanes_day, name) for name in LANES_KERNELS}
-    for name in LANES_KERNELS:
-        setattr(lanes_day, name, kernels[name])
+    module, names = SWAPPED[route]
+    own = {name: getattr(module, name) for name in names}
+    for name in names:
+        setattr(module, name, kernels[name])
     try:
         yield
     finally:
         for name, kernel in own.items():
-            setattr(lanes_day, name, kernel)
+            setattr(module, name, kernel)
 
 
 def measure(num_envs: int, route: str, device: torch.device, kernels=None) -> dict:
-    with lanes_kernels(kernels):
+    with route_kernels(route, kernels):
         return _measure(num_envs, route, device)
 
 
@@ -185,18 +195,20 @@ def main(argv=None) -> int:
     parser.add_argument("--routes", nargs="+", choices=sorted(ROUTE_KNOBS),
                         default=["pallas", "xla"])
     parser.add_argument("--parent-csrc", type=Path,
-                        help="also time the lanes routes on the kernels built from this "
-                             "csrc directory")
+                        help="also time the lanes and agg routes on the kernels built from "
+                             "this csrc directory")
     parser.add_argument("--json", type=Path, help="also write the results here")
     args = parser.parse_args(argv)
     parent = None
     if args.parent_csrc is not None:
-        if not set(LANES_ROUTES) & set(args.routes):
-            parser.error(f"--parent-csrc times the lanes routes {LANES_ROUTES}: ask for one")
-        parent = lanes_day.kernels_built_from(args.parent_csrc)
-    # (route, tree): each lanes route on the parent's kernels too, after its own
+        if not set(SWAPPED) & set(args.routes):
+            parser.error(f"--parent-csrc times the routes {tuple(SWAPPED)}: ask for one")
+        parent = dict(lanes_day.kernels_built_from(args.parent_csrc),
+                      **agg_day.kernels_built_from(args.parent_csrc))
+    # (route, tree): each lanes or agg route on the parent's kernels too,
+    # after its own
     turns = [(route, tree) for route in args.routes
-             for tree in (("this", "parent") if parent is not None and route in LANES_ROUTES
+             for tree in (("this", "parent") if parent is not None and route in SWAPPED
                           else ("this",))]
     if not torch.cuda.is_available():
         raise SystemExit("step_rate runs on the card only: no CUDA device")

@@ -101,8 +101,8 @@ Phases, each fatal on failure:
    CUDA device events, device busy time and idle share per step;
 11. explicit keywords on the XLA day step (bench.py's dense_explicit
    regime: its knobs with kind=EXPLICIT) at 4096 envs x 100 keywords x 24
-   sub-timesteps, for the rust and the python cost model, at $1000 and at
-   a tight budget ($10 and $2): agg_cells_gate's explicit mode equal to its plain version
+   sub-timesteps, for the rust and the python cost model, at $1000, at
+   a tight budget ($10 and $2) and unbound ($1e6): agg_cells_gate's explicit mode equal to its plain version
    on every simulated cell, on n_sim and (bit for bit) on the day's
    constants, with the chunk chosen and forced to 1, and agg_outcomes on
    its tables in both revenue modes; the mode timed beside its bound
@@ -112,6 +112,11 @@ Phases, each fatal on failure:
    autoreset_step(reset_kw=True) day that ends every episode (max_days
    3), counts zeroed just before: one launch of each kernel per day, and
    outcomes and keys equal to the same days through the plain versions;
+   last, both explicit instances through adcraft_tpu_torch.kernel_turns:
+   blocks per SM, SM clocks per stage and by part (the prologue's cost
+   moments and ladder, stage A's counts and costs), the cells with clicks
+   and impressions, with phantom clicks and resolved by lanes, and the
+   time by chunk;
 12. explicit keywords on the lanes day (EnvConfig's defaults: kind,
    cost model and sampling knobs), for the rust model (float32 dollars on
    lanes_gate_float, lanes_outcomes' float mode) and the python model
@@ -201,7 +206,8 @@ Phases, each fatal on failure:
    ($1000 and unbound) and the outputs where the two differ.
 With --parent-csrc DIR, then, agg_cells_gate's three instances,
 agg_outcomes (both revenue modes) and threefry_words at full width in
-turns with DIR's build, with the count of outputs where the trees differ.
+turns with DIR's build, with the count of outputs where the trees differ
+(agg_cells_gate's imp, acc, spend and n_sim must not).
 
 The line before the last is a JSON object with each kernel's launches on
 its path, error, times and bound; the last line is {"ok": true, "device":
@@ -923,11 +929,11 @@ def xla_phase(torch, dev, card, table, ops_per_word, int_ops_per_s, fp_ops_per_s
     ]
 
 
-# $1000, and a tight budget per cost model: a rust click costs $2.20-4.40,
-# so $10 lets a few clicks through and then resolves lanes; a python one
-# about half the bid
-EXPLICIT_BUDGETS = {"RUST_QUIRK": (("$1000", XLA_BUDGET), ("tight", 10.0)),
-                    "PYTHON": (("$1000", XLA_BUDGET), ("tight", 2.0))}
+# $1000, a tight budget per cost model (a rust click costs $2.20-4.40, so
+# $10 lets a few clicks through and then resolves lanes; a python one about
+# half the bid), and one no day reaches
+EXPLICIT_BUDGETS = {"RUST_QUIRK": (("$1000", XLA_BUDGET), ("tight", 10.0), ("unbound", 1e6)),
+                    "PYTHON": (("$1000", XLA_BUDGET), ("tight", 2.0), ("unbound", 1e6))}
 EXPLICIT_STEPS = 2
 EXPLICIT_MAX_DAYS = EXPLICIT_STEPS + 1  # the slice's autoreset day ends every episode
 # float instructions counted from csrc/xla_math.cuh (fused multiply-adds
@@ -2576,11 +2582,8 @@ def parent_builds(parent_csrc, cuda_build):
     from adcraft_tpu_torch import agg_day as ad
     from adcraft_tpu_torch import prng_kernel as pk
 
-    agg = cuda_build.CudaLibrary("agg_day", ad.bind, csrc=parent_csrc)
     words = cuda_build.CudaLibrary("prng_kernels", pk.bind_launchers, csrc=parent_csrc)
-    return {"agg_cells_gate": ad.AggCellsGate("agg_cells_gate (parent)", agg),
-            "agg_outcomes": ad.AggOutcomes("agg_outcomes (parent)", agg),
-            "threefry_words": pk.ThreefryWords(words)}
+    return dict(ad.kernels_built_from(parent_csrc), threefry_words=pk.ThreefryWords(words))
 
 
 def parent_turns_phase(torch, dev, card, table, parent):
@@ -2626,11 +2629,14 @@ def parent_turns_phase(torch, dev, card, table, parent):
 
         got, other = gate(ad.agg_cells_gate)(), gate(parent["agg_cells_gate"])()
         sim = cell < got[3].view(E, 1, 1)
-        differ = {"n_sim": (got[3] != other[3]).sum().item(),
-                  "spend": ((got[2] != other[2]) & sim).sum().item()}
+        differ = {"n_sim": (got[3] != other[3]).sum().item()}
+        differ.update({what: ((g != w) & sim).sum().item()
+                       for what, g, w in zip(("imp", "acc", "spend"), got, other)})
         print(f"  {name} ($1000): the parent's outputs differ from this tree's in "
-              f"{differ['n_sim']} n_sim of {E} and {differ['spend']} spends of "
-              f"{sim.sum().item()} simulated cells")
+              f"{differ['n_sim']} n_sim of {E} and in {differ['imp']} imp, {differ['acc']} acc "
+              f"and {differ['spend']} spend of {sim.sum().item()} simulated cells")
+        if any(differ.values()):
+            fail(f"{name}: outputs differ from the parent's build {differ}")
         turns(name, gate(ad.agg_cells_gate), gate(parent["agg_cells_gate"]), "$1000")
         if model_name is None:
             def outcomes(kernel, mode):
@@ -3529,6 +3535,9 @@ def main(argv=None) -> int:
     t_phase = phase_done("10", t_phase)
     # 11. explicit keywords on the XLA day step
     route_kernels += explicit_phase(torch, dev, card, *rates)
+    # their stage clocks by part, cells by kind and time by chunk
+    kernel_turns.report(kernel_turns.EXPLICIT_INSTANCES, {"agg_cells_gate": ad.agg_cells_gate},
+                        {"agg_cells_gate": clocked}, None, card, dev)
     t_phase = phase_done("11", t_phase)
     # 12. explicit keywords on the lanes day (EnvConfig's defaults)
     route_kernels += explicit_lanes_phase(torch, dev, card, *rates, lanes_stats, parent)

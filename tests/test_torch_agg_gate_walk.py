@@ -12,7 +12,10 @@ not full, and no click or a first lite lane above the budget), the longer
 run taken, then the next cell decided alone: full, accepting nothing, or
 lane-resolved by a running sum over its lite costs if all its lanes are
 lite, else by the plain ``resolve_cells``. The budget carries across chunks, and no chunk
-after the one in which the day breaks is walked. Lite lanes of cells
+after the one in which the day breaks is walked. The explicit instances'
+gate first takes the chunk's groups of 32 cells from its start whole
+while each group's total, the sums of its spends' high and low 16 bits,
+is below the budget. Lite lanes of cells
 without clicks, which the kernel never draws, are poisoned. Tolerance:
 exact. It also counts that no cell that accepts nothing at a positive
 budget is ever resolved alone.
@@ -40,11 +43,13 @@ def leading(mask):
     return int(off[0]) if off.size else W
 
 
-def walk_model(params, keys, s_full, n_clicks, lite, budget_c, lanes, chunk_t):
-    """The kernel's gate walk for every env; returns (acc, spend, n_sim,
-    number of cells lane-resolved, number of those that accepted nothing,
-    number of those whose lanes were all lite). Cells at or past an env's
-    break stay 0."""
+def walk_model(params, keys, s_full, n_clicks, lite, budget_c, lanes, chunk_t,
+               groups=False):
+    """The kernel's gate walk for every env (with ``groups``, the explicit
+    instances': whole groups first); returns (acc, spend, n_sim, number of
+    cells lane-resolved, number of those that accepted nothing, number of
+    those whose lanes were all lite). Cells at or past an env's break stay
+    0."""
     E, T, K = s_full.shape
     sf, nc, lt = s_full.numpy().astype(np.int64), n_clicks.numpy(), lite.numpy()
     acc = np.zeros((E, T, K), np.int32)
@@ -65,6 +70,15 @@ def walk_model(params, keys, s_full, n_clicks, lite, budget_c, lanes, chunk_t):
             sp_c = np.zeros(cells, np.int64)
             end, broken = cells, False
             p = 0
+            while groups and p + W <= cells:
+                g = s_c[p:p + W]
+                total = (int((g >> 16).sum()) << 16) + int((g & 0xFFFF).sum())
+                if total >= B:
+                    break
+                acc_c[p:p + W] = n_c[p:p + W]
+                sp_c[p:p + W] = g
+                B -= total
+                p += W
             while p < cells:
                 c = p + lane
                 valid = c < cells
@@ -161,11 +175,11 @@ def plain_gate(tables, budget):
     return budget_c, agg_day.agg_gate_reference(params, keys, s_full, ncl, lite, budget_c, lanes)
 
 
-def check(lanes, params, keys, s_full, ncl, lite, budget_c, chunk_t, want=None):
+def check(lanes, params, keys, s_full, ncl, lite, budget_c, chunk_t, want=None, groups=False):
     if want is None:
         want = agg_day.agg_gate_reference(params, keys, s_full, ncl, lite, budget_c, lanes)
     acc, spend, n_sim, resolved, resolved_zero, resolved_lite = walk_model(
-        params, keys, s_full, ncl, lite, budget_c, lanes, chunk_t)
+        params, keys, s_full, ncl, lite, budget_c, lanes, chunk_t, groups)
     np.testing.assert_array_equal(acc, want[0].numpy())
     np.testing.assert_array_equal(spend, want[1].numpy())
     np.testing.assert_array_equal(n_sim, want[2].numpy())
@@ -220,3 +234,29 @@ def test_walk_on_adversarial_tables(seed, chunk_t):
     for s_, n_, lite_, b_ in ((s, n, lite, budget), (big_s, n_big, big_lite, big_budget)):
         check(lanes, params, keys, *(torch.from_numpy(x.astype(np.int32))
                                      for x in (s_, n_, lite_, b_)), chunk_t)
+
+
+@pytest.mark.parametrize("chunk_t", [3, T_FULL])
+def test_walk_after_whole_groups_matches_plain_gate(chunk_t):
+    """The explicit instances' walk: whole groups of 32 cells first, on a
+    day unbound and binding mid-day, and on tables whose spends of 2**16
+    to 2**22 units carry the groups' low 16-bit sums into the high ones,
+    several groups whole before the day binds."""
+    E, K = 12, 100
+    tables = (K, 16, 1, E, K + 16)
+    lanes, params, keys, s_full, ncl, lite_c = day_tables(*tables)
+    for budget in (1e6, 20.0 * K / 7):
+        budget_c, want = plain_gate(tables, budget)
+        check(lanes, params, keys, s_full, ncl, lite_c, budget_c, chunk_t, want, groups=True)
+    E, K = 10, 40
+    lanes, params, keys, _, _, _ = day_tables(K, 16, 2, E, 100)
+    rng = np.random.default_rng(3)
+    n = np.minimum(rng.integers(0, 4, (E, lanes.T, K)), lanes.L)
+    s = n * rng.integers(2**16, 2**21, (E, lanes.T, K))
+    lite = np.where((n == 0)[:, :, None], POISON,
+                    rng.integers(1, 4, (E, lanes.T, lanes.L, K)) * 2**22)
+    budget = rng.integers(2**28, 2**30, E)
+    groups = s.reshape(E, -1)[:, :lanes.T * K // 32 * 32].reshape(E, -1, 32).sum(2)
+    assert ((groups.cumsum(1) < budget[:, None]).sum(1) >= 2).all()
+    check(lanes, params, keys, *(torch.from_numpy(x.astype(np.int32))
+                                 for x in (s, n, lite, budget)), chunk_t, groups=True)

@@ -42,6 +42,13 @@ def configs(knobs):
 
 
 @functools.lru_cache(maxsize=None)
+def jax_env(jcfg):
+    """One JAX env per config, so that its compiled reset serves both
+    ``reset_kw`` cases."""
+    return jenv.VectorBiddingEnv(jcfg, E, table=j_table(64, 0.5))
+
+
+@functools.lru_cache(maxsize=None)
 def jax_autoreset(jcfg, reset_kw):
     step = functools.partial(jenv.env_autoreset_step, jcfg, reset_kw=reset_kw,
                              table=j_table(64, 0.5), no_vol_prob=0.2)
@@ -52,8 +59,7 @@ def jax_autoreset(jcfg, reset_kw):
 @pytest.mark.parametrize("knobs", ["agg", "lanes"])
 def test_autoreset_matches_jax(knobs, reset_kw):
     jcfg, cfg = configs(knobs)
-    jstate, _ = jenv.VectorBiddingEnv(jcfg, E, table=j_table(64, 0.5)).reset(
-        jax.random.PRNGKey(3))
+    jstate, _ = jax_env(jcfg).reset(jax.random.PRNGKey(3))
     env = VectorBiddingEnv(cfg, E, t_table(64, 0.5), no_vol_prob=0.2, device="cpu")
     state = env_state_from_numpy(jax.tree.map(np.asarray, jstate), device="cpu")
     # envs 0-2 bid low and run to max_days; envs 3-5 overbid and lose

@@ -364,12 +364,32 @@ def test_agg_cells_gate_explicit_matches_reference(cuda, K, model, bits):
     ample and tight, every simulated cell, n_sim and the constants exactly,
     the chunk left to the wrapper and forced to 1; then agg_outcomes on its
     tables."""
+    check_explicit_gate(cuda, K, model, bits)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K, model, bits, grid, chunks", [
+    (97, "RUST_QUIRK", 32, 304, (None, 1, 5)), (97, "PYTHON", 32, 304, (None, 1, 5)),
+    (97, "PYTHON", 16, 33, (None, 2)), (301, "PYTHON", 32, 1024, (None, 1)),
+    (300, "RUST_QUIRK", 16, 304, (None, 3))])
+def test_agg_cells_gate_explicit_at_odd_widths(cuda, K, model, bits, grid, chunks):
+    """The same at odd keyword counts (a warp's cells straddle sub-timesteps,
+    the python moments' rounds straddle keywords), the python model's grids
+    of 33 and 1024 cells, and chunks of several sub-timesteps (the moments'
+    rounds take the chunk's cell tables)."""
+    check_explicit_gate(cuda, K, model, bits, grid, chunks)
+
+
+def check_explicit_gate(cuda, K, model, bits, grid=304, chunks=(None, 1)):
+    """agg_cells_gate's explicit instance against its plain version at E =
+    97, bids $0.20-$3.20, three budgets, each chunk of ``chunks`` (None:
+    the wrapper's); agg_outcomes on its tables."""
     from adcraft_tpu_torch import agg_day
     from adcraft_tpu_torch.keywords import sample_explicit_keywords
     from adcraft_tpu_torch.step import agg_model, budget_cents, xla_lanes
 
     E = 97
-    cfg = explicit_config(K, model, lane_bits=bits)
+    cfg = explicit_config(K, model, lane_bits=bits, agg_cost_grid=grid)
     lanes, agg = xla_lanes(cfg), agg_model(cfg)
     kw = sample_explicit_keywords(prng.split(prng.PRNGKey(K, cuda), E), K)
     gen = torch.Generator().manual_seed(K)
@@ -385,20 +405,20 @@ def test_agg_cells_gate_explicit_matches_reference(cuda, K, model, bits):
     assert 1 <= chunk_t <= lanes.T and fused.occupancy(chunk_t, K, lanes, cuda, agg) >= 1
     for budget in (1e6, 2.0 * K, 4.0):
         budget_c = budget_cents(torch.full((E,), budget, device=cuda), agg_day.AGG_SCALE[agg])
-        got = agg_day.agg_cells_gate(params, n_auc01, keys, budget_c, lanes, keep_constants=True,
-                                     model=agg)
-        one = agg_day.agg_cells_gate(params, n_auc01, keys, budget_c, lanes, chunk_t=1,
-                                     model=agg)
+        outs = [agg_day.agg_cells_gate(params, n_auc01, keys, budget_c, lanes,
+                                       keep_constants=True, chunk_t=c, model=agg,
+                                       cost_grid=grid) for c in chunks]
+        got = outs[0]
         torch.cuda.synchronize()
         want = agg_day.agg_cells_gate_reference(params, n_auc01, keys, budget_c, lanes, True,
-                                                agg)
+                                                agg, grid)
         sim = cell < want[3].view(E, 1, 1)
-        for out in (got, one):
+        for out in outs:
             torch.testing.assert_close(out[3], want[3], rtol=0, atol=0)
             for g, w in zip(out[:3], want[:3]):
                 torch.testing.assert_close(g[sim], w[sim], rtol=0, atol=0)
-        for g, w in zip(got[4], want[4]):
-            assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+            for g, w in zip(out[4], want[4]):
+                assert torch.equal(g.view(torch.int32), w.view(torch.int32))
         imp, acc = want[0], want[1]
         assert bool(((imp == 0) & (acc > 0) & sim).any())  # phantom clicks
         for mode in ("sum", "day"):
