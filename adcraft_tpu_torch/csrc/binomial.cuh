@@ -20,13 +20,17 @@
 //
 // An inversion element's draw depends on its own words alone: once its
 // geometric sum passes its count it stops counting, and the sum never
-// falls. So an element that is done draws no more: the loop keeps the live
-// elements packed in the warp's shared memory and draws ceil(live / 32)
-// slots a pass; and the groups of a call of more than 32 R elements run
-// their inversion loops apart. BTRS skips nothing: an accepted element may
-// accept again. Its pass count is the call's, so a call of several groups
-// first runs each group's BTRS loop to find the largest pass count P, then
-// runs every group for exactly P passes.
+// falls. Each step ceil(log u / log(1 - q)) is at least 1 (XLA's log of
+// every uniform below 1 is negative, tests/test_torch_lanes_inversion.py),
+// so once the sum reaches the count the next word can only end the walk:
+// an element stops there, its draw the words it drew, without that word
+// (at count 0 it draws none). An element that is done draws no more: the
+// loop keeps the live elements packed in the warp's shared memory and
+// draws ceil(live / 32) slots a pass; and the groups of a call of more
+// than 32 R elements run their inversion loops apart. BTRS skips nothing:
+// an accepted element may accept again. Its pass count is the call's, so
+// a call of several groups first runs each group's BTRS loop to find the
+// largest pass count P, then runs every group for exactly P passes.
 //
 // What bounds it: the warp's issue of a long per-slot chain (a threefry
 // word, XLA's log with its fused multiply-adds, a division), and,
@@ -114,10 +118,12 @@ __device__ __forceinline__ int binomial_finish(const BinomialElem& el, float inv
 }
 
 // Passes a call ran in each loop (0 where it skipped the loop), and, in a
-// build with -DLANES_STAGE_CLOCKS, lane 0's SM clocks in each
+// build with -DLANES_STAGE_CLOCKS, lane 0's SM clocks in each and the
+// inversion loop's words (one per element a pass draws) and slot steps
 struct BinomialPasses {
   int inversion = 0, btrs = 0;
   unsigned long long inversion_clocks = 0, btrs_clocks = 0;
+  int inversion_words = 0, inversion_steps = 0;
 };
 
 __device__ __forceinline__ unsigned long long stage_clock() {
@@ -138,10 +144,11 @@ enum { kInCount, kInLog1mq, kInNum, kInSum, kInCtr, kInHome, kInLive, kInOut, kI
 // first positions of `state`, so that a pass draws ceil(live / 32) slots
 // one at a time; an element that is done leaves its draw at its home
 // position and the others move down (in place: no element moves up).
-// Returns the passes run (warp-uniform).
+// Returns the passes run (warp-uniform); counts its words and slot steps
+// into `passes_seen` (a -DLANES_STAGE_CLOCKS build).
 template <int R>
 __device__ int binomial_inversion(Key key, const BinomialElem (&el)[R], const uint32_t (&ctr)[R],
-                                  float (&out)[R], float* state) {
+                                  float (&out)[R], float* state, BinomialPasses& passes_seen) {
   const int lane = threadIdx.x % 32;
   const unsigned below = (1u << lane) - 1u;
   const auto at = [&](int f, int j) -> float& { return state[f * R * 32 + j]; };
@@ -154,8 +161,10 @@ __device__ int binomial_inversion(Key key, const BinomialElem (&el)[R], const ui
     at(kInSum, j) = 0.0f;
     at(kInCtr, j) = __uint_as_float(ctr[r]);
     at(kInHome, j) = __int_as_float(j);
-    at(kInLive, j) = el[r].in_call && 0.0f <= at(kInCount, j) ? 1.0f : 0.0f;
-    at(kInOut, j) = -1.0f;  // num_geom - 1 of an element that never draws
+    at(kInLive, j) = el[r].in_call && 0.0f < at(kInCount, j) ? 1.0f : 0.0f;
+    // num_geom - 1 of an element that never draws: 0 at count 0 (its first
+    // word would end its walk), -1 below
+    at(kInOut, j) = 0.0f <= at(kInCount, j) ? 0.0f : -1.0f;
   }
   // packs the live elements of the first n positions; returns their number
   const auto pack = [&](int n) {
@@ -195,6 +204,11 @@ __device__ int binomial_inversion(Key key, const BinomialElem (&el)[R], const ui
     for (int j0 = 0; j0 < live; j0 += 32) {
       const int j = j0 + lane;
       bool stays = false;
+#ifdef LANES_STAGE_CLOCKS
+      passes_seen.inversion_words +=
+          __popc(__ballot_sync(kWarpAll, j < live && at(kInLive, j) != 0.0f));
+      passes_seen.inversion_steps += 1;
+#endif
       if (j < live && at(kInLive, j) != 0.0f) {  // a done element keeps its state
         const float u = uniform32(bits32(sub, __float_as_uint(at(kInCtr, j))));
         const float sum =
@@ -202,9 +216,12 @@ __device__ int binomial_inversion(Key key, const BinomialElem (&el)[R], const ui
         const float num = __fadd_rn(at(kInNum, j), 1.0f);
         at(kInNum, j) = num;
         at(kInSum, j) = sum;
-        stays = sum <= at(kInCount, j);
+        const float count = at(kInCount, j);
+        stays = sum < count;
         at(kInLive, j) = stays ? 1.0f : 0.0f;
-        if (!stays) at(kInOut, __float_as_int(at(kInHome, j))) = __fsub_rn(num, 1.0f);
+        if (!stays) {  // the words whose sums stay within the count
+          at(kInOut, __float_as_int(at(kInHome, j))) = sum <= count ? num : __fsub_rn(num, 1.0f);
+        }
       }
       still += __popc(__ballot_sync(kWarpAll, stays));
     }
@@ -414,7 +431,7 @@ __device__ BinomialPasses binomial_warp(Key key, int K, Load load, Store store,
       for (int r = 0; r < R; ++r) inv[r] = btrs[r] = 0.0f;
       if (phase == 1 && any_inversion) {
         const unsigned long long t0 = stage_clock();
-        out.inversion = max(out.inversion, binomial_inversion<R>(key, el, ctr, inv, state));
+        out.inversion = max(out.inversion, binomial_inversion<R>(key, el, ctr, inv, state, out));
         out.inversion_clocks += stage_clock() - t0;
       }
       if (any_btrs) {
@@ -514,8 +531,10 @@ __device__ BinomialPasses binomial_lane(Key key, int K, Load load, Store store,
       any_btrs = true;
       continue;
     }
-    float draw = -1.0f;  // num_geom - 1 of an element that never draws
-    if (0.0f <= el.count) {
+    // num_geom - 1 of an element that never draws; it stops once its sum
+    // reaches its count (binomial_inversion)
+    float draw = 0.0f <= el.count ? 0.0f : -1.0f;
+    if (0.0f < el.count) {
       const float log1mq = xla_log1p(-el.q);
       Key chain = key;
       float sum = 0.0f, num = 0.0f;
@@ -524,8 +543,8 @@ __device__ BinomialPasses binomial_lane(Key key, int K, Load load, Store store,
         chain = child(chain, 1);
         sum = __fadd_rn(sum, ceilf(__fdiv_rn(xla_log(uniform32(bits32(sub, j))), log1mq)));
         num = __fadd_rn(num, 1.0f);
-      } while (sum <= el.count);
-      draw = __fsub_rn(num, 1.0f);
+      } while (sum < el.count);
+      draw = sum <= el.count ? num : __fsub_rn(num, 1.0f);
       out.inversion = max(out.inversion, static_cast<int>(num));
     }
     store(j, binomial_finish(el, draw, 0.0f));

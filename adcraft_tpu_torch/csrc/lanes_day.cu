@@ -183,13 +183,26 @@ enum {
   kFloatRedrawn,        // cells whose lanes were drawn alone, the budget having grown
   // lanes_counts per call, three each (the bidders', the impressions' and
   // the clicks' call): SM clocks of the whole call, its inversion loop's
-  // passes, its BTRS loop's passes and clocks
+  // passes, its BTRS loop's passes and clocks, the calls that ran BTRS,
+  // the inversion loop's words (one per element a pass draws) and slot
+  // steps; then the same seven of the calls at t = 0 alone
   kCallClocks,
   kCallInvPasses = kCallClocks + 3,
   kCallBtrsPasses = kCallInvPasses + 3,
   kCallBtrsClocks = kCallBtrsPasses + 3,
-  kNumStats = kCallBtrsClocks + 3
+  kCallBtrsCalls = kCallBtrsClocks + 3,
+  kCallInvWords = kCallBtrsCalls + 3,
+  kCallInvSteps = kCallInvWords + 3,
+  kCallFirstT = kCallInvSteps + 3,
+  kCountsPrologueClocks = 2 * kCallFirstT - kCallClocks,  // a warp's keys, before its calls
+  kCountsPrologueFirstT,  // ... of the warps at t = 0
+  kCountsClocksFirstT,    // the whole warp's clocks at t = 0
+  kCountsFlatWarps,       // lanes_counts' explicit instance: warps that drew t >= 1 flat
+  kCountsFlatClocks,      // ... their clocks in that loop
+  kNumStats
 };
+
+constexpr int kCallMeasures = kCallFirstT - kCallClocks;
 
 #ifdef LANES_STAGE_CLOCKS
 __device__ unsigned long long g_lanes_stats[kNumStats];
@@ -235,13 +248,19 @@ __device__ __forceinline__ float win_prob(float bid, float loc, float scale) {
 }
 
 // a call's passes and clocks; `which` 0 the bidders' call, 1 the
-// impressions', 2 the clicks'
+// impressions', 2 the clicks'; `first_t` a call at t = 0
 __device__ __forceinline__ void count_passes(Stats& st, const BinomialPasses& p, int which,
-                                             unsigned long long clocks) {
-  st.add(kCallClocks + which, clocks);
-  st.add(kCallInvPasses + which, p.inversion);
-  st.add(kCallBtrsPasses + which, p.btrs);
-  st.add(kCallBtrsClocks + which, p.btrs_clocks);
+                                             unsigned long long clocks, bool first_t) {
+  for (int base = kCallClocks; base <= (first_t ? kCallFirstT : kCallClocks);
+       base += kCallMeasures) {
+    st.add(base + which, clocks);
+    st.add(base + kCallInvPasses - kCallClocks + which, p.inversion);
+    st.add(base + kCallBtrsPasses - kCallClocks + which, p.btrs);
+    st.add(base + kCallBtrsClocks - kCallClocks + which, p.btrs_clocks);
+    st.add(base + kCallBtrsCalls - kCallClocks + which, p.btrs > 0);
+    st.add(base + kCallInvWords - kCallClocks + which, p.inversion_words);
+    st.add(base + kCallInvSteps - kCallClocks + which, p.inversion_steps);
+  }
   st.add(kCountsCalls, 1);
   st.add(kCountsInvClocks, p.inversion_clocks);
   st.add(kCountsBtrsClocks, p.btrs_clocks);
@@ -260,6 +279,46 @@ __device__ __forceinline__ void count_passes(Stats& st, const BinomialPasses& p,
 // lanes_counts' instances: implicit single-competitor keywords, explicit
 // ones, the binomial pool
 enum { kCountsImplicit, kCountsExplicit, kCountsPool };
+
+__device__ __forceinline__ Key shfl_key(Key k, int src) {
+  return Key{__shfl_sync(kFull, k.k0, src), __shfl_sync(kFull, k.k1, src)};
+}
+
+// The impressions' call of one (env, t), then the clicks' on them, under
+// the exact sampler, through one copy of the binomial's code: rate(k) is
+// keyword k's impression rate, candidates(i) the clicks' count at i
+// impressions; a lane reads back only the draws it wrote: the impressions
+// from its registers (prev, its slots' loads all come before their
+// stores) or, past one group, from the row. state is the warp's loop state.
+template <int R, class Rate, class Candidates>
+__device__ __forceinline__ void exact_calls(Key k_imp, Key k_click, int K, Rate rate,
+                                            Candidates candidates, const float* bctr,
+                                            const int* n_row, int* imp_row, int* ncl_row,
+                                            float* state, Stats& st, bool first_t) {
+  int prev[R];
+  const bool one_group = K <= 32 * R;
+#pragma unroll 1
+  for (int which = 1; which < 3; ++which) {
+    int* row = which == 1 ? imp_row : ncl_row;
+    const Key key = which == 1 ? k_imp : k_click;
+    const unsigned long long call_start = stage_clock();
+    const BinomialPasses passes = binomial_warp<R>(
+        key, K,
+        [&](int k, int r) {
+          if (which == 2) {
+            return make_float2(static_cast<float>(candidates(one_group ? prev[r] : imp_row[k])),
+                               bctr[k]);
+          }
+          return make_float2(static_cast<float>(n_row[k]), rate(k));
+        },
+        [&](int k, int r, int x) {
+          prev[r] = x;
+          row[k] = x;
+        },
+        state);
+    count_passes(st, passes, which, stage_clock() - call_start, first_t);
+  }
+}
 
 // One warp per (env, sub-timestep): the impressions' call, then the clicks'
 // on those impressions. R slots a lane; a call of more than 32 R keywords
@@ -316,36 +375,14 @@ __global__ void __launch_bounds__(32 * kCountsWarps, kCountsBlocks)
   int* imp_row = imp + call * K;
   int* ncl_row = ncl + call * K;
   int* k_row = kPool ? kout + call * K : nullptr;
+  const unsigned long long prologue = stage_clock() - start;
+  st.add(kCountsPrologueClocks, prologue);
+  if (t == 0) st.add(kCountsPrologueFirstT, prologue);
   if (exact) {
-    // the impressions' call, then the clicks' on them, through one copy of
-    // the binomial's code; a lane reads back only the draws it wrote: the
-    // impressions from its registers (prev, its slots' loads all come
-    // before their stores) or, past one group, from the row
     __shared__ float loop_state[kCountsWarps][kBtFields * R * 32];
-    int prev[R];
-    const bool one_group = K <= 32 * R;
-#pragma unroll 1
-    for (int which = 1; which < 3; ++which) {
-      int* row = which == 1 ? imp_row : ncl_row;
-      const Key key = which == 1 ? k_imp : k_click;
-      const unsigned long long call_start = stage_clock();
-      const BinomialPasses passes = binomial_warp<R>(
-          key, K,
-          [&](int k, int r) {
-            if (which == 2) {
-              return make_float2(static_cast<float>(candidates(one_group ? prev[r] : imp_row[k])),
-                                 bctr[k]);
-            }
-            const float p = kPool ? pool_rate(k, k_row[k]) : rate(k);
-            return make_float2(static_cast<float>(n_row[k]), p);
-          },
-          [&](int k, int r, int x) {
-            prev[r] = x;
-            row[k] = x;
-          },
-          loop_state[threadIdx.x / 32]);
-      count_passes(st, passes, which, stage_clock() - call_start);
-    }
+    exact_calls<R>(
+        k_imp, k_click, K, [&](int k) { return kPool ? pool_rate(k, k_row[k]) : rate(k); },
+        candidates, bctr, n_row, imp_row, ncl_row, loop_state[threadIdx.x / 32], st, t == 0);
   } else {
     const int m = t == 0 ? m0 : m1;
     auto recip = [](int j) { return __fdiv_rn(1.0f, static_cast<float>(j)); };
@@ -364,7 +401,168 @@ __global__ void __launch_bounds__(32 * kCountsWarps, kCountsBlocks)
       ncl_row[k] = binomial_walk(lane_uniform(k_click, k, bits), candidates(i), bctr[k], m, recip);
     }
   }
-  st.add(kCountsClocks, stage_clock() - start);
+  const unsigned long long clocks = stage_clock() - start;
+  st.add(kCountsClocks, clocks);
+  if (t == 0) st.add(kCountsClocksFirstT, clocks);
+  st.flush(lane);
+}
+
+// lanes_counts' explicit instance under the exact sampler (EnvConfig()'s
+// default day): two warps per env, warp e its t = 0 call pair, warp E + e
+// those of t >= 1. split_volume gives each t >= 1 a keyword's daily volume
+// // T, 0 or 1 for the explicit keywords' volumes (means of 14 to 29), and
+// t = 0 the rest, so one warp per (env, t) spent most of its time on calls
+// that draw one word per element (and on each call's keys and rates).
+// Where every keyword's count at t >= 1 is 0 or 1, each of those calls'
+// elements is an inversion element of count 0 or 1 (the clicks' max(imp,
+// 1) is 1); such an element's draw takes at most its first pass's word
+// (binomial.cuh: a walk stops once its sum reaches its count, each step
+// being at least 1): 0 words and a draw of 0 at count 0, and at count 1 a
+// draw of 1 where its first step ceil(log u / log(1 - q)) is 1, else 0. So
+// that warp computes each keyword's rates, log(1 - q) and flips once for
+// the day (a group of 32 R keywords at a time, into the warp's shared
+// memory), derives each sub-timestep's first-pass subkeys one sub-timestep
+// a lane (32 sub-timesteps a chunk), and draws the chunk's words 32 a step
+// in one flat loop: per sub-timestep the impressions' words of the
+// keywords of count 1, then the clicks' of every keyword. Elsewhere (a
+// count above 1) it runs its calls one after the other through
+// exact_calls, as the t = 0 warp runs its own. Capped for 8 blocks per SM
+// (64 registers) it spilled more and measured slower, and so did t = 0's
+// inversion subkeys tabled for both calls at once (more spills).
+template <int R>
+__global__ void __launch_bounds__(32 * kCountsWarps, kCountsBlocks)
+    lanes_counts_explicit_kernel(const float* __restrict__ params,
+                                 const int* __restrict__ n_auc01,
+                                 const long long* __restrict__ keys, long long key_stride,
+                                 int* __restrict__ imp, int* __restrict__ ncl, int E, int K,
+                                 int T) {
+  __shared__ float loop_state[kCountsWarps][kBtFields * R * 32];
+  static_assert(kBtFields >= 4, "the flat loop's four tables fit the loop state");
+  const int lane = threadIdx.x % 32;
+  const long long w = static_cast<long long>(blockIdx.x) * kCountsWarps + threadIdx.x / 32;
+  if (w >= 2LL * E) return;
+  const unsigned long long start = stage_clock();
+  Stats st;
+  // warps 0..E-1 take t = 0, the longer ones, dispatched first; E..2E-1 t >= 1
+  const bool later = w >= E;
+  const int e = static_cast<int>(later ? w - E : w);
+  const long long EK = static_cast<long long>(E) * K;
+  const long long eK = static_cast<long long>(e) * K;
+  const float* bid = params + BID * EK + eK;
+  const float* bctr = params + BCTR * EK + eK;
+  const float* thresh = params + IMP_THRESH * EK + eK;
+  const float* intercept = params + IMP_INTERCEPT * EK + eK;
+  const float* slope = params + IMP_SLOPE * EK + eK;
+  const auto rate = [&](int k) {
+    return threshold_sigmoid(bid[k], thresh[k], intercept[k], slope[k]);
+  };
+  const int* n_row = n_auc01 + (later ? EK : 0) + eK;
+  float* state = loop_state[threadIdx.x / 32];
+  const Key ke = load_key(keys, key_stride, e);
+  bool small = later;
+  for (int k = lane; k < K && small; k += 32) small = n_row[k] == 0 || n_row[k] == 1;
+  const bool flat = __all_sync(kFull, small);
+  const unsigned long long prologue = stage_clock() - start;
+  st.add(kCountsPrologueClocks, prologue);
+  if (!later) st.add(kCountsPrologueFirstT, prologue);
+  if (flat) {
+    const unsigned long long flat_start = stage_clock();
+    // per keyword j of the group: log(1 - q) of its impressions' and
+    // clicks' elements, how their draws finish (bits 0-1 the impressions'
+    // flip and NaN, 2-3 the clicks', 4 a count of 1), and the group's
+    // keywords of count 1
+    float* log1mq_imp = state;
+    float* log1mq_click = state + 32 * R;
+    int* flags = reinterpret_cast<int*>(state + 64 * R);
+    int* live = reinterpret_cast<int*>(state + 96 * R);
+#pragma unroll 1
+    for (int g0 = 0; g0 < K; g0 += 32 * R) {
+      const int G = min(K - g0, 32 * R);
+      int L = 0;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int j = r * 32 + lane;
+        const bool one = j < G && n_row[g0 + j] == 1;
+        if (j < G) {
+          const BinomialElem ei = binomial_elem(one ? 1.0f : 0.0f, rate(g0 + j), true);
+          const BinomialElem ec = binomial_elem(1.0f, bctr[g0 + j], true);
+          log1mq_imp[j] = xla_log1p(-ei.q);
+          log1mq_click[j] = xla_log1p(-ec.q);
+          flags[j] = (ei.flip ? 1 : 0) | (ei.nan_out ? 2 : 0) | (ec.flip ? 4 : 0) |
+                     (ec.nan_out ? 8 : 0) | (one ? 16 : 0);
+        }
+        const unsigned m = __ballot_sync(kFull, one);
+        if (one) live[L + __popc(m & ((1u << lane) - 1u))] = j;
+        L += __popc(m);
+      }
+      __syncwarp();
+#pragma unroll 1
+      for (int t0 = 1; t0 < T; t0 += 32) {
+        // lane i: sub-timestep t0 + i's first-pass subkeys, split(k_imp)[0]
+        // and split(k_click)[0]
+        Key s_imp{0u, 0u}, s_click{0u, 0u};
+        if (t0 + lane < T) {
+          const Key kt = child(ke, static_cast<uint32_t>(t0 + lane));
+          s_imp = child(child(child(kt, 0), 0), 0);
+          s_click = child(child(kt, 1), 0);
+        }
+        // the chunk's words, per sub-timestep the W = L + G of its two
+        // calls, 32 a step
+        const int W = L + G, tn = min(T - t0, 32);
+#pragma unroll 1
+        for (int i0 = 0; i0 < tn * W; i0 += 32) {
+          const int i = i0 + lane;
+          const int tt = i / W, j = i - tt * W;
+          const Key si = shfl_key(s_imp, tt & 31), sc = shfl_key(s_click, tt & 31);
+          if (i < tn * W) {
+            const bool is_imp = j < L;
+            const int x = is_imp ? live[j] : j - L;
+            const float u = uniform32(bits32(is_imp ? si : sc, static_cast<uint32_t>(g0 + x)));
+            const float step =
+                ceilf(__fdiv_rn(xla_log(u), is_imp ? log1mq_imp[x] : log1mq_click[x]));
+            const int f = flags[x];
+            const int fl = is_imp ? f : f >> 2;
+            const int inv = step <= 1.0f ? 1 : 0;  // the walk's draw at a count of 1
+            const int d = (fl & 2) ? 0 : (fl & 1) ? 1 - inv : inv;
+            const long long at = (static_cast<long long>(e) * T + t0 + tt) * K + g0 + x;
+            if (is_imp) {
+              imp[at] = d;
+            } else {
+              ncl[at] = d;
+              if (!(f & 16)) imp[at] = 0;  // no auction, no impression
+            }
+          }
+        }
+#ifdef LANES_STAGE_CLOCKS
+        for (int i = 0; i < tn; ++i) {
+          BinomialPasses pi, pc;
+          pi.inversion = L > 0;
+          pi.inversion_words = L;
+          pc.inversion = 1;
+          pc.inversion_words = G;
+          pc.inversion_steps = i == 0 ? (tn * W + 31) / 32 : 0;  // the chunk's, both calls'
+          count_passes(st, pi, 1, 0, false);
+          count_passes(st, pc, 2, 0, false);
+        }
+#endif
+      }
+      __syncwarp();  // the tables, before the next group's
+    }
+    st.add(kCountsFlatWarps, 1);
+    st.add(kCountsFlatClocks, stage_clock() - flat_start);
+  } else {
+#pragma unroll 1
+    for (int t = later ? 1 : 0; t < (later ? T : 1); ++t) {
+      const Key kt = child(ke, static_cast<uint32_t>(t));
+      const long long call = static_cast<long long>(e) * T + t;
+      exact_calls<R>(
+          child(child(kt, 0), 0), child(kt, 1), K, rate, [](int i) { return max(i, 1); }, bctr,
+          n_row, imp + call * K, ncl + call * K, state, st, t == 0);
+    }
+  }
+  const unsigned long long clocks = stage_clock() - start;
+  st.add(kCountsClocks, clocks);
+  if (!later) st.add(kCountsClocksFirstT, clocks);
   st.flush(lane);
 }
 
@@ -396,7 +594,7 @@ __global__ void __launch_bounds__(32 * kBiddersWarps, kBiddersBlocks)
   const BinomialPasses passes = binomial_lane(
       k_bidders, K, [&](int k) { return make_float2(max_bidders[k], participation[k]); },
       [&](int k, int x) { k_row[k] = x; }, pass);
-  count_passes(st, passes, 0, stage_clock() - start);
+  count_passes(st, passes, 0, stage_clock() - start, t == 0);
   st.flush(0);  // every lane its own call's
 }
 
@@ -411,10 +609,6 @@ struct GateWindow {
 
 size_t gate_smem(int T) {
   return kGateWarps * (static_cast<size_t>(T) * sizeof(Key) + sizeof(GateWindow));
-}
-
-__device__ __forceinline__ Key shfl_key(Key k, int src) {
-  return Key{__shfl_sync(kFull, k.k0, src), __shfl_sync(kFull, k.k1, src)};
 }
 
 // A cell's lane costs in cents: the implicit keywords' truncated Laplace
@@ -745,7 +939,7 @@ __global__ void __launch_bounds__(32 * kGateWarps)
 constexpr int kFloatCap = 256;    // lanes of a float gate window, a warp's shared buffer
 // lanes_gate_float blocks per SM its registers are capped for: 64
 // registers and a few bytes of spills; uncapped it takes 72 registers,
-// no spills and 7 blocks per SM, and measured slower
+// no spills and 7 blocks per SM, and measured slower (its pool mode too)
 constexpr int kFloatBlocks = 8;
 constexpr int kScanFixed = 256;   // a sub-timestep's spends before the first whose zero may
                                   // move XLA's scan (a 16-block's start past element 256)
@@ -761,16 +955,21 @@ struct FloatWindow {
   int n[32], off[32];
 };
 
-size_t gate_float_smem(int T) {
-  return kGateWarps * (static_cast<size_t>(T) * sizeof(Key) + sizeof(FloatWindow));
+// the pool mode keeps each keyword's F(bid) in shared memory, computed
+// once per env, for up to kFloatBidTable keywords (more: once per window)
+constexpr int kFloatBidTable = 2048;
+
+size_t gate_float_smem(int T, int K, bool pool) {
+  const size_t table = pool && K <= kFloatBidTable ? K * sizeof(float) : 0;
+  return kGateWarps * (static_cast<size_t>(T) * sizeof(Key) + sizeof(FloatWindow) + table);
 }
 
 // A float gate cell's lane law: the rust model's bid (a) and whether it
 // is a phantom cell (d != 0), or the pool's F(bid), loc, scale (a, b, c)
-// and bidder count (d).
+// and its bidder count's reciprocal (d, pool_recip: computed once a cell,
+// not once a lane).
 struct FloatCost {
-  float a, b, c;
-  int d;
+  float a, b, c, d;
 };
 
 __device__ __forceinline__ FloatCost shfl_float_cost(const FloatCost& c, int src) {
@@ -783,8 +982,8 @@ __device__ __forceinline__ FloatCost shfl_float_cost(const FloatCost& c, int src
 // lane cost at the lane's 32-bit uniform
 template <bool kPool>
 __device__ __forceinline__ float float_lane(Key key, uint32_t ctr, const FloatCost& c) {
-  if (kPool) return pool_cost(lane_uniform(key, ctr, 32), c.a, c.b, c.c, c.d);
-  return c.d != 0 ? 0.0f : cost_create_e(xla_normal_erfinv(key, ctr), c.a);
+  if (kPool) return pool_cost_inv(lane_uniform(key, ctr, 32), c.a, c.b, c.c, c.d);
+  return c.d != 0.0f ? 0.0f : cost_create_e(xla_normal_erfinv(key, ctr), c.a);
 }
 
 // One cell's accepted clicks p and spend s at budget B from its lanes
@@ -886,8 +1085,10 @@ __global__ void __launch_bounds__(32 * kGateWarps, kFloatBlocks)
     mark = now;
   };
   Key* tkeys = reinterpret_cast<Key*>(gate_smem_raw) + static_cast<size_t>(w) * T;
-  FloatWindow& win =
-      reinterpret_cast<FloatWindow*>(reinterpret_cast<Key*>(gate_smem_raw) + kGateWarps * T)[w];
+  FloatWindow* windows =
+      reinterpret_cast<FloatWindow*>(reinterpret_cast<Key*>(gate_smem_raw) + kGateWarps * T);
+  FloatWindow& win = windows[w];
+  float* f_table = reinterpret_cast<float*>(windows + kGateWarps) + static_cast<size_t>(w) * K;
   const long long EK = static_cast<long long>(E) * K;
   const long long eK = static_cast<long long>(e) * K;
   const int TK = T * K;
@@ -898,6 +1099,15 @@ __global__ void __launch_bounds__(32 * kGateWarps, kFloatBlocks)
   const Key kc = load_key(keys, key_stride, e);
   for (int t = lane; t < T; t += 32) {  // k_cost
     tkeys[t] = child(child(child(kc, static_cast<uint32_t>(t)), 0), kPool ? 2 : 1);
+  }
+  // the pool's F(bid) of keyword k (bid_cdf, the same at every t)
+  const bool bid_table = kPool && K <= kFloatBidTable;
+  const auto f_bid = [&](int k) {
+    return bid_cdf(params[BID * EK + eK + k], params[LOC * EK + eK + k],
+                   params[SCALE * EK + eK + k], cent_bids != 0);
+  };
+  if (bid_table) {
+    for (int k = lane; k < K; k += 32) f_table[k] = f_bid(k);
   }
   __syncwarp();
 
@@ -927,10 +1137,11 @@ __global__ void __launch_bounds__(32 * kGateWarps, kFloatBlocks)
     if (!in) t = k = 0;
     const int n = in ? min(max(ncl_e[c], 0), t == 0 ? m0 : m1) : 0;
     const float bid = params[BID * EK + eK + k];
-    FloatCost cost{bid, 0.0f, 0.0f, in && aux_e[c] == 0};
+    FloatCost cost{bid, 0.0f, 0.0f, in && aux_e[c] == 0 ? 1.0f : 0.0f};
     if (kPool) {
       const float loc = params[LOC * EK + eK + k], scale = params[SCALE * EK + eK + k];
-      cost = FloatCost{bid_cdf(bid, loc, scale, cent_bids != 0), loc, scale, in ? aux_e[c] : 0};
+      cost = FloatCost{bid_table ? f_table[k] : f_bid(k), loc, scale,
+                       pool_recip(in ? aux_e[c] : 0)};
     }
     const Key key = tkeys[t];
     const float first = n > 0 ? float_lane<kPool>(key, static_cast<uint32_t>(k), cost) : 0.0f;
@@ -1589,7 +1800,8 @@ cudaError_t outcomes_plan(int K, int T, int device, bool* tables, size_t* smem) 
 
 // lanes_counts: imp and ncl (E, T, K); exact 1 for jax.random.binomial, 0
 // for the inverse-CDF walk on `bits`-bit uniforms. lanes_counts_explicit_launch
-// runs the explicit instance, with the same arguments; lanes_counts_pool_launch
+// runs the explicit instance, with the same arguments (under the exact
+// sampler lanes_counts_explicit_kernel, two warps per env); lanes_counts_pool_launch
 // the pool's, which also writes the bidder counts kout (E, T, K), its ladder
 // kmax levels, F(bid) with cent_bids as the env's program computes it;
 // under the exact sampler it is two launches, lanes_bidders_kernel's
@@ -1618,6 +1830,28 @@ int counts_launch(const float* params, const int* n_auc01, const long long* keys
   }
   const int slots = K < 32 * kMaxSlots ? (K + 31) / 32 : kMaxSlots;
   static_assert(kMaxSlots == 4, "one instance per slot count");
+  if (kMode == kCountsExplicit && exact) {  // two warps per env
+    const unsigned env_blocks =
+        static_cast<unsigned>((2LL * E + kCountsWarps - 1) / kCountsWarps);
+    switch (slots) {
+      case 1:
+        lanes_counts_explicit_kernel<1><<<env_blocks, 32 * kCountsWarps, 0, s>>>(
+            params, n_auc01, keys, key_stride, imp, ncl, E, K, T);
+        break;
+      case 2:
+        lanes_counts_explicit_kernel<2><<<env_blocks, 32 * kCountsWarps, 0, s>>>(
+            params, n_auc01, keys, key_stride, imp, ncl, E, K, T);
+        break;
+      case 3:
+        lanes_counts_explicit_kernel<3><<<env_blocks, 32 * kCountsWarps, 0, s>>>(
+            params, n_auc01, keys, key_stride, imp, ncl, E, K, T);
+        break;
+      default:
+        lanes_counts_explicit_kernel<4><<<env_blocks, 32 * kCountsWarps, 0, s>>>(
+            params, n_auc01, keys, key_stride, imp, ncl, E, K, T);
+    }
+    return static_cast<int>(cudaGetLastError());
+  }
   switch (slots) {
     case 1:
       lanes_counts_kernel<1, kMode><<<blocks, 32 * kCountsWarps, 0, s>>>(
@@ -1681,7 +1915,7 @@ int gate_float_launch(const float* params, const long long* keys, long long key_
                       int* n_sim, int E, int K, int T, int m0, int m1, int cent_bids, int device,
                       void* stream) {
   if (E <= 0) return static_cast<int>(cudaSuccess);
-  const size_t smem = gate_float_smem(T);
+  const size_t smem = gate_float_smem(T, K, kPool);
   const cudaError_t err = gate_prepare(
       reinterpret_cast<const void*>(lanes_gate_float_kernel<kPool>), K, T, m0, m1, smem, device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1760,8 +1994,8 @@ int lanes_gate_float_pool_launch(const float* params, const long long* keys, lon
 }
 
 // Resident blocks per SM of the cost model's (0 implicit, 1 rust, 2
-// python, 3 the pool) lanes_counts instance (at K keywords; the pool's
-// lanes_bidders_kernel too, else 0), its gate
+// python, 3 the pool) lanes_counts instance under the exact sampler (at K
+// keywords; the pool's lanes_bidders_kernel too, else 0), its gate
 // (lanes_gate's instance, or for the rust model and the pool
 // lanes_gate_float's, at T sub-timesteps)
 // and lanes_outcomes (at K and T), and the gate's and lanes_outcomes'
@@ -1779,10 +2013,10 @@ int lanes_day_occupancy(int model, int K, int T, int device, int* counts_blocks,
        reinterpret_cast<const void*>(lanes_counts_kernel<2, kCountsImplicit>),
        reinterpret_cast<const void*>(lanes_counts_kernel<3, kCountsImplicit>),
        reinterpret_cast<const void*>(lanes_counts_kernel<4, kCountsImplicit>)},
-      {reinterpret_cast<const void*>(lanes_counts_kernel<1, kCountsExplicit>),
-       reinterpret_cast<const void*>(lanes_counts_kernel<2, kCountsExplicit>),
-       reinterpret_cast<const void*>(lanes_counts_kernel<3, kCountsExplicit>),
-       reinterpret_cast<const void*>(lanes_counts_kernel<4, kCountsExplicit>)},
+      {reinterpret_cast<const void*>(lanes_counts_explicit_kernel<1>),
+       reinterpret_cast<const void*>(lanes_counts_explicit_kernel<2>),
+       reinterpret_cast<const void*>(lanes_counts_explicit_kernel<3>),
+       reinterpret_cast<const void*>(lanes_counts_explicit_kernel<4>)},
       {reinterpret_cast<const void*>(lanes_counts_kernel<1, kCountsPool>),
        reinterpret_cast<const void*>(lanes_counts_kernel<2, kCountsPool>),
        reinterpret_cast<const void*>(lanes_counts_kernel<3, kCountsPool>),
@@ -1802,7 +2036,7 @@ int lanes_day_occupancy(int model, int K, int T, int device, int* counts_blocks,
                      : model == 3 ? reinterpret_cast<const void*>(lanes_gate_float_kernel<true>)
                      : model == 2 ? reinterpret_cast<const void*>(lanes_gate_kernel<true>)
                                   : reinterpret_cast<const void*>(lanes_gate_kernel<false>);
-  const size_t smem = float_gate ? gate_float_smem(T) : gate_smem(T);
+  const size_t smem = float_gate ? gate_float_smem(T, K, model == 3) : gate_smem(T);
   *gate_smem_bytes = static_cast<long long>(smem);
   err = gate_prepare(gate, 1, T, 1, 1, smem, device);
   if (err != cudaSuccess) return static_cast<int>(err);

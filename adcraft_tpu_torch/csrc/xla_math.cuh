@@ -346,13 +346,24 @@ __device__ __forceinline__ float bid_cdf(float bid, float loc, float scale, bool
 // the binomial pool's click cost in dollars at the uniform u
 // (distributions.pool_cost_u): F^-1(F(bid) u^(1/k)) for f_bid = F(bid),
 // the argument clipped to [1e-38, 1] as XLA's CPU code clips it (the
-// subnormal bound reads as 0), floored at 0 where k < 3, 0 where k = 0
-__device__ __forceinline__ float pool_cost(float u, float f_bid, float loc, float scale, int k) {
-  if (k <= 0) return 0.0f;
-  const float x = xla_pow(u, __fdiv_rn(1.0f, static_cast<float>(k)));
+// subnormal bound reads as 0), floored at 0 where k < 3, 0 where k = 0;
+// from the bidder count's float32 reciprocal inv_k = 1 / k (0 where k <=
+// 0; k < 3 where it is 1 or 1/2), which a caller may compute once a cell
+__device__ __forceinline__ float pool_cost_inv(float u, float f_bid, float loc, float scale,
+                                               float inv_k) {
+  if (inv_k == 0.0f) return 0.0f;
+  const float x = xla_pow(u, inv_k);
   const float a = xla_ftz(fminf(fmaxf(__fmul_rn(f_bid, x), 1e-38f), 1.0f));
   const float m = laplace_icdf(a, loc, scale);
-  return k < 3 ? fmaxf(m, 0.0f) : m;
+  return inv_k > 0.4f ? fmaxf(m, 0.0f) : m;
+}
+
+__device__ __forceinline__ float pool_recip(int k) {
+  return k > 0 ? __fdiv_rn(1.0f, static_cast<float>(k)) : 0.0f;
+}
+
+__device__ __forceinline__ float pool_cost(float u, float f_bid, float loc, float scale, int k) {
+  return pool_cost_inv(u, f_bid, loc, scale, pool_recip(k));
 }
 
 // xla_math.cumsum / cumprod, one element at a time: XLA's CPU float scan

@@ -10,7 +10,11 @@ bidders at participation 0.6, ``step_rate.pool_keywords``):
 * ``lanes_counts``: its implicit, explicit and pool instances (the
   sampling defaults, ``binomial_sampler="exact"``);
 * ``agg_cells_gate``: its implicit, explicit (rust and python) and pool
-  instances (bench.py's agg knobs) at $1000, the pool's also unbound.
+  instances (bench.py's agg knobs) at $1000, the pool's also unbound;
+* ``lanes_gate_float``: its rust mode (``EnvConfig()``'s explicit
+  keywords) and its pool mode, at $1000 and unbound, on the counts that
+  ``lanes_counts`` draws for the same day's inputs (the pool's with the
+  env's cent bids).
 
 For each instance: ptxas' registers and spills (and ``agg_cells_gate``'s
 SASS: instructions, calls, local-memory traffic), resident blocks per SM
@@ -23,7 +27,10 @@ second builds (``-DLANES_STAGE_CLOCKS``: per warp each binomial call's SM
 clocks and its loops' passes; ``-DAGG_STAGE_CLOCKS``: per block each
 stage's, the pool's stage A by part, the other models' prologue and stage
 A by part, and the cells with clicks and impressions (the pool's: with
-clicks and bidders), with phantom clicks and resolved by lanes). The
+clicks and bidders), with phantom clicks and resolved by lanes;
+``lanes_counts``' also apart at t = 0 and t >= 1, with its calls that ran
+BTRS, its inversion words and slot steps and its warps' prologue;
+``lanes_gate_float``'s per warp by stage, with its cells by kind). The
 explicit and pool instances of ``agg_cells_gate`` are also timed at every
 chunk of sub-timesteps that fits ($1000).
 
@@ -31,8 +38,9 @@ chunk of sub-timesteps that fits ($1000).
         [--instances NAME ...]
 
 It runs on the card only. ``chip_smoke.py`` calls ``report`` for the
-explicit instances in its phase 11 and for the pool instances in its phase
-15.
+explicit instances of ``agg_cells_gate`` in its phase 11, for
+``lanes_counts (explicit)`` in its phase 12 and for the pool instances in
+its phase 15.
 """
 
 from __future__ import annotations
@@ -71,9 +79,14 @@ INSTANCES = {
         BENCH_XLA_KNOBS, kind=KeywordKind.EXPLICIT, cost_model=CostModel.PYTHON), (BUDGET,)),
     "agg_cells_gate (pool)": ("agg_cells_gate", dict(BENCH_XLA_KNOBS, **POOL),
                               (BUDGET, UNBOUND)),
+    "lanes_gate_float": ("lanes_gate_float", {"kind": KeywordKind.EXPLICIT}, (BUDGET, UNBOUND)),
+    "lanes_gate_float (pool)": ("lanes_gate_float", POOL, (BUDGET, UNBOUND)),
 }
-POOL_INSTANCES = ("lanes_counts (pool)", "agg_cells_gate (pool)")
+POOL_INSTANCES = ("lanes_counts (pool)", "agg_cells_gate (pool)", "lanes_gate_float (pool)")
 EXPLICIT_INSTANCES = ("agg_cells_gate (explicit, rust)", "agg_cells_gate (explicit, python)")
+# lanes_gate_float's cells by kind in its counters; they add up to the cells walked
+FLOAT_KINDS = ("float dead", "float no click", "float over", "float whole", "float partial",
+               "float deep")
 # the instances timed at every chunk that fits ($1000)
 SWEPT = EXPLICIT_INSTANCES + ("agg_cells_gate (pool)",)
 
@@ -150,15 +163,23 @@ def instance_inputs(name: str, device):
     return (cfg, xla_lanes(cfg), agg_model(cfg)) + day_inputs(cfg, kw, 95, device)
 
 
+def walked_cells(n_sim, lanes, nk: int):
+    """(E, T, K) bool: the cells of the sub-timesteps ``lanes_gate_float``
+    walks (up to that of cell ``n_sim - 1``), all of which it writes."""
+    cell = torch.arange(lanes.T * nk, device=n_sim.device).view(1, lanes.T, nk)
+    return cell < ((n_sim + nk - 1) // nk * nk).view(-1, 1, 1)
+
+
 def report(names, kernels: dict, stats: dict, parent: dict = None, card: str = "",
            device=None) -> dict:
     """Prints each named instance's ptxas, occupancy, time (in turns with
     ``parent``'s wrappers where given, with the outputs where they differ)
-    and stage clocks; ``kernels``, ``stats`` and ``parent`` map
-    "lanes_counts" and "agg_cells_gate" to wrappers of this tree's build,
-    its clocked build and the other tree's. Returns {(instance, budget):
-    [ms of the turns]} (parent, this, this, parent; this alone without a
-    parent). ``device`` defaults to the current CUDA device."""
+    and stage clocks; ``kernels``, ``stats`` and ``parent`` map the
+    instances' kernels ("lanes_counts", "agg_cells_gate",
+    "lanes_gate_float") to wrappers of this tree's build, its clocked build
+    and the other tree's. Returns {(instance, budget): [ms of the turns]}
+    (parent, this, this, parent; this alone without a parent). ``device``
+    defaults to the current CUDA device."""
     dev = device or torch.device("cuda", torch.cuda.current_device())
     times = {}
     for name in names:
@@ -176,6 +197,20 @@ def report(names, kernels: dict, stats: dict, parent: dict = None, card: str = "
                 return lambda: kernel(params, n_auc01, k_cells, lanes, "exact", model)
 
             runs = [(None, call)]
+        elif kernel_name == "lanes_gate_float":
+            pool = model == ad.POOL
+            occ = ld.occupancy(K, lanes, dev, model)
+            print(f"{name}: {occ['gate_blocks']} blocks of 4 warps per SM, {occ['gate_smem']} B "
+                  f"shared memory")
+            counts = ld.lanes_counts(params, n_auc01, k_cells, lanes, "exact", model, pool)
+            imp, ncl, bidders = counts[0], counts[1], counts[2] if pool else None
+
+            def gate(budget):
+                b = torch.full((E,), budget, device=dev)
+                return lambda kernel: lambda: kernel(params, k_cells, ncl, imp, b, lanes, bidders,
+                                                     cent_bids=pool)
+
+            runs = [(budget, gate(budget)) for budget in budgets]
         else:
             chunk_t = this.default_chunk_t(K, lanes, dev, model)
             print(f"{name}: chunk_t {chunk_t}, {this.smem_bytes(chunk_t, K, lanes, model)} B "
@@ -195,6 +230,12 @@ def report(names, kernels: dict, stats: dict, parent: dict = None, card: str = "
                 if kernel_name == "lanes_counts":
                     differ = sum((g != w).sum().item() for g, w in zip(got, want))
                     total = sum(g.numel() for g in got)
+                elif kernel_name == "lanes_gate_float":  # bit for bit on the cells it walks
+                    walked = walked_cells(got[2], lanes, K)
+                    differ = (got[2] != want[2]).sum().item() + sum(
+                        ((g.view(torch.int32) != w.view(torch.int32)) & walked).sum().item()
+                        for g, w in zip(got[:2], want[:2]))
+                    total = E + 2 * walked.sum().item()
                 else:
                     sim = (torch.arange(lanes.T * K, device=dev).view(1, lanes.T, K)
                            < got[3].view(-1, 1, 1))
@@ -226,25 +267,85 @@ def report(names, kernels: dict, stats: dict, parent: dict = None, card: str = "
     return times
 
 
+def counts_line(st: dict, calls: int, at: str) -> str:
+    """lanes_counts' counters per (env, t) call of the calls ``at`` names
+    ("" all, " at t = 0"; or, given the differences, t >= 1)."""
+    return (f"all {st['counts clocks' + at] / calls:.0f}, prologue "
+            f"{st['counts prologue clocks' + at] / calls:.0f}"
+            + "".join(f"; {call}' call {st[f'{call} clocks{at}'] / calls:.0f} (BTRS in "
+                      f"{st[f'{call} BTRS calls{at}']} calls, "
+                      f"{st[f'{call} BTRS clocks{at}'] / calls:.0f} clocks, "
+                      f"{st[f'{call} BTRS passes{at}'] / calls:.3f} passes; inversion "
+                      f"{st[f'{call} inversion passes{at}'] / calls:.3f} passes, "
+                      f"{st[f'{call} inversion words{at}'] / calls:.2f} words in "
+                      f"{st[f'{call} inversion steps{at}'] / calls:.2f} slot steps)"
+                      for call in ld.CALLS if st[f"{call} clocks{at}"]))
+
+
+def float_gate_counters(label: str, run, clocked, want, lanes, dev) -> None:
+    """One day of ``lanes_gate_float`` through its -DLANES_STAGE_CLOCKS
+    build ``clocked`` (``run``; its outputs equal to ``want`` on every cell
+    it walks): prints its cells by kind (which add up to the cells walked,
+    the -1 ones "dead"), windows, lanes, runs by ballot, redrawn cells,
+    broken days and SM clocks per stage."""
+    index = dev.index or 0
+    ld.read_stats(clocked.library, index)  # zero the counters
+    got = run()
+    st = ld.read_stats(clocked.library, index)
+    envs, _, nk = want[0].shape
+    walked = walked_cells(want[2], lanes, nk)
+    if not (torch.equal(got[2], want[2])
+            and all(torch.equal(a[walked], b[walked]) for a, b in zip(got[:2], want[:2]))):
+        raise SystemExit(f"lanes_gate_float ({label}): the -DLANES_STAGE_CLOCKS build's outputs "
+                         f"differ")
+    n_walked = walked.sum().item()
+    dead = (want[0][walked] == -1).sum().item()
+    if (sum(st[k] for k in FLOAT_KINDS) != n_walked or st["float dead"] != dead
+            or st["float warps"] != envs):
+        raise SystemExit(f"lanes_gate_float ({label}): counters {[st[k] for k in FLOAT_KINDS]} "
+                         f"over {st['float warps']} warps, want {n_walked} walked cells ({dead} "
+                         f"dead) over {envs}")
+    warps = st["float warps"]
+    print(f"  lanes_gate_float walk ({label}): {n_walked} walked cells: "
+          + ", ".join(f"{st[k]} {k[6:]}" for k in FLOAT_KINDS)
+          + f"; {st['float runs']} runs by ballot, {st['float redrawn']} cells "
+          f"redrawn; {st['float windows']} windows, {st['float lanes']} lanes after the first "
+          f"({st['float lanes'] / max(n_walked - dead, 1):.3f} per simulated cell); "
+          f"{st['float broken']} of {envs} days broken; SM clocks per warp: stage A "
+          f"{st['float stage A clocks'] / warps:.0f}, stage B "
+          f"{st['float stage B clocks'] / warps:.0f}; per walked cell "
+          f"{(st['float stage A clocks'] + st['float stage B clocks']) / n_walked:.1f}",
+          flush=True)
+
+
 def clock_report(kernel_name, label, run, clocked, want, lanes, dev, model) -> None:
     """One call of the clocked build (its outputs equal to ``want``), and
-    its counters per warp (lanes_counts) or per block (agg_cells_gate, the
-    cost model ``model``'s parts and its cells by kind)."""
+    its counters per warp (lanes_counts, at t = 0 and t >= 1;
+    lanes_gate_float) or per block (agg_cells_gate, the cost model
+    ``model``'s parts and its cells by kind)."""
     index = dev.index or 0
+    if kernel_name == "lanes_gate_float":
+        float_gate_counters(label, run, clocked, want, lanes, dev)
+        return
     if kernel_name == "lanes_counts":
         ld.read_stats(clocked.library, index)  # zero the counters
         got = run()
         st = ld.read_stats(clocked.library, index)
         if not all(torch.equal(g, w) for g, w in zip(got, want)):
             raise SystemExit(f"{label}: the -DLANES_STAGE_CLOCKS build's outputs differ")
-        calls = E * lanes.T  # (env, t) calls, one warp each but the bidders' (one lane)
-        print(f"  {label} SM clocks per call of lane 0 (a warp per (env, t)): all "
-              f"{st['counts clocks'] / calls:.0f}"
-              + "".join(f"; {call}' call {st[f'{call} clocks'] / calls:.0f} (BTRS "
-                        f"{st[f'{call} BTRS clocks'] / calls:.0f}), inversion passes "
-                        f"{st[f'{call} inversion passes'] / calls:.2f}, BTRS passes "
-                        f"{st[f'{call} BTRS passes'] / calls:.2f}"
-                        for call in ld.CALLS if st[f"{call} clocks"]))
+        # (env, t) calls, one warp each but the bidders' (one lane); t >= 1's
+        # counters are all calls' less t = 0's
+        later = {f"{name} at t >= 1": st[name] - st[f"{name} at t = 0"] for name in st
+                 if f"{name} at t = 0" in st}
+        print(f"  {label} SM clocks per call of lane 0 (a warp per (env, t)): "
+              + counts_line(st, E * lanes.T, ""))
+        print(f"  {label} at t = 0 ({E} calls): " + counts_line(st, E, " at t = 0"))
+        print(f"  {label} at t >= 1 ({E * (lanes.T - 1)} calls): "
+              + counts_line(later, E * (lanes.T - 1), " at t >= 1"), flush=True)
+        if st["counts flat warps"]:  # the explicit instance's warps that drew t >= 1 flat
+            print(f"  {label}: {st['counts flat warps']} warps drew their env's t >= 1 calls "
+                  f"flat, {st['counts flat clocks'] / st['counts flat warps']:.0f} SM clocks "
+                  f"each", flush=True)
         return
     readers = (("agg_cells_gate_stage_clocks", len(ad.STAGES) + 1),
                ("agg_cells_gate_part_clocks", len(ad.PARTS)),
@@ -281,27 +382,37 @@ def main(argv=None) -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     print(card, flush=True)
-    stats = {"lanes_counts": ld.LanesCounts("lanes_counts (stats)", ld.stats_library()),
+    lanes_stats = ld.stats_library()
+    stats = {"lanes_counts": ld.LanesCounts("lanes_counts (stats)", lanes_stats),
+             "lanes_gate_float": ld.LanesGateFloat("lanes_gate_float (stats)", lanes_stats),
              "agg_cells_gate": ad.AggCellsGate("agg_cells_gate (stage clocks)",
                                                ad.clocks_library())}
-    kernels = {"lanes_counts": ld.lanes_counts, "agg_cells_gate": ad.agg_cells_gate}
+    kernels = {"lanes_counts": ld.lanes_counts, "lanes_gate_float": ld.lanes_gate_float,
+               "agg_cells_gate": ad.agg_cells_gate}
     parent = None
     if args.parent_csrc is not None:
-        parent = {"lanes_counts": ld.kernels_built_from(args.parent_csrc)["lanes_counts"],
+        lanes_parent = ld.kernels_built_from(args.parent_csrc)  # one build for both
+        parent = {"lanes_counts": lanes_parent["lanes_counts"],
+                  "lanes_gate_float": lanes_parent["lanes_gate_float"],
                   "agg_cells_gate": ad.kernels_built_from(args.parent_csrc)["agg_cells_gate"]}
     used = {INSTANCES[name][0] for name in args.instances}
     libraries = {d[k].library for d in (kernels, stats, parent or {}) for k in used if k in d}
     cuda_build.build_all(libraries)
-    for lib, stem in ((ld.library, "lanes_counts"), (ld.library, "lanes_bidders"),
-                      (ad.library, "agg_cells_gate")):
-        for line in ptxas_lines(lib.build_log, stem):
-            print(f"ptxas {line}")
-        if lib in libraries and stem == "agg_cells_gate":
+    # ptxas of every kernel; the SASS counts of those the instances use
+    for kernel_name, lib, stems in (
+            ("lanes_counts", ld.library, ("lanes_counts", "lanes_bidders")),
+            ("lanes_gate_float", ld.library, ("lanes_gate_float",)),
+            ("agg_cells_gate", ad.library, ("agg_cells_gate",))):
+        for stem in stems:
+            for line in ptxas_lines(lib.build_log, stem):
+                print(f"ptxas {line}")
+            if kernel_name not in used:
+                continue
             for line in sass_counts(lib.path, stem):
                 print(f"sass {line}")
-    if parent is not None and parent["agg_cells_gate"].library in libraries:
-        for line in sass_counts(parent["agg_cells_gate"].library.path, "agg_cells_gate"):
-            print(f"sass (parent) {line}")
+            if parent is not None:
+                for line in sass_counts(parent[kernel_name].library.path, stem):
+                    print(f"sass (parent) {line}")
     report(args.instances, kernels, stats, parent, card)
     return 0
 

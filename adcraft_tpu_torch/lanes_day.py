@@ -422,10 +422,13 @@ library = CudaLibrary("lanes_day", bind)
 
 # the counters of lanes_day.cu's build with -DLANES_STAGE_CLOCKS, in its
 # order (g_lanes_stats): lane 0's SM clocks per stage of each warp, the gate
-# walk's cells and windows, the binomial loops' calls and passes, and per
-# lanes_counts call (the bidders', impressions' and clicks') its clocks and
-# its loops' passes
+# walk's cells and windows, the binomial loops' calls and passes, per
+# lanes_counts call (the bidders', impressions' and clicks') its clocks, its
+# loops' passes, whether it ran BTRS and its inversion loop's words and slot
+# steps, the same of the calls at t = 0, and lanes_counts' warps' prologue
 CALLS = ("bidders", "impressions", "clicks")
+CALL_MEASURES = ("clocks", "inversion passes", "BTRS passes", "BTRS clocks", "BTRS calls",
+                 "inversion words", "inversion steps")
 STATS = (
     "gate keys clocks", "gate stage A clocks", "gate stage B clocks", "gate warps", "windows",
     "cut windows", "deep cells", "skipped", "redrawn", "cost lanes", "simulated cells", "whole",
@@ -438,8 +441,10 @@ STATS = (
     "partial erf steps", "float stage A clocks", "float stage B clocks", "float warps",
     "float windows", "float lanes", "float dead", "float no click", "float over", "float whole",
     "float partial", "float deep", "float broken", "float runs", "float redrawn",
-) + tuple(f"{call} {what}" for what in ("clocks", "inversion passes", "BTRS passes",
-                                        "BTRS clocks") for call in CALLS)
+) + tuple(f"{call} {what}" for what in CALL_MEASURES for call in CALLS) + tuple(
+    f"{call} {what} at t = 0" for what in CALL_MEASURES for call in CALLS) + (
+    "counts prologue clocks", "counts prologue clocks at t = 0", "counts clocks at t = 0",
+    "counts flat warps", "counts flat clocks")
 
 
 def stats_library() -> CudaLibrary:

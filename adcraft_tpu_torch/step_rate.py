@@ -7,7 +7,9 @@ env count:
 
 * rate: reset, 3 warm-up steps, then 5 runs of 10 steps, each timed on
   the host clock and ended by ``torch.cuda.synchronize()``; median and
-  range of the 5 env-steps/s;
+  range of the 5 env-steps/s, and the median host time per step spent in
+  ``step`` itself, before the run's synchronize (where it is near the
+  step time, the host paces the step);
 * launches: each kernel's launches per step (the wrappers' counts);
 * trace: one window of 10 steps under ``torch.profiler``: CUDA device
   events (kernels, copies) per step, device busy time per step (union of
@@ -163,11 +165,12 @@ def _measure(num_envs: int, route: str, device: torch.device) -> dict:
     torch.cuda.synchronize(device)
     for kernel in counted_kernels().values():
         kernel.launches = 0
-    rates = []
+    rates, host = [], []
     for _ in range(RUNS):
         t0 = time.perf_counter()
         for _ in range(STEPS):
             state, _ = env.step(state, bids)
+        host.append((time.perf_counter() - t0) / STEPS * 1e3)
         torch.cuda.synchronize(device)
         rates.append(STEPS * num_envs / (time.perf_counter() - t0))
     launches = {name: k.launches / (RUNS * STEPS) for name, k in counted_kernels().items()
@@ -183,6 +186,7 @@ def _measure(num_envs: int, route: str, device: torch.device) -> dict:
     return {
         "route": route, "envs": num_envs, "env_steps_per_s": median,
         "min": min(rates), "max": max(rates), "rates": rates, "step_ms": step_ms,
+        "host_ms_per_step": statistics.median(host),
         "launches_per_step": launches,
         "cuda_events_per_step": len(events) / STEPS, "device_busy_ms_per_step": busy,
         "device_idle_share": 1.0 - busy / step_ms,
@@ -226,7 +230,8 @@ def main(argv=None) -> int:
             results.append(r)
             label = route if tree == "this" else f"{route} (parent)"
             print(f"{num_envs} envs, {label}: {r['env_steps_per_s']:.1f} env-steps/s "
-                  f"[{r['min']:.1f}, {r['max']:.1f}], step {r['step_ms']:.3f} ms; "
+                  f"[{r['min']:.1f}, {r['max']:.1f}], step {r['step_ms']:.3f} ms "
+                  f"(host {r['host_ms_per_step']:.3f} ms in step); "
                   f"launches/step {r['launches_per_step']}; "
                   f"{r['cuda_events_per_step']:.1f} CUDA events/step, device busy "
                   f"{r['device_busy_ms_per_step']:.3f} ms/step, idle "

@@ -145,7 +145,11 @@ Phases, each fatal on failure:
    each kernel per day, the first 2 steps' outcomes and keys and the
    autoreset days equal to the plain versions (the other steps equal to
    the rollout's);
-   CUDA device events, device busy time and idle share per step;
+   CUDA device events, device busy time and idle share per step; last,
+   lanes_counts' explicit instance through adcraft_tpu_torch.kernel_turns:
+   its SM clocks per call at t = 0 and t >= 1 (the flat warps' too) from
+   the clocked build, and with --parent-csrc its time in turns with DIR's
+   build and the outputs where the two differ;
 13. the paper's experiment (adcraft_tpu_torch.experiments): the harness
    at the dense config's full width (100 keywords, m0 = 47; env seeds
    5-8 x agent seeds 0-3, 16 episodes), for the zero-margin and the
@@ -198,12 +202,13 @@ Phases, each fatal on failure:
    just before, one launch of each kernel per day, the agg route's step 0
    equal to the plain versions', envs whose day drew a -inf click cost
    counted (the JAX package's quirk at a 32-bit uniform of 0), CUDA device
-   events, device busy time and idle share per step; last, the two
-   redesigned pool instances (lanes_counts', agg_cells_gate's) through
-   adcraft_tpu_torch.kernel_turns: blocks per SM, SM clocks per stage and
-   per binomial call from the clocked builds, the agg instance's time by
-   chunk, and with --parent-csrc their times in turns with DIR's build
-   ($1000 and unbound) and the outputs where the two differ.
+   events, device busy time and idle share per step; last, the three
+   redesigned pool instances (lanes_counts', agg_cells_gate's,
+   lanes_gate_float's) through adcraft_tpu_torch.kernel_turns: blocks per
+   SM, SM clocks per stage and per binomial call from the clocked builds,
+   the gate's cells by kind, the agg instance's time by chunk, and with
+   --parent-csrc their times in turns with DIR's build ($1000 and unbound)
+   and the outputs where the two differ.
 With --parent-csrc DIR, then, agg_cells_gate's three instances,
 agg_outcomes (both revenue modes) and threefry_words at full width in
 turns with DIR's build, with the count of outputs where the trees differ
@@ -1233,10 +1238,6 @@ REVENUE_LANE_FP = 80
 COUNTS_KEY_BLOCKS, GATE_KEY_BLOCKS, OUTCOME_KEY_BLOCKS = 4, 3, 3
 
 
-FLOAT_KINDS = ("float dead", "float no click", "float over", "float whole", "float partial",
-               "float deep")
-
-
 def lanes_stats_build(ld):
     """The three lanes kernels built with -DLANES_STAGE_CLOCKS: the same
     kernels, whose warps also count their stages' clocks, cells, passes,
@@ -1270,17 +1271,35 @@ def lanes_plain(ld):
 
 
 def inversion_passes(n, p, draws):
-    """Passes of the exact binomial's inversion loop per call (row): the
-    largest q-space draw plus one over the call's inversion elements, 1
-    where it has none but runs (a BTRS element needs one pass), 0 where
-    the call runs no inversion element."""
+    """The exact binomial's inversion words per element and passes per call
+    (row), and which elements take it: an element of count c > 0 whose
+    q-space draw is s needs at least max(s, 1) words (s steps, or the one
+    step past c that gives s = 0; its walk draws one more unless its sum
+    lands on c, which the draw does not tell), one of count 0 none; a call
+    runs the most of its elements' words in passes."""
     import torch
 
     q = torch.where(p < 0.5, p, 1.0 - p)
     inv = n.float() * q <= 10.0
+    c = torch.floor(n.float())
     s = torch.where(p < 0.5, draws, n - draws).float()
-    passes = torch.where(inv, s + 1.0, torch.zeros_like(s)).amax(-1)
-    return torch.where(inv.any(-1), passes.clamp(min=1.0), torch.zeros_like(passes)), inv
+    words = torch.where(inv & (c > 0), s.clamp(min=1.0), torch.zeros_like(s))
+    return words, words.amax(-1), inv
+
+
+def counts_work(calls, K: int):
+    """(threefry words, float instructions) of lanes_counts' binomial calls
+    ``calls`` [(n, p, draws), ...] of K elements each: each inversion
+    element's words and its key blocks (two a pass), and where a call has
+    a BTRS element, K elements' two words and the pass's three key blocks
+    a pass (one pass counted: at least one)."""
+    words = fp = 0.0
+    for n, p, x in calls:
+        inv_words, passes, inv = inversion_passes(n, p, x)
+        btrs = (~inv).any(-1).float()
+        words += (inv_words.sum(-1) + 2 * passes + btrs * (2 * K + 3)).sum().item()
+        fp += (inv_words.sum(-1) * INVERSION_PASS_FP + btrs * K * BTRS_PASS_FP).sum().item()
+    return words, fp
 
 
 def lanes_counters(stats_kernels, lanes, params, n_auc01, k_cells, imp, ncl, budget_c, gate,
@@ -1346,43 +1365,6 @@ def lanes_counters(stats_kernels, lanes, params, n_auc01, k_cells, imp, ncl, bud
           f"{st['BTRS passes'] / btrs_calls:.2f} passes per call (most {st['BTRS max']}); SM "
           f"clocks per warp (two calls): inversion {2 * st['inversion clocks'] / calls:.0f}, "
           f"BTRS {2 * st['BTRS clocks'] / calls:.0f}, all {2 * st['counts clocks'] / calls:.0f}")
-
-
-def float_gate_counters(stats_kernel, params, k_cells, ncl, imp, budget, lanes, gate, label):
-    """One day of lanes_gate_float through the -DLANES_STAGE_CLOCKS build
-    (its outputs equal to ``gate`` on every cell it walks): prints its
-    cells by kind (which add up to the cells walked, the -1 ones "dead"),
-    windows, lanes, runs by ballot, redrawn cells, broken days and SM clocks
-    per stage."""
-    import torch
-
-    index = params.device.index or 0
-    read_lanes_stats(stats_kernel.library, index)  # zero the counters
-    got = stats_kernel(params, k_cells, ncl, imp, budget, lanes)
-    st = read_lanes_stats(stats_kernel.library, index)
-    envs, nk = params.shape[1:]
-    n_sim = gate[2]
-    cell = torch.arange(lanes.T * nk, device=params.device).view(1, lanes.T, nk)
-    walked = cell < ((n_sim + nk - 1) // nk * nk).view(-1, 1, 1)
-    if not (torch.equal(got[2], n_sim)
-            and all(torch.equal(a[walked], b[walked]) for a, b in zip(got[:2], gate[:2]))):
-        fail(f"lanes_gate_float ({label}): the -DLANES_STAGE_CLOCKS build's outputs differ")
-    n_walked = walked.sum().item()
-    dead = (gate[0][walked] == -1).sum().item()
-    if (sum(st[k] for k in FLOAT_KINDS) != n_walked or st["float dead"] != dead
-            or st["float warps"] != envs):
-        fail(f"lanes_gate_float ({label}): counters {[st[k] for k in FLOAT_KINDS]} over "
-             f"{st['float warps']} warps, want {n_walked} walked cells ({dead} dead) over {envs}")
-    warps = st["float warps"]
-    print(f"  lanes_gate_float walk ({label}): {n_walked} walked cells: "
-          + ", ".join(f"{st[k]} {k[6:]}" for k in FLOAT_KINDS)
-          + f"; {st['float runs']} runs by ballot, {st['float redrawn']} cells "
-          f"redrawn; {st['float windows']} windows, {st['float lanes']} lanes after the first; "
-          f"{st['float broken']} of {envs} days broken; SM clocks per warp: stage A "
-          f"{st['float stage A clocks'] / warps:.0f}, stage B "
-          f"{st['float stage B clocks'] / warps:.0f}; per walked cell "
-          f"{(st['float stage A clocks'] + st['float stage B clocks']) / n_walked:.1f}",
-          flush=True)
 
 
 def lanes_phase(torch, dev, card, table, ops_per_word, int_ops_per_s, fp_ops_per_s, sms,
@@ -1550,17 +1532,12 @@ def lanes_phase(torch, dev, card, table, ops_per_word, int_ops_per_s, fp_ops_per
             "lanes_outcomes": lambda: ld.lanes_outcomes(params, k_cells, imp, gate[0], gate[1],
                                                         n_sim, n_auc01, lanes),
         }
-        # lanes_counts: per call of K keywords, K words a pass of each loop
-        # it runs (the inversion loop's passes from its draws, BTRS's at
-        # least one, and a BTRS pass draws two words) and their key blocks
-        counts_words = COUNTS_KEY_BLOCKS * E * T
-        counts_fp = 0.0
-        for n, p, x in ((n_t, p_win[:, None, :].expand(E, T, K), imp),
-                        (imp, params[ad.BCTR][:, None, :].expand(E, T, K), ncl)):
-            passes, inv = inversion_passes(n, p, x)
-            btrs = (~inv).any(-1).float()
-            counts_words += (passes * (K + 2) + btrs * (2 * K + 3)).sum().item()
-            counts_fp += (K * (passes * INVERSION_PASS_FP + btrs * BTRS_PASS_FP)).sum().item()
+        # lanes_counts: per call of K keywords, each inversion element's
+        # words, BTRS's K elements at least one pass, and their key blocks
+        counts_words, counts_fp = counts_work(
+            ((n_t, p_win[:, None, :].expand(E, T, K), imp),
+             (imp, params[ad.BCTR][:, None, :].expand(E, T, K), ncl)), K)
+        counts_words += COUNTS_KEY_BLOCKS * E * T
         counts_bytes = 4 * (4 * E * K + 2 * E * K) + 16 * E + 8 * E * T * K
         # lanes_gate: each simulated cell's cost lanes up to the first over
         # the budget or its last click; its key blocks per simulated (env, t)
@@ -1851,6 +1828,7 @@ def explicit_lanes_phase(torch, dev, card, ops_per_word, int_ops_per_s, fp_ops_p
     from adcraft_tpu_torch import EnvConfig, VectorBiddingEnv
     from adcraft_tpu_torch import agg_day as ad
     from adcraft_tpu_torch import distributions as dist
+    from adcraft_tpu_torch import kernel_turns
     from adcraft_tpu_torch import lanes_day as ld
     from adcraft_tpu_torch import prng
     from adcraft_tpu_torch import prng_kernel as pk
@@ -1859,7 +1837,8 @@ def explicit_lanes_phase(torch, dev, card, ops_per_word, int_ops_per_s, fp_ops_p
     from adcraft_tpu_torch.step import agg_model, budget_cents, split_volume, xla_lanes
 
     log = ld.library.build_log
-    print(f"lanes_counts<4> (explicit): ptxas {kernel_ptxas(log, 'lanes_counts_kernelILi4ELb1E')}")
+    print(f"lanes_counts (explicit): ptxas "
+          f"{kernel_ptxas(log, 'lanes_counts_explicit_kernelILi4E')}")
     print(f"lanes_gate (python): ptxas {kernel_ptxas(log, 'lanes_gate_kernelILb1E')}")
     print(f"lanes_gate_float: ptxas {kernel_ptxas(log, 'lanes_gate_float_kernel')}")
     entries, max_err = {}, collections.defaultdict(int)
@@ -1941,8 +1920,10 @@ def explicit_lanes_phase(torch, dev, card, ops_per_word, int_ops_per_s, fp_ops_p
         compare(gate_name, pairs, label)
         parent_gate = None
         if rust:
-            float_gate_counters(stats_kernels["lanes_gate_float"], params, k_cells, ncl, imp,
-                                budget_g, lanes, gate, label)
+            clocked = stats_kernels["lanes_gate_float"]
+            kernel_turns.float_gate_counters(
+                label, lambda: clocked(params, k_cells, ncl, imp, budget_g, lanes), clocked, gate,
+                lanes, dev)
             if parent is not None:
                 parent_gate = lambda: parent["lanes_gate_float"](  # noqa: E731
                     params, k_cells, ncl, imp, budget_g, lanes)
@@ -2012,14 +1993,10 @@ def explicit_lanes_phase(torch, dev, card, ops_per_word, int_ops_per_s, fp_ops_p
             # budget or its last click, a normal and a cost each (and a scan
             # step for the float gate); a flag word per accepted click and a
             # revenue word per conversion
-            counts_words = COUNTS_KEY_BLOCKS * E * T
-            counts_fp = 0.0
-            for n, p, x in ((n_t, rate[:, None, :].expand(E, T, K), imp),
-                            (imp.clamp(min=1), params[ad.BCTR][:, None, :].expand(E, T, K), ncl)):
-                passes, inv = inversion_passes(n, p, x)
-                btrs = (~inv).any(-1).float()
-                counts_words += (passes * (K + 2) + btrs * (2 * K + 3)).sum().item()
-                counts_fp += (K * (passes * INVERSION_PASS_FP + btrs * BTRS_PASS_FP)).sum().item()
+            counts_words, counts_fp = counts_work(
+                ((n_t, rate[:, None, :].expand(E, T, K), imp),
+                 (imp.clamp(min=1), params[ad.BCTR][:, None, :].expand(E, T, K), ncl)), K)
+            counts_words += COUNTS_KEY_BLOCKS * E * T
             acc = gate[0].clamp(min=0) * sim
             looked = (torch.minimum(acc + 1, ncl) * sim).sum().item()
             lane_fp = EXPLICIT_LANE_OPS + (SCAN_OPS if model == ad.EXPLICIT_RUST else 0)
@@ -2398,16 +2375,13 @@ def pool_phase(torch, dev, card, table, ops_per_word, int_ops_per_s, fp_ops_per_
             imp, ncl, kb = want
             f_bid = dist.laplace_cdf(params[ad.BID], params[ad.LOC], params[ad.SCALE])
             p_win = torch.where(kb > 0, f_bid[:, None].pow(kb.clamp(min=1).float()), 1.0)
-            words = POOL_COUNTS_KEY_BLOCKS * E * T
-            fp = (POW_OPS * E * T * K) + 0.0
-            for n, p, x in ((params[ad.MAX_BIDDERS][:, None].expand(E, T, K),
-                             params[ad.PARTICIPATION][:, None].expand(E, T, K), kb),
-                            (n_t, p_win, imp),
-                            (imp, params[ad.BCTR][:, None].expand(E, T, K), ncl)):
-                passes, inv = inversion_passes(n, p, x)
-                btrs = (~inv).any(-1).float()
-                words += (passes * (K + 2) + btrs * (2 * K + 3)).sum().item()
-                fp += (K * (passes * INVERSION_PASS_FP + btrs * BTRS_PASS_FP)).sum().item()
+            words, fp = counts_work(
+                ((params[ad.MAX_BIDDERS][:, None].expand(E, T, K),
+                  params[ad.PARTICIPATION][:, None].expand(E, T, K), kb),
+                 (n_t, p_win, imp),
+                 (imp, params[ad.BCTR][:, None].expand(E, T, K), ncl)), K)
+            words += POOL_COUNTS_KEY_BLOCKS * E * T
+            fp += POW_OPS * E * T * K
             nbytes = 4 * (7 * E * K + 2 * E * K) + 16 * E + 12 * E * T * K
             kbound = max(bound(nbytes, words * ops_per_word, int_ops_per_s),
                          bound(nbytes, fp, fp_ops_per_s))
@@ -3539,8 +3513,14 @@ def main(argv=None) -> int:
     kernel_turns.report(kernel_turns.EXPLICIT_INSTANCES, {"agg_cells_gate": ad.agg_cells_gate},
                         {"agg_cells_gate": clocked}, None, card, dev)
     t_phase = phase_done("11", t_phase)
-    # 12. explicit keywords on the lanes day (EnvConfig's defaults)
+    # 12. explicit keywords on the lanes day (EnvConfig's defaults); then
+    # lanes_counts' explicit instance's stage clocks at t = 0 and t >= 1
+    # and, with --parent-csrc, its time in turns with the parent's
     route_kernels += explicit_lanes_phase(torch, dev, card, *rates, lanes_stats, parent)
+    kernel_turns.report(("lanes_counts (explicit)",), {"lanes_counts": ld.lanes_counts},
+                        {"lanes_counts": lanes_stats["lanes_counts"]},
+                        None if parent is None else {"lanes_counts": parent["lanes_counts"]},
+                        card, dev)
     t_phase = phase_done("12", t_phase)
     # 13. the sparsity experiment, the gym's configurations and the timing
     experiment_phase(torch, dev, card)
@@ -3553,9 +3533,12 @@ def main(argv=None) -> int:
     route_kernels += pool_phase(torch, dev, card, table, *rates)
     kernel_turns.report(
         kernel_turns.POOL_INSTANCES,
-        {"lanes_counts": ld.lanes_counts, "agg_cells_gate": ad.agg_cells_gate},
-        {"lanes_counts": lanes_stats["lanes_counts"], "agg_cells_gate": clocked},
+        {"lanes_counts": ld.lanes_counts, "lanes_gate_float": ld.lanes_gate_float,
+         "agg_cells_gate": ad.agg_cells_gate},
+        {"lanes_counts": lanes_stats["lanes_counts"],
+         "lanes_gate_float": lanes_stats["lanes_gate_float"], "agg_cells_gate": clocked},
         None if parent is None else {"lanes_counts": parent["lanes_counts"],
+                                     "lanes_gate_float": parent["lanes_gate_float"],
                                      "agg_cells_gate": parent_other["agg_cells_gate"]},
         card, dev)
     t_phase = phase_done("15", t_phase)

@@ -732,6 +732,46 @@ def test_explicit_lanes_kernels_match_reference(cuda, K, max_volume, sampler, mo
             assert (want[2] < lanes.T * K).any() or rust
 
 
+# lanes_counts' explicit instance, two warps per env (t = 0; t >= 1):
+# volumes under 2 T (0 or 1 auctions at t >= 1: the flat draw), envs of
+# both kinds in one launch, large volumes (BTRS at t = 0 beside keywords
+# without auctions; more than one auction at t >= 1), K past one group of
+# 128, T past a 32-sub-timestep chunk of keys and T = 2
+@pytest.mark.cuda
+@pytest.mark.parametrize("K, T, volumes", [
+    (100, 24, "flat"), (7, 24, "flat"), (130, 40, "flat"), (300, 24, "mixed"),
+    (100, 24, "large"), (33, 2, "flat"), (100, 40, "mixed"),
+])
+def test_explicit_counts_take_any_volume(cuda, K, T, volumes):
+    from adcraft_tpu_torch import agg_day, lanes_day
+
+    E = 37
+    cfg = EnvConfig(num_keywords=K, kind=KeywordKind.EXPLICIT, max_volume=576,
+                    timesteps_per_day=T)
+    lanes, params, n_auc01, keys = explicit_inputs(cfg, E, K + T, cuda)
+    gen = torch.Generator().manual_seed(K * T)
+    vol = torch.randint(0, 2 * T, (E, K), generator=gen, dtype=torch.int32)
+    if volumes == "mixed":  # every other env past one auction a sub-timestep
+        vol[::2] = torch.randint(0, 200 * T, (len(vol[::2]), K), generator=gen,
+                                 dtype=torch.int32)
+    elif volumes == "large":
+        vol = torch.randint(0, 5000, (E, K), generator=gen, dtype=torch.int32)
+        vol[torch.rand((E, K), generator=gen) < 0.2] = 0
+    n_auc = split_volume(cfg, vol)
+    n_auc01 = torch.stack([n_auc[0], n_auc[-1]]).contiguous().to(cuda)
+    got = lanes_day.lanes_counts(params, n_auc01, keys, lanes, "exact", agg_day.EXPLICIT_RUST)
+    torch.cuda.synchronize()
+    want = lanes_day.lanes_counts_reference(params, n_auc01, keys, lanes, "exact",
+                                            agg_day.EXPLICIT_RUST)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    flat = (n_auc01[1] <= 1).all(1)
+    assert flat.all() if volumes == "flat" else not flat.all()
+    if volumes == "large":  # BTRS at t = 0
+        p = lanes_day.win_rate(params, agg_day.EXPLICIT_RUST)
+        assert (n_auc01[0] * torch.minimum(p, 1 - p) > 10).any()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("model", ["RUST_QUIRK", "PYTHON"])
 def test_explicit_lanes_env_step_launches_each_kernel_once(cuda, model, monkeypatch):

@@ -160,11 +160,13 @@ def walk_cell(lanes_, n, B):
     return n, s
 
 
-def walk_model(costs, ncl, budget, m, cap):
+def walk_model(costs, ncl, budget, m, cap, pool=False):
     """The kernel's walk over E envs: acc (-1 where not simulated), spend,
     n_sim, each sub-timestep's carried budget (E, T) (NaN past a break),
     and the cells of each kind. ``costs[t]`` (E, m_t, K) float32, ``ncl``
-    (E, T, K), ``budget`` (E,) float32, ``m(t)`` the lanes of t."""
+    (E, T, K), ``budget`` (E,) float32, ``m(t)`` the lanes of t. With
+    ``pool`` (the pool mode's signed lanes) a cell is whole where its
+    largest prefix is within the budget."""
     E, T, K = ncl.shape
     TK = T * K
     acc = np.zeros((E, TK), np.int32)
@@ -193,6 +195,7 @@ def walk_model(costs, ncl, budget, m, cap):
             deep = not fits[0]
             nc = 1 if deep else leading(fits)
             total = first.copy()
+            peak = first.copy()
             pre = np.zeros(cap, np.float32)
             if not deep:
                 n_lanes = int(end[nc - 1])
@@ -213,6 +216,8 @@ def walk_model(costs, ncl, budget, m, cap):
                         for j in range(1, n[i]):
                             total[i] = scan.push(pre[off[i] + j - 1])
                             pre[off[i] + j - 1] = total[i]
+                            peak[i] = max(peak[i], total[i])
+            top = peak if pool else total  # whole where it is within the budget
             walk = (LANE < nc) & (n > 1) & (deep | (rest == 0))
             seen["windows"] += 1
             # ---- stage B
@@ -256,7 +261,7 @@ def walk_model(costs, ncl, budget, m, cap):
                     Bk = (b - np.where(LANE == q, V, np.concatenate([incl[:1], incl[:-1]]))
                           ).astype(np.float32)
                     passive = (n == 0) | (first > Bk)
-                    whole_ok = ~guess_passive & ~walk & (total <= Bk) & ((Bk - total) > 0)
+                    whole_ok = ~guess_passive & ~walk & (top <= Bk) & ((Bk - total) > 0)
                     ok = mine & (Bk > 0) & np.where(passive, guess_passive, whole_ok)
                     run = min(leading(ok[q:]), room)
                     if run > 0:
@@ -291,7 +296,7 @@ def walk_model(costs, ncl, budget, m, cap):
                         lanes_ = costs[t[q]][e, :n[q], k[q]]
                         p, s = walk_cell(lanes_, n[q], B)
                         seen["deep" if deep else "redrawn"] += 1
-                    elif total[q] <= B:
+                    elif top[q] <= B:
                         assert B <= 0 or F32(B - total[q]) <= 0, "a whole cell decided alone"
                         p, s = n[q], total[q]
                         seen["whole"] += 1
@@ -356,13 +361,14 @@ def rust_day(K, E, max_volume, seed):
     return lanes, params, keys, imp, ncl, costs
 
 
-def check(lanes, ncl, costs, budget, want, cap):
-    """The model against the plain gate's (acc, spend, n_sim) on every cell
-    of the sub-timesteps the kernel walks, and its budget carried out of
-    the day where the day does not break (where the plain gate's b is the
-    model's after every sub-timestep, with ``want[3]`` (E, T), that too)."""
+def check(lanes, ncl, costs, budget, want, cap, pool=False):
+    """The model (in the pool mode with ``pool``) against the plain gate's
+    (acc, spend, n_sim) on every cell of the sub-timesteps the kernel
+    walks, and its budget carried out of the day where the day does not
+    break (where the plain gate's b is the model's after every
+    sub-timestep, with ``want[3]`` (E, T), that too)."""
     acc, spend, n_sim, b_end, seen = walk_model(costs, ncl.numpy(), budget.numpy(), lanes.m,
-                                                cap)
+                                                cap, pool)
     b_want = want[3].numpy()
     if b_want.ndim == 2:
         reached = ~np.isnan(b_end)
